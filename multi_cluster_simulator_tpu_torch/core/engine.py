@@ -1,18 +1,20 @@
 """The virtual-time simulation engine (the port of
-``multi_cluster_simulator_tpu/core/engine.py``, headline slice).
+``multi_cluster_simulator_tpu/core/engine.py``: the FIFO and FFD slices).
 
-One tick is the reference's tick on the path the headline run takes: the
-per-cluster prefix ``release -> ingest -> schedule(FIFO)`` and then the
-clock advance. Every later phase (return delivery, borrow matching, the
-trader snapshot and market) is off on this path, so the prefix is the
-whole tick. The prefix runs as one hand-written CUDA kernel on the card
-and as the plain PyTorch ops on the CPU (kernels/fused_tick.py).
+One tick is the reference's tick on the paths the port carries: the
+per-cluster prefix ``release -> ingest -> schedule`` and then the clock
+advance. The schedule slot runs the engine's policy (FIFO, whose arrivals
+go to the ReadyQueue; or the FFD bin-pack, whose arrivals go to Level0).
+Every later phase (return delivery, borrow matching, the trader snapshot
+and market) is off on these paths, so the prefix is the whole tick. The
+prefix runs as one hand-written CUDA kernel per policy on the card and as
+the plain PyTorch ops on the CPU (kernels/fused_tick.py).
 
 The run loops replace the reference's ``lax.scan``: ``run`` loops over the
 ticks of a ``TickArrivals`` bucket, and ``run_chunks`` does what
-``bench._engine_run`` does for the headline — a list of ragged-K chunks,
-each chunk's rows copied to the device once, the clock kept on the host,
-and no host synchronisation inside a chunk.
+``bench._engine_run`` does for the headline and the Borg-like replay — a
+list of ragged-K chunks, each chunk's rows copied to the device once, the
+clock kept on the host, and no host synchronisation inside a chunk.
 
 Configurations outside the slice raise ``NotImplementedError`` naming the
 ROADMAP item that ports them; nothing falls back silently.
@@ -25,7 +27,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from multi_cluster_simulator_tpu_torch.config import PolicyKind, SimConfig
+from multi_cluster_simulator_tpu_torch.config import SimConfig
 from multi_cluster_simulator_tpu_torch.core import state as st
 from multi_cluster_simulator_tpu_torch.core.state import (
     Arrivals, SimState, resolve_device,
@@ -34,7 +36,10 @@ from multi_cluster_simulator_tpu_torch.kernels import fused_tick
 from multi_cluster_simulator_tpu_torch.ops import fields as F
 from multi_cluster_simulator_tpu_torch.ops import queues as Q
 from multi_cluster_simulator_tpu_torch.ops import runset as R
-from multi_cluster_simulator_tpu_torch.policies.base import _run_kind
+from multi_cluster_simulator_tpu_torch.policies.base import (
+    PolicyParams, PolicySet,
+)
+from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
 
 _QUEUE_INVALID = np.asarray(F.QUEUE_INVALID, np.int32)
 
@@ -140,37 +145,46 @@ def pack_arrivals_chunks(arr: Arrivals, chunk_sizes: Sequence[int],
     return out
 
 
-def _ingest_packed_local(s: SimState, rows: torch.Tensor,
-                         cnt: torch.Tensor):
+def _ingest_packed_local(s: SimState, rows: torch.Tensor, cnt: torch.Tensor,
+                         to_delay: bool):
     """Enqueue one tick's pre-bucketed arrivals (``rows`` [C, K, NF],
-    ``cnt`` [C]) into the FIFO ReadyQueue (the Level0 target of the
-    queue-sweep policies comes with them, ROADMAP A5). The drop count
-    reads the queue before the push, and ``arr_ptr`` advances by ``cnt``
-    even for dropped rows."""
+    ``cnt`` [C]): into Level0 for the queue-sweep policies (``to_delay``),
+    else into the FIFO ReadyQueue. The drop count reads the target before
+    the push, and ``arr_ptr`` advances by ``cnt`` even for dropped rows;
+    the Level0 path adds ``cnt`` (not the pushed count) to ``wait_jobs``
+    and ``jobs_in_queue``, as the reference does
+    (core/engine.py:_ingest_packed_local there)."""
     K = rows.shape[1]
     valid = torch.arange(K, dtype=Q.I32, device=rows.device)[None, :] \
         < cnt[:, None]
-    dropped = Q.push_many_dropped(s.ready, valid)
-    ready = Q.push_many(s.ready, Q.JobQueue(data=rows, count=cnt), valid,
-                        prefix=True)
-    return s.replace(ready=ready, arr_ptr=s.arr_ptr + cnt,
-                     drops=s.drops.replace(queue=s.drops.queue + dropped))
+    batch = Q.JobQueue(data=rows, count=cnt)
+    tgt = s.l0 if to_delay else s.ready
+    dropped = Q.push_many_dropped(tgt, valid)
+    s = s.replace(drops=s.drops.replace(queue=s.drops.queue + dropped))
+    if to_delay:
+        s = s.replace(l0=Q.push_many(s.l0, batch, valid, prefix=True),
+                      wait_jobs=s.wait_jobs + cnt,
+                      jobs_in_queue=s.jobs_in_queue + cnt)
+    else:
+        s = s.replace(ready=Q.push_many(s.ready, batch, valid, prefix=True))
+    return s.replace(arr_ptr=s.arr_ptr + cnt)
 
 
 # --------------------------------------------------------------------------
 # Engine
 # --------------------------------------------------------------------------
 
-def _check_slice(cfg: SimConfig) -> None:
+def _check_slice(cfg: SimConfig, pset: PolicySet) -> None:
     """Refuse, by name, every configuration this slice does not carry."""
     if cfg.n_res not in (2, 3):
         raise ValueError(f"n_res must be 2 or 3, got {cfg.n_res}")
-    if cfg.fifo_drain not in ("wave", "serial"):
-        raise ValueError(
-            f"fifo_drain must be 'wave' or 'serial', got {cfg.fifo_drain!r}")
+    for field in ("fifo_drain", "ffd_sweep"):
+        v = getattr(cfg, field)
+        if v not in ("wave", "serial"):
+            raise ValueError(
+                f"{field} must be 'wave' or 'serial', got {v!r}")
+    pset.check_ported()
     gaps = [
-        (cfg.policy is not PolicyKind.FIFO,
-         f"policy {cfg.policy.value} (DELAY/FFD and the scored zoo)", "A5"),
         (cfg.borrowing, "cross-cluster borrowing", "A6"),
         (cfg.trader.enabled, "the trader market", "A7"),
         (cfg.faults.enabled, "the fault plane", "A8"),
@@ -185,31 +199,51 @@ def _check_slice(cfg: SimConfig) -> None:
 class Engine:
     """Runs ticks of ``cfg`` on ``device`` — the card unless the caller
     names another device (``device="cpu"`` runs the plain PyTorch path).
-    ``run`` and ``run_chunks`` advance the state IN PLACE and return it;
-    clone a state first (``core.state.clone_state``) to keep the original."""
+    ``policies`` is the ``PolicySet`` to run (the singleton set of
+    ``cfg.policy`` by default). ``run`` and ``run_chunks`` advance the
+    state IN PLACE and return it; clone a state first
+    (``core.state.clone_state``) to keep the original."""
 
-    def __init__(self, cfg: SimConfig, device=None):
-        _check_slice(cfg)
+    def __init__(self, cfg: SimConfig, device=None, policies=None):
+        self.pset = policies if policies is not None else \
+            PolicySet.from_config(cfg)
+        _check_slice(cfg, self.pset)
+        self.spec = self.pset.specs[0]  # the one policy this engine runs
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._default_params = self.pset.params_for(cfg, device=self.device)
 
     def _span_prefix(self, state: SimState, rows: torch.Tensor,
-                     counts: torch.Tensor, t: int) -> SimState:
-        """Phases 1-5 of the tick on this slice's path, as plain PyTorch
-        ops: completions, arrival ingest into the ReadyQueue, the FIFO
-        pass. The CUDA kernel is held against exactly this function."""
+                     counts: torch.Tensor, t: int,
+                     params: PolicyParams) -> SimState:
+        """Phases 1-5 of the tick on this slice's paths, as plain PyTorch
+        ops: completions, arrival ingest into the policy's queue, the
+        policy's pass. The CUDA kernels are held against exactly this
+        function."""
         state, _ = _release_local(state, t)
-        state = _ingest_packed_local(state, rows, counts)
-        state, _, _ = _run_kind("fifo", state, t, self.cfg)
+        state = _ingest_packed_local(state, rows, counts,
+                                     self.pset.ingest_to_delay())
+        state, _, _ = self.pset.dispatch(state, t, params, self.cfg)
         return state
 
     def _tick(self, state: SimState, rows: torch.Tensor,
-              counts: torch.Tensor, t: int) -> SimState:
+              counts: torch.Tensor, t: int, params: PolicyParams,
+              host: dict) -> SimState:
         """One tick ending at clock ``t`` (a host int): the prefix — the
         whole tick on this path — then the clock."""
-        state = fused_tick.fused_prefix(self, state, rows, counts, t)
+        state = fused_tick.fused_prefix(self, state, rows, counts, t, params,
+                                        host)
         state.t.fill_(t)
         return state
+
+    def _params(self, params) -> PolicyParams:
+        params = self._default_params if params is None else params
+        bad = sorted({str(v.device) for _, v in leaves_with_keys(params)}
+                     - {str(self.device)})
+        if bad:
+            raise ValueError(f"params live on {bad}, the engine on "
+                             f"{self.device}")
+        return params
 
     def _check_state(self, state: SimState) -> None:
         if state.device != self.device:
@@ -217,10 +251,11 @@ class Engine:
                              f"on {self.device}")
 
     def run(self, state: SimState, arrivals: st.TickArrivals,
-            n_ticks: int) -> SimState:
+            n_ticks: int, params=None) -> SimState:
         """Advance ``n_ticks`` over a pre-bucketed stream; the bucket's
-        rows go to the device once. The windowed ``Arrivals`` form of the
-        reference's ``run`` is not ported."""
+        rows go to the device once. ``params`` (PolicyParams on the
+        engine's device) defaults to the policy's own. The windowed
+        ``Arrivals`` form of the reference's ``run`` is not ported."""
         if isinstance(arrivals, Arrivals):
             raise NotImplementedError(
                 "the windowed Arrivals ingest is not ported yet: ROADMAP A3; "
@@ -231,15 +266,18 @@ class Engine:
                 f"run asked for {n_ticks}")
         part = st.TickArrivals(rows=arrivals.rows[:n_ticks],
                                counts=arrivals.counts[:n_ticks])
-        return self.run_chunks(state, [part])
+        return self.run_chunks(state, [part], params)
 
-    def run_chunks(self, state: SimState,
-                   chunks: Sequence[st.TickArrivals]) -> SimState:
+    def run_chunks(self, state: SimState, chunks: Sequence[st.TickArrivals],
+                   params=None) -> SimState:
         """The chunked run of the headline: each chunk's rows and
         counts move to the device in one copy each, then its ticks run
-        back to back with no host synchronisation. The clock is tracked on
-        the host (read once at entry) and handed to each tick as an int."""
+        back to back with no host synchronisation. The clock, and every
+        parameter the kernels take as a host int, are read once at entry;
+        the clock is then tracked on the host and handed to each tick."""
         self._check_state(state)
+        params = self._params(params)
+        host = fused_tick.host_params(params)
         t = int(state.t)
         tick_ms = self.cfg.tick_ms
         for chunk in chunks:
@@ -249,7 +287,8 @@ class Engine:
                 self.device)
             for k in range(rows.shape[0]):
                 t += tick_ms
-                state = self._tick(state, rows[k], counts[k], t)
+                state = self._tick(state, rows[k], counts[k], t, params,
+                                   host)
         return state
 
     def run_compressed(self, *args, **kwargs):

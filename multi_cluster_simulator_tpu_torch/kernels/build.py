@@ -4,7 +4,8 @@ Each source under ``kernels/csrc/`` has a plain C interface and is compiled
 by ``nvcc`` into its own shared library, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds, not minutes). Libraries land in
 ``build/kernels/`` at the repository root, a directory ``.gitignore``
-lists, named by a hash of the source so an edited source rebuilds. Nothing
+lists, named by a hash of the source and the shared headers so an edited
+source rebuilds. Nothing
 here runs at import: this module imports on a machine without ``nvcc``,
 and ``load`` builds at first use. ``build_all`` returns each compiler's
 register and spill report (``-Xptxas -v``); chip_smoke.py prints it.
@@ -22,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = {"fused_prefix_fifo": "fused_prefix_fifo.cu"}
+SOURCES = {"fused_prefix_fifo": "fused_prefix_fifo.cu",
+           "fused_prefix_ffd": "fused_prefix_ffd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -44,9 +46,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Where kernel ``name``'s library lands: named by a hash of its source
+    and of every header in ``csrc/``, which the sources include."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=None) -> dict[str, str]:

@@ -1,10 +1,12 @@
 """Placement kernels: first-fit over the node axis, batched over clusters.
 
 The port of ``multi_cluster_simulator_tpu/ops/placement.py`` (the parts the
-FIFO path runs). The reference's placement is a linear first-fit scan over
-nodes (ScheduleJob, pkg/scheduler/scheduler.go:127-139); here it is a
-branch-free mask over the padded node axis. Node slots run physical first,
-then virtual, so first-fit order matches Go's ``append`` of virtual nodes.
+FIFO and FFD paths run). The reference's placement is a linear first-fit
+scan over nodes (ScheduleJob, pkg/scheduler/scheduler.go:127-139); here it
+is a branch-free mask over the padded node axis. Node slots run physical
+first, then virtual, so first-fit order matches Go's ``append`` of virtual
+nodes. The FFD order (``best_fit_decreasing_order``) is a batched stable
+lexsort.
 """
 
 from __future__ import annotations
@@ -55,3 +57,26 @@ def occupy(free: torch.Tensor, node: torch.Tensor, job: JobRec,
     hot = (torch.arange(free.shape[1], dtype=I32, device=free.device)
            == node[:, None]) & do[:, None]  # [C, N]
     return free - hot.to(I32)[..., None] * res[:, None, :]
+
+
+BIG = 2**31 - 1  # the sort key of an invalid slot: after every valid one
+
+
+def lexsort(secondary: torch.Tensor, primary: torch.Tensor) -> torch.Tensor:
+    """``jnp.lexsort((secondary, primary))`` along the last axis, batched:
+    the stable order by ``primary``, ties broken by ``secondary``, then by
+    position. Two stable sorts, the secondary key first. Returns int32."""
+    by_sec = torch.sort(secondary, dim=-1, stable=True).indices
+    by_pri = torch.sort(torch.gather(primary, -1, by_sec), dim=-1,
+                        stable=True).indices
+    return torch.gather(by_sec, -1, by_pri).to(I32)
+
+
+def best_fit_decreasing_order(q_cores: torch.Tensor, q_mem: torch.Tensor,
+                              valid: torch.Tensor) -> torch.Tensor:
+    """Slot processing order for the FFD policy: valid jobs by decreasing
+    (cores, then mem), stable; invalid slots last. ``[C, Q]`` in,
+    ``[C, Q]`` int32 slot indices out."""
+    primary = torch.where(valid, -q_cores, BIG)
+    secondary = torch.where(valid, -q_mem, BIG)
+    return lexsort(secondary, primary)

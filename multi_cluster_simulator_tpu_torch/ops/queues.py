@@ -89,6 +89,10 @@ class JobRec(Tree):
         return self.vec[..., FOWNER]
 
     @property
+    def rec_wait(self):
+        return self.vec[..., FREC]
+
+    @property
     def retries(self):
         return self.vec[..., FRETRIES]
 
@@ -106,6 +110,26 @@ class JobQueue(Tree):
     @property
     def capacity(self) -> int:
         return self.data.shape[-2]
+
+    @property
+    def cores(self):
+        return self.data[..., FCORES]
+
+    @property
+    def mem(self):
+        return self.data[..., FMEM]
+
+    @property
+    def enq_t(self):
+        return self.data[..., FENQ]
+
+    @property
+    def rec_wait(self):
+        return self.data[..., FREC]
+
+    def slot_valid(self) -> torch.Tensor:
+        """[C, Q] bool: which slots hold live jobs."""
+        return _arange(self.capacity, self)[None, :] < self.count[:, None]
 
 
 def empty(n_clusters: int, capacity: int, device) -> JobQueue:
@@ -132,6 +156,45 @@ def select_row(q: JobQueue, hot: torch.Tensor) -> JobRec:
 def rows_prefix(q: JobQueue, n: int) -> torch.Tensor:
     """The first ``n`` slots as packed [C, n, NF] int32 rows."""
     return q.data[:, :n]
+
+
+def gather_rows(q: JobQueue, sel: torch.Tensor) -> torch.Tensor:
+    """Packed [C, K, NF] rows selected by a [C, K, Q] one-hot mask (a zero
+    row where a mask row is all False) — the reference's ``[K, Q] @ [Q, NF]``
+    integer contraction, as an int32 broadcast-multiply-sum."""
+    return isum(sel.to(I32)[..., None] * q.data[:, None, :, :], 2)
+
+
+def compact_rows(rows: torch.Tensor, keep: torch.Tensor,
+                 fill: torch.Tensor) -> torch.Tensor:
+    """Move the rows of ``rows`` [C, K, F] where ``keep`` [C, K] to the
+    front, in order, with ``fill`` [F] behind them. A stable sort of the
+    keep mask and a gather: the reference's rank one-hot contraction and
+    its argsort form give the same rows, and this one needs no [K, K]
+    operand (Level0 runs to K = 768)."""
+    order = torch.sort((~keep).to(torch.uint8), dim=1, stable=True).indices
+    packed = torch.gather(rows, 1, order[..., None].expand(-1, -1,
+                                                           rows.shape[2]))
+    live = (torch.arange(keep.shape[1], device=rows.device)[None, :]
+            < keep.sum(dim=1)[:, None])
+    return torch.where(live[..., None], packed, fill)
+
+
+def compact(q: JobQueue, keep: torch.Tensor) -> JobQueue:
+    """Stable-remove every valid slot where ``keep`` [C, Q] is False (the
+    Go in-place slice deletions, scheduler.go:319,165,184); slots from the
+    new count on become INVALID."""
+    keep = keep & q.slot_valid()
+    data = compact_rows(q.data, keep, invalid_row(q.data.device))
+    return q.replace(data=data, count=isum(keep, 1))
+
+
+def set_field(q: JobQueue, name: str, values: torch.Tensor) -> JobQueue:
+    """Overwrite one field column (e.g. rec_wait) for all slots (wide
+    layout)."""
+    data = q.data.clone()
+    data[..., F.QUEUE_INDEX[name]] = values.to(I32)
+    return q.replace(data=data)
 
 
 def push_back(q: JobQueue, job: JobRec, do: torch.Tensor) -> JobQueue:

@@ -1,8 +1,11 @@
-"""The FIFO scheduling pass as plain PyTorch ops, batched over clusters.
+"""The FIFO and FFD scheduling passes as plain PyTorch ops, batched over
+clusters.
 
-The port of the FIFO part of ``multi_cluster_simulator_tpu/policies/
-kernels.py`` (lines 49-136 and 334-685 there): the wait-head / ready-drain
-/ lent best-effort pass of Fifo() (pkg/scheduler/scheduler.go:216-296).
+The port of the FIFO and FFD parts of ``multi_cluster_simulator_tpu/
+policies/kernels.py``: the wait-head / ready-drain / lent best-effort pass
+of Fifo() (pkg/scheduler/scheduler.go:216-296), and the first-fit-decreasing
+bin-pack over Level0 (``_ffd_local`` through the shared serial sweep
+``_scored_sweep_local``, and its speculative-wave form ``_ffd_wave_local``).
 The reference writes each function for one cluster and ``vmap``s it; here
 every function takes the cluster axis [C] explicitly.
 
@@ -19,8 +22,16 @@ Two rewrites keep the batched form exact without host syncs:
   int32 broadcast-multiply-sums, which CUDA supports (it has no integer
   matmul) and which give the same integers.
 
-This is the plain version the CUDA kernel (kernels/csrc/
-fused_prefix_fifo.cu) is held against, and what the port runs on the CPU.
+One float: ``wait_total`` (f32). The serial sweep adds each processed
+job's wait delta in sweep order, as the reference does. The wave form adds
+the tick's deltas once, as the reference's ``delta.sum()``; here the sum
+is taken exactly in int64 and rounded once, which equals the reference's
+f32 reduction whenever its partial sums stay below 2^24 ms (4.6 hours of
+wait in one tick), and makes the sum independent of reduction order.
+
+These are the plain versions the CUDA kernels (kernels/csrc/
+fused_prefix_fifo.cu, fused_prefix_ffd.cu) are held against, and what the
+port runs on the CPU.
 """
 
 from __future__ import annotations
@@ -111,6 +122,31 @@ def _sweep_len(cfg: SimConfig) -> int:
     return min(cfg.queue_capacity, cfg.max_placements_per_tick)
 
 
+def _record_wait(total, rec_wait, enq_t, t: int, do):
+    """JobsMap bookkeeping on a scheduling attempt (scheduler.go:309-312):
+    TotalTime -= map[id]; map[id] = since(enqueue); TotalTime += map[id].
+    All [C]; ``total`` f32, the rest int32."""
+    cur = t - enq_t
+    delta = torch.where(do, (cur - rec_wait).to(torch.float32), 0.0)
+    return total + delta, torch.where(do, cur, rec_wait)
+
+
+def _bfd_order(q: Q.JobQueue, params) -> torch.Tensor:
+    """Best-fit-decreasing slot order [C, Q] with the FFD tie-break as
+    data: ``params.ffd_mem_first`` (a 0-d tensor, read without a host
+    sync) swaps the (cores, mem) sort-key priority. ``params=None`` is
+    ``P.best_fit_decreasing_order``."""
+    valid = q.slot_valid()
+    if params is None:
+        return P.best_fit_decreasing_order(q.cores, q.mem, valid)
+    mem_first = params.ffd_mem_first > 0
+    primary = torch.where(valid, torch.where(mem_first, -q.mem, -q.cores),
+                          P.BIG)
+    secondary = torch.where(valid, torch.where(mem_first, -q.cores, -q.mem),
+                            P.BIG)
+    return P.lexsort(secondary, primary)
+
+
 # --------------------------------------------------------------------------
 # speculative-wave machinery
 # --------------------------------------------------------------------------
@@ -147,14 +183,12 @@ def _wave_occupy(free, tgt_hot, place, jobs: Q.JobRec):
     return free - used
 
 
-def _compact_rows(rows: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    """Move the rows where ``keep`` [C, K] to the front, in order, zeros
-    behind them (the reference's rank one-hot contraction)."""
-    K = keep.shape[1]
-    rank = icumsum(keep.to(I32), 1) - 1
-    hot = keep[:, :, None] & (rank[:, :, None] == torch.arange(
-        K, dtype=I32, device=rows.device))  # [C, K(src), K(dst)]
-    return isum(hot.to(I32)[..., None] * rows[:, :, None, :], 1)
+def _placed_buffer(jobs: Q.JobRec, node_sel: torch.Tensor, t: int):
+    """The running rows of the placed positions (``node_sel >= 0``), in
+    position order at the front of a [C, QC, RF] buffer, zeros behind."""
+    all_rows = R.row_from_job(jobs, node_sel, t)  # [C, QC, RF]
+    return Q.compact_rows(all_rows, node_sel >= 0,
+                          all_rows.new_zeros(R.RF))
 
 
 def _fifo_drain_wave(s: SimState, t: int, cfg: SimConfig,
@@ -211,8 +245,7 @@ def _fifo_drain_wave(s: SimState, t: int, cfg: SimConfig,
     n_taken = cnt + stopped.to(I32)  # pops include the failure
     fhot = pos[None, :] == fail_idx[:, None]
     fail_job = Q.JobRec(vec=isum(fhot.to(I32)[..., None] * rows, 1))
-    all_rows = R.row_from_job(jobs, node_sel, t)  # [C, QC, RF]
-    buf = _compact_rows(all_rows, placed_pos)
+    buf = _placed_buffer(jobs, node_sel, t)
     trace = s.trace
     if cfg.record_trace:
         trace = _trace_append_many(trace, placed_pos, t, jobs.id, node_sel,
@@ -291,3 +324,132 @@ def _fifo_local(s: SimState, t: int, cfg: SimConfig):
     s, lsuccess = _attempt(s, ljob, t, lent_ok, st.SRC_LENT, cfg.record_trace)
     s = s.replace(lent=Q.pop_front(s.lent, lsuccess))
     return s, borrow_want, wjob
+
+
+# --------------------------------------------------------------------------
+# FFD — first-fit-decreasing bin-pack over Level0
+# --------------------------------------------------------------------------
+
+def _scored_sweep_local(s: SimState, t: int, cfg: SimConfig, params,
+                        order: torch.Tensor, score_fn=None):
+    """The serial Level0 placement sweep over ``order`` [C, Q]: per
+    position, record the job's wait, try first-fit, defer the RunningSet
+    insertion; then compact Level0 and flush the placements. ``QC`` masked
+    steps, each cluster active for its first ``min(|L0|, QC)`` positions
+    (the reference's vmapped while loop). Only the first-fit node pick
+    (``score_fn=None``) is ported; the scored picks of gavel, tesserae and
+    rl are ROADMAP A5."""
+    if score_fn is not None:
+        raise NotImplementedError(
+            "scored node picks (gavel/tesserae/rl) are not ported yet: "
+            "ROADMAP A5")
+    QC = _sweep_len(cfg)
+    C, cap = s.l0.count.shape[0], s.l0.capacity
+    dev = s.l0.data.device
+    n_sweep = torch.clamp(s.l0.count, max=QC)  # order puts valid slots first
+    n_active = isum(s.run.active, 1)
+    slots = torch.arange(cap, dtype=I32, device=dev)
+    placed = torch.zeros((C, cap), dtype=torch.bool, device=dev)
+    buf = torch.zeros((C, QC, R.RF), dtype=I32, device=dev)
+    cnt = torch.zeros((C,), dtype=I32, device=dev)
+    for k in range(QC):
+        process = k < n_sweep
+        hot = slots[None, :] == order[:, k:k + 1]
+        job = Q.select_row(s.l0, hot)
+        total, new_rec = _record_wait(s.wait_total, job.rec_wait,
+                                      job.enq_t, t, process)
+        frec = torch.where(hot & process[:, None], new_rec[:, None],
+                           s.l0.rec_wait)
+        s = s.replace(wait_total=total,
+                      l0=Q.set_field(s.l0, "rec_wait", frec))
+        s, success, buf, cnt = _attempt_deferred(
+            s, job, t, process, st.SRC_L0, cfg.record_trace, buf, cnt,
+            n_active)
+        s = s.replace(jobs_in_queue=s.jobs_in_queue - success.to(I32))
+        placed = placed | (hot & success[:, None])
+    return s.replace(l0=Q.compact(s.l0, ~placed),
+                     run=R.start_many(s.run, buf, cnt))
+
+
+def _ffd_local(s: SimState, t: int, cfg: SimConfig, params=None):
+    """First-fit-decreasing bin-pack over Level0: the BFD order and the
+    shared serial sweep. Fast mode caps the sweep at
+    ``max_placements_per_tick`` (largest jobs first)."""
+    return _scored_sweep_local(s, t, cfg, params, _bfd_order(s.l0, params))
+
+
+def _wave_place(free0, node_active, run_cap: int, n_active, jobs: Q.JobRec,
+                act0):
+    """Place ``jobs`` ([C, QC] rows in sweep order, active where ``act0``)
+    by speculative conflict-free-prefix waves (the reference's
+    ``_ffd_wave_local`` docstring has the equivalence argument). Every
+    wave resolves at least the earliest unresolved row, so ``QC`` waves
+    suffice, and a wave with nothing active changes nothing. Returns
+    ``(free', node_sel [C, QC], cnt [C], run_full [C])``."""
+    C, QC = act0.shape
+    free = free0
+    resolved = ~act0
+    node_sel = torch.full((C, QC), P.NO_NODE, dtype=I32, device=act0.device)
+    cnt = torch.zeros((C,), dtype=I32, device=act0.device)
+    run_full = torch.zeros((C,), dtype=I32, device=act0.device)
+    for _ in range(QC):
+        active = act0 & ~resolved
+        feas_any, tgt, tgt_hot, overflow = _wave_probe(free, node_active,
+                                                       jobs, active)
+        blocked = icumsum(overflow.to(I32), 1) > 0  # self included
+        place_try = feas_any & ~blocked
+        rank = icumsum(place_try.to(I32), 1) - 1
+        has_slot = ((n_active + cnt)[:, None] + rank) < run_cap
+        place = place_try & has_slot
+        slot_full = place_try & ~has_slot
+        # infeasible now is infeasible forever (free only shrinks); slot-
+        # exhausted rows resolve too, counted as the serial sweep counts
+        resolved = resolved | place | slot_full | (active & ~feas_any)
+        free = _wave_occupy(free, tgt_hot, place, jobs)
+        node_sel = torch.where(place, tgt, node_sel)
+        cnt = cnt + isum(place, 1)
+        run_full = run_full + isum(slot_full, 1)
+    return free, node_sel, cnt, run_full
+
+
+def _ffd_wave_local(s: SimState, t: int, cfg: SimConfig, params=None):
+    """``_ffd_local`` as speculative placement waves: the same placements
+    (the reference pins wave == serial, tests/test_kernel_equiv.py), with
+    the wait accounting done once per tick at the slot level."""
+    QC = min(cfg.queue_capacity, cfg.max_placements_per_tick)
+    cap = s.l0.capacity
+    dev = s.l0.data.device
+    order = _bfd_order(s.l0, params)[:, :QC]  # [C, QC]
+    n_sweep = torch.clamp(s.l0.count, max=QC)
+    n_active = isum(s.run.active, 1)
+    act0 = torch.arange(QC, dtype=I32, device=dev)[None, :] < n_sweep[:, None]
+    sel = order[..., None] == torch.arange(cap, dtype=I32, device=dev)
+    rows = Q.gather_rows(s.l0, sel)  # [C, QC, NF]
+    jobs = Q.JobRec(vec=rows)
+
+    # every processed job is recorded once per tick; the deltas add as one
+    # exact integer sum, rounded to f32 once (see the module docstring)
+    processed_slot = (sel & act0[..., None]).any(dim=1)  # [C, Q]
+    cur = t - s.l0.enq_t
+    frec = s.l0.rec_wait
+    delta = torch.where(processed_slot, cur - frec, 0)
+    wait_total = s.wait_total + delta.sum(dim=1).to(torch.float32)
+    l0 = Q.set_field(s.l0, "rec_wait", torch.where(processed_slot, cur, frec))
+    s = s.replace(wait_total=wait_total, l0=l0)
+
+    free, node_sel, cnt, run_full = _wave_place(
+        s.node_free, s.node_active, s.run.capacity, n_active, jobs, act0)
+    placed_pos = node_sel >= 0  # [C, QC], in FFD order
+    buf = _placed_buffer(jobs, node_sel, t)
+    trace = s.trace
+    if cfg.record_trace:
+        trace = _trace_append_many(trace, placed_pos, t, jobs.id, node_sel,
+                                   st.SRC_L0)
+    placed_slot = (sel & placed_pos[..., None]).any(dim=1)
+    return s.replace(
+        node_free=free, trace=trace,
+        drops=s.drops.replace(run_full=s.drops.run_full + run_full),
+        placed_total=s.placed_total + cnt,
+        jobs_in_queue=s.jobs_in_queue - cnt,
+        l0=Q.compact(s.l0, ~placed_slot),
+        run=R.start_many(s.run, buf, cnt))

@@ -1,10 +1,13 @@
-"""Bulk workload synthesis for the scale harness (the port's copy of
-``uniform_stream`` from ``multi_cluster_simulator_tpu/workload/traces.py``;
-host numpy, pinned equal to the original by tests/test_torch_copies.py).
+"""Bulk workload synthesis for the scale harness (the port's copies of
+``uniform_stream`` and ``borg_like_stream`` from
+``multi_cluster_simulator_tpu/workload/traces.py``; host numpy, pinned
+equal to the originals by tests/test_torch_copies.py).
 
 ``uniform_stream`` — N jobs per cluster with sorted-uniform arrival times —
-is the load shape of the headline benchmark. The Borg-like and bursty
-shapes and the on-device generative draw are later slices (ROADMAP A14).
+is the load shape of the headline benchmark; ``borg_like_stream`` — heavy
+tails and a diurnal arrival intensity — is the Borg-like replay's. The
+bursty shape and the on-device generative draw are later slices (ROADMAP
+A14).
 """
 
 from __future__ import annotations
@@ -44,3 +47,28 @@ def uniform_stream(n_clusters: int, jobs_per_cluster: int, horizon_ms: int,
         gpu = np.where(rng.random((C, A)) < gpu_frac,
                        rng.integers(1, max_gpus + 1, (C, A)), 0)
     return _pack(t, cores, mem, dur, gpu)
+
+
+def borg_like_stream(n_clusters: int, jobs_per_cluster: int, horizon_ms: int,
+                     max_cores: int, max_mem: int, seed: int = 0) -> Arrivals:
+    """Borg-2019-shaped synthetic trace (heavy tails + diurnal arrivals)."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    C, A = n_clusters, jobs_per_cluster
+    # diurnal arrival times by inverse-CDF of 1 + 0.6*sin(2*pi*t/day)
+    u = rng.random((C, A))
+    grid = np.linspace(0.0, 1.0, 1025)
+    day_ms = 86_400_000.0
+    intens = 1.0 + 0.6 * np.sin(2 * np.pi * grid * horizon_ms / day_ms)
+    cdf = np.cumsum(intens)
+    cdf = (cdf - cdf[0]) / (cdf[-1] - cdf[0])
+    t = np.interp(u, cdf, grid) * horizon_ms
+    # heavy-tailed sizes: lognormal cores clipped to node size
+    cores = np.clip(np.round(np.exp(rng.normal(0.4, 1.0, (C, A)))), 1,
+                    max_cores)
+    mem_frac = np.clip(rng.normal(0.6, 0.35, (C, A)), 0.05, 2.0)
+    mem = np.clip(np.round(cores / max_cores * max_mem * mem_frac), 1,
+                  max_mem)
+    # lognormal durations, median ~90 s, clipped to 1 h
+    dur = np.clip(np.exp(rng.normal(np.log(90_000.0), 1.2, (C, A))), 1_000,
+                  3_600_000)
+    return _pack(t, cores, mem, dur)

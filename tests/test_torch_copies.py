@@ -1,6 +1,7 @@
 """The port's copies of the JAX package's pure-Python pieces stay equal to
 their originals: the config dataclasses, the row schemas, the cluster-spec
-helpers, the numpy workload generators and the host-side arrival bucketing.
+helpers, the numpy workload generators, the host-side arrival bucketing,
+and the policy registry with every registered policy's parameter leaves.
 The port keeps its own copies because it never imports the JAX package."""
 
 import dataclasses
@@ -13,12 +14,15 @@ from multi_cluster_simulator_tpu import config as jconfig
 from multi_cluster_simulator_tpu.core import engine as jengine
 from multi_cluster_simulator_tpu.core import spec as jspec
 from multi_cluster_simulator_tpu.ops import fields as jfields
+from multi_cluster_simulator_tpu.policies import base as jbase
 from multi_cluster_simulator_tpu.workload import generator as jgen
 from multi_cluster_simulator_tpu.workload import traces as jtraces
 from multi_cluster_simulator_tpu_torch import config as tconfig
 from multi_cluster_simulator_tpu_torch.core import engine as tengine
 from multi_cluster_simulator_tpu_torch.core import spec as tspec
+from multi_cluster_simulator_tpu_torch import interop
 from multi_cluster_simulator_tpu_torch.ops import fields as tfields
+from multi_cluster_simulator_tpu_torch.policies import base as tbase
 from multi_cluster_simulator_tpu_torch.workload import generator as tgen
 from multi_cluster_simulator_tpu_torch.workload import traces as ttraces
 
@@ -112,6 +116,58 @@ def _assert_arrivals_equal(a, b):
 def test_uniform_stream_equal(kw):
     _assert_arrivals_equal(jtraces.uniform_stream(6, 50, 90_000, **kw),
                            ttraces.uniform_stream(6, 50, 90_000, **kw))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_clusters=6, jobs_per_cluster=50, horizon_ms=90_000, max_cores=32,
+         max_mem=24_000, seed=19),
+    dict(n_clusters=3, jobs_per_cluster=80, horizon_ms=4_500_000,
+         max_cores=8, max_mem=6_000, seed=2),
+])
+def test_borg_like_stream_equal(kw):
+    _assert_arrivals_equal(jtraces.borg_like_stream(**kw),
+                           ttraces.borg_like_stream(**kw))
+
+
+def test_policy_registry_equal():
+    """The same names, kinds, ingest targets and overrides, in the same
+    registration order."""
+    assert jbase.KINDS == tbase.KINDS
+    assert list(jbase.REGISTRY) == list(tbase.REGISTRY)
+    for name, j in jbase.REGISTRY.items():
+        t = tbase.REGISTRY[name]
+        assert (j.name, j.kind, j.to_delay, j.overrides) == \
+            (t.name, t.kind, t.to_delay, t.overrides)
+
+
+def _jax_leaves(tree):
+    import jax
+
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {jax.tree_util.keystr(p): np.asarray(v) for p, v in flat}
+
+
+@pytest.mark.parametrize("name", sorted(jbase.REGISTRY))
+def test_default_params_leaves_equal(name):
+    """Every leaf of every registered policy's params, by JAX path, value
+    and dtype — ``ffd-memfirst`` gives the same params in both packages —
+    and the params cross both ways through interop."""
+    jcfg = jconfig.SimConfig(max_wait_ms=7_000)
+    tcfg = tconfig.SimConfig(max_wait_ms=7_000)
+    jp = jbase.default_params(jcfg, jbase.REGISTRY[name], idx=2)
+    tp = tbase.default_params(tcfg, tbase.REGISTRY[name], idx=2)
+    want, got = _jax_leaves(jp), interop.params_to_numpy(tp)
+    assert set(want) == set(got)
+    for k in want:
+        assert want[k].dtype == got[k].dtype, k
+        np.testing.assert_array_equal(want[k], got[k], err_msg=k)
+    back = interop.params_to_numpy(interop.params_from_numpy(want,
+                                                             device="cpu"))
+    for k in want:
+        np.testing.assert_array_equal(want[k], back[k], err_msg=k)
+    pset_j, pset_t = jbase.PolicySet((name,)), tbase.PolicySet((name,))
+    assert pset_j.kinds == pset_t.kinds
+    assert pset_j.ingest_to_delay() == pset_t.ingest_to_delay()
 
 
 @pytest.mark.parametrize("arrival", ["poisson", "weibull"])

@@ -143,7 +143,7 @@ def port_run():
     _, tspecs = specs()
     parts = tengine.pack_arrivals_chunks(arr, CHUNKS, cfg.tick_ms)
     assert parts[0].rows.shape[2] != parts[1].rows.shape[2]
-    tfused.fused_prefix.launches = 0
+    tfused.reset_launches()
     state = tengine.Engine(cfg, device="cpu").run_chunks(
         tstate.init_state(cfg, tspecs, device="cpu"), parts)
     return state
@@ -164,7 +164,7 @@ def test_port_headline_shape_is_sound(port_run):
     assert placed >= 0.9 * C * JOBS
     assert int(port_run.trace.n.sum()) == placed
     ttrace.check_conservation(port_run)
-    assert tfused.fused_prefix.launches == 0
+    assert not any(tfused.launch_counts().values())
 
 
 def test_port_run_equals_run_chunks():
@@ -183,17 +183,22 @@ def test_port_run_equals_run_chunks():
     assert int(a.t) == 35 * cfg.tick_ms
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(policy=tconfig.PolicyKind.DELAY), "A5"),
-    (dict(borrowing=True), "A6"),
-    (dict(trader=tconfig.TraderConfig(enabled=True), n_res=3), "A7"),
-    (dict(faults=tconfig.FaultConfig(enabled=True)), "A8"),
-    (dict(record_metrics=True), "A10"),
+@pytest.mark.parametrize("change,policies,item", [
+    (dict(policy=tconfig.PolicyKind.DELAY), None, "A5"),
+    (dict(), ("fifo", "ffd"), "A5"),
+    (dict(), ("gavel",), "A5"),
+    (dict(borrowing=True), None, "A6"),
+    (dict(trader=tconfig.TraderConfig(enabled=True), n_res=3), None, "A7"),
+    (dict(faults=tconfig.FaultConfig(enabled=True)), None, "A8"),
+    (dict(record_metrics=True), None, "A10"),
 ])
-def test_configs_outside_the_slice_raise(change, item):
+def test_configs_outside_the_slice_raise(change, policies, item):
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+
     cfg = dataclasses.replace(port_cfg(headline_cfg()), **change)
+    pset = None if policies is None else PolicySet(policies)
     with pytest.raises(NotImplementedError, match=item):
-        tengine.Engine(cfg, device="cpu")
+        tengine.Engine(cfg, device="cpu", policies=pset)
 
 
 def test_unported_run_paths_raise():

@@ -90,7 +90,10 @@ def test_fifo_pass_bitwise_equals_jax_run_kind(pre_states, name, drain):
     for t, pre in states:
         jout, jwant, jbjob = run_kind(pre, jnp.int32(t))
         tpre = interop.state_from_numpy(jax_leaves(pre), device="cpu")
-        tout, twant, tbjob = tbase._run_kind("fifo", tpre, t, port_cfg(cfg))
+        tcfg = port_cfg(cfg)
+        tout, twant, tbjob = tbase._run_kind(
+            tbase.REGISTRY["fifo"], tpre, t,
+            tbase.default_params(tcfg, tbase.REGISTRY["fifo"]), tcfg)
         assert_leaves_equal(jax_leaves(jout), interop.state_to_numpy(tout))
         np.testing.assert_array_equal(np.asarray(jwant), twant.numpy())
         np.testing.assert_array_equal(np.asarray(jbjob), tbjob.numpy())

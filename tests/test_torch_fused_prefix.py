@@ -81,12 +81,15 @@ def test_fused_prefix_bitwise_equals_jax_pallas(jax_ticks, i, lent):
     eng = tengine.Engine(port_cfg(cfg), device="cpu")
     state = interop.state_from_numpy(jax_leaves(before), device="cpu")
     lent_before = n_traced(state, SRC_LENT)
-    tfused.fused_prefix.launches = 0
+    tfused.reset_launches()
+    params = eng._default_params
     out = tfused.fused_prefix(eng, state, torch.from_numpy(rows.copy()),
-                              torch.from_numpy(counts.copy()), t)
+                              torch.from_numpy(counts.copy()), t, params,
+                              tfused.host_params(params))
     assert out is state, "the prefix updates the state in place"
     assert_leaves_equal(jax_leaves(want), interop.state_to_numpy(out))
-    assert tfused.fused_prefix.launches == 0  # the CPU takes the plain path
+    # the CPU takes the plain path
+    assert not any(tfused.launch_counts().values())
     if not lent:
         assert n_traced(out, SRC_LENT) == lent_before
 
@@ -108,7 +111,8 @@ def test_reference_leaves_its_input_alone(jax_ticks):
     eng = tengine.Engine(port_cfg(cfg), device="cpu")
     state = interop.state_from_numpy(jax_leaves(before), device="cpu")
     out = tfused.fused_prefix_reference(eng, state, torch.from_numpy(rows),
-                                        torch.from_numpy(counts), t)
+                                        torch.from_numpy(counts), t,
+                                        eng._default_params)
     assert_leaves_equal(jax_leaves(before), interop.state_to_numpy(state))
     assert_leaves_equal(jax_leaves(want), interop.state_to_numpy(out))
 
@@ -121,18 +125,20 @@ def test_wrapper_refuses_mixed_devices(jax_ticks):
     eng = tengine.Engine(port_cfg(cfg), device="cpu")
     state = interop.state_from_numpy(jax_leaves(before), device="cpu")
     meta_rows = torch.empty(rows.shape, dtype=torch.int32, device="meta")
-    tfused.fused_prefix.launches = 0
+    tfused.reset_launches()
+    params = eng._default_params
     with pytest.raises(ValueError, match="CUDA device"):
         tfused.fused_prefix(eng, state, meta_rows,
-                            torch.from_numpy(counts), t)
-    assert tfused.fused_prefix.launches == 0
+                            torch.from_numpy(counts), t, params,
+                            tfused.host_params(params))
+    assert not any(tfused.launch_counts().values())
 
 
 def test_span_and_provenance():
     cfg = port_cfg(headline_cfg())
     assert tfused.engaged_span(cfg) == ("release", "ingest", "schedule")
     assert tfused.engaged_span(cfg) == jfused.engaged_span(headline_cfg())
-    prov = tfused.provenance(cfg)
+    prov = tfused.provenance(tengine.Engine(cfg, device="cpu"))
     assert prov["kernel"] == "fused_prefix_fifo" and prov["route"] == "cuda"
     assert (REPO / prov["source"]).exists()
     path, line = prov["replaces"].split(":")
@@ -163,6 +169,7 @@ def test_build_module_imports_without_nvcc(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "fused_prefix_fifo" in out.stdout
+    assert "fused_prefix_ffd" in out.stdout
 
 
 def _port_files():

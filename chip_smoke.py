@@ -3,9 +3,10 @@
 
 Run from the repository root with ``python3 chip_smoke.py``; it needs one
 CUDA card and exits non-zero without one (or without the repository around
-it). It drives the port's two paths on the card — the headline FIFO run and
-the FFD bin-pack of the Borg-like replay — through the entry points a user
-calls, and holds each path's hand-written kernel against its plain PyTorch
+it). It drives the port's paths on the card — the headline FIFO run, the
+FFD bin-pack of the Borg-like replay, and DELAY and the scored zoo (gavel,
+tesserae) on the market shape — through the entry points a user calls,
+and holds each path's hand-written kernel against its plain PyTorch
 version:
 
 1. device: the card's name and power limit;
@@ -14,24 +15,45 @@ version:
 3. kernel against plain, every leaf bitwise (``wait_total`` included):
    a. FIFO at the headline's full width (4096 clusters), on ticks the
       headline run reaches and on heavier streams that fill the queues;
-   b. a whole 256-cluster headline run through each;
+   b. the first 800 ticks of a 256-cluster headline run through each;
    c. FFD at bench_borg4k's full width: 16 ticks sampled as the kernel
       reaches them (the diurnal peak included), 2 x 30 heavy ticks that
       fire drops.queue, drops.run_full and the per-tick placement cap, the
       serial form, the ``ffd-memfirst`` variant, parity mode and the trace,
-      and a whole run at bench_borg4k(quick=True)'s shape;
+      and the first 800 ticks of a run at bench_borg4k(quick=True)'s shape;
+   d. DELAY at the market's full width (sinkhorn_market_setup, bench.py:
+      979-1029, trader off): ticks of runs (a) and (d) sampled as the
+      kernel reaches them, heavy ticks on an 8-deep queue that fire the
+      promotion, a full Level1, drops.run_full and the parity skip, in the
+      wave, serial and parity forms, ``delay-eager`` and the trace, and a
+      whole run at the market's quick shape;
+   e. the scored sweep the same way: runs (b) gavel and (c) tesserae
+      sampled, heavy ticks (gavel; tesserae with the trace; gavel and rl
+      with seeded scores on clusters of mixed device types), and the first
+      400 ticks of quick-shape runs of tesserae and of the seeded rl;
+   f. tools/tournament.py's lineup as one multi-member PolicySet at 256
+      clusters: each params.idx launches its member's kernel, and only
+      that, and equals the plain version;
 4. the main paths, each with every launch count set to 0 just before and
    read just after:
    a. headline: 4096 clusters x 250 jobs, 1,570 ticks — zero drops, at
       least 99% placed, conservation, 1,570 FIFO launches; jobs/s over the
-      min and median of 5 timed runs after 2 warm-ups;
+      min and median of 3 timed runs after 1 warm-up;
    b. borg4k (bench.py:1213-1263): 4096 clusters x 750 Borg-like jobs,
       4,600 ticks — at least 95% placed, zero drops, conservation, 4,600
       FFD launches; jobs/s over the min and median of 3 timed runs after 1
       warm-up;
    c. ffd64 (bench.py:936-976): 64 clusters x 60,000 jobs, Level0 768
       deep, 6,100 ticks — kernel == plain on 8 sampled ticks, then one
-      full run with the reference's asserts.
+      full run with the reference's asserts;
+   d-g. the market shape, 4096 clusters x 400 jobs, 700 ticks, four runs
+      of one world and stream: (a) DELAY in the wave form, (b) gavel, (c)
+      tesserae, (d) DELAY parity (the serial sweep with the skip quirk) —
+      conservation, every arrived job placed, queued or counted as
+      dropped, 700 launches of the run's kernel; for the DELAY runs also
+      zero drops and at least 85% of the jobs that can place without the
+      market placed (bench.py:1081); jobs/s over the min and median of 3
+      timed runs after 1 warm-up.
 
 Every number is printed beside the card's name and power limit. The last
 lines are a JSON record of each kernel (its time per launch, the plain
@@ -58,7 +80,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12
 HEADLINE_C, JOBS, HORIZON_MS, CHUNK = 4096, 250, 1_500_000, 400
 RUN_C = 256  # the width of the FIFO whole-run kernel-vs-plain comparison
-TIMED_RUNS, WARMUPS = 5, 2
+TIMED_RUNS, WARMUPS = 3, 1
 SPIN_CYCLES = 1_000_000  # ~0.5 ms of card time ahead of each timed launch
 # bench_borg4k (bench.py:1213-1263), full and quick shapes
 BORG_C, BORG_JOBS, BORG_HORIZON_MS = 4096, 750, 4_500_000
@@ -67,6 +89,23 @@ BORG_TIMED, BORG_WARMUPS, BORG_SAMPLES = 3, 1, 16
 # bench_ffd64 (bench.py:936-976)
 FFD64_C, FFD64_JOBS, FFD64_HORIZON_MS, FFD64_SAMPLES = 64, 60_000, \
     6_000_000, 8
+# the market shape, bench.py:979-1029 sinkhorn_market_setup(4096, 400,
+# 600_000) with the trader off, and its quick shape (64, 200, quick=True)
+MARKET_C, MARKET_JOBS, MARKET_HORIZON_MS = 4096, 400, 600_000
+MARKET_QUICK = (64, 200)
+MARKET_TIMED, MARKET_WARMUPS, MARKET_SAMPLES = 3, 1, 12
+MARKET_FLOOR = 0.85  # bench.py:1081, of the jobs that can place unaided
+# the four full-shape runs: name -> (policy, config changes, gated)
+MARKET_RUNS = {"a": ("delay", {}, True), "b": ("gavel", {}, False),
+               "c": ("tesserae", {}, False),
+               "d": ("delay", {"parity": True}, True)}
+# tools/tournament.py DEFAULT_POLICIES, dispatched as one PolicySet
+LINEUP = ("fifo", "delay", "delay-eager", "delay-patient", "ffd",
+          "ffd-memfirst", "gavel", "tesserae")
+LINEUP_C, LINEUP_TICKS = 256, 40
+# chunks (400 ticks each) of the earlier paths' whole-run comparisons
+# (3b, 3c): their first 800 ticks, to keep the script's time
+WHOLE_RUN_CHUNKS = 2
 
 
 def smi_line() -> str:
@@ -105,6 +144,56 @@ def ffd64_cfg(P):
                        max_virtual_nodes=0, n_res=2)
 
 
+def market_cfg(P, quick=False, jobs=MARKET_JOBS, **kw):
+    """sinkhorn_market_setup's config (bench.py:993) with the trader off,
+    as the port's."""
+    base = dict(policy=P.PolicyKind.DELAY, parity=False,
+                max_placements_per_tick=8,
+                queue_capacity=512 if quick else 256,
+                max_running=256 if quick else 128, max_arrivals=jobs,
+                max_ingest_per_tick=16, max_nodes=5, max_virtual_nodes=4,
+                delay_sweep="wave", n_res=3,
+                trader=P.TraderConfig(enabled=False))
+    base.update(kw)
+    return P.SimConfig(**base)
+
+
+def market_specs(P, C):
+    """Half the clusters gpu-rich (8 gpus a node), half gpu-poor."""
+    return [P.uniform_cluster(c + 1, 5, gpus=8 if c % 2 == 0 else 0)
+            for c in range(C)]
+
+
+def mixed_specs(P, C):
+    """Clusters with nodes of all four device types, where the class
+    tables of gavel and rl choose between nodes."""
+    nodes = ((32, 24_000, 0, 0), (16, 12_000, 0, 2), (64, 48_000, 4, 3),
+             (32, 24_000, 8, 1), (32, 24_000, 0, 0))
+    return [P.ClusterSpec(id=c + 1, nodes=tuple(
+        P.NodeSpec(id=i + 1, cores=k, memory=m, gpus=g, device_type=d)
+        for i, (k, m, g, d) in enumerate(nodes))) for c in range(C)]
+
+
+def market_stream(E, C, jobs, quick=False, seed=7):
+    """The market's stream, its 400-tick ragged-K chunks, and how many of
+    its jobs can never place without the market: the gpu jobs of the
+    gpu-poor clusters."""
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        uniform_stream,
+    )
+
+    arr = uniform_stream(C, jobs, MARKET_HORIZON_MS, max_cores=24,
+                         max_mem=18_000,
+                         max_dur_ms=300_000 if quick else 40_000, seed=seed,
+                         max_gpus=2, gpu_frac=0.1)
+    n_ticks = MARKET_HORIZON_MS // 1_000 + 100
+    chunks = E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), 1_000)
+    valid = np.arange(arr.t.shape[1])[None, :] < arr.n[:, None]
+    poor = (np.arange(C) % 2 == 1)[:, None]
+    unplaceable = int(((arr.gpu > 0) & valid & poor).sum())
+    return chunks, n_ticks, unplaceable
+
+
 def chunk_sizes(n_ticks: int) -> list[int]:
     sizes = [CHUNK] * (n_ticks // CHUNK)
     return sizes + ([n_ticks % CHUNK] if n_ticks % CHUNK else [])
@@ -138,13 +227,14 @@ def max_abs_diff(a, b) -> float:
 
 def written_bytes(before, after):
     """Bytes of every state element the tick changed (0-d int64 tensor),
-    and the same for Level0's rows alone."""
+    and the same for the rows of Level0 and Level1 together."""
     from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
 
     written = sum((x != y).sum() * x.element_size() for (_, x), (_, y)
                   in zip(leaves_with_keys(before), leaves_with_keys(after)))
-    l0 = (before.l0.data != after.l0.data).sum() * 4
-    return written, l0
+    queues = ((before.l0.data != after.l0.data).sum()
+              + (before.l1.data != after.l1.data).sum()) * 4
+    return written, queues
 
 
 def fixed_reads(s, n_counters: int):
@@ -218,17 +308,70 @@ def tick_cost_ffd(before, after, rows, counts, t: int, trace: bool, QC: int):
     return read, written, ops
 
 
+def tick_cost_delay(before, after, rows, counts, t: int, trace: bool,
+                    QC: int):
+    """The least bytes and operations a DELAY tick ``t`` needs on this
+    tick's data, as (read, written, ops) 0-d int64 tensors on the card.
+
+    Written: every state element the tick changed. Read, per cluster: the
+    arrival count and the nine counters the tick updates (the trace count
+    too), the node vectors, the running set's active flags, the end_t of
+    each active slot and the node and resources of each released slot, the
+    whole row of each of the first min(|L1|, QC) Level1 jobs the sweep
+    processes and of the Level0 head, each Level0 and Level1 element the
+    tick rewrote (read from its source slot), and the valid arrival rows.
+    Operations: N*(R+1) compares of first fit per attempted job."""
+    s = before
+    n_res, N = s.node_free.shape[2], s.node_free.shape[1]
+    Qc = s.l0.data.shape[1]
+    row_b = rows.shape[2] * rows.element_size()
+    written, q_written = written_bytes(before, after)
+    n_take = counts.clamp(0, rows.shape[1])
+    head = ((s.l0.count + n_take).clamp(0, Qc) > 0).long()
+    n_sweep = s.l1.count.clamp(max=QC).long()
+    read = (fixed_reads(s, 9 + int(trace)) + run_reads(s, t)
+            + row_b * (n_sweep + head).sum() + q_written
+            + row_b * n_take.sum())
+    ops = ((n_sweep + head) * N * (n_res + 1)).sum()
+    return read, written, ops
+
+
+def tick_cost_scored(before, after, rows, counts, t: int, trace: bool,
+                     QC: int, tesserae: bool):
+    """``tick_cost_ffd`` for the scored sweeps. tesserae sweeps the BFD
+    order as FFD does and scores each node of each processed job with R
+    multiplies and R adds besides first fit's R+1 compares; gavel and rl
+    sweep in queue order (no keys to select by: each processed row is
+    read whole) and look each node's score up in a table, reading the
+    node types."""
+    s = before
+    n_res, N = s.node_free.shape[2], s.node_free.shape[1]
+    n_take = counts.clamp(0, rows.shape[1])
+    n_sweep = (s.l0.count + n_take).clamp(0, s.l0.data.shape[1]).clamp(
+        max=QC)
+    if tesserae:
+        read, written, ops = tick_cost_ffd(before, after, rows, counts, t,
+                                           trace, QC)
+        return read, written, ops + (n_sweep * N * 2 * n_res).sum()
+    row_b = rows.shape[2] * rows.element_size()
+    written, q_written = written_bytes(before, after)
+    read = (fixed_reads(s, 8 + int(trace)) + run_reads(s, t)
+            + row_b * n_sweep.sum() + q_written + row_b * n_take.sum()
+            + 4 * s.node_type.numel())
+    return read, written, (n_sweep * N * (n_res + 2)).sum()
+
+
 class Checker:
     """Runs kernel-vs-plain comparisons on copies of one state and keeps
     the worst difference and the plain version's times."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, params=None):
         from multi_cluster_simulator_tpu_torch.core.state import clone_state
         from multi_cluster_simulator_tpu_torch.kernels import fused_tick
 
         self.ft, self.clone, self.engine = fused_tick, clone_state, engine
-        self.params = engine._default_params
-        self.host = fused_tick.host_params(self.params)
+        self.params = engine._default_params if params is None else params
+        self.host = fused_tick.host_params(engine, self.params)
         self.worst, self.n, self.plain_ms = 0.0, 0, []
 
     def compare(self, state, rows, counts, t, lent_rows=False):
@@ -246,7 +389,8 @@ class Checker:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         ref = self.ft.fused_prefix_reference(self.engine, ref_in, rows,
-                                             counts, t, self.params)
+                                             counts, t, self.params,
+                                             self.host["member"])
         ev[1].record()
         out = self.ft.fused_prefix(self.engine, self.clone(state), rows,
                                    counts, t, self.params, self.host)
@@ -255,7 +399,7 @@ class Checker:
         d = max_abs_diff(ref, out)
         if d:
             raise AssertionError(
-                f"{self.ft.kernel_for(self.engine).name} differs from plain "
+                f"{self.host['kernel'].name} differs from plain "
                 f"at t={t}: max |diff| {d}")
         self.worst, self.n = max(self.worst, d), self.n + 1
         return out
@@ -286,7 +430,7 @@ def phase_kernel_vs_plain(P, E, card, dev):
     cfg = headline_cfg(P)
     engine = E.Engine(cfg, device=dev)
     params = engine._default_params
-    host = fused_tick.host_params(params)
+    host = fused_tick.host_params(engine, params)
     specs = [P.uniform_cluster(c + 1, 5) for c in range(HEADLINE_C)]
     n_ticks = HORIZON_MS // cfg.tick_ms + 70
     arr = uniform_stream(HEADLINE_C, JOBS, HORIZON_MS, max_cores=8,
@@ -365,18 +509,20 @@ def phase_kernel_vs_plain(P, E, card, dev):
     specs_t = [P.uniform_cluster(c + 1, 5) for c in range(RUN_C)]
     arr_t = uniform_stream(RUN_C, JOBS, HORIZON_MS, max_cores=8, max_mem=6_000,
                            max_dur_ms=60_000, seed=9)
-    ch_t = E.pack_arrivals_chunks(arr_t, chunk_sizes(n_ticks), cfg.tick_ms)
+    ch_t = E.pack_arrivals_chunks(arr_t, chunk_sizes(n_ticks),
+                                  cfg.tick_ms)[:WHOLE_RUN_CHUNKS]
     plain_run_s, kernel_run_s, out = whole_run_against_plain(
         E, eng_t, init_state(cfg_t, specs_t, device=dev), ch_t, "FIFO")
     placed = int(out.placed_total.sum())
-    print(f"phase 3b: {RUN_C}-cluster headline run, FIFO kernel == plain on "
-          f"every leaf and the trace ({placed} placements); run wall plain "
-          f"{plain_run_s:.3f} s, kernel {kernel_run_s:.3f} s [{card}]")
+    print(f"phase 3b: {RUN_C}-cluster headline run, its first "
+          f"{sum(c.rows.shape[0] for c in ch_t)} ticks, FIFO kernel == plain "
+          f"on every leaf and the trace ({placed} placements); run wall "
+          f"plain {plain_run_s:.3f} s, kernel {kernel_run_s:.3f} s [{card}]")
     return dict(worst=chk.worst, kernel_ms=kernel_ms, plain_ms=chk.plain_ms,
                 read_per_launch=read_b, written_per_launch=written_b)
 
 
-def whole_run_against_plain(E, engine, s0, chunks, what):
+def whole_run_against_plain(E, engine, s0, chunks, what, params=None):
     """A whole run through ``engine.run_chunks`` (the kernel) and through
     the plain version tick by tick, from copies of ``s0``; every leaf of
     the two final states must be equal. Returns the two walls and the
@@ -384,7 +530,8 @@ def whole_run_against_plain(E, engine, s0, chunks, what):
     from multi_cluster_simulator_tpu_torch.core.state import clone_state
     from multi_cluster_simulator_tpu_torch.kernels import fused_tick
 
-    params = engine._default_params
+    params = engine._default_params if params is None else params
+    member = engine.member(params)
     ref = clone_state(s0)
     t = 0
     torch.cuda.synchronize()
@@ -395,12 +542,13 @@ def whole_run_against_plain(E, engine, s0, chunks, what):
         for k in range(ch.rows.shape[0]):
             t += engine.cfg.tick_ms
             ref = fused_tick.fused_prefix_reference(engine, ref, rows_all[k],
-                                                    counts_all[k], t, params)
+                                                    counts_all[k], t, params,
+                                                    member)
             ref.t.fill_(t)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - w0
     w0 = time.perf_counter()
-    out = engine.run_chunks(clone_state(s0), chunks)
+    out = engine.run_chunks(clone_state(s0), chunks, params)
     torch.cuda.synchronize()
     kernel_s = time.perf_counter() - w0
     d = max_abs_diff(ref, out)
@@ -535,13 +683,19 @@ def borg_stream(E, C, jobs, horizon_ms, tick_ms):
     return E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), tick_ms), n_ticks
 
 
-def sampled_kernel_pass(fused_tick, chk, engine, s0, chunks, picks, QC):
+def sampled_kernel_pass(fused_tick, chk, engine, s0, chunks, picks, QC,
+                        cost=None):
     """Drive a whole run tick by tick through the kernel, a CUDA event
-    pair around every launch and the tick's bytes and operations counted;
-    at the global ticks in ``picks`` compare kernel and plain on the state
-    the run has reached (and take the plain's output, which is equal).
-    Returns the per-launch times, the mean bytes read and written and the
-    mean operations per launch, and the worst Level0 depth seen."""
+    pair around every launch and the tick's bytes and operations counted
+    (by ``cost(before, after, rows, counts, t)``, FFD's by default); at
+    the global ticks in ``picks`` compare kernel and plain on the state
+    the run has reached. Returns the per-launch times, the mean bytes read
+    and written and the mean operations per launch, the worst Level0 and
+    Level1 depths seen, and the final state."""
+    if cost is None:
+        def cost(before, after, rows, counts, t):
+            return tick_cost_ffd(before, after, rows, counts, t,
+                                 engine.cfg.record_trace, QC)
     from multi_cluster_simulator_tpu_torch.core.state import clone_state
 
     params, host = chk.params, chk.host
@@ -549,6 +703,7 @@ def sampled_kernel_pass(fused_tick, chk, engine, s0, chunks, picks, QC):
     state = clone_state(s0)
     evs, read_b, written_b, ops, t, k_glob = [], 0, 0, 0, 0, 0
     max_l0 = torch.zeros((), dtype=torch.int32, device=dev)
+    max_l1 = torch.zeros((), dtype=torch.int32, device=dev)
     for ch in chunks:
         rows_all = torch.from_numpy(ch.rows).to(dev)
         counts_all = torch.from_numpy(ch.counts).to(dev)
@@ -560,16 +715,17 @@ def sampled_kernel_pass(fused_tick, chk, engine, s0, chunks, picks, QC):
             before = clone_state(state)
             evs.append(timed_launch(fused_tick, engine, state, rows, counts,
                                     t, params, host))
-            r, w, o = tick_cost_ffd(before, state, rows, counts, t,
-                                    engine.cfg.record_trace, QC)
+            r, w, o = cost(before, state, rows, counts, t)
             read_b, written_b, ops = read_b + r, written_b + w, ops + o
             max_l0 = torch.maximum(max_l0, state.l0.count.max())
+            max_l1 = torch.maximum(max_l1, state.l1.count.max())
             state.t.fill_(t)
             k_glob += 1
     torch.cuda.synchronize()
     return dict(kernel_ms=[a.elapsed_time(b) for a, b in evs],
                 read=int(read_b) / k_glob, written=int(written_b) / k_glob,
-                ops=int(ops) / k_glob, max_l0=int(max_l0), ticks=k_glob)
+                ops=int(ops) / k_glob, max_l0=int(max_l0),
+                max_l1=int(max_l1), ticks=k_glob, state=state)
 
 
 def pick_ticks(chunks, n):
@@ -660,14 +816,16 @@ def phase_ffd_kernel_vs_plain(P, E, card, dev):
     qc_, qj, qh = BORG_QUICK
     cfg_q = borg_cfg(P, jobs=qj, record_trace=True, max_trace_events=512)
     eng_q = E.Engine(cfg_q, device=dev)
-    ch_q, nq = borg_stream(E, qc_, qj, qh, cfg_q.tick_ms)
+    ch_q, _ = borg_stream(E, qc_, qj, qh, cfg_q.tick_ms)
+    ch_q = ch_q[:WHOLE_RUN_CHUNKS]
+    nq = sum(c.rows.shape[0] for c in ch_q)
     specs_q = [P.uniform_cluster(c + 1, 5) for c in range(qc_)]
     plain_s, kernel_s, out = whole_run_against_plain(
         E, eng_q, init_state(cfg_q, specs_q, device=dev), ch_q, "FFD")
-    print(f"phase 3c: whole borg4k quick run ({qc_} clusters x {qj} jobs, "
-          f"{nq} ticks), FFD kernel == plain on every leaf and the trace "
-          f"({int(out.placed_total.sum())} placements); run wall plain "
-          f"{plain_s:.3f} s, kernel {kernel_s:.3f} s [{card}]")
+    print(f"phase 3c: borg4k quick run ({qc_} clusters x {qj} jobs, its "
+          f"first {nq} ticks), FFD kernel == plain on every leaf and the "
+          f"trace ({int(out.placed_total.sum())} placements); run wall "
+          f"plain {plain_s:.3f} s, kernel {kernel_s:.3f} s [{card}]")
     return dict(worst=chk.worst, plain_ms=chk.plain_ms, sampled=sp,
                 chunks=chunks, n_ticks=n_ticks, specs=specs)
 
@@ -736,6 +894,345 @@ def phase_ffd64(P, E, card, dev):
     return dict(worst=chk.worst)
 
 
+def heavy_ticks(E, chk, cfg, specs, arr, dev, seen, watch):
+    """30 ticks of ``arr`` at ``cfg``, every tick compared kernel against
+    plain from the state the last tick reached; ``watch`` adds each
+    tick's firings (before, after, rows, counts) into ``seen``."""
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        clone_state, init_state,
+    )
+
+    ch = E.pack_arrivals_chunks(arr, [30], cfg.tick_ms)[0]
+    state = init_state(cfg, specs, device=dev)
+    rows_all = torch.from_numpy(ch.rows).to(dev)
+    counts_all = torch.from_numpy(ch.counts).to(dev)
+    t = 0
+    for k in range(ch.rows.shape[0]):
+        t += cfg.tick_ms
+        before = clone_state(state)
+        state = chk.compare(state, rows_all[k], counts_all[k], t)
+        watch(seen, before, state, rows_all[k], counts_all[k])
+        state.t.fill_(t)
+    return state
+
+
+def delay_firings(QC):
+    """A ``watch`` for DELAY: promotions (Level1 grows only by them),
+    promotions dropped by a full Level1 (the tick's drops.queue less the
+    ingest's), run_full, and the parity skip (a Level1 slot placed while
+    a later slot was still inside the sweep; needs the trace)."""
+    from multi_cluster_simulator_tpu_torch.core.state import SRC_L1
+
+    def watch(seen, before, after, rows, counts):
+        room = before.l0.data.shape[1] - before.l0.count
+        ingest_drops = (counts.clamp(0, rows.shape[1]) - room).clamp(min=0)
+        seen["promoted"] += int((after.l1.count > before.l1.count).sum())
+        seen["l1_full"] += int((after.drops.queue - before.drops.queue
+                                - ingest_drops).sum())
+        seen["run_full"] += int((after.drops.run_full
+                                 - before.drops.run_full).sum())
+        if after.trace.t.shape[1] == 1:
+            return
+        n0, n1 = before.trace.n.cpu().numpy(), after.trace.n.cpu().numpy()
+        ids = before.l1.data[..., 0].cpu().numpy()
+        l1n = before.l1.count.cpu().numpy()
+        job = after.trace.job.cpu().numpy()
+        src = after.trace.src.cpu().numpy()
+        for c in np.nonzero(n1 > n0)[0]:
+            n_sweep = min(int(l1n[c]), QC)
+            new = slice(int(n0[c]), int(n1[c]))
+            placed = set(job[c, new][src[c, new] == SRC_L1].tolist())
+            seen["skips"] += sum(1 for i in range(n_sweep - 1)
+                                 if ids[c, i] in placed)
+    return watch
+
+
+def level0_firings(QC):
+    """A ``watch`` for the Level0 sweeps: drops.queue, run_full, and the
+    per-tick cap binding."""
+    def watch(seen, before, after, rows, counts):
+        pre = (before.l0.count + counts.clamp(0, rows.shape[1])).clamp(
+            max=before.l0.data.shape[1])
+        seen["queue"] += int((after.drops.queue - before.drops.queue).sum())
+        seen["run_full"] += int((after.drops.run_full
+                                 - before.drops.run_full).sum())
+        seen["capped"] += int((pre > QC).sum())
+    return watch
+
+
+def phase_delay_kernel_vs_plain(P, E, card, dev, market):
+    """Phase 3d: the DELAY kernel against its plain version."""
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.policies import kernels as K
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        uniform_stream,
+    )
+
+    out = {}
+    # the sampled passes of runs (a) and (d) at full width: every launch
+    # timed, kernel == plain at the picked ticks
+    for name, n_picks in (("a", MARKET_SAMPLES), ("d", 4)):
+        policy, kw, _ = MARKET_RUNS[name]
+        cfg = market_cfg(P, **kw)
+        QC = K._sweep_len(cfg)
+        engine = E.Engine(cfg, device=dev, policies=PolicySet((policy,)))
+        chk = Checker(engine)
+        picks, peak = pick_ticks(market["chunks"], n_picks)
+
+        def cost(b, a, r, c, t, cfg=cfg, QC=QC):
+            return tick_cost_delay(b, a, r, c, t, cfg.record_trace, QC)
+
+        sp = sampled_kernel_pass(fused_tick, chk, engine,
+                                 init_state(cfg, market["specs"], device=dev),
+                                 market["chunks"], picks, QC, cost)
+        out[name] = dict(sampled=sp, worst=chk.worst, plain_ms=chk.plain_ms)
+        print(f"phase 3d: DELAY kernel == plain bitwise on {chk.n} ticks of "
+              f"run ({name}) sampled as the kernel reached them (ticks "
+              f"{sorted(picks)}, the peak {peak} included), C={MARKET_C}; "
+              f"max Level0 depth {sp['max_l0']}, Level1 {sp['max_l1']} "
+              f"[{card}]")
+
+    # heavier streams at the same width, every tick compared, on an
+    # 8-deep queue so that 30 ticks fill Level1: a dense stream fires
+    # promotion (delay-eager: after 2 s), a full Level1 and drops.queue;
+    # many small long jobs fill the running set (run_full)
+    C = MARKET_C
+    specs = market_specs(P, C)
+    heavy = [uniform_stream(C, 300, 30_000, max_cores=24, max_mem=18_000,
+                            max_dur_ms=40_000, seed=31, max_gpus=2,
+                            gpu_frac=0.1),
+             uniform_stream(C, 300, 30_000, max_cores=2, max_mem=1_000,
+                            max_dur_ms=600_000, seed=32)]
+    tight = dict(queue_capacity=8, max_running=24)
+    trace = dict(record_trace=True, max_trace_events=512)
+    variants = [("wave", market_cfg(P, **tight), "delay-eager"),
+                ("serial", market_cfg(P, delay_sweep="serial", **tight),
+                 "delay-eager"),
+                ("parity", market_cfg(P, parity=True, **tight, **trace),
+                 "delay-eager"),
+                ("delay", market_cfg(P, **tight, **trace), "delay")]
+    seen = dict(promoted=0, l1_full=0, run_full=0, skips=0)
+    worst = max(o["worst"] for o in out.values())
+    for name, vcfg, policy in variants:
+        veng = E.Engine(vcfg, device=dev, policies=PolicySet((policy,)))
+        vchk = Checker(veng)
+        watch = delay_firings(K._sweep_len(vcfg))
+        for arr in heavy if name in ("wave", "parity") else heavy[:1]:
+            heavy_ticks(E, vchk, vcfg, specs, arr, dev, seen, watch)
+        worst = max(worst, vchk.worst)
+        print(f"phase 3d: DELAY kernel == plain bitwise, {name} form "
+              f"({policy}), {vchk.n} heavy ticks at C={C} [{card}]")
+    print(f"phase 3d: the heavy streams fired promotion {seen['promoted']} "
+          f"cluster-ticks, full-Level1 drops {seen['l1_full']}, "
+          f"drops.run_full {seen['run_full']}, parity skips "
+          f"{seen['skips']} [{card}]")
+    if not all(seen.values()):
+        raise AssertionError(f"the heavy streams missed a branch: {seen}")
+
+    # a whole run at sinkhorn_market_setup(quick=True)'s shape, trace on
+    qc_, qj = MARKET_QUICK
+    cfg_q = market_cfg(P, quick=True, jobs=qj, **trace)
+    eng_q = E.Engine(cfg_q, device=dev)
+    ch_q, nq, _ = market_stream(E, qc_, qj, quick=True)
+    plain_s, kernel_s, fin = whole_run_against_plain(
+        E, eng_q, init_state(cfg_q, market_specs(P, qc_), device=dev), ch_q,
+        "DELAY")
+    print(f"phase 3d: whole quick market run ({qc_} clusters x {qj} jobs, "
+          f"{nq} ticks), DELAY kernel == plain on every leaf and the trace "
+          f"({int(fin.placed_total.sum())} placements); run wall plain "
+          f"{plain_s:.3f} s, kernel {kernel_s:.3f} s [{card}]")
+    out["worst"] = worst
+    return out
+
+
+def rl_seeded(engine):
+    """The engine's params with seeded non-zero rl scores."""
+    scores = np.random.default_rng(17).normal(size=(4, 4)).astype(np.float32)
+    p = engine._default_params
+    return p.replace(rl_scores=torch.from_numpy(scores).to(p.rl_scores.device))
+
+
+def phase_scored_kernel_vs_plain(P, E, card, dev, market):
+    """Phase 3e: the scored kernel against its plain version."""
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.policies import kernels as K
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        uniform_stream,
+    )
+
+    out = {}
+    cfg = market_cfg(P)
+    QC = K._sweep_len(cfg)
+    for name, n_picks in (("b", MARKET_SAMPLES // 2),
+                          ("c", MARKET_SAMPLES // 2)):
+        policy = MARKET_RUNS[name][0]
+        engine = E.Engine(cfg, device=dev, policies=PolicySet((policy,)))
+        chk = Checker(engine)
+        picks, peak = pick_ticks(market["chunks"], n_picks)
+
+        def cost(b, a, r, c, t, tess=policy == "tesserae"):
+            return tick_cost_scored(b, a, r, c, t, cfg.record_trace, QC,
+                                    tess)
+
+        sp = sampled_kernel_pass(fused_tick, chk, engine,
+                                 init_state(cfg, market["specs"], device=dev),
+                                 market["chunks"], picks, QC, cost)
+        out[name] = dict(sampled=sp, worst=chk.worst, plain_ms=chk.plain_ms)
+        print(f"phase 3e: scored kernel ({policy}) == plain bitwise on "
+              f"{chk.n} ticks of run ({name}) sampled as the kernel reached "
+              f"them (ticks {sorted(picks)}), C={MARKET_C}; max Level0 "
+              f"depth {sp['max_l0']} [{card}]")
+
+    # heavier streams at the same width, every tick compared: a dense
+    # stream overflows Level0 and keeps more than QC jobs queued; many
+    # small long jobs fill the running set (run_full)
+    C = MARKET_C
+    heavy = [uniform_stream(C, 300, 30_000, max_cores=24, max_mem=18_000,
+                            max_dur_ms=40_000, seed=33, max_gpus=2,
+                            gpu_frac=0.1),
+             uniform_stream(C, 300, 30_000, max_cores=2, max_mem=1_000,
+                            max_dur_ms=600_000, seed=34)]
+    tight = dict(queue_capacity=16, max_running=24)
+    trace = dict(record_trace=True, max_trace_events=512)
+    variants = [("gavel", market_specs, "gavel", {}),
+                ("tesserae", market_specs, "tesserae", trace),
+                ("gavel, mixed nodes", mixed_specs, "gavel", {}),
+                ("rl, seeded scores, mixed nodes", mixed_specs, "rl", trace)]
+    seen = dict(queue=0, run_full=0, capped=0)
+    worst = max(o["worst"] for o in out.values())
+    for name, mk_specs, policy, kw in variants:
+        vcfg = market_cfg(P, **tight, **kw)
+        veng = E.Engine(vcfg, device=dev, policies=PolicySet((policy,)))
+        vchk = Checker(veng, rl_seeded(veng) if policy == "rl" else None)
+        for arr in heavy if mk_specs is market_specs else heavy[:1]:
+            heavy_ticks(E, vchk, vcfg, mk_specs(P, C), arr, dev, seen,
+                        level0_firings(K._sweep_len(vcfg)))
+        worst = max(worst, vchk.worst)
+        print(f"phase 3e: scored kernel == plain bitwise, {name}, {vchk.n} "
+              f"heavy ticks at C={C} [{card}]")
+    print(f"phase 3e: the heavy streams fired drops.queue {seen['queue']}, "
+          f"drops.run_full {seen['run_full']}, capped cluster-ticks "
+          f"{seen['capped']} [{card}]")
+    if not all(seen.values()):
+        raise AssertionError(f"the heavy streams missed a branch: {seen}")
+
+    # runs at the quick market shape, the trace on, over its first chunk
+    # (400 of 700 ticks): tesserae on the market's clusters, rl with
+    # seeded scores on mixed nodes
+    qc_, qj = MARKET_QUICK
+    cfg_q = market_cfg(P, quick=True, jobs=qj, **trace)
+    ch_q = market_stream(E, qc_, qj, quick=True)[0][:1]
+    nq = ch_q[0].rows.shape[0]
+    for policy, mk_specs in (("tesserae", market_specs), ("rl", mixed_specs)):
+        eng_q = E.Engine(cfg_q, device=dev, policies=PolicySet((policy,)))
+        params = rl_seeded(eng_q) if policy == "rl" else None
+        plain_s, kernel_s, fin = whole_run_against_plain(
+            E, eng_q, init_state(cfg_q, mk_specs(P, qc_), device=dev), ch_q,
+            policy, params)
+        print(f"phase 3e: quick market run ({policy}, {qc_} clusters x "
+              f"{qj} jobs, its first {nq} ticks), scored kernel == plain on "
+              f"every leaf and the trace ({int(fin.placed_total.sum())} "
+              f"placements); run wall plain {plain_s:.3f} s, kernel "
+              f"{kernel_s:.3f} s [{card}]")
+    out["worst"] = worst
+    return out
+
+
+def phase_dispatch(P, E, card, dev):
+    """Phase 3f: tools/tournament.py's lineup as one PolicySet at small
+    width; each params.idx launches its member's kernel and no other, and
+    the run equals the plain version."""
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        TickArrivals, init_state,
+    )
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+
+    cfg = market_cfg(P, record_trace=True, max_trace_events=512)
+    pset = PolicySet(LINEUP)
+    engine = E.Engine(cfg, device=dev, policies=pset)
+    chunks, _, _ = market_stream(E, LINEUP_C, MARKET_JOBS)
+    part = [TickArrivals(rows=chunks[0].rows[:LINEUP_TICKS],
+                         counts=chunks[0].counts[:LINEUP_TICKS])]
+    s0 = init_state(cfg, market_specs(P, LINEUP_C), device=dev)
+    for idx, name in enumerate(LINEUP):
+        params = pset.params_for(cfg, name, device=dev)
+        want = fused_tick.host_params(engine, params)["kernel"].name
+        fused_tick.reset_launches()
+        _, _, fin = whole_run_against_plain(E, engine, s0, part, name,
+                                            params)
+        counts = fused_tick.launch_counts()
+        expect = {k: (LINEUP_TICKS if k == want else 0) for k in counts}
+        if counts != expect:
+            raise AssertionError(f"idx {idx} ({name}): launches {counts}, "
+                                 f"want {expect}")
+        print(f"phase 3f: idx {idx} ({name}) ran {want} x {LINEUP_TICKS}, "
+              f"== plain on every leaf ({int(fin.placed_total.sum())} "
+              f"placements) [{card}]")
+
+
+def phase_market(P, E, card, dev, market, name):
+    """Phases 4d-4g: one full-shape market run through the entry points."""
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+    from multi_cluster_simulator_tpu_torch.utils.trace import (
+        check_conservation, total_drops,
+    )
+    from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
+
+    policy, kw, gated = MARKET_RUNS[name]
+    cfg = market_cfg(P, **kw)
+    engine = E.Engine(cfg, device=dev, policies=PolicySet((policy,)))
+    kernel = fused_tick.kernel_for(engine.member()).name
+    chunks, n_ticks = market["chunks"], market["n_ticks"]
+    s0 = init_state(cfg, market["specs"], device=dev)
+    state_b = sum(x.numel() * x.element_size()
+                  for _, x in leaves_with_keys(s0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, first_s, counts = counted_run(engine, s0, chunks, kernel)
+    peak_b = torch.cuda.max_memory_allocated()
+    n_jobs = MARKET_C * MARKET_JOBS
+    placeable = n_jobs - market["unplaceable"]
+    drops = total_drops(out)
+    placed = int(out.placed_total.sum())
+    check_conservation(out)
+    if int(out.t) != n_ticks * cfg.tick_ms:
+        raise AssertionError(f"run ({name}): clock {int(out.t)}")
+    # every arrived job is placed, queued, or counted as dropped
+    queued = int(out.l0.count.sum() + out.l1.count.sum())
+    arrived = int(out.arr_ptr.sum())
+    if placed + queued + drops["queue"] != arrived or arrived != n_jobs:
+        raise AssertionError(f"run ({name}): {arrived} arrived, {placed} "
+                             f"placed, {queued} queued, {drops['queue']} "
+                             f"dropped")
+    share = placed / placeable
+    if gated and (any(drops.values()) or share < MARKET_FLOOR):
+        raise AssertionError(f"run ({name}): drops {drops}, placed "
+                             f"{share:.4f} of the placeable jobs")
+    walls, h2d_s = timed_runs(engine, s0, chunks, MARKET_WARMUPS,
+                              MARKET_TIMED)
+    label = f"phase 4{'defg'['abcd'.index(name)]}"
+    print(f"{label}: market run ({name}) {policy} {kw or ''}: {MARKET_C} "
+          f"clusters x {MARKET_JOBS} jobs, {n_ticks} ticks: placed {placed} "
+          f"of {n_jobs}, unplaceable without the market "
+          f"{market['unplaceable']}, placed share of the rest "
+          f"{share:.4f} (gate {MARKET_FLOOR if gated else 'not applied'}), "
+          f"queued at the end {queued}, drops {drops}, launches {counts}, "
+          f"conservation ok; state {state_b} B, peak device memory "
+          f"{peak_b} B [{card}]")
+    wmin, wmed = print_run(label, f"market ({name})", placed, walls, first_s,
+                           n_ticks, chunks, h2d_s, card)
+    return dict(launches=counts[kernel], placed=placed, wall_min_s=wmin,
+                wall_median_s=wmed, n_ticks=n_ticks, h2d_s=h2d_s,
+                share=share, drops=drops)
+
+
 def bound(read, written, ops=0.0):
     """The least time (ms) for a launch's bytes and operations, and which
     of the two bounds it."""
@@ -787,7 +1284,23 @@ def main(device: str = "cuda") -> int:
     borg = phase_ffd_kernel_vs_plain(P, E, card, dev)
     b4k = phase_borg4k(P, E, card, dev, borg)
     f64 = phase_ffd64(P, E, card, dev)
-    print(f"phases 3-4: {time.perf_counter() - w0:.1f} s")
+    print(f"phases 3a-c, 4a-c: {time.perf_counter() - w0:.1f} s")
+
+    w1 = time.perf_counter()
+    chunks, n_ticks, unplaceable = market_stream(E, MARKET_C, MARKET_JOBS)
+    market = dict(chunks=chunks, n_ticks=n_ticks, unplaceable=unplaceable,
+                  specs=market_specs(P, MARKET_C))
+    print(f"market stream: {MARKET_C * MARKET_JOBS} jobs in {len(chunks)} "
+          f"chunks, {sum(ch.nbytes() for ch in chunks)} B of rows (K per "
+          f"chunk {[ch.rows.shape[2] for ch in chunks]}), unplaceable "
+          f"without the market {unplaceable}; built in "
+          f"{time.perf_counter() - w1:.1f} s")
+    delay = phase_delay_kernel_vs_plain(P, E, card, dev, market)
+    scored = phase_scored_kernel_vs_plain(P, E, card, dev, market)
+    phase_dispatch(P, E, card, dev)
+    runs = {name: phase_market(P, E, card, dev, market, name)
+            for name in MARKET_RUNS}
+    print(f"phases 3d-f, 4d-g: {time.perf_counter() - w1:.1f} s")
 
     records = []
     kms = float(np.mean(check["kernel_ms"]))
@@ -801,7 +1314,7 @@ def main(device: str = "cuda") -> int:
           f"{check['written_per_launch']:.1f} written, at 3.35 TB/s); "
           f"kernel / bound {kms / b_ms:.1f} [{card}]")
     breakdown("headline", head, check["kernel_ms"], card)
-    records.append(dict(kernel=fused_tick.KERNELS["fifo"],
+    records.append(dict(kernel=fused_tick.KERNELS["fused_prefix_fifo"],
                         launches=head["launches"], worst=check["worst"],
                         ms=kms, plain=check["plain_ms"], bound=(b_ms, b_by)))
 
@@ -818,10 +1331,37 @@ def main(device: str = "cuda") -> int:
           f"{1e6 * sp['ops'] / SCALAR_OPS_PER_S:.4f} us); kernel / bound "
           f"{kms / b_ms:.1f} [{card}]")
     breakdown("borg4k", b4k, sp["kernel_ms"], card)
-    records.append(dict(kernel=fused_tick.KERNELS["ffd"],
+    records.append(dict(kernel=fused_tick.KERNELS["fused_prefix_ffd"],
                         launches=b4k["launches"],
                         worst=max(borg["worst"], f64["worst"]), ms=kms,
                         plain=borg["plain_ms"], bound=(b_ms, b_by)))
+
+    # the market runs: the record of each kernel is its first run's, (a)
+    # for DELAY and (b) for the scored sweep; every run is printed
+    for kernel, group, first in (("fused_prefix_delay", delay, "a"),
+                                 ("fused_prefix_scored", scored, "b")):
+        for run in [n for n in MARKET_RUNS if n in group]:
+            sp = group[run]["sampled"]
+            kms = float(np.mean(sp["kernel_ms"]))
+            b_ms, b_by = bound(sp["read"], sp["written"], sp["ops"])
+            print(f"kernel {kernel}, run ({run}): {kms * 1e3:.2f} us/launch "
+                  f"mean over {len(sp['kernel_ms'])} launches (CUDA events), "
+                  f"plain {np.mean(group[run]['plain_ms']):.3f} ms, bound "
+                  f"{b_ms * 1e3:.4f} us by {b_by} "
+                  f"({sp['read'] + sp['written']:.1f} B per launch, mean of "
+                  f"{sp['read']:.1f} read and {sp['written']:.1f} written, "
+                  f"at 3.35 TB/s: "
+                  f"{1e6 * (sp['read'] + sp['written']) / HBM_BYTES_PER_S:.4f}"
+                  f" us; {sp['ops']:.1f} operations per launch at 67 T/s: "
+                  f"{1e6 * sp['ops'] / SCALAR_OPS_PER_S:.4f} us); kernel / "
+                  f"bound {kms / b_ms:.1f} [{card}]")
+            breakdown(f"market ({run})", runs[run], sp["kernel_ms"], card)
+            if run == first:
+                records.append(dict(
+                    kernel=fused_tick.KERNELS[kernel],
+                    launches=runs[run]["launches"], worst=group["worst"],
+                    ms=kms, plain=group[run]["plain_ms"],
+                    bound=(b_ms, b_by)))
 
     print(json.dumps({"kernels": [{
         "name": r["kernel"].name, "route": "cuda",

@@ -1,14 +1,17 @@
 """The virtual-time simulation engine (the port of
-``multi_cluster_simulator_tpu/core/engine.py``: the FIFO and FFD slices).
+``multi_cluster_simulator_tpu/core/engine.py``: the FIFO, FFD, DELAY and
+scored-zoo slices).
 
 One tick is the reference's tick on the paths the port carries: the
 per-cluster prefix ``release -> ingest -> schedule`` and then the clock
-advance. The schedule slot runs the engine's policy (FIFO, whose arrivals
-go to the ReadyQueue; or the FFD bin-pack, whose arrivals go to Level0).
-Every later phase (return delivery, borrow matching, the trader snapshot
-and market) is off on these paths, so the prefix is the whole tick. The
-prefix runs as one hand-written CUDA kernel per policy on the card and as
-the plain PyTorch ops on the CPU (kernels/fused_tick.py).
+advance. The schedule slot runs the member of the engine's ``PolicySet``
+that ``params.idx`` selects (FIFO, whose arrivals go to the ReadyQueue;
+or DELAY, FFD, gavel, tesserae or rl, whose arrivals go to Level0); the
+index is read once at a run's entry. Every later phase (return delivery,
+borrow matching, the trader snapshot and market) is off on these paths,
+so the prefix is the whole tick. The prefix runs as one hand-written CUDA
+kernel per span on the card and as the plain PyTorch ops on the CPU
+(kernels/fused_tick.py).
 
 The run loops replace the reference's ``lax.scan``: ``run`` loops over the
 ticks of a ``TickArrivals`` bucket, and ``run_chunks`` does what
@@ -174,16 +177,15 @@ def _ingest_packed_local(s: SimState, rows: torch.Tensor, cnt: torch.Tensor,
 # Engine
 # --------------------------------------------------------------------------
 
-def _check_slice(cfg: SimConfig, pset: PolicySet) -> None:
+def _check_slice(cfg: SimConfig) -> None:
     """Refuse, by name, every configuration this slice does not carry."""
     if cfg.n_res not in (2, 3):
         raise ValueError(f"n_res must be 2 or 3, got {cfg.n_res}")
-    for field in ("fifo_drain", "ffd_sweep"):
+    for field in ("fifo_drain", "ffd_sweep", "delay_sweep"):
         v = getattr(cfg, field)
         if v not in ("wave", "serial"):
             raise ValueError(
                 f"{field} must be 'wave' or 'serial', got {v!r}")
-    pset.check_ported()
     gaps = [
         (cfg.borrowing, "cross-cluster borrowing", "A6"),
         (cfg.trader.enabled, "the trader market", "A7"),
@@ -207,23 +209,29 @@ class Engine:
     def __init__(self, cfg: SimConfig, device=None, policies=None):
         self.pset = policies if policies is not None else \
             PolicySet.from_config(cfg)
-        _check_slice(cfg, self.pset)
-        self.spec = self.pset.specs[0]  # the one policy this engine runs
+        _check_slice(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self._default_params = self.pset.params_for(cfg, device=self.device)
 
+    def member(self, params=None):
+        """The ``PolicySpec`` that ``params.idx`` selects (the default
+        params' member when None): a host read of the index."""
+        params = self._default_params if params is None else params
+        return self.pset.member(params.idx)
+
     def _span_prefix(self, state: SimState, rows: torch.Tensor,
-                     counts: torch.Tensor, t: int,
-                     params: PolicyParams) -> SimState:
+                     counts: torch.Tensor, t: int, params: PolicyParams,
+                     member=None) -> SimState:
         """Phases 1-5 of the tick on this slice's paths, as plain PyTorch
-        ops: completions, arrival ingest into the policy's queue, the
-        policy's pass. The CUDA kernels are held against exactly this
-        function."""
+        ops: completions, arrival ingest into the member's queue, the
+        member's pass. ``member`` is the ``PolicySpec`` ``params.idx``
+        selects (read from the index when None). The CUDA kernels are held
+        against exactly this function."""
+        member = self.member(params) if member is None else member
         state, _ = _release_local(state, t)
-        state = _ingest_packed_local(state, rows, counts,
-                                     self.pset.ingest_to_delay())
-        state, _, _ = self.pset.dispatch(state, t, params, self.cfg)
+        state = _ingest_packed_local(state, rows, counts, member.to_delay)
+        state, _, _ = self.pset.dispatch(state, t, params, self.cfg, member)
         return state
 
     def _tick(self, state: SimState, rows: torch.Tensor,
@@ -272,12 +280,13 @@ class Engine:
                    params=None) -> SimState:
         """The chunked run of the headline: each chunk's rows and
         counts move to the device in one copy each, then its ticks run
-        back to back with no host synchronisation. The clock, and every
-        parameter the kernels take as a host int, are read once at entry;
-        the clock is then tracked on the host and handed to each tick."""
+        back to back with no host synchronisation. The clock, the member
+        ``params.idx`` selects and every parameter the kernels take from
+        the host are read once at entry; the clock is then tracked on the
+        host and handed to each tick."""
         self._check_state(state)
         params = self._params(params)
-        host = fused_tick.host_params(params)
+        host = fused_tick.host_params(self, params)
         t = int(state.t)
         tick_ms = self.cfg.tick_ms
         for chunk in chunks:

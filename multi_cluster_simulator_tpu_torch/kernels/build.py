@@ -4,8 +4,8 @@ Each source under ``kernels/csrc/`` has a plain C interface and is compiled
 by ``nvcc`` into its own shared library, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds, not minutes). Libraries land in
 ``build/kernels/`` at the repository root, a directory ``.gitignore``
-lists, named by a hash of the source and the shared headers so an edited
-source rebuilds. Nothing
+lists, named by a hash of the source, the shared headers and the flags so
+an edited source rebuilds. Nothing
 here runs at import: this module imports on a machine without ``nvcc``,
 and ``load`` builds at first use. ``build_all`` returns each compiler's
 register and spill report (``-Xptxas -v``); chip_smoke.py prints it.
@@ -24,9 +24,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {"fused_prefix_fifo": "fused_prefix_fifo.cu",
-           "fused_prefix_ffd": "fused_prefix_ffd.cu"}
+           "fused_prefix_ffd": "fused_prefix_ffd.cu",
+           "fused_prefix_delay": "fused_prefix_delay.cu",
+           "fused_prefix_scored": "fused_prefix_scored.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Per-source flags. The scored kernel's tesserae score must round exactly
+# as the reference's does: its fused multiply-adds are written out, and
+# nvcc must contract no other multiply and add into one.
+EXTRA_FLAGS = {"fused_prefix_scored": ["--fmad=false"]}
 
 
 def nvcc_path() -> str:
@@ -49,6 +55,7 @@ def library_path(name: str) -> Path:
     """Where kernel ``name``'s library lands: named by a hash of its source
     and of every header in ``csrc/``, which the sources include."""
     h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, [])).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
@@ -67,8 +74,8 @@ def build_all(names=None) -> dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / SOURCES[name])]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, []), "-o",
+               str(tmp), str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -1,0 +1,156 @@
+// One tick's per-cluster prefix, release -> ingest -> schedule:DELAY, for
+// Hopper (sm_90a).
+//
+// Replaces: the TPU kernel multi_cluster_simulator_tpu/kernels/fused_tick.py
+//   fused_prefix (its pallas_call), on the span the reference's live
+//   scheduler engages: [release, ingest (packed rows -> Level0), schedule:
+//   DELAY in its serial form (with the parity-mode remove-then-skip quirk)
+//   or its wave form], terminal, wide layout, no metrics tap. The TPU
+//   kernel replays the traced jaxpr of Engine._span_prefix on a block of
+//   clusters; this kernel is written from the semantics instead
+//   (core/engine.py _release_local and _ingest_packed_local,
+//   policies/kernels.py _delay_local / _delay_wave_local / _delay_l0_head
+//   of the port), and is held bitwise against the port's plain PyTorch
+//   version (kernels/fused_tick.py fused_prefix_reference).
+//
+// Per tick and cluster, in the reference's order (scheduler.go:298-369):
+//   1. release every due running slot; append the tick's arrivals to
+//      Level0 (wait_jobs and jobs_in_queue grow by the arrival count);
+//   2. the Level1 sweep: the first min(|L1|, QC) slots in queue order,
+//      each recording its wait and attempting first fit against the
+//      running set as it stood before the sweep plus the sweep's own
+//      placements; with `skip` (parity mode) a success passes over the
+//      next slot, which keeps its rec_wait and gets no attempt;
+//   3. the placed slots are compacted out of Level1, stably; the
+//      placements are in the running set already, in sweep order, which
+//      is where the reference's deferred start_many puts them;
+//   4. the Level0 head: record its wait, one attempt; on failure, promote
+//      it to Level1 once t - enq_t >= max_wait_ms (a parameter: delay,
+//      delay-eager and delay-patient differ only there); pop it on success
+//      or promotion. A promotion into a full Level1 counts into
+//      drops.queue and the job is lost, as in the reference.
+//
+// wait_total (f32): the serial form adds each processed Level1 slot's
+//   delta in sweep order, then the head's; the wave form (`wave`) sums
+//   the processed Level1 deltas exactly in int64, adds the sum once
+//   (rounded to f32), then the head's delta. That equals the reference's
+//   f32 delta.sum() while its partial sums stay below 2^24 ms. Placement
+//   is serial in both forms (the reference pins its wave sweep equal to
+//   the serial one, tests/test_kernel_equiv.py), and the plain version
+//   keeps the wave form, so every on-card comparison of the wave config
+//   also checks wave == serial.
+//
+// Bound on the H100: device-memory bytes, counting only what the tick's
+//   data needs moved (chip_smoke.py tick_cost): per cluster the counters,
+//   the node vectors, the running set's active flags and the end_t of its
+//   active slots, the processed Level1 rows and the Level0 head, the
+//   queue elements the compactions and the pop rewrite, the valid arrival
+//   rows, and every element the tick changes. The kernel is far above it
+//   (PERF.md): one thread walks each cluster's rows serially, and the
+//   Level0 pop shifts the live rows by one.
+//
+// Design: one thread per cluster, in place, as the FIFO and FFD kernels;
+//   the sweep, the compaction and the placement are prefix_common.cuh's.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//   -Xcompiler -fPIC (kernels/build.py); bound to PyTorch with ctypes.
+
+#include "prefix_common.cuh"
+
+namespace {
+
+using namespace prefix;
+
+struct Args {
+  Level0Args q;
+  int32_t* l1;        // [C, Q, NF]
+  int32_t* l1_count;  // [C]
+  int skip;           // parity mode's remove-then-skip quirk
+  int32_t max_wait;   // params.max_wait_ms
+};
+
+__global__ void __launch_bounds__(32) fused_prefix_delay_kernel(Args a) {
+  const Common& k = a.q.k;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= k.C) return;
+  Cluster cl(k, c);
+  int32_t* l0 = a.q.l0 + (size_t)c * k.Q * NF;
+  int32_t* l1 = a.l1 + (size_t)c * k.Q * NF;
+
+  // 1. release, then the arrivals into Level0.
+  cl.release();
+  int drop_queue = 0;
+  int n0 = ingest_level0(a.q, cl, &drop_queue);
+
+  // 2-3. the Level1 sweep in queue order, then its compaction.
+  int n1 = a.l1_count[c];
+  SweepAcc acc(a.q.wait_total[c]);
+  uint32_t mask[kMaskWords];
+  QueueOrder order;
+  sweep(cl, l1, n1, imin(n1, k.QC), order, FirstFitPick{}, SRC_L1,
+        a.q.wave != 0, a.skip != 0, acc, mask);
+  n1 = compact_placed(l1, n1, acc, mask);
+
+  // 4. the Level0 head.
+  if (n0 > 0) {
+    int32_t* job = l0;
+    record_wait(job, k.t, false, acc);  // one f32 add, after the sweep's
+    const bool success = cl.attempt(job, SRC_L0, &acc.run_full);
+    const bool promote =
+        !success && wrap_sub(k.t, job[FENQ]) >= a.max_wait;
+    if (promote) {
+      if (n1 < k.Q) {
+        copy_row(l1 + n1 * NF, job);
+        ++n1;
+      } else {
+        ++drop_queue;
+      }
+    }
+    if (success || promote) {
+      for (int i = 0; i + 1 < n0; ++i) copy_row(l0 + i * NF,
+                                                 l0 + (i + 1) * NF);
+      set_queue_invalid(l0 + (n0 - 1) * NF);
+      --n0;
+    }
+  }
+
+  a.q.l0_count[c] = n0;
+  a.l1_count[c] = n1;
+  a.q.wait_total[c] = acc.total;
+  a.q.jobs_in_queue[c] -= cl.placed;
+  k.drop_queue[c] += drop_queue;
+  k.drop_run_full[c] += acc.run_full;
+  k.placed_total[c] += cl.placed;
+}
+
+}  // namespace
+
+// Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
+// so the Python wrapper can raise on a refused launch. The leading
+// arguments are prefix_common.cuh's Common, in its order; then Level0 and
+// its counters, Level1, and the flags and the promotion threshold.
+extern "C" int fused_prefix_delay_launch(
+    void* node_free, void* node_active, void* run, void* run_active,
+    void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
+    void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
+    void* rows, void* counts, void* l0, void* l0_count, void* wait_total,
+    void* wait_jobs, void* jobs_in_queue, void* l1, void* l1_count, int C,
+    int N, int R, int Q, int S, int K, int E, int QC, int record_trace, int t,
+    int wave, int skip, int max_wait, void* stream) {
+  if (Q > kMaxQueue) return static_cast<int>(cudaErrorInvalidValue);
+  const Common k = make_common(node_free, node_active, run, run_active,
+                               arr_ptr, drop_queue, drop_run_full,
+                               placed_total, tr_t, tr_job, tr_node, tr_src,
+                               tr_n, rows, counts, C, N, R, Q, S, K, E, QC,
+                               record_trace, t);
+  Args a{make_level0(k, l0, l0_count, wait_total, wait_jobs, jobs_in_queue,
+                     wave),
+         static_cast<int32_t*>(l1), static_cast<int32_t*>(l1_count), skip,
+         max_wait};
+  if (C > 0) {
+    const int threads = threads_for(C);
+    fused_prefix_delay_kernel<<<(C + threads - 1) / threads, threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,170 @@
+// One tick's per-cluster prefix, release -> ingest -> schedule:{gavel,
+// tesserae, rl}, for Hopper (sm_90a).
+//
+// Replaces: the TPU kernel multi_cluster_simulator_tpu/kernels/fused_tick.py
+//   fused_prefix (its pallas_call), on the spans the scored kinds of the
+//   policy zoo engage: [release, ingest (packed rows -> Level0), schedule:
+//   the serial Level0 sweep with a scored node pick], terminal, wide
+//   layout, no metrics tap. Written from the semantics (policies/kernels.py
+//   _scored_sweep_local with _gavel_local, _tesserae_local and _rl_local
+//   of the port) and held bitwise against the port's plain PyTorch version
+//   (kernels/fused_tick.py fused_prefix_reference).
+//
+// It is the FFD kernel's body (prefix_common.cuh level0_prefix) with
+//   another order and pick, so the FFD code path compiles without a score
+//   branch:
+//   - gavel and rl sweep Level0 in queue order and score node n for a job
+//     as entry [clip(jclass), clip(node_type[n])] of a 4x4 f32 table
+//     (params.gavel_tput or params.rl_scores; all zeros, rl's default,
+//     is first fit). The table is a kernel parameter, read once per run.
+//   - tesserae sweeps in the best-fit-decreasing order (always cores
+//     first) and scores sum_r f32(free[n, r]) * (f32(res[r]) * w[r])
+//     under the 3 f32 weights params.tess_w.
+//   The pick is the first maximum of the scores with infeasible nodes at
+//   -inf (ties go to the lowest index), and no node when none fits; a NaN
+//   score wins as it does in torch.argmax and jnp.argmax.
+//
+// The float hazard: the tesserae products pass 2^24 and are not integers
+//   (w[1] = 1e-3), so the bits of the score, and with them the argmax and
+//   the placements, depend on the order of the operations and on whether
+//   a multiply and an add are fused. The reference's XLA CPU dot rounds
+//   the first product and adds each later one with a fused multiply-add;
+//   this kernel does exactly that, spelled out with __fmul_rn and
+//   __fmaf_rn, and the file is built with --fmad=false (kernels/build.py)
+//   so that nvcc contracts nothing else. The plain version computes the
+//   fused multiply-add exactly (policies/kernels.py fma_f32).
+//
+// wait_total (f32): one add per processed job, in sweep order, as FFD's
+//   serial form; the scored kinds have no wave form.
+//
+// Bound on the H100: device-memory bytes, as FFD's (chip_smoke.py
+//   tick_cost): the counters, the node vectors and types, the running
+//   set's active flags and active end_t, the Level0 keys the order reads,
+//   the processed rows, the compaction's rewrites, the valid arrival rows
+//   and every element the tick changes; plus the score operations.
+//
+// Design: one thread per cluster, in place, as the other prefix kernels.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//   --fmad=false -shared -Xcompiler -fPIC (kernels/build.py); bound to
+//   PyTorch with ctypes.
+
+#include <math.h>
+
+#include "prefix_common.cuh"
+
+namespace {
+
+using namespace prefix;
+
+constexpr int kClasses = 4, kDeviceTypes = 4;  // ops/fields.py
+constexpr int kTable = 0, kTesserae = 1;       // the pick, as the wrapper
+
+struct Args {
+  Level0Args q;
+  const int32_t* node_type;  // [C, N]
+  int pick;                  // kTable (gavel, rl) or kTesserae
+  float table[kClasses * kDeviceTypes];
+  float w[3];
+};
+
+// The first maximum of score(n) over the nodes, infeasible nodes at -inf;
+// -1 when no node fits.
+template <class Score>
+__device__ int best_scored_fit(const Cluster& cl, const int32_t* job,
+                               const Score& score) {
+  bool any = false;
+  int arg = 0;
+  float best = 0.0f;
+  for (int n = 0; n < cl.a.N; ++n) {
+    const bool ok = cl.nact[n] && fits(cl.free + n * cl.a.R, cl.a.R, job);
+    const float v = ok ? score(n) : -INFINITY;
+    any = any || ok;
+    if (n == 0 || (isnan(v) && !isnan(best)) || (!isnan(best) && v > best)) {
+      arg = n;
+      best = v;
+    }
+  }
+  return any ? arg : -1;
+}
+
+// gavel and rl: the table entry of the job's class and the node's type.
+struct TablePick {
+  const float* table;
+  const int32_t* node_type;  // this cluster's [N]
+
+  __device__ int operator()(const Cluster& cl, const int32_t* job) const {
+    const float* row =
+        table + imin(imax(job[FJCLASS], 0), kClasses - 1) * kDeviceTypes;
+    return best_scored_fit(cl, job, [&](int n) {
+      return row[imin(imax(node_type[n], 0), kDeviceTypes - 1)];
+    });
+  }
+};
+
+// tesserae: the weighted demand-free alignment, in XLA's CPU order.
+struct TesseraePick {
+  const float* w;
+
+  __device__ int operator()(const Cluster& cl, const int32_t* job) const {
+    const int R = cl.a.R;
+    float rw[3];
+    for (int r = 0; r < R; ++r) {
+      rw[r] = __fmul_rn(__int2float_rn(job[FCORES + r]), w[r]);
+    }
+    return best_scored_fit(cl, job, [&](int n) {
+      const int32_t* f = cl.free + n * R;
+      float s = __fmul_rn(__int2float_rn(f[0]), rw[0]);
+      for (int r = 1; r < R; ++r) s = __fmaf_rn(__int2float_rn(f[r]), rw[r], s);
+      return s;
+    });
+  }
+};
+
+// __grid_constant__: the picks point into the parameters (the table and
+// the weights) without a copy of them in local memory.
+__global__ void __launch_bounds__(32)
+fused_prefix_scored_kernel(const __grid_constant__ Args a) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= a.q.k.C) return;
+  if (a.pick == kTesserae) {
+    level0_prefix(a.q, c, BfdOrder(0), TesseraePick{a.w});
+  } else {
+    level0_prefix(a.q, c, QueueOrder{},
+                  TablePick{a.table, a.node_type + (size_t)c * a.q.k.N});
+  }
+}
+
+}  // namespace
+
+// Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
+// so the Python wrapper can raise on a refused launch. The leading
+// arguments are prefix_common.cuh's Common, in its order; then Level0 and
+// its counters, the node types, the pick, and the member's 16 table
+// scores and 3 weights (host memory, copied into the kernel's parameters).
+extern "C" int fused_prefix_scored_launch(
+    void* node_free, void* node_active, void* run, void* run_active,
+    void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
+    void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
+    void* rows, void* counts, void* l0, void* l0_count, void* wait_total,
+    void* wait_jobs, void* jobs_in_queue, void* node_type, int C, int N,
+    int R, int Q, int S, int K, int E, int QC, int record_trace, int t,
+    int pick, const float* table, const float* w, void* stream) {
+  if (Q > kMaxQueue || R > 3) return static_cast<int>(cudaErrorInvalidValue);
+  const Common k = make_common(node_free, node_active, run, run_active,
+                               arr_ptr, drop_queue, drop_run_full,
+                               placed_total, tr_t, tr_job, tr_node, tr_src,
+                               tr_n, rows, counts, C, N, R, Q, S, K, E, QC,
+                               record_trace, t);
+  Args a{make_level0(k, l0, l0_count, wait_total, wait_jobs, jobs_in_queue,
+                     0),
+         static_cast<const int32_t*>(node_type), pick, {}, {}};
+  for (int i = 0; i < kClasses * kDeviceTypes; ++i) a.table[i] = table[i];
+  for (int r = 0; r < 3; ++r) a.w[r] = w[r];
+  if (C > 0) {
+    const int threads = threads_for(C);
+    fused_prefix_scored_kernel<<<(C + threads - 1) / threads, threads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

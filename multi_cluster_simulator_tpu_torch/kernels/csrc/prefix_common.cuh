@@ -1,9 +1,12 @@
-// What every per-cluster tick-prefix kernel shares (fused_prefix_fifo.cu,
-// fused_prefix_ffd.cu): the row schemas, the pointers and sizes common to
-// every span, and the phases and steps the spans have in common —
-// release of due running slots, the append of the tick's arrivals to a
-// queue, first-fit over the nodes, and placing a job (occupy its node,
-// insert its running row into the lowest free slot, count it, trace it).
+// What the per-cluster tick-prefix kernels share (fused_prefix_fifo.cu,
+// fused_prefix_ffd.cu, fused_prefix_delay.cu, fused_prefix_scored.cu): the
+// row schemas, the pointers and sizes common to every span, and the phases
+// and steps the spans have in common — release of due running slots, the
+// append of the tick's arrivals to a queue, first-fit over the nodes,
+// placing a job (occupy its node, insert its running row into the lowest
+// free slot, count it, trace it), and the serial queue sweep with its wait
+// accounting and the stable compaction of the placed slots, templated over
+// the sweep order and the node pick.
 //
 // Every function here works on ONE cluster, walked by one thread, in
 // place, in the reference's order. Integer discipline: all arithmetic is
@@ -21,13 +24,18 @@ namespace prefix {
 
 constexpr int NF = 10;  // queue row fields (ops/fields.py QUEUE_FIELDS)
 constexpr int FID = 0, FCORES = 1, FMEM = 2, FGPU = 3, FDUR = 4, FENQ = 5,
-              FOWNER = 6, FREC = 7, FRETRIES = 9;
+              FOWNER = 6, FREC = 7, FJCLASS = 8, FRETRIES = 9;
 constexpr int RF = 10;  // running-set row fields (ops/fields.py RUN_FIELDS)
 constexpr int REND = 0, RNODE = 1, RCORES = 2, RMEM = 3, RGPU = 4, RID = 5,
               ROWNER = 6, RDUR = 7, RENQ = 8, RRETRIES = 9;
 constexpr int32_t NEVER = 2147483647;
 // trace source-queue codes (core/state.py)
-constexpr int32_t SRC_L0 = 1, SRC_READY = 2, SRC_WAIT = 3, SRC_LENT = 4;
+constexpr int32_t SRC_L1 = 0, SRC_L0 = 1, SRC_READY = 2, SRC_WAIT = 3,
+                  SRC_LENT = 4;
+// The sweeps' placed-slot mask is a fixed bit array per thread
+// (kernels/fused_tick.py MAX_QUEUE; the wrapper raises above it).
+constexpr int kMaxQueue = 1024;
+constexpr int kMaskWords = kMaxQueue / 32;
 
 __host__ __device__ __forceinline__ int imin(int a, int b) {
   return a < b ? a : b;
@@ -110,18 +118,21 @@ __host__ __device__ __forceinline__ void copy_row(int32_t* dst,
   for (int f = 0; f < NF; ++f) dst[f] = src[f];
 }
 
-// Lowest active node whose free resources cover the job (ScheduleJob's >=,
-// scheduler.go:131), or -1. With the gpu axis narrowed away (R == 2) a job
-// that demands gpu fits nowhere.
+// Whether a node's free resources `f` cover the job (ScheduleJob's >=,
+// scheduler.go:131). With the gpu axis narrowed away (R == 2) a job that
+// demands gpu fits nowhere.
+__host__ __device__ __forceinline__ bool fits(const int32_t* f, int R,
+                                              const int32_t* job) {
+  bool ok = f[0] >= job[FCORES] && f[1] >= job[FMEM];
+  return ok && (R > 2 ? f[2] >= job[FGPU] : job[FGPU] <= 0);
+}
+
+// Lowest active node that fits the job, or -1.
 __host__ __device__ inline int first_fit(const int32_t* free,
                                          const uint8_t* active, int N, int R,
                                          const int32_t* job) {
   for (int n = 0; n < N; ++n) {
-    if (!active[n]) continue;
-    const int32_t* f = free + n * R;
-    bool ok = f[0] >= job[FCORES] && f[1] >= job[FMEM];
-    ok = ok && (R > 2 ? f[2] >= job[FGPU] : job[FGPU] <= 0);
-    if (ok) return n;
+    if (active[n] && fits(free + n * R, R, job)) return n;
   }
   return -1;
 }
@@ -220,7 +231,13 @@ struct Cluster {
   // the running set full counts into `*run_full`.
   __host__ __device__ bool attempt(const int32_t* job, int32_t src,
                                    int* run_full) {
-    int node = first_fit(free, nact, a.N, a.R, job);
+    return attempt_on(job, first_fit(free, nact, a.N, a.R, job), src,
+                      run_full);
+  }
+
+  // The same attempt with the node already picked (-1: none fits).
+  __host__ __device__ bool attempt_on(const int32_t* job, int node,
+                                      int32_t src, int* run_full) {
     if (node < 0) return false;
     if (n_active >= a.S) {
       ++*run_full;
@@ -230,5 +247,221 @@ struct Cluster {
     return true;
   }
 };
+
+
+// ---------------------------------------------------------------------------
+// The serial queue sweep (the reference's _scored_sweep_local and the
+// Level1 sweep of _delay_local): for each of the first n positions of an
+// order over a queue, record the job's wait and attempt it on the node the
+// pick chooses; then compact the placed slots out, stably.
+// ---------------------------------------------------------------------------
+
+// Queue order: position p is slot p.
+struct QueueOrder {
+  int p = 0;
+  __host__ __device__ int next(const int32_t*, int) { return p++; }
+};
+
+// The best-fit-decreasing order, valid slots by (-key1, -key2, slot) with
+// key1 = cores and key2 = mem, or swapped with `mem_first`, without a [Q]
+// scratch: position p's slot is the smallest triple strictly after
+// position p-1's, found by one pass over the live rows. Stable by
+// construction; QC x |Q| key reads per tick.
+struct BfdOrder {
+  int f1, f2;
+  int32_t last1 = 0, last2 = 0;
+  int last_i = -1;
+
+  __host__ __device__ explicit BfdOrder(int mem_first)
+      : f1(mem_first ? FMEM : FCORES), f2(mem_first ? FCORES : FMEM) {}
+
+  // (a1, a2, ai) < (b1, b2, bi), lexicographically.
+  __host__ __device__ static bool less(int32_t a1, int32_t a2, int ai,
+                                       int32_t b1, int32_t b2, int bi) {
+    if (a1 != b1) return a1 < b1;
+    if (a2 != b2) return a2 < b2;
+    return ai < bi;
+  }
+
+  __host__ __device__ int next(const int32_t* q, int count) {
+    int best = -1;
+    int32_t b1 = 0, b2 = 0;
+    for (int i = 0; i < count; ++i) {
+      const int32_t* row = q + i * NF;
+      const int32_t k1 = wrap_sub(0, row[f1]), k2 = wrap_sub(0, row[f2]);
+      if (last_i >= 0 && !less(last1, last2, last_i, k1, k2, i)) continue;
+      if (best < 0 || less(k1, k2, i, b1, b2, best)) {
+        best = i;
+        b1 = k1;
+        b2 = k2;
+      }
+    }
+    last1 = b1;
+    last2 = b2;
+    last_i = best;
+    return best;
+  }
+};
+
+// The reference's first-fit pick.
+struct FirstFitPick {
+  __host__ __device__ int operator()(const Cluster& cl,
+                                     const int32_t* job) const {
+    return first_fit(cl.free, cl.nact, cl.a.N, cl.a.R, job);
+  }
+};
+
+// What one tick's sweep accumulates. The placed-slot mask is kept apart
+// (the callers' local array), so that these scalars stay in registers.
+struct SweepAcc {
+  float total;             // wait_total (f32)
+  long long wave_sum = 0;  // the wave form's exact sum of wait deltas
+  int run_full = 0;        // attempts that fit a node but found no slot
+  int placed = 0;          // placements of this sweep
+
+  __host__ __device__ explicit SweepAcc(float wait_total)
+      : total(wait_total) {}
+};
+
+// The JobsMap bookkeeping of one scheduling attempt (scheduler.go:309-312):
+// the job's wait delta is added to `total` in f32 (the serial form) or
+// summed exactly into `wave_sum` (the wave form), and its rec_wait set.
+__host__ __device__ __forceinline__ void record_wait(int32_t* job, int t,
+                                                     bool wave,
+                                                     SweepAcc& acc) {
+  const int32_t cur = wrap_sub(t, job[FENQ]);
+  const int32_t delta = wrap_sub(cur, job[FREC]);
+  if (wave) {
+    acc.wave_sum += delta;
+  } else {
+    acc.total = acc.total + (float)delta;
+  }
+  job[FREC] = cur;
+}
+
+// The first `n_sweep` positions of `order` over the queue `q` holding
+// `count` rows, serially: each records its wait and is attempted on the
+// node `pick` chooses, with the has-slot check, and a placed slot is
+// marked in `mask`; `skip_after_success` is DELAY's parity quirk (a
+// success passes over the next position). The wave form's exact wait sum
+// is added to the total once, at the end. Placement is serial in both
+// forms: the reference pins its wave sweeps equal to the serial ones
+// (tests/test_kernel_equiv.py).
+template <class Order, class Pick>
+__host__ __device__ void sweep(Cluster& cl, int32_t* q, int count,
+                               int n_sweep, Order& order, const Pick& pick,
+                               int32_t src, bool wave,
+                               bool skip_after_success, SweepAcc& acc,
+                               uint32_t* mask) {
+  for (int w = 0; w < (count + 31) / 32; ++w) mask[w] = 0u;
+  const int before = cl.placed;
+  bool skip = false;
+  for (int p = 0; p < n_sweep; ++p) {
+    const int i = order.next(q, count);
+    if (skip) {
+      skip = false;
+      continue;
+    }
+    int32_t* job = q + i * NF;
+    record_wait(job, cl.a.t, wave, acc);
+    if (cl.attempt_on(job, pick(cl, job), src, &acc.run_full)) {
+      mask[i >> 5] |= 1u << (i & 31);
+      skip = skip_after_success;
+    }
+  }
+  if (wave) acc.total = acc.total + (float)acc.wave_sum;
+  acc.placed = cl.placed - before;
+}
+
+// Stable-remove the slots the sweep placed from the queue's first `count`
+// rows; rows from the new count on become INVALID (rows at or past the
+// old count are INVALID already). Returns the new count.
+__host__ __device__ inline int compact_placed(int32_t* q, int count,
+                                              const SweepAcc& acc,
+                                              const uint32_t* mask) {
+  if (acc.placed == 0) return count;
+  int kept = 0;
+  for (int i = 0; i < count; ++i) {
+    if (mask[i >> 5] & (1u << (i & 31))) continue;
+    if (kept != i) copy_row(q + kept * NF, q + i * NF);
+    ++kept;
+  }
+  for (int i = kept; i < count; ++i) set_queue_invalid(q + i * NF);
+  return kept;
+}
+
+// ---------------------------------------------------------------------------
+// The Level0 prefix the FFD and the scored kernels share: release, the
+// arrivals into Level0, the sweep of `order` with `pick`, the compaction.
+// ---------------------------------------------------------------------------
+
+struct Level0Args {
+  Common k;
+  int32_t* l0;             // [C, Q, NF]
+  int32_t* l0_count;       // [C]
+  float* wait_total;       // [C]
+  int32_t* wait_jobs;      // [C]
+  int32_t* jobs_in_queue;  // [C]
+  int wave;                // the wave form's wait accounting (else serial)
+};
+
+// Level0Args from the arguments after Common, in the wrappers' order.
+inline Level0Args make_level0(const Common& k, void* l0, void* l0_count,
+                              void* wait_total, void* wait_jobs,
+                              void* jobs_in_queue, int wave) {
+  return Level0Args{k,
+                    static_cast<int32_t*>(l0),
+                    static_cast<int32_t*>(l0_count),
+                    static_cast<float*>(wait_total),
+                    static_cast<int32_t*>(wait_jobs),
+                    static_cast<int32_t*>(jobs_in_queue),
+                    wave};
+}
+
+// Ingest into Level0: append the tick's arrivals; wait_jobs and
+// jobs_in_queue grow by the arrival count, dropped rows included, as in
+// the reference. Returns Level0's new count.
+__host__ __device__ inline int ingest_level0(const Level0Args& a,
+                                             Cluster& cl, int* drop_queue) {
+  const int c = cl.c;
+  const int count = cl.ingest(a.l0 + (size_t)c * a.k.Q * NF, a.l0_count[c],
+                              drop_queue);
+  a.wait_jobs[c] += a.k.counts[c];
+  a.jobs_in_queue[c] += a.k.counts[c];
+  return count;
+}
+
+// One cluster's whole tick: release, ingest into Level0, the sweep over
+// the first min(|L0|, QC) positions of `order`, the compaction, and the
+// counters.
+template <class Order, class Pick>
+__host__ __device__ void level0_prefix(const Level0Args& a, int c,
+                                       Order order, const Pick& pick) {
+  const Common& k = a.k;
+  Cluster cl(k, c);
+  int32_t* l0 = a.l0 + (size_t)c * k.Q * NF;
+  cl.release();
+  int drop_queue = 0;
+  const int count = ingest_level0(a, cl, &drop_queue);
+  SweepAcc acc(a.wait_total[c]);
+  uint32_t mask[kMaskWords];
+  sweep(cl, l0, count, imin(count, k.QC), order, pick, SRC_L0, a.wave != 0,
+        false, acc, mask);
+  a.l0_count[c] = compact_placed(l0, count, acc, mask);
+  a.wait_total[c] = acc.total;
+  a.jobs_in_queue[c] -= cl.placed;
+  k.drop_queue[c] += drop_queue;
+  k.drop_run_full[c] += acc.run_full;
+  k.placed_total[c] += cl.placed;
+}
+
+// Threads per block for the one-thread-per-cluster kernels: a warp, halved
+// while that would leave SMs without clusters (an H100 SXM has 132), so
+// that few clusters spread over many SMs.
+inline int threads_for(int C) {
+  int threads = 32;
+  while (threads > 1 && (C + threads - 1) / threads < 132) threads /= 2;
+  return threads;
+}
 
 }  // namespace prefix

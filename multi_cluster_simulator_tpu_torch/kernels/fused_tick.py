@@ -4,24 +4,33 @@ The port of ``multi_cluster_simulator_tpu/kernels/fused_tick.py``. There,
 ``fused_prefix`` replays the traced jaxpr of ``Engine._span_prefix`` inside
 one ``pallas_call`` over cluster blocks, so that each state column is
 loaded and stored once per tick. Generic jaxpr replay has no Hopper
-counterpart, so the port writes one CUDA kernel per engaged span. Both
+counterpart, so the port writes one CUDA kernel per engaged span. The
 spans ported so far are terminal, wide-layout and untapped, and differ in
 the schedule slot (``KERNELS``):
 
 - ``fused_prefix_fifo`` — ``[release, ingest -> ReadyQueue, schedule:
   FIFO]`` (``csrc/fused_prefix_fifo.cu``);
 - ``fused_prefix_ffd`` — ``[release, ingest -> Level0, schedule: FFD]``,
-  the serial and the wave sweep (``csrc/fused_prefix_ffd.cu``).
+  the serial and the wave sweep (``csrc/fused_prefix_ffd.cu``);
+- ``fused_prefix_delay`` — ``[release, ingest -> Level0, schedule:
+  DELAY]``, the serial sweep (with the parity skip) and the wave sweep of
+  Level1, then the Level0 head (``csrc/fused_prefix_delay.cu``);
+- ``fused_prefix_scored`` — ``[release, ingest -> Level0, schedule:
+  gavel | tesserae | rl]``, the Level0 sweep with a scored node pick
+  (``csrc/fused_prefix_scored.cu``).
 
 Each source's header states what bounds it on the H100 and what its
 design does about that; what they share is ``csrc/prefix_common.cuh``.
+The kernel is the one of the member ``params.idx`` selects in the
+engine's ``PolicySet``, read once at a run's entry (``host_params``).
 
 ``fused_prefix`` is the wrapper every tick calls:
 
 - on CUDA tensors it checks device, dtype, shape and contiguity, launches
-  the engine's kernel on PyTorch's current stream — never synchronising,
-  allocating nothing — and adds one to that kernel's ``launches``. A CUDA
-  state has no other path: the wrapper launches or raises.
+  the selected member's kernel on PyTorch's current stream — never
+  synchronising, allocating nothing — and adds one to that kernel's
+  ``launches``. A CUDA state has no other path: the wrapper launches or
+  raises.
 - on CPU tensors it runs ``fused_prefix_reference``, the plain PyTorch
   version (``Engine._span_prefix``: the ported release, ingest and policy
   ops), and leaves the launch counts alone.
@@ -46,19 +55,19 @@ from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
 REPLACES = "multi_cluster_simulator_tpu/kernels/fused_tick.py:160"
 CSRC = "multi_cluster_simulator_tpu_torch/kernels/csrc/"
 
-# The FFD kernel's static limits: Level0's placed-slot mask is a
-# fixed-size bit array per thread.
-FFD_MAX_QUEUE = 1024
+# The Level0 and Level1 sweeps' static limit: their placed-slot mask is a
+# fixed-size bit array per thread (csrc/prefix_common.cuh kMaxQueue).
+MAX_QUEUE = 1024
 
 
 @dataclasses.dataclass
 class Kernel:
     """One hand-written prefix kernel: its name (also the library's name in
-    ``kernels/build.py``), the policy kind whose span it carries, and how
+    ``kernels/build.py``), the policy kinds whose spans it carries, and how
     many times the wrapper launched it."""
 
     name: str
-    kind: str
+    kinds: tuple
     launches: int = 0
 
     @property
@@ -66,8 +75,11 @@ class Kernel:
         return f"{CSRC}{self.name}.cu"
 
 
-KERNELS = {k.kind: k for k in (Kernel("fused_prefix_fifo", "fifo"),
-                               Kernel("fused_prefix_ffd", "ffd"))}
+KERNELS = {k.name: k for k in (
+    Kernel("fused_prefix_fifo", ("fifo",)),
+    Kernel("fused_prefix_ffd", ("ffd",)),
+    Kernel("fused_prefix_delay", ("delay",)),
+    Kernel("fused_prefix_scored", ("gavel", "tesserae", "rl")))}
 
 
 def reset_launches() -> None:
@@ -85,48 +97,65 @@ def engaged_span(cfg) -> tuple[str, ...]:
     """The prefix phases a config engages, in tick order. ``Engine``
     admits no config that engages the faults head or vnode expiry, so
     every engine of the port has this span; the schedule slot is the
-    policy's."""
+    selected member's."""
     return ("release", "ingest", "schedule")
 
 
-def kernel_for(engine) -> Kernel:
-    """The kernel that carries ``engine``'s span on the card."""
-    return KERNELS[engine.spec.kind]
+def kernel_for(member) -> Kernel:
+    """The kernel that carries the span of ``member`` (a ``PolicySpec``)
+    on the card."""
+    return next(k for k in KERNELS.values() if member.kind in k.kinds)
 
 
-def provenance(engine) -> dict:
-    """What a recorded number ran: the engaged span and the kernel that
-    carries it on the card."""
-    k = kernel_for(engine)
-    return {"span": list(engaged_span(engine.cfg)), "schedule": k.kind,
-            "kernel": k.name, "route": "cuda", "source": k.source,
-            "replaces": REPLACES, "epilogue_tap": False}
+def provenance(engine, params=None) -> dict:
+    """What a recorded number ran: the engaged span, the member
+    ``params.idx`` selects (the engine's default params unless given) and
+    the kernel that carries it on the card."""
+    member = engine.member(params)
+    k = kernel_for(member)
+    return {"span": list(engaged_span(engine.cfg)), "policy": member.name,
+            "schedule": member.kind, "kernel": k.name, "route": "cuda",
+            "source": k.source, "replaces": REPLACES, "epilogue_tap": False}
 
 
-def host_params(params) -> dict:
-    """The policy parameters the kernels take as host ints, read once (a
-    host sync) at a run's entry and never inside a chunk."""
-    return {"ffd_mem_first": int(params.ffd_mem_first > 0)}
+def host_params(engine, params) -> dict:
+    """What the kernels take from the host, read once (a host sync) at a
+    run's entry and never inside a chunk: the member ``params.idx``
+    selects and its kernel, and the parameters that kernel reads — FFD's
+    tie-break, DELAY's promotion threshold, the scored kinds' 4x4 f32
+    table (gavel's throughputs or rl's scores) and tesserae's 3 f32
+    weights, as ctypes arrays handed to the kernel by pointer."""
+    member = engine.member(params)
+    table = {"gavel": params.gavel_tput, "rl": params.rl_scores}.get(
+        member.kind, torch.zeros(16))
+    return {"member": member, "kernel": kernel_for(member),
+            "ffd_mem_first": int(params.ffd_mem_first > 0),
+            "max_wait_ms": int(params.max_wait_ms),
+            "table": (ctypes.c_float * 16)(*table.flatten().tolist()),
+            "weights": (ctypes.c_float * 3)(*params.tess_w.tolist())}
 
 
-def fused_prefix_reference(engine, state, rows, counts, t: int, params):
+def fused_prefix_reference(engine, state, rows, counts, t: int, params,
+                           member=None):
     """The plain PyTorch version: the ported per-cluster prefix ops on any
-    device. Returns a new state; the input is left as it was."""
-    return engine._span_prefix(state, rows, counts, t, params)
+    device, for ``member`` (the one ``params.idx`` selects when None).
+    Returns a new state; the input is left as it was."""
+    return engine._span_prefix(state, rows, counts, t, params, member)
 
 
 def fused_prefix(engine, state, rows: torch.Tensor, counts: torch.Tensor,
                  t: int, params, host: dict):
-    """Run tick ``t``'s prefix (release -> ingest -> the policy's pass) on
-    ``state`` in place and return it. ``rows`` [C, K, NF] int32 and
-    ``counts`` [C] int32 are the tick's arrival slice; ``t`` is the
+    """Run tick ``t``'s prefix (release -> ingest -> the selected member's
+    pass) on ``state`` in place and return it. ``rows`` [C, K, NF] int32
+    and ``counts`` [C] int32 are the tick's arrival slice; ``t`` is the
     post-tick clock as a host int; ``params`` are the policy's leaves
-    (the plain path reads them) and ``host`` their host-int form
-    (``host_params``, what the kernels read)."""
+    (the plain path reads them) and ``host`` what the kernels take
+    (``host_params``)."""
     devices = {x.device for _, x in leaves_with_keys(state)}
     devices |= {rows.device, counts.device}
     if devices == {torch.device("cpu")}:
-        new = fused_prefix_reference(engine, state, rows, counts, t, params)
+        new = fused_prefix_reference(engine, state, rows, counts, t, params,
+                                     host["member"])
         for (_, dst), (_, src) in zip(leaves_with_keys(state),
                                       leaves_with_keys(new)):
             if dst is not src:
@@ -136,8 +165,8 @@ def fused_prefix(engine, state, rows: torch.Tensor, counts: torch.Tensor,
         raise ValueError(
             f"fused_prefix needs every tensor on one CUDA device or all on "
             f"the CPU; got {sorted(str(d) for d in devices)}")
-    k = kernel_for(engine)
-    _LAUNCH[k.kind](engine.cfg, state, rows, counts, t, host)
+    k = host["kernel"]
+    _LAUNCH[k.name](engine.cfg, state, rows, counts, t, host)
     k.launches += 1
     return state
 
@@ -156,14 +185,14 @@ _PTR = ctypes.c_void_p
 
 
 @functools.cache
-def _entry(name: str, n_ptr: int, n_int: int):
-    """Kernel ``name``'s launch function, built and typed at first use."""
+def _entry(name: str, n_ptr: int, n_int: int, n_host: int):
+    """Kernel ``name``'s launch function, built and typed at first use: its
+    tensor pointers, its ints, its host pointers, then the stream."""
     from multi_cluster_simulator_tpu_torch.kernels import build
 
     fn = getattr(build.load(name), f"{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = [_PTR] * n_ptr + [_INT] * n_int + [_PTR]
-        fn.restype = _INT
+    fn.argtypes = [_PTR] * n_ptr + [_INT] * n_int + [_PTR] * (n_host + 1)
+    fn.restype = _INT
     return fn
 
 
@@ -206,10 +235,25 @@ def _queue(name: str, q, C: int, Qc: int):
             _check(f"{name}.count", q.count, (C,), torch.int32)]
 
 
-def _run(name: str, ptrs, ints, rows):
+def _level0(name: str, s, C: int, Qc: int):
+    """Level0 and the counters its sweeps update, for the FFD, DELAY and
+    scored kernels, after checking the sweeps' queue limit."""
+    if Qc > MAX_QUEUE:
+        raise ValueError(f"{name}: queue_capacity {Qc} exceeds the kernel's "
+                         f"limit {MAX_QUEUE}")
+    c_shape = (C,)
+    return _queue("l0", s.l0, C, Qc) + [
+        _check("wait_total", s.wait_total, c_shape, torch.float32),
+        _check("wait_jobs", s.wait_jobs, c_shape, torch.int32),
+        _check("jobs_in_queue", s.jobs_in_queue, c_shape, torch.int32),
+    ]
+
+
+def _run(name: str, ptrs, ints, rows, host_ptrs=()):
     stream = torch.cuda.current_stream(rows.device).cuda_stream
-    fn = _entry(name, len(ptrs), len(ints))
-    err = fn(*[p.data_ptr() for p in ptrs], *ints, stream)
+    fn = _entry(name, len(ptrs), len(ints), len(host_ptrs))
+    err = fn(*[p.data_ptr() for p in ptrs], *ints,
+             *[ctypes.addressof(h) for h in host_ptrs], stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({torch.cuda.get_device_name(rows.device)})")
@@ -225,19 +269,37 @@ def _launch_fifo(cfg, s, rows, counts, t: int, host: dict) -> None:
 
 def _launch_ffd(cfg, s, rows, counts, t: int, host: dict) -> None:
     ptrs, ints = _common(cfg, s, rows, counts, t)
-    C, Qc = ints[0], ints[3]
-    if Qc > FFD_MAX_QUEUE:
-        raise ValueError(f"fused_prefix_ffd: queue_capacity {Qc} exceeds "
-                         f"the kernel's limit {FFD_MAX_QUEUE}")
-    c_shape = (C,)
-    ptrs += _queue("l0", s.l0, C, Qc) + [
-        _check("wait_total", s.wait_total, c_shape, torch.float32),
-        _check("wait_jobs", s.wait_jobs, c_shape, torch.int32),
-        _check("jobs_in_queue", s.jobs_in_queue, c_shape, torch.int32),
-    ]
+    ptrs += _level0("fused_prefix_ffd", s, ints[0], ints[3])
     wave = int(not cfg.parity and cfg.ffd_sweep == "wave")
     ints += [wave, host["ffd_mem_first"]]
     _run("fused_prefix_ffd", ptrs, ints, rows)
 
 
-_LAUNCH = {"fifo": _launch_fifo, "ffd": _launch_ffd}
+def _launch_delay(cfg, s, rows, counts, t: int, host: dict) -> None:
+    ptrs, ints = _common(cfg, s, rows, counts, t)
+    C, Qc = ints[0], ints[3]
+    ptrs += (_level0("fused_prefix_delay", s, C, Qc)
+             + _queue("l1", s.l1, C, Qc))
+    wave = int(not cfg.parity and cfg.delay_sweep == "wave")
+    ints += [wave, int(cfg.parity), host["max_wait_ms"]]
+    _run("fused_prefix_delay", ptrs, ints, rows)
+
+
+# the scored kernel's picks (csrc/fused_prefix_scored.cu kTable, kTesserae)
+_PICK = {"gavel": 0, "rl": 0, "tesserae": 1}
+
+
+def _launch_scored(cfg, s, rows, counts, t: int, host: dict) -> None:
+    ptrs, ints = _common(cfg, s, rows, counts, t)
+    C, N = ints[0], ints[1]
+    ptrs += _level0("fused_prefix_scored", s, C, ints[3]) + [
+        _check("node_type", s.node_type, (C, N), torch.int32)]
+    ints += [_PICK[host["member"].kind]]
+    _run("fused_prefix_scored", ptrs, ints, rows,
+         (host["table"], host["weights"]))
+
+
+_LAUNCH = {"fused_prefix_fifo": _launch_fifo,
+           "fused_prefix_ffd": _launch_ffd,
+           "fused_prefix_delay": _launch_delay,
+           "fused_prefix_scored": _launch_scored}

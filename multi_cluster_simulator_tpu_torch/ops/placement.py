@@ -1,12 +1,14 @@
 """Placement kernels: first-fit over the node axis, batched over clusters.
 
 The port of ``multi_cluster_simulator_tpu/ops/placement.py`` (the parts the
-FIFO and FFD paths run). The reference's placement is a linear first-fit
-scan over nodes (ScheduleJob, pkg/scheduler/scheduler.go:127-139); here it
-is a branch-free mask over the padded node axis. Node slots run physical
+FIFO, FFD, DELAY and scored paths run). The reference's placement is a
+linear first-fit scan over nodes (ScheduleJob,
+pkg/scheduler/scheduler.go:127-139); here it is a branch-free mask over the
+padded node axis. Node slots run physical
 first, then virtual, so first-fit order matches Go's ``append`` of virtual
 nodes. The FFD order (``best_fit_decreasing_order``) is a batched stable
-lexsort.
+lexsort; the scored pick (``best_scored_fit``) is an argmax over f32 node
+scores.
 """
 
 from __future__ import annotations
@@ -47,6 +49,20 @@ def first_fit(free: torch.Tensor, active: torch.Tensor,
     """[...] lowest-index feasible node, or NO_NODE."""
     mask = feasible(free, active, job.cores, job.mem, job.gpu)
     return torch.where(mask.any(dim=-1), first_index(mask), NO_NODE)
+
+
+def best_scored_fit(free: torch.Tensor, active: torch.Tensor, job: JobRec,
+                    scores: torch.Tensor) -> torch.Tensor:
+    """[...] highest-scoring feasible node, or NO_NODE. ``scores`` [..., N]
+    f32; infeasible nodes score ``-inf`` and the first maximum wins, so
+    ties go to the lowest index (the reference's first-fit orientation)."""
+    if scores.shape != active.shape:
+        raise ValueError(f"best_scored_fit: scores of shape "
+                         f"{tuple(scores.shape)}, nodes {tuple(active.shape)}")
+    mask = feasible(free, active, job.cores, job.mem, job.gpu)
+    sc = torch.where(mask, scores.to(torch.float32), -torch.inf)
+    return torch.where(mask.any(dim=-1), torch.argmax(sc, dim=-1).to(I32),
+                       NO_NODE)
 
 
 def occupy(free: torch.Tensor, node: torch.Tensor, job: JobRec,

@@ -93,6 +93,10 @@ class JobRec(Tree):
         return self.vec[..., FREC]
 
     @property
+    def jclass(self):
+        return self.vec[..., FJCLASS]
+
+    @property
     def retries(self):
         return self.vec[..., FRETRIES]
 
@@ -194,6 +198,15 @@ def set_field(q: JobQueue, name: str, values: torch.Tensor) -> JobQueue:
     layout)."""
     data = q.data.clone()
     data[..., F.QUEUE_INDEX[name]] = values.to(I32)
+    return q.replace(data=data)
+
+
+def set_field_elem(q: JobQueue, name: str, i: int,
+                   value: torch.Tensor) -> JobQueue:
+    """Overwrite one field of slot ``i`` in every cluster with ``value``
+    [C] (e.g. the head's rec_wait; wide layout)."""
+    data = q.data.clone()
+    data[:, i, F.QUEUE_INDEX[name]] = value.to(I32)
     return q.replace(data=data)
 
 

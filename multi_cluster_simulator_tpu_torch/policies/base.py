@@ -11,10 +11,10 @@
   built-ins are the reference's, in the same order, so a name means the
   same policy in both packages (tests/test_torch_copies.py pins the table
   and every ``default_params`` leaf).
-- ``PolicySet`` — the tuple of registered names an engine runs. The port
-  runs singleton sets of the kinds ported so far (``fifo`` and ``ffd``);
-  a set with more members needs the traced ``params.idx`` switch
-  (ROADMAP A5, its kernel B3), and the other kinds are A5 too. Both raise.
+- ``PolicySet`` — the tuple of registered names an engine runs, every
+  kind of the zoo; a scalar ``params.idx`` selects the member
+  (``dispatch``). A batched index, the tournament's cell axis
+  (``stacked_params``), is ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -72,7 +72,6 @@ class PolicySpec:
 
 
 KINDS = ("fifo", "delay", "ffd", "gavel", "tesserae", "rl")
-PORTED_KINDS = ("fifo", "ffd")
 
 REGISTRY: dict[str, PolicySpec] = {}
 
@@ -159,22 +158,29 @@ def _run_kind(spec: PolicySpec, state: SimState, t: int,
     if spec.kind == "fifo":
         state, want, bjob = K._fifo_local(state, t, cfg)
         return state, want, bjob.vec
-    if spec.kind == "ffd":
+    if spec.kind == "delay":
+        fn = (K._delay_wave_local
+              if not cfg.parity and cfg.delay_sweep == "wave"
+              else K._delay_local)
+    elif spec.kind == "ffd":
         fn = (K._ffd_wave_local
               if not cfg.parity and cfg.ffd_sweep == "wave"
               else K._ffd_local)
-        state = fn(state, t, cfg, params)
-        want, bjob = _zero_io(state)
-        return state, want, bjob
-    raise NotImplementedError(
-        f"policy kind {spec.kind!r} is not ported yet: ROADMAP A5 "
-        f"(its schedule kernel: B3)")
+    elif spec.kind == "gavel":
+        fn = K._gavel_local
+    elif spec.kind == "rl":
+        fn = K._rl_local
+    else:  # tesserae
+        fn = K._tesserae_local
+    state = fn(state, t, cfg, params)
+    want, bjob = _zero_io(state)
+    return state, want, bjob
 
 
 @dataclasses.dataclass(frozen=True)
 class PolicySet:
     """The tuple of registered policy names an engine runs; ``params.idx``
-    would select the member. Hashable, like the config."""
+    selects the member. Hashable, like the config."""
 
     names: tuple
 
@@ -212,25 +218,38 @@ class PolicySet:
 
     def ingest_to_delay(self):
         """Arrival ingest target across the set: a bool when every member
-        agrees, else None (the reference then switches per member)."""
+        agrees, else None (the engine then takes the selected member's)."""
         targets = {s.to_delay for s in self.specs}
         return targets.pop() if len(targets) == 1 else None
 
-    def check_ported(self) -> None:
-        """Refuse, by ROADMAP item, a set the port cannot run yet."""
-        if len(self.names) > 1:
-            raise NotImplementedError(
-                f"a PolicySet with {len(self.names)} members {self.names} "
-                f"needs the params.idx dispatch, not ported yet: ROADMAP A5 "
-                f"(its schedule kernel: B3)")
-        for spec in self.specs:
-            if spec.kind not in PORTED_KINDS:
+    def to_delay_table(self) -> torch.Tensor:
+        """[members] bool: each member's ingest target is Level0."""
+        return torch.tensor([s.to_delay for s in self.specs])
+
+    def kind_flag_table(self, kind: str) -> torch.Tensor:
+        """[members] bool: which members are of ``kind``."""
+        return torch.tensor([s.kind == kind for s in self.specs])
+
+    def member(self, idx) -> PolicySpec:
+        """The member a scalar ``params.idx`` selects (an int, or a 0-d
+        tensor read once: a host sync on the card)."""
+        if isinstance(idx, torch.Tensor):
+            if idx.dim() != 0:
                 raise NotImplementedError(
-                    f"policy kind {spec.kind!r} ({spec.name}) is not ported "
-                    f"yet: ROADMAP A5 (its schedule kernel: B3)")
+                    "a batched params.idx (the tournament's cell axis) is "
+                    "not ported yet: ROADMAP A13")
+            idx = int(idx)
+        if not 0 <= idx < len(self.names):
+            raise IndexError(f"params.idx {idx} outside the set's "
+                             f"{len(self.names)} members {self.names}")
+        return self.specs[idx]
 
     def dispatch(self, state: SimState, t: int, params: PolicyParams,
-                 cfg: SimConfig):
-        """The scheduling pass of the set's one member."""
-        self.check_ported()
-        return _run_kind(self.specs[0], state, t, params, cfg)
+                 cfg: SimConfig, member: PolicySpec = None):
+        """The scheduling pass of the member ``params.idx`` selects (or
+        ``member``, when the caller read the index already). Members that
+        share ``(kind, to_delay)`` share one path: their differences are
+        parameter leaves. A scalar index runs only the selected branch,
+        as the reference's ``lax.switch`` does."""
+        spec = self.member(params.idx) if member is None else member
+        return _run_kind(spec, state, t, params, cfg)

@@ -1,37 +1,47 @@
-"""The FIFO and FFD scheduling passes as plain PyTorch ops, batched over
-clusters.
+"""The scheduling passes of the policy zoo as plain PyTorch ops, batched
+over clusters.
 
-The port of the FIFO and FFD parts of ``multi_cluster_simulator_tpu/
-policies/kernels.py``: the wait-head / ready-drain / lent best-effort pass
-of Fifo() (pkg/scheduler/scheduler.go:216-296), and the first-fit-decreasing
-bin-pack over Level0 (``_ffd_local`` through the shared serial sweep
-``_scored_sweep_local``, and its speculative-wave form ``_ffd_wave_local``).
-The reference writes each function for one cluster and ``vmap``s it; here
+The port of ``multi_cluster_simulator_tpu/policies/kernels.py``: the
+wait-head / ready-drain / lent best-effort pass of Fifo()
+(pkg/scheduler/scheduler.go:216-296); Delay() (scheduler.go:298-369), its
+serial Level1 sweep with the parity-mode remove-then-skip quirk and its
+speculative-wave form, both followed by the Level0-head attempt and
+promotion; and the serial Level0 sweep ``_scored_sweep_local`` behind the
+first-fit-decreasing bin-pack (``_ffd_local``, and its wave form
+``_ffd_wave_local``) and the scored kinds gavel, tesserae and rl, which
+pick each job's node by an f32 score (``P.best_scored_fit``). The
+reference writes each function for one cluster and ``vmap``s it; here
 every function takes the cluster axis [C] explicitly.
 
 Two rewrites keep the batched form exact without host syncs:
 
 - ``jax.lax.while_loop`` under ``vmap`` runs until no cluster's condition
-  holds, leaving the carry of finished clusters untouched. Both drains
-  here run a FIXED ``QC`` iterations with each cluster's carry updated
-  only while its own condition holds. That is the same function: every
-  serial step consumes one queue position, and every wave either resolves
-  at least one row or stops the cluster (``_fifo_drain_wave``), so no
-  cluster needs more than ``QC`` iterations.
+  holds, leaving the carry of finished clusters untouched. The drains and
+  waves here run a FIXED ``QC`` iterations with each cluster's carry
+  updated only while its own condition holds. That is the same function:
+  every serial step consumes one queue position, and every wave either
+  resolves at least one row or stops the cluster (``_fifo_drain_wave``),
+  so no cluster needs more than ``QC`` iterations. The serial Level0 and
+  Level1 sweeps, whose ``QC`` is the whole queue in parity mode, run the
+  largest sweep length over the clusters instead, as the reference's loop
+  does (one host read of it per sweep).
 - one-hot integer contractions become ``where``/``gather``/``scatter`` and
   int32 broadcast-multiply-sums, which CUDA supports (it has no integer
-  matmul) and which give the same integers.
+  matmul) and which give the same integers; the one-hot f32 lookups of a
+  score matrix become a gather, exact for finite scores.
 
-One float: ``wait_total`` (f32). The serial sweep adds each processed
-job's wait delta in sweep order, as the reference does. The wave form adds
+The floats. ``wait_total`` (f32): the serial sweeps add each processed
+job's wait delta in sweep order, as the reference does. The wave forms add
 the tick's deltas once, as the reference's ``delta.sum()``; here the sum
 is taken exactly in int64 and rounded once, which equals the reference's
 f32 reduction whenever its partial sums stay below 2^24 ms (4.6 hours of
-wait in one tick), and makes the sum independent of reduction order.
+wait in one tick), and makes the sum independent of reduction order. The
+tesserae score is a three-term f32 dot product; XLA's CPU dot rounds the
+first product and adds each later one by a fused multiply-add, and
+``_tesserae_scores`` takes exactly that order (``fma_f32``).
 
 These are the plain versions the CUDA kernels (kernels/csrc/
-fused_prefix_fifo.cu, fused_prefix_ffd.cu) are held against, and what the
-port runs on the CPU.
+fused_prefix_*.cu) are held against, and what the port runs on the CPU.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import torch
 from multi_cluster_simulator_tpu_torch.config import SimConfig
 from multi_cluster_simulator_tpu_torch.core import state as st
 from multi_cluster_simulator_tpu_torch.core.state import SimState, Trace
+from multi_cluster_simulator_tpu_torch.ops import fields as F
 from multi_cluster_simulator_tpu_torch.ops import placement as P
 from multi_cluster_simulator_tpu_torch.ops import queues as Q
 from multi_cluster_simulator_tpu_torch.ops import runset as R
@@ -69,11 +80,24 @@ def _trace_append_many(tr: Trace, take: torch.Tensor, t: int,
                        job_ids: torch.Tensor, nodes: torch.Tensor,
                        src: int) -> Trace:
     """Append events for positions where ``take`` [C, K], in position
-    order. The reference does it as one [K, cap] contraction and documents
-    it as bit-identical to appending one by one, which is what this does."""
-    for k in range(take.shape[1]):
-        tr = _trace_append(tr, take[:, k], t, job_ids[:, k], nodes[:, k], src)
-    return tr
+    order: the k-th taken event of cluster ``c`` lands at ``n[c] + k`` while
+    that is inside the ring, as appending them one by one does. One
+    scatter per field; events past the ring go to a spare column that is
+    cut off."""
+    C, cap = tr.t.shape
+    take_i = take.to(I32)
+    pos = tr.n[:, None] + icumsum(take_i, 1) - take_i
+    ok = take & (pos < cap)
+    idx = torch.where(ok, pos, cap).long()
+
+    def w(a, v):
+        wide = torch.cat([a, a.new_zeros(C, 1)], dim=1)
+        return wide.scatter(1, idx, v)[:, :cap].contiguous()
+
+    return Trace(t=w(tr.t, torch.full_like(job_ids, t)),
+                 job=w(tr.job, job_ids), node=w(tr.node, nodes),
+                 src=w(tr.src, torch.full_like(job_ids, src)),
+                 n=tr.n + isum(ok, 1))
 
 
 def _attempt(s: SimState, job: Q.JobRec, t: int, do: torch.Tensor, src: int,
@@ -84,19 +108,26 @@ def _attempt(s: SimState, job: Q.JobRec, t: int, do: torch.Tensor, src: int,
     C = job.vec.shape[0]
     buf = torch.zeros((C, 1, R.RF), dtype=I32, device=job.vec.device)
     cnt = torch.zeros((C,), dtype=I32, device=job.vec.device)
-    s, success, buf, cnt = _attempt_deferred(s, job, t, do, src, record_trace,
-                                             buf, cnt, n_active)
+    s, success, buf, cnt, node = _attempt_deferred(s, job, t, do, buf, cnt,
+                                                   n_active)
+    if record_trace:
+        s = s.replace(trace=_trace_append(s.trace, success, t, job.id, node,
+                                          src))
     return s.replace(run=R.start_many(s.run, buf, cnt)), success
 
 
 def _attempt_deferred(s: SimState, job: Q.JobRec, t: int, do: torch.Tensor,
-                      src: int, record_trace: bool, buf: torch.Tensor,
-                      cnt: torch.Tensor, n_active: torch.Tensor):
+                      buf: torch.Tensor, cnt: torch.Tensor,
+                      n_active: torch.Tensor, node=None):
     """``_attempt`` for the sweep loops: the placed row lands in ``buf``
     [C, SW, RF] at position ``cnt`` and the caller flushes the batch with
     ``R.start_many``; ``n_active + cnt`` reproduces the sequential
-    has-slot check."""
-    node = P.first_fit(s.node_free, s.node_active, job)
+    has-slot check. ``node`` [C] overrides the first-fit pick (the scored
+    kinds pass ``P.best_scored_fit``'s). The caller traces the placement:
+    it gets ``(state, success, buf, cnt, node)``, and a sweep appends its
+    events once, after the loop (``_trace_events``)."""
+    if node is None:
+        node = P.first_fit(s.node_free, s.node_active, job)
     has_slot = (n_active + cnt) < s.run.capacity
     success = do & has_slot & (node >= 0)
     free = P.occupy(s.node_free, node, job, success)
@@ -105,13 +136,23 @@ def _attempt_deferred(s: SimState, job: Q.JobRec, t: int, do: torch.Tensor,
            == cnt[:, None]) & success[:, None]
     buf = torch.where(hot[..., None], row[:, None, :], buf)
     cnt = cnt + success.to(I32)
-    trace = (_trace_append(s.trace, success, t, job.id, node, src)
-             if record_trace else s.trace)
     run_full = do & (node >= 0) & ~has_slot
     drops = s.drops.replace(run_full=s.drops.run_full + run_full.to(I32))
-    s = s.replace(node_free=free, trace=trace, drops=drops,
+    s = s.replace(node_free=free, drops=drops,
                   placed_total=s.placed_total + success.to(I32))
-    return s, success, buf, cnt
+    return s, success, buf, cnt, node
+
+
+def _trace_events(s: SimState, cfg: SimConfig, events: list, t: int,
+                  src: int) -> SimState:
+    """Trace a sweep's attempts, ``events`` a list of (success, job id,
+    node) [C] per step, in step order — what tracing each attempt as it
+    happened gives, since nothing else traces inside a sweep."""
+    if not cfg.record_trace or not events:
+        return s
+    success, ids, nodes = (torch.stack(x, dim=1) for x in zip(*events))
+    return s.replace(trace=_trace_append_many(s.trace, success, t, ids,
+                                              nodes, src))
 
 
 def _sweep_len(cfg: SimConfig) -> int:
@@ -145,6 +186,127 @@ def _bfd_order(q: Q.JobQueue, params) -> torch.Tensor:
     secondary = torch.where(valid, torch.where(mem_first, -q.cores, -q.mem),
                             P.BIG)
     return P.lexsort(secondary, primary)
+
+
+def _max_wait_ms(cfg: SimConfig, params):
+    """The DELAY Level0->Level1 promotion threshold: the policy parameter
+    (a 0-d int32 tensor) when params are given, the config's otherwise, so
+    ``delay-eager`` and ``delay-patient`` are data, not code."""
+    if params is None:
+        return cfg.max_wait_ms
+    return params.max_wait_ms
+
+
+# --------------------------------------------------------------------------
+# DELAY — the reference's live algorithm
+# --------------------------------------------------------------------------
+
+def _delay_local(s: SimState, t: int, cfg: SimConfig, params=None):
+    """Delay() (scheduler.go:298-369), the serial Level1 sweep: the first
+    ``min(|L1|, QC)`` slots in queue order, each recording its wait and
+    making one deferred attempt; in parity mode a success skips the next
+    slot (Go removes L1[i] in place and ``i++`` passes over the element
+    that slid into position i, scheduler.go:319). Then the processed
+    slots' rec_wait is rewritten, the placed slots are compacted out, the
+    placements flushed into the running set, and the Level0 head runs."""
+    QC = _sweep_len(cfg)
+    C = s.l1.count.shape[0]
+    dev = s.l1.data.device
+    n_sweep = torch.clamp(s.l1.count, max=QC)
+    n_active = isum(s.run.active, 1)
+    rec = s.l1.rec_wait.clone()
+    placed = torch.zeros((C, s.l1.capacity), dtype=torch.bool, device=dev)
+    skip_next = torch.zeros((C,), dtype=torch.bool, device=dev)
+    buf = torch.zeros((C, QC, R.RF), dtype=I32, device=dev)
+    cnt = torch.zeros((C,), dtype=I32, device=dev)
+    events = []
+    for i in range(int(n_sweep.max()) if C else 0):
+        process = (i < n_sweep) & ~skip_next
+        vec = s.l1.data[:, i].clone()
+        vec[:, Q.FREC] = rec[:, i]
+        job = Q.JobRec(vec=vec)
+        total, rec[:, i] = _record_wait(s.wait_total, rec[:, i], job.enq_t,
+                                        t, process)
+        s = s.replace(wait_total=total)
+        s, success, buf, cnt, node = _attempt_deferred(
+            s, job, t, process, buf, cnt, n_active)
+        s = s.replace(jobs_in_queue=s.jobs_in_queue - success.to(I32))
+        placed[:, i] |= success
+        events.append((success, job.id, node))
+        if cfg.parity:
+            skip_next = success
+    s = _trace_events(s, cfg, events, t, st.SRC_L1)
+    l1 = Q.compact(Q.set_field(s.l1, "rec_wait", rec), ~placed)
+    s = s.replace(l1=l1, run=R.start_many(s.run, buf, cnt))
+    return _delay_l0_head(s, t, cfg, params)
+
+
+def _delay_l0_head(s: SimState, t: int, cfg: SimConfig, params=None):
+    """The Level0-head half of Delay() (scheduler.go:332-366): record the
+    head's wait and make one immediate attempt; on failure promote it to
+    Level1 once ``t - enq_t >= max_wait_ms``. The head is popped on success
+    or promotion; a promotion into a full Level1 counts into
+    ``drops.queue`` and the job is popped anyway."""
+    process = s.l0.count > 0
+    head = Q.head(s.l0)
+    total, new_rec = _record_wait(s.wait_total, head.rec_wait, head.enq_t, t,
+                                  process)
+    s = s.replace(wait_total=total,
+                  l0=Q.set_field_elem(s.l0, "rec_wait", 0, new_rec))
+    vec = head.vec.clone()
+    vec[:, Q.FREC] = new_rec
+    job = Q.JobRec(vec=vec)
+    s, success = _attempt(s, job, t, process, st.SRC_L0, cfg.record_trace)
+    s = s.replace(jobs_in_queue=s.jobs_in_queue - success.to(I32))
+    promote = (process & ~success
+               & ((t - job.enq_t) >= _max_wait_ms(cfg, params)))
+    return s.replace(
+        l0=Q.pop_front(s.l0, success | promote),
+        l1=Q.push_back(s.l1, job, promote),
+        drops=s.drops.replace(
+            queue=s.drops.queue + Q.push_back_dropped(s.l1, promote)))
+
+
+def _delay_wave_local(s: SimState, t: int, cfg: SimConfig, params=None):
+    """Fast-mode Delay(): the Level1 sweep as speculative waves
+    (``_wave_place``; the same placements as the serial sweep without the
+    parity skip), its wait accounting once per tick at the slot level (an
+    exact integer sum, rounded once: see the module docstring), then the
+    Level0 head."""
+    QC = min(cfg.queue_capacity, cfg.max_placements_per_tick)
+    cap = s.l1.capacity
+    dev = s.l1.data.device
+    n_sweep = torch.clamp(s.l1.count, max=QC)
+    n_active = isum(s.run.active, 1)
+    act0 = torch.arange(QC, dtype=I32, device=dev)[None, :] < n_sweep[:, None]
+    jobs = Q.JobRec(vec=Q.rows_prefix(s.l1, QC))  # sweep order: queue order
+
+    processed_slot = (torch.arange(cap, dtype=I32, device=dev)[None, :]
+                      < n_sweep[:, None])
+    cur = t - s.l1.enq_t
+    frec = s.l1.rec_wait
+    delta = torch.where(processed_slot, cur - frec, 0)
+    wait_total = s.wait_total + delta.sum(dim=1).to(torch.float32)
+    l1 = Q.set_field(s.l1, "rec_wait", torch.where(processed_slot, cur, frec))
+    s = s.replace(wait_total=wait_total, l1=l1)
+
+    free, node_sel, cnt, run_full = _wave_place(
+        s.node_free, s.node_active, s.run.capacity, n_active, jobs, act0)
+    placed_pos = node_sel >= 0  # [C, QC]: position == slot
+    buf = _placed_buffer(jobs, node_sel, t)
+    trace = s.trace
+    if cfg.record_trace:
+        trace = _trace_append_many(trace, placed_pos, t, jobs.id, node_sel,
+                                   st.SRC_L1)
+    placed_slot = torch.nn.functional.pad(placed_pos, (0, cap - QC))
+    s = s.replace(
+        node_free=free, trace=trace,
+        drops=s.drops.replace(run_full=s.drops.run_full + run_full),
+        placed_total=s.placed_total + cnt,
+        jobs_in_queue=s.jobs_in_queue - cnt,
+        l1=Q.compact(s.l1, ~placed_slot),
+        run=R.start_many(s.run, buf, cnt))
+    return _delay_l0_head(s, t, cfg, params)
 
 
 # --------------------------------------------------------------------------
@@ -271,17 +433,19 @@ def _fifo_drain_serial(s: SimState, t: int, cfg: SimConfig,
     cnt = torch.zeros((C,), dtype=I32, device=dev)
     slots = torch.arange(s.ready.capacity, dtype=I32, device=dev)
     limit = torch.clamp(s.ready.count, max=QC)
+    events = []
     for i in range(QC):
         process = ~wait_active & (i < limit) & ~stopped
         job = Q.select_row(s.ready, (slots == i)[None, :].expand(C, -1))
-        s, success, buf, cnt = _attempt_deferred(
-            s, job, t, process, st.SRC_READY, cfg.record_trace, buf, cnt,
-            n_active)
+        s, success, buf, cnt, node = _attempt_deferred(
+            s, job, t, process, buf, cnt, n_active)
+        events.append((success, job.id, node))
         fail = process & ~success
         n_taken = n_taken + process.to(I32)  # pops regardless of outcome
         fail_job = torch.where(fail[:, None], job.vec, fail_job)
         stopped = stopped | fail
         any_fail = any_fail | fail
+    s = _trace_events(s, cfg, events, t, st.SRC_READY)
     return s, n_taken, Q.JobRec(vec=fail_job), any_fail, buf, cnt
 
 
@@ -332,17 +496,13 @@ def _fifo_local(s: SimState, t: int, cfg: SimConfig):
 
 def _scored_sweep_local(s: SimState, t: int, cfg: SimConfig, params,
                         order: torch.Tensor, score_fn=None):
-    """The serial Level0 placement sweep over ``order`` [C, Q]: per
-    position, record the job's wait, try first-fit, defer the RunningSet
-    insertion; then compact Level0 and flush the placements. ``QC`` masked
-    steps, each cluster active for its first ``min(|L0|, QC)`` positions
-    (the reference's vmapped while loop). Only the first-fit node pick
-    (``score_fn=None``) is ported; the scored picks of gavel, tesserae and
-    rl are ROADMAP A5."""
-    if score_fn is not None:
-        raise NotImplementedError(
-            "scored node picks (gavel/tesserae/rl) are not ported yet: "
-            "ROADMAP A5")
+    """The serial Level0 placement sweep over ``order`` [C, Q] behind FFD,
+    gavel, tesserae and rl: per position, record the job's wait, pick a
+    node, defer the RunningSet insertion; then compact Level0 and flush
+    the placements. ``QC`` masked steps, each cluster active for its first
+    ``min(|L0|, QC)`` positions (the reference's vmapped while loop).
+    ``score_fn(state, job) -> [C, N] f32`` swaps the first-fit pick for
+    ``P.best_scored_fit``; ``None`` keeps first fit."""
     QC = _sweep_len(cfg)
     C, cap = s.l0.count.shape[0], s.l0.capacity
     dev = s.l0.data.device
@@ -352,7 +512,8 @@ def _scored_sweep_local(s: SimState, t: int, cfg: SimConfig, params,
     placed = torch.zeros((C, cap), dtype=torch.bool, device=dev)
     buf = torch.zeros((C, QC, R.RF), dtype=I32, device=dev)
     cnt = torch.zeros((C,), dtype=I32, device=dev)
-    for k in range(QC):
+    events = []
+    for k in range(int(n_sweep.max()) if C else 0):
         process = k < n_sweep
         hot = slots[None, :] == order[:, k:k + 1]
         job = Q.select_row(s.l0, hot)
@@ -362,11 +523,14 @@ def _scored_sweep_local(s: SimState, t: int, cfg: SimConfig, params,
                            s.l0.rec_wait)
         s = s.replace(wait_total=total,
                       l0=Q.set_field(s.l0, "rec_wait", frec))
-        s, success, buf, cnt = _attempt_deferred(
-            s, job, t, process, st.SRC_L0, cfg.record_trace, buf, cnt,
-            n_active)
+        node = None if score_fn is None else P.best_scored_fit(
+            s.node_free, s.node_active, job, score_fn(s, job))
+        s, success, buf, cnt, node = _attempt_deferred(
+            s, job, t, process, buf, cnt, n_active, node=node)
         s = s.replace(jobs_in_queue=s.jobs_in_queue - success.to(I32))
         placed = placed | (hot & success[:, None])
+        events.append((success, job.id, node))
+    s = _trace_events(s, cfg, events, t, st.SRC_L0)
     return s.replace(l0=Q.compact(s.l0, ~placed),
                      run=R.start_many(s.run, buf, cnt))
 
@@ -453,3 +617,96 @@ def _ffd_wave_local(s: SimState, t: int, cfg: SimConfig, params=None):
         jobs_in_queue=s.jobs_in_queue - cnt,
         l0=Q.compact(s.l0, ~placed_slot),
         run=R.start_many(s.run, buf, cnt))
+
+
+# --------------------------------------------------------------------------
+# the scored Level0 sweeps: gavel, tesserae, rl
+# --------------------------------------------------------------------------
+
+def _class_device_scores(node_type: torch.Tensor, jclass: torch.Tensor,
+                         matrix: torch.Tensor) -> torch.Tensor:
+    """[C, N] per-node score for each cluster's job of class ``jclass``
+    [C]: entry ``[jclass, node_type]`` of the [N_JOB_CLASSES,
+    N_DEVICE_TYPES] f32 ``matrix``, both indices clipped into range. The
+    reference's one-hot f32 contractions are this lookup, exactly, for
+    finite scores."""
+    jc = torch.clamp(jclass, 0, F.N_JOB_CLASSES - 1).long()
+    nt = torch.clamp(node_type, 0, F.N_DEVICE_TYPES - 1).long()
+    return matrix.to(torch.float32)[jc[:, None], nt]
+
+
+def _gavel_scores(node_type, jclass, params):
+    """Gavel's node scores: the throughput matrix row of the job's class."""
+    return _class_device_scores(node_type, jclass, params.gavel_tput)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of f32 tensors rounded once to f32 (the IEEE fused
+    multiply-add, which the CUDA kernel calls as ``__fmaf_rn``): the
+    product is exact in f64 (24 + 24 significant bits), the sum is rounded
+    to odd in f64 through its two-sum error term, and the one rounding to
+    f32 after that is the correctly rounded result."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def _tesserae_scores(node_free: torch.Tensor, job: Q.JobRec, params):
+    """[C, N] packing-alignment score: ``sum_r f32(free[n, r]) *
+    (f32(res[r]) * w[r])`` under ``params.tess_w``, in the order XLA's CPU
+    dot takes it — the first product rounded, each later resource added
+    by a fused multiply-add (tests/test_torch_scored.py holds this bitwise
+    against the reference)."""
+    n_res = node_free.shape[-1]
+    rw = job.res[..., :n_res].to(torch.float32) \
+        * params.tess_w[:n_res].to(torch.float32)  # [C, R]
+    free = node_free.to(torch.float32)  # [C, N, R]
+    score = free[..., 0] * rw[:, None, 0]
+    for r in range(1, n_res):
+        score = fma_f32(free[..., r], rw[:, None, r].expand_as(score), score)
+    return score
+
+
+def _queue_order(q: Q.JobQueue) -> torch.Tensor:
+    C = q.count.shape[0]
+    return torch.arange(q.capacity, dtype=I32,
+                        device=q.data.device)[None, :].expand(C, -1)
+
+
+def _gavel_local(s: SimState, t: int, cfg: SimConfig, params):
+    """Gavel-style round: Level0 in queue order, each job on the feasible
+    node whose device type maximises its class's throughput
+    (``params.gavel_tput``; ties to the lowest node index)."""
+    def score(s2, job):
+        return _gavel_scores(s2.node_type, job.jclass, params)
+
+    return _scored_sweep_local(s, t, cfg, params, _queue_order(s.l0), score)
+
+
+def _tesserae_local(s: SimState, t: int, cfg: SimConfig, params):
+    """Tesserae-style packing: Level0 in the BFD order (always cores
+    first: ``params=None``), each job on the feasible node with the
+    highest weighted demand-free alignment."""
+    def score(s2, job):
+        return _tesserae_scores(s2.node_free, job, params)
+
+    return _scored_sweep_local(s, t, cfg, params, _bfd_order(s.l0, None),
+                               score)
+
+
+def _rl_local(s: SimState, t: int, cfg: SimConfig, params):
+    """The learned-scheduler kind: Level0 in queue order, the node pick
+    scored by ``params.rl_scores`` through the same class/device-type
+    lookup as gavel; the all-zero default is first fit in queue order."""
+    def score(s2, job):
+        return _class_device_scores(s2.node_type, job.jclass,
+                                    params.rl_scores)
+
+    return _scored_sweep_local(s, t, cfg, params, _queue_order(s.l0), score)

@@ -184,9 +184,9 @@ def test_port_run_equals_run_chunks():
 
 
 @pytest.mark.parametrize("change,policies,item", [
-    (dict(policy=tconfig.PolicyKind.DELAY), None, "A5"),
-    (dict(), ("fifo", "ffd"), "A5"),
-    (dict(), ("gavel",), "A5"),
+    (dict(policy=tconfig.PolicyKind.DELAY, borrowing=True), None, "A6"),
+    (dict(record_metrics=True), ("fifo", "ffd"), "A10"),
+    (dict(faults=tconfig.FaultConfig(enabled=True)), ("gavel",), "A8"),
     (dict(borrowing=True), None, "A6"),
     (dict(trader=tconfig.TraderConfig(enabled=True), n_res=3), None, "A7"),
     (dict(faults=tconfig.FaultConfig(enabled=True)), None, "A8"),

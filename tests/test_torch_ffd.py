@@ -278,13 +278,16 @@ def test_serial_and_wave_sweeps_agree_in_the_port(pre_states):
 
 
 def test_scored_sweep_refuses_a_score_fn(pre_states):
+    """The scored picks are ported (tests/test_torch_scored.py); what the
+    sweep refuses is a score_fn whose scores are not one f32 per node of
+    each cluster."""
     cfg, states = pre_states["tight"]
     t, pre = states[0]
     tpre = interop.state_from_numpy(jax_leaves(pre), device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="scores of shape"):
         tK._scored_sweep_local(tpre, t, port_cfg(cfg), None,
                                tK._bfd_order(tpre.l0, None),
-                               score_fn=lambda s, j: None)
+                               score_fn=lambda s, j: torch.zeros(3))
 
 
 # --------------------------------------------------------------------------
@@ -337,7 +340,7 @@ def test_fused_prefix_bitwise_equals_jax_pallas(jax_fused_ticks, form, i):
     params = eng._default_params
     out = tfused.fused_prefix(eng, state, torch.from_numpy(rows.copy()),
                               torch.from_numpy(counts.copy()), t, params,
-                              tfused.host_params(params))
+                              tfused.host_params(eng, params))
     assert out is state, "the prefix updates the state in place"
     assert_leaves_equal(jax_leaves(want), interop.state_to_numpy(out))
     assert not any(tfused.launch_counts().values())
@@ -348,10 +351,13 @@ def test_ffd_provenance_names_its_kernel():
     prov = tfused.provenance(eng)
     assert prov["kernel"] == "fused_prefix_ffd" and prov["schedule"] == "ffd"
     assert prov["source"].endswith("csrc/fused_prefix_ffd.cu")
-    assert [k.name for k in tfused.KERNELS.values()] == [
+    assert [k.name for k in tfused.KERNELS.values()][:2] == [
         "fused_prefix_fifo", "fused_prefix_ffd"]
-    assert tfused.host_params(port_params(ffd_cfg(), "ffd-memfirst")) == {
-        "ffd_mem_first": 1}
+    mf = tengine.Engine(port_cfg(ffd_cfg()), device="cpu",
+                        policies=tbase.PolicySet(("ffd-memfirst",)))
+    host = tfused.host_params(mf, port_params(ffd_cfg(), "ffd-memfirst"))
+    assert host["ffd_mem_first"] == 1
+    assert host["kernel"] is tfused.KERNELS["fused_prefix_ffd"]
 
 
 # --------------------------------------------------------------------------
@@ -429,7 +435,7 @@ def test_ffd_launch_refuses_a_queue_past_the_kernel_limit():
     """Above the kernel's static Level0 limit the wrapper raises before it
     builds or launches anything; it never hands the work to the plain
     version."""
-    cap = tfused.FFD_MAX_QUEUE + 1
+    cap = tfused.MAX_QUEUE + 1
     cfg = port_cfg(ffd_cfg(queue_capacity=cap, record_trace=False))
     _, tspecs = borg_specs(2)
     state = tstate.init_state(cfg, tspecs, device="cpu")

@@ -85,7 +85,7 @@ def test_fused_prefix_bitwise_equals_jax_pallas(jax_ticks, i, lent):
     params = eng._default_params
     out = tfused.fused_prefix(eng, state, torch.from_numpy(rows.copy()),
                               torch.from_numpy(counts.copy()), t, params,
-                              tfused.host_params(params))
+                              tfused.host_params(eng, params))
     assert out is state, "the prefix updates the state in place"
     assert_leaves_equal(jax_leaves(want), interop.state_to_numpy(out))
     # the CPU takes the plain path
@@ -130,7 +130,7 @@ def test_wrapper_refuses_mixed_devices(jax_ticks):
     with pytest.raises(ValueError, match="CUDA device"):
         tfused.fused_prefix(eng, state, meta_rows,
                             torch.from_numpy(counts), t, params,
-                            tfused.host_params(params))
+                            tfused.host_params(eng, params))
     assert not any(tfused.launch_counts().values())
 
 

@@ -4,10 +4,10 @@
 Run from the repository root with ``python3 chip_smoke.py``; it needs one
 CUDA card and exits non-zero without one (or without the repository around
 it). It drives the port's paths on the card — the headline FIFO run, the
-FFD bin-pack of the Borg-like replay, and DELAY and the scored zoo (gavel,
-tesserae) on the market shape — through the entry points a user calls,
-and holds each path's hand-written kernel against its plain PyTorch
-version:
+FFD bin-pack of the Borg-like replay, DELAY and the scored zoo (gavel,
+tesserae) on the market shape, and cross-cluster borrowing on BASELINE
+config 2 — through the entry points a user calls, and holds each path's
+hand-written kernel against its plain PyTorch version:
 
 1. device: the card's name and power limit;
 2. build: every CUDA kernel, from ``kernels/csrc/`` (one nvcc per source,
@@ -15,6 +15,7 @@ version:
 3. kernel against plain, every leaf bitwise (``wait_total`` included):
    a. FIFO at the headline's full width (4096 clusters), on ticks the
       headline run reaches and on heavier streams that fill the queues;
+      the emit form (``run_io``'s) timed on the first 400 headline ticks;
    b. the first 800 ticks of a 256-cluster headline run through each;
    c. FFD at bench_borg4k's full width: 16 ticks sampled as the kernel
       reaches them (the diurnal peak included), 2 x 30 heavy ticks that
@@ -34,6 +35,17 @@ version:
    f. tools/tournament.py's lineup as one multi-member PolicySet at 256
       clusters: each params.idx launches its member's kernel, and only
       that, and equals the plain version;
+   g. the FIFO kernel's emit form (the return pack, ``want``,
+      ``bjob_vec``, ``drops.msgs``) on the borrowing path of config 2
+      (bench.py:898-933, trader off): ticks of run (b) sampled as the
+      kernel reaches them; heavy ticks on small queues that fire returns
+      past the message slots, lent-head placements, LentQueue overflow and
+      wants; a whole run (a) and a whole 64-cluster tiled run of 600 ticks
+      with delivery and matching; the DELAY, FFD and gavel kernels' emit
+      form with foreign rows running;
+   h. ``Engine.run_io`` over 40 ticks of run (b) from the state it reached
+      at tick 800: the state and the stacked TickIO equal the plain
+      path's;
 4. the main paths, each with every launch count set to 0 just before and
    read just after:
    a. headline: 4096 clusters x 250 jobs, 1,570 ticks — zero drops, at
@@ -53,7 +65,17 @@ version:
       dropped, 700 launches of the run's kernel; for the DELAY runs also
       zero drops and at least 85% of the jobs that can place without the
       market placed (bench.py:1081); jobs/s over the min and median of 3
-      timed runs after 1 warm-up.
+      timed runs after 1 warm-up;
+   h-i. config 2 with the trader cut, 1,800 ticks: (a) at its own two
+      clusters — zero drops (bench.py:925), conservation, 1,800 launches
+      of the emit form; (b) tiled to 4,096 clusters — conservation, 1,800
+      launches, drops and the job count printed (the reference's herding
+      onto the lowest lender drops jobs there by design); ticks/s and
+      placed jobs/s over the min and median of 3 timed runs after the
+      counted run, which is the warm-up (run (a)'s goes through
+      ``run_io`` and counts its wants and returns), and per tick the
+      kernel, return delivery and borrow matching each timed by CUDA
+      events.
 
 Every number is printed beside the card's name and power limit. The last
 lines are a JSON record of each kernel (its time per launch, the plain
@@ -65,6 +87,7 @@ script non-zero.
 
 from __future__ import annotations
 
+import bisect
 import json
 import math
 import subprocess
@@ -103,6 +126,12 @@ MARKET_RUNS = {"a": ("delay", {}, True), "b": ("gavel", {}, False),
 LINEUP = ("fifo", "delay", "delay-eager", "delay-patient", "ffd",
           "ffd-memfirst", "gavel", "tesserae")
 LINEUP_C, LINEUP_TICKS = 256, 40
+# BASELINE config 2 (bench.py:898-933) with the trader cut: run (a) at its
+# own two clusters, run (b) tiled to 4,096; 3g's whole tiled run; 3h's
+# run_io chunk
+BORROW_C, BORROW_TICKS, BORROW_HORIZON_MS = 4096, 1_800, 1_800_000
+BORROW_TILED_C, BORROW_TILED_TICKS = 64, 600
+BORROW_SAMPLES, BORROW_IO_TICKS, BORROW_PROFILE_TICKS = 12, 40, 50
 # chunks (400 ticks each) of the earlier paths' whole-run comparisons
 # (3b, 3c): their first 800 ticks, to keep the script's time
 WHOLE_RUN_CHUNKS = 2
@@ -361,6 +390,22 @@ def tick_cost_scored(before, after, rows, counts, t: int, trace: bool,
     return read, written, (n_sweep * N * (n_res + 2)).sum()
 
 
+def io_diff(a, b) -> float:
+    """Largest |a - b| over two tuples of emit outputs (want, bjob_vec,
+    ret_rows, ret_valid); a bool counts its differing elements."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"emit output {x.dtype}{tuple(x.shape)} vs "
+                                 f"{y.dtype}{tuple(y.shape)}")
+        if x.dtype == torch.bool:
+            d = float((x != y).sum())
+        else:
+            d = float((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+        worst = max(worst, d)
+    return worst
+
+
 class Checker:
     """Runs kernel-vs-plain comparisons on copies of one state and keeps
     the worst difference and the plain version's times."""
@@ -374,12 +419,14 @@ class Checker:
         self.host = fused_tick.host_params(engine, self.params)
         self.worst, self.n, self.plain_ms = 0.0, 0, []
 
-    def compare(self, state, rows, counts, t, lent_rows=False):
+    def compare(self, state, rows, counts, t, lent_rows=False, emit=False):
         """Run kernel and plain on copies of ``state`` and require every
-        leaf equal; returns the kernel's output. ``lent_rows`` first loads
-        the tick's arrival rows into the lent queue too, so the FIFO
-        lent-head attempt runs (the lent queue stays empty on this path
-        without borrowing)."""
+        leaf equal — and with ``emit`` (the emit form) every output:
+        ``want``, ``bjob_vec``, ``ret_rows``, ``ret_valid``; returns the
+        kernel's state (and its outputs with ``emit``). ``lent_rows``
+        first loads the tick's arrival rows into the lent queue too, so
+        the FIFO lent-head attempt runs (the lent queue stays empty on
+        the paths without borrowing)."""
         if lent_rows:
             state = self.clone(state)
             K = min(rows.shape[1], state.lent.capacity)
@@ -388,31 +435,37 @@ class Checker:
         ref_in = self.clone(state)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        ref = self.ft.fused_prefix_reference(self.engine, ref_in, rows,
-                                             counts, t, self.params,
-                                             self.host["member"])
+        ref, *ref_io = self.ft.fused_prefix_reference(
+            self.engine, ref_in, rows, counts, t, self.params,
+            self.host["member"], emit_returns=emit)
         ev[1].record()
-        out = self.ft.fused_prefix(self.engine, self.clone(state), rows,
-                                   counts, t, self.params, self.host)
+        out, *io = self.ft.fused_prefix(self.engine, self.clone(state), rows,
+                                        counts, t, self.params, self.host,
+                                        emit_returns=emit)
         torch.cuda.synchronize()
         self.plain_ms.append(ev[0].elapsed_time(ev[1]))
         d = max_abs_diff(ref, out)
+        if emit:
+            d = max(d, io_diff(ref_io, io))
         if d:
-            raise AssertionError(
-                f"{self.host['kernel'].name} differs from plain "
-                f"at t={t}: max |diff| {d}")
+            kernel = self.host["emit_kernel" if emit else "kernel"].name
+            raise AssertionError(f"{kernel} differs from plain at t={t}: "
+                                 f"max |diff| {d}")
         self.worst, self.n = max(self.worst, d), self.n + 1
-        return out
+        return (out, io) if emit else out
 
 
-def timed_launch(fused_tick, engine, state, rows, counts, t, params, host):
+def timed_launch(fused_tick, engine, state, rows, counts, t, params, host,
+                 emit=False, out=None):
     """One kernel launch between a CUDA event pair, with the card kept
-    busy ahead of it so the pair times the kernel and not the host."""
+    busy ahead of it so the pair times the kernel and not the host;
+    ``emit`` launches the emit form into ``out``."""
     ev = (torch.cuda.Event(enable_timing=True),
           torch.cuda.Event(enable_timing=True))
     torch.cuda._sleep(SPIN_CYCLES)
     ev[0].record()
-    fused_tick.fused_prefix(engine, state, rows, counts, t, params, host)
+    fused_tick.fused_prefix(engine, state, rows, counts, t, params, host,
+                            emit_returns=emit, out=out)
     ev[1].record()
     return ev
 
@@ -420,7 +473,7 @@ def timed_launch(fused_tick, engine, state, rows, counts, t, params, host):
 def phase_kernel_vs_plain(P, E, card, dev):
     """Phases 3a and 3b: the FIFO kernel against its plain version."""
     from multi_cluster_simulator_tpu_torch.core.state import (
-        clone_state, init_state,
+        clone_state, empty_io, init_state,
     )
     from multi_cluster_simulator_tpu_torch.kernels import fused_tick
     from multi_cluster_simulator_tpu_torch.workload.traces import (
@@ -474,6 +527,30 @@ def phase_kernel_vs_plain(P, E, card, dev):
           f"lent queue loaded ({chk.n} comparisons; max arrivals/tick "
           f"{max_k}, max wait depth {max_wait}) [{card}]")
 
+    # the emit form (run_io's) on the headline's first chunk again: every
+    # launch timed, kernel == plain on state and outputs at two ticks
+    ch = chunks[0]
+    rows_all = torch.from_numpy(ch.rows).to(dev)
+    counts_all = torch.from_numpy(ch.counts).to(dev)
+    io = empty_io((HEADLINE_C,), engine.n_msgs(), dev)
+    state, t, evs = init_state(cfg, specs, device=dev), 0, []
+    busiest = int(np.argmax(ch.counts.max(axis=1)))
+    for k in range(ch.rows.shape[0]):
+        t += cfg.tick_ms
+        if k in (0, busiest):
+            chk.compare(state, rows_all[k], counts_all[k], t, emit=True)
+        evs.append(timed_launch(fused_tick, engine, state, rows_all[k],
+                                counts_all[k], t, params, host, emit=True,
+                                out=io))
+        state.t.fill_(t)
+    torch.cuda.synchronize()
+    emit_ms = [a.elapsed_time(b) for a, b in evs]
+    print(f"phase 3a: emit form == plain bitwise at 2 headline ticks; "
+          f"{np.mean(emit_ms) * 1e3:.2f} us/launch mean over the first "
+          f"{len(emit_ms)} headline ticks, the terminal form "
+          f"{np.mean(kernel_ms[:len(emit_ms)]) * 1e3:.2f} on the same ticks "
+          f"[{card}]")
+
     # heavier streams at the same width and shapes, every tick compared:
     # many small long jobs fill the running set (run_full), big jobs stop
     # the drain on a job no node fits, and both overflow the ready queue
@@ -519,14 +596,16 @@ def phase_kernel_vs_plain(P, E, card, dev):
           f"on every leaf and the trace ({placed} placements); run wall "
           f"plain {plain_run_s:.3f} s, kernel {kernel_run_s:.3f} s [{card}]")
     return dict(worst=chk.worst, kernel_ms=kernel_ms, plain_ms=chk.plain_ms,
-                read_per_launch=read_b, written_per_launch=written_b)
+                read_per_launch=read_b, written_per_launch=written_b,
+                emit_ms=emit_ms)
 
 
 def whole_run_against_plain(E, engine, s0, chunks, what, params=None):
     """A whole run through ``engine.run_chunks`` (the kernel) and through
-    the plain version tick by tick, from copies of ``s0``; every leaf of
-    the two final states must be equal. Returns the two walls and the
-    kernel's final state."""
+    the plain version tick by tick — with borrowing, the plain prefix's
+    emit form and the engine's delivery and matching after it — from
+    copies of ``s0``; every leaf of the two final states must be equal.
+    Returns the two walls and the kernel's final state."""
     from multi_cluster_simulator_tpu_torch.core.state import clone_state
     from multi_cluster_simulator_tpu_torch.kernels import fused_tick
 
@@ -541,9 +620,10 @@ def whole_run_against_plain(E, engine, s0, chunks, what, params=None):
         counts_all = torch.from_numpy(ch.counts).to(s0.device)
         for k in range(ch.rows.shape[0]):
             t += engine.cfg.tick_ms
-            ref = fused_tick.fused_prefix_reference(engine, ref, rows_all[k],
-                                                    counts_all[k], t, params,
-                                                    member)
+            ref, *io = fused_tick.fused_prefix_reference(
+                engine, ref, rows_all[k], counts_all[k], t, params, member,
+                emit_returns=engine.cfg.borrowing)
+            ref = engine._cross_cluster(ref, *io)
             ref.t.fill_(t)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - w0
@@ -558,11 +638,13 @@ def whole_run_against_plain(E, engine, s0, chunks, what, params=None):
     return plain_s, kernel_s, out
 
 
-def counted_run(engine, s0, chunks, kernel):
+def counted_run(engine, s0, chunks, kernel, io=None):
     """The main path's counted run: every launch count set to 0 just
     before ``engine.run_chunks``, read just after. ``kernel`` must have
-    launched once per tick and no other kernel at all. Returns the final
-    state, the wall and the counts."""
+    launched once per tick and no other kernel at all. With ``io`` (a
+    dict of counters) the run goes through ``engine.run_io`` chunk by
+    chunk instead, and adds every tick's wants and returns to ``io``.
+    Returns the final state, the wall and the counts."""
     from multi_cluster_simulator_tpu_torch.core.state import clone_state
     from multi_cluster_simulator_tpu_torch.kernels import fused_tick
 
@@ -571,7 +653,14 @@ def counted_run(engine, s0, chunks, kernel):
     torch.cuda.synchronize()
     fused_tick.reset_launches()
     w0 = time.perf_counter()
-    out = engine.run_chunks(state, chunks)
+    if io is None:
+        out = engine.run_chunks(state, chunks)
+    else:
+        out = state
+        for ch in chunks:
+            out, tio = engine.run_io(out, ch.rows, ch.counts)
+            io["want"] = io["want"] + tio.borrow_want.sum()
+            io["returns"] = io["returns"] + tio.ret_valid.sum()
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
     counts = fused_tick.launch_counts()
@@ -602,9 +691,10 @@ def check_gates(out, n_ticks, tick_ms, n_jobs, min_placed, what):
 
 
 def timed_runs(engine, s0, chunks, warmups, runs):
-    """Walls of ``runs`` whole runs after ``warmups``, and the chunks'
+    """Walls of ``runs`` whole runs after ``warmups``, the chunks'
     host->device copies alone (run_chunks makes the same copies from the
-    same pageable numpy arrays, one per chunk)."""
+    same pageable numpy arrays, one per chunk), and the last run's final
+    state."""
     from multi_cluster_simulator_tpu_torch.core.state import clone_state
 
     torch.cuda.synchronize()
@@ -619,11 +709,11 @@ def timed_runs(engine, s0, chunks, warmups, runs):
         state = clone_state(s0)
         torch.cuda.synchronize()
         w0 = time.perf_counter()
-        engine.run_chunks(state, chunks)
+        state = engine.run_chunks(state, chunks)
         torch.cuda.synchronize()
         if i >= warmups:
             walls.append(time.perf_counter() - w0)
-    return walls, h2d_s
+    return walls, h2d_s, state
 
 
 def print_run(label, what, placed, walls, first_s, n_ticks, chunks, h2d_s,
@@ -660,7 +750,7 @@ def phase_headline(P, E, card, dev):
                                        "fused_prefix_fifo")
     placed, drops = check_gates(out, n_ticks, cfg.tick_ms, HEADLINE_C * JOBS,
                                 0.99, "headline")
-    walls, h2d_s = timed_runs(engine, s0, chunks, WARMUPS, TIMED_RUNS)
+    walls, h2d_s, _ = timed_runs(engine, s0, chunks, WARMUPS, TIMED_RUNS)
     print(f"phase 4a: headline {HEADLINE_C} clusters x {JOBS} jobs, "
           f"{n_ticks} ticks: placed {placed}, drops {drops}, launches "
           f"{counts}, conservation ok [{card}]")
@@ -843,7 +933,8 @@ def phase_borg4k(P, E, card, dev, borg):
     n_jobs = BORG_C * BORG_JOBS
     placed, drops = check_gates(out, n_ticks, cfg.tick_ms, n_jobs, 0.95,
                                 "borg4k")
-    walls, h2d_s = timed_runs(engine, s0, chunks, BORG_WARMUPS, BORG_TIMED)
+    walls, h2d_s, _ = timed_runs(engine, s0, chunks, BORG_WARMUPS,
+                                 BORG_TIMED)
     print(f"phase 4b: borg4k {BORG_C} clusters x {BORG_JOBS} jobs, "
           f"{n_ticks} ticks: placed {placed} of {n_jobs} "
           f"({100 * placed / n_jobs:.3f}%), drops {drops}, launches "
@@ -1215,7 +1306,7 @@ def phase_market(P, E, card, dev, market, name):
     if gated and (any(drops.values()) or share < MARKET_FLOOR):
         raise AssertionError(f"run ({name}): drops {drops}, placed "
                              f"{share:.4f} of the placeable jobs")
-    walls, h2d_s = timed_runs(engine, s0, chunks, MARKET_WARMUPS,
+    walls, h2d_s, _ = timed_runs(engine, s0, chunks, MARKET_WARMUPS,
                               MARKET_TIMED)
     label = f"phase 4{'defg'['abcd'.index(name)]}"
     print(f"{label}: market run ({name}) {policy} {kw or ''}: {MARKET_C} "
@@ -1231,6 +1322,454 @@ def phase_market(P, E, card, dev, market, name):
     return dict(launches=counts[kernel], placed=placed, wall_min_s=wmin,
                 wall_median_s=wmed, n_ticks=n_ticks, h2d_s=h2d_s,
                 share=share, drops=drops)
+
+
+def borrow_cfg(P, **kw):
+    """bench_fifo_two_trader's config (bench.py:898-933, BASELINE config 2)
+    with the trader off, as the port's."""
+    base = dict(policy=P.PolicyKind.FIFO, borrowing=True,
+                queue_capacity=1024, max_running=512, max_arrivals=4096,
+                max_nodes=10,
+                workload=P.WorkloadConfig(poisson_lambda_per_min=30.0),
+                trader=P.TraderConfig(enabled=False))
+    base.update(kw)
+    return P.SimConfig(**base)
+
+
+def borrow_specs(P, C):
+    """Config 2's pair, tiled: cluster_small (5 nodes) even, cluster_big
+    (10 nodes) odd."""
+    return [P.uniform_cluster(c + 1, 5 if c % 2 == 0 else 10)
+            for c in range(C)]
+
+
+def borrow_stream(P, E, C, n_ticks=None):
+    """Config 2's stream for C clusters (every cluster loaded), the
+    400-tick ragged-K chunks of its first ``n_ticks``, and its number of
+    jobs."""
+    from multi_cluster_simulator_tpu_torch.workload.generator import (
+        generate_arrivals,
+    )
+
+    arr = generate_arrivals(P.WorkloadConfig(poisson_lambda_per_min=30.0),
+                            C, 4096, BORROW_HORIZON_MS, 32, 24_000, seed=9)
+    chunks = chunk_sizes(BORROW_TICKS if n_ticks is None else n_ticks)
+    return E.pack_arrivals_chunks(arr, chunks, 1_000), int(arr.n.sum())
+
+
+def tick_cost_borrow(before, after, rows, counts, t: int, trace: bool,
+                     M: int):
+    """The least bytes an emit-form FIFO tick ``t`` must move on this
+    tick's data, as (read, written) 0-d int64 tensors on the card.
+
+    Written: every state element the tick changed, and per cluster the M
+    return rows and flags and the borrow request (M*RF*4 + M + NF*4 + 1
+    B). Read, per cluster: the arrival count and the eight counters the
+    tick updates (drops.msgs among them; the trace count too), the node
+    vectors, the running set's active flags, the end_t of each active
+    slot and the node and resources of each released slot, the M rows the
+    pack copies, the head row of each non-empty queue the pass reads
+    (ready after the ingest, wait, lent), each ready row the drain
+    attempted, each queue element the tick rewrote (read from its source
+    slot), and the valid arrival rows. The deep queues' other live rows
+    need not move."""
+    s = before
+    C, Qc = s.arr_ptr.shape[0], s.ready.data.shape[1]
+    row_b = rows.shape[2] * rows.element_size()
+    written, _ = written_bytes(before, after)
+    moved = sum((q0.data != q1.data).sum() * 4 for q0, q1 in (
+        (before.ready, after.ready), (before.wait, after.wait),
+        (before.lent, after.lent)))
+    n_take = counts.clamp(0, rows.shape[1])
+    pre = (s.ready.count + n_take).clamp(max=Qc)
+    drained = (pre - after.ready.count).clamp(min=0)
+    heads = (pre > 0).long() + (s.wait.count > 0) + (s.lent.count > 0)
+    rf = s.run.data.shape[2]
+    read = (fixed_reads(s, 8 + int(trace)) + run_reads(s, t) + moved
+            + row_b * (n_take.sum() + drained.sum() + heads.sum())
+            + C * M * rf * 4)
+    written = written + C * (M * rf * 4 + M + row_b + 1)
+    return read, written
+
+
+def timed_span(fn):
+    """``fn()`` between a CUDA event pair, the card kept busy ahead of it
+    so that the pair times the card's work and not the host's enqueue.
+    Returns (fn's result, the event pair)."""
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    torch.cuda._sleep(SPIN_CYCLES)
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    return out, ev
+
+
+def borrow_pass(E, chk, s0, chunks, picks, until=None):
+    """Drive a borrowing run tick by tick as ``Engine._tick`` does — the
+    emit kernel, return delivery, borrow matching — each between a CUDA
+    event pair; count the kernel's bytes and what fired; at the global
+    ticks in ``picks`` compare kernel and plain on copies of the state the
+    run has reached. Stops after ``until`` ticks when given. Returns the
+    per-tick times, the mean bytes, the counts, the final state and the
+    clock."""
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        clone_state, empty_io,
+    )
+    from multi_cluster_simulator_tpu_torch.ops import queues as Q
+
+    engine, params, host = chk.engine, chk.params, chk.host
+    cfg, dev = engine.cfg, s0.device
+    C, M = s0.arr_ptr.shape[0], engine.n_msgs()
+    io = empty_io((C,), M, dev)
+    state = clone_state(s0)
+    evs = {"kernel": [], "deliver": [], "match": []}
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    fired = dict.fromkeys(("want", "returns", "msgs_dropped", "matched",
+                           "lent_placed", "lent_push_dropped"), zero)
+    read_b = written_b = zero
+    t = k_glob = 0
+    for ch in chunks:
+        rows_all = torch.from_numpy(ch.rows).to(dev)
+        counts_all = torch.from_numpy(ch.counts).to(dev)
+        for k in range(ch.rows.shape[0]):
+            if until is not None and k_glob == until:
+                break
+            t += cfg.tick_ms
+            rows, counts = rows_all[k], counts_all[k]
+            if k_glob in picks:
+                chk.compare(state, rows, counts, t, emit=True)
+            before = clone_state(state)
+            evs["kernel"].append(timed_launch(
+                chk.ft, engine, state, rows, counts, t, params, host,
+                emit=True, out=io))
+            r, w = tick_cost_borrow(before, state, rows, counts, t,
+                                    cfg.record_trace, M)
+            read_b, written_b = read_b + r, written_b + w
+            lent0 = state.lent.count.clone()
+            wait0, drop0 = state.wait.count.clone(), state.drops.queue.clone()
+            state, ev = timed_span(lambda: E._deliver_returns(
+                state, io.ret_rows, io.ret_valid, engine.ex))
+            evs["deliver"].append(ev)
+            state, ev = timed_span(lambda: E._borrow_match(
+                state, io.borrow_want, Q.JobRec(vec=io.borrow_job), cfg,
+                engine.ex))
+            evs["match"].append(ev)
+            state.t.fill_(t)
+            matched = (wait0 - state.wait.count).sum()
+            fired["want"] = fired["want"] + io.borrow_want.sum()
+            fired["returns"] = fired["returns"] + io.ret_valid.sum()
+            fired["msgs_dropped"] = fired["msgs_dropped"] + (
+                state.drops.msgs - before.drops.msgs).sum()
+            fired["matched"] = fired["matched"] + matched
+            fired["lent_placed"] = fired["lent_placed"] + (
+                before.lent.count - lent0).clamp(min=0).sum()
+            # the match's drops: LentQueue pushes past capacity, and
+            # BorrowedQueue bookkeeping rows past it (the job still goes)
+            fired["lent_push_dropped"] = fired["lent_push_dropped"] + (
+                state.drops.queue - drop0).sum()
+            k_glob += 1
+    torch.cuda.synchronize()
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in evs.items()}
+    return dict(ms=ms, read=int(read_b) / k_glob,
+                written=int(written_b) / k_glob,
+                fired={k: int(v) for k, v in fired.items()}, state=state,
+                t=t, ticks=k_glob)
+
+
+def plain_borrow_io(engine, s0, rows, counts, t0, params):
+    """The plain path's ``run_io``: each tick's plain prefix in the emit
+    form, the engine's delivery and matching; returns the final state and
+    the stacked outputs."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+
+    state, t, outs = clone_state(s0), t0, []
+    member = engine.member(params)
+    for k in range(rows.shape[0]):
+        t += engine.cfg.tick_ms
+        state, *io = engine._span_prefix(state, rows[k], counts[k], t,
+                                         params, member, emit_returns=True)
+        outs.append([x.clone() for x in io])
+        state = engine._cross_cluster(state, *io)
+        state.t.fill_(t)
+    return state, [torch.stack(x) for x in zip(*outs)]
+
+
+def phase_borrow_kernel_vs_plain(P, E, card, dev):
+    """Phases 3g and 3h: the FIFO kernel's emit form against its plain
+    version on the borrowing path, and ``run_io`` on the card."""
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        TickArrivals, clone_state, init_state,
+    )
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.ops import runset as R
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+    from multi_cluster_simulator_tpu_torch.workload.generator import (
+        silence_clusters,
+    )
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        uniform_stream,
+    )
+
+    cfg = borrow_cfg(P)
+    engine = E.Engine(cfg, device=dev)
+    chk = Checker(engine)
+    out = {}
+    # (b): sampled ticks as the kernel reaches them, every tick timed
+    chunks_b, jobs_b = borrow_stream(P, E, BORROW_C)
+    s0_b = init_state(cfg, borrow_specs(P, BORROW_C), device=dev)
+    picks, peak = pick_ticks(chunks_b, BORROW_SAMPLES)
+    io_at = CHUNK * 2  # 3h starts from the state this tick reaches
+    w0 = time.perf_counter()
+    half = borrow_pass(E, chk, s0_b, chunks_b, picks, until=io_at)
+    rest = borrow_pass(E, chk, half["state"], chunks_b[2:],
+                       {p - io_at for p in picks if p >= io_at})
+    sp = dict(ms={k: half["ms"][k] + rest["ms"][k] for k in half["ms"]},
+              read=(half["read"] * io_at + rest["read"] * rest["ticks"])
+              / BORROW_TICKS,
+              written=(half["written"] * io_at
+                       + rest["written"] * rest["ticks"]) / BORROW_TICKS,
+              fired={k: half["fired"][k] + rest["fired"][k]
+                     for k in half["fired"]},
+              ticks=half["ticks"] + rest["ticks"])
+    out["b"] = dict(sampled=sp, plain_ms=list(chk.plain_ms),
+                    chunks=chunks_b, jobs=jobs_b, s0=s0_b)
+    print(f"phase 3g: FIFO emit kernel == plain bitwise (state, want, "
+          f"bjob_vec, ret_rows, ret_valid) on {chk.n} ticks of run (b) "
+          f"sampled as the kernel reached them (ticks {sorted(picks)}, the "
+          f"peak {peak} included), C={BORROW_C}; fired over the run: "
+          f"{sp['fired']}; pass {time.perf_counter() - w0:.1f} s [{card}]")
+
+    # heavy ticks at the same width: short jobs on small queues, the odd
+    # clusters idle lenders, one message slot — returns past it, lent-head
+    # placements, LentQueue overflow and wants all fire
+    heavy_cfg = borrow_cfg(P, queue_capacity=16, max_running=24, max_msgs=1)
+    heng = E.Engine(heavy_cfg, device=dev)
+    hchk = Checker(heng)
+    arr = silence_clusters(uniform_stream(
+        BORROW_C, 300, 30_000, max_cores=16, max_mem=12_000,
+        max_dur_ms=6_000, seed=41), slice(1, None, 2))
+    hch = E.pack_arrivals_chunks(arr, [30], heavy_cfg.tick_ms)
+    hp = borrow_pass(E, hchk, init_state(heavy_cfg, borrow_specs(
+        P, BORROW_C), device=dev), hch, set(range(30)))
+    print(f"phase 3g: FIFO emit kernel == plain bitwise on {hchk.n} heavy "
+          f"ticks at C={BORROW_C} (queue 16, running 24, max_msgs 1): fired "
+          f"{hp['fired']} [{card}]")
+    if not all(hp["fired"].values()):
+        raise AssertionError(f"the heavy ticks missed a branch: "
+                             f"{hp['fired']}")
+
+    # whole runs: (a), and config 2's pair tiled to 64 clusters
+    for C, n_ticks in ((2, BORROW_TICKS),
+                       (BORROW_TILED_C, BORROW_TILED_TICKS)):
+        ch, _ = borrow_stream(P, E, C, n_ticks)
+        plain_s, kernel_s, fin = whole_run_against_plain(
+            E, engine, init_state(cfg, borrow_specs(P, C), device=dev), ch,
+            f"borrowing ({C} clusters)")
+        print(f"phase 3g: whole run, {C} clusters x {n_ticks} ticks, FIFO "
+              f"emit kernel + delivery + matching == plain on every leaf "
+              f"(placed {int(fin.placed_total.sum())}, borrowed rows "
+              f"{int(fin.borrowed.count.sum())}, lent rows "
+              f"{int(fin.lent.count.sum())}); run wall plain {plain_s:.3f} "
+              f"s, kernel {kernel_s:.3f} s [{card}]")
+
+    # 3h: run_io over one chunk of (b), from the state run (b) reached at
+    # tick io_at, against the plain path's stacked TickIO
+    ch = chunks_b[2]
+    rows = torch.from_numpy(ch.rows[:BORROW_IO_TICKS]).to(dev)
+    counts = torch.from_numpy(ch.counts[:BORROW_IO_TICKS]).to(dev)
+    s_at = half["state"]
+    ref_s, ref_io = plain_borrow_io(engine, s_at, rows, counts, half["t"],
+                                    engine._default_params)
+    fused_tick.reset_launches()
+    got_s, got_io = engine.run_io(clone_state(s_at), rows, counts)
+    torch.cuda.synchronize()
+    launches = fused_tick.launch_counts()
+    d = max(max_abs_diff(ref_s, got_s), io_diff(
+        ref_io, fused_tick._outputs(got_io)))
+    want = {k: (BORROW_IO_TICKS if k == "fused_prefix_fifo_emit" else 0)
+            for k in launches}
+    if d or launches != want:
+        raise AssertionError(f"run_io: max |diff| {d}, launches {launches}")
+    print(f"phase 3h: run_io over {BORROW_IO_TICKS} ticks of run (b) from "
+          f"tick {io_at}, C={BORROW_C}: state and stacked TickIO == the "
+          f"plain path's (wants {int(got_io.borrow_want.sum())}, returns "
+          f"{int(got_io.ret_valid.sum())}), launches {launches} [{card}]")
+
+    # the Level0 kernels' emit form: DELAY, FFD and gavel with borrowing on
+    # and foreign jobs in the running sets, so that their pack carries
+    # returns
+    chunks_m, _, _ = market_stream(E, LINEUP_C, MARKET_JOBS)
+    lead = [TickArrivals(rows=chunks_m[0].rows[:30],
+                         counts=chunks_m[0].counts[:30])]
+    for policy in ("delay", "ffd", "gavel"):
+        mcfg = market_cfg(P, borrowing=True, max_msgs=2)
+        meng = E.Engine(mcfg, device=dev, policies=PolicySet((policy,)))
+        mchk = Checker(meng)
+        state = init_state(mcfg, market_specs(P, LINEUP_C), device=dev)
+        rows_all = torch.from_numpy(lead[0].rows).to(dev)
+        counts_all = torch.from_numpy(lead[0].counts).to(dev)
+        n_ret, t = 0, 0
+        for k in range(30):
+            t += mcfg.tick_ms
+            owner = state.run.data[..., R.ROWNER]  # every third row lent
+            third = (torch.arange(owner.shape[1], device=dev) % 3 == 0)
+            owner.copy_(torch.where(state.run.active & third[None, :],
+                                    (torch.arange(LINEUP_C, device=dev)[
+                                        :, None] + 1) % LINEUP_C, owner))
+            state, io = mchk.compare(state, rows_all[k], counts_all[k], t,
+                                     emit=True)
+            n_ret += int(io[3].sum())
+            state.t.fill_(t)
+        if not n_ret:
+            raise AssertionError(f"{policy}: no return was packed")
+        chk.worst = max(chk.worst, mchk.worst)
+        print(f"phase 3g: {policy} emit form == plain bitwise on 30 ticks "
+              f"at C={LINEUP_C} with foreign running rows ({n_ret} returns "
+              f"packed) [{card}]")
+    out["worst"] = max(chk.worst, hchk.worst)
+    return out
+
+
+def device_profile(E, engine, s0, chunks, n):
+    """The card's time per tick on the borrowing path, by torch.profiler:
+    the run to the start of its second chunk, then ``n`` ticks as
+    ``Engine._tick`` runs them, each phase in a ``record_function`` range.
+    Returns the card's kernel ms per tick by phase and in all
+    ("kernels"), and the kernels that take most ("top")."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.ops import queues as Q
+
+    state = engine.run_chunks(clone_state(s0), chunks[:1])
+    params, host, t = engine._entry(state, None)
+    rows = torch.from_numpy(chunks[1].rows[:n]).to(s0.device)
+    counts = torch.from_numpy(chunks[1].counts[:n]).to(s0.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k in range(n):
+            t += engine.cfg.tick_ms
+            with record_function("prefix"):
+                state, *io = fused_tick.fused_prefix(
+                    engine, state, rows[k], counts[k], t, params, host,
+                    emit_returns=True, out=host["io"])
+            with record_function("delivery"):
+                state = E._deliver_returns(state, io[2], io[3], engine.ex)
+            with record_function("matching"):
+                state = E._borrow_match(state, io[0], Q.JobRec(vec=io[1]),
+                                        engine.cfg, engine.ex)
+            state.t.fill_(t)
+        torch.cuda.synchronize()
+
+    # On the card's timeline each record_function range also appears as
+    # a span over its kernels; the kernels are the card's work, and each
+    # counts into the phase whose span it starts in.
+    phases = ("prefix", "delivery", "matching")
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in on_card if e.name in phases)
+    starts = [sp[0] for sp in spans]
+    out = dict.fromkeys(phases, 0.0)
+    by_name, total = {}, 0.0
+    for e in on_card:
+        if e.name in phases:
+            continue
+        us = e.time_range.elapsed_us()
+        total += us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < spans[i][1]:
+            out[spans[i][2]] += us
+    out = {k: v / 1e3 / n for k, v in out.items()}
+    out["kernels"] = total / 1e3 / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out["top"] = "; ".join(f"{k[:60]} {v / n:.1f} us" for k, v in top)
+    return out
+
+
+def phase_borrow_run(P, E, card, dev, name, C, chunks, n_jobs, sampled):
+    """Phases 4h and 4i: a borrowing run at full shape through the entry
+    points, counted, then 3 timed runs; ``sampled`` is its tick-by-tick
+    pass (per-phase times and what fired)."""
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.utils.trace import (
+        check_conservation, total_drops,
+    )
+    from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
+
+    cfg = borrow_cfg(P)
+    engine = E.Engine(cfg, device=dev)
+    s0 = init_state(cfg, borrow_specs(P, C), device=dev)
+    state_b = sum(x.numel() * x.element_size()
+                  for _, x in leaves_with_keys(s0))
+    # where the sampled pass saw only part of the run, the counted run goes
+    # through run_io and counts every tick's wants and returns
+    io = (dict(want=0, returns=0) if sampled["ticks"] < BORROW_TICKS
+          else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, first_s, counts = counted_run(engine, s0, chunks,
+                                       "fused_prefix_fifo_emit", io)
+    peak_b = torch.cuda.max_memory_allocated()
+    drops = total_drops(out)
+    check_conservation(out)
+    if int(out.t) != BORROW_TICKS * cfg.tick_ms:
+        raise AssertionError(f"run ({name}): clock {int(out.t)}")
+    if name == "a" and any(drops.values()):  # bench.py:925
+        raise AssertionError(f"run (a): static bounds bound: {drops}")
+    placed = int(out.placed_total.sum())
+    arrived = int(out.arr_ptr.sum())
+    held = {k: int(getattr(out, k).count.sum())
+            for k in ("ready", "wait", "lent", "borrowed")}
+    balance = placed + held["ready"] + held["wait"] + held["lent"] \
+        + drops["queue"] - arrived
+    fired = (sampled["fired"] if io is None
+             else {k: int(v) for k, v in io.items()})
+    # the counted run just before is the warm-up
+    walls, h2d_s, last = timed_runs(engine, s0, chunks, 0, TIMED_RUNS)
+    d = 0 if io is None else max_abs_diff(last, out)
+    if d:
+        raise AssertionError(f"run ({name}): run_chunks differs from "
+                             f"run_io over the chunks ({d})")
+    prof = device_profile(E, engine, s0, chunks, BORROW_PROFILE_TICKS)
+    label = "phase 4h" if name == "a" else "phase 4i"
+    print(f"{label}: run ({name}) config 2, trader off, {C} clusters, "
+          f"{BORROW_TICKS} ticks: {n_jobs} jobs, arrived {arrived}, placed "
+          f"{placed}, held {held}, drops {drops}; job count placed + ready "
+          f"+ wait + lent + drops.queue - arrived = {balance} (BorrowedQueue "
+          f"overflow drops count a bookkeeping row, not a job), launches "
+          f"{counts}, conservation ok; state {state_b} B, peak device memory "
+          f"{peak_b} B [{card}]")
+    wmin, wmed = print_run(label, f"run ({name})", placed, walls, first_s,
+                           BORROW_TICKS, chunks, h2d_s, card)
+    ms = {k: float(np.mean(v)) for k, v in sampled["ms"].items()}
+    busy = prof["kernels"] * BORROW_TICKS / 1e3
+    metric = ("fifo_two_cluster_borrow_ticks_per_sec" if name == "a"
+              else "borrow_4k ticks/s")
+    print(f"{label}: {metric} "
+          f"{BORROW_TICKS / wmin:.1f} (min), {BORROW_TICKS / wmed:.1f} "
+          f"(median); per tick, CUDA event spans over "
+          f"{len(sampled['ms']['kernel'])} ticks, the card kept busy ahead "
+          f"of each (a span holds host time where the host enqueues "
+          f"slower than the card runs): kernel {ms['kernel'] * 1e3:.2f} us, "
+          f"delivery {ms['deliver'] * 1e3:.2f} us, matching "
+          f"{ms['match'] * 1e3:.2f} us; the card's own time per tick "
+          f"(torch.profiler over {BORROW_PROFILE_TICKS} ticks from tick "
+          f"{CHUNK}): prefix {prof['prefix'] * 1e3:.2f} us, delivery "
+          f"{prof['delivery'] * 1e3:.2f} us, matching "
+          f"{prof['matching'] * 1e3:.2f} us, all kernels "
+          f"{prof['kernels'] * 1e3:.2f} us; card busy "
+          f"{100 * busy / wmin:.1f}% of the min wall, idle "
+          f"{100 - 100 * busy / wmin:.1f}%; fired {fired} [{card}]")
+    print(f"{label}: the card's kernels per tick by name: {prof['top']} "
+          f"[{card}]")
+    return dict(launches=counts["fused_prefix_fifo_emit"], placed=placed,
+                wall_min_s=wmin, wall_median_s=wmed, n_ticks=BORROW_TICKS,
+                h2d_s=h2d_s, drops=drops, balance=balance, profile=prof)
 
 
 def bound(read, written, ops=0.0):
@@ -1263,8 +1802,8 @@ def main(device: str = "cuda") -> int:
     from multi_cluster_simulator_tpu_torch.core import engine as E
     from multi_cluster_simulator_tpu_torch.kernels import build, fused_tick
 
-    name, card = torch.cuda.get_device_name(0), smi_line()
-    print(f"phase 1: device {name}; nvidia-smi: {card}")
+    kind, card = torch.cuda.get_device_name(0), smi_line()
+    print(f"phase 1: device {kind}; nvidia-smi: {card}")
     print(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
@@ -1301,6 +1840,19 @@ def main(device: str = "cuda") -> int:
     runs = {name: phase_market(P, E, card, dev, market, name)
             for name in MARKET_RUNS}
     print(f"phases 3d-f, 4d-g: {time.perf_counter() - w1:.1f} s")
+
+    w2 = time.perf_counter()
+    borrow = phase_borrow_kernel_vs_plain(P, E, card, dev)
+    bb = borrow["b"]
+    chunks_a, jobs_a = borrow_stream(P, E, 2)
+    chk_a = Checker(E.Engine(borrow_cfg(P), device=dev))
+    sp_a = borrow_pass(E, chk_a, P.init_state(borrow_cfg(P), borrow_specs(
+        P, 2), device=dev), chunks_a[:1], set())
+    run_a = phase_borrow_run(P, E, card, dev, "a", 2, chunks_a, jobs_a,
+                             sp_a)
+    run_b = phase_borrow_run(P, E, card, dev, "b", BORROW_C, bb["chunks"],
+                             bb["jobs"], bb["sampled"])
+    print(f"phases 3g-h, 4h-i: {time.perf_counter() - w2:.1f} s")
 
     records = []
     kms = float(np.mean(check["kernel_ms"]))
@@ -1363,6 +1915,24 @@ def main(device: str = "cuda") -> int:
                     ms=kms, plain=group[run]["plain_ms"],
                     bound=(b_ms, b_by)))
 
+    sp = bb["sampled"]
+    kms = float(np.mean(sp["ms"]["kernel"]))
+    b_ms, b_by = bound(sp["read"], sp["written"])
+    print(f"kernel fused_prefix_fifo_emit: {kms * 1e3:.2f} us/launch mean "
+          f"over {len(sp['ms']['kernel'])} launches of run (b) (CUDA "
+          f"events), {float(np.mean(sp_a['ms']['kernel'])) * 1e3:.2f} at run "
+          f"(a), {float(np.mean(check['emit_ms'])) * 1e3:.2f} at the "
+          f"headline; plain {np.mean(bb['plain_ms']):.3f} ms at (b); bound "
+          f"{b_ms * 1e3:.4f} us at (b) ({sp['read'] + sp['written']:.1f} B "
+          f"per launch, mean of {sp['read']:.1f} read and "
+          f"{sp['written']:.1f} written, at 3.35 TB/s); kernel / bound "
+          f"{kms / b_ms:.1f} [{card}]")
+    breakdown("borrowing (a)", run_a, sp_a["ms"]["kernel"], card)
+    breakdown("borrowing (b)", run_b, sp["ms"]["kernel"], card)
+    records.append(dict(kernel=fused_tick.KERNELS["fused_prefix_fifo_emit"],
+                        launches=run_b["launches"], worst=borrow["worst"],
+                        ms=kms, plain=bb["plain_ms"], bound=(b_ms, b_by)))
+
     print(json.dumps({"kernels": [{
         "name": r["kernel"].name, "route": "cuda",
         "source": r["kernel"].source, "replaces": fused_tick.REPLACES,
@@ -1372,7 +1942,7 @@ def main(device: str = "cuda") -> int:
         "library_ms": None} for r in records]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -1,23 +1,27 @@
 """The virtual-time simulation engine (the port of
 ``multi_cluster_simulator_tpu/core/engine.py``: the FIFO, FFD, DELAY and
-scored-zoo slices).
+scored-zoo slices, and cross-cluster borrowing).
 
 One tick is the reference's tick on the paths the port carries: the
-per-cluster prefix ``release -> ingest -> schedule`` and then the clock
-advance. The schedule slot runs the member of the engine's ``PolicySet``
-that ``params.idx`` selects (FIFO, whose arrivals go to the ReadyQueue;
-or DELAY, FFD, gavel, tesserae or rl, whose arrivals go to Level0); the
-index is read once at a run's entry. Every later phase (return delivery,
-borrow matching, the trader snapshot and market) is off on these paths,
-so the prefix is the whole tick. The prefix runs as one hand-written CUDA
-kernel per span on the card and as the plain PyTorch ops on the CPU
-(kernels/fused_tick.py).
+per-cluster prefix ``release (with the return pack) -> ingest ->
+schedule``, then, with ``cfg.borrowing``, the cross-cluster phases —
+return delivery and borrow matching — and the clock advance. The schedule
+slot runs the member of the engine's ``PolicySet`` that ``params.idx``
+selects (FIFO, whose arrivals go to the ReadyQueue; or DELAY, FFD, gavel,
+tesserae or rl, whose arrivals go to Level0); the index is read once at a
+run's entry. The prefix runs as one hand-written CUDA kernel per span on
+the card and as the plain PyTorch ops on the CPU (kernels/fused_tick.py);
+the cross-cluster phases are PyTorch ops on both, as the reference runs
+them as XLA ops outside its kernel. Without borrowing the prefix is the
+whole tick (it is terminal).
 
 The run loops replace the reference's ``lax.scan``: ``run`` loops over the
-ticks of a ``TickArrivals`` bucket, and ``run_chunks`` does what
+ticks of a ``TickArrivals`` bucket, ``run_chunks`` does what
 ``bench._engine_run`` does for the headline and the Borg-like replay — a
 list of ragged-K chunks, each chunk's rows copied to the device once, the
-clock kept on the host, and no host synchronisation inside a chunk.
+clock kept on the host, and no host synchronisation inside a chunk — and
+``run_io`` is the serving tier's dispatch unit: one staged chunk, with
+every tick's ``TickIO`` stacked.
 
 Configurations outside the slice raise ``NotImplementedError`` naming the
 ROADMAP item that ports them; nothing falls back silently.
@@ -33,12 +37,15 @@ import torch
 from multi_cluster_simulator_tpu_torch.config import SimConfig
 from multi_cluster_simulator_tpu_torch.core import state as st
 from multi_cluster_simulator_tpu_torch.core.state import (
-    Arrivals, SimState, resolve_device,
+    Arrivals, SimState, TickIO, empty_io, resolve_device,
 )
 from multi_cluster_simulator_tpu_torch.kernels import fused_tick
 from multi_cluster_simulator_tpu_torch.ops import fields as F
+from multi_cluster_simulator_tpu_torch.ops import placement as P
 from multi_cluster_simulator_tpu_torch.ops import queues as Q
 from multi_cluster_simulator_tpu_torch.ops import runset as R
+from multi_cluster_simulator_tpu_torch.ops.queues import I32, isum
+from multi_cluster_simulator_tpu_torch.parallel.exchange import LocalExchange
 from multi_cluster_simulator_tpu_torch.policies.base import (
     PolicyParams, PolicySet,
 )
@@ -48,12 +55,71 @@ _QUEUE_INVALID = np.asarray(F.QUEUE_INVALID, np.int32)
 
 
 # --------------------------------------------------------------------------
-# phase 1: completions
+# phase 1: completions and lent returns
 # --------------------------------------------------------------------------
 
 def _release_local(s: SimState, t: int):
     run, free, done = R.release(s.run, s.node_free, t)
     return s.replace(run=run, node_free=free), done
+
+
+def _pack_returns(run: R.RunningSet, done: torch.Tensor, M: int):
+    """First M finished-foreign-job slots per cluster as packed rows.
+
+    ``run`` is the running set *before* release cleared the completed
+    slots. Returns (rows [C, M', RF], take [C, M'], dropped [C]) with
+    M' = min(M, S): the outbound JobFinished -> ReturnToBorrower messages
+    (scheduler.go:158-191). The order is the reference's stable argsort of
+    ``~is_ret``: the returning slots in slot order, then the others, so
+    rows past the returns are the pre-release rows of the first
+    non-returning slots. owner >= 0 is a borrower index; FOREIGN (-2)
+    trader placeholders are returned to nobody (Go posts to the literal
+    URL "Foreign" and gives up). ``dropped`` counts returns beyond M."""
+    is_ret = done & (run.data[..., R.ROWNER] >= 0)  # [C, S]
+    order = torch.sort((~is_ret).to(torch.uint8), dim=1,
+                       stable=True).indices[:, :M]
+    take = torch.gather(is_ret, 1, order)
+    rows = R.gather_rows_along(run, order)
+    return rows, take, isum(is_ret, 1) - isum(take, 1)
+
+
+_MATCH = ((R.RID, Q.FID), (R.RCORES, Q.FCORES), (R.RMEM, Q.FMEM),
+          (R.RDUR, Q.FDUR))
+
+
+def _deliver_returns(state: SimState, rows: torch.Tensor,
+                     take: torch.Tensor, ex) -> SimState:
+    """Cross-cluster half of JobFinished: finished foreign jobs (owner >=
+    0) are posted back to their borrower, which removes every row equal
+    to one on (id, cores, mem, dur) from its BorrowedQueue
+    (server.go:115-137, 260-290). ``rows``/``take`` come from
+    ``_pack_returns``.
+
+    The reference compares every message with every cluster's queue
+    ([C, C*M, Q], 34 G elements at 4,096 clusters). Here each of the C*M
+    message slots is compared only with the queue of its destination
+    ([C*M, Q]), the hits are OR-ed into [C, Q] by a scatter-add, and one
+    stable compaction removes them. The removed set is the union of the
+    messages' matches, so the order of the messages does not matter.
+    Slots that carry no message add their (all-False) rows to spare
+    accumulator rows, spread so that the adds do not contend."""
+    C_loc, M = take.shape
+    q = state.borrowed
+    dev = q.data.device
+    msg_dst = ex.gather(torch.where(take, rows[..., R.ROWNER], -1)).reshape(-1)
+    msg_rows = ex.gather(rows).reshape(-1, R.RF)
+    n = msg_dst.shape[0]
+    local = msg_dst - ex.offset(C_loc)
+    mine = (msg_dst >= 0) & (local >= 0) & (local < C_loc)
+    dst = torch.where(mine, local, 0).long()
+    hit = mine[:, None]
+    for rf, qf in _MATCH:
+        hit = hit & (q.data[:, :, qf][dst] == msg_rows[:, rf, None])
+    spare = C_loc + torch.arange(n, device=dev) % max(C_loc, 1)
+    acc = torch.zeros((2 * C_loc, q.capacity), dtype=I32, device=dev)
+    acc.index_add_(0, torch.where(mine, dst, spare), hit.to(I32))
+    matched = (acc[:C_loc] > 0) & q.slot_valid()
+    return state.replace(borrowed=Q.compact(q, ~matched))
 
 
 # --------------------------------------------------------------------------
@@ -165,12 +231,86 @@ def _ingest_packed_local(s: SimState, rows: torch.Tensor, cnt: torch.Tensor,
     dropped = Q.push_many_dropped(tgt, valid)
     s = s.replace(drops=s.drops.replace(queue=s.drops.queue + dropped))
     if to_delay:
-        s = s.replace(l0=Q.push_many(s.l0, batch, valid, prefix=True),
+        s = s.replace(l0=Q.push_many(s.l0, batch, valid),
                       wait_jobs=s.wait_jobs + cnt,
                       jobs_in_queue=s.jobs_in_queue + cnt)
     else:
-        s = s.replace(ready=Q.push_many(s.ready, batch, valid, prefix=True))
+        s = s.replace(ready=Q.push_many(s.ready, batch, valid))
     return s.replace(arr_ptr=s.arr_ptr + cnt)
+
+
+# --------------------------------------------------------------------------
+# phase 5: borrow matching
+# --------------------------------------------------------------------------
+
+_INF = 2**31 - 1
+
+
+def _borrow_match(state: SimState, want: torch.Tensor, jobs: Q.JobRec,
+                  cfg: SimConfig, ex) -> SimState:
+    """Global borrow phase: BorrowResources' broadcast + first win
+    (server.go:160-248), determinised to the lowest lender index.
+
+    ``want`` [C] bool and ``jobs`` (a JobRec of [C, NF] rows: each
+    cluster's failing wait-head). Feasibility is Lend()'s strict check
+    (scheduler.go:194-202) against the lender's state after this tick's
+    scheduling pass, and no reservation is made, as in the Go handler.
+    The [lender, borrower] feasibility is built by ``can_lend`` a block of
+    nodes at a time (C x C booleans a node at 4,096 clusters); the lender
+    push is ``push_many`` over the borrowers, in
+    borrower-index order."""
+    C_loc = want.shape[0]
+    dev = want.device
+    gidx = ex.global_index(C_loc, dev)  # my lenders, global indices
+    g_want = ex.gather(want)  # [C_tot]
+    g_vec = ex.gather(jobs.vec)  # [C_tot, NF]
+    C_tot = g_want.shape[0]
+    bidx = torch.arange(C_tot, dtype=I32, device=dev)
+
+    # feas[l_local, b_global]: can my lender l host borrower b's job?
+    feas = P.can_lend(state.node_free[:, None], state.node_active[:, None],
+                      Q.JobRec(vec=g_vec))
+    feas &= gidx[:, None] != bidx[None, :]  # no self-lend
+    feas &= g_want[None, :]
+    local_best = torch.where(feas, gidx[:, None], _INF).amin(dim=0)
+    winner = ex.allmin(local_best)  # lowest feasible lender, global
+    matched_g = winner < _INF  # [C_tot]
+
+    # Borrower side (local): j.Ownership = own URL (server.go:166), push to
+    # BorrowedQueue, pop WaitQueue (scheduler.go:239-242).
+    matched = matched_g[gidx.long()] & want
+    owned = Q.JobRec(vec=_with_owner(jobs.vec, gidx))
+    wait = Q.pop_front(state.wait, matched)
+    borrowed = Q.push_back(state.borrowed, owned, matched)
+    bdrop = Q.push_back_dropped(state.borrowed, matched)
+
+    # Lender side (local): append to LentQueue (server.go:94-107). Several
+    # borrowers may win one lender in a tick (the Go handler takes them
+    # all); they arrive in global borrower-index order.
+    send = Q.JobQueue(data=_with_owner(g_vec, bidx),
+                      count=isum(matched_g, 0))
+    take = matched_g[None, :] & (winner[None, :] == gidx[:, None])
+    lent = Q.push_many(state.lent, send, take)
+    ldrop = Q.push_many_dropped(state.lent, take)
+    return state.replace(wait=wait, borrowed=borrowed, lent=lent,
+                         drops=state.drops.replace(
+                             queue=state.drops.queue + bdrop + ldrop))
+
+
+def _with_owner(vec: torch.Tensor, owner: torch.Tensor) -> torch.Tensor:
+    out = vec.clone()
+    out[..., Q.FOWNER] = owner
+    return out
+
+
+def _write_back(dst: SimState, src: SimState) -> SimState:
+    """Copy into ``dst``'s tensors every leaf ``src`` holds anew (the
+    cross-cluster phases return new tensors), so that a run updates the
+    caller's state in place. Returns ``dst``."""
+    for (_, d), (_, s_) in zip(leaves_with_keys(dst), leaves_with_keys(src)):
+        if d is not s_:
+            d.copy_(s_)
+    return dst
 
 
 # --------------------------------------------------------------------------
@@ -187,7 +327,6 @@ def _check_slice(cfg: SimConfig) -> None:
             raise ValueError(
                 f"{field} must be 'wave' or 'serial', got {v!r}")
     gaps = [
-        (cfg.borrowing, "cross-cluster borrowing", "A6"),
         (cfg.trader.enabled, "the trader market", "A7"),
         (cfg.faults.enabled, "the fault plane", "A8"),
         (cfg.record_metrics, "record_metrics (the metrics plane)", "A10"),
@@ -212,7 +351,19 @@ class Engine:
         _check_slice(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.ex = LocalExchange()
         self._default_params = self.pset.params_for(cfg, device=self.device)
+
+    def prefix_terminal(self) -> bool:
+        """Does the tick END with the per-cluster prefix? True when no
+        post-span phase runs: no return delivery or borrow matching
+        (``cfg.borrowing``); the trader is not ported, so it is off."""
+        return not self.cfg.borrowing
+
+    def n_msgs(self) -> int:
+        """Return-message slots per cluster and tick: ``cfg.max_msgs``,
+        at most the running set's slots (the pack takes that many)."""
+        return min(self.cfg.max_msgs, self.cfg.max_running)
 
     def member(self, params=None):
         """The ``PolicySpec`` that ``params.idx`` selects (the default
@@ -222,26 +373,61 @@ class Engine:
 
     def _span_prefix(self, state: SimState, rows: torch.Tensor,
                      counts: torch.Tensor, t: int, params: PolicyParams,
-                     member=None) -> SimState:
+                     member=None, emit_returns: bool = False):
         """Phases 1-5 of the tick on this slice's paths, as plain PyTorch
-        ops: completions, arrival ingest into the member's queue, the
+        ops: completions (and, with ``emit_returns``, the pack of the
+        finished foreign jobs' return messages, whose overflow counts into
+        ``drops.msgs``), arrival ingest into the member's queue, the
         member's pass. ``member`` is the ``PolicySpec`` ``params.idx``
-        selects (read from the index when None). The CUDA kernels are held
-        against exactly this function."""
+        selects (read from the index when None). Returns ``(state, want,
+        bjob_vec, ret_rows, ret_valid)``, the return rows None when
+        ``emit_returns`` is off, as the reference's. The CUDA kernels are
+        held against exactly this function."""
         member = self.member(params) if member is None else member
-        state, _ = _release_local(state, t)
+        run_before = state.run
+        state, done = _release_local(state, t)
+        ret_rows = ret_valid = None
+        if emit_returns:
+            ret_rows, ret_valid, dropped = _pack_returns(
+                run_before, done, self.cfg.max_msgs)
+            state = state.replace(drops=state.drops.replace(
+                msgs=state.drops.msgs + dropped))
         state = _ingest_packed_local(state, rows, counts, member.to_delay)
-        state, _, _ = self.pset.dispatch(state, t, params, self.cfg, member)
-        return state
+        state, want, bjob_vec = self.pset.dispatch(state, t, params,
+                                                   self.cfg, member)
+        return state, want, bjob_vec, ret_rows, ret_valid
 
     def _tick(self, state: SimState, rows: torch.Tensor,
               counts: torch.Tensor, t: int, params: PolicyParams,
-              host: dict) -> SimState:
-        """One tick ending at clock ``t`` (a host int): the prefix — the
-        whole tick on this path — then the clock."""
-        state = fused_tick.fused_prefix(self, state, rows, counts, t, params,
-                                        host)
+              host: dict, out: TickIO = None) -> SimState:
+        """One tick ending at clock ``t`` (a host int): the prefix, then
+        with borrowing return delivery and borrow matching, then the
+        clock. ``out`` (TickIO buffers) receives the tick's events; the
+        prefix emits them whenever borrowing or ``out`` asks, into
+        ``host["io"]`` when ``out`` is None. Returns the state, which the
+        cross-cluster phases rebuild (``run_chunks`` writes it back)."""
+        emit = self.cfg.borrowing or out is not None
+        state, *io = fused_tick.fused_prefix(
+            self, state, rows, counts, t, params, host, emit_returns=emit,
+            out=out if out is not None else host.get("io"))
+        state = self._cross_cluster(state, *io)
         state.t.fill_(t)
+        return state
+
+    def _cross_cluster(self, state: SimState, want, bjob_vec, ret_rows,
+                       ret_valid) -> SimState:
+        """The phases after the prefix (none without borrowing), on the
+        prefix's outputs: return delivery, then borrow matching."""
+        if not self.cfg.borrowing:
+            return state
+        # 2b. return delivery: after the whole prefix, bitwise the same as
+        # before it, because it touches only ``state.borrowed``, which no
+        # prefix phase reads
+        state = _deliver_returns(state, ret_rows, ret_valid, self.ex)
+        # 6. borrow matching (want is all False for non-FIFO members)
+        if self.pset.has_fifo:
+            state = _borrow_match(state, want, Q.JobRec(vec=bjob_vec),
+                                  self.cfg, self.ex)
         return state
 
     def _params(self, params) -> PolicyParams:
@@ -276,6 +462,18 @@ class Engine:
                                counts=arrivals.counts[:n_ticks])
         return self.run_chunks(state, [part], params)
 
+    def _entry(self, state: SimState, params):
+        """What a run reads once at its entry: the checked params, the
+        kernels' host parameters (with a scratch TickIO when borrowing
+        emits every tick) and the clock."""
+        self._check_state(state)
+        params = self._params(params)
+        host = fused_tick.host_params(self, params)
+        if self.cfg.borrowing:
+            host["io"] = empty_io((state.arr_ptr.shape[0],), self.n_msgs(),
+                                  self.device)
+        return params, host, int(state.t)
+
     def run_chunks(self, state: SimState, chunks: Sequence[st.TickArrivals],
                    params=None) -> SimState:
         """The chunked run of the headline: each chunk's rows and
@@ -284,21 +482,43 @@ class Engine:
         ``params.idx`` selects and every parameter the kernels take from
         the host are read once at entry; the clock is then tracked on the
         host and handed to each tick."""
-        self._check_state(state)
-        params = self._params(params)
-        host = fused_tick.host_params(self, params)
-        t = int(state.t)
-        tick_ms = self.cfg.tick_ms
+        params, host, t = self._entry(state, params)
+        cur = state
         for chunk in chunks:
             rows = torch.from_numpy(np.ascontiguousarray(chunk.rows)).to(
                 self.device)
             counts = torch.from_numpy(np.ascontiguousarray(chunk.counts)).to(
                 self.device)
             for k in range(rows.shape[0]):
-                t += tick_ms
-                state = self._tick(state, rows[k], counts[k], t, params,
-                                   host)
-        return state
+                t += self.cfg.tick_ms
+                cur = self._tick(cur, rows[k], counts[k], t, params, host)
+        return _write_back(state, cur)
+
+    def run_io(self, state: SimState, rows, counts,
+               params=None) -> tuple[SimState, TickIO]:
+        """Advance one staged TickArrivals chunk (``rows [T, C, K, NF]``,
+        ``counts [T, C]``, numpy or tensors) and return the state and the
+        ``TickIO`` of every tick, stacked over the leading axis — the
+        serving tier's dispatch unit (the reference's ``run_io``). The
+        rows move to the device in one copy; no host synchronisation
+        inside. Chunk composition is exact: ``run_io`` over consecutive
+        chunks equals ``run`` over their concatenation. Every tick emits
+        its returns, so ``drops.msgs`` counts returns beyond
+        ``cfg.max_msgs`` here even without borrowing, as in the
+        reference."""
+        params, host, t = self._entry(state, params)
+        rows, counts = (torch.as_tensor(x).to(self.device).contiguous()
+                        for x in (rows, counts))
+        T, C = counts.shape
+        io = empty_io((T, C), self.n_msgs(), self.device)
+        cur = state
+        for k in range(T):
+            t += self.cfg.tick_ms
+            out = TickIO(borrow_want=io.borrow_want[k],
+                         borrow_job=io.borrow_job[k],
+                         ret_rows=io.ret_rows[k], ret_valid=io.ret_valid[k])
+            cur = self._tick(cur, rows[k], counts[k], t, params, host, out)
+        return _write_back(state, cur), io
 
     def run_compressed(self, *args, **kwargs):
         raise NotImplementedError(

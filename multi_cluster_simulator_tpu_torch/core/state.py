@@ -134,6 +134,37 @@ class SimState(Tree):
         return self.node_free.device
 
 
+@dataclasses.dataclass
+class TickIO(Tree):
+    """Per-tick host-visible events (the reference's ``core/engine.py``
+    ``TickIO``): what a live service host must act on over the network.
+
+    ``borrow_want``/``borrow_job`` are the failing wait-head before any
+    in-batch borrow matching (the BorrowResources call site,
+    scheduler.go:234); ``ret_rows``/``ret_valid`` are the finished
+    foreign-job return messages (ReturnToBorrower, server.go:260-290) —
+    ``ret_rows`` holds the pre-release rows of the first non-returning
+    slots where ``ret_valid`` is False. ``Engine.run_io`` stacks them over
+    a leading tick axis."""
+
+    borrow_want: torch.Tensor  # [C] bool
+    borrow_job: torch.Tensor  # [C, Q.NF] i32
+    ret_rows: torch.Tensor  # [C, M, R.RF] i32
+    ret_valid: torch.Tensor  # [C, M] bool
+
+
+def empty_io(lead: tuple, n_msgs: int, device) -> TickIO:
+    """Uninitialised TickIO buffers with leading shape ``lead`` (``(C,)``
+    for one tick, ``(T, C)`` for ``run_io``'s stack), ``n_msgs`` message
+    slots per cluster."""
+    def e(shape, dtype=torch.int32):
+        return torch.empty(tuple(lead) + shape, dtype=dtype, device=device)
+
+    return TickIO(borrow_want=e((), torch.bool), borrow_job=e((Q.NF,)),
+                  ret_rows=e((n_msgs, R.RF)),
+                  ret_valid=e((n_msgs,), torch.bool))
+
+
 def clone_state(state: SimState) -> SimState:
     """A deep copy: the engine updates states in place."""
     return tree_map(torch.clone, state)

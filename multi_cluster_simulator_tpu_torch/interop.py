@@ -1,5 +1,5 @@
-"""Carry a ``SimState`` or a ``PolicyParams`` between the port and the JAX
-package as numpy.
+"""Carry a ``SimState``, a ``PolicyParams`` or a ``TickIO`` between the
+port and the JAX package as numpy.
 
 There are no weights in this system: the state, the policy parameter
 leaves and the arrival stream take their place. A state crosses as a dict
@@ -71,3 +71,6 @@ def params_from_numpy(leaves: dict, device=None) -> PolicyParams:
 
 
 state_to_numpy = params_to_numpy = to_numpy
+# a TickIO (one tick's or run_io's stack) crosses the same way: keyed
+# .borrow_want, .borrow_job, .ret_rows, .ret_valid, as the reference's
+io_to_numpy = to_numpy

@@ -67,8 +67,10 @@ struct Args {
   int32_t* l1_count;  // [C]
   int skip;           // parity mode's remove-then-skip quirk
   int32_t max_wait;   // params.max_wait_ms
+  Emit e;
 };
 
+template <bool kEmit>
 __global__ void __launch_bounds__(32) fused_prefix_delay_kernel(Args a) {
   const Common& k = a.q.k;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -77,8 +79,10 @@ __global__ void __launch_bounds__(32) fused_prefix_delay_kernel(Args a) {
   int32_t* l0 = a.q.l0 + (size_t)c * k.Q * NF;
   int32_t* l1 = a.l1 + (size_t)c * k.Q * NF;
 
-  // 1. release, then the arrivals into Level0.
-  cl.release();
+  // 1. release (the emit form packs the returns and writes no borrow
+  //    request), then the arrivals into Level0.
+  cl.release<kEmit>(&a.e);
+  if (kEmit) emit_no_borrow(a.e, c);
   int drop_queue = 0;
   int n0 = ingest_level0(a.q, cl, &drop_queue);
 
@@ -128,15 +132,18 @@ __global__ void __launch_bounds__(32) fused_prefix_delay_kernel(Args a) {
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
 // so the Python wrapper can raise on a refused launch. The leading
 // arguments are prefix_common.cuh's Common, in its order; then Level0 and
-// its counters, Level1, and the flags and the promotion threshold.
+// its counters, Level1, the emit outputs, the flags and the promotion
+// threshold, and the emit flags (the terminal form when `emit` is 0).
 extern "C" int fused_prefix_delay_launch(
     void* node_free, void* node_active, void* run, void* run_active,
     void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
     void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
     void* rows, void* counts, void* l0, void* l0_count, void* wait_total,
-    void* wait_jobs, void* jobs_in_queue, void* l1, void* l1_count, int C,
-    int N, int R, int Q, int S, int K, int E, int QC, int record_trace, int t,
-    int wave, int skip, int max_wait, void* stream) {
+    void* wait_jobs, void* jobs_in_queue, void* l1, void* l1_count,
+    void* ret_rows, void* ret_valid, void* drop_msgs, void* want, void* bjob,
+    int C, int N, int R, int Q, int S, int K, int E, int QC, int record_trace,
+    int t, int wave, int skip, int max_wait, int M, int emit, int borrowing,
+    void* stream) {
   if (Q > kMaxQueue) return static_cast<int>(cudaErrorInvalidValue);
   const Common k = make_common(node_free, node_active, run, run_active,
                                arr_ptr, drop_queue, drop_run_full,
@@ -146,11 +153,17 @@ extern "C" int fused_prefix_delay_launch(
   Args a{make_level0(k, l0, l0_count, wait_total, wait_jobs, jobs_in_queue,
                      wave),
          static_cast<int32_t*>(l1), static_cast<int32_t*>(l1_count), skip,
-         max_wait};
+         max_wait,
+         make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing)};
   if (C > 0) {
     const int threads = threads_for(C);
-    fused_prefix_delay_kernel<<<(C + threads - 1) / threads, threads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(a);
+    const int blocks = (C + threads - 1) / threads;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (emit) {
+      fused_prefix_delay_kernel<true><<<blocks, threads, 0, s>>>(a);
+    } else {
+      fused_prefix_delay_kernel<false><<<blocks, threads, 0, s>>>(a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

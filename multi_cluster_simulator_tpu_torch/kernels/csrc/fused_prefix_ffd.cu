@@ -71,12 +71,14 @@ using namespace prefix;
 struct Args {
   Level0Args q;
   int mem_first;  // params.ffd_mem_first > 0
+  Emit e;
 };
 
+template <bool kEmit>
 __global__ void __launch_bounds__(32) fused_prefix_ffd_kernel(Args a) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= a.q.k.C) return;
-  level0_prefix(a.q, c, BfdOrder(a.mem_first), FirstFitPick{});
+  level0_prefix<kEmit>(a.q, a.e, c, BfdOrder(a.mem_first), FirstFitPick{});
 }
 
 }  // namespace
@@ -84,15 +86,17 @@ __global__ void __launch_bounds__(32) fused_prefix_ffd_kernel(Args a) {
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
 // so the Python wrapper can raise on a refused launch. The leading
 // arguments are prefix_common.cuh's Common, in its order; then Level0 and
-// the FFD counters, and the two flags.
+// the FFD counters, the emit outputs, the two flags, and the emit flags
+// (the terminal form when `emit` is 0).
 extern "C" int fused_prefix_ffd_launch(
     void* node_free, void* node_active, void* run, void* run_active,
     void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
     void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
     void* rows, void* counts, void* l0, void* l0_count, void* wait_total,
-    void* wait_jobs, void* jobs_in_queue, int C, int N, int R, int Q, int S,
-    int K, int E, int QC, int record_trace, int t, int wave, int mem_first,
-    void* stream) {
+    void* wait_jobs, void* jobs_in_queue, void* ret_rows, void* ret_valid,
+    void* drop_msgs, void* want, void* bjob, int C, int N, int R, int Q,
+    int S, int K, int E, int QC, int record_trace, int t, int wave,
+    int mem_first, int M, int emit, int borrowing, void* stream) {
   if (Q > kMaxQueue) return static_cast<int>(cudaErrorInvalidValue);
   const Common k = make_common(node_free, node_active, run, run_active,
                                arr_ptr, drop_queue, drop_run_full,
@@ -101,11 +105,17 @@ extern "C" int fused_prefix_ffd_launch(
                                record_trace, t);
   Args a{make_level0(k, l0, l0_count, wait_total, wait_jobs, jobs_in_queue,
                      wave),
-         mem_first};
+         mem_first,
+         make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing)};
   if (C > 0) {
     const int threads = threads_for(C);
-    fused_prefix_ffd_kernel<<<(C + threads - 1) / threads, threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(a);
+    const int blocks = (C + threads - 1) / threads;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (emit) {
+      fused_prefix_ffd_kernel<true><<<blocks, threads, 0, s>>>(a);
+    } else {
+      fused_prefix_ffd_kernel<false><<<blocks, threads, 0, s>>>(a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

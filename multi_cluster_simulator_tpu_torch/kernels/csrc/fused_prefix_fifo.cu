@@ -2,10 +2,14 @@
 // Hopper (sm_90a).
 //
 // Replaces: the TPU kernel multi_cluster_simulator_tpu/kernels/fused_tick.py
-//   fused_prefix (its pallas_call), on the span the headline engages:
-//   [release, ingest (packed rows -> ReadyQueue), schedule: FIFO], terminal,
-//   wide layout, no metrics tap. The TPU kernel replays the traced jaxpr of
-//   Engine._span_prefix on a block of clusters; this kernel is written from
+//   fused_prefix (its pallas_call), on the spans FIFO engages: [release,
+//   ingest (packed rows -> ReadyQueue), schedule: FIFO], wide layout, no
+//   metrics tap; terminal on the headline, and in the emit form (kEmit)
+//   with borrowing or run_io: the release step's return pack
+//   (core/engine.py _pack_returns and drops.msgs) and the borrow request,
+//   want and bjob_vec (policies/kernels.py _fifo_local). The TPU kernel
+//   replays the traced jaxpr of Engine._span_prefix on a block of
+//   clusters; this kernel is written from
 //   the semantics instead (core/engine.py _release_local and
 //   _ingest_packed_local, policies/kernels.py _fifo_local of the port), and
 //   is held bitwise against the port's plain PyTorch version
@@ -38,7 +42,15 @@
 //   threads read rows 1.3 KB apart, so loads do not coalesce and the tick
 //   is latency-bound well above the byte bound (PERF.md has the times).
 //   A warp per cluster, and a loop over a whole chunk of ticks inside one
-//   launch, are the next steps.
+//   launch, are the next steps. Pops move only the live rows: the slots
+//   past a queue's count hold INVALID rows already, so the 1,024-deep
+//   queues of the borrowing shapes cost what they hold.
+//
+// The emit form adds per cluster the M return rows and flags and the
+//   borrow request (M*RF*4 + M + NF*4 + 1 B written), the M rows it
+//   copies, and drops.msgs (chip_smoke.py tick_cost_borrow). It is a
+//   separate instantiation of the same kernel, so the terminal form's
+//   code, registers and stack stay as they were.
 //
 // Shared with the FFD kernel (prefix_common.cuh): release, the arrival
 // append, first-fit, placement and the trace, and the integer discipline
@@ -63,15 +75,19 @@ struct Args {
   int32_t* wait_count;
   int32_t* lent;
   int32_t* lent_count;
+  Emit e;
 };
 
-// pop_front: shift every row left by one, INVALID into the last row.
-__device__ void pop_front(int32_t* q, int32_t* count, int Q) {
-  for (int i = 0; i + 1 < Q; ++i) copy_row(q + i * NF, q + (i + 1) * NF);
-  set_queue_invalid(q + (Q - 1) * NF);
-  *count = *count > 0 ? *count - 1 : 0;
+// pop_front of a non-empty queue: shift the live rows left by one, INVALID
+// into the last live row (the rows past it are INVALID already).
+__device__ void pop_front(int32_t* q, int* count) {
+  const int n = *count;
+  for (int i = 0; i + 1 < n; ++i) copy_row(q + i * NF, q + (i + 1) * NF);
+  set_queue_invalid(q + (n - 1) * NF);
+  *count = n - 1;
 }
 
+template <bool kEmit>
 __global__ void __launch_bounds__(kThreads)
 fused_prefix_fifo_kernel(Args a) {
   const Common& k = a.k;
@@ -83,8 +99,8 @@ fused_prefix_fifo_kernel(Args a) {
   int32_t* wait = a.wait + (size_t)c * Q * NF;
   int32_t* lent = a.lent + (size_t)c * Q * NF;
 
-  // 1. release every due running slot.
-  cl.release();
+  // 1. release every due running slot (the emit form packs the returns).
+  cl.release<kEmit>(&a.e);
 
   // 2. ingest: append the tick's arrivals to the ready queue.
   int drop_queue = 0;
@@ -113,13 +129,14 @@ fused_prefix_fifo_kernel(Args a) {
     }
   }
   // pop_front_n(ready, n_taken): rows [n_taken, rcount) move to the front,
-  // every row from the new count on becomes INVALID.
-  {
+  // every row from the new count on becomes INVALID (those past the old
+  // count are).
+  if (n_taken > 0) {
     const int n = imin(n_taken, rcount);
     const int newcount = rcount - n;
     for (int i = 0; i < newcount; ++i) copy_row(ready + i * NF,
                                                 ready + (i + n) * NF);
-    for (int i = newcount; i < Q; ++i) set_queue_invalid(ready + i * NF);
+    for (int i = newcount; i < rcount; ++i) set_queue_invalid(ready + i * NF);
     rcount = newcount;
   }
   // push_back(wait, fail_job, any_fail); the drop reads the old count.
@@ -132,17 +149,24 @@ fused_prefix_fifo_kernel(Args a) {
     }
   }
 
-  // 3b. wait-head attempt (scheduler.go:219-252).
-  if (wcount > 0 && cl.attempt(wait, SRC_WAIT, &run_full)) {
-    pop_front(wait, &wcount, Q);
-  }
+  // 3b. wait-head attempt (scheduler.go:219-252). The emit form writes
+  //     the head it attempts (row 0: INVALID when the queue is empty) and,
+  //     with borrowing, whether the attempt failed: the BorrowResources
+  //     request (scheduler.go:234).
+  const bool process_w = wcount > 0;
+  if (kEmit) copy_row(a.e.bjob + (size_t)c * NF, wait);
+  const bool wsuccess = process_w && cl.attempt(wait, SRC_WAIT, &run_full);
+  if (wsuccess) pop_front(wait, &wcount);
+  if (kEmit) a.e.want[c] = a.e.borrowing && process_w && !wsuccess;
 
   // 3c. lent best-effort (scheduler.go:277-291): only in a tick where the
   //     wait queue was empty and the ready queue drained clean.
   int lcount = a.lent_count[c];
+  //     A lent row's owner (the borrower's index) goes into its running
+  //     row, so that its completion returns it.
   if (!wait_active && !any_fail && rcount == 0 && lcount > 0 &&
       cl.attempt(lent, SRC_LENT, &run_full)) {
-    pop_front(lent, &lcount, Q);
+    pop_front(lent, &lcount);
   }
 
   a.ready_count[c] = rcount;
@@ -158,26 +182,33 @@ fused_prefix_fifo_kernel(Args a) {
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
 // so the Python wrapper can raise on a refused launch. The leading
 // arguments are prefix_common.cuh's Common, in its order; then the three
-// FIFO queues.
+// FIFO queues, the emit outputs, and the emit flags (the terminal form
+// when `emit` is 0, its pointers then null).
 extern "C" int fused_prefix_fifo_launch(
     void* node_free, void* node_active, void* run, void* run_active,
     void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
     void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
     void* rows, void* counts, void* ready, void* ready_count, void* wait,
-    void* wait_count, void* lent, void* lent_count, int C, int N, int R,
-    int Q, int S, int K, int E, int QC, int record_trace, int t,
-    void* stream) {
+    void* wait_count, void* lent, void* lent_count, void* ret_rows,
+    void* ret_valid, void* drop_msgs, void* want, void* bjob, int C, int N,
+    int R, int Q, int S, int K, int E, int QC, int record_trace, int t, int M,
+    int emit, int borrowing, void* stream) {
   Args a{make_common(node_free, node_active, run, run_active, arr_ptr,
                      drop_queue, drop_run_full, placed_total, tr_t, tr_job,
                      tr_node, tr_src, tr_n, rows, counts, C, N, R, Q, S, K,
                      E, QC, record_trace, t),
          static_cast<int32_t*>(ready), static_cast<int32_t*>(ready_count),
          static_cast<int32_t*>(wait), static_cast<int32_t*>(wait_count),
-         static_cast<int32_t*>(lent), static_cast<int32_t*>(lent_count)};
+         static_cast<int32_t*>(lent), static_cast<int32_t*>(lent_count),
+         make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing)};
   if (C > 0) {
     const int blocks = (C + kThreads - 1) / kThreads;
-    fused_prefix_fifo_kernel<<<blocks, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(a);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (emit) {
+      fused_prefix_fifo_kernel<true><<<blocks, kThreads, 0, s>>>(a);
+    } else {
+      fused_prefix_fifo_kernel<false><<<blocks, kThreads, 0, s>>>(a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

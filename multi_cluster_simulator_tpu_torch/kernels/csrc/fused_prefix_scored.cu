@@ -66,6 +66,7 @@ struct Args {
   int pick;                  // kTable (gavel, rl) or kTesserae
   float table[kClasses * kDeviceTypes];
   float w[3];
+  Emit e;
 };
 
 // The first maximum of score(n) over the nodes, infeasible nodes at -inf;
@@ -123,15 +124,17 @@ struct TesseraePick {
 
 // __grid_constant__: the picks point into the parameters (the table and
 // the weights) without a copy of them in local memory.
+template <bool kEmit>
 __global__ void __launch_bounds__(32)
 fused_prefix_scored_kernel(const __grid_constant__ Args a) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= a.q.k.C) return;
   if (a.pick == kTesserae) {
-    level0_prefix(a.q, c, BfdOrder(0), TesseraePick{a.w});
+    level0_prefix<kEmit>(a.q, a.e, c, BfdOrder(0), TesseraePick{a.w});
   } else {
-    level0_prefix(a.q, c, QueueOrder{},
-                  TablePick{a.table, a.node_type + (size_t)c * a.q.k.N});
+    level0_prefix<kEmit>(a.q, a.e, c, QueueOrder{},
+                         TablePick{a.table,
+                                   a.node_type + (size_t)c * a.q.k.N});
   }
 }
 
@@ -140,16 +143,19 @@ fused_prefix_scored_kernel(const __grid_constant__ Args a) {
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
 // so the Python wrapper can raise on a refused launch. The leading
 // arguments are prefix_common.cuh's Common, in its order; then Level0 and
-// its counters, the node types, the pick, and the member's 16 table
-// scores and 3 weights (host memory, copied into the kernel's parameters).
+// its counters, the node types, the emit outputs, the pick, the emit flags
+// (the terminal form when `emit` is 0), and the member's 16 table scores
+// and 3 weights (host memory, copied into the kernel's parameters).
 extern "C" int fused_prefix_scored_launch(
     void* node_free, void* node_active, void* run, void* run_active,
     void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
     void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
     void* rows, void* counts, void* l0, void* l0_count, void* wait_total,
-    void* wait_jobs, void* jobs_in_queue, void* node_type, int C, int N,
+    void* wait_jobs, void* jobs_in_queue, void* node_type, void* ret_rows,
+    void* ret_valid, void* drop_msgs, void* want, void* bjob, int C, int N,
     int R, int Q, int S, int K, int E, int QC, int record_trace, int t,
-    int pick, const float* table, const float* w, void* stream) {
+    int pick, int M, int emit, int borrowing, const float* table,
+    const float* w, void* stream) {
   if (Q > kMaxQueue || R > 3) return static_cast<int>(cudaErrorInvalidValue);
   const Common k = make_common(node_free, node_active, run, run_active,
                                arr_ptr, drop_queue, drop_run_full,
@@ -158,13 +164,19 @@ extern "C" int fused_prefix_scored_launch(
                                record_trace, t);
   Args a{make_level0(k, l0, l0_count, wait_total, wait_jobs, jobs_in_queue,
                      0),
-         static_cast<const int32_t*>(node_type), pick, {}, {}};
+         static_cast<const int32_t*>(node_type), pick, {}, {},
+         make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing)};
   for (int i = 0; i < kClasses * kDeviceTypes; ++i) a.table[i] = table[i];
   for (int r = 0; r < 3; ++r) a.w[r] = w[r];
   if (C > 0) {
     const int threads = threads_for(C);
-    fused_prefix_scored_kernel<<<(C + threads - 1) / threads, threads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(a);
+    const int blocks = (C + threads - 1) / threads;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (emit) {
+      fused_prefix_scored_kernel<true><<<blocks, threads, 0, s>>>(a);
+    } else {
+      fused_prefix_scored_kernel<false><<<blocks, threads, 0, s>>>(a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,10 @@
 // placing a job (occupy its node, insert its running row into the lowest
 // free slot, count it, trace it), and the serial queue sweep with its wait
 // accounting and the stable compaction of the placed slots, templated over
-// the sweep order and the node pick.
+// the sweep order and the node pick. The emit form of every span (its
+// kernel's template instantiated with kEmit) also packs, in the release
+// step, the return messages of the finished foreign jobs, and writes the
+// borrow request the cross-cluster phases after the prefix consume.
 //
 // Every function here works on ONE cluster, walked by one thread, in
 // place, in the reference's order. Integer discipline: all arithmetic is
@@ -99,6 +102,27 @@ inline Common make_common(void* node_free, void* node_active, void* run,
                 C, N, R, Q, S, K, E, QC, record_trace, t};
 }
 
+// The emit form's outputs and flags, after each launch function's own
+// arguments (kernels/fused_tick.py _emit); null and unread on a terminal
+// launch.
+struct Emit {
+  int32_t* ret_rows;   // [C, M, RF] return messages, the pack's order
+  uint8_t* ret_valid;  // [C, M] which slots carry a return
+  int32_t* drop_msgs;  // [C] drops.msgs: returns beyond M
+  uint8_t* want;       // [C] the failed wait-head attempt, with borrowing
+  int32_t* bjob;       // [C, NF] the wait head before that attempt
+  int M;
+  int borrowing;
+};
+
+inline Emit make_emit(void* ret_rows, void* ret_valid, void* drop_msgs,
+                      void* want, void* bjob, int M, int borrowing) {
+  return Emit{static_cast<int32_t*>(ret_rows),
+              static_cast<uint8_t*>(ret_valid),
+              static_cast<int32_t*>(drop_msgs), static_cast<uint8_t*>(want),
+              static_cast<int32_t*>(bjob), M, borrowing};
+}
+
 __host__ __device__ __forceinline__ int32_t queue_invalid(int f) {
   return (f == FID || f == FOWNER) ? -1 : 0;
 }
@@ -159,11 +183,44 @@ struct Cluster {
         slot(0), n_active(0), placed(0) {}
 
   // Release: every active slot with end_t <= t returns its resources to
-  // its node and becomes an invalid, inactive row; counts the rest.
-  __host__ __device__ void release() {
+  // its node and becomes an invalid, inactive row; counts the rest. The
+  // emit form first packs the return messages as the reference's stable
+  // argsort of ~is_ret over the pre-release rows does (core/engine.py
+  // _pack_returns): the due slots owned by a borrower (owner >= 0) in
+  // slot order, then every other slot in slot order — their pre-release
+  // rows, the own jobs this release clears included — up to M; returns
+  // past M count into drops.msgs. The first pass only reads; the second
+  // copies each other slot's row before releasing it.
+  template <bool kEmit = false>
+  __host__ __device__ void release(const Emit* e = nullptr) {
+    int m = 0;
+    int32_t* out = nullptr;
+    uint8_t* valid = nullptr;
+    if (kEmit) {
+      out = e->ret_rows + (size_t)c * e->M * RF;
+      valid = e->ret_valid + (size_t)c * e->M;
+      int n_ret = 0;
+      for (int s = 0; s < a.S; ++s) {
+        const int32_t* row = run + s * RF;
+        if (!ract[s] || row[REND] > a.t || row[ROWNER] < 0) continue;
+        if (m < e->M) {
+#pragma unroll
+          for (int f = 0; f < RF; ++f) out[m * RF + f] = row[f];
+          valid[m++] = 1;
+        }
+        ++n_ret;
+      }
+      e->drop_msgs[c] += imax(n_ret - e->M, 0);
+    }
     for (int s = 0; s < a.S; ++s) {
-      if (!ract[s]) continue;
       int32_t* row = run + s * RF;
+      if (kEmit && m < e->M &&
+          !(ract[s] && row[REND] <= a.t && row[ROWNER] >= 0)) {
+#pragma unroll
+        for (int f = 0; f < RF; ++f) out[m * RF + f] = row[f];
+        valid[m++] = 0;
+      }
+      if (!ract[s]) continue;
       if (row[REND] <= a.t) {
         int node = imin(imax(row[RNODE], 0), a.N - 1);
         for (int r = 0; r < a.R; ++r) free[node * a.R + r] += row[RCORES + r];
@@ -431,16 +488,26 @@ __host__ __device__ inline int ingest_level0(const Level0Args& a,
   return count;
 }
 
+// The emit form's borrow request of a kind that never borrows (the
+// Level0 kinds): want false and a zero row, as the reference's _zero_io.
+__host__ __device__ inline void emit_no_borrow(const Emit& e, int c) {
+  e.want[c] = 0;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) e.bjob[(size_t)c * NF + f] = 0;
+}
+
 // One cluster's whole tick: release, ingest into Level0, the sweep over
 // the first min(|L0|, QC) positions of `order`, the compaction, and the
-// counters.
-template <class Order, class Pick>
-__host__ __device__ void level0_prefix(const Level0Args& a, int c,
-                                       Order order, const Pick& pick) {
+// counters; the emit form also packs the returns and writes no borrow
+// request.
+template <bool kEmit, class Order, class Pick>
+__host__ __device__ void level0_prefix(const Level0Args& a, const Emit& e,
+                                       int c, Order order, const Pick& pick) {
   const Common& k = a.k;
   Cluster cl(k, c);
   int32_t* l0 = a.l0 + (size_t)c * k.Q * NF;
-  cl.release();
+  cl.release<kEmit>(&e);
+  if (kEmit) emit_no_borrow(e, c);
   int drop_queue = 0;
   const int count = ingest_level0(a, cl, &drop_queue);
   SweepAcc acc(a.wait_total[c]);

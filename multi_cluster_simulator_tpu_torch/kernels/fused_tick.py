@@ -5,8 +5,8 @@ The port of ``multi_cluster_simulator_tpu/kernels/fused_tick.py``. There,
 one ``pallas_call`` over cluster blocks, so that each state column is
 loaded and stored once per tick. Generic jaxpr replay has no Hopper
 counterpart, so the port writes one CUDA kernel per engaged span. The
-spans ported so far are terminal, wide-layout and untapped, and differ in
-the schedule slot (``KERNELS``):
+spans ported so far are wide-layout and untapped, and differ in the
+schedule slot (``KERNELS``):
 
 - ``fused_prefix_fifo`` — ``[release, ingest -> ReadyQueue, schedule:
   FIFO]`` (``csrc/fused_prefix_fifo.cu``);
@@ -19,6 +19,15 @@ the schedule slot (``KERNELS``):
   gavel | tesserae | rl]``, the Level0 sweep with a scored node pick
   (``csrc/fused_prefix_scored.cu``).
 
+Each comes in two forms, instantiations of one template: the terminal
+form, which updates the state only, and the emit form (``emit_returns``:
+borrowing, or a ``run_io`` tick), whose release step also packs the
+finished foreign jobs' return messages and whose pass writes the borrow
+request (``want``, ``bjob_vec``) — the outputs the cross-cluster phases
+after the prefix consume. The FIFO emit form, the borrowing path's
+kernel, is counted as its own entry, ``fused_prefix_fifo_emit``; the
+Level0 kernels' emit forms count under their kernel's name.
+
 Each source's header states what bounds it on the H100 and what its
 design does about that; what they share is ``csrc/prefix_common.cuh``.
 The kernel is the one of the member ``params.idx`` selects in the
@@ -28,15 +37,18 @@ engine's ``PolicySet``, read once at a run's entry (``host_params``).
 
 - on CUDA tensors it checks device, dtype, shape and contiguity, launches
   the selected member's kernel on PyTorch's current stream — never
-  synchronising, allocating nothing — and adds one to that kernel's
-  ``launches``. A CUDA state has no other path: the wrapper launches or
-  raises.
+  synchronising, allocating nothing when the caller hands it its output
+  buffers — and adds one to that kernel's ``launches``. A CUDA state has
+  no other path: the wrapper launches or raises.
 - on CPU tensors it runs ``fused_prefix_reference``, the plain PyTorch
-  version (``Engine._span_prefix``: the ported release, ingest and policy
-  ops), and leaves the launch counts alone.
+  version (``Engine._span_prefix``: the ported release, return pack,
+  ingest and policy ops), and leaves the launch counts alone.
 
-Either way the state's tensors are updated in place and the state is
-returned. ``cfg.fused`` is copied with the config but chooses nothing here.
+Either way the state's tensors are updated in place, and it returns
+``(state, want, bjob_vec, ret_rows, ret_valid)``; the four outputs are
+None in the terminal form, which nothing after the prefix reads (the
+reference's terminal kernel computes ``want``/``bjob_vec`` and XLA drops
+them). ``cfg.fused`` is copied with the config but chooses nothing here.
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ import functools
 
 import torch
 
+from multi_cluster_simulator_tpu_torch.core.state import empty_io
 from multi_cluster_simulator_tpu_torch.ops import queues as Q
 from multi_cluster_simulator_tpu_torch.ops import runset as R
 from multi_cluster_simulator_tpu_torch.policies.kernels import _sweep_len
@@ -62,24 +75,32 @@ MAX_QUEUE = 1024
 
 @dataclasses.dataclass
 class Kernel:
-    """One hand-written prefix kernel: its name (also the library's name in
-    ``kernels/build.py``), the policy kinds whose spans it carries, and how
-    many times the wrapper launched it."""
+    """One hand-written prefix kernel: its name, the policy kinds whose
+    spans it carries, the library that holds it (``kernels/build.py``;
+    its name unless given), whether it is an emit form, and how many
+    times the wrapper launched it."""
 
     name: str
     kinds: tuple
+    lib: str = ""
+    emit: bool = False
     launches: int = 0
+
+    def __post_init__(self):
+        self.lib = self.lib or self.name
 
     @property
     def source(self) -> str:
-        return f"{CSRC}{self.name}.cu"
+        return f"{CSRC}{self.lib}.cu"
 
 
 KERNELS = {k.name: k for k in (
     Kernel("fused_prefix_fifo", ("fifo",)),
     Kernel("fused_prefix_ffd", ("ffd",)),
     Kernel("fused_prefix_delay", ("delay",)),
-    Kernel("fused_prefix_scored", ("gavel", "tesserae", "rl")))}
+    Kernel("fused_prefix_scored", ("gavel", "tesserae", "rl")),
+    Kernel("fused_prefix_fifo_emit", ("fifo",), lib="fused_prefix_fifo",
+           emit=True))}
 
 
 def reset_launches() -> None:
@@ -101,21 +122,27 @@ def engaged_span(cfg) -> tuple[str, ...]:
     return ("release", "ingest", "schedule")
 
 
-def kernel_for(member) -> Kernel:
+def kernel_for(member, emit: bool = False) -> Kernel:
     """The kernel that carries the span of ``member`` (a ``PolicySpec``)
-    on the card."""
-    return next(k for k in KERNELS.values() if member.kind in k.kinds)
+    on the card, in the emit form when ``emit`` (the FIFO emit form is an
+    entry of its own; the others share their kernel's)."""
+    found = [k for k in KERNELS.values() if member.kind in k.kinds]
+    return next((k for k in found if k.emit == emit), found[0])
 
 
 def provenance(engine, params=None) -> dict:
-    """What a recorded number ran: the engaged span, the member
+    """What a recorded number ran: the engaged span, whether the prefix
+    emits the return pack and the borrow request (``cfg.borrowing``, the
+    form ``run``/``run_chunks`` take; ``run_io`` always emits), the member
     ``params.idx`` selects (the engine's default params unless given) and
     the kernel that carries it on the card."""
     member = engine.member(params)
-    k = kernel_for(member)
+    emit = not engine.prefix_terminal()
+    k = kernel_for(member, emit)
     return {"span": list(engaged_span(engine.cfg)), "policy": member.name,
             "schedule": member.kind, "kernel": k.name, "route": "cuda",
-            "source": k.source, "replaces": REPLACES, "epilogue_tap": False}
+            "source": k.source, "replaces": REPLACES, "emit_returns": emit,
+            "epilogue_tap": False}
 
 
 def host_params(engine, params) -> dict:
@@ -129,6 +156,7 @@ def host_params(engine, params) -> dict:
     table = {"gavel": params.gavel_tput, "rl": params.rl_scores}.get(
         member.kind, torch.zeros(16))
     return {"member": member, "kernel": kernel_for(member),
+            "emit_kernel": kernel_for(member, emit=True),
             "ffd_mem_first": int(params.ffd_mem_first > 0),
             "max_wait_ms": int(params.max_wait_ms),
             "table": (ctypes.c_float * 16)(*table.flatten().tolist()),
@@ -136,39 +164,65 @@ def host_params(engine, params) -> dict:
 
 
 def fused_prefix_reference(engine, state, rows, counts, t: int, params,
-                           member=None):
+                           member=None, emit_returns: bool = False):
     """The plain PyTorch version: the ported per-cluster prefix ops on any
     device, for ``member`` (the one ``params.idx`` selects when None).
-    Returns a new state; the input is left as it was."""
-    return engine._span_prefix(state, rows, counts, t, params, member)
+    Returns ``(state, want, bjob_vec, ret_rows, ret_valid)`` as
+    ``Engine._span_prefix`` does, with a new state; the input is left as
+    it was."""
+    return engine._span_prefix(state, rows, counts, t, params, member,
+                               emit_returns)
 
 
 def fused_prefix(engine, state, rows: torch.Tensor, counts: torch.Tensor,
-                 t: int, params, host: dict):
+                 t: int, params, host: dict, emit_returns: bool = False,
+                 out=None):
     """Run tick ``t``'s prefix (release -> ingest -> the selected member's
-    pass) on ``state`` in place and return it. ``rows`` [C, K, NF] int32
-    and ``counts`` [C] int32 are the tick's arrival slice; ``t`` is the
-    post-tick clock as a host int; ``params`` are the policy's leaves
-    (the plain path reads them) and ``host`` what the kernels take
-    (``host_params``)."""
+    pass) on ``state`` in place. ``rows`` [C, K, NF] int32 and ``counts``
+    [C] int32 are the tick's arrival slice; ``t`` is the post-tick clock
+    as a host int; ``params`` are the policy's leaves (the plain path
+    reads them) and ``host`` what the kernels take (``host_params``).
+    With ``emit_returns`` the release step also packs the return messages
+    and the pass writes the borrow request, into ``out`` (a ``TickIO`` of
+    buffers on the state's device, allocated when None). Returns
+    ``(state, want, bjob_vec, ret_rows, ret_valid)``, the last four None
+    without ``emit_returns``."""
     devices = {x.device for _, x in leaves_with_keys(state)}
     devices |= {rows.device, counts.device}
     if devices == {torch.device("cpu")}:
-        new = fused_prefix_reference(engine, state, rows, counts, t, params,
-                                     host["member"])
+        new, *io = fused_prefix_reference(engine, state, rows, counts, t,
+                                          params, host["member"],
+                                          emit_returns)
         for (_, dst), (_, src) in zip(leaves_with_keys(state),
                                       leaves_with_keys(new)):
             if dst is not src:
                 dst.copy_(src)
-        return state
+        if not emit_returns:
+            return state, None, None, None, None
+        if out is None:
+            return (state, *io)
+        for (_, dst), src in zip(leaves_with_keys(out), io):
+            dst.copy_(src)
+        return (state, *_outputs(out))
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(
             f"fused_prefix needs every tensor on one CUDA device or all on "
             f"the CPU; got {sorted(str(d) for d in devices)}")
-    k = host["kernel"]
-    _LAUNCH[k.name](engine.cfg, state, rows, counts, t, host)
+    if not emit_returns:
+        k = host["kernel"]
+        _LAUNCH[k.lib](engine.cfg, state, rows, counts, t, host, None)
+        k.launches += 1
+        return state, None, None, None, None
+    if out is None:
+        out = empty_io((counts.shape[0],), engine.n_msgs(), counts.device)
+    k = host["emit_kernel"]
+    _LAUNCH[k.lib](engine.cfg, state, rows, counts, t, host, out)
     k.launches += 1
-    return state
+    return (state, *_outputs(out))
+
+
+def _outputs(io) -> tuple:
+    return io.borrow_want, io.borrow_job, io.ret_rows, io.ret_valid
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple, dtype) -> torch.Tensor:
@@ -249,53 +303,81 @@ def _level0(name: str, s, C: int, Qc: int):
     ]
 
 
+def _emit(cfg, s, io):
+    """The emit outputs' pointers (None on a terminal launch) and ints
+    that every launch function takes after its own: the return rows and
+    flags, ``drops.msgs``, ``want`` and ``bjob_vec``; the message slots,
+    whether to emit, whether borrowing is on."""
+    if io is None:
+        return [None] * 5, [0, 0, int(cfg.borrowing)]
+    C = s.arr_ptr.shape[0]
+    M = io.ret_valid.shape[-1]
+    if M != min(cfg.max_msgs, cfg.max_running):
+        raise ValueError(f"fused_prefix: {M} message slots, the config "
+                         f"packs {min(cfg.max_msgs, cfg.max_running)}")
+    ptrs = [_check("ret_rows", io.ret_rows, (C, M, R.RF), torch.int32),
+            _check("ret_valid", io.ret_valid, (C, M), torch.bool),
+            _check("drops.msgs", s.drops.msgs, (C,), torch.int32),
+            _check("want", io.borrow_want, (C,), torch.bool),
+            _check("bjob_vec", io.borrow_job, (C, Q.NF), torch.int32)]
+    return ptrs, [M, 1, int(cfg.borrowing)]
+
+
 def _run(name: str, ptrs, ints, rows, host_ptrs=()):
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     fn = _entry(name, len(ptrs), len(ints), len(host_ptrs))
-    err = fn(*[p.data_ptr() for p in ptrs], *ints,
+    err = fn(*[None if p is None else p.data_ptr() for p in ptrs], *ints,
              *[ctypes.addressof(h) for h in host_ptrs], stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({torch.cuda.get_device_name(rows.device)})")
 
 
-def _launch_fifo(cfg, s, rows, counts, t: int, host: dict) -> None:
+def _launch_fifo(cfg, s, rows, counts, t: int, host: dict,
+                 io=None) -> None:
     ptrs, ints = _common(cfg, s, rows, counts, t)
     C, Qc = ints[0], ints[3]
     ptrs += (_queue("ready", s.ready, C, Qc) + _queue("wait", s.wait, C, Qc)
              + _queue("lent", s.lent, C, Qc))
-    _run("fused_prefix_fifo", ptrs, ints, rows)
+    e_ptrs, e_ints = _emit(cfg, s, io)
+    _run("fused_prefix_fifo", ptrs + e_ptrs, ints + e_ints, rows)
 
 
-def _launch_ffd(cfg, s, rows, counts, t: int, host: dict) -> None:
+def _launch_ffd(cfg, s, rows, counts, t: int, host: dict,
+                io=None) -> None:
     ptrs, ints = _common(cfg, s, rows, counts, t)
     ptrs += _level0("fused_prefix_ffd", s, ints[0], ints[3])
     wave = int(not cfg.parity and cfg.ffd_sweep == "wave")
     ints += [wave, host["ffd_mem_first"]]
-    _run("fused_prefix_ffd", ptrs, ints, rows)
+    e_ptrs, e_ints = _emit(cfg, s, io)
+    _run("fused_prefix_ffd", ptrs + e_ptrs, ints + e_ints, rows)
 
 
-def _launch_delay(cfg, s, rows, counts, t: int, host: dict) -> None:
+def _launch_delay(cfg, s, rows, counts, t: int, host: dict,
+                  io=None) -> None:
     ptrs, ints = _common(cfg, s, rows, counts, t)
     C, Qc = ints[0], ints[3]
     ptrs += (_level0("fused_prefix_delay", s, C, Qc)
              + _queue("l1", s.l1, C, Qc))
     wave = int(not cfg.parity and cfg.delay_sweep == "wave")
     ints += [wave, int(cfg.parity), host["max_wait_ms"]]
-    _run("fused_prefix_delay", ptrs, ints, rows)
+    e_ptrs, e_ints = _emit(cfg, s, io)
+    _run("fused_prefix_delay", ptrs + e_ptrs, ints + e_ints, rows)
 
 
 # the scored kernel's picks (csrc/fused_prefix_scored.cu kTable, kTesserae)
 _PICK = {"gavel": 0, "rl": 0, "tesserae": 1}
 
 
-def _launch_scored(cfg, s, rows, counts, t: int, host: dict) -> None:
+def _launch_scored(cfg, s, rows, counts, t: int, host: dict,
+                   io=None) -> None:
     ptrs, ints = _common(cfg, s, rows, counts, t)
     C, N = ints[0], ints[1]
     ptrs += _level0("fused_prefix_scored", s, C, ints[3]) + [
         _check("node_type", s.node_type, (C, N), torch.int32)]
     ints += [_PICK[host["member"].kind]]
-    _run("fused_prefix_scored", ptrs, ints, rows,
+    e_ptrs, e_ints = _emit(cfg, s, io)
+    _run("fused_prefix_scored", ptrs + e_ptrs, ints + e_ints, rows,
          (host["table"], host["weights"]))
 
 

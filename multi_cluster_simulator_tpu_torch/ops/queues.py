@@ -218,27 +218,32 @@ def push_back(q: JobQueue, job: JobRec, do: torch.Tensor) -> JobQueue:
     return q.replace(data=data, count=q.count + ok.to(I32))
 
 
-def push_many(q: JobQueue, jobs: JobQueue, take: torch.Tensor,
-              prefix: bool = True) -> JobQueue:
-    """Append the rows of ``jobs`` where ``take`` [C, K] is set, in order.
+def push_many(q: JobQueue, jobs: JobQueue, take: torch.Tensor) -> JobQueue:
+    """Append the rows of ``jobs`` where ``take`` [C, K] is set, in order;
+    overflowing rows are dropped. ``jobs.data`` is [C, K, NF], or [K, NF]
+    when every cluster draws from one batch (the borrow path's lender
+    push).
 
-    Only the ``prefix=True`` form is ported (``take`` is a leading prefix,
-    e.g. time-sorted arrival ingest); the general stable-argsort form feeds
-    the borrowing path (ROADMAP A6). Overflowing rows are dropped."""
-    if not prefix:
-        raise NotImplementedError(
-            "push_many(prefix=False) feeds borrowing: ROADMAP A6")
+    Slot ``count + r`` gets the r-th taken row — the reference's stable
+    argsort of ``~take`` and scatter — found by a search of each slot's
+    rank in the running count of ``take``: [C, Q] work and no [C, Q, K]
+    operand (the lender push has K = C = 4,096 and Q = 1,024). A prefix
+    ``take`` (time-sorted arrival ingest) is the case where the r-th taken
+    row is row r."""
     n_take = isum(take, 1)
-    jcap = jobs.capacity
-    k = _arange(jcap, q)
-    dst = q.count[:, None] + k  # [C, K]: the k-th taken row's slot
-    ok = (k[None, :] < n_take[:, None]) & (dst < q.capacity)
     added = torch.minimum(n_take, q.capacity - q.count)
-    hot = (dst[:, None, :] == _arange(q.capacity, q)[None, :, None]) \
-        & ok[:, None, :]  # [C, Q, K]
-    written = hot.any(dim=2)
-    packed = isum(hot.to(I32)[..., None] * jobs.data[:, None, :, :], 2)
-    data = torch.where(written[..., None], packed, q.data)
+    src = jobs.data
+    K = take.shape[1]
+    csum = icumsum(take.to(I32), 1)  # [C, K] taken rows up to k
+    rank = _arange(q.capacity, q)[None, :] - q.count[:, None]  # [C, Q]
+    new = (rank >= 0) & (rank < n_take[:, None])
+    # the first k whose running count reaches rank + 1: the rank-th taken
+    k = torch.searchsorted(csum, (rank + 1).clamp(min=1)).clamp(max=K - 1)
+    if src.dim() == 2:
+        rows = src[k]
+    else:
+        rows = torch.gather(src, 1, k[..., None].expand(-1, -1, NF))
+    data = torch.where(new[..., None], rows, q.data)
     return q.replace(data=data, count=q.count + added)
 
 

@@ -4,10 +4,10 @@ The port of ``multi_cluster_simulator_tpu/ops/runset.py`` (wide layout only;
 the compact SoA form is ROADMAP A11). A running job is a row of a packed
 int32 table ``data[C, S, RF]`` carrying its end time on the virtual clock,
 with ``active[C, S]`` marking live slots; completion returns the row's
-resources to ``node_free``. The reference's one-hot contractions
-(release's scatter-add, start_many's slot assignment) become int32
-broadcast-multiply-sums here — bit-identical, and runnable on CUDA, which
-has no integer matmul.
+resources to ``node_free``. The reference's one-hot contractions become
+an int32 broadcast-multiply-sum (release's scatter-add) and gathers
+(start_many's slot assignment, the return pack) here — bit-identical, and
+runnable on CUDA, which has no integer matmul.
 """
 
 from __future__ import annotations
@@ -92,18 +92,26 @@ def start_many(rs: RunningSet, rows: torch.Tensor,
                n_take: torch.Tensor) -> RunningSet:
     """Insert ``rows[c, :n_take[c]]`` ([C, M, RF]) into each cluster's
     lowest inactive slots, ascending — the slot layout a sequence of
-    single starts produces. Callers guarantee ``n_take <= free slots``."""
+    single starts produces. Callers guarantee ``n_take <= free slots``.
+    The reference's [S, M] one-hot contraction, as a gather: the j-th
+    inactive slot takes row j."""
+    M = rows.shape[1]
+    if M == 0:
+        return rs
     inactive = ~rs.active
     free_rank = icumsum(inactive.to(I32), 1) - 1  # [C, S]
-    M = rows.shape[1]
-    j = torch.arange(M, dtype=I32, device=rows.device)
-    hot = ((free_rank[:, :, None] == j[None, None, :])
-           & inactive[:, :, None]
-           & (j[None, None, :] < n_take[:, None, None]))  # [C, S, M]
-    written = hot.any(dim=2)
-    packed = isum(hot.to(I32)[..., None] * rows[:, None, :, :], 2)
+    written = inactive & (free_rank < n_take[:, None]) & (free_rank < M)
+    idx = free_rank.clamp(0, M - 1).long()[..., None].expand(-1, -1, RF)
+    packed = torch.gather(rows, 1, idx)
     data = torch.where(written[..., None], packed, rs.data)
     return RunningSet(data=data, active=rs.active | written)
+
+
+def gather_rows_along(rs: RunningSet, order: torch.Tensor) -> torch.Tensor:
+    """[C, M, RF] rows selected along the slot axis by ``order`` [C, M]
+    (the finished-foreign message pack, core/engine.py:_pack_returns)."""
+    idx = order.long()[..., None].expand(-1, -1, RF)
+    return torch.gather(rs.data, 1, idx)
 
 
 def release(rs: RunningSet, free: torch.Tensor, t: int):

@@ -1,0 +1,55 @@
+"""The cross-cluster communication boundary (the port of
+``multi_cluster_simulator_tpu/parallel/exchange.py``).
+
+The reference's cross-cluster fabric is goroutine fan-out over HTTP with
+first-response-wins races (BorrowResources, pkg/scheduler/server.go:183-243).
+In the engine every cross-cluster decision is a batched op over the cluster
+axis, and this module names the collectives those ops need, so that the
+same engine code runs with the whole cluster axis on one device or sharded
+over several:
+
+- ``gather``  — see every cluster's request row
+- ``allmin``  — global minimum across shards
+- ``offset``  — my shard's global cluster offset
+
+On one H100 the whole cluster axis is local: ``LocalExchange``, whose
+collectives are identities. The sharded form (``MeshExchange``, over
+``torch.distributed``) is ROADMAP A16; the reference's other collectives
+(``allmax``, ``allsum``, ``alland``) come with it, when a caller needs
+them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class Exchange:
+    """Interface; see LocalExchange."""
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def allmin(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def offset(self, c_local: int) -> int:
+        raise NotImplementedError
+
+    def global_index(self, c_local: int, device="cpu") -> torch.Tensor:
+        """[c_local] int32 global indices of this shard's clusters."""
+        return self.offset(c_local) + torch.arange(
+            c_local, dtype=torch.int32, device=device)
+
+
+class LocalExchange(Exchange):
+    """One device: the cluster axis is whole; collectives are identities."""
+
+    def gather(self, x):
+        return x
+
+    def allmin(self, x):
+        return x
+
+    def offset(self, c_local: int) -> int:
+        return 0

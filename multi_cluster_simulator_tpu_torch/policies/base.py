@@ -205,6 +205,10 @@ class PolicySet:
     def kinds(self) -> tuple:
         return tuple(s.kind for s in self.specs)
 
+    @property
+    def has_fifo(self) -> bool:
+        return "fifo" in self.kinds
+
     def index_of(self, name: str) -> int:
         return self.names.index(name)
 

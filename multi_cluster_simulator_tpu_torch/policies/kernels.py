@@ -13,7 +13,7 @@ pick each job's node by an f32 score (``P.best_scored_fit``). The
 reference writes each function for one cluster and ``vmap``s it; here
 every function takes the cluster axis [C] explicitly.
 
-Two rewrites keep the batched form exact without host syncs:
+Two rewrites keep the batched form exact:
 
 - ``jax.lax.while_loop`` under ``vmap`` runs until no cluster's condition
   holds, leaving the carry of finished clusters untouched. The drains and
@@ -21,10 +21,13 @@ Two rewrites keep the batched form exact without host syncs:
   updated only while its own condition holds. That is the same function:
   every serial step consumes one queue position, and every wave either
   resolves at least one row or stops the cluster (``_fifo_drain_wave``),
-  so no cluster needs more than ``QC`` iterations. The serial Level0 and
-  Level1 sweeps, whose ``QC`` is the whole queue in parity mode, run the
-  largest sweep length over the clusters instead, as the reference's loop
-  does (one host read of it per sweep).
+  so no cluster needs more than ``QC`` iterations. The wave drain stops
+  early, with one host read a pass, once no cluster's condition holds:
+  every later pass would change nothing (parity mode's 256-deep ready
+  queues make ``QC`` passes dear). The serial Level0 and Level1 sweeps,
+  whose ``QC`` is the whole queue in parity mode, run the largest sweep
+  length over the clusters instead, as the reference's loop does (one
+  host read of it per sweep).
 - one-hot integer contractions become ``where``/``gather``/``scatter`` and
   int32 broadcast-multiply-sums, which CUDA supports (it has no integer
   matmul) and which give the same integers; the one-hot f32 lookups of a
@@ -378,6 +381,8 @@ def _fifo_drain_wave(s: SimState, t: int, cfg: SimConfig,
     fail_idx = torch.full((C,), -1, dtype=I32, device=dev)
     for _ in range(QC):
         go = ~stopped & (act0 & ~resolved).any(dim=1)  # the loop's cond
+        if not bool(go.any()):  # a host read: every later pass is a no-op
+            break
         active = act0 & ~resolved
         feas_any, tgt, tgt_hot, overflow = _wave_probe(free, s.node_active,
                                                        jobs, active)
@@ -478,7 +483,9 @@ def _fifo_local(s: SimState, t: int, cfg: SimConfig):
     s, wsuccess = _attempt(s, wjob, t, process_w, st.SRC_WAIT,
                            cfg.record_trace)
     s = s.replace(wait=Q.pop_front(s.wait, wsuccess))
-    borrow_want = torch.zeros_like(process_w)  # borrowing: ROADMAP A6
+    borrow_want = process_w & ~wsuccess
+    if not cfg.borrowing:
+        borrow_want = torch.zeros_like(process_w)
 
     # ---- lent best-effort (scheduler.go:277-291): reached only in a tick
     # where wait was empty and ready drained clean ----

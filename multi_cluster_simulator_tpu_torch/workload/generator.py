@@ -80,3 +80,13 @@ def generate_arrivals(
 
     return Arrivals(t=out_t, id=out_id, cores=out_cores, mem=out_mem,
                     gpu=np.zeros((C, A), np.int32), dur=out_dur, n=out_n)
+
+
+def silence_clusters(arrivals: Arrivals, idx) -> Arrivals:
+    """Zero out the named clusters' arrival counts (numpy fancy index or
+    slice) — the standard way tests and benches force a cross-cluster
+    mechanism to fire: starve some clusters, idle the rest so they can
+    only lend/sell."""
+    n = np.asarray(arrivals.n).copy()
+    n[idx] = 0
+    return arrivals.replace(n=n)

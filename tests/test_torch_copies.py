@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's pure-Python pieces stay equal to
 their originals: the config dataclasses, the row schemas, the cluster-spec
 helpers, the numpy workload generators, the host-side arrival bucketing,
-and the policy registry with every registered policy's parameter leaves.
+the policy registry with every registered policy's parameter leaves, and
+``silence_clusters``.
 The port keeps its own copies because it never imports the JAX package."""
 
 import dataclasses
@@ -177,6 +178,18 @@ def test_generate_arrivals_equal(arrival):
     _assert_arrivals_equal(
         jgen.generate_arrivals(jw, 3, 64, 600_000, 32, 24_000, seed=4),
         tgen.generate_arrivals(tw, 3, 64, 600_000, 32, 24_000, seed=4))
+
+
+@pytest.mark.parametrize("idx", [1, slice(1, None, 2), [0, 2]],
+                         ids=["one", "slice", "list"])
+def test_silence_clusters_equal(idx):
+    def silenced(cfg_mod, gen):
+        arr = gen.generate_arrivals(cfg_mod.WorkloadConfig(), 4, 64, 600_000,
+                                    32, 24_000, seed=5)
+        return gen.silence_clusters(arr, idx)
+    j, t = silenced(jconfig, jgen), silenced(tconfig, tgen)
+    _assert_arrivals_equal(j, t)
+    assert not np.asarray(t.n)[idx].any() and np.asarray(t.n).any()
 
 
 def _stream_with_far_arrival():

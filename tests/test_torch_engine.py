@@ -31,6 +31,11 @@ from multi_cluster_simulator_tpu_torch.kernels import fused_tick as tfused
 from multi_cluster_simulator_tpu_torch.utils import trace as ttrace
 from multi_cluster_simulator_tpu_torch.workload import traces as ttraces
 
+# Every port test module imports this one. The plain path's ops at test
+# shapes are too small to gain from intra-op threads, and the idle pool
+# threads spin against the other test workers' processes.
+torch.set_num_threads(1)
+
 C = 16
 JOBS = 40
 CHUNKS = [40, 30]  # 70 ticks; the two chunks bucket to different K
@@ -184,10 +189,12 @@ def test_port_run_equals_run_chunks():
 
 
 @pytest.mark.parametrize("change,policies,item", [
-    (dict(policy=tconfig.PolicyKind.DELAY, borrowing=True), None, "A6"),
+    (dict(policy=tconfig.PolicyKind.DELAY, borrowing=True,
+          trader=tconfig.TraderConfig(enabled=True), n_res=3), None, "A7"),
     (dict(record_metrics=True), ("fifo", "ffd"), "A10"),
     (dict(faults=tconfig.FaultConfig(enabled=True)), ("gavel",), "A8"),
-    (dict(borrowing=True), None, "A6"),
+    (dict(borrowing=True, faults=tconfig.FaultConfig(enabled=True)), None,
+     "A8"),
     (dict(trader=tconfig.TraderConfig(enabled=True), n_res=3), None, "A7"),
     (dict(faults=tconfig.FaultConfig(enabled=True)), None, "A8"),
     (dict(record_metrics=True), None, "A10"),

@@ -340,7 +340,7 @@ def test_fused_prefix_bitwise_equals_jax_pallas(jax_fused_ticks, form, i):
     params = eng._default_params
     out = tfused.fused_prefix(eng, state, torch.from_numpy(rows.copy()),
                               torch.from_numpy(counts.copy()), t, params,
-                              tfused.host_params(eng, params))
+                              tfused.host_params(eng, params))[0]
     assert out is state, "the prefix updates the state in place"
     assert_leaves_equal(jax_leaves(want), interop.state_to_numpy(out))
     assert not any(tfused.launch_counts().values())

@@ -83,10 +83,12 @@ def test_fused_prefix_bitwise_equals_jax_pallas(jax_ticks, i, lent):
     lent_before = n_traced(state, SRC_LENT)
     tfused.reset_launches()
     params = eng._default_params
-    out = tfused.fused_prefix(eng, state, torch.from_numpy(rows.copy()),
-                              torch.from_numpy(counts.copy()), t, params,
-                              tfused.host_params(eng, params))
+    out, *io = tfused.fused_prefix(eng, state,
+                                   torch.from_numpy(rows.copy()),
+                                   torch.from_numpy(counts.copy()), t,
+                                   params, tfused.host_params(eng, params))
     assert out is state, "the prefix updates the state in place"
+    assert io == [None] * 4, "the terminal form emits nothing"
     assert_leaves_equal(jax_leaves(want), interop.state_to_numpy(out))
     # the CPU takes the plain path
     assert not any(tfused.launch_counts().values())
@@ -112,7 +114,7 @@ def test_reference_leaves_its_input_alone(jax_ticks):
     state = interop.state_from_numpy(jax_leaves(before), device="cpu")
     out = tfused.fused_prefix_reference(eng, state, torch.from_numpy(rows),
                                         torch.from_numpy(counts), t,
-                                        eng._default_params)
+                                        eng._default_params)[0]
     assert_leaves_equal(jax_leaves(before), interop.state_to_numpy(state))
     assert_leaves_equal(jax_leaves(want), interop.state_to_numpy(out))
 

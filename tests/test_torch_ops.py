@@ -135,7 +135,7 @@ def test_push_many_prefix_and_drop_count(seed, K):
     jout = jax.vmap(lambda q, b, tk: jQ.push_many(q, b, tk, prefix=True))(
         jq, jb, jnp.asarray(take))
     tout = tQ.push_many(tq, tQ.JobQueue(data=t_(rows), count=t_(cnt)),
-                        t_(take), prefix=True)
+                        t_(take))
     eq(jout.data, tout.data)
     eq(jout.count, tout.count)
     eq(jax.vmap(jQ.push_many_dropped)(jq, jnp.asarray(take)),

@@ -4,10 +4,12 @@
 Run from the repository root with ``python3 chip_smoke.py``; it needs one
 CUDA card and exits non-zero without one (or without the repository around
 it). It drives the port's paths on the card — the headline FIFO run, the
-FFD bin-pack of the Borg-like replay, DELAY and the scored zoo (gavel,
-tesserae) on the market shape, and cross-cluster borrowing on BASELINE
-config 2 — through the entry points a user calls, and holds each path's
-hand-written kernel against its plain PyTorch version:
+FFD bin-pack of the Borg-like replay, DELAY and the scored zoo on the
+market shape, the trader market (BASELINE config 4 with the sinkhorn
+market, with and without vnode expiry), and cross-cluster borrowing with
+the greedy market on BASELINE config 2 — through the entry points a user
+calls, and holds each path's hand-written kernel against its plain
+PyTorch version:
 
 1. device: the card's name and power limit;
 2. build: every CUDA kernel, from ``kernels/csrc/`` (one nvcc per source,
@@ -16,18 +18,19 @@ hand-written kernel against its plain PyTorch version:
    a. FIFO at the headline's full width (4096 clusters), on ticks the
       headline run reaches and on heavier streams that fill the queues;
       the emit form (``run_io``'s) timed on the first 400 headline ticks;
-   b. the first 800 ticks of a 256-cluster headline run through each;
+   b. the first 400 ticks of a 256-cluster headline run through each;
    c. FFD at bench_borg4k's full width: 16 ticks sampled as the kernel
       reaches them (the diurnal peak included), 2 x 30 heavy ticks that
       fire drops.queue, drops.run_full and the per-tick placement cap, the
       serial form, the ``ffd-memfirst`` variant, parity mode and the trace,
-      and the first 800 ticks of a run at bench_borg4k(quick=True)'s shape;
+      and the first 400 ticks of a run at bench_borg4k(quick=True)'s shape;
    d. DELAY at the market's full width (sinkhorn_market_setup, bench.py:
-      979-1029, trader off): ticks of runs (a) and (d) sampled as the
-      kernel reaches them, heavy ticks on an 8-deep queue that fire the
-      promotion, a full Level1, drops.run_full and the parity skip, in the
-      wave, serial and parity forms, ``delay-eager`` and the trace, and a
-      whole run at the market's quick shape;
+      979-1029): ticks of runs (a) (the sinkhorn market on, its rounds
+      timed) and (d) sampled as the kernel reaches them, heavy ticks on an
+      8-deep queue that fire the promotion, a full Level1, drops.run_full
+      and the parity skip, in the wave, serial and parity forms,
+      ``delay-eager`` and the trace, and the first 400 ticks of a run at
+      the market's quick shape;
    e. the scored sweep the same way: runs (b) gavel and (c) tesserae
       sampled, heavy ticks (gavel; tesserae with the trace; gavel and rl
       with seeded scores on clusters of mixed device types), and the first
@@ -37,15 +40,25 @@ hand-written kernel against its plain PyTorch version:
       that, and equals the plain version;
    g. the FIFO kernel's emit form (the return pack, ``want``,
       ``bjob_vec``, ``drops.msgs``) on the borrowing path of config 2
-      (bench.py:898-933, trader off): ticks of run (b) sampled as the
-      kernel reaches them; heavy ticks on small queues that fire returns
-      past the message slots, lent-head placements, LentQueue overflow and
-      wants; a whole run (a) and a whole 64-cluster tiled run of 600 ticks
-      with delivery and matching; the DELAY, FFD and gavel kernels' emit
-      form with foreign rows running;
+      (bench.py:898-933): the first 800 ticks of run (b) (trader cut)
+      sampled as the kernel reaches them; heavy ticks on small queues that
+      fire returns past the message slots, lent-head placements, LentQueue
+      overflow and wants; the first 800 ticks of run (a) with the greedy
+      market and the first 400 of a 64-cluster tiled run, with delivery
+      and matching; the DELAY, FFD and gavel kernels' emit form with
+      foreign rows running;
    h. ``Engine.run_io`` over 40 ticks of run (b) from the state it reached
       at tick 800: the state and the stacked TickIO equal the plain
       path's;
+   i. every kernel's expire form (vnode expiry between release and
+      ingest): run (e), the market with expiry at full width, sampled,
+      its expiries and attaches counted; 3 heavy ticks for each form on
+      run (a)'s final state with nine in ten virtual nodes set to expire
+      (~1,300 expiries a launch); whole quick-shape runs (DELAY, FFD,
+      gavel) and a whole config-2 run with the trader and expiry on, and
+      800 ticks of config 2 without borrowing, each counting its launches
+      through ``Engine.run_chunks``;
+   j. short runs of the greedy and the cvx market at the quick shape;
 4. the main paths, each with every launch count set to 0 just before and
    read just after:
    a. headline: 4096 clusters x 250 jobs, 1,570 ticks — zero drops, at
@@ -58,24 +71,28 @@ hand-written kernel against its plain PyTorch version:
    c. ffd64 (bench.py:936-976): 64 clusters x 60,000 jobs, Level0 768
       deep, 6,100 ticks — kernel == plain on 8 sampled ticks, then one
       full run with the reference's asserts;
-   d-g. the market shape, 4096 clusters x 400 jobs, 700 ticks, four runs
-      of one world and stream: (a) DELAY in the wave form, (b) gavel, (c)
-      tesserae, (d) DELAY parity (the serial sweep with the skip quirk) —
-      conservation, every arrived job placed, queued or counted as
-      dropped, 700 launches of the run's kernel; for the DELAY runs also
-      zero drops and at least 85% of the jobs that can place without the
-      market placed (bench.py:1081); jobs/s over the min and median of 3
-      timed runs after 1 warm-up;
-   h-i. config 2 with the trader cut, 1,800 ticks: (a) at its own two
-      clusters — zero drops (bench.py:925), conservation, 1,800 launches
-      of the emit form; (b) tiled to 4,096 clusters — conservation, 1,800
+   d-h. the market shape, 4096 clusters x 400 jobs, 700 ticks, five runs
+      of one world and stream: (a) config 4 itself (bench.py:1032-1093
+      bench_sinkhorn: DELAY wave, the sinkhorn market, sane carve) — zero
+      drops, at least 85% of all jobs placed, at least 1,000 virtual nodes
+      (the bench's gates), jobs/s over the min and median of 3 timed runs
+      after 1 warm-up, and the card's time per round and snapshot by
+      torch.profiler; (b) gavel, (c) tesserae, (d) DELAY parity with the
+      trader cut; (e) config 4 with vnode expiry — zero drops, at least
+      85% of the jobs that place without the market, at least 1,000
+      virtual nodes attached, expiries; conservation, every arrived job
+      placed, queued or counted as dropped, 700 launches of the run's
+      kernel, each run equal to its sampled pass;
+   i-j. config 2, 1,800 ticks: (a) at its own two clusters with the
+      greedy market — zero drops (bench.py:922), conservation, 1,800
+      launches of the emit form, the rounds and snapshots timed; (b)
+      tiled to 4,096 clusters with the trader cut — conservation, 1,800
       launches, drops and the job count printed (the reference's herding
       onto the lowest lender drops jobs there by design); ticks/s and
-      placed jobs/s over the min and median of 3 timed runs after the
-      counted run, which is the warm-up (run (a)'s goes through
-      ``run_io`` and counts its wants and returns), and per tick the
-      kernel, return delivery and borrow matching each timed by CUDA
-      events.
+      placed jobs/s over the min and median of the timed runs after the
+      counted run (3 for (a), 1 for (b)), which goes through ``run_io``
+      and counts every tick's wants and returns, and per tick the kernel,
+      return delivery and borrow matching each timed by CUDA events.
 
 Every number is printed beside the card's name and power limit. The last
 lines are a JSON record of each kernel (its time per launch, the plain
@@ -112,29 +129,43 @@ BORG_TIMED, BORG_WARMUPS, BORG_SAMPLES = 3, 1, 16
 # bench_ffd64 (bench.py:936-976)
 FFD64_C, FFD64_JOBS, FFD64_HORIZON_MS, FFD64_SAMPLES = 64, 60_000, \
     6_000_000, 8
-# the market shape, bench.py:979-1029 sinkhorn_market_setup(4096, 400,
-# 600_000) with the trader off, and its quick shape (64, 200, quick=True)
+# the market shape: BASELINE config 4, bench.py:1032-1093 bench_sinkhorn,
+# sinkhorn_market_setup(4096, 400, 600_000, matching="sinkhorn"), and its
+# quick shape (64, 200, quick=True)
 MARKET_C, MARKET_JOBS, MARKET_HORIZON_MS = 4096, 400, 600_000
 MARKET_QUICK = (64, 200)
 MARKET_TIMED, MARKET_WARMUPS, MARKET_SAMPLES = 3, 1, 12
-MARKET_FLOOR = 0.85  # bench.py:1081, of the jobs that can place unaided
-# the four full-shape runs: name -> (policy, config changes, gated)
-MARKET_RUNS = {"a": ("delay", {}, True), "b": ("gavel", {}, False),
-               "c": ("tesserae", {}, False),
-               "d": ("delay", {"parity": True}, True)}
+# bench.py:1075-1082: placed, of all the jobs with the market; of the jobs
+# that can place unaided where a run has no market (or loses its nodes)
+MARKET_FLOOR = 0.85
+VNODE_FLOOR = 1_000  # bench.py:1060-1073, virtual nodes traded
+SINKHORN = {"matching": "sinkhorn", "carve_mode": "sane"}
+EXPIRE = dict(SINKHORN, expire_virtual_nodes=True)
+# the five full-shape runs: name -> (policy, config changes, gate): the
+# bench's own ("market"), the unaided floor ("placeable"), the expire-on
+# run's ("expire": the unaided floor, attaches and expiries), or none
+MARKET_RUNS = {"a": ("delay", {"trader": SINKHORN}, "market"),
+               "b": ("gavel", {}, None), "c": ("tesserae", {}, None),
+               "d": ("delay", {"parity": True}, "placeable"),
+               "e": ("delay", {"trader": EXPIRE}, "expire")}
+MARKET_PROFILE_TICKS = 30  # a torch.profiler window: three market rounds
+HEAVY_EXPIRE_TICKS = 3  # 3i's heavy ticks per expire form
+MATCHER_TICKS = 300  # 3j's short greedy and cvx runs: 30 rounds each
 # tools/tournament.py DEFAULT_POLICIES, dispatched as one PolicySet
 LINEUP = ("fifo", "delay", "delay-eager", "delay-patient", "ffd",
           "ffd-memfirst", "gavel", "tesserae")
 LINEUP_C, LINEUP_TICKS = 256, 40
-# BASELINE config 2 (bench.py:898-933) with the trader cut: run (a) at its
-# own two clusters, run (b) tiled to 4,096; 3g's whole tiled run; 3h's
-# run_io chunk
+# BASELINE config 2 (bench.py:898-933): run (a) at its own two clusters
+# with the trader on, run (b) tiled to 4,096 with the trader cut; 3g's
+# whole tiled run; 3h's run_io chunk
 BORROW_C, BORROW_TICKS, BORROW_HORIZON_MS = 4096, 1_800, 1_800_000
-BORROW_TILED_C, BORROW_TILED_TICKS = 64, 600
+BORROW_TILED_C, BORROW_TILED_TICKS = 64, 400
+BORROW_A_TICKS = 800  # 3g's whole run (a): the first trade falls near 500
 BORROW_SAMPLES, BORROW_IO_TICKS, BORROW_PROFILE_TICKS = 12, 40, 50
-# chunks (400 ticks each) of the earlier paths' whole-run comparisons
-# (3b, 3c): their first 800 ticks, to keep the script's time
-WHOLE_RUN_CHUNKS = 2
+BORROW_B_TIMED = 1  # run (b)'s timed runs after its counted run
+# the earlier paths' whole-run comparisons (3b, 3c, 3d and 3e's quick
+# runs) cover their first 200 ticks, to keep the script's time
+WHOLE_RUN_TICKS = 200
 
 
 def smi_line() -> str:
@@ -173,16 +204,26 @@ def ffd64_cfg(P):
                        max_virtual_nodes=0, n_res=2)
 
 
-def market_cfg(P, quick=False, jobs=MARKET_JOBS, **kw):
-    """sinkhorn_market_setup's config (bench.py:993) with the trader off,
-    as the port's."""
+def trader_cfg(P, trader=None):
+    """The port's TraderConfig: off when ``trader`` is None, else on with
+    the given settings (``matching`` by name)."""
+    if trader is None:
+        return P.TraderConfig(enabled=False)
+    kw = dict(trader)
+    kw["matching"] = P.MatchKind(kw.get("matching", "greedy"))
+    return P.TraderConfig(enabled=True, **kw)
+
+
+def market_cfg(P, quick=False, jobs=MARKET_JOBS, trader=None, **kw):
+    """sinkhorn_market_setup's config (bench.py:993), as the port's, with
+    the trader off unless ``trader`` gives its settings (``SINKHORN`` is
+    the bench's own)."""
     base = dict(policy=P.PolicyKind.DELAY, parity=False,
                 max_placements_per_tick=8,
                 queue_capacity=512 if quick else 256,
                 max_running=256 if quick else 128, max_arrivals=jobs,
                 max_ingest_per_tick=16, max_nodes=5, max_virtual_nodes=4,
-                delay_sweep="wave", n_res=3,
-                trader=P.TraderConfig(enabled=False))
+                delay_sweep="wave", n_res=3, trader=trader_cfg(P, trader))
     base.update(kw)
     return P.SimConfig(**base)
 
@@ -221,6 +262,15 @@ def market_stream(E, C, jobs, quick=False, seed=7):
     poor = (np.arange(C) % 2 == 1)[:, None]
     unplaceable = int(((arr.gpu > 0) & valid & poor).sum())
     return chunks, n_ticks, unplaceable
+
+
+def first_ticks(chunks, n: int = WHOLE_RUN_TICKS):
+    """The first ``n`` ticks of a chunked stream (``n`` at most its first
+    chunk's), as a one-chunk stream."""
+    from multi_cluster_simulator_tpu_torch.core.state import TickArrivals
+
+    return [TickArrivals(rows=chunks[0].rows[:n],
+                         counts=chunks[0].counts[:n])]
 
 
 def chunk_sizes(n_ticks: int) -> list[int]:
@@ -281,6 +331,16 @@ def run_reads(s, t: int):
     n_res = s.node_free.shape[2]
     due = s.run.active & (s.run.data[..., 0] <= t)  # end_t is field 0
     return 4 * s.run.active.sum() + 4 * (1 + n_res) * due.sum()
+
+
+def expire_reads(s) -> int:
+    """The expire forms' further reads per tick: each node slot's expiry
+    word, the one the expiry step reads beyond ``fixed_reads`` (which
+    holds its active flag). It writes the flag, the capacity and free
+    words and the expiry of the slots that expire, and reads none of them
+    first: ``written_bytes`` counts those writes."""
+    C, N, _ = s.node_free.shape
+    return C * N * 4
 
 
 def tick_bytes(before, after, rows, counts, t: int, trace: bool):
@@ -534,17 +594,24 @@ def phase_kernel_vs_plain(P, E, card, dev):
     counts_all = torch.from_numpy(ch.counts).to(dev)
     io = empty_io((HEADLINE_C,), engine.n_msgs(), dev)
     state, t, evs = init_state(cfg, specs, device=dev), 0, []
+    emit_read = emit_written = 0
     busiest = int(np.argmax(ch.counts.max(axis=1)))
     for k in range(ch.rows.shape[0]):
         t += cfg.tick_ms
         if k in (0, busiest):
             chk.compare(state, rows_all[k], counts_all[k], t, emit=True)
+        before = clone_state(state)
         evs.append(timed_launch(fused_tick, engine, state, rows_all[k],
                                 counts_all[k], t, params, host, emit=True,
                                 out=io))
+        r, w = tick_cost_borrow(before, state, rows_all[k], counts_all[k],
+                                t, cfg.record_trace, engine.n_msgs())
+        emit_read, emit_written = emit_read + r, emit_written + w
         state.t.fill_(t)
     torch.cuda.synchronize()
     emit_ms = [a.elapsed_time(b) for a, b in evs]
+    emit_read = int(emit_read) / len(emit_ms)
+    emit_written = int(emit_written) / len(emit_ms)
     print(f"phase 3a: emit form == plain bitwise at 2 headline ticks; "
           f"{np.mean(emit_ms) * 1e3:.2f} us/launch mean over the first "
           f"{len(emit_ms)} headline ticks, the terminal form "
@@ -586,8 +653,8 @@ def phase_kernel_vs_plain(P, E, card, dev):
     specs_t = [P.uniform_cluster(c + 1, 5) for c in range(RUN_C)]
     arr_t = uniform_stream(RUN_C, JOBS, HORIZON_MS, max_cores=8, max_mem=6_000,
                            max_dur_ms=60_000, seed=9)
-    ch_t = E.pack_arrivals_chunks(arr_t, chunk_sizes(n_ticks),
-                                  cfg.tick_ms)[:WHOLE_RUN_CHUNKS]
+    ch_t = first_ticks(E.pack_arrivals_chunks(arr_t, chunk_sizes(n_ticks),
+                                              cfg.tick_ms))
     plain_run_s, kernel_run_s, out = whole_run_against_plain(
         E, eng_t, init_state(cfg_t, specs_t, device=dev), ch_t, "FIFO")
     placed = int(out.placed_total.sum())
@@ -597,20 +664,25 @@ def phase_kernel_vs_plain(P, E, card, dev):
           f"plain {plain_run_s:.3f} s, kernel {kernel_run_s:.3f} s [{card}]")
     return dict(worst=chk.worst, kernel_ms=kernel_ms, plain_ms=chk.plain_ms,
                 read_per_launch=read_b, written_per_launch=written_b,
-                emit_ms=emit_ms)
+                emit_ms=emit_ms, emit_read=emit_read,
+                emit_written=emit_written)
 
 
-def whole_run_against_plain(E, engine, s0, chunks, what, params=None):
+def whole_run_against_plain(E, engine, s0, chunks, what, params=None,
+                            counts=None):
     """A whole run through ``engine.run_chunks`` (the kernel) and through
     the plain version tick by tick — with borrowing, the plain prefix's
-    emit form and the engine's delivery and matching after it — from
-    copies of ``s0``; every leaf of the two final states must be equal.
-    Returns the two walls and the kernel's final state."""
+    emit form and the engine's delivery and matching after it, with the
+    trader its snapshot and market round — from copies of ``s0``; every
+    leaf of the two final states must be equal. Returns the two walls and
+    the kernel's final state; with ``counts`` (a dict) every launch count
+    is set to 0 just before the kernel run and read into it just after."""
     from multi_cluster_simulator_tpu_torch.core.state import clone_state
     from multi_cluster_simulator_tpu_torch.kernels import fused_tick
 
     params = engine._default_params if params is None else params
     member = engine.member(params)
+    jitter = engine.jitter(s0.arr_ptr.shape[0])
     ref = clone_state(s0)
     t = 0
     torch.cuda.synchronize()
@@ -624,13 +696,19 @@ def whole_run_against_plain(E, engine, s0, chunks, what, params=None):
                 engine, ref, rows_all[k], counts_all[k], t, params, member,
                 emit_returns=engine.cfg.borrowing)
             ref = engine._cross_cluster(ref, *io)
+            ref = engine._market(ref, t, params, jitter)
             ref.t.fill_(t)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - w0
+    s1 = clone_state(s0)
+    torch.cuda.synchronize()
+    fused_tick.reset_launches()
     w0 = time.perf_counter()
-    out = engine.run_chunks(clone_state(s0), chunks, params)
+    out = engine.run_chunks(s1, chunks, params)
     torch.cuda.synchronize()
     kernel_s = time.perf_counter() - w0
+    if counts is not None:
+        counts.update(fused_tick.launch_counts())
     d = max_abs_diff(ref, out)
     if d:
         raise AssertionError(f"whole {what} run: kernel differs from plain "
@@ -773,15 +851,49 @@ def borg_stream(E, C, jobs, horizon_ms, tick_ms):
     return E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), tick_ms), n_ticks
 
 
-def sampled_kernel_pass(fused_tick, chk, engine, s0, chunks, picks, QC,
-                        cost=None):
+def market_step(E, engine, state, t, params, jitter, spans, fired):
+    """Phases 7 and 8 as ``Engine._market`` runs them, each where the
+    engine says it is due and between a CUDA event pair
+    (``spans["snapshot"]``, ``spans["trade"]``), adding the virtual nodes
+    the round attaches to ``fired["attached"]``; with expiry, also those
+    attached on a contract of 0 s (``fired["zero_s"]``: the as-built
+    sizing's time reset, or an empty Level1) and those whose contract
+    ends within a tick (``fired["one_tick"]``, the 0 s ones included):
+    both expire at the next tick. Returns the state."""
+    from multi_cluster_simulator_tpu_torch.market import trader as market
+
+    mcfg = engine.cfg.trader
+    if engine.snapshot_due(t):
+        state, ev = timed_span(lambda: E._snapshot(state))
+        spans["snapshot"].append(ev)
+    if engine.round_due(t):
+        active = state.node_active
+        state, ev = timed_span(lambda: market.trade_round(
+            state, t, engine.cfg, engine.ex, params, jitter))
+        spans["trade"].append(ev)
+        new = state.node_active & ~active
+        fired["attached"] = fired["attached"] + new.sum()
+        if mcfg.expire_virtual_nodes:
+            ends = state.node_expire - t  # the contract's time_ms
+            fired["zero_s"] = fired.get("zero_s", 0) + (
+                new & (ends == 0)).sum()
+            fired["one_tick"] = fired.get("one_tick", 0) + (
+                new & (ends <= engine.cfg.tick_ms)).sum()
+    return state
+
+
+def sampled_kernel_pass(E, chk, engine, s0, chunks, picks, QC, cost=None):
     """Drive a whole run tick by tick through the kernel, a CUDA event
     pair around every launch and the tick's bytes and operations counted
-    (by ``cost(before, after, rows, counts, t)``, FFD's by default); at
-    the global ticks in ``picks`` compare kernel and plain on the state
-    the run has reached. Returns the per-launch times, the mean bytes read
-    and written and the mean operations per launch, the worst Level0 and
-    Level1 depths seen, and the final state."""
+    (by ``cost(before, after, rows, counts, t)``, FFD's by default, plus
+    ``expire_reads`` where the kernel is an expire form), and, with the
+    trader, the snapshot and the market round on their cadences each
+    between a CUDA event pair; at the global ticks in ``picks`` compare
+    kernel and plain on the state the run has reached. Counts the virtual
+    nodes the kernel expires and the rounds attach. Returns the per-launch
+    times, the mean bytes read and written and the mean operations per
+    launch, the market's span times, the worst Level0 and Level1 depths
+    seen, the counts and the final state."""
     if cost is None:
         def cost(before, after, rows, counts, t):
             return tick_cost_ffd(before, after, rows, counts, t,
@@ -790,8 +902,14 @@ def sampled_kernel_pass(fused_tick, chk, engine, s0, chunks, picks, QC,
 
     params, host = chk.params, chk.host
     dev = s0.device
+    jitter = engine.jitter(s0.arr_ptr.shape[0])
+    extra = expire_reads(s0) if host["expire"] else 0
+    vstart = engine.cfg.max_nodes
     state = clone_state(s0)
     evs, read_b, written_b, ops, t, k_glob = [], 0, 0, 0, 0, 0
+    spans = {"snapshot": [], "trade": []}
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    fired = {"expired": zero, "attached": zero}
     max_l0 = torch.zeros((), dtype=torch.int32, device=dev)
     max_l1 = torch.zeros((), dtype=torch.int32, device=dev)
     for ch in chunks:
@@ -802,20 +920,30 @@ def sampled_kernel_pass(fused_tick, chk, engine, s0, chunks, picks, QC,
             rows, counts = rows_all[k], counts_all[k]
             if k_glob in picks:
                 chk.compare(state, rows, counts, t)
+            if host["expire"]:
+                fired["expired"] = fired["expired"] + (
+                    state.node_active & (state.node_expire <= t))[
+                        :, vstart:].sum()
             before = clone_state(state)
-            evs.append(timed_launch(fused_tick, engine, state, rows, counts,
+            evs.append(timed_launch(chk.ft, engine, state, rows, counts,
                                     t, params, host))
             r, w, o = cost(before, state, rows, counts, t)
-            read_b, written_b, ops = read_b + r, written_b + w, ops + o
+            read_b, written_b, ops = read_b + r + extra, written_b + w, \
+                ops + o
             max_l0 = torch.maximum(max_l0, state.l0.count.max())
             max_l1 = torch.maximum(max_l1, state.l1.count.max())
+            state = market_step(E, engine, state, t, params, jitter, spans,
+                                fired)
             state.t.fill_(t)
             k_glob += 1
     torch.cuda.synchronize()
     return dict(kernel_ms=[a.elapsed_time(b) for a, b in evs],
                 read=int(read_b) / k_glob, written=int(written_b) / k_glob,
                 ops=int(ops) / k_glob, max_l0=int(max_l0),
-                max_l1=int(max_l1), ticks=k_glob, state=state)
+                max_l1=int(max_l1), ticks=k_glob, state=state,
+                spans={k: [a.elapsed_time(b) for a, b in v]
+                       for k, v in spans.items()},
+                fired={k: int(v) for k, v in fired.items()})
 
 
 def pick_ticks(chunks, n):
@@ -853,7 +981,7 @@ def phase_ffd_kernel_vs_plain(P, E, card, dev):
     chk = Checker(engine)
     picks, peak = pick_ticks(chunks, BORG_SAMPLES)
     s0 = init_state(cfg, specs, device=dev)
-    sp = sampled_kernel_pass(fused_tick, chk, engine, s0, chunks, picks, QC)
+    sp = sampled_kernel_pass(E, chk, engine, s0, chunks, picks, QC)
     print(f"phase 3c: FFD kernel == plain bitwise on {chk.n} borg4k ticks "
           f"sampled as the kernel reached them (ticks {sorted(picks)}, the "
           f"diurnal peak {peak} included), C={BORG_C}; max Level0 depth "
@@ -907,7 +1035,7 @@ def phase_ffd_kernel_vs_plain(P, E, card, dev):
     cfg_q = borg_cfg(P, jobs=qj, record_trace=True, max_trace_events=512)
     eng_q = E.Engine(cfg_q, device=dev)
     ch_q, _ = borg_stream(E, qc_, qj, qh, cfg_q.tick_ms)
-    ch_q = ch_q[:WHOLE_RUN_CHUNKS]
+    ch_q = first_ticks(ch_q)
     nq = sum(c.rows.shape[0] for c in ch_q)
     specs_q = [P.uniform_cluster(c + 1, 5) for c in range(qc_)]
     plain_s, kernel_s, out = whole_run_against_plain(
@@ -966,7 +1094,7 @@ def phase_ffd64(P, E, card, dev):
     s0 = init_state(cfg, specs, device=dev)
     chk = Checker(engine)
     picks, _ = pick_ticks(chunks, FFD64_SAMPLES)
-    sp = sampled_kernel_pass(fused_tick, chk, engine, s0, chunks, picks,
+    sp = sampled_kernel_pass(E, chk, engine, s0, chunks, picks,
                              K._sweep_len(cfg))
     out, first_s, counts = counted_run(engine, s0, chunks,
                                        "fused_prefix_ffd")
@@ -1075,15 +1203,15 @@ def phase_delay_kernel_vs_plain(P, E, card, dev, market):
         def cost(b, a, r, c, t, cfg=cfg, QC=QC):
             return tick_cost_delay(b, a, r, c, t, cfg.record_trace, QC)
 
-        sp = sampled_kernel_pass(fused_tick, chk, engine,
+        sp = sampled_kernel_pass(E, chk, engine,
                                  init_state(cfg, market["specs"], device=dev),
                                  market["chunks"], picks, QC, cost)
         out[name] = dict(sampled=sp, worst=chk.worst, plain_ms=chk.plain_ms)
         print(f"phase 3d: DELAY kernel == plain bitwise on {chk.n} ticks of "
               f"run ({name}) sampled as the kernel reached them (ticks "
               f"{sorted(picks)}, the peak {peak} included), C={MARKET_C}; "
-              f"max Level0 depth {sp['max_l0']}, Level1 {sp['max_l1']} "
-              f"[{card}]")
+              f"max Level0 depth {sp['max_l0']}, Level1 {sp['max_l1']}"
+              f"{market_note(sp)} [{card}]")
 
     # heavier streams at the same width, every tick compared, on an
     # 8-deep queue so that 30 ticks fill Level1: a dense stream fires
@@ -1122,20 +1250,36 @@ def phase_delay_kernel_vs_plain(P, E, card, dev, market):
     if not all(seen.values()):
         raise AssertionError(f"the heavy streams missed a branch: {seen}")
 
-    # a whole run at sinkhorn_market_setup(quick=True)'s shape, trace on
+    # a run at sinkhorn_market_setup(quick=True)'s shape, trace on
     qc_, qj = MARKET_QUICK
     cfg_q = market_cfg(P, quick=True, jobs=qj, **trace)
     eng_q = E.Engine(cfg_q, device=dev)
-    ch_q, nq, _ = market_stream(E, qc_, qj, quick=True)
+    ch_q = first_ticks(market_stream(E, qc_, qj, quick=True)[0])
+    nq = sum(c.rows.shape[0] for c in ch_q)
     plain_s, kernel_s, fin = whole_run_against_plain(
         E, eng_q, init_state(cfg_q, market_specs(P, qc_), device=dev), ch_q,
         "DELAY")
-    print(f"phase 3d: whole quick market run ({qc_} clusters x {qj} jobs, "
-          f"{nq} ticks), DELAY kernel == plain on every leaf and the trace "
-          f"({int(fin.placed_total.sum())} placements); run wall plain "
+    print(f"phase 3d: quick market run ({qc_} clusters x {qj} jobs, its "
+          f"first {nq} ticks), DELAY kernel == plain on every leaf and the "
+          f"trace ({int(fin.placed_total.sum())} placements); run wall plain "
           f"{plain_s:.3f} s, kernel {kernel_s:.3f} s [{card}]")
     out["worst"] = worst
     return out
+
+
+def market_note(sp) -> str:
+    """What a sampled pass saw of the market: its spans' mean times and
+    counts, the nodes it attached and expired (empty without it)."""
+    spans = sp["spans"]
+    if not spans["trade"]:
+        return ""
+    return (f"; market: {len(spans['trade'])} rounds at "
+            f"{np.mean(spans['trade']):.3f} ms and {len(spans['snapshot'])}"
+            f" snapshots at {np.mean(spans['snapshot']):.3f} ms (CUDA-event "
+            f"spans, the card kept busy ahead of each: a span holds host "
+            f"time where the host enqueues slower than the card runs), "
+            f"virtual nodes attached {sp['fired']['attached']}, expired "
+            f"{sp['fired']['expired']}")
 
 
 def rl_seeded(engine):
@@ -1169,7 +1313,7 @@ def phase_scored_kernel_vs_plain(P, E, card, dev, market):
             return tick_cost_scored(b, a, r, c, t, cfg.record_trace, QC,
                                     tess)
 
-        sp = sampled_kernel_pass(fused_tick, chk, engine,
+        sp = sampled_kernel_pass(E, chk, engine,
                                  init_state(cfg, market["specs"], device=dev),
                                  market["chunks"], picks, QC, cost)
         out[name] = dict(sampled=sp, worst=chk.worst, plain_ms=chk.plain_ms)
@@ -1211,12 +1355,12 @@ def phase_scored_kernel_vs_plain(P, E, card, dev, market):
     if not all(seen.values()):
         raise AssertionError(f"the heavy streams missed a branch: {seen}")
 
-    # runs at the quick market shape, the trace on, over its first chunk
-    # (400 of 700 ticks): tesserae on the market's clusters, rl with
+    # runs at the quick market shape, the trace on, over its first
+    # WHOLE_RUN_TICKS ticks: tesserae on the market's clusters, rl with
     # seeded scores on mixed nodes
     qc_, qj = MARKET_QUICK
     cfg_q = market_cfg(P, quick=True, jobs=qj, **trace)
-    ch_q = market_stream(E, qc_, qj, quick=True)[0][:1]
+    ch_q = first_ticks(market_stream(E, qc_, qj, quick=True)[0])
     nq = ch_q[0].rows.shape[0]
     for policy, mk_specs in (("tesserae", market_specs), ("rl", mixed_specs)):
         eng_q = E.Engine(cfg_q, device=dev, policies=PolicySet((policy,)))
@@ -1237,9 +1381,7 @@ def phase_dispatch(P, E, card, dev):
     """Phase 3f: tools/tournament.py's lineup as one PolicySet at small
     width; each params.idx launches its member's kernel and no other, and
     the run equals the plain version."""
-    from multi_cluster_simulator_tpu_torch.core.state import (
-        TickArrivals, init_state,
-    )
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
     from multi_cluster_simulator_tpu_torch.kernels import fused_tick
     from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
 
@@ -1247,8 +1389,7 @@ def phase_dispatch(P, E, card, dev):
     pset = PolicySet(LINEUP)
     engine = E.Engine(cfg, device=dev, policies=pset)
     chunks, _, _ = market_stream(E, LINEUP_C, MARKET_JOBS)
-    part = [TickArrivals(rows=chunks[0].rows[:LINEUP_TICKS],
-                         counts=chunks[0].counts[:LINEUP_TICKS])]
+    part = first_ticks(chunks, LINEUP_TICKS)
     s0 = init_state(cfg, market_specs(P, LINEUP_C), device=dev)
     for idx, name in enumerate(LINEUP):
         params = pset.params_for(cfg, name, device=dev)
@@ -1266,8 +1407,10 @@ def phase_dispatch(P, E, card, dev):
               f"placements) [{card}]")
 
 
-def phase_market(P, E, card, dev, market, name):
-    """Phases 4d-4g: one full-shape market run through the entry points."""
+def phase_market(P, E, card, dev, market, name, sampled):
+    """Phases 4d-4h: one full-shape market run through the entry points;
+    ``sampled`` is its tick-by-tick pass (the attaches and expiries it
+    counted, on the same trajectory)."""
     from multi_cluster_simulator_tpu_torch.core.state import init_state
     from multi_cluster_simulator_tpu_torch.kernels import fused_tick
     from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
@@ -1276,10 +1419,11 @@ def phase_market(P, E, card, dev, market, name):
     )
     from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
 
-    policy, kw, gated = MARKET_RUNS[name]
+    policy, kw, gate = MARKET_RUNS[name]
     cfg = market_cfg(P, **kw)
     engine = E.Engine(cfg, device=dev, policies=PolicySet((policy,)))
-    kernel = fused_tick.kernel_for(engine.member()).name
+    kernel = fused_tick.host_params(engine, engine._default_params)[
+        "kernel"].name
     chunks, n_ticks = market["chunks"], market["n_ticks"]
     s0 = init_state(cfg, market["specs"], device=dev)
     state_b = sum(x.numel() * x.element_size()
@@ -1302,36 +1446,286 @@ def phase_market(P, E, card, dev, market, name):
         raise AssertionError(f"run ({name}): {arrived} arrived, {placed} "
                              f"placed, {queued} queued, {drops['queue']} "
                              f"dropped")
-    share = placed / placeable
-    if gated and (any(drops.values()) or share < MARKET_FLOOR):
-        raise AssertionError(f"run ({name}): drops {drops}, placed "
-                             f"{share:.4f} of the placeable jobs")
+    vnodes = int(out.node_active[:, cfg.max_nodes:].sum())
+    fired = sampled["fired"] if sampled else {"attached": 0, "expired": 0}
+    if sampled and max_abs_diff(sampled["state"], out):
+        raise AssertionError(f"run ({name}): run_chunks differs from its "
+                             f"sampled pass")
+    share, frac = placed / placeable, placed / n_jobs
+    bad = {"market": bool(any(drops.values()) or frac < MARKET_FLOOR
+                          or vnodes < VNODE_FLOOR),
+           "placeable": bool(any(drops.values()) or share < MARKET_FLOOR),
+           "expire": bool(any(drops.values()) or share < MARKET_FLOOR
+                          or fired["attached"] < VNODE_FLOOR
+                          or not fired["expired"]),
+           None: False}[gate]
+    if bad:
+        raise AssertionError(f"run ({name}): drops {drops}, placed {frac:.4f}"
+                             f" of all, {share:.4f} of the placeable jobs, "
+                             f"vnodes {vnodes}, {fired}")
+    trader = cfg.trader
     walls, h2d_s, _ = timed_runs(engine, s0, chunks, MARKET_WARMUPS,
-                              MARKET_TIMED)
-    label = f"phase 4{'defg'['abcd'.index(name)]}"
-    print(f"{label}: market run ({name}) {policy} {kw or ''}: {MARKET_C} "
-          f"clusters x {MARKET_JOBS} jobs, {n_ticks} ticks: placed {placed} "
-          f"of {n_jobs}, unplaceable without the market "
-          f"{market['unplaceable']}, placed share of the rest "
-          f"{share:.4f} (gate {MARKET_FLOOR if gated else 'not applied'}), "
-          f"queued at the end {queued}, drops {drops}, launches {counts}, "
-          f"conservation ok; state {state_b} B, peak device memory "
-          f"{peak_b} B [{card}]")
-    wmin, wmed = print_run(label, f"market ({name})", placed, walls, first_s,
+                                 MARKET_TIMED if trader.enabled else 1)
+    label = f"phase 4{'defgh'['abcde'.index(name)]}"
+    short = (f" ({fired['zero_s']} on contracts of 0 s, {fired['one_tick']}"
+             f" on contracts that end within a tick, 0 s included: these "
+             f"expire at the next tick)" if "zero_s" in fired else "")
+    what = (f"{policy}, trader on ({trader.matching.value}, carve "
+            f"{trader.carve_mode}, expiry {trader.expire_virtual_nodes})"
+            if trader.enabled else f"{policy} {kw or ''}, trader cut")
+    print(f"{label}: market run ({name}) {what}: {MARKET_C} clusters x "
+          f"{MARKET_JOBS} jobs, {n_ticks} ticks: placed {placed} of {n_jobs}"
+          f" ({frac:.4f} of all; bench floor {MARKET_FLOOR} "
+          f"{'applied' if gate == 'market' else 'not applied'}), "
+          f"unplaceable without the market {market['unplaceable']}, placed "
+          f"share of the rest {share:.4f} (floor {MARKET_FLOOR} "
+          f"{'applied' if gate in ('placeable', 'expire') else 'not applied'}"
+          f"), virtual nodes at the end {vnodes}, attached over the run "
+          f"{fired['attached']}{short}, expired {fired['expired']}, queued "
+          f"at the end {queued}, drops {drops}, launches {counts}, "
+          f"conservation ok; state {state_b} B, peak device memory {peak_b} "
+          f"B [{card}]")
+    metric = ("sinkhorn_market_jobs_per_sec_4k_clusters_3res"
+              if gate == "market" else f"market ({name})")
+    wmin, wmed = print_run(label, metric, placed, walls, first_s,
                            n_ticks, chunks, h2d_s, card)
+    prof = None
+    if trader.enabled:
+        prof = device_profile(E, engine, s0, chunks, MARKET_PROFILE_TICKS)
+        print(f"{label}: the card's own time (torch.profiler over "
+              f"{MARKET_PROFILE_TICKS} ticks from tick {CHUNK}): prefix "
+              f"{prof['prefix'] * 1e3:.2f} us/tick, snapshot "
+              f"{prof['per_snapshot'] * 1e3:.2f} us each, trade round "
+              f"{prof['per_round'] * 1e3:.2f} us each; kernels by name: "
+              f"{prof['top']} [{card}]")
     return dict(launches=counts[kernel], placed=placed, wall_min_s=wmin,
                 wall_median_s=wmed, n_ticks=n_ticks, h2d_s=h2d_s,
-                share=share, drops=drops)
+                share=share, frac=frac, drops=drops, vnodes=vnodes,
+                fired=fired, profile=prof)
 
 
-def borrow_cfg(P, **kw):
+def expire_heavy(E, dev, engine, state, rows, counts, t0, n, cost, seen):
+    """``n`` heavy ticks for an expire form on ``state``: before each, the
+    expiry of nine in ten active virtual slots is set to at most the
+    tick's clock, so that thousands of nodes expire in one launch; kernel
+    == plain on every tick (and every emit output), and each launch timed
+    on a copy with its bytes counted. Adds the expiries to ``seen``;
+    returns the Checker, the per-launch times and the mean bytes."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+
+    chk = Checker(engine)
+    emit = engine.cfg.borrowing
+    vstart = engine.cfg.max_nodes
+    gen = torch.Generator(device=dev).manual_seed(5)
+    evs, read_b, written_b, t = [], 0, 0, t0
+    seen.setdefault("per_launch", [])
+    for k in range(n):
+        t += engine.cfg.tick_ms
+        slots = state.node_active.clone()
+        slots[:, :vstart] = False
+        hit = slots & (torch.rand(slots.shape, generator=gen, device=dev)
+                       < 0.9)
+        back = torch.randint(0, 5_000, slots.shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+        state.node_expire.copy_(torch.where(hit, t - back,
+                                            state.node_expire))
+        hits = int((state.node_active & (state.node_expire <= t)).sum())
+        seen["expired"] += hits
+        seen["per_launch"].append(hits)
+        before = clone_state(state)
+        timed = clone_state(state)
+        evs.append(timed_launch(chk.ft, engine, timed, rows[k], counts[k], t,
+                                chk.params, chk.host, emit=emit))
+        r, w = cost(before, timed, rows[k], counts[k], t)
+        read_b, written_b = read_b + r + expire_reads(before), written_b + w
+        out = chk.compare(state, rows[k], counts[k], t, emit=emit)
+        state = out[0] if emit else out
+        if max_abs_diff(timed, state):
+            raise AssertionError("a timed launch differs from the compared "
+                                 "one")
+        state.t.fill_(t)
+    torch.cuda.synchronize()
+    return chk, [a.elapsed_time(b) for a, b in evs], int(read_b) / n, \
+        int(written_b) / n
+
+
+def phase_expire_kernel_vs_plain(P, E, card, dev, market, state_a):
+    """Phase 3i: every expire form against its plain version.
+    (a) run (e), the market with expiry at full width: every launch timed,
+    kernel == plain at sampled ticks, the nodes expired and attached
+    counted; (b) heavy ticks on the state run (a) reached (its thousands
+    of virtual nodes), nine in ten set to expire, for each kernel's expire
+    form; (c) whole quick-shape runs (DELAY, FFD, gavel) with the trader
+    and expiry; (d) a whole config-2 run with expiry (the FIFO emit form)
+    and (e) the same without borrowing (the FIFO state-only form). The
+    whole runs count their launches through ``Engine.run_chunks``."""
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        clone_state, init_state,
+    )
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.policies import kernels as K
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+    from multi_cluster_simulator_tpu_torch.utils.trace import (
+        check_conservation, total_drops,
+    )
+
+    out = {}
+    # (a) run (e) at full width
+    policy, kw, _ = MARKET_RUNS["e"]
+    cfg = market_cfg(P, **kw)
+    QC = K._sweep_len(cfg)
+    engine = E.Engine(cfg, device=dev, policies=PolicySet((policy,)))
+    chk = Checker(engine)
+    picks, peak = pick_ticks(market["chunks"], MARKET_SAMPLES)
+
+    def cost_delay(b, a, r, c, t):
+        return tick_cost_delay(b, a, r, c, t, cfg.record_trace, QC)
+
+    sp = sampled_kernel_pass(E, chk, engine,
+                             init_state(cfg, market["specs"], device=dev),
+                             market["chunks"], picks, QC, cost_delay)
+    out["e"] = dict(sampled=sp, worst=chk.worst, plain_ms=chk.plain_ms)
+    print(f"phase 3i: DELAY expire kernel == plain bitwise on {chk.n} ticks "
+          f"of run (e) sampled as the kernel reached them (ticks "
+          f"{sorted(picks)}), C={MARKET_C}{market_note(sp)} [{card}]")
+
+    # (b) heavy ticks on run (a)'s final state, for every expire form
+    ch = market["chunks"][0]
+    rows = torch.from_numpy(ch.rows[:HEAVY_EXPIRE_TICKS]).to(dev)
+    counts = torch.from_numpy(ch.counts[:HEAVY_EXPIRE_TICKS]).to(dev)
+    t0 = market["n_ticks"] * cfg.tick_ms
+    variants = [("delay", "delay", {}), ("ffd", "ffd", {}),
+                ("gavel", "gavel", {}), ("tesserae", "tesserae", {}),
+                ("fifo", "fifo", {}), ("fifo emit", "fifo",
+                                       {"borrowing": True})]
+    seen = {"expired": 0}
+    heavy = {}
+    for name, pol, extra in variants:
+        vcfg = market_cfg(P, trader=EXPIRE, **extra)
+        veng = E.Engine(vcfg, device=dev, policies=PolicySet((pol,)))
+        vQC = K._sweep_len(vcfg)
+        kind = pol if pol in ("ffd", "delay", "fifo") else "scored"
+
+        def cost(b, a, r, c, t, kind=kind, pol=pol, vQC=vQC, vcfg=vcfg,
+                 veng=veng):
+            if kind == "ffd":
+                rd, wr, _ = tick_cost_ffd(b, a, r, c, t, False, vQC)
+            elif kind == "delay":
+                rd, wr, _ = tick_cost_delay(b, a, r, c, t, False, vQC)
+            elif kind == "scored":
+                rd, wr, _ = tick_cost_scored(b, a, r, c, t, False, vQC,
+                                             pol == "tesserae")
+            elif vcfg.borrowing:
+                rd, wr = tick_cost_borrow(b, a, r, c, t, False,
+                                          veng.n_msgs())
+            else:
+                rd, wr = tick_bytes(b, a, r, c, t, False)
+            return rd, wr
+
+        n0, k0 = seen["expired"], len(seen.get("per_launch", []))
+        vchk, ms, rd, wr = expire_heavy(
+            E, dev, veng, clone_state(state_a), rows, counts, t0,
+            HEAVY_EXPIRE_TICKS, cost, seen)
+        kname = vchk.host["emit_kernel" if vcfg.borrowing
+                        else "kernel"].name
+        heavy[kname] = heavy.get(kname, []) + [dict(
+            ms=ms, read=rd, written=wr, worst=vchk.worst,
+            plain_ms=vchk.plain_ms)]
+        print(f"phase 3i: {kname} ({name}) == plain bitwise on "
+              f"{vchk.n} heavy ticks at C={MARKET_C}, "
+              f"{seen['expired'] - n0} virtual nodes expired "
+              f"({seen['per_launch'][k0:]} by launch), "
+              f"{np.mean(ms) * 1e3:.2f} us/launch [{card}]")
+    out["heavy"] = heavy
+
+    # (c)-(e) whole runs with expiry, their launches counted
+    qc_, qj = MARKET_QUICK
+    ch_q, _, _ = market_stream(E, qc_, qj, quick=True)
+    c2_chunks, _ = borrow_stream(P, E, 2)
+    c2_short, _ = borrow_stream(P, E, 2, BORROW_A_TICKS)
+    runs = [(f"quick {pol}", market_cfg(P, quick=True, jobs=qj,
+                                        trader=EXPIRE),
+             pol, market_specs(P, qc_), ch_q)
+            for pol in ("delay", "ffd", "gavel")]
+    runs += [("config 2", borrow_cfg(P, {"expire_virtual_nodes": True}),
+              "fifo", borrow_specs(P, 2), c2_chunks),
+             ("config 2, no borrowing", borrow_cfg(
+                 P, {"expire_virtual_nodes": True}, borrowing=False),
+              "fifo", borrow_specs(P, 2), c2_short)]
+    out["launches"] = {}
+    for name, rcfg, pol, specs, chunks in runs:
+        reng = E.Engine(rcfg, device=dev, policies=PolicySet((pol,)))
+        counts_run = {}
+        plain_s, kernel_s, fin = whole_run_against_plain(
+            E, reng, init_state(rcfg, specs, device=dev), chunks, name,
+            counts=counts_run)
+        n_ticks = sum(c.rows.shape[0] for c in chunks)
+        host = fused_tick.host_params(reng, reng._default_params)
+        kname = host["emit_kernel" if rcfg.borrowing else "kernel"].name
+        want = {k: (n_ticks if k == kname else 0) for k in counts_run}
+        if counts_run != want:
+            raise AssertionError(f"{name}: launches {counts_run}")
+        drops = total_drops(fin)
+        if any(drops.values()):
+            raise AssertionError(f"{name}: drops {drops}")
+        check_conservation(fin)
+        out["launches"][kname] = n_ticks
+        print(f"phase 3i: whole run, {name} ({len(specs)} clusters x "
+              f"{n_ticks} ticks), trader and expiry on: {kname} + the "
+              f"phases after it == plain on every leaf (placed "
+              f"{int(fin.placed_total.sum())}, virtual nodes at the end "
+              f"{int(fin.node_active[:, rcfg.max_nodes:].sum())}, contract "
+              f"requests {int(fin.trader.next_contract_id.sum()) - len(specs)}"
+              f"), zero drops, conservation ok, launches {kname} x "
+              f"{n_ticks}; run wall plain {plain_s:.3f} s, kernel "
+              f"{kernel_s:.3f} s [{card}]")
+    out["worst"] = max([chk.worst] + [h["worst"] for v in heavy.values()
+                                       for h in v])
+    return out
+
+
+def phase_matchers(P, E, card, dev):
+    """Phase 3j: short runs of the greedy and the cvx market at the quick
+    market shape through ``Engine.run_chunks``: conservation, zero drops,
+    one DELAY launch a tick, and the virtual nodes each traded."""
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.utils.trace import (
+        check_conservation, total_drops,
+    )
+
+    qc_, qj = MARKET_QUICK
+    chunks = first_ticks(market_stream(E, qc_, qj, quick=True)[0],
+                         MATCHER_TICKS)
+    n_ticks = MATCHER_TICKS
+    for matching in ("greedy", "cvx"):
+        cfg = market_cfg(P, quick=True, jobs=qj,
+                         trader=dict(SINKHORN, matching=matching))
+        engine = E.Engine(cfg, device=dev)
+        fin, wall, counts = counted_run(
+            engine, init_state(cfg, market_specs(P, qc_), device=dev),
+            chunks, "fused_prefix_delay")
+        drops = total_drops(fin)
+        if any(drops.values()):
+            raise AssertionError(f"{matching}: drops {drops}")
+        check_conservation(fin)
+        print(f"phase 3j: {matching} market, quick shape ({qc_} clusters x "
+              f"{qj} jobs, {n_ticks} ticks, carve sane): placed "
+              f"{int(fin.placed_total.sum())}, virtual nodes traded "
+              f"{int(fin.node_active[:, cfg.max_nodes:].sum())}, closing "
+              f"prices sum {float(fin.trader.mkt_price.sum()):.4f}, zero "
+              f"drops, conservation ok, launches fused_prefix_delay x "
+              f"{counts['fused_prefix_delay']}; wall {wall:.3f} s [{card}]")
+
+
+def borrow_cfg(P, trader=None, **kw):
     """bench_fifo_two_trader's config (bench.py:898-933, BASELINE config 2)
-    with the trader off, as the port's."""
+    as the port's, with the trader off unless ``trader`` gives its
+    settings (``{}``: the bench's own, the greedy market)."""
     base = dict(policy=P.PolicyKind.FIFO, borrowing=True,
                 queue_capacity=1024, max_running=512, max_arrivals=4096,
                 max_nodes=10,
                 workload=P.WorkloadConfig(poisson_lambda_per_min=30.0),
-                trader=P.TraderConfig(enabled=False))
+                trader=trader_cfg(P, trader))
     base.update(kw)
     return P.SimConfig(**base)
 
@@ -1407,12 +1801,13 @@ def timed_span(fn):
 
 def borrow_pass(E, chk, s0, chunks, picks, until=None):
     """Drive a borrowing run tick by tick as ``Engine._tick`` does — the
-    emit kernel, return delivery, borrow matching — each between a CUDA
+    emit kernel, return delivery, borrow matching, and with the trader the
+    snapshot and the market round on their cadences — each between a CUDA
     event pair; count the kernel's bytes and what fired; at the global
     ticks in ``picks`` compare kernel and plain on copies of the state the
     run has reached. Stops after ``until`` ticks when given. Returns the
-    per-tick times, the mean bytes, the counts, the final state and the
-    clock."""
+    per-tick (per-span for the market) times, the mean bytes, the counts,
+    the final state and the clock."""
     from multi_cluster_simulator_tpu_torch.core.state import (
         clone_state, empty_io,
     )
@@ -1423,10 +1818,15 @@ def borrow_pass(E, chk, s0, chunks, picks, until=None):
     C, M = s0.arr_ptr.shape[0], engine.n_msgs()
     io = empty_io((C,), M, dev)
     state = clone_state(s0)
-    evs = {"kernel": [], "deliver": [], "match": []}
+    jitter = engine.jitter(C)
+    extra = expire_reads(s0) if host["expire"] else 0
+    evs = {"kernel": [], "deliver": [], "match": [], "snapshot": [],
+           "trade": []}
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     fired = dict.fromkeys(("want", "returns", "msgs_dropped", "matched",
                            "lent_placed", "lent_push_dropped"), zero)
+    if cfg.trader.enabled:
+        fired["attached"] = zero
     read_b = written_b = zero
     t = k_glob = 0
     for ch in chunks:
@@ -1445,7 +1845,7 @@ def borrow_pass(E, chk, s0, chunks, picks, until=None):
                 emit=True, out=io))
             r, w = tick_cost_borrow(before, state, rows, counts, t,
                                     cfg.record_trace, M)
-            read_b, written_b = read_b + r, written_b + w
+            read_b, written_b = read_b + r + extra, written_b + w
             lent0 = state.lent.count.clone()
             wait0, drop0 = state.wait.count.clone(), state.drops.queue.clone()
             state, ev = timed_span(lambda: E._deliver_returns(
@@ -1455,6 +1855,8 @@ def borrow_pass(E, chk, s0, chunks, picks, until=None):
                 state, io.borrow_want, Q.JobRec(vec=io.borrow_job), cfg,
                 engine.ex))
             evs["match"].append(ev)
+            state = market_step(E, engine, state, t, params, jitter, evs,
+                                fired)
             state.t.fill_(t)
             matched = (wait0 - state.wait.count).sum()
             fired["want"] = fired["want"] + io.borrow_want.sum()
@@ -1499,7 +1901,7 @@ def phase_borrow_kernel_vs_plain(P, E, card, dev):
     """Phases 3g and 3h: the FIFO kernel's emit form against its plain
     version on the borrowing path, and ``run_io`` on the card."""
     from multi_cluster_simulator_tpu_torch.core.state import (
-        TickArrivals, clone_state, init_state,
+        clone_state, init_state,
     )
     from multi_cluster_simulator_tpu_torch.kernels import fused_tick
     from multi_cluster_simulator_tpu_torch.ops import runset as R
@@ -1518,27 +1920,18 @@ def phase_borrow_kernel_vs_plain(P, E, card, dev):
     # (b): sampled ticks as the kernel reaches them, every tick timed
     chunks_b, jobs_b = borrow_stream(P, E, BORROW_C)
     s0_b = init_state(cfg, borrow_specs(P, BORROW_C), device=dev)
-    picks, peak = pick_ticks(chunks_b, BORROW_SAMPLES)
-    io_at = CHUNK * 2  # 3h starts from the state this tick reaches
+    io_at = CHUNK * 2  # the pass's depth; 3h starts from its state
+    picks, peak = pick_ticks(chunks_b[:2], BORROW_SAMPLES)
     w0 = time.perf_counter()
     half = borrow_pass(E, chk, s0_b, chunks_b, picks, until=io_at)
-    rest = borrow_pass(E, chk, half["state"], chunks_b[2:],
-                       {p - io_at for p in picks if p >= io_at})
-    sp = dict(ms={k: half["ms"][k] + rest["ms"][k] for k in half["ms"]},
-              read=(half["read"] * io_at + rest["read"] * rest["ticks"])
-              / BORROW_TICKS,
-              written=(half["written"] * io_at
-                       + rest["written"] * rest["ticks"]) / BORROW_TICKS,
-              fired={k: half["fired"][k] + rest["fired"][k]
-                     for k in half["fired"]},
-              ticks=half["ticks"] + rest["ticks"])
-    out["b"] = dict(sampled=sp, plain_ms=list(chk.plain_ms),
+    out["b"] = dict(sampled=half, plain_ms=list(chk.plain_ms),
                     chunks=chunks_b, jobs=jobs_b, s0=s0_b)
     print(f"phase 3g: FIFO emit kernel == plain bitwise (state, want, "
           f"bjob_vec, ret_rows, ret_valid) on {chk.n} ticks of run (b) "
-          f"sampled as the kernel reached them (ticks {sorted(picks)}, the "
-          f"peak {peak} included), C={BORROW_C}; fired over the run: "
-          f"{sp['fired']}; pass {time.perf_counter() - w0:.1f} s [{card}]")
+          f"sampled as the kernel reached them over its first {io_at} "
+          f"ticks (ticks {sorted(p for p in picks if p < io_at)}, the "
+          f"peak {peak}), C={BORROW_C}; fired: {half['fired']}; pass "
+          f"{time.perf_counter() - w0:.1f} s [{card}]")
 
     # heavy ticks at the same width: short jobs on small queues, the odd
     # clusters idle lenders, one message slot — returns past it, lent-head
@@ -1559,19 +1952,25 @@ def phase_borrow_kernel_vs_plain(P, E, card, dev):
         raise AssertionError(f"the heavy ticks missed a branch: "
                              f"{hp['fired']}")
 
-    # whole runs: (a), and config 2's pair tiled to 64 clusters
-    for C, n_ticks in ((2, BORROW_TICKS),
-                       (BORROW_TILED_C, BORROW_TILED_TICKS)):
+    # runs from the start: (a) with the trader on, and config 2's pair
+    # tiled to 64 clusters with the trader cut
+    for C, n_ticks, trader in ((2, BORROW_A_TICKS, {}),
+                               (BORROW_TILED_C, BORROW_TILED_TICKS, None)):
+        wcfg = borrow_cfg(P, trader)
         ch, _ = borrow_stream(P, E, C, n_ticks)
         plain_s, kernel_s, fin = whole_run_against_plain(
-            E, engine, init_state(cfg, borrow_specs(P, C), device=dev), ch,
+            E, E.Engine(wcfg, device=dev),
+            init_state(wcfg, borrow_specs(P, C), device=dev), ch,
             f"borrowing ({C} clusters)")
-        print(f"phase 3g: whole run, {C} clusters x {n_ticks} ticks, FIFO "
-              f"emit kernel + delivery + matching == plain on every leaf "
-              f"(placed {int(fin.placed_total.sum())}, borrowed rows "
+        plus = " + market" if trader is not None else ""
+        print(f"phase 3g: run, {C} clusters x {n_ticks} ticks, trader "
+              f"{'on' if trader is not None else 'cut'}: FIFO emit kernel "
+              f"+ delivery + matching{plus} == plain on every leaf (placed "
+              f"{int(fin.placed_total.sum())}, borrowed rows "
               f"{int(fin.borrowed.count.sum())}, lent rows "
-              f"{int(fin.lent.count.sum())}); run wall plain {plain_s:.3f} "
-              f"s, kernel {kernel_s:.3f} s [{card}]")
+              f"{int(fin.lent.count.sum())}, contract requests "
+              f"{int(fin.trader.next_contract_id.sum()) - C}); run wall "
+              f"plain {plain_s:.3f} s, kernel {kernel_s:.3f} s [{card}]")
 
     # 3h: run_io over one chunk of (b), from the state run (b) reached at
     # tick io_at, against the plain path's stacked TickIO
@@ -1600,8 +1999,7 @@ def phase_borrow_kernel_vs_plain(P, E, card, dev):
     # and foreign jobs in the running sets, so that their pack carries
     # returns
     chunks_m, _, _ = market_stream(E, LINEUP_C, MARKET_JOBS)
-    lead = [TickArrivals(rows=chunks_m[0].rows[:30],
-                         counts=chunks_m[0].counts[:30])]
+    lead = first_ticks(chunks_m, 30)
     for policy in ("delay", "ffd", "gavel"):
         mcfg = market_cfg(P, borrowing=True, max_msgs=2)
         meng = E.Engine(mcfg, device=dev, policies=PolicySet((policy,)))
@@ -1632,42 +2030,59 @@ def phase_borrow_kernel_vs_plain(P, E, card, dev):
 
 
 def device_profile(E, engine, s0, chunks, n):
-    """The card's time per tick on the borrowing path, by torch.profiler:
-    the run to the start of its second chunk, then ``n`` ticks as
-    ``Engine._tick`` runs them, each phase in a ``record_function`` range.
-    Returns the card's kernel ms per tick by phase and in all
-    ("kernels"), and the kernels that take most ("top")."""
+    """The card's time per tick by phase, by torch.profiler: the run to
+    the start of its second chunk, then ``n`` ticks as ``Engine._tick``
+    runs them, each phase in a ``record_function`` range — the prefix;
+    with borrowing, delivery and matching; with the trader, the snapshot
+    and the market round on their cadences. Returns the card's kernel ms
+    per tick by phase and in all ("kernels"), per snapshot and per round,
+    and the kernels that take most ("top")."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from multi_cluster_simulator_tpu_torch.core.state import clone_state
     from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.market import trader as market
     from multi_cluster_simulator_tpu_torch.ops import queues as Q
 
+    cfg = engine.cfg
     state = engine.run_chunks(clone_state(s0), chunks[:1])
     params, host, t = engine._entry(state, None)
     rows = torch.from_numpy(chunks[1].rows[:n]).to(s0.device)
     counts = torch.from_numpy(chunks[1].counts[:n]).to(s0.device)
+    n_snap = n_round = 0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for k in range(n):
-            t += engine.cfg.tick_ms
+            t += cfg.tick_ms
             with record_function("prefix"):
                 state, *io = fused_tick.fused_prefix(
                     engine, state, rows[k], counts[k], t, params, host,
-                    emit_returns=True, out=host["io"])
-            with record_function("delivery"):
-                state = E._deliver_returns(state, io[2], io[3], engine.ex)
-            with record_function("matching"):
-                state = E._borrow_match(state, io[0], Q.JobRec(vec=io[1]),
-                                        engine.cfg, engine.ex)
+                    emit_returns=cfg.borrowing, out=host.get("io"))
+            if cfg.borrowing:
+                with record_function("delivery"):
+                    state = E._deliver_returns(state, io[2], io[3],
+                                               engine.ex)
+                with record_function("matching"):
+                    state = E._borrow_match(state, io[0],
+                                            Q.JobRec(vec=io[1]), cfg,
+                                            engine.ex)
+            if engine.snapshot_due(t):
+                with record_function("snapshot"):
+                    state = E._snapshot(state)
+                n_snap += 1
+            if engine.round_due(t):
+                with record_function("trade"):
+                    state = market.trade_round(state, t, cfg, engine.ex,
+                                               params, host["jitter"])
+                n_round += 1
             state.t.fill_(t)
         torch.cuda.synchronize()
 
     # On the card's timeline each record_function range also appears as
     # a span over its kernels; the kernels are the card's work, and each
     # counts into the phase whose span it starts in.
-    phases = ("prefix", "delivery", "matching")
+    phases = ("prefix", "delivery", "matching", "snapshot", "trade")
     on_card = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -1684,7 +2099,9 @@ def device_profile(E, engine, s0, chunks, n):
         i = bisect.bisect_right(starts, e.time_range.start) - 1
         if i >= 0 and e.time_range.start < spans[i][1]:
             out[spans[i][2]] += us
-    out = {k: v / 1e3 / n for k, v in out.items()}
+    out["per_snapshot"] = out["snapshot"] / 1e3 / max(n_snap, 1)
+    out["per_round"] = out["trade"] / 1e3 / max(n_round, 1)
+    out = {k: (v / 1e3 / n if k in phases else v) for k, v in out.items()}
     out["kernels"] = total / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out["top"] = "; ".join(f"{k[:60]} {v / n:.1f} us" for k, v in top)
@@ -1692,16 +2109,17 @@ def device_profile(E, engine, s0, chunks, n):
 
 
 def phase_borrow_run(P, E, card, dev, name, C, chunks, n_jobs, sampled):
-    """Phases 4h and 4i: a borrowing run at full shape through the entry
-    points, counted, then 3 timed runs; ``sampled`` is its tick-by-tick
-    pass (per-phase times and what fired)."""
+    """Phases 4i and 4j: a borrowing run at full shape through the entry
+    points, counted, then timed runs; ``sampled`` is its tick-by-tick pass
+    (per-phase times and what fired). Run (a) is config 2 itself, the
+    trader on; run (b) the tiled federation with the trader cut."""
     from multi_cluster_simulator_tpu_torch.core.state import init_state
     from multi_cluster_simulator_tpu_torch.utils.trace import (
         check_conservation, total_drops,
     )
     from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
 
-    cfg = borrow_cfg(P)
+    cfg = borrow_cfg(P, {} if name == "a" else None)
     engine = E.Engine(cfg, device=dev)
     s0 = init_state(cfg, borrow_specs(P, C), device=dev)
     state_b = sum(x.numel() * x.element_size()
@@ -1729,27 +2147,48 @@ def phase_borrow_run(P, E, card, dev, name, C, chunks, n_jobs, sampled):
         + drops["queue"] - arrived
     fired = (sampled["fired"] if io is None
              else {k: int(v) for k, v in io.items()})
+    vnodes = int(out.node_active[:, cfg.max_nodes:].sum())
+    rounds = BORROW_TICKS * cfg.tick_ms // cfg.trader.monitor_period_ms \
+        if cfg.trader.enabled else 0
     # the counted run just before is the warm-up
-    walls, h2d_s, last = timed_runs(engine, s0, chunks, 0, TIMED_RUNS)
+    walls, h2d_s, last = timed_runs(engine, s0, chunks, 0,
+                                    TIMED_RUNS if name == "a"
+                                    else BORROW_B_TIMED)
     d = 0 if io is None else max_abs_diff(last, out)
     if d:
         raise AssertionError(f"run ({name}): run_chunks differs from "
                              f"run_io over the chunks ({d})")
     prof = device_profile(E, engine, s0, chunks, BORROW_PROFILE_TICKS)
-    label = "phase 4h" if name == "a" else "phase 4i"
-    print(f"{label}: run ({name}) config 2, trader off, {C} clusters, "
+    label = "phase 4i" if name == "a" else "phase 4j"
+    trader = (f"trader on (greedy, carve {cfg.trader.carve_mode}): "
+              f"{rounds} trade rounds, virtual nodes traded {vnodes}, "
+              f"contract requests "
+              f"{int(out.trader.next_contract_id.sum()) - C}"
+              if cfg.trader.enabled else "trader cut")
+    print(f"{label}: run ({name}) config 2, {trader}, {C} clusters, "
           f"{BORROW_TICKS} ticks: {n_jobs} jobs, arrived {arrived}, placed "
-          f"{placed}, held {held}, drops {drops}; job count placed + ready "
+          f"{placed}, borrowed rows {held['borrowed']}, held {held}, drops "
+          f"{drops}; job count placed + ready "
           f"+ wait + lent + drops.queue - arrived = {balance} (BorrowedQueue "
           f"overflow drops count a bookkeeping row, not a job), launches "
           f"{counts}, conservation ok; state {state_b} B, peak device memory "
           f"{peak_b} B [{card}]")
     wmin, wmed = print_run(label, f"run ({name})", placed, walls, first_s,
                            BORROW_TICKS, chunks, h2d_s, card)
-    ms = {k: float(np.mean(v)) for k, v in sampled["ms"].items()}
+    ms = {k: float(np.mean(v)) for k, v in sampled["ms"].items() if v}
     busy = prof["kernels"] * BORROW_TICKS / 1e3
-    metric = ("fifo_two_cluster_borrow_ticks_per_sec" if name == "a"
+    metric = ("fifo_two_cluster_trader_ticks_per_sec" if name == "a"
               else "borrow_4k ticks/s")
+    if cfg.trader.enabled:
+        print(f"{label}: market: CUDA-event spans (the card kept busy ahead "
+              f"of each) {np.mean(sampled['ms']['trade']) * 1e3:.2f} us per "
+              f"round over {len(sampled['ms']['trade'])} rounds, "
+              f"{np.mean(sampled['ms']['snapshot']) * 1e3:.2f} us per "
+              f"snapshot over {len(sampled['ms']['snapshot'])}; the card's "
+              f"own time (torch.profiler over {BORROW_PROFILE_TICKS} ticks "
+              f"from tick {CHUNK}) {prof['per_round'] * 1e3:.2f} us per "
+              f"round, {prof['per_snapshot'] * 1e3:.2f} us per snapshot "
+              f"[{card}]")
     print(f"{label}: {metric} "
           f"{BORROW_TICKS / wmin:.1f} (min), {BORROW_TICKS / wmed:.1f} "
           f"(median); per tick, CUDA event spans over "
@@ -1794,6 +2233,18 @@ def breakdown(label, run, kernel_ms, card):
           f"{100 * kernel_s / run['wall_min_s']:.1f}% of the wall [{card}]")
 
 
+def lap_timer():
+    """A function that prints, under a label, the seconds since its last
+    call (or since it was made): where the script's time goes."""
+    last = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        print(f"time: {what} {now - last[0]:.1f} s")
+        last[0] = now
+    return lap
+
+
 def main(device: str = "cuda") -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1818,11 +2269,17 @@ def main(device: str = "cuda") -> int:
 
     dev = torch.device(device)
     w0 = time.perf_counter()
+    lap = lap_timer()
     check = phase_kernel_vs_plain(P, E, card, dev)
+    lap("3a-b")
     head = phase_headline(P, E, card, dev)
+    lap("4a")
     borg = phase_ffd_kernel_vs_plain(P, E, card, dev)
+    lap("3c")
     b4k = phase_borg4k(P, E, card, dev, borg)
+    lap("4b")
     f64 = phase_ffd64(P, E, card, dev)
+    lap("4c")
     print(f"phases 3a-c, 4a-c: {time.perf_counter() - w0:.1f} s")
 
     w1 = time.perf_counter()
@@ -1834,25 +2291,44 @@ def main(device: str = "cuda") -> int:
           f"chunk {[ch.rows.shape[2] for ch in chunks]}), unplaceable "
           f"without the market {unplaceable}; built in "
           f"{time.perf_counter() - w1:.1f} s")
+    lap("market stream")
     delay = phase_delay_kernel_vs_plain(P, E, card, dev, market)
+    lap("3d")
     scored = phase_scored_kernel_vs_plain(P, E, card, dev, market)
+    lap("3e")
     phase_dispatch(P, E, card, dev)
-    runs = {name: phase_market(P, E, card, dev, market, name)
-            for name in MARKET_RUNS}
-    print(f"phases 3d-f, 4d-g: {time.perf_counter() - w1:.1f} s")
+    lap("3f")
+    expire = phase_expire_kernel_vs_plain(P, E, card, dev, market,
+                                          delay["a"]["sampled"]["state"])
+    lap("3i")
+    phase_matchers(P, E, card, dev)
+    lap("3j")
+    sampled = {"a": delay["a"], "b": scored["b"], "c": scored["c"],
+               "d": delay["d"], "e": expire["e"]}
+    runs = {}
+    for name in MARKET_RUNS:
+        runs[name] = phase_market(P, E, card, dev, market, name,
+                                  sampled[name]["sampled"])
+        lap(f"4{'defgh'['abcde'.index(name)]}")
+    print(f"phases 3d-f, 3i-j, 4d-h: {time.perf_counter() - w1:.1f} s")
 
     w2 = time.perf_counter()
     borrow = phase_borrow_kernel_vs_plain(P, E, card, dev)
+    lap("3g-h")
     bb = borrow["b"]
     chunks_a, jobs_a = borrow_stream(P, E, 2)
-    chk_a = Checker(E.Engine(borrow_cfg(P), device=dev))
-    sp_a = borrow_pass(E, chk_a, P.init_state(borrow_cfg(P), borrow_specs(
-        P, 2), device=dev), chunks_a[:1], set())
+    cfg_a = borrow_cfg(P, {})
+    chk_a = Checker(E.Engine(cfg_a, device=dev))
+    sp_a = borrow_pass(E, chk_a, P.init_state(cfg_a, borrow_specs(P, 2),
+                                              device=dev),
+                       chunks_a[:1], set())
     run_a = phase_borrow_run(P, E, card, dev, "a", 2, chunks_a, jobs_a,
                              sp_a)
+    lap("4i")
     run_b = phase_borrow_run(P, E, card, dev, "b", BORROW_C, bb["chunks"],
                              bb["jobs"], bb["sampled"])
-    print(f"phases 3g-h, 4h-i: {time.perf_counter() - w2:.1f} s")
+    lap("4j")
+    print(f"phases 3g-h, 4i-j: {time.perf_counter() - w2:.1f} s")
 
     records = []
     kms = float(np.mean(check["kernel_ms"]))
@@ -1889,7 +2365,8 @@ def main(device: str = "cuda") -> int:
                         plain=borg["plain_ms"], bound=(b_ms, b_by)))
 
     # the market runs: the record of each kernel is its first run's, (a)
-    # for DELAY and (b) for the scored sweep; every run is printed
+    # for DELAY and (b) for the scored sweep; every run is printed (run
+    # (e), the expire form's, below)
     for kernel, group, first in (("fused_prefix_delay", delay, "a"),
                                  ("fused_prefix_scored", scored, "b")):
         for run in [n for n in MARKET_RUNS if n in group]:
@@ -1927,11 +2404,53 @@ def main(device: str = "cuda") -> int:
           f"per launch, mean of {sp['read']:.1f} read and "
           f"{sp['written']:.1f} written, at 3.35 TB/s); kernel / bound "
           f"{kms / b_ms:.1f} [{card}]")
+    for where, rd, wr in (("run (a)", sp_a["read"], sp_a["written"]),
+                          ("the headline", check["emit_read"],
+                           check["emit_written"])):
+        e_ms, e_by = bound(rd, wr)
+        print(f"kernel fused_prefix_fifo_emit at {where}: bound "
+              f"{e_ms * 1e3:.4f} us by {e_by} ({rd + wr:.1f} B per launch, "
+              f"mean of {rd:.1f} read and {wr:.1f} written) [{card}]")
     breakdown("borrowing (a)", run_a, sp_a["ms"]["kernel"], card)
     breakdown("borrowing (b)", run_b, sp["ms"]["kernel"], card)
     records.append(dict(kernel=fused_tick.KERNELS["fused_prefix_fifo_emit"],
                         launches=run_b["launches"], worst=borrow["worst"],
                         ms=kms, plain=bb["plain_ms"], bound=(b_ms, b_by)))
+
+    # the expire forms: run (e)'s sampled pass for DELAY's (its main
+    # path), the heavy ticks for the others; launches from the counted
+    # runs of their paths
+    sp = expire["e"]["sampled"]
+    kms = float(np.mean(sp["kernel_ms"]))
+    b_ms, b_by = bound(sp["read"], sp["written"], sp["ops"])
+    print(f"kernel fused_prefix_delay_expire, run (e): {kms * 1e3:.2f} "
+          f"us/launch mean over {len(sp['kernel_ms'])} launches (CUDA "
+          f"events), plain {np.mean(expire['e']['plain_ms']):.3f} ms, bound "
+          f"{b_ms * 1e3:.4f} us by {b_by} ({sp['read'] + sp['written']:.1f} B"
+          f" per launch, mean of {sp['read']:.1f} read and "
+          f"{sp['written']:.1f} written, expire words included); kernel / "
+          f"bound {kms / b_ms:.1f} [{card}]")
+    breakdown("market (e)", runs["e"], sp["kernel_ms"], card)
+    records.append(dict(kernel=fused_tick.KERNELS["fused_prefix_delay_expire"],
+                        launches=runs["e"]["launches"],
+                        worst=expire["worst"], ms=kms,
+                        plain=expire["e"]["plain_ms"], bound=(b_ms, b_by)))
+    for name, runs_h in expire["heavy"].items():
+        for h in runs_h:
+            b_ms, b_by = bound(h["read"], h["written"])
+            print(f"kernel {name}, heavy ticks: {np.mean(h['ms']) * 1e3:.2f} "
+                  f"us/launch over {len(h['ms'])} launches, plain "
+                  f"{np.mean(h['plain_ms']):.3f} ms, bound "
+                  f"{b_ms * 1e3:.4f} us by {b_by} "
+                  f"({h['read'] + h['written']:.1f} B per launch) [{card}]")
+        if name == "fused_prefix_delay_expire":
+            continue
+        h = runs_h[0]
+        records.append(dict(kernel=fused_tick.KERNELS[name],
+                            launches=expire["launches"][name],
+                            worst=expire["worst"], ms=float(np.mean(h["ms"])),
+                            plain=h["plain_ms"],
+                            bound=bound(h["read"], h["written"])))
 
     print(json.dumps({"kernels": [{
         "name": r["kernel"].name, "route": "cuda",

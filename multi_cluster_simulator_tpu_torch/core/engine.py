@@ -1,19 +1,23 @@
 """The virtual-time simulation engine (the port of
 ``multi_cluster_simulator_tpu/core/engine.py``: the FIFO, FFD, DELAY and
-scored-zoo slices, and cross-cluster borrowing).
+scored-zoo slices, cross-cluster borrowing and the trader market).
 
 One tick is the reference's tick on the paths the port carries: the
-per-cluster prefix ``release (with the return pack) -> ingest ->
-schedule``, then, with ``cfg.borrowing``, the cross-cluster phases —
-return delivery and borrow matching — and the clock advance. The schedule
+per-cluster prefix ``release (with the return pack) -> vnode expiry ->
+ingest -> schedule``, then, with ``cfg.borrowing``, the cross-cluster
+phases — return delivery and borrow matching — then, with the trader, the
+snapshot on the 5 s stream cadence and the market round on the monitor
+cadence (market/trader.py), and the clock advance. The schedule
 slot runs the member of the engine's ``PolicySet`` that ``params.idx``
 selects (FIFO, whose arrivals go to the ReadyQueue; or DELAY, FFD, gavel,
 tesserae or rl, whose arrivals go to Level0); the index is read once at a
 run's entry. The prefix runs as one hand-written CUDA kernel per span on
 the card and as the plain PyTorch ops on the CPU (kernels/fused_tick.py);
-the cross-cluster phases are PyTorch ops on both, as the reference runs
-them as XLA ops outside its kernel. Without borrowing the prefix is the
-whole tick (it is terminal).
+the cross-cluster phases and the market are PyTorch ops on both, as the
+reference runs them as XLA ops outside its kernel. The two market cadences
+are host branches on the host's clock: a tick off them launches nothing.
+Without borrowing and the trader the prefix is the whole tick (it is
+terminal).
 
 The run loops replace the reference's ``lax.scan``: ``run`` loops over the
 ticks of a ``TickArrivals`` bucket, ``run_chunks`` does what
@@ -34,12 +38,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from multi_cluster_simulator_tpu_torch.config import SimConfig
+from multi_cluster_simulator_tpu_torch.config import MatchKind, SimConfig
 from multi_cluster_simulator_tpu_torch.core import state as st
 from multi_cluster_simulator_tpu_torch.core.state import (
     Arrivals, SimState, TickIO, empty_io, resolve_device,
 )
 from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+from multi_cluster_simulator_tpu_torch.market import trader as market
 from multi_cluster_simulator_tpu_torch.ops import fields as F
 from multi_cluster_simulator_tpu_torch.ops import placement as P
 from multi_cluster_simulator_tpu_torch.ops import queues as Q
@@ -61,6 +66,20 @@ _QUEUE_INVALID = np.asarray(F.QUEUE_INVALID, np.int32)
 def _release_local(s: SimState, t: int):
     run, free, done = R.release(s.run, s.node_free, t)
     return s.replace(run=run, node_free=free), done
+
+
+def _expire_vnodes_local(s: SimState, t: int) -> SimState:
+    """Virtual nodes whose contract ended (``node_expire <= t``) go
+    inactive, with zero capacity and free, and never expire again (the
+    trader's ``expire_virtual_nodes``; the reference keeps them forever,
+    cluster.go:65-85). Jobs still running on one keep their rows, and
+    their completion returns resources to the inactive slot."""
+    expired = s.node_active & (s.node_expire <= t)  # [C, N]
+    return s.replace(
+        node_active=s.node_active & ~expired,
+        node_cap=torch.where(expired[..., None], 0, s.node_cap),
+        node_free=torch.where(expired[..., None], 0, s.node_free),
+        node_expire=torch.where(expired, R.NEVER, s.node_expire))
 
 
 def _pack_returns(run: R.RunningSet, done: torch.Tensor, M: int):
@@ -297,6 +316,20 @@ def _borrow_match(state: SimState, want: torch.Tensor, jobs: Q.JobRec,
                              queue=state.drops.queue + bdrop + ldrop))
 
 
+# --------------------------------------------------------------------------
+# phase 7: the trader-visible state snapshot
+# --------------------------------------------------------------------------
+
+def _snapshot(state: SimState) -> SimState:
+    """Refresh each trader's cached cluster state (trader_server.go:24-47:
+    the 5 s ClusterState stream; trader.go:71-108). The engine calls it on
+    the stream cadence only."""
+    cu, mu = st.snapshot_utilization(state)
+    return state.replace(trader=state.trader.replace(
+        snap_core_util=cu, snap_mem_util=mu,
+        snap_avg_wait=st.avg_wait_ms(state)))
+
+
 def _with_owner(vec: torch.Tensor, owner: torch.Tensor) -> torch.Tensor:
     out = vec.clone()
     out[..., Q.FOWNER] = owner
@@ -326,8 +359,10 @@ def _check_slice(cfg: SimConfig) -> None:
         if v not in ("wave", "serial"):
             raise ValueError(
                 f"{field} must be 'wave' or 'serial', got {v!r}")
+    if cfg.trader.enabled and cfg.n_res != 3:
+        raise ValueError("the trader market carves 3-dim resources; "
+                         "set n_res=3 when trader.enabled")
     gaps = [
-        (cfg.trader.enabled, "the trader market", "A7"),
         (cfg.faults.enabled, "the fault plane", "A8"),
         (cfg.record_metrics, "record_metrics (the metrics plane)", "A10"),
     ]
@@ -353,12 +388,25 @@ class Engine:
         self.device = resolve_device(device)
         self.ex = LocalExchange()
         self._default_params = self.pset.params_for(cfg, device=self.device)
+        self._jitter = {}
 
     def prefix_terminal(self) -> bool:
         """Does the tick END with the per-cluster prefix? True when no
         post-span phase runs: no return delivery or borrow matching
-        (``cfg.borrowing``); the trader is not ported, so it is off."""
-        return not self.cfg.borrowing
+        (``cfg.borrowing``) and no trader snapshot or market round."""
+        return not self.cfg.borrowing and not self.cfg.trader.enabled
+
+    def jitter(self, c_loc: int):
+        """The sinkhorn/cvx tie-break table for ``c_loc`` local clusters on
+        the engine's device, made on the host once per shape
+        (``market.trader.pair_jitter``); None for the greedy market."""
+        mcfg = self.cfg.trader
+        if not mcfg.enabled or mcfg.matching == MatchKind.GREEDY:
+            return None
+        if c_loc not in self._jitter:
+            self._jitter[c_loc] = market.pair_jitter(
+                self.ex.offset(c_loc), c_loc, c_loc, self.device)
+        return self._jitter[c_loc]
 
     def n_msgs(self) -> int:
         """Return-message slots per cluster and tick: ``cfg.max_msgs``,
@@ -377,9 +425,10 @@ class Engine:
         """Phases 1-5 of the tick on this slice's paths, as plain PyTorch
         ops: completions (and, with ``emit_returns``, the pack of the
         finished foreign jobs' return messages, whose overflow counts into
-        ``drops.msgs``), arrival ingest into the member's queue, the
-        member's pass. ``member`` is the ``PolicySpec`` ``params.idx``
-        selects (read from the index when None). Returns ``(state, want,
+        ``drops.msgs``), vnode expiry where the config engages it, arrival
+        ingest into the member's queue, the member's pass. ``member`` is
+        the ``PolicySpec`` ``params.idx`` selects (read from the index when
+        None). Returns ``(state, want,
         bjob_vec, ret_rows, ret_valid)``, the return rows None when
         ``emit_returns`` is off, as the reference's. The CUDA kernels are
         held against exactly this function."""
@@ -392,6 +441,8 @@ class Engine:
                 run_before, done, self.cfg.max_msgs)
             state = state.replace(drops=state.drops.replace(
                 msgs=state.drops.msgs + dropped))
+        if fused_tick.expires(self.cfg):
+            state = _expire_vnodes_local(state, t)
         state = _ingest_packed_local(state, rows, counts, member.to_delay)
         state, want, bjob_vec = self.pset.dispatch(state, t, params,
                                                    self.cfg, member)
@@ -401,8 +452,9 @@ class Engine:
               counts: torch.Tensor, t: int, params: PolicyParams,
               host: dict, out: TickIO = None) -> SimState:
         """One tick ending at clock ``t`` (a host int): the prefix, then
-        with borrowing return delivery and borrow matching, then the
-        clock. ``out`` (TickIO buffers) receives the tick's events; the
+        with borrowing return delivery and borrow matching, then with the
+        trader the snapshot and the market round on their cadences, then
+        the clock. ``out`` (TickIO buffers) receives the tick's events; the
         prefix emits them whenever borrowing or ``out`` asks, into
         ``host["io"]`` when ``out`` is None. Returns the state, which the
         cross-cluster phases rebuild (``run_chunks`` writes it back)."""
@@ -411,7 +463,32 @@ class Engine:
             self, state, rows, counts, t, params, host, emit_returns=emit,
             out=out if out is not None else host.get("io"))
         state = self._cross_cluster(state, *io)
+        state = self._market(state, t, params, host["jitter"])
         state.t.fill_(t)
+        return state
+
+    def snapshot_due(self, t: int) -> bool:
+        """Does phase 7, the trader's snapshot, run in the tick ending at
+        clock ``t``? On the stream cadence: a host branch on the host
+        clock."""
+        mcfg = self.cfg.trader
+        return mcfg.enabled and t % mcfg.state_cadence_ms == 0
+
+    def round_due(self, t: int) -> bool:
+        """Does phase 8, the market round, run in the tick ending at clock
+        ``t``? On the monitor cadence: a host branch on the host clock."""
+        mcfg = self.cfg.trader
+        return mcfg.enabled and t % mcfg.monitor_period_ms == 0
+
+    def _market(self, state: SimState, t: int, params,
+                jitter) -> SimState:
+        """Phases 7 and 8 where due: the snapshot before any trade in the
+        same tick (MARKET.md §clock), then the market round."""
+        if self.snapshot_due(t):
+            state = _snapshot(state)
+        if self.round_due(t):
+            state = market.trade_round(state, t, self.cfg, self.ex, params,
+                                       jitter)
         return state
 
     def _cross_cluster(self, state: SimState, want, bjob_vec, ret_rows,
@@ -469,6 +546,7 @@ class Engine:
         self._check_state(state)
         params = self._params(params)
         host = fused_tick.host_params(self, params)
+        host["jitter"] = self.jitter(state.arr_ptr.shape[0])
         if self.cfg.borrowing:
             host["io"] = empty_io((state.arr_ptr.shape[0],), self.n_msgs(),
                                   self.device)

@@ -64,7 +64,9 @@ class TickArrivals(Tree):
 
 @dataclasses.dataclass
 class TraderState(Tree):
-    """Per-cluster trader agent state (inert until ROADMAP A7)."""
+    """Per-cluster trader agent state: the snapshot the market reads, the
+    buyer cooldowns and seller locks, and the cvx price column
+    (market/trader.py)."""
 
     snap_core_util: torch.Tensor  # [C] f32
     snap_mem_util: torch.Tensor  # [C] f32
@@ -168,6 +170,27 @@ def empty_io(lead: tuple, n_msgs: int, device) -> TickIO:
 def clone_state(state: SimState) -> SimState:
     """A deep copy: the engine updates states in place."""
     return tree_map(torch.clone, state)
+
+
+def avg_wait_ms(s: SimState) -> torch.Tensor:
+    """WaitTime.GetAverage() (scheduler.go:56-63): [C] f32."""
+    return torch.where(s.wait_jobs > 0,
+                       s.wait_total / s.wait_jobs.clamp(min=1), 0.0)
+
+
+def snapshot_utilization(s: SimState) -> tuple[torch.Tensor, torch.Tensor]:
+    """(core_util, mem_util) [C] f32 as the streamed ClusterState computes
+    them (GetResourceUtilization, cluster.go:46-63): usage summed over
+    *all* nodes, virtual ones included, divided by the cached *physical*
+    totals (SetTotalResources runs only at init), so it can exceed 1.0
+    once virtual nodes carry load. Inactive slots hold 0 - 0."""
+    used = Q.isum(s.node_cap - s.node_free, 1)  # [C, R]
+    tr = s.trader
+    cu = used[:, CORES].to(torch.float32) \
+        / tr.snap_total_cores.clamp(min=1).to(torch.float32)
+    mu = used[:, MEM].to(torch.float32) \
+        / tr.snap_total_mem.clamp(min=1).to(torch.float32)
+    return cu, mu
 
 
 def resolve_device(device=None) -> torch.device:

@@ -49,6 +49,15 @@
 //   (PERF.md): one thread walks each cluster's rows serially, and the
 //   Level0 pop shifts the live rows by one.
 //
+// The expire form (kExpire; the trader's expire_virtual_nodes, the
+//   market's expire-on run) runs the vnode expiry step (core/engine.py
+//   _expire_vnodes_local) between release and ingest: per cluster it
+//   reads each node slot's active flag and expiry (N + 4N B) and writes
+//   the slots that expire (their flag, 3 capacity and 3 free words, and
+//   the expiry). Another instantiation, so the forms without it keep
+//   their code, registers and stacks (nvcc -Xptxas -v: 64 registers
+//   each, PERF.md).
+//
 // Design: one thread per cluster, in place, as the FIFO and FFD kernels;
 //   the sweep, the compaction and the placement are prefix_common.cuh's.
 //
@@ -68,9 +77,10 @@ struct Args {
   int skip;           // parity mode's remove-then-skip quirk
   int32_t max_wait;   // params.max_wait_ms
   Emit e;
+  Expire x;
 };
 
-template <bool kEmit>
+template <bool kEmit, bool kExpire>
 __global__ void __launch_bounds__(32) fused_prefix_delay_kernel(Args a) {
   const Common& k = a.q.k;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -80,9 +90,11 @@ __global__ void __launch_bounds__(32) fused_prefix_delay_kernel(Args a) {
   int32_t* l1 = a.l1 + (size_t)c * k.Q * NF;
 
   // 1. release (the emit form packs the returns and writes no borrow
-  //    request), then the arrivals into Level0.
+  //    request), the expire form's vnode expiry, then the arrivals into
+  //    Level0.
   cl.release<kEmit>(&a.e);
   if (kEmit) emit_no_borrow(a.e, c);
+  if (kExpire) cl.expire(a.x);
   int drop_queue = 0;
   int n0 = ingest_level0(a.q, cl, &drop_queue);
 
@@ -132,8 +144,9 @@ __global__ void __launch_bounds__(32) fused_prefix_delay_kernel(Args a) {
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
 // so the Python wrapper can raise on a refused launch. The leading
 // arguments are prefix_common.cuh's Common, in its order; then Level0 and
-// its counters, Level1, the emit outputs, the flags and the promotion
-// threshold, and the emit flags (the terminal form when `emit` is 0).
+// its counters, Level1, the emit outputs, the expire form's node columns,
+// the flags and the promotion threshold, the emit flags (the terminal
+// form when `emit` is 0) and the expire flag.
 extern "C" int fused_prefix_delay_launch(
     void* node_free, void* node_active, void* run, void* run_active,
     void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
@@ -141,9 +154,9 @@ extern "C" int fused_prefix_delay_launch(
     void* rows, void* counts, void* l0, void* l0_count, void* wait_total,
     void* wait_jobs, void* jobs_in_queue, void* l1, void* l1_count,
     void* ret_rows, void* ret_valid, void* drop_msgs, void* want, void* bjob,
-    int C, int N, int R, int Q, int S, int K, int E, int QC, int record_trace,
-    int t, int wave, int skip, int max_wait, int M, int emit, int borrowing,
-    void* stream) {
+    void* node_cap, void* node_expire, int C, int N, int R, int Q, int S,
+    int K, int E, int QC, int record_trace, int t, int wave, int skip,
+    int max_wait, int M, int emit, int borrowing, int expire, void* stream) {
   if (Q > kMaxQueue) return static_cast<int>(cudaErrorInvalidValue);
   const Common k = make_common(node_free, node_active, run, run_active,
                                arr_ptr, drop_queue, drop_run_full,
@@ -154,16 +167,16 @@ extern "C" int fused_prefix_delay_launch(
                      wave),
          static_cast<int32_t*>(l1), static_cast<int32_t*>(l1_count), skip,
          max_wait,
-         make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing)};
+         make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing),
+         make_expire(node_cap, node_expire)};
   if (C > 0) {
     const int threads = threads_for(C);
     const int blocks = (C + threads - 1) / threads;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (emit) {
-      fused_prefix_delay_kernel<true><<<blocks, threads, 0, s>>>(a);
-    } else {
-      fused_prefix_delay_kernel<false><<<blocks, threads, 0, s>>>(a);
-    }
+    dispatch_forms(emit, expire, [&](auto e, auto x) {
+      fused_prefix_delay_kernel<decltype(e)::value, decltype(x)::value>
+          <<<blocks, threads, 0, s>>>(a);
+    });
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,6 +42,10 @@
 //   and the plain version keeps the wave form, so every on-card
 //   comparison of the wave config also checks wave == serial.
 //
+// The expire form (kExpire; the trader's expire_virtual_nodes) runs
+//   prefix_common.cuh's vnode expiry step between release and ingest, a
+//   separate instantiation of level0_prefix, as the emit form is.
+//
 // Bound on the H100: device-memory bytes, counting only what the tick's
 //   data needs moved: per cluster the arrival count and the counters it
 //   updates, the node vectors, the running set's active flags, the end_t
@@ -72,13 +76,15 @@ struct Args {
   Level0Args q;
   int mem_first;  // params.ffd_mem_first > 0
   Emit e;
+  Expire x;
 };
 
-template <bool kEmit>
+template <bool kEmit, bool kExpire>
 __global__ void __launch_bounds__(32) fused_prefix_ffd_kernel(Args a) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= a.q.k.C) return;
-  level0_prefix<kEmit>(a.q, a.e, c, BfdOrder(a.mem_first), FirstFitPick{});
+  level0_prefix<kEmit, kExpire>(a.q, a.e, a.x, c, BfdOrder(a.mem_first),
+                                FirstFitPick{});
 }
 
 }  // namespace
@@ -94,9 +100,10 @@ extern "C" int fused_prefix_ffd_launch(
     void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
     void* rows, void* counts, void* l0, void* l0_count, void* wait_total,
     void* wait_jobs, void* jobs_in_queue, void* ret_rows, void* ret_valid,
-    void* drop_msgs, void* want, void* bjob, int C, int N, int R, int Q,
-    int S, int K, int E, int QC, int record_trace, int t, int wave,
-    int mem_first, int M, int emit, int borrowing, void* stream) {
+    void* drop_msgs, void* want, void* bjob, void* node_cap,
+    void* node_expire, int C, int N, int R, int Q, int S, int K, int E,
+    int QC, int record_trace, int t, int wave, int mem_first, int M,
+    int emit, int borrowing, int expire, void* stream) {
   if (Q > kMaxQueue) return static_cast<int>(cudaErrorInvalidValue);
   const Common k = make_common(node_free, node_active, run, run_active,
                                arr_ptr, drop_queue, drop_run_full,
@@ -106,16 +113,16 @@ extern "C" int fused_prefix_ffd_launch(
   Args a{make_level0(k, l0, l0_count, wait_total, wait_jobs, jobs_in_queue,
                      wave),
          mem_first,
-         make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing)};
+         make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing),
+         make_expire(node_cap, node_expire)};
   if (C > 0) {
     const int threads = threads_for(C);
     const int blocks = (C + threads - 1) / threads;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (emit) {
-      fused_prefix_ffd_kernel<true><<<blocks, threads, 0, s>>>(a);
-    } else {
-      fused_prefix_ffd_kernel<false><<<blocks, threads, 0, s>>>(a);
-    }
+    dispatch_forms(emit, expire, [&](auto e, auto x) {
+      fused_prefix_ffd_kernel<decltype(e)::value, decltype(x)::value>
+          <<<blocks, threads, 0, s>>>(a);
+    });
   }
   return static_cast<int>(cudaGetLastError());
 }

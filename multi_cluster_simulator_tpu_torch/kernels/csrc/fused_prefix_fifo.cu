@@ -52,6 +52,14 @@
 //   separate instantiation of the same kernel, so the terminal form's
 //   code, registers and stack stay as they were.
 //
+// The expire form (kExpire; the trader's expire_virtual_nodes) runs the
+//   vnode expiry step (core/engine.py _expire_vnodes_local) between
+//   release and ingest: per cluster it reads each node slot's active
+//   flag and expiry (N + 4N B) and writes the slots that expire (their
+//   flag, 3 capacity and 3 free words, and the expiry). Another
+//   instantiation, so the forms without it keep their code, registers
+//   and stacks (nvcc -Xptxas -v: 64 registers each, PERF.md).
+//
 // Shared with the FFD kernel (prefix_common.cuh): release, the arrival
 // append, first-fit, placement and the trace, and the integer discipline
 // (int32 as in the reference, wrapping sums done in uint32).
@@ -76,6 +84,7 @@ struct Args {
   int32_t* lent;
   int32_t* lent_count;
   Emit e;
+  Expire x;
 };
 
 // pop_front of a non-empty queue: shift the live rows left by one, INVALID
@@ -87,7 +96,7 @@ __device__ void pop_front(int32_t* q, int* count) {
   *count = n - 1;
 }
 
-template <bool kEmit>
+template <bool kEmit, bool kExpire>
 __global__ void __launch_bounds__(kThreads)
 fused_prefix_fifo_kernel(Args a) {
   const Common& k = a.k;
@@ -99,8 +108,10 @@ fused_prefix_fifo_kernel(Args a) {
   int32_t* wait = a.wait + (size_t)c * Q * NF;
   int32_t* lent = a.lent + (size_t)c * Q * NF;
 
-  // 1. release every due running slot (the emit form packs the returns).
+  // 1. release every due running slot (the emit form packs the returns),
+  //    then, in the expire form, expire the ended virtual nodes.
   cl.release<kEmit>(&a.e);
+  if (kExpire) cl.expire(a.x);
 
   // 2. ingest: append the tick's arrivals to the ready queue.
   int drop_queue = 0;
@@ -182,17 +193,19 @@ fused_prefix_fifo_kernel(Args a) {
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
 // so the Python wrapper can raise on a refused launch. The leading
 // arguments are prefix_common.cuh's Common, in its order; then the three
-// FIFO queues, the emit outputs, and the emit flags (the terminal form
-// when `emit` is 0, its pointers then null).
+// FIFO queues, the emit outputs, the expire form's node columns, the emit
+// flags (the terminal form when `emit` is 0, its pointers then null) and
+// the expire flag (its pointers null when 0).
 extern "C" int fused_prefix_fifo_launch(
     void* node_free, void* node_active, void* run, void* run_active,
     void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
     void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
     void* rows, void* counts, void* ready, void* ready_count, void* wait,
     void* wait_count, void* lent, void* lent_count, void* ret_rows,
-    void* ret_valid, void* drop_msgs, void* want, void* bjob, int C, int N,
-    int R, int Q, int S, int K, int E, int QC, int record_trace, int t, int M,
-    int emit, int borrowing, void* stream) {
+    void* ret_valid, void* drop_msgs, void* want, void* bjob, void* node_cap,
+    void* node_expire, int C, int N, int R, int Q, int S, int K, int E,
+    int QC, int record_trace, int t, int M, int emit, int borrowing,
+    int expire, void* stream) {
   Args a{make_common(node_free, node_active, run, run_active, arr_ptr,
                      drop_queue, drop_run_full, placed_total, tr_t, tr_job,
                      tr_node, tr_src, tr_n, rows, counts, C, N, R, Q, S, K,
@@ -200,15 +213,15 @@ extern "C" int fused_prefix_fifo_launch(
          static_cast<int32_t*>(ready), static_cast<int32_t*>(ready_count),
          static_cast<int32_t*>(wait), static_cast<int32_t*>(wait_count),
          static_cast<int32_t*>(lent), static_cast<int32_t*>(lent_count),
-         make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing)};
+         make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing),
+         make_expire(node_cap, node_expire)};
   if (C > 0) {
     const int blocks = (C + kThreads - 1) / kThreads;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (emit) {
-      fused_prefix_fifo_kernel<true><<<blocks, kThreads, 0, s>>>(a);
-    } else {
-      fused_prefix_fifo_kernel<false><<<blocks, kThreads, 0, s>>>(a);
-    }
+    dispatch_forms(emit, expire, [&](auto e, auto x) {
+      fused_prefix_fifo_kernel<decltype(e)::value, decltype(x)::value>
+          <<<blocks, kThreads, 0, s>>>(a);
+    });
   }
   return static_cast<int>(cudaGetLastError());
 }

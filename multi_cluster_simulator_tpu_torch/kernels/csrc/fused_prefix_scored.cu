@@ -37,6 +37,10 @@
 // wait_total (f32): one add per processed job, in sweep order, as FFD's
 //   serial form; the scored kinds have no wave form.
 //
+// The expire form (kExpire; the trader's expire_virtual_nodes) runs
+//   prefix_common.cuh's vnode expiry step between release and ingest, a
+//   separate instantiation of level0_prefix, as the emit form is.
+//
 // Bound on the H100: device-memory bytes, as FFD's (chip_smoke.py
 //   tick_cost): the counters, the node vectors and types, the running
 //   set's active flags and active end_t, the Level0 keys the order reads,
@@ -67,6 +71,7 @@ struct Args {
   float table[kClasses * kDeviceTypes];
   float w[3];
   Emit e;
+  Expire x;
 };
 
 // The first maximum of score(n) over the nodes, infeasible nodes at -inf;
@@ -124,17 +129,18 @@ struct TesseraePick {
 
 // __grid_constant__: the picks point into the parameters (the table and
 // the weights) without a copy of them in local memory.
-template <bool kEmit>
+template <bool kEmit, bool kExpire>
 __global__ void __launch_bounds__(32)
 fused_prefix_scored_kernel(const __grid_constant__ Args a) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= a.q.k.C) return;
   if (a.pick == kTesserae) {
-    level0_prefix<kEmit>(a.q, a.e, c, BfdOrder(0), TesseraePick{a.w});
+    level0_prefix<kEmit, kExpire>(a.q, a.e, a.x, c, BfdOrder(0),
+                                  TesseraePick{a.w});
   } else {
-    level0_prefix<kEmit>(a.q, a.e, c, QueueOrder{},
-                         TablePick{a.table,
-                                   a.node_type + (size_t)c * a.q.k.N});
+    level0_prefix<kEmit, kExpire>(
+        a.q, a.e, a.x, c, QueueOrder{},
+        TablePick{a.table, a.node_type + (size_t)c * a.q.k.N});
   }
 }
 
@@ -152,10 +158,11 @@ extern "C" int fused_prefix_scored_launch(
     void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
     void* rows, void* counts, void* l0, void* l0_count, void* wait_total,
     void* wait_jobs, void* jobs_in_queue, void* node_type, void* ret_rows,
-    void* ret_valid, void* drop_msgs, void* want, void* bjob, int C, int N,
-    int R, int Q, int S, int K, int E, int QC, int record_trace, int t,
-    int pick, int M, int emit, int borrowing, const float* table,
-    const float* w, void* stream) {
+    void* ret_valid, void* drop_msgs, void* want, void* bjob, void* node_cap,
+    void* node_expire, int C, int N, int R, int Q, int S, int K, int E,
+    int QC, int record_trace, int t, int pick, int M, int emit,
+    int borrowing, int expire, const float* table, const float* w,
+    void* stream) {
   if (Q > kMaxQueue || R > 3) return static_cast<int>(cudaErrorInvalidValue);
   const Common k = make_common(node_free, node_active, run, run_active,
                                arr_ptr, drop_queue, drop_run_full,
@@ -165,18 +172,18 @@ extern "C" int fused_prefix_scored_launch(
   Args a{make_level0(k, l0, l0_count, wait_total, wait_jobs, jobs_in_queue,
                      0),
          static_cast<const int32_t*>(node_type), pick, {}, {},
-         make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing)};
+         make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing),
+         make_expire(node_cap, node_expire)};
   for (int i = 0; i < kClasses * kDeviceTypes; ++i) a.table[i] = table[i];
   for (int r = 0; r < 3; ++r) a.w[r] = w[r];
   if (C > 0) {
     const int threads = threads_for(C);
     const int blocks = (C + threads - 1) / threads;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (emit) {
-      fused_prefix_scored_kernel<true><<<blocks, threads, 0, s>>>(a);
-    } else {
-      fused_prefix_scored_kernel<false><<<blocks, threads, 0, s>>>(a);
-    }
+    dispatch_forms(emit, expire, [&](auto e, auto x) {
+      fused_prefix_scored_kernel<decltype(e)::value, decltype(x)::value>
+          <<<blocks, threads, 0, s>>>(a);
+    });
   }
   return static_cast<int>(cudaGetLastError());
 }

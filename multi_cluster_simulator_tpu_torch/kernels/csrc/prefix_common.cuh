@@ -9,7 +9,10 @@
 // the sweep order and the node pick. The emit form of every span (its
 // kernel's template instantiated with kEmit) also packs, in the release
 // step, the return messages of the finished foreign jobs, and writes the
-// borrow request the cross-cluster phases after the prefix consume.
+// borrow request the cross-cluster phases after the prefix consume. The
+// expire form of every span (kExpire) runs the vnode expiry step between
+// release and ingest, as the reference does when the trader's
+// expire_virtual_nodes is on.
 //
 // Every function here works on ONE cluster, walked by one thread, in
 // place, in the reference's order. Integer discipline: all arithmetic is
@@ -22,6 +25,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace prefix {
 
@@ -57,8 +62,8 @@ __host__ __device__ __forceinline__ int32_t wrap_sub(int32_t a, int32_t b) {
 // a tensor the Python wrapper checked for device, dtype, shape and
 // contiguity (kernels/fused_tick.py _common).
 struct Common {
-  int32_t* node_free;          // [C, N, R]
-  const uint8_t* node_active;  // [C, N]
+  int32_t* node_free;    // [C, N, R]
+  uint8_t* node_active;  // [C, N], written only by the expiry step
   int32_t* run;                // [C, S, RF]
   uint8_t* run_active;         // [C, S]
   int32_t* arr_ptr;            // [C]
@@ -85,7 +90,7 @@ inline Common make_common(void* node_free, void* node_active, void* run,
                           int R, int Q, int S, int K, int E, int QC,
                           int record_trace, int t) {
   return Common{static_cast<int32_t*>(node_free),
-                static_cast<const uint8_t*>(node_active),
+                static_cast<uint8_t*>(node_active),
                 static_cast<int32_t*>(run),
                 static_cast<uint8_t*>(run_active),
                 static_cast<int32_t*>(arr_ptr),
@@ -121,6 +126,38 @@ inline Emit make_emit(void* ret_rows, void* ret_valid, void* drop_msgs,
               static_cast<uint8_t*>(ret_valid),
               static_cast<int32_t*>(drop_msgs), static_cast<uint8_t*>(want),
               static_cast<int32_t*>(bjob), M, borrowing};
+}
+
+// The expire form's node columns, after the emit outputs (kernels/
+// fused_tick.py _expire); null and unread without expiry.
+struct Expire {
+  int32_t* node_cap;     // [C, N, R]
+  int32_t* node_expire;  // [C, N]
+};
+
+inline Expire make_expire(void* node_cap, void* node_expire) {
+  return Expire{static_cast<int32_t*>(node_cap),
+                static_cast<int32_t*>(node_expire)};
+}
+
+// Every span kernel is a template on <kEmit, kExpire>; its launch takes
+// the two as int flags. Calls `launch` once, with the form they name as
+// two std::bool_constant tags, so that each source spells its launch once:
+//   dispatch_forms(emit, expire, [&](auto e, auto x) {
+//     kernel<decltype(e)::value, decltype(x)::value><<<...>>>(a); });
+template <class Launch>
+inline void dispatch_forms(int emit, int expire, Launch&& launch) {
+  using T = std::true_type;
+  using F = std::false_type;
+  if (emit && expire) {
+    launch(T{}, T{});
+  } else if (emit) {
+    launch(T{}, F{});
+  } else if (expire) {
+    launch(F{}, T{});
+  } else {
+    launch(F{}, F{});
+  }
 }
 
 __host__ __device__ __forceinline__ int32_t queue_invalid(int f) {
@@ -230,6 +267,27 @@ struct Cluster {
       } else {
         ++n_active;
       }
+    }
+  }
+
+  // Vnode expiry (core/engine.py _expire_vnodes_local): every active node
+  // whose contract has ended (expire <= t) goes inactive, its capacity
+  // and free zeroed and its expiry back to NEVER. Physical nodes and
+  // contracts that never end hold NEVER. One pass over the N node slots,
+  // reading each slot's active flag and expiry and writing only the
+  // slots that expire.
+  __host__ __device__ void expire(const Expire& x) {
+    uint8_t* act = a.node_active + (size_t)c * a.N;
+    int32_t* cap = x.node_cap + (size_t)c * a.N * a.R;
+    int32_t* until = x.node_expire + (size_t)c * a.N;
+    for (int n = 0; n < a.N; ++n) {
+      if (!act[n] || until[n] > a.t) continue;
+      act[n] = 0;
+      for (int r = 0; r < a.R; ++r) {
+        cap[n * a.R + r] = 0;
+        free[n * a.R + r] = 0;
+      }
+      until[n] = NEVER;
     }
   }
 
@@ -499,15 +557,18 @@ __host__ __device__ inline void emit_no_borrow(const Emit& e, int c) {
 // One cluster's whole tick: release, ingest into Level0, the sweep over
 // the first min(|L0|, QC) positions of `order`, the compaction, and the
 // counters; the emit form also packs the returns and writes no borrow
-// request.
-template <bool kEmit, class Order, class Pick>
+// request, and the expire form expires the ended virtual nodes between
+// release and ingest.
+template <bool kEmit, bool kExpire, class Order, class Pick>
 __host__ __device__ void level0_prefix(const Level0Args& a, const Emit& e,
-                                       int c, Order order, const Pick& pick) {
+                                       const Expire& x, int c, Order order,
+                                       const Pick& pick) {
   const Common& k = a.k;
   Cluster cl(k, c);
   int32_t* l0 = a.l0 + (size_t)c * k.Q * NF;
   cl.release<kEmit>(&e);
   if (kEmit) emit_no_borrow(e, c);
+  if (kExpire) cl.expire(x);
   int drop_queue = 0;
   const int count = ingest_level0(a, cl, &drop_queue);
   SweepAcc acc(a.wait_total[c]);

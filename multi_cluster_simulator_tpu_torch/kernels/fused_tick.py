@@ -19,14 +19,19 @@ schedule slot (``KERNELS``):
   gavel | tesserae | rl]``, the Level0 sweep with a scored node pick
   (``csrc/fused_prefix_scored.cu``).
 
-Each comes in two forms, instantiations of one template: the terminal
-form, which updates the state only, and the emit form (``emit_returns``:
-borrowing, or a ``run_io`` tick), whose release step also packs the
-finished foreign jobs' return messages and whose pass writes the borrow
-request (``want``, ``bjob_vec``) — the outputs the cross-cluster phases
-after the prefix consume. The FIFO emit form, the borrowing path's
-kernel, is counted as its own entry, ``fused_prefix_fifo_emit``; the
-Level0 kernels' emit forms count under their kernel's name.
+Each comes in four forms, instantiations of one template on two flags.
+The emit flag (``emit_returns``: borrowing, or a ``run_io`` tick) makes
+the release step also pack the finished foreign jobs' return messages and
+the pass write the borrow request (``want``, ``bjob_vec``) — the outputs
+the cross-cluster phases after the prefix consume; without it the kernel
+updates the state only. The expire flag (the trader's
+``expire_virtual_nodes``) adds the vnode expiry step between release and
+ingest (``engaged_span``): the node columns ``node_active``, ``node_cap``,
+``node_free`` and ``node_expire`` of the slots whose contract ended. The
+FIFO emit form, the borrowing path's kernel, is counted as its own entry,
+``fused_prefix_fifo_emit``; the Level0 kernels' emit forms count under
+their kernel's name. Every expire form counts as an entry of its own
+(``..._expire``), the FIFO emit form's as ``fused_prefix_fifo_emit_expire``.
 
 Each source's header states what bounds it on the H100 and what its
 design does about that; what they share is ``csrc/prefix_common.cuh``.
@@ -77,13 +82,14 @@ MAX_QUEUE = 1024
 class Kernel:
     """One hand-written prefix kernel: its name, the policy kinds whose
     spans it carries, the library that holds it (``kernels/build.py``;
-    its name unless given), whether it is an emit form, and how many
-    times the wrapper launched it."""
+    its name unless given), whether it is an emit form and whether an
+    expire form, and how many times the wrapper launched it."""
 
     name: str
     kinds: tuple
     lib: str = ""
     emit: bool = False
+    expire: bool = False
     launches: int = 0
 
     def __post_init__(self):
@@ -94,13 +100,20 @@ class Kernel:
         return f"{CSRC}{self.lib}.cu"
 
 
+_LEVEL0 = (("fused_prefix_ffd", ("ffd",)),
+           ("fused_prefix_delay", ("delay",)),
+           ("fused_prefix_scored", ("gavel", "tesserae", "rl")))
 KERNELS = {k.name: k for k in (
     Kernel("fused_prefix_fifo", ("fifo",)),
-    Kernel("fused_prefix_ffd", ("ffd",)),
-    Kernel("fused_prefix_delay", ("delay",)),
-    Kernel("fused_prefix_scored", ("gavel", "tesserae", "rl")),
+    *(Kernel(name, kinds) for name, kinds in _LEVEL0),
     Kernel("fused_prefix_fifo_emit", ("fifo",), lib="fused_prefix_fifo",
-           emit=True))}
+           emit=True),
+    Kernel("fused_prefix_fifo_expire", ("fifo",), lib="fused_prefix_fifo",
+           expire=True),
+    Kernel("fused_prefix_fifo_emit_expire", ("fifo",),
+           lib="fused_prefix_fifo", emit=True, expire=True),
+    *(Kernel(f"{name}_expire", kinds, lib=name, expire=True)
+      for name, kinds in _LEVEL0))}
 
 
 def reset_launches() -> None:
@@ -114,32 +127,43 @@ def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS.values()}
 
 
+def expires(cfg) -> bool:
+    """Does the config engage vnode expiry (the trader on, with
+    ``expire_virtual_nodes``)?"""
+    return cfg.trader.enabled and cfg.trader.expire_virtual_nodes
+
+
 def engaged_span(cfg) -> tuple[str, ...]:
-    """The prefix phases a config engages, in tick order. ``Engine``
-    admits no config that engages the faults head or vnode expiry, so
-    every engine of the port has this span; the schedule slot is the
+    """The prefix phases a config engages, in tick order: vnode expiry
+    between release and ingest where ``expires``. ``Engine`` admits no
+    config that engages the faults head; the schedule slot is the
     selected member's."""
-    return ("release", "ingest", "schedule")
+    return ("release", *(("expire",) if expires(cfg) else ()), "ingest",
+            "schedule")
 
 
-def kernel_for(member, emit: bool = False) -> Kernel:
+def kernel_for(member, emit: bool = False, expire: bool = False) -> Kernel:
     """The kernel that carries the span of ``member`` (a ``PolicySpec``)
-    on the card, in the emit form when ``emit`` (the FIFO emit form is an
-    entry of its own; the others share their kernel's)."""
-    found = [k for k in KERNELS.values() if member.kind in k.kinds]
+    on the card, in the emit form when ``emit`` and the expire form when
+    ``expire`` (the FIFO emit forms are entries of their own; the Level0
+    kernels' emit forms share their kernel's)."""
+    found = [k for k in KERNELS.values()
+             if member.kind in k.kinds and k.expire == expire]
     return next((k for k in found if k.emit == emit), found[0])
 
 
 def provenance(engine, params=None) -> dict:
-    """What a recorded number ran: the engaged span, whether the prefix
-    emits the return pack and the borrow request (``cfg.borrowing``, the
-    form ``run``/``run_chunks`` take; ``run_io`` always emits), the member
+    """What a recorded number ran: the engaged span, whether the tick ends
+    with it (``Engine.prefix_terminal``), whether the prefix emits the
+    return pack and the borrow request (``cfg.borrowing``, the form
+    ``run``/``run_chunks`` take; ``run_io`` always emits), the member
     ``params.idx`` selects (the engine's default params unless given) and
     the kernel that carries it on the card."""
     member = engine.member(params)
-    emit = not engine.prefix_terminal()
-    k = kernel_for(member, emit)
-    return {"span": list(engaged_span(engine.cfg)), "policy": member.name,
+    emit = engine.cfg.borrowing
+    k = kernel_for(member, emit, expires(engine.cfg))
+    return {"span": list(engaged_span(engine.cfg)),
+            "terminal": engine.prefix_terminal(), "policy": member.name,
             "schedule": member.kind, "kernel": k.name, "route": "cuda",
             "source": k.source, "replaces": REPLACES, "emit_returns": emit,
             "epilogue_tap": False}
@@ -148,15 +172,18 @@ def provenance(engine, params=None) -> dict:
 def host_params(engine, params) -> dict:
     """What the kernels take from the host, read once (a host sync) at a
     run's entry and never inside a chunk: the member ``params.idx``
-    selects and its kernel, and the parameters that kernel reads — FFD's
-    tie-break, DELAY's promotion threshold, the scored kinds' 4x4 f32
-    table (gavel's throughputs or rl's scores) and tesserae's 3 f32
+    selects and its kernels (the terminal and the emit form, both expire
+    forms where the config engages expiry), and the parameters those read
+    — FFD's tie-break, DELAY's promotion threshold, the scored kinds' 4x4
+    f32 table (gavel's throughputs or rl's scores) and tesserae's 3 f32
     weights, as ctypes arrays handed to the kernel by pointer."""
     member = engine.member(params)
     table = {"gavel": params.gavel_tput, "rl": params.rl_scores}.get(
         member.kind, torch.zeros(16))
-    return {"member": member, "kernel": kernel_for(member),
-            "emit_kernel": kernel_for(member, emit=True),
+    expire = expires(engine.cfg)
+    return {"member": member, "expire": expire,
+            "kernel": kernel_for(member, False, expire),
+            "emit_kernel": kernel_for(member, True, expire),
             "ffd_mem_first": int(params.ffd_mem_first > 0),
             "max_wait_ms": int(params.max_wait_ms),
             "table": (ctypes.c_float * 16)(*table.flatten().tolist()),
@@ -177,11 +204,12 @@ def fused_prefix_reference(engine, state, rows, counts, t: int, params,
 def fused_prefix(engine, state, rows: torch.Tensor, counts: torch.Tensor,
                  t: int, params, host: dict, emit_returns: bool = False,
                  out=None):
-    """Run tick ``t``'s prefix (release -> ingest -> the selected member's
-    pass) on ``state`` in place. ``rows`` [C, K, NF] int32 and ``counts``
-    [C] int32 are the tick's arrival slice; ``t`` is the post-tick clock
-    as a host int; ``params`` are the policy's leaves (the plain path
-    reads them) and ``host`` what the kernels take (``host_params``).
+    """Run tick ``t``'s prefix (release -> vnode expiry where engaged ->
+    ingest -> the selected member's pass) on ``state`` in place. ``rows``
+    [C, K, NF] int32 and ``counts`` [C] int32 are the tick's arrival
+    slice; ``t`` is the post-tick clock as a host int; ``params`` are the
+    policy's leaves (the plain path reads them) and ``host`` what the
+    kernels take (``host_params``).
     With ``emit_returns`` the release step also packs the return messages
     and the pass writes the borrow request, into ``out`` (a ``TickIO`` of
     buffers on the state's device, allocated when None). Returns
@@ -323,6 +351,17 @@ def _emit(cfg, s, io):
     return ptrs, [M, 1, int(cfg.borrowing)]
 
 
+def _expire(s, host: dict):
+    """The expire form's node columns (None without expiry; the node
+    vectors themselves ``_common`` checks) and its flag, which every
+    launch function takes after the emit arguments."""
+    if not host["expire"]:
+        return [None, None], [0]
+    C, N, n_res = s.node_free.shape
+    return [_check("node_cap", s.node_cap, (C, N, n_res), torch.int32),
+            _check("node_expire", s.node_expire, (C, N), torch.int32)], [1]
+
+
 def _run(name: str, ptrs, ints, rows, host_ptrs=()):
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     fn = _entry(name, len(ptrs), len(ints), len(host_ptrs))
@@ -340,7 +379,9 @@ def _launch_fifo(cfg, s, rows, counts, t: int, host: dict,
     ptrs += (_queue("ready", s.ready, C, Qc) + _queue("wait", s.wait, C, Qc)
              + _queue("lent", s.lent, C, Qc))
     e_ptrs, e_ints = _emit(cfg, s, io)
-    _run("fused_prefix_fifo", ptrs + e_ptrs, ints + e_ints, rows)
+    x_ptrs, x_ints = _expire(s, host)
+    _run("fused_prefix_fifo", ptrs + e_ptrs + x_ptrs, ints + e_ints + x_ints,
+         rows)
 
 
 def _launch_ffd(cfg, s, rows, counts, t: int, host: dict,
@@ -350,7 +391,9 @@ def _launch_ffd(cfg, s, rows, counts, t: int, host: dict,
     wave = int(not cfg.parity and cfg.ffd_sweep == "wave")
     ints += [wave, host["ffd_mem_first"]]
     e_ptrs, e_ints = _emit(cfg, s, io)
-    _run("fused_prefix_ffd", ptrs + e_ptrs, ints + e_ints, rows)
+    x_ptrs, x_ints = _expire(s, host)
+    _run("fused_prefix_ffd", ptrs + e_ptrs + x_ptrs, ints + e_ints + x_ints,
+         rows)
 
 
 def _launch_delay(cfg, s, rows, counts, t: int, host: dict,
@@ -362,7 +405,9 @@ def _launch_delay(cfg, s, rows, counts, t: int, host: dict,
     wave = int(not cfg.parity and cfg.delay_sweep == "wave")
     ints += [wave, int(cfg.parity), host["max_wait_ms"]]
     e_ptrs, e_ints = _emit(cfg, s, io)
-    _run("fused_prefix_delay", ptrs + e_ptrs, ints + e_ints, rows)
+    x_ptrs, x_ints = _expire(s, host)
+    _run("fused_prefix_delay", ptrs + e_ptrs + x_ptrs, ints + e_ints + x_ints,
+         rows)
 
 
 # the scored kernel's picks (csrc/fused_prefix_scored.cu kTable, kTesserae)
@@ -377,8 +422,9 @@ def _launch_scored(cfg, s, rows, counts, t: int, host: dict,
         _check("node_type", s.node_type, (C, N), torch.int32)]
     ints += [_PICK[host["member"].kind]]
     e_ptrs, e_ints = _emit(cfg, s, io)
-    _run("fused_prefix_scored", ptrs + e_ptrs, ints + e_ints, rows,
-         (host["table"], host["weights"]))
+    x_ptrs, x_ints = _expire(s, host)
+    _run("fused_prefix_scored", ptrs + e_ptrs + x_ptrs,
+         ints + e_ints + x_ints, rows, (host["table"], host["weights"]))
 
 
 _LAUNCH = {"fused_prefix_fifo": _launch_fifo,

@@ -10,13 +10,14 @@ over several:
 
 - ``gather``  — see every cluster's request row
 - ``allmin``  — global minimum across shards
+- ``allmax``  — global maximum across shards (the market's rounding)
+- ``allsum``  — global sum across shards (the market's column sums)
 - ``offset``  — my shard's global cluster offset
 
 On one H100 the whole cluster axis is local: ``LocalExchange``, whose
 collectives are identities. The sharded form (``MeshExchange``, over
-``torch.distributed``) is ROADMAP A16; the reference's other collectives
-(``allmax``, ``allsum``, ``alland``) come with it, when a caller needs
-them.
+``torch.distributed``) is ROADMAP A16; the reference's ``alland`` comes
+with it, when a caller needs it.
 """
 
 from __future__ import annotations
@@ -31,6 +32,12 @@ class Exchange:
         raise NotImplementedError
 
     def allmin(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def allmax(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def allsum(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
     def offset(self, c_local: int) -> int:
@@ -49,6 +56,12 @@ class LocalExchange(Exchange):
         return x
 
     def allmin(self, x):
+        return x
+
+    def allmax(self, x):
+        return x
+
+    def allsum(self, x):
         return x
 
     def offset(self, c_local: int) -> int:

@@ -142,6 +142,7 @@ def test_span_and_provenance():
     assert tfused.engaged_span(cfg) == jfused.engaged_span(headline_cfg())
     prov = tfused.provenance(tengine.Engine(cfg, device="cpu"))
     assert prov["kernel"] == "fused_prefix_fifo" and prov["route"] == "cuda"
+    assert prov["terminal"] and not prov["emit_returns"]
     assert (REPO / prov["source"]).exists()
     path, line = prov["replaces"].split(":")
     src = (REPO / path).read_text().splitlines()

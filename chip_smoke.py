@@ -6,10 +6,10 @@ CUDA card and exits non-zero without one (or without the repository around
 it). It drives the port's paths on the card — the headline FIFO run, the
 FFD bin-pack of the Borg-like replay, DELAY and the scored zoo on the
 market shape, the trader market (BASELINE config 4 with the sinkhorn
-market, with and without vnode expiry), and cross-cluster borrowing with
-the greedy market on BASELINE config 2 — through the entry points a user
-calls, and holds each path's hand-written kernel against its plain
-PyTorch version:
+market, with and without vnode expiry), cross-cluster borrowing with
+the greedy market on BASELINE config 2, and the fault plane (bench.py
+bench_faults's churn) — through the entry points a user calls, and
+holds each path's hand-written kernel against its plain PyTorch version:
 
 1. device: the card's name and power limit;
 2. build: every CUDA kernel, from ``kernels/csrc/`` (one nvcc per source,
@@ -55,10 +55,24 @@ PyTorch version:
       its expiries and attaches counted; 3 heavy ticks for each form on
       run (a)'s final state with nine in ten virtual nodes set to expire
       (~1,300 expiries a launch); whole quick-shape runs (DELAY, FFD,
-      gavel) and a whole config-2 run with the trader and expiry on, and
-      800 ticks of config 2 without borrowing, each counting its launches
+      gavel) and the first 800 ticks of config 2 with the trader and
+      expiry on, with and without borrowing, each counting its launches
       through ``Engine.run_chunks``;
    j. short runs of the greedy and the cvx market at the quick shape;
+   k. every kernel's faults form (the fault phase opening the span, its
+      generative draws on the card): heavy ticks with a third of the
+      healthy nodes failing and every down one repairing, in generative
+      (16 retries) and trace mode (no retries, same-tick outages), on
+      market run (a)'s final state (carve placeholders, virtual nodes) for
+      the Level0 forms and the expire forms, on borrowing run (b)'s state
+      at tick 800 (foreign rows, full LentQueues) for the FIFO forms; runs
+      with churn from the start, their launches counted through
+      ``run_chunks``: the first 100 ticks of DELAY, FFD and gavel at the
+      quick market shape with and without the sinkhorn market and expiry
+      and of FIFO borrowing at 64 clusters, and
+      tests/test_faults.py:299 (a failed slot hosting a traded virtual
+      node) tiled to 64 clusters with the greedy market and expiry, with
+      and without borrowing;
 4. the main paths, each with every launch count set to 0 just before and
    read just after:
    a. headline: 4096 clusters x 250 jobs, 1,570 ticks — zero drops, at
@@ -69,8 +83,8 @@ PyTorch version:
       FFD launches; jobs/s over the min and median of 3 timed runs after 1
       warm-up;
    c. ffd64 (bench.py:936-976): 64 clusters x 60,000 jobs, Level0 768
-      deep, 6,100 ticks — kernel == plain on 8 sampled ticks, then one
-      full run with the reference's asserts;
+      deep, 6,100 ticks — kernel == plain on 8 ticks sampled from the
+      first 2,000, then one full run with the reference's asserts;
    d-h. the market shape, 4096 clusters x 400 jobs, 700 ticks, five runs
       of one world and stream: (a) config 4 itself (bench.py:1032-1093
       bench_sinkhorn: DELAY wave, the sinkhorn market, sane carve) — zero
@@ -92,7 +106,18 @@ PyTorch version:
       placed jobs/s over the min and median of the timed runs after the
       counted run (3 for (a), 1 for (b)), which goes through ``run_io``
       and counts every tick's wants and returns, and per tick the kernel,
-      return delivery and borrow matching each timed by CUDA events.
+      return delivery and borrow matching each timed by CUDA events;
+   k, m. bench_faults's churn config (bench.py:2927-2945: FIFO parity,
+      queue 128, running 128, generative churn, mttf 100 s, mttr 10 s,
+      seed 29, 16 retries, 490 ticks): (k) at its own 32 clusters x 200
+      jobs, (m) at the headline's 4,096 clusters (819,200 jobs; the port's
+      width, not the bench's) — the bench's gates (an enabled trace plane
+      with an empty schedule leaves every non-fault leaf as the faults-off
+      run; kills and requeues; zero drops; conservation), 490 launches of
+      the faults form, kernel == plain on 12 sampled ticks, every launch
+      timed beside the same kernel without the faults step,
+      ``fault_plane_churn_jobs_per_sec`` over the min and median of 3
+      timed runs after 1 warm-up, and at 4,096 a torch.profiler window.
 
 Every number is printed beside the card's name and power limit. The last
 lines are a JSON record of each kernel (its time per launch, the plain
@@ -129,6 +154,7 @@ BORG_TIMED, BORG_WARMUPS, BORG_SAMPLES = 3, 1, 16
 # bench_ffd64 (bench.py:936-976)
 FFD64_C, FFD64_JOBS, FFD64_HORIZON_MS, FFD64_SAMPLES = 64, 60_000, \
     6_000_000, 8
+FFD64_PASS_CHUNKS = 5  # 4c's pass tick by tick: its first 2,000 ticks
 # the market shape: BASELINE config 4, bench.py:1032-1093 bench_sinkhorn,
 # sinkhorn_market_setup(4096, 400, 600_000, matching="sinkhorn"), and its
 # quick shape (64, 200, quick=True)
@@ -163,6 +189,14 @@ BORROW_TILED_C, BORROW_TILED_TICKS = 64, 400
 BORROW_A_TICKS = 800  # 3g's whole run (a): the first trade falls near 500
 BORROW_SAMPLES, BORROW_IO_TICKS, BORROW_PROFILE_TICKS = 12, 40, 50
 BORROW_B_TIMED = 1  # run (b)'s timed runs after its counted run
+# bench_faults (bench.py:2869-3040): its churn config at its own 32
+# clusters (4k) and at the headline's 4,096 (4m, the port's width)
+FAULTS_C, FAULTS_WIDE_C, FAULTS_JOBS, FAULTS_HORIZON_MS = 32, 4096, 200, \
+    400_000
+FAULTS_TIMED, FAULTS_SAMPLES, FAULTS_PROFILE_TICKS = 3, 12, 50
+FAULT_HEAVY_TICKS = 2  # 3k's heavy ticks per form and mode
+FAULT_VNODE_C, FAULT_VNODE_TICKS = 64, 20  # 3k's tests/test_faults.py:299
+FAULT_RUN_TICKS = 100  # 3k's other whole runs: their first 100 ticks
 # the earlier paths' whole-run comparisons (3b, 3c, 3d and 3e's quick
 # runs) cover their first 200 ticks, to keep the script's time
 WHOLE_RUN_TICKS = 200
@@ -1075,8 +1109,9 @@ def phase_borg4k(P, E, card, dev, borg):
 
 
 def phase_ffd64(P, E, card, dev):
-    """Phase 4c: bench_ffd64, Level0 768 deep: 8 sampled ticks compared,
-    then one full run with the reference's asserts."""
+    """Phase 4c: bench_ffd64, Level0 768 deep: 8 ticks of the first 2,000
+    compared, every launch of those timed, then one full run with the
+    reference's asserts."""
     from multi_cluster_simulator_tpu_torch.core.state import init_state
     from multi_cluster_simulator_tpu_torch.kernels import fused_tick
     from multi_cluster_simulator_tpu_torch.policies import kernels as K
@@ -1093,8 +1128,9 @@ def phase_ffd64(P, E, card, dev):
     chunks = E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), cfg.tick_ms)
     s0 = init_state(cfg, specs, device=dev)
     chk = Checker(engine)
-    picks, _ = pick_ticks(chunks, FFD64_SAMPLES)
-    sp = sampled_kernel_pass(E, chk, engine, s0, chunks, picks,
+    lead = chunks[:FFD64_PASS_CHUNKS]
+    picks, _ = pick_ticks(lead, FFD64_SAMPLES)
+    sp = sampled_kernel_pass(E, chk, engine, s0, lead, picks,
                              K._sweep_len(cfg))
     out, first_s, counts = counted_run(engine, s0, chunks,
                                        "fused_prefix_ffd")
@@ -1556,9 +1592,9 @@ def phase_expire_kernel_vs_plain(P, E, card, dev, market, state_a):
     counted; (b) heavy ticks on the state run (a) reached (its thousands
     of virtual nodes), nine in ten set to expire, for each kernel's expire
     form; (c) whole quick-shape runs (DELAY, FFD, gavel) with the trader
-    and expiry; (d) a whole config-2 run with expiry (the FIFO emit form)
-    and (e) the same without borrowing (the FIFO state-only form). The
-    whole runs count their launches through ``Engine.run_chunks``."""
+    and expiry; (d) the first 800 ticks of config 2 with expiry (the FIFO
+    emit form) and (e) the same without borrowing (the FIFO state-only
+    form). The runs count their launches through ``Engine.run_chunks``."""
     from multi_cluster_simulator_tpu_torch.core.state import (
         clone_state, init_state,
     )
@@ -1641,14 +1677,13 @@ def phase_expire_kernel_vs_plain(P, E, card, dev, market, state_a):
     # (c)-(e) whole runs with expiry, their launches counted
     qc_, qj = MARKET_QUICK
     ch_q, _, _ = market_stream(E, qc_, qj, quick=True)
-    c2_chunks, _ = borrow_stream(P, E, 2)
     c2_short, _ = borrow_stream(P, E, 2, BORROW_A_TICKS)
     runs = [(f"quick {pol}", market_cfg(P, quick=True, jobs=qj,
                                         trader=EXPIRE),
              pol, market_specs(P, qc_), ch_q)
             for pol in ("delay", "ffd", "gavel")]
     runs += [("config 2", borrow_cfg(P, {"expire_virtual_nodes": True}),
-              "fifo", borrow_specs(P, 2), c2_chunks),
+              "fifo", borrow_specs(P, 2), c2_short),
              ("config 2, no borrowing", borrow_cfg(
                  P, {"expire_virtual_nodes": True}, borrowing=False),
               "fifo", borrow_specs(P, 2), c2_short)]
@@ -2211,6 +2246,570 @@ def phase_borrow_run(P, E, card, dev, name, C, chunks, n_jobs, sampled):
                 h2d_s=h2d_s, drops=drops, balance=balance, profile=prof)
 
 
+# --------------------------------------------------------------------------
+# the fault plane: 3k (every faults form == plain), 4k and 4m (churn)
+# --------------------------------------------------------------------------
+
+def churn_faults(P, **kw):
+    """bench_faults's churn (bench.py:2935-2937) at its full horizon:
+    generative, mttf 100 s, mttr 10 s, seed 29, 16 retries."""
+    base = dict(enabled=True, mode="generative",
+                mttf_ms=FAULTS_HORIZON_MS // 4,
+                mttr_ms=FAULTS_HORIZON_MS // 40, seed=29, max_retries=16)
+    base.update(kw)
+    return P.FaultConfig(**base)
+
+
+def faults_cfg(P, **kw):
+    """bench_faults's config (bench.py:2927-2945), as the port's."""
+    base = dict(policy=P.PolicyKind.FIFO, parity=True, n_res=2,
+                queue_capacity=128, max_running=128,
+                max_arrivals=FAULTS_JOBS, max_ingest_per_tick=16,
+                max_nodes=5, max_virtual_nodes=0, faults=churn_faults(P))
+    base.update(kw)
+    return P.SimConfig(**base)
+
+
+def faults_stream(E, C):
+    """bench_faults's stream for C clusters (seed 13), its 400-tick
+    ragged-K chunks and its tick count (T = 490)."""
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        uniform_stream,
+    )
+
+    arr = uniform_stream(C, FAULTS_JOBS, FAULTS_HORIZON_MS, max_cores=8,
+                         max_mem=6_000, max_dur_ms=30_000, seed=13)
+    n_ticks = FAULTS_HORIZON_MS // 1_000 + 90
+    return E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), 1_000), n_ticks
+
+
+def fault_reads(before, after, t: int):
+    """The faults step's further reads per tick, beyond the span's own
+    (``tick_bytes`` and the like; ``written_bytes`` counts its writes):
+    each node slot's health flag, and its next_fail when up or its
+    down_until when down; at each node that fails or repairs, its outage
+    count, parked activation, outage start and one trace entry or the
+    cluster's key words, and its capacity where it repairs; on each
+    cluster where a node fails, the node of each active running slot, the
+    whole row of each killed slot and the two queue counts."""
+    fs0, fs1 = before.faults, after.faults
+    n_res = before.node_free.shape[2]
+    up = fs0.health
+    fails = up & (fs0.next_fail <= t)
+    reps = fs1.n_fails > fs0.n_fails
+    events = fails | reps
+    failing = fails.any(1)
+    node = before.run.node.clamp(0, up.shape[1] - 1).long()
+    killed = before.run.active & torch.gather(fails, 1, node)
+    rf = before.run.data.shape[2]
+    return (up.numel() + 4 * up.numel() + 13 * events.sum()
+            + 8 * events.any(1).sum() + 4 * n_res * reps.sum()
+            + 4 * (before.run.active & failing[:, None]).sum()
+            + 4 * rf * killed.sum() + 8 * failing.sum())
+
+
+def tick_cost_faults(before, after, rows, counts, t: int, trace: bool):
+    """The FIFO faults form's least bytes a tick (read, written, ops): the
+    FIFO span's ``tick_bytes`` and the faults step's ``fault_reads``."""
+    read, written = tick_bytes(before, after, rows, counts, t, trace)
+    return read + fault_reads(before, after, t), written, 0
+
+
+def fault_events(dev, state, t, gen, mode, same_tick):
+    """Make failures and repairs due at clock ``t`` in ``state``: about
+    one in three healthy node slots fails, every down one repairs; in
+    trace mode the failing slots' next repair is ``t`` (a same-tick
+    outage) on about ``same_tick`` of them and later on the rest."""
+    fs = state.faults
+    up = fs.health.clone()
+    pick = up & (torch.rand(up.shape, generator=gen, device=dev) < 0.34)
+    fs.next_fail.copy_(torch.where(pick, t, fs.next_fail))
+    fs.down_until.copy_(torch.where(~up, t, fs.down_until))
+    if mode == "trace":
+        E_ = fs.repair_t.shape[-1]
+        k = fs.n_fails.clamp(0, E_ - 1).long()[..., None]
+        now = torch.rand(up.shape, generator=gen, device=dev) < same_tick
+        rep = torch.where(now, t, t + 2_000).to(torch.int32)
+        fs.repair_t.scatter_(-1, k, torch.where(
+            pick, rep, torch.gather(fs.repair_t, -1, k)[..., 0])[..., None])
+        fs.fail_t.scatter_(-1, (k + 1).clamp(max=E_ - 1), torch.full_like(
+            k, t + 30_000, dtype=torch.int32))
+
+
+def fault_firings(engine, before, t, seen):
+    """What the fault phase does on ``before`` at ``t``, by its plain
+    version alone: kills of jobs and of carve placeholders, requeues into
+    the LentQueue, requeues dropped by a full queue, jobs past their
+    budget, and same-tick outages (a node that fails and repairs at t)."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.faults import apply as fa
+
+    after = fa.fault_phase_local(clone_state(before), t, engine.cfg,
+                                 engine.member().to_delay)
+    f0, f1 = before.faults, after.faults
+    gone = before.run.active & ~after.run.active
+    owner = before.run.data[..., 6]
+    seen["kills"] += int((f1.kills - f0.kills).sum())
+    seen["placeholders"] += int((gone & (owner == -2)).sum())
+    seen["lent"] += int((after.lent.count - before.lent.count).sum())
+    seen["queue_full"] += int((after.drops.queue - before.drops.queue).sum())
+    seen["failed"] += int((after.drops.failed - before.drops.failed).sum())
+    seen["same_tick"] += int(((f1.n_fails > f0.n_fails)
+                              & (f1.down_since == t)).sum())
+
+
+def load_rows(state, rows, counts, dev, gen):
+    """Give the heavy ticks' running sets and LentQueues the rows the fault
+    phase treats apart: every fifth active running row becomes a carve
+    placeholder (owner -2) and every fifth another a peer's job (owner
+    the next cluster); every other cluster's LentQueue is filled to
+    capacity with the tick's arrival rows as the next cluster's jobs, so
+    that requeues into it overflow."""
+    C, S = state.run.active.shape
+    nxt = ((torch.arange(C, device=dev) + 1) % C).to(torch.int32)[:, None]
+    slot = torch.arange(S, device=dev)[None, :]
+    owner = state.run.data[..., 6]
+    owner.copy_(torch.where(state.run.active & (slot % 5 == 0), -2,
+                            torch.where(state.run.active & (slot % 5 == 2),
+                                        nxt, owner)))
+    q = state.lent
+    cap, K = q.data.shape[1], rows.shape[1]
+    full = torch.rand(C, generator=gen, device=dev) < 0.5
+    full &= counts.clamp(max=K) > 0
+    src = torch.arange(cap, device=dev)[None, :] % counts.clamp(
+        1, K)[:, None]
+    fill = torch.gather(rows, 1, src[..., None].expand(-1, -1, rows.shape[2]))
+    fill[..., 6] = nxt
+    live = torch.arange(cap, device=dev)[None, :] < q.count[:, None]
+    q.data.copy_(torch.where(full[:, None, None] & ~live[..., None], fill,
+                             q.data))
+    q.count.copy_(torch.where(full, cap, q.count))
+
+
+def faults_heavy(dev, engine, state, rows, counts, t0, n, cost, seen, mode):
+    """``n`` heavy ticks for a faults form on ``state`` (its fault leaves
+    set up for ``mode``: per-cluster keys, or trace tables; its rows
+    loaded by ``load_rows``; with expiry, nine in ten virtual nodes set
+    to expire), each with failures and repairs made due by
+    ``fault_events``; kernel == plain on every tick (and every emit
+    output), each launch timed on a copy with its bytes counted (``cost``
+    plus ``fault_reads``). Returns the Checker, the per-launch times and
+    the mean bytes."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.faults import schedule as fsched
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+
+    chk = Checker(engine)
+    emit = engine.cfg.borrowing
+    C = state.arr_ptr.shape[0]
+    vstart = engine.cfg.max_nodes
+    fs = state.faults
+    if mode == "generative":
+        fs.key.copy_(fsched.cluster_keys(engine.cfg.faults.seed, C).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    # one untimed launch first, on a copy: a form's first launch on the
+    # card can cost several times its work (FFD's faults form's did)
+    chk.ft.fused_prefix(engine, clone_state(state), rows[0], counts[0],
+                        t0 + engine.cfg.tick_ms, chk.params, chk.host,
+                        emit_returns=emit)
+    evs, read_b, written_b, t = [], 0, 0, t0
+    for k in range(n):
+        t += engine.cfg.tick_ms
+        load_rows(state, rows[k], counts[k], dev, gen)
+        fault_events(dev, state, t, gen, mode, 0.5)
+        if fused_tick.expires(engine.cfg):
+            slots = state.node_active.clone()
+            slots[:, :vstart] = False
+            hit = slots & (torch.rand(slots.shape, generator=gen,
+                                      device=dev) < 0.9)
+            state.node_expire.copy_(torch.where(hit, t, state.node_expire))
+            seen["expired"] += int(hit.sum())
+        fault_firings(engine, state, t, seen)
+        before = clone_state(state)
+        timed = clone_state(state)
+        evs.append(timed_launch(chk.ft, engine, timed, rows[k], counts[k], t,
+                                chk.params, chk.host, emit=emit))
+        r, w = cost(before, timed, rows[k], counts[k], t)
+        read_b = read_b + r + fault_reads(before, timed, t)
+        written_b = written_b + w
+        out = chk.compare(state, rows[k], counts[k], t, emit=emit)
+        state = out[0] if emit else out
+        if max_abs_diff(timed, state):
+            raise AssertionError("a timed launch differs from the compared "
+                                 "one")
+        state.t.fill_(t)
+    torch.cuda.synchronize()
+    return chk, [a.elapsed_time(b) for a, b in evs], int(read_b) / n, \
+        int(written_b) / n
+
+
+def churn_pass(chk, engine, shadow, s0, chunks, picks):
+    """Drive the churn run tick by tick through the faults form, a CUDA
+    event pair around every launch and the tick's bytes counted; before
+    each, time the same kernel without the faults step (``shadow``, an
+    engine of the faults-off config) on a copy of the state; at the
+    global ticks in ``picks`` compare kernel and plain. Returns the two
+    kernels' per-launch times, which ticks were quiet (no node failed or
+    repaired), the mean bytes, the nodes failed and repaired, and the
+    final state."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+
+    params, host = chk.params, chk.host
+    s_host = fused_tick.host_params(shadow, shadow._default_params)
+    dev = s0.device
+    state = clone_state(s0)
+    evs, sevs, read_b, written_b, t, k_glob = [], [], 0, 0, 0, 0
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    fired = {"failed": zero, "repaired": zero}
+    quiet = []
+    for ch in chunks:
+        rows_all = torch.from_numpy(ch.rows).to(dev)
+        counts_all = torch.from_numpy(ch.counts).to(dev)
+        for k in range(ch.rows.shape[0]):
+            t += engine.cfg.tick_ms
+            rows, counts = rows_all[k], counts_all[k]
+            if k_glob in picks:
+                chk.compare(state, rows, counts, t)
+            sevs.append(timed_launch(fused_tick, shadow, clone_state(state),
+                                     rows, counts, t,
+                                     shadow._default_params, s_host))
+            before = clone_state(state)
+            evs.append(timed_launch(fused_tick, engine, state, rows, counts,
+                                    t, params, host))
+            r, w, _ = tick_cost_faults(before, state, rows, counts, t,
+                                       engine.cfg.record_trace)
+            read_b, written_b = read_b + r, written_b + w
+            failed = (before.faults.health & ~state.faults.health).sum()
+            repaired = (state.faults.n_fails - before.faults.n_fails).sum()
+            fired["failed"] = fired["failed"] + failed
+            fired["repaired"] = fired["repaired"] + repaired
+            quiet.append((failed + repaired) == 0)
+            state.t.fill_(t)
+            k_glob += 1
+    torch.cuda.synchronize()
+    return dict(kernel_ms=[a.elapsed_time(b) for a, b in evs],
+                shadow_ms=[a.elapsed_time(b) for a, b in sevs],
+                quiet=torch.stack(quiet).cpu().numpy(),
+                read=int(read_b) / k_glob, written=int(written_b) / k_glob,
+                fired={k: int(v) for k, v in fired.items()}, state=state,
+                ticks=k_glob)
+
+
+def vnode_world(P, E, dev, borrowing):
+    """tests/test_faults.py:299 (a failed node hosting a traded virtual
+    node) tiled to ``FAULT_VNODE_C`` clusters, with the greedy market and
+    expiry on: each cluster one 2-core physical node and two virtual
+    slots, the first attached at start as the reference's AddVirtualNode
+    does (8 cores, 4,000 MB; its contract ends at 60 s, at 15 s on the
+    odd clusters), one 4-core job that fits only there, and a trace
+    schedule that fails that slot from 5 s to 9 s. Returns the config,
+    the initial state and the stream's chunk."""
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        Arrivals, init_state,
+    )
+
+    C, T = FAULT_VNODE_C, FAULT_VNODE_TICKS
+    fc = churn_faults(P, mode="trace", max_retries=3, max_events=4)
+    cfg = P.SimConfig(policy=P.PolicyKind.FIFO, parity=True, n_res=3,
+                      queue_capacity=64, max_running=64, max_arrivals=40,
+                      max_ingest_per_tick=16, max_nodes=1,
+                      max_virtual_nodes=2, borrowing=borrowing, faults=fc,
+                      trader=trader_cfg(P, {"expire_virtual_nodes": True}))
+    vslot = cfg.max_nodes
+    specs = [P.uniform_cluster(c + 1, 1, cores=2, memory=500)
+             for c in range(C)]
+    s0 = init_state(cfg, specs, fault_events=[(c, vslot, 5_000, 9_000)
+                                              for c in range(C)],
+                    device=dev)
+    s0.node_cap[:, vslot] = torch.tensor([8, 4_000, 0], dtype=torch.int32,
+                                         device=dev)
+    s0.node_free[:, vslot] = s0.node_cap[:, vslot]
+    s0.node_active[:, vslot] = True
+    s0.node_expire[:, vslot] = torch.where(
+        torch.arange(C, device=dev) % 2 == 0, 60_000, 15_000).to(
+            torch.int32)
+    one = np.ones((C, 1), np.int32)
+    arr = Arrivals(t=500 * one, id=np.arange(C, dtype=np.int32)[:, None],
+                   cores=4 * one, mem=2_000 * one, gpu=0 * one,
+                   dur=50_000 * one, n=one[:, 0])
+    return cfg, specs, s0, E.pack_arrivals_chunks(arr, [T], cfg.tick_ms)
+
+
+def phase_faults_kernel_vs_plain(P, E, card, dev, market, state_a, state_b):
+    """Phase 3k: every faults form against its plain version.
+    (a) heavy ticks on states with full running sets — the Level0 and
+    FIFO expire forms on market run (a)'s final state (its carve
+    placeholders, its virtual nodes), the FIFO forms on borrowing run
+    (b)'s (its foreign rows, its full LentQueues) — in generative mode
+    (16 retries) and trace mode (0 retries, same-tick outages);
+    (b) runs with churn from the start, their launches counted through
+    ``Engine.run_chunks``: the first 100 ticks of DELAY, FFD and gavel at
+    the quick market shape, without and with the sinkhorn trader and
+    expiry, and of FIFO with borrowing at 64 clusters; config
+    2 with the greedy trader and expiry, with and without borrowing, its
+    virtual nodes failing on a trace schedule."""
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        clone_state, init_state,
+    )
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.policies import kernels as K
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+    from multi_cluster_simulator_tpu_torch.utils.trace import (
+        check_conservation, total_drops,
+    )
+
+    out = {"heavy": {}, "launches": {}}
+    seen = dict(kills=0, placeholders=0, lent=0, queue_full=0, failed=0,
+                same_tick=0, expired=0)
+    ch = market["chunks"][0]
+    rows = torch.from_numpy(ch.rows[:FAULT_HEAVY_TICKS]).to(dev)
+    counts = torch.from_numpy(ch.counts[:FAULT_HEAVY_TICKS]).to(dev)
+    t_a = market["n_ticks"] * 1_000
+    b_state, b_t = state_b
+    b_ch = borrow_stream(P, E, BORROW_C)[0][2]
+    b_rows = torch.from_numpy(b_ch.rows[:FAULT_HEAVY_TICKS]).to(dev)
+    b_counts = torch.from_numpy(b_ch.counts[:FAULT_HEAVY_TICKS]).to(dev)
+    variants = [(pol, "market", {}) for pol in
+                ("delay", "ffd", "gavel", "tesserae", "rl")]
+    variants += [(pol, "market", {"trader": EXPIRE}) for pol in
+                 ("delay", "ffd", "gavel", "fifo")]
+    variants += [("fifo", "market", {"trader": EXPIRE, "borrowing": True}),
+                 ("fifo", "borrow", {"borrowing": False}),
+                 ("fifo", "borrow", {})]
+    for pol, base, extra in variants:
+        for mode in ("generative", "trace"):
+            fc = churn_faults(P, mode=mode, max_retries=(
+                16 if mode == "generative" else 0))
+            if base == "market":
+                vcfg = market_cfg(P, faults=fc, **extra)
+                s, r_, c_, t0 = state_a, rows, counts, t_a
+            else:
+                vcfg = borrow_cfg(P, faults=fc, **extra)
+                s, r_, c_, t0 = b_state, b_rows, b_counts, b_t
+            veng = E.Engine(vcfg, device=dev, policies=PolicySet((pol,)))
+            vQC = K._sweep_len(vcfg)
+            kind = pol if pol in ("ffd", "delay", "fifo") else "scored"
+
+            def cost(b, a, r, c, t, kind=kind, pol=pol, vQC=vQC, vcfg=vcfg,
+                     veng=veng):
+                if kind == "ffd":
+                    rd, wr, _ = tick_cost_ffd(b, a, r, c, t, False, vQC)
+                elif kind == "delay":
+                    rd, wr, _ = tick_cost_delay(b, a, r, c, t, False, vQC)
+                elif kind == "scored":
+                    rd, wr, _ = tick_cost_scored(b, a, r, c, t, False, vQC,
+                                                 pol == "tesserae")
+                elif vcfg.borrowing:
+                    rd, wr = tick_cost_borrow(b, a, r, c, t, False,
+                                              veng.n_msgs())
+                else:
+                    rd, wr = tick_bytes(b, a, r, c, t, False)
+                if fused_tick.expires(vcfg):
+                    rd = rd + expire_reads(b)
+                return rd, wr
+
+            k0 = dict(seen)
+            vchk, ms, rd, wr = faults_heavy(
+                dev, veng, clone_state(s), r_, c_, t0, FAULT_HEAVY_TICKS,
+                cost, seen, mode)
+            kname = vchk.host["emit_kernel" if vcfg.borrowing
+                              else "kernel"].name
+            out["heavy"].setdefault(kname, []).append(dict(
+                ms=ms, read=rd, written=wr, worst=vchk.worst,
+                plain_ms=vchk.plain_ms, mode=mode, policy=pol))
+            print(f"phase 3k: {kname} ({pol}, {mode}) == plain bitwise on "
+                  f"{vchk.n} heavy ticks at C={s.arr_ptr.shape[0]}: "
+                  f"{ {k: seen[k] - k0[k] for k in seen} }, "
+                  f"{np.mean(ms) * 1e3:.2f} us/launch [{card}]")
+    print(f"phase 3k: the heavy ticks fired {seen} [{card}]")
+    need = ("kills", "placeholders", "lent", "queue_full", "failed",
+            "same_tick", "expired")
+    if not all(seen[k] for k in need):
+        raise AssertionError(f"the heavy ticks missed a branch: {seen}")
+
+    # (b) whole runs with churn, their launches counted
+    qc_, qj = MARKET_QUICK
+    ch_q = first_ticks(market_stream(E, qc_, qj, quick=True)[0],
+                       FAULT_RUN_TICKS)
+    quick_fc = churn_faults(P, mttf_ms=60_000, mttr_ms=8_000)
+    runs = [(f"quick {pol}{' + market, expiry' if tr else ''}",
+             market_cfg(P, quick=True, jobs=qj, faults=quick_fc,
+                        trader=EXPIRE if tr else None),
+             pol, market_specs(P, qc_), ch_q, None)
+            for tr in (False, True) for pol in ("delay", "ffd", "gavel")]
+    tiled, _ = borrow_stream(P, E, BORROW_TILED_C, FAULT_RUN_TICKS)
+    runs.append((f"FIFO borrowing ({BORROW_TILED_C} clusters)",
+                 borrow_cfg(P, faults=quick_fc), "fifo",
+                 borrow_specs(P, BORROW_TILED_C), tiled, None))
+    for borrowing in (True, False):
+        rcfg, specs, s0, chunks = vnode_world(P, E, dev, borrowing)
+        runs.append((f"tests/test_faults.py:299 tiled, greedy market and "
+                     f"expiry{'' if borrowing else ', no borrowing'}", rcfg,
+                     "fifo", specs, chunks, s0))
+    for name, rcfg, pol, specs, chunks, s0 in runs:
+        reng = E.Engine(rcfg, device=dev, policies=PolicySet((pol,)))
+        counts_run = {}
+        if s0 is None:
+            s0 = init_state(rcfg, specs, device=dev)
+        plain_s, kernel_s, fin = whole_run_against_plain(
+            E, reng, s0, chunks, name, counts=counts_run)
+        n_ticks = sum(c.rows.shape[0] for c in chunks)
+        host = fused_tick.host_params(reng, reng._default_params)
+        kname = host["emit_kernel" if rcfg.borrowing else "kernel"].name
+        want = {k: (n_ticks if k == kname else 0) for k in counts_run}
+        if counts_run != want:
+            raise AssertionError(f"{name}: launches {counts_run}")
+        check_conservation(fin)
+        fs = fin.faults
+        kills = int(fs.kills.sum())
+        vdown = int(fs.n_fails[:, rcfg.max_nodes:].sum())
+        if not kills:
+            raise AssertionError(f"{name}: no job was killed")
+        if rcfg.max_nodes == 1:  # test 299's own asserts, every cluster
+            vs = rcfg.max_nodes
+            on = (fin.run.data[..., 1] == vs) & fin.run.active
+            even = torch.arange(len(specs), device=dev) % 2 == 0
+            if not (kills == len(specs) == vdown and bool(fs.health.all())
+                    and bool((fin.node_active[:, vs] == even).all())
+                    and bool(on.any(1).all())):
+                raise AssertionError(f"{name}: {kills} kills, {vdown} "
+                                     f"outages of the virtual slot")
+        out["launches"][kname] = n_ticks
+        print(f"phase 3k: whole run, {name} ({len(specs)} clusters x "
+              f"{n_ticks} ticks) with churn: {kname} + the phases after it "
+              f"== plain on every leaf (placed {int(fin.placed_total.sum())}"
+              f", kills {kills}, requeues {int(fs.requeues.sum())}, outages "
+              f"{int(fs.n_fails.sum())} ({vdown} on virtual slots), down_ms "
+              f"{int(fs.down_ms.sum())}, virtual nodes at the end "
+              f"{int(fin.node_active[:, rcfg.max_nodes:].sum())}, drops "
+              f"{total_drops(fin)}), conservation ok, launches {kname} x "
+              f"{n_ticks}; run wall plain {plain_s:.3f} s, kernel "
+              f"{kernel_s:.3f} s [{card}]")
+    out["worst"] = max(h["worst"] for v in out["heavy"].values() for h in v)
+    return out
+
+
+def phase_faults_run(P, E, card, dev, C, label):
+    """Phases 4k and 4m: bench_faults's churn config at ``C`` clusters
+    through the entry points, with the bench's gates (bench.py:2952-2984):
+    an enabled trace plane with an empty schedule leaves every non-fault
+    leaf as the faults-off run does; the churn run kills and requeues,
+    drops nothing and conserves; 490 launches of the faults form. Then a
+    pass tick by tick (kernel == plain at sampled ticks, every launch
+    timed beside the same kernel without the faults step), the timed
+    runs, and at 4,096 clusters a torch.profiler window."""
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.utils.trace import (
+        check_conservation, total_drops,
+    )
+    from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
+
+    cfg = faults_cfg(P)
+    off_cfg = faults_cfg(P, faults=P.FaultConfig())
+    empty_cfg = faults_cfg(P, faults=churn_faults(P, mode="trace"))
+    specs = [P.uniform_cluster(c + 1, 5) for c in range(C)]
+    chunks, n_ticks = faults_stream(E, C)
+    n_jobs = C * FAULTS_JOBS
+    engine = E.Engine(cfg, device=dev)
+    s0 = init_state(cfg, specs, device=dev)
+    out, first_s, counts = counted_run(engine, s0, chunks,
+                                       "fused_prefix_fifo_faults")
+    # gate 1: the empty schedule is a no-op on every shared leaf
+    off, _, _ = counted_run(E.Engine(off_cfg, device=dev),
+                            init_state(off_cfg, specs, device=dev), chunks,
+                            "fused_prefix_fifo")
+    empty, _, _ = counted_run(E.Engine(empty_cfg, device=dev),
+                              init_state(empty_cfg, specs, fault_events=[],
+                                         device=dev), chunks,
+                              "fused_prefix_fifo_faults")
+    for (k, x), (_, y) in zip(leaves_with_keys(off), leaves_with_keys(empty)):
+        if not k.startswith(".faults") and not torch.equal(x, y):
+            raise AssertionError(f"{label}: the empty trace schedule changed "
+                                 f"{k}")
+    # gates 2-3: the plane engages, nothing drops, conservation
+    fs = out.faults
+    kills, requeues = int(fs.kills.sum()), int(fs.requeues.sum())
+    down_ms = int(fs.down_ms.sum())
+    drops = total_drops(out)
+    if not (kills > 0 and requeues > 0):
+        raise AssertionError(f"{label}: {kills} kills, {requeues} requeues")
+    if any(drops.values()):
+        raise AssertionError(f"{label}: drops moved under churn: {drops}")
+    check_conservation(out)
+    if int(out.t) != n_ticks * cfg.tick_ms:
+        raise AssertionError(f"{label}: clock {int(out.t)}")
+    placed = int(out.placed_total.sum())
+    arrived = int(out.arr_ptr.sum())
+    # the sampled pass: kernel == plain, each launch timed beside the same
+    # kernel without the faults step
+    chk = Checker(engine)
+    picks, peak = pick_ticks(chunks, FAULTS_SAMPLES)
+    sp = churn_pass(chk, engine, E.Engine(off_cfg, device=dev), s0, chunks,
+                    picks)
+    if max_abs_diff(sp["state"], out):
+        raise AssertionError(f"{label}: the sampled pass differs from the "
+                             f"counted run")
+    walls, h2d_s, _ = timed_runs(engine, s0, chunks, WARMUPS, FAULTS_TIMED)
+    wmin, wmed = min(walls), float(np.median(walls))
+    width = ("bench_faults's own" if C == FAULTS_C else
+             "the headline's width: the port's, not the bench's")
+    print(f"{label}: bench_faults churn, {C} clusters x {FAULTS_JOBS} jobs "
+          f"({width}), {n_ticks} ticks, mttf {cfg.faults.mttf_ms} ms, mttr "
+          f"{cfg.faults.mttr_ms} ms, max_retries {cfg.faults.max_retries}: "
+          f"arrived {arrived} of {n_jobs}, placed {placed} (re-placements "
+          f"of requeued jobs included, as the bench counts), kills {kills}, "
+          f"requeues {requeues}, down_ms {down_ms}, drops {drops}, launches "
+          f"{counts}, conservation ok, the empty trace schedule a no-op on "
+          f"every shared leaf [{card}]")
+    print(f"{label}: kernel == plain bitwise on {chk.n} ticks sampled as the "
+          f"kernel reached them (ticks {sorted(picks)}, the peak {peak}); "
+          f"nodes failed {sp['fired']['failed']}, repaired "
+          f"{sp['fired']['repaired']} over the pass [{card}]")
+    print(f"{label}: fault_plane_churn_jobs_per_sec {placed / wmin:.1f} "
+          f"(min of {len(walls)}), {placed / wmed:.1f} (median); wall min "
+          f"{wmin:.4f} s, median {wmed:.4f} s, first run {first_s:.4f} s; "
+          f"walls {[round(w, 4) for w in walls]}; us/tick "
+          f"{1e6 * wmin / n_ticks:.1f} [{card}]")
+    kms = float(np.mean(sp["kernel_ms"]))
+    sms = float(np.mean(sp["shadow_ms"]))
+    b_ms, b_by = bound(sp["read"], sp["written"])
+    print(f"{label}: kernel fused_prefix_fifo_faults {kms * 1e3:.2f} "
+          f"us/launch mean over {len(sp['kernel_ms'])} launches (CUDA "
+          f"events), the same kernel without the faults step "
+          f"{sms * 1e3:.2f} us on the same states; plain "
+          f"{np.mean(chk.plain_ms):.3f} ms; bound {b_ms * 1e3:.4f} us by "
+          f"{b_by} ({sp['read'] + sp['written']:.1f} B per launch, mean of "
+          f"{sp['read']:.1f} read and {sp['written']:.1f} written) [{card}]")
+    q = sp["quiet"]
+    for name, sel in (("quiet", q), ("busy", ~q)):
+        if sel.any():
+            print(f"{label}: on the {int(sel.sum())} {name} ticks (a node "
+                  f"failed or repaired on {'none' if name == 'quiet' else 'each'}"
+                  f"): the faults form "
+                  f"{np.mean(np.asarray(sp['kernel_ms'])[sel]) * 1e3:.2f} "
+                  f"us/launch, without the step "
+                  f"{np.mean(np.asarray(sp['shadow_ms'])[sel]) * 1e3:.2f} us "
+                  f"[{card}]")
+    run = dict(launches=counts["fused_prefix_fifo_faults"], placed=placed,
+               wall_min_s=wmin, wall_median_s=wmed, n_ticks=n_ticks,
+               h2d_s=h2d_s, kills=kills, requeues=requeues, down_ms=down_ms,
+               sampled=sp, plain_ms=chk.plain_ms, worst=chk.worst)
+    breakdown(f"churn ({C})", run, sp["kernel_ms"], card)
+    if C == FAULTS_WIDE_C:
+        prof = device_profile(E, engine, s0, chunks, FAULTS_PROFILE_TICKS)
+        busy = prof["kernels"] * n_ticks / 1e3
+        print(f"{label}: the card's own time per tick (torch.profiler over "
+              f"{FAULTS_PROFILE_TICKS} ticks from tick {CHUNK}): prefix "
+              f"{prof['prefix'] * 1e3:.2f} us, all kernels "
+              f"{prof['kernels'] * 1e3:.2f} us; card busy "
+              f"{100 * busy / wmin:.1f}% of the min wall, idle "
+              f"{100 - 100 * busy / wmin:.1f}%; kernels by name: "
+              f"{prof['top']} [{card}]")
+        run["profile"] = prof
+    return run
+
+
 def bound(read, written, ops=0.0):
     """The least time (ms) for a launch's bytes and operations, and which
     of the two bounds it."""
@@ -2329,6 +2928,17 @@ def main(device: str = "cuda") -> int:
                              bb["jobs"], bb["sampled"])
     lap("4j")
     print(f"phases 3g-h, 4i-j: {time.perf_counter() - w2:.1f} s")
+
+    w3 = time.perf_counter()
+    faults = phase_faults_kernel_vs_plain(
+        P, E, card, dev, market, delay["a"]["sampled"]["state"],
+        (bb["sampled"]["state"], bb["sampled"]["t"]))
+    lap("3k")
+    churn = phase_faults_run(P, E, card, dev, FAULTS_C, "phase 4k")
+    lap("4k")
+    churn_wide = phase_faults_run(P, E, card, dev, FAULTS_WIDE_C, "phase 4m")
+    lap("4m")
+    print(f"phases 3k, 4k, 4m: {time.perf_counter() - w3:.1f} s")
 
     records = []
     kms = float(np.mean(check["kernel_ms"]))
@@ -2449,6 +3059,34 @@ def main(device: str = "cuda") -> int:
         records.append(dict(kernel=fused_tick.KERNELS[name],
                             launches=expire["launches"][name],
                             worst=expire["worst"], ms=float(np.mean(h["ms"])),
+                            plain=h["plain_ms"],
+                            bound=bound(h["read"], h["written"])))
+
+    # the faults forms: 4m's pass for the main path's FIFO form, 3k's heavy
+    # ticks for the others; launches from the counted runs of their paths
+    sp = churn_wide["sampled"]
+    b_ms, b_by = bound(sp["read"], sp["written"])
+    records.append(dict(kernel=fused_tick.KERNELS["fused_prefix_fifo_faults"],
+                        launches=churn_wide["launches"],
+                        worst=max(churn_wide["worst"], churn["worst"],
+                                  faults["worst"]),
+                        ms=float(np.mean(sp["kernel_ms"])),
+                        plain=churn_wide["plain_ms"], bound=(b_ms, b_by)))
+    for name, runs_h in faults["heavy"].items():
+        for h in runs_h:
+            b_ms, b_by = bound(h["read"], h["written"])
+            print(f"kernel {name}, heavy ticks ({h['policy']}, {h['mode']}): "
+                  f"{np.mean(h['ms']) * 1e3:.2f} us/launch over "
+                  f"{len(h['ms'])} launches, plain "
+                  f"{np.mean(h['plain_ms']):.3f} ms, bound "
+                  f"{b_ms * 1e3:.4f} us by {b_by} "
+                  f"({h['read'] + h['written']:.1f} B per launch) [{card}]")
+        if name == "fused_prefix_fifo_faults":
+            continue
+        h = runs_h[0]
+        records.append(dict(kernel=fused_tick.KERNELS[name],
+                            launches=faults["launches"][name],
+                            worst=faults["worst"], ms=float(np.mean(h["ms"])),
                             plain=h["plain_ms"],
                             bound=bound(h["read"], h["written"])))
 

@@ -6,11 +6,12 @@ JAX package is the reference: the port never imports it (nor jax), and its
 tests hold every ported piece bitwise against it on the CPU.
 
 So far the port carries every kind of the policy zoo over the wide state
-layout, cross-cluster borrowing and the trader market (greedy, sinkhorn
-and cvx matching, with or without virtual-node expiry), ticks driven in
-ragged-K chunks. On an NVIDIA H100 each tick's per-cluster prefix
-(``release -> vnode expiry -> ingest -> schedule``) runs as a hand-written
-CUDA kernel (``kernels/csrc/``); the cross-cluster phases and the market
+layout, cross-cluster borrowing, the trader market (greedy, sinkhorn
+and cvx matching, with or without virtual-node expiry) and the fault
+plane (generative or trace node churn), ticks driven in ragged-K chunks.
+On an NVIDIA H100 each tick's per-cluster prefix (``faults -> release ->
+vnode expiry -> ingest -> schedule``) runs as a hand-written CUDA kernel
+(``kernels/csrc/``); the cross-cluster phases and the market
 run as PyTorch ops. Entry points run on the card unless the caller passes
 ``device="cpu"``, which runs the plain PyTorch version of the same
 function. ROADMAP.md lists what is still to port; those configurations

@@ -3,8 +3,9 @@
 scored-zoo slices, cross-cluster borrowing and the trader market).
 
 One tick is the reference's tick on the paths the port carries: the
-per-cluster prefix ``release (with the return pack) -> vnode expiry ->
-ingest -> schedule``, then, with ``cfg.borrowing``, the cross-cluster
+per-cluster prefix ``faults -> release (with the return pack) -> vnode
+expiry -> ingest -> schedule`` (the fault phase where ``cfg.faults``
+engages it), then, with ``cfg.borrowing``, the cross-cluster
 phases — return delivery and borrow matching — then, with the trader, the
 snapshot on the 5 s stream cadence and the market round on the monitor
 cadence (market/trader.py), and the clock advance. The schedule
@@ -43,6 +44,7 @@ from multi_cluster_simulator_tpu_torch.core import state as st
 from multi_cluster_simulator_tpu_torch.core.state import (
     Arrivals, SimState, TickIO, empty_io, resolve_device,
 )
+from multi_cluster_simulator_tpu_torch.faults import apply as faults_apply
 from multi_cluster_simulator_tpu_torch.kernels import fused_tick
 from multi_cluster_simulator_tpu_torch.market import trader as market
 from multi_cluster_simulator_tpu_torch.ops import fields as F
@@ -362,14 +364,10 @@ def _check_slice(cfg: SimConfig) -> None:
     if cfg.trader.enabled and cfg.n_res != 3:
         raise ValueError("the trader market carves 3-dim resources; "
                          "set n_res=3 when trader.enabled")
-    gaps = [
-        (cfg.faults.enabled, "the fault plane", "A8"),
-        (cfg.record_metrics, "record_metrics (the metrics plane)", "A10"),
-    ]
-    for hit, what, item in gaps:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP {item}")
+    if cfg.record_metrics:
+        raise NotImplementedError(
+            "record_metrics (the metrics plane) is not ported yet: "
+            "ROADMAP A10")
 
 
 class Engine:
@@ -423,7 +421,9 @@ class Engine:
                      counts: torch.Tensor, t: int, params: PolicyParams,
                      member=None, emit_returns: bool = False):
         """Phases 1-5 of the tick on this slice's paths, as plain PyTorch
-        ops: completions (and, with ``emit_returns``, the pack of the
+        ops: the fault phase where ``cfg.faults`` engages it (its requeues
+        into the member's ingest target), completions (and, with
+        ``emit_returns``, the pack of the
         finished foreign jobs' return messages, whose overflow counts into
         ``drops.msgs``), vnode expiry where the config engages it, arrival
         ingest into the member's queue, the member's pass. ``member`` is
@@ -433,6 +433,9 @@ class Engine:
         ``emit_returns`` is off, as the reference's. The CUDA kernels are
         held against exactly this function."""
         member = self.member(params) if member is None else member
+        if self.cfg.faults.enabled:
+            state = faults_apply.fault_phase_local(state, t, self.cfg,
+                                                   member.to_delay)
         run_before = state.run
         state, done = _release_local(state, t)
         ret_rows = ret_valid = None

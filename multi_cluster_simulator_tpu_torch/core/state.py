@@ -211,16 +211,15 @@ def resolve_device(device=None) -> torch.device:
 def init_state(cfg: SimConfig, specs: Sequence[ClusterSpec], plan=None,
                fault_events=None, device=None) -> SimState:
     """Build the initial batched state from cluster specs, on ``device``
-    (the card by default; see ``resolve_device``). Only the wide layout is
-    ported: a compact ``plan`` is ROADMAP A11, trace-mode
-    ``fault_events`` ROADMAP A8."""
+    (the card by default; see ``resolve_device``). ``fault_events`` is the
+    trace-mode fault schedule (``faults.schedule.pack_fault_trace``);
+    generative churn draws first failures for the initially active slots
+    only. Only the wide layout is ported: a compact ``plan`` is ROADMAP
+    A11."""
     if plan is not None:
         raise NotImplementedError(
             "the compact state layout (plan=...) is not ported yet: "
             "ROADMAP A11")
-    if fault_events is not None:
-        raise NotImplementedError(
-            "trace-mode fault schedules are not ported yet: ROADMAP A8")
     dev = resolve_device(device)
     C = len(specs)
     N = cfg.total_nodes
@@ -283,5 +282,8 @@ def init_state(cfg: SimConfig, specs: Sequence[ClusterSpec], plan=None,
             src=torch.full((C, E), -1, dtype=torch.int32, device=dev),
             n=zeros(),
         ),
-        faults=init_fault_state(cfg.faults, C, N, dev),
+        # generative churn is scoped to the machines that exist: phantom
+        # padding and vacant virtual slots cannot fail
+        faults=init_fault_state(cfg.faults, C, N, events=fault_events,
+                                eligible=active, device=dev),
     )

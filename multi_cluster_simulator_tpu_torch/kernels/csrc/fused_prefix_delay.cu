@@ -58,6 +58,11 @@
 //   their code, registers and stacks (nvcc -Xptxas -v: 64 registers
 //   each, PERF.md).
 //
+// The faults form (kFaults; the fault plane) opens the span with
+//   prefix_common.cuh's fault step, requeueing killed jobs into Level0 (and
+//   a peer's into the lent queue) and counting them in wait_jobs and
+//   jobs_in_queue; another instantiation, as the emit and expire forms are.
+//
 // Design: one thread per cluster, in place, as the FIFO and FFD kernels;
 //   the sweep, the compaction and the placement are prefix_common.cuh's.
 //
@@ -78,9 +83,10 @@ struct Args {
   int32_t max_wait;   // params.max_wait_ms
   Emit e;
   Expire x;
+  Faults f;
 };
 
-template <bool kEmit, bool kExpire>
+template <bool kEmit, bool kExpire, bool kFaults>
 __global__ void __launch_bounds__(32) fused_prefix_delay_kernel(Args a) {
   const Common& k = a.q.k;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -89,13 +95,16 @@ __global__ void __launch_bounds__(32) fused_prefix_delay_kernel(Args a) {
   int32_t* l0 = a.q.l0 + (size_t)c * k.Q * NF;
   int32_t* l1 = a.l1 + (size_t)c * k.Q * NF;
 
+  // 0. the faults form's fault phase, requeueing into Level0.
+  int drop_queue = 0;
+  if (kFaults) faults_level0(a.q, cl, a.f, &drop_queue);
+
   // 1. release (the emit form packs the returns and writes no borrow
   //    request), the expire form's vnode expiry, then the arrivals into
   //    Level0.
   cl.release<kEmit>(&a.e);
   if (kEmit) emit_no_borrow(a.e, c);
   if (kExpire) cl.expire(a.x);
-  int drop_queue = 0;
   int n0 = ingest_level0(a.q, cl, &drop_queue);
 
   // 2-3. the Level1 sweep in queue order, then its compaction.
@@ -147,6 +156,10 @@ __global__ void __launch_bounds__(32) fused_prefix_delay_kernel(Args a) {
 // its counters, Level1, the emit outputs, the expire form's node columns,
 // the flags and the promotion threshold, the emit flags (the terminal
 // form when `emit` is 0) and the expire flag.
+// The faults form's leaves, node capacities and lent queue follow the
+// expire form's columns, and its flag and settings (interval slots, trace
+// mode, mttf, mttr, retry budget) the expire flag; its pointers are null
+// and unread when `faults` is 0.
 extern "C" int fused_prefix_delay_launch(
     void* node_free, void* node_active, void* run, void* run_active,
     void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
@@ -154,9 +167,15 @@ extern "C" int fused_prefix_delay_launch(
     void* rows, void* counts, void* l0, void* l0_count, void* wait_total,
     void* wait_jobs, void* jobs_in_queue, void* l1, void* l1_count,
     void* ret_rows, void* ret_valid, void* drop_msgs, void* want, void* bjob,
-    void* node_cap, void* node_expire, int C, int N, int R, int Q, int S,
-    int K, int E, int QC, int record_trace, int t, int wave, int skip,
-    int max_wait, int M, int emit, int borrowing, int expire, void* stream) {
+    void* node_cap, void* node_expire, void* health, void* was_active, void* next_fail, void* down_until,
+    void* down_since, void* n_fails, void* kills, void* requeues,
+    void* down_ms, void* fail_t, void* repair_t, void* key,
+    void* drop_failed, void* fault_cap, void* fault_lent,
+    void* fault_lent_count, int C, int N,
+    int R, int Q, int S, int K, int E, int QC, int record_trace, int t,
+    int wave, int skip, int max_wait, int M, int emit, int borrowing,
+    int expire, int faults, int fault_events, int fault_trace, int mttf, int mttr,
+    int max_retries, void* stream) {
   if (Q > kMaxQueue) return static_cast<int>(cudaErrorInvalidValue);
   const Common k = make_common(node_free, node_active, run, run_active,
                                arr_ptr, drop_queue, drop_run_full,
@@ -168,13 +187,18 @@ extern "C" int fused_prefix_delay_launch(
          static_cast<int32_t*>(l1), static_cast<int32_t*>(l1_count), skip,
          max_wait,
          make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing),
-         make_expire(node_cap, node_expire)};
+         make_expire(node_cap, node_expire),
+         make_faults(health, was_active, next_fail, down_until, down_since,
+                     n_fails, kills, requeues, down_ms, fail_t, repair_t, key,
+                     drop_failed, fault_cap, fault_lent, fault_lent_count,
+                     fault_events, fault_trace, mttf, mttr, max_retries)};
   if (C > 0) {
     const int threads = threads_for(C);
     const int blocks = (C + threads - 1) / threads;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    dispatch_forms(emit, expire, [&](auto e, auto x) {
-      fused_prefix_delay_kernel<decltype(e)::value, decltype(x)::value>
+    dispatch_forms(emit, expire, faults, [&](auto e, auto x, auto f) {
+      fused_prefix_delay_kernel<decltype(e)::value, decltype(x)::value,
+                                decltype(f)::value>
           <<<blocks, threads, 0, s>>>(a);
     });
   }

@@ -46,6 +46,11 @@
 //   prefix_common.cuh's vnode expiry step between release and ingest, a
 //   separate instantiation of level0_prefix, as the emit form is.
 //
+// The faults form (kFaults; the fault plane) opens the span with
+//   prefix_common.cuh's fault step, requeueing killed jobs into Level0 (and
+//   a peer's into the lent queue) and counting them in wait_jobs and
+//   jobs_in_queue; another instantiation, as the emit and expire forms are.
+//
 // Bound on the H100: device-memory bytes, counting only what the tick's
 //   data needs moved: per cluster the arrival count and the counters it
 //   updates, the node vectors, the running set's active flags, the end_t
@@ -77,14 +82,16 @@ struct Args {
   int mem_first;  // params.ffd_mem_first > 0
   Emit e;
   Expire x;
+  Faults f;
 };
 
-template <bool kEmit, bool kExpire>
+template <bool kEmit, bool kExpire, bool kFaults>
 __global__ void __launch_bounds__(32) fused_prefix_ffd_kernel(Args a) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= a.q.k.C) return;
-  level0_prefix<kEmit, kExpire>(a.q, a.e, a.x, c, BfdOrder(a.mem_first),
-                                FirstFitPick{});
+  level0_prefix<kEmit, kExpire, kFaults>(a.q, a.e, a.x, a.f, c,
+                                         BfdOrder(a.mem_first),
+                                         FirstFitPick{});
 }
 
 }  // namespace
@@ -94,6 +101,10 @@ __global__ void __launch_bounds__(32) fused_prefix_ffd_kernel(Args a) {
 // arguments are prefix_common.cuh's Common, in its order; then Level0 and
 // the FFD counters, the emit outputs, the two flags, and the emit flags
 // (the terminal form when `emit` is 0).
+// The faults form's leaves, node capacities and lent queue follow the
+// expire form's columns, and its flag and settings (interval slots, trace
+// mode, mttf, mttr, retry budget) the expire flag; its pointers are null
+// and unread when `faults` is 0.
 extern "C" int fused_prefix_ffd_launch(
     void* node_free, void* node_active, void* run, void* run_active,
     void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
@@ -101,9 +112,15 @@ extern "C" int fused_prefix_ffd_launch(
     void* rows, void* counts, void* l0, void* l0_count, void* wait_total,
     void* wait_jobs, void* jobs_in_queue, void* ret_rows, void* ret_valid,
     void* drop_msgs, void* want, void* bjob, void* node_cap,
-    void* node_expire, int C, int N, int R, int Q, int S, int K, int E,
-    int QC, int record_trace, int t, int wave, int mem_first, int M,
-    int emit, int borrowing, int expire, void* stream) {
+    void* node_expire, void* health, void* was_active, void* next_fail, void* down_until,
+    void* down_since, void* n_fails, void* kills, void* requeues,
+    void* down_ms, void* fail_t, void* repair_t, void* key,
+    void* drop_failed, void* fault_cap, void* fault_lent,
+    void* fault_lent_count, int C, int N, int R, int Q,
+    int S, int K, int E, int QC, int record_trace, int t, int wave,
+    int mem_first, int M, int emit, int borrowing, int expire,
+    int faults, int fault_events, int fault_trace, int mttf, int mttr,
+    int max_retries, void* stream) {
   if (Q > kMaxQueue) return static_cast<int>(cudaErrorInvalidValue);
   const Common k = make_common(node_free, node_active, run, run_active,
                                arr_ptr, drop_queue, drop_run_full,
@@ -114,13 +131,18 @@ extern "C" int fused_prefix_ffd_launch(
                      wave),
          mem_first,
          make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing),
-         make_expire(node_cap, node_expire)};
+         make_expire(node_cap, node_expire),
+         make_faults(health, was_active, next_fail, down_until, down_since,
+                     n_fails, kills, requeues, down_ms, fail_t, repair_t, key,
+                     drop_failed, fault_cap, fault_lent, fault_lent_count,
+                     fault_events, fault_trace, mttf, mttr, max_retries)};
   if (C > 0) {
     const int threads = threads_for(C);
     const int blocks = (C + threads - 1) / threads;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    dispatch_forms(emit, expire, [&](auto e, auto x) {
-      fused_prefix_ffd_kernel<decltype(e)::value, decltype(x)::value>
+    dispatch_forms(emit, expire, faults, [&](auto e, auto x, auto f) {
+      fused_prefix_ffd_kernel<decltype(e)::value, decltype(x)::value,
+                              decltype(f)::value>
           <<<blocks, threads, 0, s>>>(a);
     });
   }

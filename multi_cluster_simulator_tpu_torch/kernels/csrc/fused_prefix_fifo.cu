@@ -60,6 +60,18 @@
 //   instantiation, so the forms without it keep their code, registers
 //   and stacks (nvcc -Xptxas -v: 64 registers each, PERF.md).
 //
+// The faults form (kFaults; the fault plane, cfg.faults.enabled) opens the
+//   span with the fault phase (faults/apply.py fault_phase_local,
+//   prefix_common.cuh Cluster::faults): per cluster one pass over the N
+//   node slots, reading each slot's health flag and its next_fail or
+//   down_until (about 5 B a node on a quiet tick: 0.1 MB a tick at
+//   bench_faults's shape tiled to 4,096 clusters); only where a node
+//   fails, one pass over the S running slots, killing those on a failed
+//   node and requeueing them into the ready queue (own jobs) or the lent
+//   queue (a peer's); draws only where a node fails or repairs. Another
+//   instantiation, so the forms without it keep their code, registers
+//   and stacks.
+//
 // Shared with the FFD kernel (prefix_common.cuh): release, the arrival
 // append, first-fit, placement and the trace, and the integer discipline
 // (int32 as in the reference, wrapping sums done in uint32).
@@ -85,6 +97,7 @@ struct Args {
   int32_t* lent_count;
   Emit e;
   Expire x;
+  Faults f;
 };
 
 // pop_front of a non-empty queue: shift the live rows left by one, INVALID
@@ -96,7 +109,7 @@ __device__ void pop_front(int32_t* q, int* count) {
   *count = n - 1;
 }
 
-template <bool kEmit, bool kExpire>
+template <bool kEmit, bool kExpire, bool kFaults>
 __global__ void __launch_bounds__(kThreads)
 fused_prefix_fifo_kernel(Args a) {
   const Common& k = a.k;
@@ -108,13 +121,21 @@ fused_prefix_fifo_kernel(Args a) {
   int32_t* wait = a.wait + (size_t)c * Q * NF;
   int32_t* lent = a.lent + (size_t)c * Q * NF;
 
+  // 0. the faults form's fault phase: kills on failed nodes, requeues into
+  //    the ready queue (own jobs) and the lent queue (foreign ones),
+  //    repairs.
+  int drop_queue = 0;
+  if (kFaults) {
+    int n_ingest = 0;
+    cl.faults(a.f, ready, a.ready_count + c, &drop_queue, &n_ingest);
+  }
+
   // 1. release every due running slot (the emit form packs the returns),
   //    then, in the expire form, expire the ended virtual nodes.
   cl.release<kEmit>(&a.e);
   if (kExpire) cl.expire(a.x);
 
   // 2. ingest: append the tick's arrivals to the ready queue.
-  int drop_queue = 0;
   int rcount = cl.ingest(ready, a.ready_count[c], &drop_queue);
 
   // 3. FIFO (Fifo(), scheduler.go:216-296).
@@ -196,6 +217,10 @@ fused_prefix_fifo_kernel(Args a) {
 // FIFO queues, the emit outputs, the expire form's node columns, the emit
 // flags (the terminal form when `emit` is 0, its pointers then null) and
 // the expire flag (its pointers null when 0).
+// The faults form's leaves, node capacities and lent queue follow the
+// expire form's columns, and its flag and settings (interval slots, trace
+// mode, mttf, mttr, retry budget) the expire flag; its pointers are null
+// and unread when `faults` is 0.
 extern "C" int fused_prefix_fifo_launch(
     void* node_free, void* node_active, void* run, void* run_active,
     void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
@@ -203,9 +228,14 @@ extern "C" int fused_prefix_fifo_launch(
     void* rows, void* counts, void* ready, void* ready_count, void* wait,
     void* wait_count, void* lent, void* lent_count, void* ret_rows,
     void* ret_valid, void* drop_msgs, void* want, void* bjob, void* node_cap,
-    void* node_expire, int C, int N, int R, int Q, int S, int K, int E,
-    int QC, int record_trace, int t, int M, int emit, int borrowing,
-    int expire, void* stream) {
+    void* node_expire, void* health, void* was_active, void* next_fail, void* down_until,
+    void* down_since, void* n_fails, void* kills, void* requeues,
+    void* down_ms, void* fail_t, void* repair_t, void* key,
+    void* drop_failed, void* fault_cap, void* fault_lent,
+    void* fault_lent_count, int C, int N, int R, int Q,
+    int S, int K, int E, int QC, int record_trace, int t, int M, int emit,
+    int borrowing, int expire, int faults, int fault_events, int fault_trace, int mttf, int mttr,
+    int max_retries, void* stream) {
   Args a{make_common(node_free, node_active, run, run_active, arr_ptr,
                      drop_queue, drop_run_full, placed_total, tr_t, tr_job,
                      tr_node, tr_src, tr_n, rows, counts, C, N, R, Q, S, K,
@@ -214,12 +244,17 @@ extern "C" int fused_prefix_fifo_launch(
          static_cast<int32_t*>(wait), static_cast<int32_t*>(wait_count),
          static_cast<int32_t*>(lent), static_cast<int32_t*>(lent_count),
          make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing),
-         make_expire(node_cap, node_expire)};
+         make_expire(node_cap, node_expire),
+         make_faults(health, was_active, next_fail, down_until, down_since,
+                     n_fails, kills, requeues, down_ms, fail_t, repair_t, key,
+                     drop_failed, fault_cap, fault_lent, fault_lent_count,
+                     fault_events, fault_trace, mttf, mttr, max_retries)};
   if (C > 0) {
     const int blocks = (C + kThreads - 1) / kThreads;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    dispatch_forms(emit, expire, [&](auto e, auto x) {
-      fused_prefix_fifo_kernel<decltype(e)::value, decltype(x)::value>
+    dispatch_forms(emit, expire, faults, [&](auto e, auto x, auto f) {
+      fused_prefix_fifo_kernel<decltype(e)::value, decltype(x)::value,
+                               decltype(f)::value>
           <<<blocks, kThreads, 0, s>>>(a);
     });
   }

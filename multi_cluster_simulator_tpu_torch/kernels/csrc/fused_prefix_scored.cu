@@ -41,6 +41,11 @@
 //   prefix_common.cuh's vnode expiry step between release and ingest, a
 //   separate instantiation of level0_prefix, as the emit form is.
 //
+// The faults form (kFaults; the fault plane) opens the span with
+//   prefix_common.cuh's fault step, requeueing killed jobs into Level0 (and
+//   a peer's into the lent queue) and counting them in wait_jobs and
+//   jobs_in_queue; another instantiation, as the emit and expire forms are.
+//
 // Bound on the H100: device-memory bytes, as FFD's (chip_smoke.py
 //   tick_cost): the counters, the node vectors and types, the running
 //   set's active flags and active end_t, the Level0 keys the order reads,
@@ -72,6 +77,7 @@ struct Args {
   float w[3];
   Emit e;
   Expire x;
+  Faults f;
 };
 
 // The first maximum of score(n) over the nodes, infeasible nodes at -inf;
@@ -129,17 +135,17 @@ struct TesseraePick {
 
 // __grid_constant__: the picks point into the parameters (the table and
 // the weights) without a copy of them in local memory.
-template <bool kEmit, bool kExpire>
+template <bool kEmit, bool kExpire, bool kFaults>
 __global__ void __launch_bounds__(32)
 fused_prefix_scored_kernel(const __grid_constant__ Args a) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= a.q.k.C) return;
   if (a.pick == kTesserae) {
-    level0_prefix<kEmit, kExpire>(a.q, a.e, a.x, c, BfdOrder(0),
-                                  TesseraePick{a.w});
+    level0_prefix<kEmit, kExpire, kFaults>(a.q, a.e, a.x, a.f, c,
+                                           BfdOrder(0), TesseraePick{a.w});
   } else {
-    level0_prefix<kEmit, kExpire>(
-        a.q, a.e, a.x, c, QueueOrder{},
+    level0_prefix<kEmit, kExpire, kFaults>(
+        a.q, a.e, a.x, a.f, c, QueueOrder{},
         TablePick{a.table, a.node_type + (size_t)c * a.q.k.N});
   }
 }
@@ -152,6 +158,10 @@ fused_prefix_scored_kernel(const __grid_constant__ Args a) {
 // its counters, the node types, the emit outputs, the pick, the emit flags
 // (the terminal form when `emit` is 0), and the member's 16 table scores
 // and 3 weights (host memory, copied into the kernel's parameters).
+// The faults form's leaves, node capacities and lent queue follow the
+// expire form's columns, and its flag and settings (interval slots, trace
+// mode, mttf, mttr, retry budget) the expire flag; its pointers are null
+// and unread when `faults` is 0.
 extern "C" int fused_prefix_scored_launch(
     void* node_free, void* node_active, void* run, void* run_active,
     void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
@@ -159,10 +169,15 @@ extern "C" int fused_prefix_scored_launch(
     void* rows, void* counts, void* l0, void* l0_count, void* wait_total,
     void* wait_jobs, void* jobs_in_queue, void* node_type, void* ret_rows,
     void* ret_valid, void* drop_msgs, void* want, void* bjob, void* node_cap,
-    void* node_expire, int C, int N, int R, int Q, int S, int K, int E,
-    int QC, int record_trace, int t, int pick, int M, int emit,
-    int borrowing, int expire, const float* table, const float* w,
-    void* stream) {
+    void* node_expire, void* health, void* was_active, void* next_fail, void* down_until,
+    void* down_since, void* n_fails, void* kills, void* requeues,
+    void* down_ms, void* fail_t, void* repair_t, void* key,
+    void* drop_failed, void* fault_cap, void* fault_lent,
+    void* fault_lent_count, int C, int N, int R, int Q,
+    int S, int K, int E, int QC, int record_trace, int t, int pick, int M,
+    int emit, int borrowing, int expire, int faults, int fault_events, int fault_trace, int mttf, int mttr,
+    int max_retries, const float* table,
+    const float* w, void* stream) {
   if (Q > kMaxQueue || R > 3) return static_cast<int>(cudaErrorInvalidValue);
   const Common k = make_common(node_free, node_active, run, run_active,
                                arr_ptr, drop_queue, drop_run_full,
@@ -173,15 +188,20 @@ extern "C" int fused_prefix_scored_launch(
                      0),
          static_cast<const int32_t*>(node_type), pick, {}, {},
          make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing),
-         make_expire(node_cap, node_expire)};
+         make_expire(node_cap, node_expire),
+         make_faults(health, was_active, next_fail, down_until, down_since,
+                     n_fails, kills, requeues, down_ms, fail_t, repair_t, key,
+                     drop_failed, fault_cap, fault_lent, fault_lent_count,
+                     fault_events, fault_trace, mttf, mttr, max_retries)};
   for (int i = 0; i < kClasses * kDeviceTypes; ++i) a.table[i] = table[i];
   for (int r = 0; r < 3; ++r) a.w[r] = w[r];
   if (C > 0) {
     const int threads = threads_for(C);
     const int blocks = (C + threads - 1) / threads;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    dispatch_forms(emit, expire, [&](auto e, auto x) {
-      fused_prefix_scored_kernel<decltype(e)::value, decltype(x)::value>
+    dispatch_forms(emit, expire, faults, [&](auto e, auto x, auto f) {
+      fused_prefix_scored_kernel<decltype(e)::value, decltype(x)::value,
+                                 decltype(f)::value>
           <<<blocks, threads, 0, s>>>(a);
     });
   }

@@ -12,7 +12,11 @@
 // borrow request the cross-cluster phases after the prefix consume. The
 // expire form of every span (kExpire) runs the vnode expiry step between
 // release and ingest, as the reference does when the trader's
-// expire_virtual_nodes is on.
+// expire_virtual_nodes is on. The faults form (kFaults) opens the span
+// with the fault phase (faults/apply.py fault_phase_local): node failures
+// kill and requeue the jobs on them, repairs restore the nodes, and the
+// generative mode draws the next outage with jax's threefry2x32 and XLA's
+// CPU f32 log written out, so that every draw is the reference's.
 //
 // Every function here works on ONE cluster, walked by one thread, in
 // place, in the reference's order. Integer discipline: all arithmetic is
@@ -25,6 +29,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+#include <math.h>
 
 #include <type_traits>
 
@@ -63,7 +69,7 @@ __host__ __device__ __forceinline__ int32_t wrap_sub(int32_t a, int32_t b) {
 // contiguity (kernels/fused_tick.py _common).
 struct Common {
   int32_t* node_free;    // [C, N, R]
-  uint8_t* node_active;  // [C, N], written only by the expiry step
+  uint8_t* node_active;  // [C, N], written by the expiry and fault steps
   int32_t* run;                // [C, S, RF]
   uint8_t* run_active;         // [C, S]
   int32_t* arr_ptr;            // [C]
@@ -140,24 +146,253 @@ inline Expire make_expire(void* node_cap, void* node_expire) {
                 static_cast<int32_t*>(node_expire)};
 }
 
-// Every span kernel is a template on <kEmit, kExpire>; its launch takes
-// the two as int flags. Calls `launch` once, with the form they name as
-// two std::bool_constant tags, so that each source spells its launch once:
-//   dispatch_forms(emit, expire, [&](auto e, auto x) {
-//     kernel<decltype(e)::value, decltype(x)::value><<<...>>>(a); });
+// The faults form's leaves and settings, after the expire arguments
+// (kernels/fused_tick.py _faults); null and unread without the fault plane.
+// The lent queue is here for every kernel: a killed foreign job goes back
+// to it.
+struct Faults {
+  uint8_t* health;        // [C, N]
+  uint8_t* was_active;    // [C, N]
+  int32_t* next_fail;     // [C, N]
+  int32_t* down_until;    // [C, N]
+  int32_t* down_since;    // [C, N]
+  int32_t* n_fails;       // [C, N]
+  int32_t* kills;         // [C]
+  int32_t* requeues;      // [C]
+  int32_t* down_ms;       // [C]
+  const int32_t* fail_t;    // [C, N, E] trace mode's interval starts
+  const int32_t* repair_t;  // [C, N, E] and ends
+  const uint32_t* key;      // [C, 2] generative mode's stream roots
+  int32_t* drop_failed;     // [C] drops.failed
+  const int32_t* node_cap;  // [C, N, R]
+  int32_t* lent;            // [C, Q, NF]
+  int32_t* lent_count;      // [C]
+  int E, trace, mttf, mttr, max_retries;
+};
+
+inline Faults make_faults(void* health, void* was_active, void* next_fail,
+                          void* down_until, void* down_since, void* n_fails,
+                          void* kills, void* requeues, void* down_ms,
+                          void* fail_t, void* repair_t, void* key,
+                          void* drop_failed, void* node_cap, void* lent,
+                          void* lent_count, int E, int trace, int mttf,
+                          int mttr, int max_retries) {
+  return Faults{static_cast<uint8_t*>(health),
+                static_cast<uint8_t*>(was_active),
+                static_cast<int32_t*>(next_fail),
+                static_cast<int32_t*>(down_until),
+                static_cast<int32_t*>(down_since),
+                static_cast<int32_t*>(n_fails),
+                static_cast<int32_t*>(kills),
+                static_cast<int32_t*>(requeues),
+                static_cast<int32_t*>(down_ms),
+                static_cast<const int32_t*>(fail_t),
+                static_cast<const int32_t*>(repair_t),
+                static_cast<const uint32_t*>(key),
+                static_cast<int32_t*>(drop_failed),
+                static_cast<const int32_t*>(node_cap),
+                static_cast<int32_t*>(lent),
+                static_cast<int32_t*>(lent_count),
+                E, trace, mttf, mttr, max_retries};
+}
+
+// The fault step marks the nodes that fail in a tick in a bit array; the
+// wrapper refuses the faults form above this many node slots
+// (kernels/fused_tick.py MAX_FAULT_NODES).
+constexpr int kMaxFaultNodes = 64;
+
+// Every span kernel is a template on <kEmit, kExpire, kFaults>; its launch
+// takes the three as int flags. Calls `launch` once, with the form they
+// name as three std::bool_constant tags, so that each source spells its
+// launch once:
+//   dispatch_forms(emit, expire, faults, [&](auto e, auto x, auto f) {
+//     kernel<decltype(e)::value, decltype(x)::value,
+//            decltype(f)::value><<<...>>>(a); });
 template <class Launch>
-inline void dispatch_forms(int emit, int expire, Launch&& launch) {
+inline void dispatch_forms(int emit, int expire, int faults,
+                           Launch&& launch) {
   using T = std::true_type;
   using F = std::false_type;
-  if (emit && expire) {
-    launch(T{}, T{});
-  } else if (emit) {
-    launch(T{}, F{});
-  } else if (expire) {
-    launch(F{}, T{});
+  auto with_faults = [&](auto e, auto x) {
+    if (faults) {
+      launch(e, x, T{});
+    } else {
+      launch(e, x, F{});
+    }
+  };
+  auto with_expire = [&](auto e) {
+    if (expire) {
+      with_faults(e, T{});
+    } else {
+      with_faults(e, F{});
+    }
+  };
+  if (emit) {
+    with_expire(T{});
   } else {
-    launch(F{}, F{});
+    with_expire(F{});
   }
+}
+
+// ---------------------------------------------------------------------------
+// The generative fault draws, bitwise the reference's compiled ones. Every
+// float step is an intrinsic that no build flag contracts or reorders.
+// ---------------------------------------------------------------------------
+
+// The float steps of the draws, each rounded once to f32 as written: the
+// card's intrinsics, which no build flag contracts; on a host build (a
+// logic check compiled without contraction), their plain meanings.
+__host__ __device__ __forceinline__ float fmul_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+__host__ __device__ __forceinline__ float fadd_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+__host__ __device__ __forceinline__ float fsub_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fsub_rn(a, b);
+#else
+  return a - b;
+#endif
+}
+__host__ __device__ __forceinline__ float fma_rn(float a, float b, float c) {
+#ifdef __CUDA_ARCH__
+  return __fmaf_rn(a, b, c);
+#else
+  return fmaf(a, b, c);
+#endif
+}
+__host__ __device__ __forceinline__ float i2f_rn(int v) {
+#ifdef __CUDA_ARCH__
+  return __int2float_rn(v);
+#else
+  return (float)v;
+#endif
+}
+
+__host__ __device__ __forceinline__ uint32_t rotl32(uint32_t v, int d) {
+  return (v << d) | (v >> (32 - d));
+}
+
+// jax's threefry2x32 block (20 rounds) of key (k0, k1) over the counter
+// words (x0, x1), in place.
+__host__ __device__ inline void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t& x0, uint32_t& x1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int r0 = (i & 1) ? 17 : 13, r1 = (i & 1) ? 29 : 15;
+    const int r2 = (i & 1) ? 16 : 26, r3 = (i & 1) ? 24 : 6;
+    x0 += x1; x1 = rotl32(x1, r0) ^ x0;
+    x0 += x1; x1 = rotl32(x1, r1) ^ x0;
+    x0 += x1; x1 = rotl32(x1, r2) ^ x0;
+    x0 += x1; x1 = rotl32(x1, r3) ^ x0;
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+}
+
+// jax.random.fold_in(key, data): the block over the counter (0, data).
+__host__ __device__ __forceinline__ void fold_in(uint32_t& k0, uint32_t& k1,
+                                                 uint32_t data) {
+  uint32_t x0 = 0u, x1 = data;
+  threefry2x32(k0, k1, x0, x1);
+  k0 = x0;
+  k1 = x1;
+}
+
+__host__ __device__ __forceinline__ float bits_f32(uint32_t b) {
+#ifdef __CUDA_ARCH__
+  return __uint_as_float(b);
+#else
+  float f;
+  memcpy(&f, &b, sizeof f);
+  return f;
+#endif
+}
+
+__host__ __device__ __forceinline__ uint32_t f32_bits(float f) {
+#ifdef __CUDA_ARCH__
+  return __float_as_uint(f);
+#else
+  uint32_t b;
+  memcpy(&b, &f, sizeof b);
+  return b;
+#endif
+}
+
+// jax.random.uniform(key, (), float32, 1e-7, 1.0) under jax.jit: the 32
+// bits are both words of the block over (0, 0) xor-ed; the top 23 make a
+// float in [1, 2), less one; then f * (1 - 1e-7) + 1e-7 as one fused
+// multiply-add (XLA fuses it) and the max with the minimum.
+__host__ __device__ inline float uniform01(uint32_t k0, uint32_t k1) {
+  uint32_t x0 = 0u, x1 = 0u;
+  threefry2x32(k0, k1, x0, x1);
+  const float f = fsub_rn(bits_f32(((x0 ^ x1) >> 9) | 0x3F800000u), 1.0f);
+  const float kMin = 0x1.ad7f2ap-24f;   // f32(1e-7)
+  const float kSpan = 0x1.fffffcp-1f;   // f32(1 - f32(1e-7))
+  const float u = fma_rn(f, kSpan, kMin);
+  return u > kMin ? u : kMin;
+}
+
+// XLA's CPU f32 log (its LLVM IR's polynomial, in the order and with the
+// fused multiply-adds of the compiled code; faults/schedule.py
+// xla_log_f32 is the plain version): x = 2^e * m, m in [sqrt(1/2),
+// sqrt(2)), a degree-9 polynomial in m - 1 in three cubic parts, ln 2 in
+// two. Subnormals read as zero, as there.
+__host__ __device__ inline float xla_logf(float x) {
+  const float kFltMin = 0x1p-126f;
+  if (x > -kFltMin && x < kFltMin) x = 0.0f;
+  const float xc = x > kFltMin ? x : kFltMin;
+  const uint32_t xi = f32_bits(xc);
+  float e = fadd_rn(i2f_rn((int)(xi >> 23) - 127), 1.0f);
+  const float m = bits_f32((xi & 0x807FFFFFu) | 0x3F000000u);
+  const bool small = m < 0x1.6a09e6p-1f;
+  const float xx = fadd_rn(fsub_rn(m, 1.0f), small ? m : 0.0f);
+  e = fsub_rn(e, small ? 1.0f : 0.0f);
+  const float z = fmul_rn(xx, xx);
+  const float x3 = fmul_rn(z, xx);
+  const float pa = fma_rn(fma_rn(xx, 0x1.204376p-4f, -0x1.d7a37p-4f),
+                             xx, 0x1.de4a34p-4f);
+  const float pb = fma_rn(fma_rn(xx, -0x1.fcba9ep-4f, 0x1.23d37ep-3f),
+                             xx, -0x1.555ca0p-3f);
+  const float pc = fma_rn(fma_rn(xx, 0x1.999d58p-3f, -0x1.fffff8p-3f),
+                             xx, 0x1.555554p-2f);
+  const float q = fma_rn(x3, fma_rn(x3, pa, pb), pc);
+  const float y = fma_rn(x3, q, fmul_rn(e, -0x1.bd0106p-13f));
+  float r = fma_rn(0x1.63p-1f, e,
+                      fadd_rn(fma_rn(-0.5f, z, xx), y));
+  if (!(x > 0.0f)) r = bits_f32(0xFFFFFFFFu);
+  if (x == 0.0f) r = bits_f32(0xFF800000u);
+  if (x == bits_f32(0x7F800000u)) r = x;
+  return r;
+}
+
+// One generative draw (faults/schedule.py _exp_draws): node n's duration
+// for draw ordinal `counter` of `kind` (0 time-to-failure, 1
+// time-to-repair) under the cluster's key, clip(ceil(-mean * log(u)), 1,
+// 2^30) ms.
+__host__ __device__ inline int32_t exp_draw(const uint32_t* key, int n,
+                                            int32_t counter, int kind,
+                                            int mean) {
+  uint32_t k0 = key[0], k1 = key[1];
+  fold_in(k0, k1, (uint32_t)n);
+  fold_in(k0, k1, 2u * (uint32_t)counter + (uint32_t)kind);
+  const float u = uniform01(k0, k1);
+  float dt = ceilf(fmul_rn(-i2f_rn(mean), xla_logf(u)));
+  dt = dt > 1.0f ? dt : 1.0f;
+  dt = dt < 1073741824.0f ? dt : 1073741824.0f;
+  return (int32_t)dt;
 }
 
 __host__ __device__ __forceinline__ int32_t queue_invalid(int f) {
@@ -268,6 +503,130 @@ struct Cluster {
         ++n_active;
       }
     }
+  }
+
+  // The fault phase (faults/apply.py fault_phase_local), before release.
+  // One pass over the N nodes: a healthy node whose next_fail <= t fails —
+  // its free resources zeroed, its activation parked in was_active, its
+  // outage opened (down_until from the trace table or a repair draw) —
+  // and then a down node whose down_until <= t repairs, a same-tick
+  // failure included: free = cap, the activation restored, down_ms closed,
+  // the next failure looked up or drawn with n_fails + 1. Only where a node
+  // failed, one pass over the S running slots, in slot order: a slot on a
+  // failed node is killed (its row INVALID, no resources returned); a job
+  // under its retry budget is requeued with enq_t = t, rec_wait = 0 and
+  // retries + 1 — an own job into the ingest target `tgt` (its count at
+  // *tgt_count; the requeues go into *n_ingest), a foreign one (owner >=
+  // 0) into the lent queue — past capacity into *drop_queue; a job at its
+  // budget counts into drops.failed; a carve placeholder (owner -2) is
+  // only killed.
+  __host__ __device__ void faults(const Faults& f, int32_t* tgt,
+                                  int32_t* tgt_count, int* drop_queue,
+                                  int* n_ingest) {
+    const int N = a.N, R = a.R, t = a.t;
+    const size_t cn = (size_t)c * N;
+    uint8_t* act = a.node_active + cn;
+    const int32_t* cap = f.node_cap + cn * R;
+    uint32_t failed[kMaxFaultNodes / 32] = {0u, 0u};
+    bool any = false;
+    int32_t down_ms = 0;
+    for (int n = 0; n < N; ++n) {
+      const size_t i = cn + n;
+      bool up = f.health[i] != 0;
+      if (up && f.next_fail[i] > t) continue;  // the quiet case
+      int32_t until = f.down_until[i];
+      if (up) {  // fails now
+        failed[n >> 5] |= 1u << (n & 31);
+        any = true;
+        for (int r = 0; r < R; ++r) free[n * R + r] = 0;
+        f.was_active[i] = act[n];
+        act[n] = 0;
+        const int32_t k = f.n_fails[i];
+        until = f.trace ? (k < f.E ? f.repair_t[i * f.E + imax(k, 0)] : NEVER)
+                        : wrap_add(t, exp_draw(f.key + 2 * c, n, k, 1,
+                                               f.mttr));
+        f.next_fail[i] = NEVER;
+        f.down_since[i] = t;
+        f.health[i] = 0;
+        up = false;
+      }
+      if (until <= t) {  // repairs now
+        act[n] = f.was_active[i];
+        for (int r = 0; r < R; ++r) free[n * R + r] = cap[n * R + r];
+        down_ms = wrap_add(down_ms, wrap_sub(t, f.down_since[i]));
+        const int32_t k = f.n_fails[i] + 1;
+        f.n_fails[i] = k;
+        f.next_fail[i] =
+            f.trace ? (k < f.E ? f.fail_t[i * f.E + imax(k, 0)] : NEVER)
+                    : wrap_add(t, exp_draw(f.key + 2 * c, n, k, 0, f.mttf));
+        until = NEVER;
+        f.health[i] = 1;
+      }
+      f.down_until[i] = until;
+    }
+    if (down_ms != 0) f.down_ms[c] = wrap_add(f.down_ms[c], down_ms);
+    if (!any) return;
+    int32_t* lent = f.lent + (size_t)c * a.Q * NF;
+    int lcount = f.lent_count[c], tcount = *tgt_count;
+    int kills = 0, requeues = 0, exhausted = 0;
+    for (int s = 0; s < a.S; ++s) {
+      // the active flags, 16 at a time where they lie 8-byte aligned: a
+      // run of inactive slots (the slots past the lowest free one, mostly)
+      // costs two loads instead of sixteen
+      if ((s & 15) == 0 && s + 16 <= a.S &&
+          (reinterpret_cast<uintptr_t>(ract + s) & 7) == 0) {
+        const uint64_t* w = reinterpret_cast<const uint64_t*>(ract + s);
+        if ((w[0] | w[1]) == 0u) {
+          s += 15;
+          continue;
+        }
+      }
+      if (!ract[s]) continue;
+      int32_t* row = run + s * RF;
+      const int32_t node = row[RNODE];
+      if (node < 0 || node >= N ||
+          !(failed[node >> 5] & (1u << (node & 31)))) {
+        continue;
+      }
+      const int32_t owner = row[ROWNER];
+      if (owner != -2) {  // a job, not a carve placeholder
+        ++kills;
+        if (row[RRETRIES] < f.max_retries) {
+          ++requeues;
+          int32_t* dst = nullptr;
+          if (owner >= 0) {
+            dst = lcount < a.Q ? lent + (lcount++) * NF : nullptr;
+          } else {
+            ++*n_ingest;
+            dst = tcount < a.Q ? tgt + (tcount++) * NF : nullptr;
+          }
+          if (dst == nullptr) {
+            ++*drop_queue;
+          } else {
+            dst[FID] = row[RID];
+            dst[FCORES] = row[RCORES];
+            dst[FMEM] = row[RMEM];
+            dst[FGPU] = row[RGPU];
+            dst[FDUR] = row[RDUR];
+            dst[FENQ] = t;
+            dst[FOWNER] = owner;
+            dst[FREC] = 0;
+            dst[FJCLASS] = (row[RGPU] > 0) * 2 + (row[RCORES] > 8);
+            dst[FRETRIES] = wrap_add(row[RRETRIES], 1);
+          }
+        } else {
+          ++exhausted;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < RF; ++k) row[k] = run_invalid(k);
+      ract[s] = 0;
+    }
+    f.lent_count[c] = lcount;
+    *tgt_count = tcount;
+    f.kills[c] += kills;
+    f.requeues[c] += requeues;
+    f.drop_failed[c] += exhausted;
   }
 
   // Vnode expiry (core/engine.py _expire_vnodes_local): every active node
@@ -554,22 +913,38 @@ __host__ __device__ inline void emit_no_borrow(const Emit& e, int c) {
   for (int f = 0; f < NF; ++f) e.bjob[(size_t)c * NF + f] = 0;
 }
 
+// The faults form's step for a kernel whose ingest target is Level0: the
+// fault phase with Level0 as the target, and the requeues into it counted
+// as re-arrivals in wait_jobs and jobs_in_queue, as the arrival ingest
+// counts arrivals.
+__host__ __device__ inline void faults_level0(const Level0Args& a,
+                                              Cluster& cl, const Faults& f,
+                                              int* drop_queue) {
+  const int c = cl.c;
+  int n_ingest = 0;
+  cl.faults(f, a.l0 + (size_t)c * a.k.Q * NF, a.l0_count + c, drop_queue,
+            &n_ingest);
+  a.wait_jobs[c] += n_ingest;
+  a.jobs_in_queue[c] += n_ingest;
+}
+
 // One cluster's whole tick: release, ingest into Level0, the sweep over
 // the first min(|L0|, QC) positions of `order`, the compaction, and the
 // counters; the emit form also packs the returns and writes no borrow
-// request, and the expire form expires the ended virtual nodes between
-// release and ingest.
-template <bool kEmit, bool kExpire, class Order, class Pick>
+// request, the expire form expires the ended virtual nodes between
+// release and ingest, and the faults form opens with the fault phase.
+template <bool kEmit, bool kExpire, bool kFaults, class Order, class Pick>
 __host__ __device__ void level0_prefix(const Level0Args& a, const Emit& e,
-                                       const Expire& x, int c, Order order,
-                                       const Pick& pick) {
+                                       const Expire& x, const Faults& f,
+                                       int c, Order order, const Pick& pick) {
   const Common& k = a.k;
   Cluster cl(k, c);
   int32_t* l0 = a.l0 + (size_t)c * k.Q * NF;
+  int drop_queue = 0;
+  if (kFaults) faults_level0(a, cl, f, &drop_queue);
   cl.release<kEmit>(&e);
   if (kEmit) emit_no_borrow(e, c);
   if (kExpire) cl.expire(x);
-  int drop_queue = 0;
   const int count = ingest_level0(a, cl, &drop_queue);
   SweepAcc acc(a.wait_total[c]);
   uint32_t mask[kMaskWords];

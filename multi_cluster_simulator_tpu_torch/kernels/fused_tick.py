@@ -19,7 +19,7 @@ schedule slot (``KERNELS``):
   gavel | tesserae | rl]``, the Level0 sweep with a scored node pick
   (``csrc/fused_prefix_scored.cu``).
 
-Each comes in four forms, instantiations of one template on two flags.
+Each comes in eight forms, instantiations of one template on three flags.
 The emit flag (``emit_returns``: borrowing, or a ``run_io`` tick) makes
 the release step also pack the finished foreign jobs' return messages and
 the pass write the borrow request (``want``, ``bjob_vec``) — the outputs
@@ -28,10 +28,16 @@ updates the state only. The expire flag (the trader's
 ``expire_virtual_nodes``) adds the vnode expiry step between release and
 ingest (``engaged_span``): the node columns ``node_active``, ``node_cap``,
 ``node_free`` and ``node_expire`` of the slots whose contract ended. The
-FIFO emit form, the borrowing path's kernel, is counted as its own entry,
+faults flag (the fault plane, ``cfg.faults.enabled``) opens the span with
+the fault phase (faults/apply.py ``fault_phase_local``): nodes fail and
+repair, the jobs on failed nodes are killed and requeued into the
+member's ingest target or the LentQueue, and the generative mode draws
+the next outage on the card, bitwise the reference's draws. The FIFO emit
+form, the borrowing path's kernel, is counted as its own entry,
 ``fused_prefix_fifo_emit``; the Level0 kernels' emit forms count under
 their kernel's name. Every expire form counts as an entry of its own
-(``..._expire``), the FIFO emit form's as ``fused_prefix_fifo_emit_expire``.
+(``..._expire``), the FIFO emit form's as ``fused_prefix_fifo_emit_expire``,
+and so does every faults form (``..._faults``, after the other suffixes).
 
 Each source's header states what bounds it on the H100 and what its
 design does about that; what they share is ``csrc/prefix_common.cuh``.
@@ -76,20 +82,23 @@ CSRC = "multi_cluster_simulator_tpu_torch/kernels/csrc/"
 # The Level0 and Level1 sweeps' static limit: their placed-slot mask is a
 # fixed-size bit array per thread (csrc/prefix_common.cuh kMaxQueue).
 MAX_QUEUE = 1024
+# The fault step's failed-node mask, likewise (kMaxFaultNodes).
+MAX_FAULT_NODES = 64
 
 
 @dataclasses.dataclass
 class Kernel:
     """One hand-written prefix kernel: its name, the policy kinds whose
     spans it carries, the library that holds it (``kernels/build.py``;
-    its name unless given), whether it is an emit form and whether an
-    expire form, and how many times the wrapper launched it."""
+    its name unless given), whether it is an emit, an expire and a faults
+    form, and how many times the wrapper launched it."""
 
     name: str
     kinds: tuple
     lib: str = ""
     emit: bool = False
     expire: bool = False
+    faults: bool = False
     launches: int = 0
 
     def __post_init__(self):
@@ -103,17 +112,28 @@ class Kernel:
 _LEVEL0 = (("fused_prefix_ffd", ("ffd",)),
            ("fused_prefix_delay", ("delay",)),
            ("fused_prefix_scored", ("gavel", "tesserae", "rl")))
-KERNELS = {k.name: k for k in (
-    Kernel("fused_prefix_fifo", ("fifo",)),
-    *(Kernel(name, kinds) for name, kinds in _LEVEL0),
-    Kernel("fused_prefix_fifo_emit", ("fifo",), lib="fused_prefix_fifo",
-           emit=True),
-    Kernel("fused_prefix_fifo_expire", ("fifo",), lib="fused_prefix_fifo",
-           expire=True),
-    Kernel("fused_prefix_fifo_emit_expire", ("fifo",),
-           lib="fused_prefix_fifo", emit=True, expire=True),
-    *(Kernel(f"{name}_expire", kinds, lib=name, expire=True)
-      for name, kinds in _LEVEL0))}
+
+
+def _forms(faults: bool) -> tuple:
+    """Every kernel form with the given faults flag, the faults forms
+    named by a ``_faults`` suffix."""
+    sfx = "_faults" if faults else ""
+    fifo = "fused_prefix_fifo"
+    return (
+        Kernel(fifo + sfx, ("fifo",), lib=fifo, faults=faults),
+        *(Kernel(name + sfx, kinds, lib=name, faults=faults)
+          for name, kinds in _LEVEL0),
+        Kernel(f"{fifo}_emit{sfx}", ("fifo",), lib=fifo, emit=True,
+               faults=faults),
+        Kernel(f"{fifo}_expire{sfx}", ("fifo",), lib=fifo, expire=True,
+               faults=faults),
+        Kernel(f"{fifo}_emit_expire{sfx}", ("fifo",), lib=fifo, emit=True,
+               expire=True, faults=faults),
+        *(Kernel(f"{name}_expire{sfx}", kinds, lib=name, expire=True,
+                 faults=faults) for name, kinds in _LEVEL0))
+
+
+KERNELS = {k.name: k for k in _forms(False) + _forms(True)}
 
 
 def reset_launches() -> None:
@@ -134,21 +154,23 @@ def expires(cfg) -> bool:
 
 
 def engaged_span(cfg) -> tuple[str, ...]:
-    """The prefix phases a config engages, in tick order: vnode expiry
-    between release and ingest where ``expires``. ``Engine`` admits no
-    config that engages the faults head; the schedule slot is the
-    selected member's."""
-    return ("release", *(("expire",) if expires(cfg) else ()), "ingest",
-            "schedule")
+    """The prefix phases a config engages, in tick order: the fault
+    phase first where the fault plane is on, vnode expiry between release
+    and ingest where ``expires``; the schedule slot is the selected
+    member's."""
+    return (*(("faults",) if cfg.faults.enabled else ()), "release",
+            *(("expire",) if expires(cfg) else ()), "ingest", "schedule")
 
 
-def kernel_for(member, emit: bool = False, expire: bool = False) -> Kernel:
+def kernel_for(member, emit: bool = False, expire: bool = False,
+               faults: bool = False) -> Kernel:
     """The kernel that carries the span of ``member`` (a ``PolicySpec``)
-    on the card, in the emit form when ``emit`` and the expire form when
-    ``expire`` (the FIFO emit forms are entries of their own; the Level0
-    kernels' emit forms share their kernel's)."""
-    found = [k for k in KERNELS.values()
-             if member.kind in k.kinds and k.expire == expire]
+    on the card, in the emit form when ``emit``, the expire form when
+    ``expire`` and the faults form when ``faults`` (the FIFO emit forms
+    are entries of their own; the Level0 kernels' emit forms share their
+    kernel's)."""
+    found = [k for k in KERNELS.values() if member.kind in k.kinds
+             and k.expire == expire and k.faults == faults]
     return next((k for k in found if k.emit == emit), found[0])
 
 
@@ -161,7 +183,8 @@ def provenance(engine, params=None) -> dict:
     the kernel that carries it on the card."""
     member = engine.member(params)
     emit = engine.cfg.borrowing
-    k = kernel_for(member, emit, expires(engine.cfg))
+    k = kernel_for(member, emit, expires(engine.cfg),
+                   engine.cfg.faults.enabled)
     return {"span": list(engaged_span(engine.cfg)),
             "terminal": engine.prefix_terminal(), "policy": member.name,
             "schedule": member.kind, "kernel": k.name, "route": "cuda",
@@ -173,7 +196,8 @@ def host_params(engine, params) -> dict:
     """What the kernels take from the host, read once (a host sync) at a
     run's entry and never inside a chunk: the member ``params.idx``
     selects and its kernels (the terminal and the emit form, both expire
-    forms where the config engages expiry), and the parameters those read
+    forms where the config engages expiry, both faults forms where the
+    fault plane is on), and the parameters those read
     — FFD's tie-break, DELAY's promotion threshold, the scored kinds' 4x4
     f32 table (gavel's throughputs or rl's scores) and tesserae's 3 f32
     weights, as ctypes arrays handed to the kernel by pointer."""
@@ -181,9 +205,10 @@ def host_params(engine, params) -> dict:
     table = {"gavel": params.gavel_tput, "rl": params.rl_scores}.get(
         member.kind, torch.zeros(16))
     expire = expires(engine.cfg)
-    return {"member": member, "expire": expire,
-            "kernel": kernel_for(member, False, expire),
-            "emit_kernel": kernel_for(member, True, expire),
+    faults = engine.cfg.faults.enabled
+    return {"member": member, "expire": expire, "faults": faults,
+            "kernel": kernel_for(member, False, expire, faults),
+            "emit_kernel": kernel_for(member, True, expire, faults),
             "ffd_mem_first": int(params.ffd_mem_first > 0),
             "max_wait_ms": int(params.max_wait_ms),
             "table": (ctypes.c_float * 16)(*table.flatten().tolist()),
@@ -204,8 +229,9 @@ def fused_prefix_reference(engine, state, rows, counts, t: int, params,
 def fused_prefix(engine, state, rows: torch.Tensor, counts: torch.Tensor,
                  t: int, params, host: dict, emit_returns: bool = False,
                  out=None):
-    """Run tick ``t``'s prefix (release -> vnode expiry where engaged ->
-    ingest -> the selected member's pass) on ``state`` in place. ``rows``
+    """Run tick ``t``'s prefix (the fault phase where engaged -> release
+    -> vnode expiry where engaged -> ingest -> the selected member's
+    pass) on ``state`` in place. ``rows``
     [C, K, NF] int32 and ``counts`` [C] int32 are the tick's arrival
     slice; ``t`` is the post-tick clock as a host int; ``params`` are the
     policy's leaves (the plain path reads them) and ``host`` what the
@@ -362,6 +388,40 @@ def _expire(s, host: dict):
             _check("node_expire", s.node_expire, (C, N), torch.int32)], [1]
 
 
+def _faults(cfg, s, host: dict):
+    """The faults form's leaves (None without the fault plane) with the
+    node capacities and the lent queue its repairs and requeues need, and
+    its flag and settings, which every launch function takes after the
+    expire arguments."""
+    if not host["faults"]:
+        return [None] * 16, [0, 1, 0, 0, 0, 0]
+    C, N, n_res = s.node_free.shape
+    if N > MAX_FAULT_NODES:
+        raise ValueError(f"fused_prefix: {N} node slots exceed the fault "
+                         f"step's limit {MAX_FAULT_NODES}")
+    fs, fc = s.faults, cfg.faults
+    E = fs.fail_t.shape[-1]
+    i32, u8 = torch.int32, torch.bool
+    cn, c_shape = (C, N), (C,)
+    ptrs = [_check("faults.health", fs.health, cn, u8),
+            _check("faults.was_active", fs.was_active, cn, u8),
+            _check("faults.next_fail", fs.next_fail, cn, i32),
+            _check("faults.down_until", fs.down_until, cn, i32),
+            _check("faults.down_since", fs.down_since, cn, i32),
+            _check("faults.n_fails", fs.n_fails, cn, i32),
+            _check("faults.kills", fs.kills, c_shape, i32),
+            _check("faults.requeues", fs.requeues, c_shape, i32),
+            _check("faults.down_ms", fs.down_ms, c_shape, i32),
+            _check("faults.fail_t", fs.fail_t, (C, N, E), i32),
+            _check("faults.repair_t", fs.repair_t, (C, N, E), i32),
+            _check("faults.key", fs.key, (C, 2), torch.uint32),
+            _check("drops.failed", s.drops.failed, c_shape, i32),
+            _check("node_cap", s.node_cap, (C, N, n_res), i32),
+            *_queue("lent", s.lent, C, cfg.queue_capacity)]
+    return ptrs, [1, E, int(fc.mode == "trace"), int(fc.mttf_ms),
+                  int(fc.mttr_ms), int(fc.max_retries)]
+
+
 def _run(name: str, ptrs, ints, rows, host_ptrs=()):
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     fn = _entry(name, len(ptrs), len(ints), len(host_ptrs))
@@ -380,8 +440,9 @@ def _launch_fifo(cfg, s, rows, counts, t: int, host: dict,
              + _queue("lent", s.lent, C, Qc))
     e_ptrs, e_ints = _emit(cfg, s, io)
     x_ptrs, x_ints = _expire(s, host)
-    _run("fused_prefix_fifo", ptrs + e_ptrs + x_ptrs, ints + e_ints + x_ints,
-         rows)
+    f_ptrs, f_ints = _faults(cfg, s, host)
+    _run("fused_prefix_fifo", ptrs + e_ptrs + x_ptrs + f_ptrs,
+         ints + e_ints + x_ints + f_ints, rows)
 
 
 def _launch_ffd(cfg, s, rows, counts, t: int, host: dict,
@@ -392,8 +453,9 @@ def _launch_ffd(cfg, s, rows, counts, t: int, host: dict,
     ints += [wave, host["ffd_mem_first"]]
     e_ptrs, e_ints = _emit(cfg, s, io)
     x_ptrs, x_ints = _expire(s, host)
-    _run("fused_prefix_ffd", ptrs + e_ptrs + x_ptrs, ints + e_ints + x_ints,
-         rows)
+    f_ptrs, f_ints = _faults(cfg, s, host)
+    _run("fused_prefix_ffd", ptrs + e_ptrs + x_ptrs + f_ptrs,
+         ints + e_ints + x_ints + f_ints, rows)
 
 
 def _launch_delay(cfg, s, rows, counts, t: int, host: dict,
@@ -406,8 +468,9 @@ def _launch_delay(cfg, s, rows, counts, t: int, host: dict,
     ints += [wave, int(cfg.parity), host["max_wait_ms"]]
     e_ptrs, e_ints = _emit(cfg, s, io)
     x_ptrs, x_ints = _expire(s, host)
-    _run("fused_prefix_delay", ptrs + e_ptrs + x_ptrs, ints + e_ints + x_ints,
-         rows)
+    f_ptrs, f_ints = _faults(cfg, s, host)
+    _run("fused_prefix_delay", ptrs + e_ptrs + x_ptrs + f_ptrs,
+         ints + e_ints + x_ints + f_ints, rows)
 
 
 # the scored kernel's picks (csrc/fused_prefix_scored.cu kTable, kTesserae)
@@ -423,8 +486,10 @@ def _launch_scored(cfg, s, rows, counts, t: int, host: dict,
     ints += [_PICK[host["member"].kind]]
     e_ptrs, e_ints = _emit(cfg, s, io)
     x_ptrs, x_ints = _expire(s, host)
-    _run("fused_prefix_scored", ptrs + e_ptrs + x_ptrs,
-         ints + e_ints + x_ints, rows, (host["table"], host["weights"]))
+    f_ptrs, f_ints = _faults(cfg, s, host)
+    _run("fused_prefix_scored", ptrs + e_ptrs + x_ptrs + f_ptrs,
+         ints + e_ints + x_ints + f_ints, rows,
+         (host["table"], host["weights"]))
 
 
 _LAUNCH = {"fused_prefix_fifo": _launch_fifo,

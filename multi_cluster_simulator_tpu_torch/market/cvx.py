@@ -26,7 +26,7 @@ import torch
 
 from multi_cluster_simulator_tpu_torch.market import trader as T
 from multi_cluster_simulator_tpu_torch.ops.sizing import F32
-from multi_cluster_simulator_tpu_torch.policies.kernels import fma_f32
+from multi_cluster_simulator_tpu_torch.ops.floats import fma_f32
 
 # The tie-break scale of the per-pair jitter (trader.pair_jitter): far
 # below any real value difference, large enough to keep the rounding's

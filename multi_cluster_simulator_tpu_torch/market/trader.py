@@ -27,14 +27,18 @@ data. Floats round as the reference's compiled CPU code rounds them: the
 products XLA fuses into multiply-adds are ``fma_f32`` here (the port's
 greedy rounds are bitwise the reference's). The sinkhorn and cvx rounds
 take their tie-break jitter from a table the host computes once per
-cluster count (``pair_jitter``); their float leaves agree with the
-reference to a tolerance, their decisions exactly where no near-tie is
-decided by the last bits (ROADMAP queue C).
+cluster count (``pair_jitter``), bitwise the reference's; their float
+leaves agree with the reference to a tolerance (the ``exp`` of the kernel
+matrix and the matrix-vector order, ROADMAP queue C), their decisions
+exactly where no near-tie is decided by the last bits.
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -47,7 +51,7 @@ from multi_cluster_simulator_tpu_torch.ops import runset as R
 from multi_cluster_simulator_tpu_torch.ops import sizing
 from multi_cluster_simulator_tpu_torch.ops.queues import I32, icumsum, isum
 from multi_cluster_simulator_tpu_torch.ops.sizing import F32, Contract, f32
-from multi_cluster_simulator_tpu_torch.policies.kernels import fma_f32
+from multi_cluster_simulator_tpu_torch.ops.floats import fma_f32
 from multi_cluster_simulator_tpu_torch.utils.tree import tree_map
 
 FOREIGN = -2  # owner sentinel: Ownership == "Foreign" (cluster.go:116)
@@ -189,23 +193,70 @@ def _pair_value(g_con: Contract) -> torch.Tensor:
     return v / v.max().clamp(min=1.0)
 
 
+# XLA's CPU vectorizer computes the jitter's argument over the buyer axis in
+# 8-wide bodies, as fma(b, 78.233, s * 12.9898), from this many buyers on;
+# below it, and in the tail columns past the last full body, it rounds the
+# product and the sum apart.
+JITTER_VECTOR_MIN, JITTER_VECTOR_WIDTH = 72, 8
+# glibc's sinf is within 0.56 ulp of the sine: where the f64 sine lies
+# farther than this fraction of an f32 step from the midpoint of the two
+# f32 values around it, sinf gives the nearest one, the f64 sine rounded.
+_SINF_BAND = 0.125
+
+
+@functools.cache
+def _libm_sinf():
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    lib.sinf.restype = ctypes.c_float
+    lib.sinf.argtypes = [ctypes.c_float]
+    return lib.sinf
+
+
+def _sinf(arg: np.ndarray) -> np.ndarray:
+    """glibc's ``sinf`` of every f32 in ``arg`` (XLA's CPU ``sin`` is this
+    function): the f64 sine rounded to f32, and ``sinf`` itself for the
+    entries near a rounding midpoint, where the two may differ."""
+    s64 = np.sin(arg.astype(np.float64))
+    near = s64.astype(np.float32)
+    other = np.nextafter(near, np.where(s64 > near, np.inf, -np.inf).astype(
+        np.float32))
+    mid = (near.astype(np.float64) + other.astype(np.float64)) / 2
+    step = np.abs(other.astype(np.float64) - near.astype(np.float64))
+    close = np.abs(s64 - mid) < _SINF_BAND * step
+    sinf = _libm_sinf()
+    near[close] = [sinf(float(a)) for a in arg[close]]
+    return near
+
+
+@functools.cache
+def _jitter_table(gidx_offset: int, c_loc: int, c_tot: int) -> np.ndarray:
+    sidx = np.arange(gidx_offset, gidx_offset + c_loc,
+                     dtype=np.float32)[:, None]
+    bfdx = np.arange(c_tot, dtype=np.float32)[None, :]
+    s_term = sidx * np.float32(12.9898)
+    arg = s_term + bfdx * np.float32(78.233)
+    if c_tot >= JITTER_VECTOR_MIN:
+        v = JITTER_VECTOR_WIDTH * (c_tot // JITTER_VECTOR_WIDTH)
+        b = torch.from_numpy(bfdx[:, :v]).expand(c_loc, v)
+        arg[:, :v] = fma_f32(b, torch.full_like(b, 78.233),
+                             torch.from_numpy(s_term).expand(c_loc, v)
+                             ).numpy()
+    frac = np.abs(np.modf(_sinf(arg) * np.float32(43758.5453))[0])
+    return frac.astype(np.float32)
+
+
 def pair_jitter(gidx_offset: int, c_loc: int, c_tot: int,
                 device) -> torch.Tensor:
     """The deterministic per-pair jitter in [0, 1) that breaks exact ties
     ``|frac(sin(s*12.9898 + b*78.233) * 43758.5453)|`` over [c_loc
-    sellers (global indices from ``gidx_offset``), c_tot buyers], made on
-    the host once per shape: the argument and the products in f32 steps,
-    the sine in f64 rounded to f32. The reference's compiled ``sin`` gives
-    other bits for some arguments (ROADMAP queue C); the callers scale the
-    jitter well under their value scale, so it decides only
-    degenerate cases."""
-    sidx = np.arange(gidx_offset, gidx_offset + c_loc,
-                     dtype=np.float32)[:, None]
-    bfdx = np.arange(c_tot, dtype=np.float32)[None, :]
-    arg = sidx * np.float32(12.9898) + bfdx * np.float32(78.233)
-    s = np.sin(arg.astype(np.float64)).astype(np.float32)
-    frac = np.abs(np.modf(s * np.float32(43758.5453))[0])
-    return torch.from_numpy(frac.astype(np.float32)).to(device)
+    sellers (global indices from ``gidx_offset``), c_tot buyers], bitwise
+    the reference's compiled table: the argument as XLA's vectorizer
+    computes it (``JITTER_VECTOR_MIN``), glibc's ``sinf``, the product,
+    ``modf`` and ``abs`` in f32. Made on the host once per shape and
+    process (the ``sinf`` calls take seconds at 4,096 clusters) and copied
+    to ``device``, so the card and the CPU share its bits."""
+    return torch.from_numpy(_jitter_table(gidx_offset, c_loc, c_tot)).to(
+        device)
 
 
 def _round_plan_to_matching(state: SimState, plan, feas, gidx,

@@ -127,3 +127,14 @@ def release(rs: RunningSet, free: torch.Tensor, t: int):
     free = free + isum(hot.to(I32)[..., None] * back[:, :, None, :], 1)
     data = torch.where(done[..., None], invalid_row(rs.data.device), rs.data)
     return RunningSet(data=data, active=rs.active & ~done), free, done
+
+
+def kill(rs: RunningSet, dead: torch.Tensor) -> RunningSet:
+    """Clear the active slots where ``dead`` [C, S] is set WITHOUT
+    returning their resources to the free tensor: the fault plane's
+    removal half (faults/apply.py). A killed job's node has just lost its
+    whole capacity to the failure, so there is nothing to return; repair
+    restores ``free = cap`` on the empty node."""
+    dead = rs.active & dead
+    data = torch.where(dead[..., None], invalid_row(rs.data.device), rs.data)
+    return RunningSet(data=data, active=rs.active & ~dead)

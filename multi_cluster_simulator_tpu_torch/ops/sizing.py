@@ -24,7 +24,7 @@ import torch
 
 from multi_cluster_simulator_tpu_torch.ops import queues as Q
 from multi_cluster_simulator_tpu_torch.ops.queues import I32, JobQueue, icumsum
-from multi_cluster_simulator_tpu_torch.policies.kernels import fma_f32
+from multi_cluster_simulator_tpu_torch.ops.floats import fma_f32
 from multi_cluster_simulator_tpu_torch.utils.tree import Tree
 
 F32 = torch.float32

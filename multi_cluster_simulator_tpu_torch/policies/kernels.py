@@ -55,6 +55,7 @@ from multi_cluster_simulator_tpu_torch.config import SimConfig
 from multi_cluster_simulator_tpu_torch.core import state as st
 from multi_cluster_simulator_tpu_torch.core.state import SimState, Trace
 from multi_cluster_simulator_tpu_torch.ops import fields as F
+from multi_cluster_simulator_tpu_torch.ops.floats import fma_f32
 from multi_cluster_simulator_tpu_torch.ops import placement as P
 from multi_cluster_simulator_tpu_torch.ops import queues as Q
 from multi_cluster_simulator_tpu_torch.ops import runset as R
@@ -645,24 +646,6 @@ def _class_device_scores(node_type: torch.Tensor, jclass: torch.Tensor,
 def _gavel_scores(node_type, jclass, params):
     """Gavel's node scores: the throughput matrix row of the job's class."""
     return _class_device_scores(node_type, jclass, params.gavel_tput)
-
-
-def fma_f32(a: torch.Tensor, b: torch.Tensor,
-            c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` of f32 tensors rounded once to f32 (the IEEE fused
-    multiply-add, which the CUDA kernel calls as ``__fmaf_rn``): the
-    product is exact in f64 (24 + 24 significant bits), the sum is rounded
-    to odd in f64 through its two-sum error term, and the one rounding to
-    f32 after that is the correctly rounded result."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    bp = s - p
-    err = (p - (s - bp)) + (c - bp)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
 
 
 def _tesserae_scores(node_free: torch.Tensor, job: Q.JobRec, params):

@@ -189,16 +189,9 @@ def test_port_run_equals_run_chunks():
 
 
 @pytest.mark.parametrize("change,policies,item", [
-    (dict(policy=tconfig.PolicyKind.DELAY, borrowing=True,
-          trader=tconfig.TraderConfig(enabled=True), n_res=3,
-          faults=tconfig.FaultConfig(enabled=True)), None, "A8"),
     (dict(record_metrics=True), ("fifo", "ffd"), "A10"),
-    (dict(faults=tconfig.FaultConfig(enabled=True)), ("gavel",), "A8"),
-    (dict(borrowing=True, faults=tconfig.FaultConfig(enabled=True)), None,
-     "A8"),
     (dict(trader=tconfig.TraderConfig(enabled=True), n_res=3,
           record_metrics=True), None, "A10"),
-    (dict(faults=tconfig.FaultConfig(enabled=True)), None, "A8"),
     (dict(record_metrics=True), None, "A10"),
 ])
 def test_configs_outside_the_slice_raise(change, policies, item):

@@ -5,12 +5,11 @@ The parity rule for these two (ROADMAP, North star): decisions bitwise at
 the test sizes — every int and bool leaf (nodes, running set, queues,
 drops, locks, cooldowns, contract ids, the trace) — and the float leaves
 within ``RTOL``/``ATOL``. Three effects keep the floats from being
-bitwise in general: the tie-break jitter's ``sin`` (the port's table is
-made on the host and differs from the reference's compiled ``sin`` in a
-few values, tests/test_torch_trader.py bounds it), the ``exp`` in the
-sinkhorn kernel, and the order of the matrix-vector reductions. At the
-sizes here every float leaf came out bitwise all the same; the tolerance
-states what the rule allows.
+bitwise in general: the ``exp`` in the sinkhorn kernel and the order of
+the matrix-vector reductions (the tie-break jitter table is bitwise the
+reference's, tests/test_torch_faults.py). At the sizes here every float
+leaf came out bitwise all the same; the tolerance states what the rule
+allows.
 
 Cases: the 2-buyer/2-seller round the greedy protocol loses
 (tests/test_sinkhorn.py:69-92, tests/test_market_cvx.py:177-200), the cvx
@@ -135,15 +134,9 @@ def test_cvx_settle_rule_holds_at_the_defaults():
         port_cfg(jengine.SimConfig()).trader)
 
 
-@pytest.mark.parametrize("matching", MATCHERS)
-@pytest.mark.parametrize("seed", [0, 1])
-def test_fractional_round_equals_jax(matching, seed):
-    """One round at t = 50 s on random states, the sane carve: buyers by
-    both policies, locked sellers, sellers with gpus and without; with
-    seed 1 the cvx prices open from a random carried column
-    (``cvx_smooth`` 0.25)."""
+def _fractional_round(matching, seed, C):
     rng = np.random.default_rng(800 + seed)
-    C, t = 24, 50_000
+    t = 50_000
     cfg = _market_cfg(trader=TraderConfig(
         enabled=True, matching=matching, carve_mode="sane",
         cvx_smooth=0.25 * seed))
@@ -162,8 +155,40 @@ def test_fractional_round_equals_jax(matching, seed):
     eng = tengine.Engine(tcfg, device="cpu")
     got = ttrader.trade_round(ts, t, tcfg, LocalExchange(),
                               eng._default_params, eng.jitter(C))
-    assert_decisions_equal(jax_leaves(want), interop.state_to_numpy(got))
-    assert int((got.node_active & ~ts.node_active).sum()) > 0  # attached
+    inexact = assert_decisions_equal(jax_leaves(want),
+                                     interop.state_to_numpy(got))
+    attached = int((got.node_active & ~ts.node_active).sum())
+    assert attached > 0
+    return inexact, attached
+
+
+@pytest.mark.parametrize("matching", MATCHERS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fractional_round_equals_jax(matching, seed):
+    """One round at t = 50 s on random states of 24 clusters, the sane
+    carve: buyers by both policies, locked sellers, sellers with gpus and
+    without; with seed 1 the cvx prices open from a random carried column
+    (``cvx_smooth`` 0.25)."""
+    _fractional_round(matching, seed, 24)
+
+
+@pytest.mark.parametrize("matching", MATCHERS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fractional_round_at_73_clusters_equals_jax(matching, seed):
+    """The same round at 73 clusters: past the width (72) where the
+    reference's compiled jitter table takes the vectorized argument, and
+    not a multiple of its 8-wide body, so its tail columns count too."""
+    _fractional_round(matching, seed, 73)
+
+
+def test_sinkhorn_round_at_4096_clusters_equals_jax():
+    """One sinkhorn round at config 4's width (4,096 clusters) from a
+    random state: with the jitter table bitwise, every winner, every
+    attach and every float leaf equals the reference's (the ``exp`` of
+    the kernel matrix and the matrix-vector order leave no mark here)."""
+    inexact, attached = _fractional_round(MatchKind.SINKHORN, 0, 4096)
+    assert attached > 100
+    assert inexact == []
 
 
 @pytest.mark.parametrize("expire", [False, True], ids=["keep", "expire"])

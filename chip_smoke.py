@@ -54,8 +54,8 @@ holds each path's hand-written kernel against its plain PyTorch version:
       ingest): run (e), the market with expiry at full width, sampled,
       its expiries and attaches counted; 3 heavy ticks for each form on
       run (a)'s final state with nine in ten virtual nodes set to expire
-      (~1,300 expiries a launch); whole quick-shape runs (DELAY, FFD,
-      gavel) and the first 800 ticks of config 2 with the trader and
+      (~1,300 expiries a launch); the first 400 ticks of quick-shape runs
+      (DELAY, FFD, gavel) and the first 800 ticks of config 2 with the trader and
       expiry on, with and without borrowing, each counting its launches
       through ``Engine.run_chunks``;
    j. short runs of the greedy and the cvx market at the quick shape;
@@ -117,7 +117,32 @@ holds each path's hand-written kernel against its plain PyTorch version:
       the faults form, kernel == plain on 12 sampled ticks, every launch
       timed beside the same kernel without the faults step,
       ``fault_plane_churn_jobs_per_sec`` over the min and median of 3
-      timed runs after 1 warm-up, and at 4,096 a torch.profiler window.
+      timed runs after 1 warm-up, and at 4,096 a torch.profiler window;
+   n-q. the metrics plane (obs/device.py), the tap forms == plain on the
+      state, the buffer and the cursor: (n) the headline with the plane
+      on, every launch of the tap form timed tick by tick, kernel == plain
+      on 12 sampled ticks, the first 400 ticks of the 256-cluster run ==
+      plain, the counted run's state bitwise the plane-off run's and its
+      harvest tied back to the state, jobs/s off and on over 5 interleaved
+      pairs with the overhead printed beside bench.py's 3% bound, and the
+      emit form's tap over 400 ``run_io`` ticks, and the kernel's depth
+      bucket on every depth below 2^24; (o) bench_faults's churn
+      at 4,096 with the plane on (the tap's faults form; kills and
+      requeues harvested equal the state's) and its emit form over 40
+      ``run_io`` ticks; (p) BASELINE config 1 (bench.py:839-895
+      bench_fifo_small: FIFO on one cluster_small, the windowed ingest,
+      3,600 ticks in 900-tick chunks, record_metrics, the plane on) — zero
+      drops, the series at the 5 s marks equal to the committed
+      bench_metrics.json (zero under FIFO), the first chunk's run == its
+      plain run, 12 of its ticks compared and every launch timed beside
+      the untapped form, ``fifo_cluster_small_ticks_per_sec`` over 5
+      timed runs after 2 warm-ups with the plane off and on — then the
+      same world under DELAY, whose series moves; (q) the Level0 kernels'
+      tap forms on borg4k and market runs (b)-(d) (counted runs with the
+      plane bitwise the plane-off runs, kernel == plain and the tap timed
+      beside the untapped form at 12 ticks each run reaches, the emit
+      form's tap at 2) and their faults forms' taps on the first 50
+      ticks of DELAY, FFD and gavel at the quick market shape with churn.
 
 Every number is printed beside the card's name and power limit. The last
 lines are a JSON record of each kernel (its time per launch, the plain
@@ -197,6 +222,15 @@ FAULTS_TIMED, FAULTS_SAMPLES, FAULTS_PROFILE_TICKS = 3, 12, 50
 FAULT_HEAVY_TICKS = 2  # 3k's heavy ticks per form and mode
 FAULT_VNODE_C, FAULT_VNODE_TICKS = 64, 20  # 3k's tests/test_faults.py:299
 FAULT_RUN_TICKS = 100  # 3k's other whole runs: their first 100 ticks
+# the metrics plane (4n-4q): sampled ticks a run, 4n's on/off pairs, and
+# bench.py's bound on the plane's overhead (bench.py:122, :671); 4q's
+# churn runs with the plane cover their first 50 ticks
+PLANE_SAMPLES, PLANE_TIMED, OBS_OVERHEAD_BOUND = 12, 5, 0.03
+PLANE_CHURN_TICKS = 50
+# BASELINE config 1 (bench.py:839-895 bench_fifo_small): its ticks, its
+# chunk, its arrival slots, its timed runs after its warm-ups
+CONFIG1_TICKS, CONFIG1_CHUNK, CONFIG1_ARRIVALS = 3_600, 900, 2_048
+CONFIG1_TIMED, CONFIG1_WARMUPS = 5, 2
 # the earlier paths' whole-run comparisons (3b, 3c, 3d and 3e's quick
 # runs) cover their first 200 ticks, to keep the script's time
 WHOLE_RUN_TICKS = 200
@@ -502,7 +536,10 @@ def io_diff(a, b) -> float:
 
 class Checker:
     """Runs kernel-vs-plain comparisons on copies of one state and keeps
-    the worst difference and the plain version's times."""
+    the worst difference and the plain version's times; the tap form's
+    comparisons also keep its launch time and the untapped form's on the
+    same state (``tap_ms``, ``untap_ms``; the emit form's tap in
+    ``emit_tap_ms``; CUDA events)."""
 
     def __init__(self, engine, params=None):
         from multi_cluster_simulator_tpu_torch.core.state import clone_state
@@ -512,54 +549,104 @@ class Checker:
         self.params = engine._default_params if params is None else params
         self.host = fused_tick.host_params(engine, self.params)
         self.worst, self.n, self.plain_ms = 0.0, 0, []
+        self.tap_ms, self.untap_ms, self.emit_tap_ms = [], [], []
 
-    def compare(self, state, rows, counts, t, lent_rows=False, emit=False):
+    def compare(self, state, rows, counts, t, lent_rows=False, emit=False,
+                obs=None, windowed=False):
         """Run kernel and plain on copies of ``state`` and require every
         leaf equal — and with ``emit`` (the emit form) every output:
         ``want``, ``bjob_vec``, ``ret_rows``, ``ret_valid``; returns the
         kernel's state (and its outputs with ``emit``). ``lent_rows``
         first loads the tick's arrival rows into the lent queue too, so
         the FIFO lent-head attempt runs (the lent queue stays empty on
-        the paths without borrowing)."""
+        the paths without borrowing). ``obs``, a ``(MetricsBuffer,
+        TapCursor)`` pair, runs the tap form against the plain prefix and
+        ``tap_tick``: the buffer, the cursor and the tick's placements and
+        depths must be equal too; it returns ``(state, mbuf, cursor)``
+        (then the outputs with ``emit``). ``windowed``: ``rows`` and
+        ``counts`` are the packed stream and its counts."""
+        from multi_cluster_simulator_tpu_torch.obs import device as D
+
         if lent_rows:
             state = self.clone(state)
             K = min(rows.shape[1], state.lent.capacity)
             state.lent.data[:, :K] = rows[:, :K]
             state.lent.count.copy_(counts.clamp(max=K))
         ref_in = self.clone(state)
+        ref_obs = tap_in = None
+        if obs is not None:
+            ref_obs = (self.clone(obs[0]), self.clone(obs[1]))
+            tap_in = (D.tap_pc(ref_obs[0]), ref_obs[1])
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        ref, *ref_io = self.ft.fused_prefix_reference(
+        ref, *ref_io, ref_tap = self.ft.fused_prefix_reference(
             self.engine, ref_in, rows, counts, t, self.params,
-            self.host["member"], emit_returns=emit)
+            self.host["member"], emit, tap_in, windowed)
+        if obs is not None:
+            pc, cur, placed_d, depth = ref_tap
+            ref_mb = D.tap_tick_global(ref_obs[0].replace(**pc), placed_d,
+                                       depth, t, self.engine.cfg.tick_ms)
         ev[1].record()
-        out, *io = self.ft.fused_prefix(self.engine, self.clone(state), rows,
-                                        counts, t, self.params, self.host,
-                                        emit_returns=emit)
+        k_obs = uev = None
+        if obs is not None:
+            k_obs = (self.clone(obs[0]), self.clone(obs[1]))
+            uev = timed_launch(self.ft, self.engine, self.clone(state), rows,
+                               counts, t, self.params, self.host, emit=emit,
+                               windowed=windowed)
+        k_in = self.clone(state)
+        if obs is not None:  # its operands checked outside the timed pair
+            self.ft._tap_args(self.engine, k_in, *k_obs, self.host)
+        kev = timed_launch_events()
+        kev[0].record()
+        out, *io, k_tap = self.ft.fused_prefix(
+            self.engine, k_in, rows, counts, t, self.params, self.host,
+            emit_returns=emit, obs=k_obs, windowed=windowed)
+        kev[1].record()
         torch.cuda.synchronize()
         self.plain_ms.append(ev[0].elapsed_time(ev[1]))
         d = max_abs_diff(ref, out)
         if emit:
             d = max(d, io_diff(ref_io, io))
+        if obs is not None:
+            if emit:
+                self.emit_tap_ms.append(kev[0].elapsed_time(kev[1]))
+            else:
+                self.tap_ms.append(kev[0].elapsed_time(kev[1]))
+                self.untap_ms.append(uev[0].elapsed_time(uev[1]))
+            d = max(d, max_abs_diff(ref_mb, k_obs[0]),
+                    max_abs_diff(cur, k_obs[1]),
+                    io_diff((placed_d, depth), k_tap[2:]))
         if d:
-            kernel = self.host["emit_kernel" if emit else "kernel"].name
+            kernel = self.host[("emit_" if emit else "")
+                               + ("tap_kernel" if obs else "kernel")].name
             raise AssertionError(f"{kernel} differs from plain at t={t}: "
                                  f"max |diff| {d}")
         self.worst, self.n = max(self.worst, d), self.n + 1
+        if obs is not None:
+            out = (out, *k_obs)
+            return (*out, io) if emit else out
         return (out, io) if emit else out
 
 
-def timed_launch(fused_tick, engine, state, rows, counts, t, params, host,
-                 emit=False, out=None):
-    """One kernel launch between a CUDA event pair, with the card kept
-    busy ahead of it so the pair times the kernel and not the host;
-    ``emit`` launches the emit form into ``out``."""
+def timed_launch_events():
+    """A CUDA event pair, with the card kept busy ahead of the first so
+    that the pair times the launch between them and not the host."""
     ev = (torch.cuda.Event(enable_timing=True),
           torch.cuda.Event(enable_timing=True))
     torch.cuda._sleep(SPIN_CYCLES)
+    return ev
+
+
+def timed_launch(fused_tick, engine, state, rows, counts, t, params, host,
+                 emit=False, out=None, obs=None, windowed=False):
+    """One kernel launch between a CUDA event pair, with the card kept
+    busy ahead of it so the pair times the kernel and not the host;
+    ``emit`` launches the emit form into ``out``, ``obs`` the tap form."""
+    ev = timed_launch_events()
     ev[0].record()
     fused_tick.fused_prefix(engine, state, rows, counts, t, params, host,
-                            emit_returns=emit, out=out)
+                            emit_returns=emit, out=out, obs=obs,
+                            windowed=windowed)
     ev[1].record()
     return ev
 
@@ -726,7 +813,7 @@ def whole_run_against_plain(E, engine, s0, chunks, what, params=None,
         counts_all = torch.from_numpy(ch.counts).to(s0.device)
         for k in range(ch.rows.shape[0]):
             t += engine.cfg.tick_ms
-            ref, *io = fused_tick.fused_prefix_reference(
+            ref, *io, _ = fused_tick.fused_prefix_reference(
                 engine, ref, rows_all[k], counts_all[k], t, params, member,
                 emit_returns=engine.cfg.borrowing)
             ref = engine._cross_cluster(ref, *io)
@@ -776,9 +863,7 @@ def counted_run(engine, s0, chunks, kernel, io=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
     counts = fused_tick.launch_counts()
-    want = {k: (n_ticks if k == kernel else 0) for k in counts}
-    if counts != want:
-        raise AssertionError(f"kernel launches {counts}, want {want}")
+    check_launches(counts, kernel, n_ticks, kernel)
     return out, wall, counts
 
 
@@ -1591,8 +1676,8 @@ def phase_expire_kernel_vs_plain(P, E, card, dev, market, state_a):
     kernel == plain at sampled ticks, the nodes expired and attached
     counted; (b) heavy ticks on the state run (a) reached (its thousands
     of virtual nodes), nine in ten set to expire, for each kernel's expire
-    form; (c) whole quick-shape runs (DELAY, FFD, gavel) with the trader
-    and expiry; (d) the first 800 ticks of config 2 with expiry (the FIFO
+    form; (c) the first 400 ticks of quick-shape runs (DELAY, FFD,
+    gavel) with the trader and expiry; (d) the first 800 ticks of config 2 with expiry (the FIFO
     emit form) and (e) the same without borrowing (the FIFO state-only
     form). The runs count their launches through ``Engine.run_chunks``."""
     from multi_cluster_simulator_tpu_torch.core.state import (
@@ -1676,7 +1761,7 @@ def phase_expire_kernel_vs_plain(P, E, card, dev, market, state_a):
 
     # (c)-(e) whole runs with expiry, their launches counted
     qc_, qj = MARKET_QUICK
-    ch_q, _, _ = market_stream(E, qc_, qj, quick=True)
+    ch_q = market_stream(E, qc_, qj, quick=True)[0][:1]  # its first 400
     c2_short, _ = borrow_stream(P, E, 2, BORROW_A_TICKS)
     runs = [(f"quick {pol}", market_cfg(P, quick=True, jobs=qj,
                                         trader=EXPIRE),
@@ -1924,8 +2009,9 @@ def plain_borrow_io(engine, s0, rows, counts, t0, params):
     member = engine.member(params)
     for k in range(rows.shape[0]):
         t += engine.cfg.tick_ms
-        state, *io = engine._span_prefix(state, rows[k], counts[k], t,
-                                         params, member, emit_returns=True)
+        state, *io, _ = engine._span_prefix(state, rows[k], counts[k], t,
+                                            params, member,
+                                            emit_returns=True)
         outs.append([x.clone() for x in io])
         state = engine._cross_cluster(state, *io)
         state.t.fill_(t)
@@ -2091,7 +2177,7 @@ def device_profile(E, engine, s0, chunks, n):
         for k in range(n):
             t += cfg.tick_ms
             with record_function("prefix"):
-                state, *io = fused_tick.fused_prefix(
+                state, *io, _ = fused_tick.fused_prefix(
                     engine, state, rows[k], counts[k], t, params, host,
                     emit_returns=cfg.borrowing, out=host.get("io"))
             if cfg.borrowing:
@@ -2810,6 +2896,865 @@ def phase_faults_run(P, E, card, dev, C, label):
     return run
 
 
+# --------------------------------------------------------------------------
+# the metrics plane: 4n (the headline), 4o (churn at 4,096), 4p (BASELINE
+# config 1, the windowed ingest), 4q (the Level0 tap forms)
+# --------------------------------------------------------------------------
+
+def changed_bytes(a, b):
+    """Bytes of every element that differs between two trees of tensors
+    (0-d int64 tensor)."""
+    from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
+
+    return sum((x != y).sum() * x.element_size() for (_, x), (_, y)
+               in zip(leaves_with_keys(a), leaves_with_keys(b)))
+
+
+def tap_cost(shared: int, mb0, cur0, mb1, cur1):
+    """The tap's bytes beyond its span's, as (read, written): per cluster
+    it reads the buffer's eleven per-cluster leaves, the cursor's nine and
+    the twelve state counters it differences less the ``shared`` ones its
+    span's cost already reads; it writes every buffer and cursor element
+    that changed (the histogram and the ring slot included) and the
+    tick's placements and depths."""
+    C = cur0.placed.shape[0]
+    return (C * 4 * (11 + 9 + 12 - shared),
+            8 * C + changed_bytes(mb0, mb1) + changed_bytes(cur0, cur1))
+
+
+def cost_of(kind: str, engine, QC: int = 0):
+    """The span's cost function for ``tap_pass`` and ``Checker.compare``:
+    (before, after, rows, counts, t) -> (read, written, ops), and how many
+    of the tap's counters it reads (``tap_cost``'s ``shared``). ``kind``:
+    fifo, fifo_emit, fifo_faults, ffd, delay, gavel or tesserae."""
+    cfg = engine.cfg
+    trace = cfg.record_trace
+
+    def fn(b, a, r, c, t):
+        if kind == "fifo":
+            return (*tick_bytes(b, a, r, c, t, trace), 0)
+        if kind == "fifo_emit":
+            return (*tick_cost_borrow(b, a, r, c, t, trace,
+                                      engine.n_msgs()), 0)
+        if kind == "fifo_faults":
+            return tick_cost_faults(b, a, r, c, t, trace)
+        if kind == "ffd":
+            rd, wr, op = tick_cost_ffd(b, a, r, c, t, trace, QC)
+        elif kind == "delay":
+            rd, wr, op = tick_cost_delay(b, a, r, c, t, trace, QC)
+        else:
+            rd, wr, op = tick_cost_scored(b, a, r, c, t, trace, QC,
+                                          kind == "tesserae")
+        if cfg.faults.enabled:
+            rd = rd + fault_reads(b, a, t)
+        return rd, wr, op
+    return fn, (5 if kind.startswith("fifo") or kind == "delay" else 4)
+
+
+def window_feed(rows, counts, before, after):
+    """A windowed tick's arrival slice for the cost functions: the stream's
+    row layout, with the rows the tick took (the cursor's advance) as its
+    count; plus the due checks' reads (each taken row's enq_t and the
+    first not due, and the stream's count), per cluster."""
+    taken = after.arr_ptr - before.arr_ptr
+    return rows, taken, 4 * (taken.sum() + 2 * taken.shape[0])
+
+
+def tap_pass(chk, engine, s0, feeds, picks, cost, shared, emit=False,
+             windowed=False):
+    """Drive a run tick by tick through the tap form with the run's own
+    buffer and cursor, a CUDA event pair around every launch and the
+    tick's bytes counted (the span's ``cost`` plus ``tap_cost``); at the
+    global ticks in ``picks`` compare kernel and plain on copies of the
+    state, buffer and cursor the run reached. ``feeds`` yields each tick's
+    (rows, counts). Before each launch the untapped form runs on a copy
+    of the state, timed the same way. Returns both forms' per-launch
+    times, the mean bytes and operations, the final state and buffer."""
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        clone_state, empty_io,
+    )
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+
+    params, host = chk.params, chk.host
+    state = clone_state(s0)
+    mb, cur = D.metrics_init(state), D.cursor_of(state)
+    out = (empty_io((state.arr_ptr.shape[0],), engine.n_msgs(),
+                    state.device) if emit else None)
+    evs, sevs, read_b, written_b, ops = [], [], 0, 0, 0
+    t, k_glob = int(s0.t), 0
+    for rows, counts in feeds:
+        t += engine.cfg.tick_ms
+        if k_glob in picks:
+            chk.compare(state, rows, counts, t, emit=emit, obs=(mb, cur),
+                        windowed=windowed)
+        before = (clone_state(state), chk.clone(mb), chk.clone(cur))
+        sevs.append(timed_launch(chk.ft, engine, clone_state(state), rows,
+                                 counts, t, params, host, emit=emit,
+                                 windowed=windowed))
+        evs.append(timed_launch(chk.ft, engine, state, rows, counts, t,
+                                params, host, emit=emit, out=out,
+                                obs=(mb, cur), windowed=windowed))
+        extra = 0
+        if windowed:
+            rows_c, counts_c, extra = window_feed(rows, counts, before[0],
+                                                  state)
+        else:
+            rows_c, counts_c = rows, counts
+        r, w, o = cost(before[0], state, rows_c, counts_c, t)
+        tr, tw = tap_cost(shared, *before[1:], mb, cur)
+        read_b, written_b = read_b + r + tr + extra, written_b + w + tw
+        ops = ops + o
+        state.t.fill_(t)
+        k_glob += 1
+    torch.cuda.synchronize()
+    return dict(kernel_ms=[a.elapsed_time(b) for a, b in evs],
+                untapped_ms=[a.elapsed_time(b) for a, b in sevs],
+                read=int(read_b) / k_glob, written=int(written_b) / k_glob,
+                ops=int(ops) / k_glob, state=state, mbuf=mb, ticks=k_glob)
+
+
+def chunk_feeds(chunks, dev, n=None):
+    """Each tick's (rows, counts) of a chunked stream, on the card, the
+    first ``n`` ticks only where given."""
+    k = 0
+    for ch in chunks:
+        rows_all = torch.from_numpy(ch.rows).to(dev)
+        counts_all = torch.from_numpy(ch.counts).to(dev)
+        for i in range(ch.rows.shape[0]):
+            if n is not None and k >= n:
+                return
+            yield rows_all[i], counts_all[i]
+            k += 1
+
+
+def check_launches(counts, kernel, n_ticks, what):
+    want = {k: (n_ticks if k == kernel else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: kernel launches {counts}, want "
+                             f"{want}")
+
+
+def counted_plane_run(engine, s0, chunks, kernel):
+    """A main path's counted run with the metrics plane: every launch
+    count set to 0 just before ``engine.run_chunks`` with a fresh buffer,
+    read just after; ``kernel`` (the tap form) must have launched once a
+    tick and no other kernel. Returns the state, the buffer, the wall and
+    the counts."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+
+    state = clone_state(s0)
+    mb = D.metrics_init(state)
+    torch.cuda.synchronize()
+    fused_tick.reset_launches()
+    w0 = time.perf_counter()
+    out, mb = engine.run_chunks(state, chunks, None, mb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    counts = fused_tick.launch_counts()
+    check_launches(counts, kernel, sum(ch.rows.shape[0] for ch in chunks),
+                   kernel)
+    return out, mb, wall, counts
+
+
+def plane_gates(out, mb, n_ticks, tick_ms, what):
+    """The harvest ties back to the state: placed and arrived are the
+    counters' totals, the histogram holds every (tick, cluster), the ring's
+    last clock is the run's, the fault counters are the state's."""
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+
+    h = D.harvest(mb)
+    C = out.arr_ptr.shape[0]
+    want = dict(ticks=n_ticks, placed=int(out.placed_total.sum()),
+                arrived=int(out.arr_ptr.sum()), hist=n_ticks * C,
+                last_t=n_ticks * tick_ms,
+                kills=int(out.faults.kills.sum()),
+                requeues=int(out.faults.requeues.sum()))
+    got = dict(ticks=h["ticks"], placed=h["placed"], arrived=h["arrived"],
+               hist=sum(h["depth_hist_log2"]), last_t=h["ring"]["t_ms"][-1],
+               kills=h["fault_kills"], requeues=h["fault_requeues"])
+    if got != want:
+        raise AssertionError(f"{what}: the harvest {got} does not tie back "
+                             f"to the state {want}")
+    return h
+
+
+def whole_plane_run_against_plain(E, engine, s0, chunks, what):
+    """``whole_run_against_plain`` with the metrics plane: the kernel's tap
+    form through ``engine.run_chunks`` with a buffer, the plain prefix and
+    ``tap_tick`` tick by tick; every state, buffer and cursor leaf must be
+    equal. Returns the two walls, the state, the buffer and the counts."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+
+    params = engine._default_params
+    member = engine.member(params)
+    ref = clone_state(s0)
+    mb_ref, cur_ref = D.metrics_init(ref), D.cursor_of(ref)
+    t = 0
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    for rows, counts in chunk_feeds(chunks, s0.device):
+        t += engine.cfg.tick_ms
+        ref, *_, tap = fused_tick.fused_prefix_reference(
+            engine, ref, rows, counts, t, params, member,
+            obs=(D.tap_pc(mb_ref), cur_ref))
+        pc, cur_ref, placed_d, depth = tap
+        mb_ref = D.tap_tick_global(mb_ref.replace(**pc), placed_d, depth, t,
+                                   engine.cfg.tick_ms)
+        ref.t.fill_(t)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - w0
+    kernel = fused_tick.host_params(engine, params)["tap_kernel"].name
+    out, mb, kernel_s, counts = counted_plane_run(engine, s0, chunks, kernel)
+    d = max(max_abs_diff(ref, out), max_abs_diff(mb_ref, mb))
+    if d:
+        raise AssertionError(f"whole {what} run with the metrics plane: "
+                             f"kernel differs from plain (max |diff| {d})")
+    return plain_s, kernel_s, out, mb, counts
+
+
+def plane_walls(engine, s0, chunks, pairs):
+    """Interleaved walls of whole runs with the plane off and on (off
+    first in each pair), as bench.py's ``--obs ab`` times them
+    (bench.py:629-660); the counted runs before are the warm-ups."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+
+    off, on = [], []
+    for _ in range(pairs):
+        for walls, plane in ((off, False), (on, True)):
+            state = clone_state(s0)
+            mb = D.metrics_init(state) if plane else None
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            engine.run_chunks(state, chunks, None, mb)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - w0)
+    return off, on
+
+
+def record_of(name, launches, worst, ms, plain, read, written, ops=0.0):
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+
+    return dict(kernel=fused_tick.KERNELS[name], launches=launches,
+                worst=worst, ms=ms, plain=plain,
+                bound=bound(read, written, ops))
+
+
+def tap_records(chk, name, launches, cost_lists):
+    """A record of a tap form timed at its comparisons (``Checker``'s
+    ``tap_ms``) with the mean bytes of those ticks."""
+    rd, wr, op = (float(np.mean(x)) for x in zip(*cost_lists))
+    return record_of(name, launches, chk.worst, float(np.mean(chk.tap_ms)),
+                     chk.plain_ms, rd, wr, op)
+
+
+def phase_plane_headline(P, E, card, dev, check, head):
+    """Phase 4n: the headline with the metrics plane on: (a) the whole run
+    tick by tick through the tap form, every launch timed, kernel == plain
+    on 12 sampled ticks; (b) the first 400 ticks at 256 clusters, the trace
+    on, run == plain with the plane; (c) the counted run with the plane,
+    its state bitwise the plane-off run's, its harvest tied back; (d)
+    jobs/s with the plane off and on, 5 interleaved pairs, the overhead
+    printed against bench.py's 3% bound; (e) the emit form's tap (a
+    ``run_io`` tick) over the first 400 ticks."""
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        clone_state, init_state,
+    )
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        uniform_stream,
+    )
+
+    cfg = headline_cfg(P)
+    specs = [P.uniform_cluster(c + 1, 5) for c in range(HEADLINE_C)]
+    n_ticks = HORIZON_MS // cfg.tick_ms + 70
+    arr = uniform_stream(HEADLINE_C, JOBS, HORIZON_MS, max_cores=8,
+                         max_mem=6_000, max_dur_ms=60_000, seed=9)
+    chunks = E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), cfg.tick_ms)
+    engine = E.Engine(cfg, device=dev)
+    s0 = init_state(cfg, specs, device=dev)
+    chk = Checker(engine)
+    picks, peak = pick_ticks(chunks, PLANE_SAMPLES)
+    cost, shared = cost_of("fifo", engine)
+    sp = tap_pass(chk, engine, s0, chunk_feeds(chunks, dev), picks, cost,
+                  shared)
+    kms, ums = np.mean(sp["kernel_ms"]), np.mean(sp["untapped_ms"])
+    print(f"phase 4n: fused_prefix_fifo_tap == plain bitwise on {chk.n} "
+          f"headline ticks sampled as the kernel reached them (ticks "
+          f"{sorted(picks)}, the peak {peak}), state, buffer, cursor, "
+          f"placements and depths; {kms * 1e3:.2f} us/launch mean over "
+          f"{len(sp['kernel_ms'])} launches, the untapped form "
+          f"{ums * 1e3:.2f} on copies of the same states, launched just "
+          f"before (3a's pass: {np.mean(check['kernel_ms']) * 1e3:.2f}) "
+          f"[{card}]")
+
+    # (b) the 256-cluster run with the trace on
+    cfg_t = headline_cfg(P, record_trace=True, max_trace_events=512)
+    eng_t = E.Engine(cfg_t, device=dev)
+    specs_t = [P.uniform_cluster(c + 1, 5) for c in range(RUN_C)]
+    arr_t = uniform_stream(RUN_C, JOBS, HORIZON_MS, max_cores=8,
+                           max_mem=6_000, max_dur_ms=60_000, seed=9)
+    ch_t = first_ticks(E.pack_arrivals_chunks(arr_t, chunk_sizes(n_ticks),
+                                              cfg.tick_ms))
+    plain_s, kernel_s, out_t, mb_t, _ = whole_plane_run_against_plain(
+        E, eng_t, init_state(cfg_t, specs_t, device=dev), ch_t, "FIFO")
+    print(f"phase 4n: {RUN_C}-cluster headline run, its first "
+          f"{sum(c.rows.shape[0] for c in ch_t)} "
+          f"ticks, the trace on: the tap form == plain on every state, "
+          f"buffer and cursor leaf ({D.harvest(mb_t)['placed']} placements "
+          f"harvested); run wall plain {plain_s:.3f} s, kernel "
+          f"{kernel_s:.3f} s [{card}]")
+
+    # (c) the counted run, against the plane-off run
+    off, _, _ = counted_run(engine, s0, chunks, "fused_prefix_fifo")
+    on, mb, first_s, counts = counted_plane_run(engine, s0, chunks,
+                                                "fused_prefix_fifo_tap")
+    d = max(max_abs_diff(off, on), max_abs_diff(sp["state"], on),
+            max_abs_diff(sp["mbuf"], mb))
+    if d:
+        raise AssertionError(f"the headline with the plane differs from "
+                             f"the plane-off run or its pass ({d})")
+    h = plane_gates(on, mb, n_ticks, cfg.tick_ms, "phase 4n")
+    print(f"phase 4n: headline with the plane on, {n_ticks} ticks: every "
+          f"state leaf bitwise as with it off; harvest placed {h['placed']} "
+          f"= sum of placed_total, arrived {h['arrived']} = sum of arr_ptr, "
+          f"histogram {h['depth_hist_log2']} = ticks x clusters, ring last "
+          f"t_ms {h['ring']['t_ms'][-1]}, queue depth max "
+          f"{h['queue_depth_max']}, mean {h['queue_depth_mean']}; launches "
+          f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+
+    # (d) on and off interleaved
+    w_off, w_on = plane_walls(engine, s0, chunks, PLANE_TIMED)
+    placed = head["placed"]
+    over = min(w_on) / min(w_off) - 1
+    print(f"phase 4n: headline jobs/s with the plane off "
+          f"{placed / min(w_off):.1f} (min of {len(w_off)}), "
+          f"{placed / np.median(w_off):.1f} (median); on "
+          f"{placed / min(w_on):.1f}, {placed / np.median(w_on):.1f}; "
+          f"walls off {[round(w, 4) for w in w_off]}, on "
+          f"{[round(w, 4) for w in w_on]}; the plane's overhead "
+          f"{100 * over:.2f}% of the min wall (bench.py's bound "
+          f"{100 * OBS_OVERHEAD_BOUND:.0f}%, printed, not gated: walls of "
+          f"~0.3 s on a shared host vary more than that) [{card}]")
+
+    # (e) the emit form's tap: run_io over the first chunk
+    ch0 = chunks[0]
+    echk = Checker(engine)
+    ecost, eshared = cost_of("fifo_emit", engine)
+    esp = tap_pass(echk, engine, s0, chunk_feeds(chunks[:1], dev), {0, 199},
+                   ecost, eshared, emit=True)
+    state = clone_state(s0)
+    torch.cuda.synchronize()
+    fused_tick.reset_launches()
+    state, io, mb_io = engine.run_io(state, ch0.rows, ch0.counts, None,
+                                     D.metrics_init(state))
+    torch.cuda.synchronize()
+    ecounts = fused_tick.launch_counts()
+    check_launches(ecounts, "fused_prefix_fifo_emit_tap", ch0.rows.shape[0],
+                   "run_io with the plane")
+    if max_abs_diff(esp["state"], state) or \
+            max_abs_diff(esp["mbuf"], mb_io):
+        raise AssertionError("run_io with the plane differs from its pass")
+    print(f"phase 4n: run_io over the first {ch0.rows.shape[0]} headline "
+          f"ticks with the plane: fused_prefix_fifo_emit_tap == plain "
+          f"bitwise at {echk.n} ticks (state, outputs, buffer), "
+          f"{np.mean(esp['kernel_ms']) * 1e3:.2f} us/launch [{card}]")
+    swept = depth_bucket_sweep(P, E, dev)
+    print(f"phase 4n: the tap's depth bucket in the kernel == the plain "
+          f"version's on every depth below 2^24 ({swept} depths, "
+          f"{swept // HEADLINE_C} launches; 8192 in bucket 13, as XLA's CPU "
+          f"log2 puts it) [{card}]")
+    return dict(
+        records=[record_of("fused_prefix_fifo_tap",
+                           counts["fused_prefix_fifo_tap"], chk.worst, kms,
+                           chk.plain_ms, sp["read"], sp["written"]),
+                 record_of("fused_prefix_fifo_emit_tap",
+                           ecounts["fused_prefix_fifo_emit_tap"],
+                           echk.worst, float(np.mean(esp["kernel_ms"])),
+                           echk.plain_ms, esp["read"], esp["written"])],
+        kernel_ms=sp["kernel_ms"], w_off=w_off, w_on=w_on, over=over,
+        wall_min_s=min(w_on), h2d_s=head["h2d_s"], n_ticks=n_ticks)
+
+
+def depth_bucket_sweep(P, E, dev, n_depths=1 << 24):
+    """The tap's depth bucket in the kernel against the plain version's
+    (``obs.device._depth_buckets``, itself held to ``jax.jit`` on every
+    depth below 2^24 by tests/test_torch_obs.py) on every depth below
+    2^24: 4,096 launches of the FIFO tap form on an empty headline state
+    whose Level0 counts — which the FIFO span never touches and the tap
+    adds into the depth — hold 4,096 consecutive depths a launch; each
+    launch's histogram increments must equal the plain buckets' counts of
+    its depths. Returns the number of depths swept."""
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+
+    cfg = headline_cfg(P)
+    C = HEADLINE_C
+    engine = E.Engine(cfg, device=dev)
+    state = init_state(cfg, [P.uniform_cluster(c + 1, 5) for c in range(C)],
+                       device=dev)
+    host = fused_tick.host_params(engine, engine._default_params)
+    mb, cur = D.metrics_init(state), D.cursor_of(state)
+    rows = torch.full((C, 1, 10), -1, dtype=torch.int32, device=dev)
+    counts = torch.zeros(C, dtype=torch.int32, device=dev)
+    n_launch = n_depths // C
+    hists = torch.empty((n_launch + 1, D.OBS_DEPTH_BUCKETS),
+                        dtype=torch.int32, device=dev)
+    hists[0] = mb.depth_hist[0]
+    depths = torch.arange(n_launch * C, dtype=torch.int32,
+                          device=dev).view(n_launch, C)
+    for k in range(n_launch):
+        state.l0.count.copy_(depths[k])
+        fused_tick.fused_prefix(engine, state, rows, counts, 1_000, None,
+                                host, obs=(mb, cur))
+        hists[k + 1] = mb.depth_hist[0]
+    got = hists[1:] - hists[:-1]
+    want = torch.zeros_like(got)
+    for k0 in range(0, n_launch, 512):
+        b = D._depth_buckets(depths[k0:k0 + 512].reshape(-1)).long()
+        want[k0:k0 + 512].view(-1).index_add_(
+            0, (torch.arange(b.numel(), device=dev) // C) * D.OBS_DEPTH_BUCKETS
+            + b, torch.ones_like(b, dtype=torch.int32))
+    if not torch.equal(got, want):
+        bad = (got != want).any(1).nonzero()[:4].flatten().tolist()
+        raise AssertionError(f"the kernel's depth bucket differs from the "
+                             f"plain one at the launches {bad}")
+    return n_launch * C
+
+
+def phase_plane_churn(P, E, card, dev, churn_wide):
+    """Phase 4o: bench_faults's churn at 4,096 clusters with the plane on:
+    the tap's faults form tick by tick, every launch timed, kernel ==
+    plain on 12 sampled ticks; the counted run with the plane, its state
+    bitwise 4m's, its harvested kills and requeues the state's; the emit
+    form's tap over 40 ``run_io`` ticks."""
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        clone_state, init_state,
+    )
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+
+    cfg = faults_cfg(P)
+    specs = [P.uniform_cluster(c + 1, 5) for c in range(FAULTS_WIDE_C)]
+    chunks, n_ticks = faults_stream(E, FAULTS_WIDE_C)
+    engine = E.Engine(cfg, device=dev)
+    s0 = init_state(cfg, specs, device=dev)
+    chk = Checker(engine)
+    picks, peak = pick_ticks(chunks, FAULTS_SAMPLES)
+    cost, shared = cost_of("fifo_faults", engine)
+    sp = tap_pass(chk, engine, s0, chunk_feeds(chunks, dev), picks, cost,
+                  shared)
+    on, mb, _, counts = counted_plane_run(engine, s0, chunks,
+                                          "fused_prefix_fifo_tap_faults")
+    if max(max_abs_diff(churn_wide["sampled"]["state"], on),
+           max_abs_diff(sp["state"], on), max_abs_diff(sp["mbuf"], mb)):
+        raise AssertionError("churn with the plane differs from 4m's run "
+                             "or its pass")
+    h = plane_gates(on, mb, n_ticks, cfg.tick_ms, "phase 4o")
+    kms = float(np.mean(sp["kernel_ms"]))
+    ums = float(np.mean(sp["untapped_ms"]))
+    print(f"phase 4o: churn at {FAULTS_WIDE_C} clusters with the plane on: "
+          f"fused_prefix_fifo_tap_faults == plain bitwise on {chk.n} ticks "
+          f"sampled as reached (ticks {sorted(picks)}); state bitwise 4m's; "
+          f"harvested kills {h['fault_kills']}, requeues "
+          f"{h['fault_requeues']}, fail drops {h['fault_drops']}, node "
+          f"down {h['node_down_ms']} ms = the state's; {kms * 1e3:.2f} "
+          f"us/launch over {len(sp['kernel_ms'])} launches, the untapped "
+          f"faults form {ums * 1e3:.2f} on copies of the same states (4m's "
+          f"pass: {np.mean(churn_wide['sampled']['kernel_ms']) * 1e3:.2f});"
+          f" launches "
+          f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+    # the emit form's tap: run_io over 40 ticks
+    n_io = min(BORROW_IO_TICKS, chunks[0].rows.shape[0])
+    echk = Checker(engine)
+    ecost, eshared = cost_of("fifo_faults", engine)
+    esp = tap_pass(echk, engine, s0, chunk_feeds(chunks, dev, n_io),
+                   {0, n_io - 1}, ecost, eshared, emit=True)
+    state = clone_state(s0)
+    torch.cuda.synchronize()
+    fused_tick.reset_launches()
+    state, _, mb_io = engine.run_io(state, chunks[0].rows[:n_io],
+                                    chunks[0].counts[:n_io], None,
+                                    D.metrics_init(state))
+    torch.cuda.synchronize()
+    ecounts = fused_tick.launch_counts()
+    check_launches(ecounts, "fused_prefix_fifo_emit_tap_faults", n_io,
+                   "churn run_io with the plane")
+    if max_abs_diff(esp["state"], state) or \
+            max_abs_diff(esp["mbuf"], mb_io):
+        raise AssertionError("churn run_io with the plane differs from its "
+                             "pass")
+    print(f"phase 4o: run_io over the first {n_io} churn ticks with the "
+          f"plane: fused_prefix_fifo_emit_tap_faults == plain bitwise at "
+          f"{echk.n} ticks, {np.mean(esp['kernel_ms']) * 1e3:.2f} us/launch "
+          f"[{card}]")
+    return dict(records=[
+        record_of("fused_prefix_fifo_tap_faults",
+                  counts["fused_prefix_fifo_tap_faults"], chk.worst, kms,
+                  chk.plain_ms, sp["read"], sp["written"]),
+        record_of("fused_prefix_fifo_emit_tap_faults",
+                  ecounts["fused_prefix_fifo_emit_tap_faults"], echk.worst,
+                  float(np.mean(esp["kernel_ms"])), echk.plain_ms,
+                  esp["read"], esp["written"])])
+
+
+def config1_cfg(P, policy):
+    """bench.py:839-895 bench_fifo_small's config (BASELINE config 1), as
+    the port's; ``policy`` DELAY gives the reference's live scheduler on
+    the same world."""
+    return P.SimConfig(policy=policy, queue_capacity=768, max_running=512,
+                       max_arrivals=CONFIG1_ARRIVALS, max_nodes=5, n_res=2,
+                       record_metrics=True)
+
+
+def config1_run(engine, s0, arr, plane=True):
+    """Config 1's run: 3,600 ticks as four 900-tick ``run`` calls over the
+    windowed stream, the buffer carried. Returns the state, the series of
+    every tick and the buffer (None with the plane off)."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+
+    state = clone_state(s0)
+    mb = D.metrics_init(state) if plane else None
+    series = []
+    for _ in range(CONFIG1_TICKS // CONFIG1_CHUNK):
+        res = engine.run(state, arr, CONFIG1_CHUNK, None, mb)
+        state, ser = res[0], res[1]
+        mb = res[2] if plane else None
+        series.append(ser)
+    return state, series, mb
+
+
+def series_at_marks(series):
+    """The series at the reference's 5 s marks, as bench_fifo_small writes
+    bench_metrics.json."""
+    t = torch.cat([s.t for s in series]).cpu().numpy()
+    jq = torch.cat([s.jobs_in_queue for s in series]).cpu().numpy()
+    aw = torch.cat([s.avg_wait_ms for s in series]).cpu().numpy()
+    at = t % 5_000 == 0
+    return {"t_ms": t[at].tolist(), "jobs_in_queue": jq[at, 0].tolist(),
+            "avg_wait_ms": [round(float(x), 2) for x in aw[at, 0]]}
+
+
+def plain_windowed_run(engine, s0, rows, n, n_ticks):
+    """The plain version of a windowed run with the plane and the series:
+    the plain prefix, its tap and ``tap_tick_global``, tick by tick.
+    Returns the state, the stacked series and the buffer."""
+    from multi_cluster_simulator_tpu_torch.core import state as st
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+
+    params = engine._default_params
+    member = engine.member(params)
+    ref = st.clone_state(s0)
+    mb, cur = D.metrics_init(ref), D.cursor_of(ref)
+    series, t = [], int(s0.t)
+    for _ in range(n_ticks):
+        t += engine.cfg.tick_ms
+        ref, *_, tap = fused_tick.fused_prefix_reference(
+            engine, ref, rows, n, t, params, member,
+            obs=(D.tap_pc(mb), cur), windowed=True)
+        pc, cur, placed_d, depth = tap
+        mb = D.tap_tick_global(mb.replace(**pc), placed_d, depth, t,
+                               engine.cfg.tick_ms)
+        ref.t.fill_(t)
+        series.append(st.metric_sample(ref))
+    return ref, st.stack_samples(series, ref), mb
+
+
+def phase_config1(P, E, card, dev):
+    """Phase 4p: BASELINE config 1 (bench.py:839-895 bench_fifo_small) at
+    its own shape: FIFO on one cluster_small, the windowed ingest of
+    generate_arrivals(..., 1, 2048, 3_600_000, 32, 24_000, seed=9), 3,600
+    ticks in 900-tick chunks, record_metrics and the plane on. Zero drops;
+    the series at the 5 s marks equal to the committed bench_metrics.json;
+    the first chunk's kernel run == its plain run (state, series, buffer);
+    the first chunk's launches timed beside the untapped form's, kernel
+    == plain at 12 of its ticks; fifo_cluster_small_ticks_per_sec over 5
+    timed runs after 2 warm-ups, the plane off and on interleaved. Then
+    the same world under DELAY, the reference's live scheduler, whose
+    series moves (kernel == plain at 12 ticks of its first chunk)."""
+    import json as _json
+    import os
+
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+    from multi_cluster_simulator_tpu_torch.policies import kernels as K
+    from multi_cluster_simulator_tpu_torch.utils.trace import (
+        check_conservation, total_drops,
+    )
+    from multi_cluster_simulator_tpu_torch.workload.generator import (
+        generate_arrivals,
+    )
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "bench_metrics.json")) as f:
+        committed = _json.load(f)
+    out = {"records": []}
+    picks = {int(x) for x in np.linspace(0, CONFIG1_CHUNK - 1, 12)}
+    for policy in (P.PolicyKind.FIFO, P.PolicyKind.DELAY):
+        cfg = config1_cfg(P, policy)
+        engine = E.Engine(cfg, device=dev)
+        arr = generate_arrivals(cfg.workload, 1, cfg.max_arrivals,
+                                CONFIG1_TICKS * cfg.tick_ms, 32, 24_000,
+                                seed=9)
+        s0 = init_state(cfg, [P.uniform_cluster(1, 5)], device=dev)
+        kernel = fused_tick.host_params(engine,
+                                        engine._default_params)["tap_kernel"]
+        rows, n = (torch.from_numpy(x).to(dev) for x in E.pack_arrivals(arr))
+        name = policy.value
+        # the first chunk tick by tick: every launch timed beside the
+        # untapped form's, kernel == plain at 12 ticks
+        chk = Checker(engine)
+        cost, shared = cost_of(
+            "fifo" if policy == P.PolicyKind.FIFO else "delay", engine,
+            K._sweep_len(cfg))
+        sp = tap_pass(chk, engine, s0, ((rows, n) for _ in range(
+            CONFIG1_CHUNK)), picks, cost, shared, windowed=True)
+        # the main path, counted
+        torch.cuda.synchronize()
+        fused_tick.reset_launches()
+        w0 = time.perf_counter()
+        fin, series, mb = config1_run(engine, s0, arr)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - w0
+        counts = fused_tick.launch_counts()
+        wcounts = fused_tick.windowed_launch_counts()
+        check_launches(counts, kernel.name, CONFIG1_TICKS, "config 1")
+        check_launches(wcounts, kernel.name, CONFIG1_TICKS,
+                       "config 1, windowed")
+        # the first chunk through the entry point equals the pass
+        s1 = init_state(cfg, [P.uniform_cluster(1, 5)], device=dev)
+        first = engine.run(s1, arr, CONFIG1_CHUNK, None, D.metrics_init(s1))
+        if max(max_abs_diff(sp["state"], first[0]),
+               max_abs_diff(sp["mbuf"], first[2])):
+            raise AssertionError("config 1: the first chunk's run differs "
+                                 "from its pass")
+        drops = total_drops(fin)
+        check_conservation(fin)
+        h = plane_gates(fin, mb, CONFIG1_TICKS, cfg.tick_ms, "config 1")
+        marks = series_at_marks(series)
+        if policy == P.PolicyKind.FIFO:
+            # the whole first chunk through the plain version
+            w0 = time.perf_counter()
+            ref, ref_ser, ref_mb = plain_windowed_run(engine, s0, rows, n,
+                                                      CONFIG1_CHUNK)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - w0
+            d = max(max_abs_diff(ref, first[0]), max_abs_diff(ref_mb, first[2]),
+                    max_abs_diff(ref_ser, first[1]))
+            if d:
+                raise AssertionError(f"config 1: the first chunk differs "
+                                     f"from its plain run ({d})")
+            if any(drops.values()):
+                raise AssertionError(f"config 1: drops {drops}")
+            if marks != {k: committed[k] for k in marks}:
+                raise AssertionError("config 1: the series at the 5 s marks "
+                                     "differs from bench_metrics.json")
+            off, on = [], []
+            for i in range(CONFIG1_WARMUPS + CONFIG1_TIMED):
+                for walls, plane in ((off, False), (on, True)):
+                    torch.cuda.synchronize()
+                    w0 = time.perf_counter()
+                    config1_run(engine, s0, arr, plane)
+                    torch.cuda.synchronize()
+                    if i >= CONFIG1_WARMUPS:
+                        walls.append(time.perf_counter() - w0)
+            print(f"phase 4p: config 1 (FIFO, cluster_small, queue 768, "
+                  f"running 512, {CONFIG1_ARRIVALS} arrivals, the windowed "
+                  f"ingest, record_metrics, the plane on), {CONFIG1_TICKS} "
+                  f"ticks in {CONFIG1_CHUNK}-tick chunks: placed "
+                  f"{int(fin.placed_total.sum())}, arrived "
+                  f"{int(fin.arr_ptr.sum())}, drops {drops}, conservation "
+                  f"ok; the series at the {len(marks['t_ms'])} 5 s marks "
+                  f"equals bench_metrics.json (jobs_in_queue max "
+                  f"{max(marks['jobs_in_queue'])}, avg_wait_ms max "
+                  f"{max(marks['avg_wait_ms'])}: zero, since under FIFO no "
+                  f"handler moves jobs_in_queue or the wait counters); "
+                  f"harvest queue depth max {h['queue_depth_max']}, mean "
+                  f"{h['queue_depth_mean']}, histogram "
+                  f"{h['depth_hist_log2']}; launches "
+                  f"{ {k: v for k, v in counts.items() if v} }, windowed "
+                  f"{ {k: v for k, v in wcounts.items() if v} } [{card}]")
+            print(f"phase 4p: the first {CONFIG1_CHUNK}-tick chunk: kernel "
+                  f"run == plain run on every state, series and buffer "
+                  f"leaf; run wall plain {plain_s:.3f} s [{card}]")
+            print(f"phase 4p: fifo_cluster_small_ticks_per_sec (virtual-s/s)"
+                  f" with the plane on {CONFIG1_TICKS / min(on):.1f} (min "
+                  f"of {len(on)}), {CONFIG1_TICKS / np.median(on):.1f} "
+                  f"(median); off {CONFIG1_TICKS / min(off):.1f}, "
+                  f"{CONFIG1_TICKS / np.median(off):.1f}; walls on "
+                  f"{[round(w, 4) for w in on]}, off "
+                  f"{[round(w, 4) for w in off]}; first run "
+                  f"{first_s:.4f} s; us/tick "
+                  f"{1e6 * min(on) / CONFIG1_TICKS:.1f} [{card}]")
+            out.update(on=on, off=off)
+        else:
+            jq = max(marks["jobs_in_queue"])
+            aw = max(marks["avg_wait_ms"])
+            if not (jq > 0 and aw > 0):
+                raise AssertionError(f"config 1 under DELAY: a flat series "
+                                     f"({jq}, {aw})")
+            print(f"phase 4p: the same world under DELAY (the reference's "
+                  f"live scheduler): placed {int(fin.placed_total.sum())}, "
+                  f"drops {drops}, conservation ok; the series moves: "
+                  f"jobs_in_queue max {jq}, avg_wait_ms max {aw} at the 5 s "
+                  f"marks, final {marks['avg_wait_ms'][-1]}; harvest wait "
+                  f"accrued {h['wait_accrued_ms']} ms, depth max "
+                  f"{h['queue_depth_max']}; launches "
+                  f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+        print(f"phase 4p: {kernel.name} (windowed ingest) == plain bitwise "
+              f"at {chk.n} ticks of the first chunk under {name} (state, "
+              f"buffer, cursor), {np.mean(sp['kernel_ms']) * 1e3:.2f} "
+              f"us/launch over its {len(sp['kernel_ms'])} ticks, the "
+              f"untapped form {np.mean(sp['untapped_ms']) * 1e3:.2f}, plain "
+              f"{np.mean(chk.plain_ms):.3f} ms [{card}]")
+        rec = record_of(kernel.name, wcounts[kernel.name], chk.worst,
+                        float(np.mean(sp["kernel_ms"])), chk.plain_ms,
+                        sp["read"], sp["written"], sp["ops"])
+        rec["name"] = f"{kernel.name}_windowed"
+        out["records"].append(rec)
+    return out
+
+
+def tap_segments(chk, engine, s0, chunks, picks, cost, shared, costs):
+    """Through ``engine.run_chunks`` with a buffer, chunk by chunk, the
+    cursor re-derived at each call's entry; at each tick in ``picks`` a
+    one-tick run after the tap form and the untapped form were compared
+    and timed (``Checker``) on copies, the emit form's tap too at the
+    first two; the tick's bytes appended to ``costs``. Returns the final
+    state and buffer."""
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        TickArrivals, clone_state,
+    )
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+
+    state = clone_state(s0)
+    mb = D.metrics_init(state)
+    k_glob, t = 0, 0
+    for ch in chunks:
+        T = ch.rows.shape[0]
+        cuts = sorted({0, T} | {p - k_glob for p in picks
+                               if k_glob <= p < k_glob + T})
+        for a, b in zip(cuts, cuts[1:]):
+            if a + k_glob in picks:
+                rows = torch.from_numpy(ch.rows[a]).to(state.device)
+                counts = torch.from_numpy(ch.counts[a]).to(state.device)
+                cur = D.cursor_of(state)
+                before = (clone_state(state), chk.clone(mb), cur)
+                k_state, k_mb, k_cur = chk.compare(
+                    state, rows, counts, t + engine.cfg.tick_ms,
+                    obs=(mb, cur))
+                r, w, o = cost(before[0], k_state, rows, counts,
+                               t + engine.cfg.tick_ms)
+                tr, tw = tap_cost(shared, before[1], cur, k_mb, k_cur)
+                costs.append((int(r + tr), int(w + tw), int(o)))
+                if len(costs) <= 2:
+                    chk.compare(state, rows, counts, t + engine.cfg.tick_ms,
+                                emit=True, obs=(mb, cur))
+            part = TickArrivals(rows=ch.rows[a:b], counts=ch.counts[a:b])
+            state, mb = engine.run_chunks(state, [part], None, mb)
+            t += (b - a) * engine.cfg.tick_ms
+        k_glob += T
+    return state, mb
+
+
+def phase_plane_level0(P, E, card, dev, borg, market, sampled):
+    """Phase 4q: the Level0 kernels' tap forms on the terminal runs they
+    ride: borg4k (FFD), market (b) gavel, (c) tesserae, (d) DELAY parity —
+    the counted run with the plane (its state bitwise the plane-off run's,
+    the harvest tied back), kernel == plain and the tap form timed beside
+    the untapped one at ticks the run reaches, the emit form's tap at two;
+    then the faults forms' taps: the first 100 ticks of DELAY, FFD and
+    gavel at the quick market shape with churn, run == plain with the
+    plane."""
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.policies import kernels as K
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+
+    # the terminal Level0 runs: each world, stream, plane-off final state
+    # and cost kind
+    runs = [("borg4k", borg_cfg(P), "ffd", borg["specs"], borg["chunks"],
+             borg["sampled"]["state"], "ffd")]
+    for name in "bcd":
+        policy, kw, _ = MARKET_RUNS[name]
+        runs.append((f"market ({name})", market_cfg(P, **kw), policy,
+                     market["specs"], market["chunks"],
+                     sampled[name]["sampled"]["state"], policy))
+    records = {}
+    for label, cfg, policy, specs, chunks, off_state, kind in runs:
+        engine = E.Engine(cfg, device=dev, policies=PolicySet((policy,)))
+        QC = K._sweep_len(cfg)
+        cost, shared = cost_of(kind, engine, QC)
+        kernel = Checker(engine).host["tap_kernel"].name
+        s0 = init_state(cfg, specs, device=dev)
+        n_ticks = sum(ch.rows.shape[0] for ch in chunks)
+        on, mb, wall, counts = counted_plane_run(engine, s0, chunks, kernel)
+        if max_abs_diff(off_state, on):
+            raise AssertionError(f"{label} with the plane differs from its "
+                                 f"plane-off run")
+        h = plane_gates(on, mb, n_ticks, cfg.tick_ms, label)
+        chk = Checker(engine)
+        picks, _ = pick_ticks(chunks, PLANE_SAMPLES)
+        costs = []
+        seg_state, seg_mb = tap_segments(chk, engine, s0, chunks, picks,
+                                         cost, shared, costs)
+        if max(max_abs_diff(seg_state, on), max_abs_diff(seg_mb, mb)):
+            raise AssertionError(f"{label}: the segmented run differs")
+        print(f"phase 4q: {label} with the plane on, {n_ticks} ticks: state "
+              f"bitwise the plane-off run's; harvest placed {h['placed']}, "
+              f"depth max {h['queue_depth_max']}, histogram "
+              f"{h['depth_hist_log2']}; {kernel} == plain bitwise at "
+              f"{chk.n} ticks it reached (the emit form's tap at 2), "
+              f"{np.mean(chk.tap_ms) * 1e3:.2f} us/launch, the untapped "
+              f"form {np.mean(chk.untap_ms) * 1e3:.2f} on the same states; "
+              f"run wall {wall:.4f} s; launches "
+              f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+        if kernel not in records:
+            records[kernel] = tap_records(chk, kernel, counts[kernel], costs)
+
+    # the faults forms' taps at the quick market shape, with churn
+    qc_, qj = MARKET_QUICK
+    ch_q = first_ticks(market_stream(E, qc_, qj, quick=True)[0],
+                       PLANE_CHURN_TICKS)
+    quick_fc = churn_faults(P, mttf_ms=60_000, mttr_ms=8_000)
+    for policy, kind in (("delay", "delay"), ("ffd", "ffd"),
+                         ("gavel", "gavel")):
+        cfg = market_cfg(P, quick=True, jobs=qj, faults=quick_fc)
+        engine = E.Engine(cfg, device=dev, policies=PolicySet((policy,)))
+        s0 = init_state(cfg, market_specs(P, qc_), device=dev)
+        plain_s, kernel_s, out, mb, counts = whole_plane_run_against_plain(
+            E, engine, s0, ch_q, f"quick {policy} with churn")
+        kernel = Checker(engine).host["tap_kernel"].name
+        n_q = sum(ch.rows.shape[0] for ch in ch_q)
+        h = plane_gates(out, mb, n_q, cfg.tick_ms,
+                        f"quick {policy} with churn")
+        if not h["fault_kills"]:
+            raise AssertionError(f"quick {policy}: no kill reached the tap")
+        chk = Checker(engine)
+        costs = []
+        cost, shared = cost_of(kind, engine, K._sweep_len(cfg))
+        tap_segments(chk, engine, s0, ch_q, {5, 25, 45}, cost, shared,
+                     costs)
+        print(f"phase 4q: quick {policy} with churn ({qc_} clusters x "
+              f"{n_q} ticks), the plane on: {kernel} + tap == "
+              f"plain on every state and buffer leaf; harvested kills "
+              f"{h['fault_kills']}, requeues {h['fault_requeues']}; "
+              f"{np.mean(chk.tap_ms) * 1e3:.2f} us/launch at 3 ticks (the "
+              f"untapped form {np.mean(chk.untap_ms) * 1e3:.2f}); run wall "
+              f"plain {plain_s:.3f} s, kernel {kernel_s:.3f} s [{card}]")
+        if kernel not in records:
+            records[kernel] = tap_records(chk, kernel, counts[kernel], costs)
+    return dict(records=list(records.values()))
+
+
 def bound(read, written, ops=0.0):
     """The least time (ms) for a launch's bytes and operations, and which
     of the two bounds it."""
@@ -2939,6 +3884,17 @@ def main(device: str = "cuda") -> int:
     churn_wide = phase_faults_run(P, E, card, dev, FAULTS_WIDE_C, "phase 4m")
     lap("4m")
     print(f"phases 3k, 4k, 4m: {time.perf_counter() - w3:.1f} s")
+
+    w4 = time.perf_counter()
+    plane = phase_plane_headline(P, E, card, dev, check, head)
+    lap("4n")
+    plane_churn = phase_plane_churn(P, E, card, dev, churn_wide)
+    lap("4o")
+    config1 = phase_config1(P, E, card, dev)
+    lap("4p")
+    plane_l0 = phase_plane_level0(P, E, card, dev, borg, market, sampled)
+    lap("4q")
+    print(f"phases 4n-4q: {time.perf_counter() - w4:.1f} s")
 
     records = []
     kms = float(np.mean(check["kernel_ms"]))
@@ -3090,8 +4046,20 @@ def main(device: str = "cuda") -> int:
                             plain=h["plain_ms"],
                             bound=bound(h["read"], h["written"])))
 
+    # the metrics plane's tap forms and the windowed ingest
+    breakdown("headline, the plane on", plane, plane["kernel_ms"], card)
+    for group in (plane, plane_churn, config1, plane_l0):
+        for r in group["records"]:
+            b_ms, b_by = r["bound"]
+            print(f"kernel {r.get('name', r['kernel'].name)}: "
+                  f"{r['ms'] * 1e3:.2f} us/launch, plain "
+                  f"{np.mean(r['plain']):.3f} ms, bound {b_ms * 1e3:.4f} us "
+                  f"by {b_by}, launches {r['launches']}; kernel / bound "
+                  f"{r['ms'] / b_ms:.1f} [{card}]")
+            records.append(r)
+
     print(json.dumps({"kernels": [{
-        "name": r["kernel"].name, "route": "cuda",
+        "name": r.get("name", r["kernel"].name), "route": "cuda",
         "source": r["kernel"].source, "replaces": fused_tick.REPLACES,
         "launches": r["launches"], "max_abs_err": r["worst"],
         "ms": r["ms"], "plain_ms": float(np.mean(r["plain"])),

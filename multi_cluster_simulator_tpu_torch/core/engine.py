@@ -1,6 +1,7 @@
 """The virtual-time simulation engine (the port of
 ``multi_cluster_simulator_tpu/core/engine.py``: the FIFO, FFD, DELAY and
-scored-zoo slices, cross-cluster borrowing and the trader market).
+scored-zoo slices, cross-cluster borrowing, the trader market, the fault
+plane and the device metrics plane).
 
 One tick is the reference's tick on the paths the port carries: the
 per-cluster prefix ``faults -> release (with the return pack) -> vnode
@@ -20,13 +21,24 @@ are host branches on the host's clock: a tick off them launches nothing.
 Without borrowing and the trader the prefix is the whole tick (it is
 terminal).
 
+Arrivals come in two forms, as in the reference: pre-bucketed
+``TickArrivals`` (each tick its own rows) or a windowed ``Arrivals``
+stream, packed once per run and copied to the device once, from which
+each tick ingests the due rows at its arrival cursor, at most
+``max_ingest_per_tick`` of them (``drops.ingest`` counts the rest).
+
+The metrics plane (obs/device.py) rides any run given a ``MetricsBuffer``
+(``mbuf``): on a terminal prefix the tap is the kernel's epilogue,
+otherwise it runs as PyTorch ops after the tick. ``record_metrics``
+stacks a ``MetricSample`` per tick.
+
 The run loops replace the reference's ``lax.scan``: ``run`` loops over the
-ticks of a ``TickArrivals`` bucket, ``run_chunks`` does what
-``bench._engine_run`` does for the headline and the Borg-like replay — a
-list of ragged-K chunks, each chunk's rows copied to the device once, the
-clock kept on the host, and no host synchronisation inside a chunk — and
-``run_io`` is the serving tier's dispatch unit: one staged chunk, with
-every tick's ``TickIO`` stacked.
+ticks of a ``TickArrivals`` bucket or an ``Arrivals`` stream,
+``run_chunks`` does what ``bench._engine_run`` does for the headline and
+the Borg-like replay — a list of ragged-K chunks, each chunk's rows copied
+to the device once, the clock kept on the host, and no host
+synchronisation inside a chunk — and ``run_io`` is the serving tier's
+dispatch unit: one staged chunk, with every tick's ``TickIO`` stacked.
 
 Configurations outside the slice raise ``NotImplementedError`` naming the
 ROADMAP item that ports them; nothing falls back silently.
@@ -47,6 +59,10 @@ from multi_cluster_simulator_tpu_torch.core.state import (
 from multi_cluster_simulator_tpu_torch.faults import apply as faults_apply
 from multi_cluster_simulator_tpu_torch.kernels import fused_tick
 from multi_cluster_simulator_tpu_torch.market import trader as market
+from multi_cluster_simulator_tpu_torch.obs import device as obs_device
+from multi_cluster_simulator_tpu_torch.obs.profile import (
+    annotate_dispatch, phase_scope,
+)
 from multi_cluster_simulator_tpu_torch.ops import fields as F
 from multi_cluster_simulator_tpu_torch.ops import placement as P
 from multi_cluster_simulator_tpu_torch.ops import queues as Q
@@ -170,15 +186,7 @@ def _bucket_arrivals_host(arr: Arrivals, n_ticks: int, tick_ms: int):
     firsts = np.zeros((C, n_ticks + 1), np.int64)
     firsts[:, 1:] = np.cumsum(counts2d, axis=1)[:, :-1]
     rank = np.arange(A)[None, :] - firsts[np.arange(C)[:, None], dest]
-    vals = {"id": np.asarray(arr.id), "cores": np.asarray(arr.cores),
-            "mem": np.asarray(arr.mem), "gpu": np.asarray(arr.gpu),
-            "dur": np.asarray(arr.dur), "enq_t": t,
-            "owner": np.full_like(t, Q.OWN),
-            "rec_wait": np.zeros_like(t),
-            "jclass": F.job_class(np.asarray(arr.cores),
-                                  np.asarray(arr.gpu)).astype(np.int32),
-            "retries": np.zeros_like(t)}
-    fields = np.stack([vals[n] for n in F.QUEUE_FIELDS], axis=-1)
+    fields = pack_arrivals(arr)[0]
     return fields, dest, ok, rank, counts2d.T[:n_ticks].copy()
 
 
@@ -258,6 +266,64 @@ def _ingest_packed_local(s: SimState, rows: torch.Tensor, cnt: torch.Tensor,
     else:
         s = s.replace(ready=Q.push_many(s.ready, batch, valid))
     return s.replace(arr_ptr=s.arr_ptr + cnt)
+
+
+def pack_arrivals(arr: Arrivals) -> tuple[np.ndarray, np.ndarray]:
+    """The stream as ready-made queue rows ``[C, A, NF]`` and its valid
+    counts ``arr.n`` [C] (host numpy, int32), made once per run; the
+    per-tick ingest takes its window from them (``_ingest_local``).
+    Column order is the field schema's (ops/fields.py)."""
+    t = np.asarray(arr.t)
+    vals = {"id": arr.id, "cores": arr.cores, "mem": arr.mem,
+            "gpu": arr.gpu, "dur": arr.dur, "enq_t": t,
+            "owner": np.full(t.shape, Q.OWN), "rec_wait": np.zeros(t.shape),
+            "jclass": F.job_class(np.asarray(arr.cores), np.asarray(arr.gpu)),
+            "retries": np.zeros(t.shape)}
+    rows = np.stack([np.asarray(vals[n]) for n in F.QUEUE_FIELDS],
+                    axis=-1).astype(np.int32)
+    return rows, np.asarray(arr.n, np.int32)
+
+
+def _ingest_local(s: SimState, arr_rows: torch.Tensor, arr_n: torch.Tensor,
+                  t: int, cfg: SimConfig, to_delay: bool):
+    """Enqueue the stream's arrivals with ``enq_t <= t`` (the reference's
+    windowed ingest): into Level0 for the queue-sweep policies
+    (``to_delay``; the /delay handler, server.go:53-78, which also grows
+    ``wait_jobs`` and ``jobs_in_queue``), else into the FIFO ReadyQueue
+    (the / handler, server.go:23-51).
+
+    ``arr_rows`` [C, A, NF] are ``pack_arrivals``' rows and ``arr_n`` [C]
+    their counts. The window is ``[arr_ptr, arr_ptr + K)`` with ``K =
+    min(max_ingest_per_tick, A)``; due arrivals beyond it slip to the next
+    tick and count into ``drops.ingest`` (a timing divergence from Go,
+    which parity runs assert never happens). The reference extracts the
+    window with a one-hot matmul; a gather gives the same rows."""
+    C, A = arr_rows.shape[0], arr_rows.shape[1]
+    K = min(cfg.max_ingest_per_tick, A)
+    dev = arr_rows.device
+    a = torch.arange(A, dtype=I32, device=dev)[None, :]
+    ptr = s.arr_ptr[:, None]
+    in_window = (a >= ptr) & (a < ptr + K)
+    due = ((a >= ptr) & (a < arr_n[:, None])
+           & (arr_rows[..., Q.FENQ] <= t))  # everything Go ingests now
+    n = isum(due & in_window, 1)
+    s = s.replace(drops=s.drops.replace(
+        ingest=s.drops.ingest + (isum(due, 1) - n)))
+    k = torch.arange(K, dtype=I32, device=dev)[None, :]
+    idx = torch.clamp(ptr + k, max=max(A - 1, 0)).long()
+    rows = torch.gather(arr_rows, 1, idx[..., None].expand(C, K, Q.NF))
+    valid = k < n[:, None]
+    batch = Q.JobQueue(data=rows, count=n)
+    tgt = s.l0 if to_delay else s.ready
+    dropped = Q.push_many_dropped(tgt, valid)
+    s = s.replace(drops=s.drops.replace(queue=s.drops.queue + dropped))
+    if to_delay:
+        s = s.replace(l0=Q.push_many(s.l0, batch, valid),
+                      wait_jobs=s.wait_jobs + n,
+                      jobs_in_queue=s.jobs_in_queue + n)
+    else:
+        s = s.replace(ready=Q.push_many(s.ready, batch, valid))
+    return s.replace(arr_ptr=s.arr_ptr + n)
 
 
 # --------------------------------------------------------------------------
@@ -364,10 +430,6 @@ def _check_slice(cfg: SimConfig) -> None:
     if cfg.trader.enabled and cfg.n_res != 3:
         raise ValueError("the trader market carves 3-dim resources; "
                          "set n_res=3 when trader.enabled")
-    if cfg.record_metrics:
-        raise NotImplementedError(
-            "record_metrics (the metrics plane) is not ported yet: "
-            "ROADMAP A10")
 
 
 class Engine:
@@ -419,19 +481,26 @@ class Engine:
 
     def _span_prefix(self, state: SimState, rows: torch.Tensor,
                      counts: torch.Tensor, t: int, params: PolicyParams,
-                     member=None, emit_returns: bool = False):
+                     member=None, emit_returns: bool = False, obs=None,
+                     windowed: bool = False):
         """Phases 1-5 of the tick on this slice's paths, as plain PyTorch
         ops: the fault phase where ``cfg.faults`` engages it (its requeues
         into the member's ingest target), completions (and, with
-        ``emit_returns``, the pack of the
-        finished foreign jobs' return messages, whose overflow counts into
-        ``drops.msgs``), vnode expiry where the config engages it, arrival
-        ingest into the member's queue, the member's pass. ``member`` is
-        the ``PolicySpec`` ``params.idx`` selects (read from the index when
-        None). Returns ``(state, want,
-        bjob_vec, ret_rows, ret_valid)``, the return rows None when
-        ``emit_returns`` is off, as the reference's. The CUDA kernels are
-        held against exactly this function."""
+        ``emit_returns``, the pack of the finished foreign jobs' return
+        messages, whose overflow counts into ``drops.msgs``), vnode expiry
+        where the config engages it, arrival ingest into the member's
+        queue, the member's pass. ``member`` is the ``PolicySpec``
+        ``params.idx`` selects (read from the index when None). The
+        arrivals are one tick's ``rows`` [C, K, NF] and ``counts`` [C], or
+        with ``windowed`` the whole packed stream [C, A, NF] and its
+        counts (``_ingest_local``). ``obs``, a ``(pc, cursor)`` pair
+        (``obs.device.tap_pc`` form), runs the metrics tap's per-cluster
+        half after the pass, as the span's epilogue: legal only on a
+        terminal prefix. Returns ``(state, want, bjob_vec, ret_rows,
+        ret_valid, obs_out)``, the return rows None when ``emit_returns``
+        is off and ``obs_out = (pc', cursor', placed_d, depth)`` or None,
+        as the reference's. The CUDA kernels are held against exactly this
+        function."""
         member = self.member(params) if member is None else member
         if self.cfg.faults.enabled:
             state = faults_apply.fault_phase_local(state, t, self.cfg,
@@ -446,29 +515,54 @@ class Engine:
                 msgs=state.drops.msgs + dropped))
         if fused_tick.expires(self.cfg):
             state = _expire_vnodes_local(state, t)
-        state = _ingest_packed_local(state, rows, counts, member.to_delay)
+        if windowed:
+            state = _ingest_local(state, rows, counts, t, self.cfg,
+                                  member.to_delay)
+        else:
+            state = _ingest_packed_local(state, rows, counts,
+                                         member.to_delay)
         state, want, bjob_vec = self.pset.dispatch(state, t, params,
                                                    self.cfg, member)
-        return state, want, bjob_vec, ret_rows, ret_valid
+        obs_out = None
+        if obs is not None:
+            if not self.prefix_terminal():
+                raise ValueError(
+                    "epilogue tap requested on a non-terminal prefix: the "
+                    "phases after the span would move the counters after "
+                    "the tap (obs belongs to the post-tick tap)")
+            obs_out = obs_device.tap_tick_local(obs[0], obs[1], state)
+        return state, want, bjob_vec, ret_rows, ret_valid, obs_out
 
     def _tick(self, state: SimState, rows: torch.Tensor,
               counts: torch.Tensor, t: int, params: PolicyParams,
-              host: dict, out: TickIO = None) -> SimState:
+              host: dict, out: TickIO = None, obs=None,
+              windowed: bool = False):
         """One tick ending at clock ``t`` (a host int): the prefix, then
         with borrowing return delivery and borrow matching, then with the
         trader the snapshot and the market round on their cadences, then
         the clock. ``out`` (TickIO buffers) receives the tick's events; the
         prefix emits them whenever borrowing or ``out`` asks, into
-        ``host["io"]`` when ``out`` is None. Returns the state, which the
-        cross-cluster phases rebuild (``run_chunks`` writes it back)."""
+        ``host["io"]`` when ``out`` is None. ``obs`` is the run's
+        ``(MetricsBuffer, TapCursor)``: on a terminal prefix the prefix's
+        epilogue updates both in place; otherwise ``tap_tick`` runs after
+        the clock and returns new ones. Returns ``(state, obs)``; the
+        cross-cluster phases rebuild the state (``run_chunks`` writes it
+        back)."""
         emit = self.cfg.borrowing or out is not None
-        state, *io = fused_tick.fused_prefix(
-            self, state, rows, counts, t, params, host, emit_returns=emit,
-            out=out if out is not None else host.get("io"))
+        terminal = self.prefix_terminal()
+        with phase_scope("fused_prefix"):
+            state, *io, _ = fused_tick.fused_prefix(
+                self, state, rows, counts, t, params, host,
+                emit_returns=emit,
+                out=out if out is not None else host.get("io"),
+                obs=obs if terminal else None, windowed=windowed)
         state = self._cross_cluster(state, *io)
         state = self._market(state, t, params, host["jitter"])
         state.t.fill_(t)
-        return state
+        if obs is not None and not terminal:
+            obs = obs_device.tap_tick(obs[0], obs[1], state,
+                                      self.cfg.tick_ms)
+        return state, obs
 
     def snapshot_due(self, t: int) -> bool:
         """Does phase 7, the trader's snapshot, run in the tick ending at
@@ -488,10 +582,12 @@ class Engine:
         """Phases 7 and 8 where due: the snapshot before any trade in the
         same tick (MARKET.md §clock), then the market round."""
         if self.snapshot_due(t):
-            state = _snapshot(state)
+            with phase_scope("snapshot"):
+                state = _snapshot(state)
         if self.round_due(t):
-            state = market.trade_round(state, t, self.cfg, self.ex, params,
-                                       jitter)
+            with phase_scope("trade"):
+                state = market.trade_round(state, t, self.cfg, self.ex,
+                                           params, jitter)
         return state
 
     def _cross_cluster(self, state: SimState, want, bjob_vec, ret_rows,
@@ -503,11 +599,13 @@ class Engine:
         # 2b. return delivery: after the whole prefix, bitwise the same as
         # before it, because it touches only ``state.borrowed``, which no
         # prefix phase reads
-        state = _deliver_returns(state, ret_rows, ret_valid, self.ex)
+        with phase_scope("release"):
+            state = _deliver_returns(state, ret_rows, ret_valid, self.ex)
         # 6. borrow matching (want is all False for non-FIFO members)
         if self.pset.has_fifo:
-            state = _borrow_match(state, want, Q.JobRec(vec=bjob_vec),
-                                  self.cfg, self.ex)
+            with phase_scope("borrow"):
+                state = _borrow_match(state, want, Q.JobRec(vec=bjob_vec),
+                                      self.cfg, self.ex)
         return state
 
     def _params(self, params) -> PolicyParams:
@@ -524,24 +622,6 @@ class Engine:
             raise ValueError(f"state lives on {state.device}, the engine "
                              f"on {self.device}")
 
-    def run(self, state: SimState, arrivals: st.TickArrivals,
-            n_ticks: int, params=None) -> SimState:
-        """Advance ``n_ticks`` over a pre-bucketed stream; the bucket's
-        rows go to the device once. ``params`` (PolicyParams on the
-        engine's device) defaults to the policy's own. The windowed
-        ``Arrivals`` form of the reference's ``run`` is not ported."""
-        if isinstance(arrivals, Arrivals):
-            raise NotImplementedError(
-                "the windowed Arrivals ingest is not ported yet: ROADMAP A3; "
-                "bucket the stream with pack_arrivals_by_tick")
-        if arrivals.rows.shape[0] < n_ticks:
-            raise ValueError(
-                f"TickArrivals covers {arrivals.rows.shape[0]} ticks, "
-                f"run asked for {n_ticks}")
-        part = st.TickArrivals(rows=arrivals.rows[:n_ticks],
-                               counts=arrivals.counts[:n_ticks])
-        return self.run_chunks(state, [part], params)
-
     def _entry(self, state: SimState, params):
         """What a run reads once at its entry: the checked params, the
         kernels' host parameters (with a scratch TickIO when borrowing
@@ -555,39 +635,124 @@ class Engine:
                                   self.device)
         return params, host, int(state.t)
 
+    def _obs_entry(self, state: SimState, mbuf):
+        """The run's ``(MetricsBuffer, TapCursor)`` (None without a
+        buffer): the cursor re-derived from the state at every run entry,
+        as the reference does at every chunk."""
+        if mbuf is None:
+            return None
+        if mbuf.placed.shape != state.arr_ptr.shape or \
+                mbuf.placed.device != state.device:
+            raise ValueError(
+                f"metrics buffer of {tuple(mbuf.placed.shape)} clusters on "
+                f"{mbuf.placed.device}, the state "
+                f"{tuple(state.arr_ptr.shape)} on {state.device}")
+        return mbuf, obs_device.cursor_of(state)
+
+    def _drive(self, state: SimState, params, mbuf, feeds):
+        """The tick loop every run shares: ``feeds`` yields each tick's
+        ``(rows, counts, windowed)``. The state and the caller's buffer
+        are updated in place; returns the state, then the stacked
+        ``MetricSample`` series where ``cfg.record_metrics``, then the
+        buffer where one was given (the reference's ``run`` tuple)."""
+        params, host, t = self._entry(state, params)
+        obs = self._obs_entry(state, mbuf)
+        series = []
+        cur = state
+        for rows, counts, windowed in feeds:
+            t += self.cfg.tick_ms
+            cur, obs = self._tick(cur, rows, counts, t, params, host,
+                                  obs=obs, windowed=windowed)
+            if self.cfg.record_metrics:
+                series.append(st.metric_sample(cur))
+        state = _write_back(state, cur)
+        out = (state,)
+        if self.cfg.record_metrics:
+            out += (st.stack_samples(series, state),)
+        if mbuf is not None:
+            out += (_write_back(mbuf, obs[0]),)
+        return out if len(out) > 1 else out[0]
+
+    def run(self, state: SimState, arrivals, n_ticks: int, params=None,
+            mbuf=None):
+        """Advance ``n_ticks`` over a pre-bucketed ``TickArrivals`` (its
+        rows go to the device once) or a windowed ``Arrivals`` stream
+        (packed and copied to the device once; each tick ingests its due
+        window). ``params`` (PolicyParams on the engine's device) defaults
+        to the policy's own. ``mbuf`` (``obs.device.metrics_init``) engages
+        the metrics plane. Returns the state — or, as the reference's, a
+        tuple of the state, the [T] / [T, C] ``MetricSample`` series when
+        ``cfg.record_metrics`` is set, and the buffer when ``mbuf`` was
+        given. The state and the buffer are updated in place."""
+        if isinstance(arrivals, Arrivals):
+            rows, n = (torch.from_numpy(x).to(self.device)
+                       for x in pack_arrivals(arrivals))
+            feeds = ((rows, n, True) for _ in range(n_ticks))
+            return self._drive(state, params, mbuf, feeds)
+        if arrivals.rows.shape[0] < n_ticks:
+            raise ValueError(
+                f"TickArrivals covers {arrivals.rows.shape[0]} ticks, "
+                f"run asked for {n_ticks}")
+        part = st.TickArrivals(rows=arrivals.rows[:n_ticks],
+                               counts=arrivals.counts[:n_ticks])
+        return self.run_chunks(state, [part], params, mbuf)
+
+    def _chunk_feeds(self, chunks: Sequence[st.TickArrivals]):
+        for chunk in chunks:
+            with annotate_dispatch("chunk"):
+                rows = torch.from_numpy(
+                    np.ascontiguousarray(chunk.rows)).to(self.device)
+                counts = torch.from_numpy(
+                    np.ascontiguousarray(chunk.counts)).to(self.device)
+            for k in range(rows.shape[0]):
+                yield rows[k], counts[k], False
+
     def run_chunks(self, state: SimState, chunks: Sequence[st.TickArrivals],
-                   params=None) -> SimState:
+                   params=None, mbuf=None):
         """The chunked run of the headline: each chunk's rows and
         counts move to the device in one copy each, then its ticks run
         back to back with no host synchronisation. The clock, the member
         ``params.idx`` selects and every parameter the kernels take from
         the host are read once at entry; the clock is then tracked on the
-        host and handed to each tick."""
-        params, host, t = self._entry(state, params)
-        cur = state
-        for chunk in chunks:
-            rows = torch.from_numpy(np.ascontiguousarray(chunk.rows)).to(
-                self.device)
-            counts = torch.from_numpy(np.ascontiguousarray(chunk.counts)).to(
-                self.device)
-            for k in range(rows.shape[0]):
-                t += self.cfg.tick_ms
-                cur = self._tick(cur, rows[k], counts[k], t, params, host)
+        host and handed to each tick. ``mbuf`` carries the metrics plane
+        over the chunks; returns as ``run`` does."""
+        return self._drive(state, params, mbuf, self._chunk_feeds(chunks))
+
+    def _windowed_tick(self, state: SimState, arrivals: Arrivals,
+                       out) -> SimState:
+        params, host, t = self._entry(state, None)
+        rows, n = (torch.from_numpy(x).to(self.device)
+                   for x in pack_arrivals(arrivals))
+        cur, _ = self._tick(state, rows, n, t + self.cfg.tick_ms, params,
+                            host, out, windowed=True)
         return _write_back(state, cur)
 
-    def run_io(self, state: SimState, rows, counts,
-               params=None) -> tuple[SimState, TickIO]:
+    def tick(self, state: SimState, arrivals: Arrivals) -> SimState:
+        """One tick over a windowed ``Arrivals`` stream; the state is
+        updated in place and returned."""
+        return self._windowed_tick(state, arrivals, None)
+
+    def tick_io(self, state: SimState,
+                arrivals: Arrivals) -> tuple[SimState, TickIO]:
+        """One tick over a windowed ``Arrivals`` stream, also returning the
+        host-visible ``TickIO`` (the return messages and the borrow
+        request)."""
+        io = empty_io((state.arr_ptr.shape[0],), self.n_msgs(), self.device)
+        return self._windowed_tick(state, arrivals, io), io
+
+    def run_io(self, state: SimState, rows, counts, params=None, mbuf=None):
         """Advance one staged TickArrivals chunk (``rows [T, C, K, NF]``,
         ``counts [T, C]``, numpy or tensors) and return the state and the
         ``TickIO`` of every tick, stacked over the leading axis — the
-        serving tier's dispatch unit (the reference's ``run_io``). The
-        rows move to the device in one copy; no host synchronisation
-        inside. Chunk composition is exact: ``run_io`` over consecutive
-        chunks equals ``run`` over their concatenation. Every tick emits
-        its returns, so ``drops.msgs`` counts returns beyond
-        ``cfg.max_msgs`` here even without borrowing, as in the
-        reference."""
+        serving tier's dispatch unit (the reference's ``run_io``) — and
+        the buffer when ``mbuf`` was given. The rows move to the device in
+        one copy; no host synchronisation inside. Chunk composition is
+        exact: ``run_io`` over consecutive chunks equals ``run`` over their
+        concatenation. Every tick emits its returns, so ``drops.msgs``
+        counts returns beyond ``cfg.max_msgs`` here even without
+        borrowing, as in the reference."""
         params, host, t = self._entry(state, params)
+        obs = self._obs_entry(state, mbuf)
         rows, counts = (torch.as_tensor(x).to(self.device).contiguous()
                         for x in (rows, counts))
         T, C = counts.shape
@@ -598,8 +763,12 @@ class Engine:
             out = TickIO(borrow_want=io.borrow_want[k],
                          borrow_job=io.borrow_job[k],
                          ret_rows=io.ret_rows[k], ret_valid=io.ret_valid[k])
-            cur = self._tick(cur, rows[k], counts[k], t, params, host, out)
-        return _write_back(state, cur), io
+            cur, obs = self._tick(cur, rows[k], counts[k], t, params, host,
+                                  out, obs=obs)
+        state = _write_back(state, cur)
+        if mbuf is None:
+            return state, io
+        return state, io, _write_back(mbuf, obs[0])
 
     def run_compressed(self, *args, **kwargs):
         raise NotImplementedError(

@@ -178,6 +178,45 @@ def avg_wait_ms(s: SimState) -> torch.Tensor:
                        s.wait_total / s.wait_jobs.clamp(min=1), 0.0)
 
 
+@dataclasses.dataclass
+class MetricSample(Tree):
+    """One tick's metric readout, the tensor form of RunMetrics' 5 s
+    recorder (pkg/scheduler/metrics.go:11-31): the ``jobs_in_queue``
+    up/down counter and the ``waitTime`` running average, per cluster.
+    ``Engine.run`` stacks them into a [T] / [T, C] series when
+    ``SimConfig.record_metrics`` is set."""
+
+    t: torch.Tensor  # [] i32 virtual ms (the tick's clock)
+    jobs_in_queue: torch.Tensor  # [C] i32
+    avg_wait_ms: torch.Tensor  # [C] f32
+
+
+def metric_sample(s: SimState) -> MetricSample:
+    """The post-tick sample, as new tensors (the state changes in place)."""
+    return MetricSample(t=s.t.clone(), jobs_in_queue=s.jobs_in_queue.clone(),
+                        avg_wait_ms=avg_wait_ms(s))
+
+
+def stack_samples(samples: Sequence[MetricSample],
+                  state: SimState) -> MetricSample:
+    """The per-tick samples of a run stacked into its [T] / [T, C]
+    series (empty for a run of no ticks)."""
+    if not samples:
+        C, dev = state.arr_ptr.shape[0], state.device
+        return MetricSample(
+            t=torch.zeros((0,), dtype=torch.int32, device=dev),
+            jobs_in_queue=torch.zeros((0, C), dtype=torch.int32, device=dev),
+            avg_wait_ms=torch.zeros((0, C), dtype=torch.float32, device=dev))
+    return MetricSample(**{
+        f.name: torch.stack([getattr(x, f.name) for x in samples])
+        for f in dataclasses.fields(MetricSample)})
+
+
+# log2 histogram width of the leap sizes (the metrics buffer's
+# ``leap_hist``; time compression, ROADMAP A9, fills it)
+LEAP_BUCKETS = 32
+
+
 def snapshot_utilization(s: SimState) -> tuple[torch.Tensor, torch.Tensor]:
     """(core_util, mem_util) [C] f32 as the streamed ClusterState computes
     them (GetResourceUtilization, cluster.go:46-63): usage summed over

@@ -1,1 +1,2 @@
-"""The fault plane's state leaves (the fault phase itself is ROADMAP A8)."""
+"""The fault plane: its state leaves and schedules (``schedule.py``) and the
+fault phase that opens every tick's prefix (``apply.py``)."""

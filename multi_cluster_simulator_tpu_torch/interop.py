@@ -1,5 +1,6 @@
-"""Carry a ``SimState``, a ``PolicyParams`` or a ``TickIO`` between the
-port and the JAX package as numpy.
+"""Carry a ``SimState``, a ``PolicyParams``, a ``TickIO``, a
+``MetricsBuffer`` or a ``MetricSample`` series between the port and the
+JAX package as numpy.
 
 There are no weights in this system: the state, the policy parameter
 leaves and the arrival stream take their place. A state crosses as a dict
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from multi_cluster_simulator_tpu_torch.core.state import SimState, resolve_device
+from multi_cluster_simulator_tpu_torch.obs.device import MetricsBuffer
 from multi_cluster_simulator_tpu_torch.policies.base import PolicyParams
 from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
 
@@ -74,3 +76,15 @@ state_to_numpy = params_to_numpy = to_numpy
 # a TickIO (one tick's or run_io's stack) crosses the same way: keyed
 # .borrow_want, .borrow_job, .ret_rows, .ret_valid, as the reference's
 io_to_numpy = to_numpy
+
+
+def metrics_from_numpy(leaves: dict, device=None) -> MetricsBuffer:
+    """A port ``MetricsBuffer`` from numpy leaves keyed by path
+    (``.ticks``, ``.placed``, ``.depth_hist``, ...), on ``device``, under
+    the same rules as ``state_from_numpy``."""
+    return _from_numpy(MetricsBuffer, leaves, device)
+
+
+# a MetricsBuffer and a MetricSample series cross the same way, keyed like
+# the reference's (.placed, .ring_t; .t, .jobs_in_queue, .avg_wait_ms)
+metrics_to_numpy = series_to_numpy = to_numpy

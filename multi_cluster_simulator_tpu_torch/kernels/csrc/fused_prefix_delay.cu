@@ -5,9 +5,9 @@
 //   fused_prefix (its pallas_call), on the span the reference's live
 //   scheduler engages: [release, ingest (packed rows -> Level0), schedule:
 //   DELAY in its serial form (with the parity-mode remove-then-skip quirk)
-//   or its wave form], terminal, wide layout, no metrics tap. The TPU
-//   kernel replays the traced jaxpr of Engine._span_prefix on a block of
-//   clusters; this kernel is written from the semantics instead
+//   or its wave form], terminal, wide layout, with or without the metrics
+//   tap. The TPU kernel replays the traced jaxpr of Engine._span_prefix on
+//   a block of clusters; this kernel is written from the semantics instead
 //   (core/engine.py _release_local and _ingest_packed_local,
 //   policies/kernels.py _delay_local / _delay_wave_local / _delay_l0_head
 //   of the port), and is held bitwise against the port's plain PyTorch
@@ -63,6 +63,26 @@
 //   a peer's into the lent queue) and counting them in wait_jobs and
 //   jobs_in_queue; another instantiation, as the emit and expire forms are.
 //
+// The tap form (kTap; a run with the metrics plane on a terminal prefix)
+//   closes the span with prefix_common.cuh's tap_epilogue
+//   (obs/device.py tap_tick): per cluster it reads the buffer's eleven
+//   per-cluster leaves, the cursor's nine and the counters it differences
+//   (under 128 B), writes those that change and the tick's placements and
+//   depth (8 B); each block (one warp) adds its sums and bucket counts
+//   with integer atomics, and the last block to finish writes the ring
+//   slot. A template flag, not a runtime branch: the forms without it keep
+//   their code and registers (the tap keeps ~20 more values live and needs
+//   every thread of a block at its warp-wide sums). It is instantiated
+//   without the expire flag only, since the trader is never terminal: 12
+//   forms in all. nvcc -Xptxas -v on the H100 build: 64 registers in all
+//   12, 128 B of stack, no spills.
+//
+// The windowed ingest (an Arrivals stream: BASELINE config 1, the oracle
+//   parity runs) is a runtime branch of prefix_common.cuh Cluster::ingest
+//   (Common::window >= 0), not a template axis, which would double the
+//   forms for a path that runs one cluster: per cluster it reads the enq_t
+//   of each due row and the first not due, and copies the taken rows.
+//
 // Design: one thread per cluster, in place, as the FIFO and FFD kernels;
 //   the sweep, the compaction and the placement are prefix_common.cuh's.
 //
@@ -84,13 +104,12 @@ struct Args {
   Emit e;
   Expire x;
   Faults f;
+  Tap p;
 };
 
 template <bool kEmit, bool kExpire, bool kFaults>
-__global__ void __launch_bounds__(32) fused_prefix_delay_kernel(Args a) {
+__device__ __forceinline__ void delay_prefix(const Args& a, int c) {
   const Common& k = a.q.k;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= k.C) return;
   Cluster cl(k, c);
   int32_t* l0 = a.q.l0 + (size_t)c * k.Q * NF;
   int32_t* l1 = a.l1 + (size_t)c * k.Q * NF;
@@ -148,6 +167,19 @@ __global__ void __launch_bounds__(32) fused_prefix_delay_kernel(Args a) {
   k.placed_total[c] += cl.placed;
 }
 
+// One thread per cluster runs its span; the tap form then closes it with
+// the metrics tap, every thread of the block taking part. The parameters
+// are __grid_constant__: the tap epilogue, a call, reads them where they
+// are instead of from a copy of them in each thread's local memory.
+template <bool kEmit, bool kExpire, bool kFaults, bool kTap>
+__global__ void __launch_bounds__(32)
+fused_prefix_delay_kernel(const __grid_constant__ Args a) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = c < a.q.k.C;
+  if (active) delay_prefix<kEmit, kExpire, kFaults>(a, c);
+  if (kTap) tap_epilogue(a.p, a.q.k, c, active);
+}
+
 }  // namespace
 
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
@@ -164,24 +196,25 @@ extern "C" int fused_prefix_delay_launch(
     void* node_free, void* node_active, void* run, void* run_active,
     void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
     void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
-    void* rows, void* counts, void* l0, void* l0_count, void* wait_total,
-    void* wait_jobs, void* jobs_in_queue, void* l1, void* l1_count,
-    void* ret_rows, void* ret_valid, void* drop_msgs, void* want, void* bjob,
-    void* node_cap, void* node_expire, void* health, void* was_active, void* next_fail, void* down_until,
-    void* down_since, void* n_fails, void* kills, void* requeues,
-    void* down_ms, void* fail_t, void* repair_t, void* key,
-    void* drop_failed, void* fault_cap, void* fault_lent,
-    void* fault_lent_count, int C, int N,
-    int R, int Q, int S, int K, int E, int QC, int record_trace, int t,
-    int wave, int skip, int max_wait, int M, int emit, int borrowing,
-    int expire, int faults, int fault_events, int fault_trace, int mttf, int mttr,
-    int max_retries, void* stream) {
+    void* rows, void* counts, void* drop_ingest, void* l0, void* l0_count,
+    void* wait_total, void* wait_jobs, void* jobs_in_queue, void* l1,
+    void* l1_count, void* ret_rows, void* ret_valid, void* drop_msgs,
+    void* want, void* bjob, void* node_cap, void* node_expire, void* health,
+    void* was_active, void* next_fail, void* down_until, void* down_since,
+    void* n_fails, void* kills, void* requeues, void* down_ms, void* fail_t,
+    void* repair_t, void* key, void* drop_failed, void* fault_cap,
+    void* fault_lent, void* fault_lent_count, int C, int N, int R, int Q,
+    int S, int K, int E, int QC, int record_trace, int t, int window, int wave,
+    int skip, int max_wait, int M, int emit, int borrowing, int expire,
+    int faults, int fault_events, int fault_trace, int mttf, int mttr,
+    int max_retries, int tap, int slot, const void* const* tap_ptrs,
+    void* stream) {
   if (Q > kMaxQueue) return static_cast<int>(cudaErrorInvalidValue);
   const Common k = make_common(node_free, node_active, run, run_active,
                                arr_ptr, drop_queue, drop_run_full,
                                placed_total, tr_t, tr_job, tr_node, tr_src,
-                               tr_n, rows, counts, C, N, R, Q, S, K, E, QC,
-                               record_trace, t);
+                               tr_n, rows, counts, drop_ingest, C, N, R, Q, S,
+                               K, E, QC, record_trace, t, window);
   Args a{make_level0(k, l0, l0_count, wait_total, wait_jobs, jobs_in_queue,
                      wave),
          static_cast<int32_t*>(l1), static_cast<int32_t*>(l1_count), skip,
@@ -191,16 +224,19 @@ extern "C" int fused_prefix_delay_launch(
          make_faults(health, was_active, next_fail, down_until, down_since,
                      n_fails, kills, requeues, down_ms, fail_t, repair_t, key,
                      drop_failed, fault_cap, fault_lent, fault_lent_count,
-                     fault_events, fault_trace, mttf, mttr, max_retries)};
+                     fault_events, fault_trace, mttf, mttr, max_retries),
+         make_tap(tap ? tap_ptrs : nullptr, slot)};
   if (C > 0) {
     const int threads = threads_for(C);
     const int blocks = (C + threads - 1) / threads;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    dispatch_forms(emit, expire, faults, [&](auto e, auto x, auto f) {
+    const bool ok = dispatch_forms(emit, expire, faults, tap,
+                                   [&](auto e, auto x, auto f, auto p) {
       fused_prefix_delay_kernel<decltype(e)::value, decltype(x)::value,
-                                decltype(f)::value>
+                                decltype(f)::value, decltype(p)::value>
           <<<blocks, threads, 0, s>>>(a);
     });
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

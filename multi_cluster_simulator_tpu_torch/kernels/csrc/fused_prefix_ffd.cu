@@ -4,9 +4,10 @@
 // Replaces: the TPU kernel multi_cluster_simulator_tpu/kernels/fused_tick.py
 //   fused_prefix (its pallas_call), on the span the first-fit-decreasing
 //   bin-pack engages: [release, ingest (packed rows -> Level0), schedule:
-//   FFD in its serial or its wave form], terminal, wide layout, no metrics
-//   tap. The TPU kernel replays the traced jaxpr of Engine._span_prefix on
-//   a block of clusters; this kernel is written from the semantics instead
+//   FFD in its serial or its wave form], terminal, wide layout, with or
+//   without the metrics tap. The TPU kernel replays the traced jaxpr of
+//   Engine._span_prefix on a block of clusters; this kernel is written
+//   from the semantics instead
 //   (core/engine.py _release_local and _ingest_packed_local,
 //   policies/kernels.py _ffd_local / _ffd_wave_local of the port), and is
 //   held bitwise against the port's plain PyTorch version
@@ -63,6 +64,26 @@
 //   a microsecond per tick at 3.35 TB/s; the kernel is far above it
 //   (PERF.md), because one thread walks each cluster's rows serially.
 //
+// The tap form (kTap; a run with the metrics plane on a terminal prefix)
+//   closes the span with prefix_common.cuh's tap_epilogue
+//   (obs/device.py tap_tick): per cluster it reads the buffer's eleven
+//   per-cluster leaves, the cursor's nine and the counters it differences
+//   (under 128 B), writes those that change and the tick's placements and
+//   depth (8 B); each block (one warp) adds its sums and bucket counts
+//   with integer atomics, and the last block to finish writes the ring
+//   slot. A template flag, not a runtime branch: the forms without it keep
+//   their code and registers (the tap keeps ~20 more values live and needs
+//   every thread of a block at its warp-wide sums). It is instantiated
+//   without the expire flag only, since the trader is never terminal: 12
+//   forms in all. nvcc -Xptxas -v on the H100 build: 64 registers in all
+//   12, 128 or 144 B of stack, no spills.
+//
+// The windowed ingest (an Arrivals stream: BASELINE config 1, the oracle
+//   parity runs) is a runtime branch of prefix_common.cuh Cluster::ingest
+//   (Common::window >= 0), not a template axis, which would double the
+//   forms for a path that runs one cluster: per cluster it reads the enq_t
+//   of each due row and the first not due, and copies the taken rows.
+//
 // Design: one thread per cluster, in place, as in the FIFO kernel. Blocks
 //   shrink below a warp when there are fewer than 32 x 132 clusters, so
 //   that every SM holds some clusters (ffd64: 64 clusters, one per block)
@@ -83,15 +104,24 @@ struct Args {
   Emit e;
   Expire x;
   Faults f;
+  Tap p;
 };
 
-template <bool kEmit, bool kExpire, bool kFaults>
-__global__ void __launch_bounds__(32) fused_prefix_ffd_kernel(Args a) {
+// One thread per cluster runs its span; the tap form then closes it with
+// the metrics tap, every thread of the block taking part. The parameters
+// are __grid_constant__: the tap epilogue, a call, reads them where they
+// are instead of from a copy of them in each thread's local memory.
+template <bool kEmit, bool kExpire, bool kFaults, bool kTap>
+__global__ void __launch_bounds__(32)
+fused_prefix_ffd_kernel(const __grid_constant__ Args a) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= a.q.k.C) return;
-  level0_prefix<kEmit, kExpire, kFaults>(a.q, a.e, a.x, a.f, c,
-                                         BfdOrder(a.mem_first),
-                                         FirstFitPick{});
+  const bool active = c < a.q.k.C;
+  if (active) {
+    level0_prefix<kEmit, kExpire, kFaults>(a.q, a.e, a.x, a.f, c,
+                                           BfdOrder(a.mem_first),
+                                           FirstFitPick{});
+  }
+  if (kTap) tap_epilogue(a.p, a.q.k, c, active);
 }
 
 }  // namespace
@@ -109,24 +139,24 @@ extern "C" int fused_prefix_ffd_launch(
     void* node_free, void* node_active, void* run, void* run_active,
     void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
     void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
-    void* rows, void* counts, void* l0, void* l0_count, void* wait_total,
-    void* wait_jobs, void* jobs_in_queue, void* ret_rows, void* ret_valid,
-    void* drop_msgs, void* want, void* bjob, void* node_cap,
-    void* node_expire, void* health, void* was_active, void* next_fail, void* down_until,
-    void* down_since, void* n_fails, void* kills, void* requeues,
-    void* down_ms, void* fail_t, void* repair_t, void* key,
+    void* rows, void* counts, void* drop_ingest, void* l0, void* l0_count,
+    void* wait_total, void* wait_jobs, void* jobs_in_queue, void* ret_rows,
+    void* ret_valid, void* drop_msgs, void* want, void* bjob, void* node_cap,
+    void* node_expire, void* health, void* was_active, void* next_fail,
+    void* down_until, void* down_since, void* n_fails, void* kills,
+    void* requeues, void* down_ms, void* fail_t, void* repair_t, void* key,
     void* drop_failed, void* fault_cap, void* fault_lent,
-    void* fault_lent_count, int C, int N, int R, int Q,
-    int S, int K, int E, int QC, int record_trace, int t, int wave,
-    int mem_first, int M, int emit, int borrowing, int expire,
-    int faults, int fault_events, int fault_trace, int mttf, int mttr,
-    int max_retries, void* stream) {
+    void* fault_lent_count, int C, int N, int R, int Q, int S, int K, int E,
+    int QC, int record_trace, int t, int window, int wave, int mem_first,
+    int M, int emit, int borrowing, int expire, int faults, int fault_events,
+    int fault_trace, int mttf, int mttr, int max_retries, int tap, int slot,
+    const void* const* tap_ptrs, void* stream) {
   if (Q > kMaxQueue) return static_cast<int>(cudaErrorInvalidValue);
   const Common k = make_common(node_free, node_active, run, run_active,
                                arr_ptr, drop_queue, drop_run_full,
                                placed_total, tr_t, tr_job, tr_node, tr_src,
-                               tr_n, rows, counts, C, N, R, Q, S, K, E, QC,
-                               record_trace, t);
+                               tr_n, rows, counts, drop_ingest, C, N, R, Q, S,
+                               K, E, QC, record_trace, t, window);
   Args a{make_level0(k, l0, l0_count, wait_total, wait_jobs, jobs_in_queue,
                      wave),
          mem_first,
@@ -135,16 +165,19 @@ extern "C" int fused_prefix_ffd_launch(
          make_faults(health, was_active, next_fail, down_until, down_since,
                      n_fails, kills, requeues, down_ms, fail_t, repair_t, key,
                      drop_failed, fault_cap, fault_lent, fault_lent_count,
-                     fault_events, fault_trace, mttf, mttr, max_retries)};
+                     fault_events, fault_trace, mttf, mttr, max_retries),
+         make_tap(tap ? tap_ptrs : nullptr, slot)};
   if (C > 0) {
     const int threads = threads_for(C);
     const int blocks = (C + threads - 1) / threads;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    dispatch_forms(emit, expire, faults, [&](auto e, auto x, auto f) {
+    const bool ok = dispatch_forms(emit, expire, faults, tap,
+                                   [&](auto e, auto x, auto f, auto p) {
       fused_prefix_ffd_kernel<decltype(e)::value, decltype(x)::value,
-                              decltype(f)::value>
+                              decltype(f)::value, decltype(p)::value>
           <<<blocks, threads, 0, s>>>(a);
     });
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

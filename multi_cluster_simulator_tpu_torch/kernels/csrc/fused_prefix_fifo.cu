@@ -3,14 +3,14 @@
 //
 // Replaces: the TPU kernel multi_cluster_simulator_tpu/kernels/fused_tick.py
 //   fused_prefix (its pallas_call), on the spans FIFO engages: [release,
-//   ingest (packed rows -> ReadyQueue), schedule: FIFO], wide layout, no
-//   metrics tap; terminal on the headline, and in the emit form (kEmit)
-//   with borrowing or run_io: the release step's return pack
-//   (core/engine.py _pack_returns and drops.msgs) and the borrow request,
-//   want and bjob_vec (policies/kernels.py _fifo_local). The TPU kernel
-//   replays the traced jaxpr of Engine._span_prefix on a block of
-//   clusters; this kernel is written from
-//   the semantics instead (core/engine.py _release_local and
+//   ingest (packed rows -> ReadyQueue or the windowed stream), schedule:
+//   FIFO], wide layout, with or without the metrics tap; terminal on the
+//   headline, and in the emit form (kEmit) with borrowing or run_io: the
+//   release step's return pack (core/engine.py _pack_returns and
+//   drops.msgs) and the borrow request, want and bjob_vec
+//   (policies/kernels.py _fifo_local). The TPU kernel replays the traced
+//   jaxpr of Engine._span_prefix on a block of clusters; this kernel is
+//   written from the semantics instead (core/engine.py _release_local and
 //   _ingest_packed_local, policies/kernels.py _fifo_local of the port), and
 //   is held bitwise against the port's plain PyTorch version
 //   (kernels/fused_tick.py fused_prefix_reference).
@@ -72,6 +72,26 @@
 //   instantiation, so the forms without it keep their code, registers
 //   and stacks.
 //
+// The tap form (kTap; a run with the metrics plane on a terminal prefix)
+//   closes the span with prefix_common.cuh's tap_epilogue
+//   (obs/device.py tap_tick): per cluster it reads the buffer's eleven
+//   per-cluster leaves, the cursor's nine and the counters it differences
+//   (under 128 B), writes those that change and the tick's placements and
+//   depth (8 B); each block (one warp) adds its sums and bucket counts
+//   with integer atomics, and the last block to finish writes the ring
+//   slot. A template flag, not a runtime branch: the forms without it keep
+//   their code and registers (the tap keeps ~20 more values live and needs
+//   every thread of a block at its warp-wide sums). It is instantiated
+//   without the expire flag only, since the trader is never terminal: 12
+//   forms in all. nvcc -Xptxas -v on the H100 build: 64 registers in all
+//   12, no stack but 8 B in two, no spills.
+//
+// The windowed ingest (an Arrivals stream: BASELINE config 1, the oracle
+//   parity runs) is a runtime branch of prefix_common.cuh Cluster::ingest
+//   (Common::window >= 0), not a template axis, which would double the
+//   forms for a path that runs one cluster: per cluster it reads the enq_t
+//   of each due row and the first not due, and copies the taken rows.
+//
 // Shared with the FFD kernel (prefix_common.cuh): release, the arrival
 // append, first-fit, placement and the trace, and the integer discipline
 // (int32 as in the reference, wrapping sums done in uint32).
@@ -98,6 +118,7 @@ struct Args {
   Emit e;
   Expire x;
   Faults f;
+  Tap p;
 };
 
 // pop_front of a non-empty queue: shift the live rows left by one, INVALID
@@ -110,11 +131,8 @@ __device__ void pop_front(int32_t* q, int* count) {
 }
 
 template <bool kEmit, bool kExpire, bool kFaults>
-__global__ void __launch_bounds__(kThreads)
-fused_prefix_fifo_kernel(Args a) {
+__device__ __forceinline__ void fifo_prefix(const Args& a, int c) {
   const Common& k = a.k;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= k.C) return;
   const int Q = k.Q;
   Cluster cl(k, c);
   int32_t* ready = a.ready + (size_t)c * Q * NF;
@@ -136,7 +154,8 @@ fused_prefix_fifo_kernel(Args a) {
   if (kExpire) cl.expire(a.x);
 
   // 2. ingest: append the tick's arrivals to the ready queue.
-  int rcount = cl.ingest(ready, a.ready_count[c], &drop_queue);
+  int arrived = 0;
+  int rcount = cl.ingest(ready, a.ready_count[c], &drop_queue, &arrived);
 
   // 3. FIFO (Fifo(), scheduler.go:216-296).
   int run_full = 0;
@@ -209,6 +228,19 @@ fused_prefix_fifo_kernel(Args a) {
   k.placed_total[c] += cl.placed;
 }
 
+// One thread per cluster runs its span; the tap form then closes it with
+// the metrics tap, every thread of the block taking part. The parameters
+// are __grid_constant__: the tap epilogue, a call, reads them where they
+// are instead of from a copy of them in each thread's local memory.
+template <bool kEmit, bool kExpire, bool kFaults, bool kTap>
+__global__ void __launch_bounds__(kThreads)
+fused_prefix_fifo_kernel(const __grid_constant__ Args a) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = c < a.k.C;
+  if (active) fifo_prefix<kEmit, kExpire, kFaults>(a, c);
+  if (kTap) tap_epilogue(a.p, a.k, c, active);
+}
+
 }  // namespace
 
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
@@ -225,21 +257,22 @@ extern "C" int fused_prefix_fifo_launch(
     void* node_free, void* node_active, void* run, void* run_active,
     void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
     void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
-    void* rows, void* counts, void* ready, void* ready_count, void* wait,
-    void* wait_count, void* lent, void* lent_count, void* ret_rows,
-    void* ret_valid, void* drop_msgs, void* want, void* bjob, void* node_cap,
-    void* node_expire, void* health, void* was_active, void* next_fail, void* down_until,
-    void* down_since, void* n_fails, void* kills, void* requeues,
-    void* down_ms, void* fail_t, void* repair_t, void* key,
-    void* drop_failed, void* fault_cap, void* fault_lent,
-    void* fault_lent_count, int C, int N, int R, int Q,
-    int S, int K, int E, int QC, int record_trace, int t, int M, int emit,
-    int borrowing, int expire, int faults, int fault_events, int fault_trace, int mttf, int mttr,
-    int max_retries, void* stream) {
+    void* rows, void* counts, void* drop_ingest, void* ready,
+    void* ready_count, void* wait, void* wait_count, void* lent,
+    void* lent_count, void* ret_rows, void* ret_valid, void* drop_msgs,
+    void* want, void* bjob, void* node_cap, void* node_expire, void* health,
+    void* was_active, void* next_fail, void* down_until, void* down_since,
+    void* n_fails, void* kills, void* requeues, void* down_ms, void* fail_t,
+    void* repair_t, void* key, void* drop_failed, void* fault_cap,
+    void* fault_lent, void* fault_lent_count, int C, int N, int R, int Q,
+    int S, int K, int E, int QC, int record_trace, int t, int window, int M,
+    int emit, int borrowing, int expire, int faults, int fault_events,
+    int fault_trace, int mttf, int mttr, int max_retries, int tap, int slot,
+    const void* const* tap_ptrs, void* stream) {
   Args a{make_common(node_free, node_active, run, run_active, arr_ptr,
                      drop_queue, drop_run_full, placed_total, tr_t, tr_job,
-                     tr_node, tr_src, tr_n, rows, counts, C, N, R, Q, S, K,
-                     E, QC, record_trace, t),
+                     tr_node, tr_src, tr_n, rows, counts, drop_ingest, C, N, R,
+                     Q, S, K, E, QC, record_trace, t, window),
          static_cast<int32_t*>(ready), static_cast<int32_t*>(ready_count),
          static_cast<int32_t*>(wait), static_cast<int32_t*>(wait_count),
          static_cast<int32_t*>(lent), static_cast<int32_t*>(lent_count),
@@ -248,15 +281,18 @@ extern "C" int fused_prefix_fifo_launch(
          make_faults(health, was_active, next_fail, down_until, down_since,
                      n_fails, kills, requeues, down_ms, fail_t, repair_t, key,
                      drop_failed, fault_cap, fault_lent, fault_lent_count,
-                     fault_events, fault_trace, mttf, mttr, max_retries)};
+                     fault_events, fault_trace, mttf, mttr, max_retries),
+         make_tap(tap ? tap_ptrs : nullptr, slot)};
   if (C > 0) {
     const int blocks = (C + kThreads - 1) / kThreads;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    dispatch_forms(emit, expire, faults, [&](auto e, auto x, auto f) {
+    const bool ok = dispatch_forms(emit, expire, faults, tap,
+                                   [&](auto e, auto x, auto f, auto p) {
       fused_prefix_fifo_kernel<decltype(e)::value, decltype(x)::value,
-                               decltype(f)::value>
+                               decltype(f)::value, decltype(p)::value>
           <<<blocks, kThreads, 0, s>>>(a);
     });
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

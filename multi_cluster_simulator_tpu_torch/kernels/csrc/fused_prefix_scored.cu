@@ -5,10 +5,11 @@
 //   fused_prefix (its pallas_call), on the spans the scored kinds of the
 //   policy zoo engage: [release, ingest (packed rows -> Level0), schedule:
 //   the serial Level0 sweep with a scored node pick], terminal, wide
-//   layout, no metrics tap. Written from the semantics (policies/kernels.py
-//   _scored_sweep_local with _gavel_local, _tesserae_local and _rl_local
-//   of the port) and held bitwise against the port's plain PyTorch version
-//   (kernels/fused_tick.py fused_prefix_reference).
+//   layout, with or without the metrics tap. Written from the semantics
+//   (policies/kernels.py _scored_sweep_local with _gavel_local,
+//   _tesserae_local and _rl_local of the port) and held bitwise against
+//   the port's plain PyTorch version (kernels/fused_tick.py
+//   fused_prefix_reference).
 //
 // It is the FFD kernel's body (prefix_common.cuh level0_prefix) with
 //   another order and pick, so the FFD code path compiles without a score
@@ -52,6 +53,26 @@
 //   the processed rows, the compaction's rewrites, the valid arrival rows
 //   and every element the tick changes; plus the score operations.
 //
+// The tap form (kTap; a run with the metrics plane on a terminal prefix)
+//   closes the span with prefix_common.cuh's tap_epilogue
+//   (obs/device.py tap_tick): per cluster it reads the buffer's eleven
+//   per-cluster leaves, the cursor's nine and the counters it differences
+//   (under 128 B), writes those that change and the tick's placements and
+//   depth (8 B); each block (one warp) adds its sums and bucket counts
+//   with integer atomics, and the last block to finish writes the ring
+//   slot. A template flag, not a runtime branch: the forms without it keep
+//   their code and registers (the tap keeps ~20 more values live and needs
+//   every thread of a block at its warp-wide sums). It is instantiated
+//   without the expire flag only, since the trader is never terminal: 12
+//   forms in all. nvcc -Xptxas -v on the H100 build: 67 registers in the
+//   untapped forms and 70 in the tap forms, 144 B of stack, no spills.
+//
+// The windowed ingest (an Arrivals stream: BASELINE config 1, the oracle
+//   parity runs) is a runtime branch of prefix_common.cuh Cluster::ingest
+//   (Common::window >= 0), not a template axis, which would double the
+//   forms for a path that runs one cluster: per cluster it reads the enq_t
+//   of each due row and the first not due, and copies the taken rows.
+//
 // Design: one thread per cluster, in place, as the other prefix kernels.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -78,6 +99,7 @@ struct Args {
   Emit e;
   Expire x;
   Faults f;
+  Tap p;
 };
 
 // The first maximum of score(n) over the nodes, infeasible nodes at -inf;
@@ -135,19 +157,22 @@ struct TesseraePick {
 
 // __grid_constant__: the picks point into the parameters (the table and
 // the weights) without a copy of them in local memory.
-template <bool kEmit, bool kExpire, bool kFaults>
+// One thread per cluster runs its span; the tap form then closes it with
+// the metrics tap, every thread of the block taking part.
+template <bool kEmit, bool kExpire, bool kFaults, bool kTap>
 __global__ void __launch_bounds__(32)
 fused_prefix_scored_kernel(const __grid_constant__ Args a) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= a.q.k.C) return;
-  if (a.pick == kTesserae) {
+  const bool active = c < a.q.k.C;
+  if (active && a.pick == kTesserae) {
     level0_prefix<kEmit, kExpire, kFaults>(a.q, a.e, a.x, a.f, c,
                                            BfdOrder(0), TesseraePick{a.w});
-  } else {
+  } else if (active) {
     level0_prefix<kEmit, kExpire, kFaults>(
         a.q, a.e, a.x, a.f, c, QueueOrder{},
         TablePick{a.table, a.node_type + (size_t)c * a.q.k.N});
   }
+  if (kTap) tap_epilogue(a.p, a.q.k, c, active);
 }
 
 }  // namespace
@@ -166,24 +191,24 @@ extern "C" int fused_prefix_scored_launch(
     void* node_free, void* node_active, void* run, void* run_active,
     void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
     void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
-    void* rows, void* counts, void* l0, void* l0_count, void* wait_total,
-    void* wait_jobs, void* jobs_in_queue, void* node_type, void* ret_rows,
-    void* ret_valid, void* drop_msgs, void* want, void* bjob, void* node_cap,
-    void* node_expire, void* health, void* was_active, void* next_fail, void* down_until,
-    void* down_since, void* n_fails, void* kills, void* requeues,
-    void* down_ms, void* fail_t, void* repair_t, void* key,
-    void* drop_failed, void* fault_cap, void* fault_lent,
-    void* fault_lent_count, int C, int N, int R, int Q,
-    int S, int K, int E, int QC, int record_trace, int t, int pick, int M,
-    int emit, int borrowing, int expire, int faults, int fault_events, int fault_trace, int mttf, int mttr,
-    int max_retries, const float* table,
-    const float* w, void* stream) {
+    void* rows, void* counts, void* drop_ingest, void* l0, void* l0_count,
+    void* wait_total, void* wait_jobs, void* jobs_in_queue, void* node_type,
+    void* ret_rows, void* ret_valid, void* drop_msgs, void* want, void* bjob,
+    void* node_cap, void* node_expire, void* health, void* was_active,
+    void* next_fail, void* down_until, void* down_since, void* n_fails,
+    void* kills, void* requeues, void* down_ms, void* fail_t, void* repair_t,
+    void* key, void* drop_failed, void* fault_cap, void* fault_lent,
+    void* fault_lent_count, int C, int N, int R, int Q, int S, int K, int E,
+    int QC, int record_trace, int t, int window, int pick, int M, int emit,
+    int borrowing, int expire, int faults, int fault_events, int fault_trace,
+    int mttf, int mttr, int max_retries, int tap, int slot, const float* table,
+    const float* w, const void* const* tap_ptrs, void* stream) {
   if (Q > kMaxQueue || R > 3) return static_cast<int>(cudaErrorInvalidValue);
   const Common k = make_common(node_free, node_active, run, run_active,
                                arr_ptr, drop_queue, drop_run_full,
                                placed_total, tr_t, tr_job, tr_node, tr_src,
-                               tr_n, rows, counts, C, N, R, Q, S, K, E, QC,
-                               record_trace, t);
+                               tr_n, rows, counts, drop_ingest, C, N, R, Q, S,
+                               K, E, QC, record_trace, t, window);
   Args a{make_level0(k, l0, l0_count, wait_total, wait_jobs, jobs_in_queue,
                      0),
          static_cast<const int32_t*>(node_type), pick, {}, {},
@@ -192,18 +217,21 @@ extern "C" int fused_prefix_scored_launch(
          make_faults(health, was_active, next_fail, down_until, down_since,
                      n_fails, kills, requeues, down_ms, fail_t, repair_t, key,
                      drop_failed, fault_cap, fault_lent, fault_lent_count,
-                     fault_events, fault_trace, mttf, mttr, max_retries)};
+                     fault_events, fault_trace, mttf, mttr, max_retries),
+         make_tap(tap ? tap_ptrs : nullptr, slot)};
   for (int i = 0; i < kClasses * kDeviceTypes; ++i) a.table[i] = table[i];
   for (int r = 0; r < 3; ++r) a.w[r] = w[r];
   if (C > 0) {
     const int threads = threads_for(C);
     const int blocks = (C + threads - 1) / threads;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    dispatch_forms(emit, expire, faults, [&](auto e, auto x, auto f) {
+    const bool ok = dispatch_forms(emit, expire, faults, tap,
+                                   [&](auto e, auto x, auto f, auto p) {
       fused_prefix_scored_kernel<decltype(e)::value, decltype(x)::value,
-                                 decltype(f)::value>
+                                 decltype(f)::value, decltype(p)::value>
           <<<blocks, threads, 0, s>>>(a);
     });
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

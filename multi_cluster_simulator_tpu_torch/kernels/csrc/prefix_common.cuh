@@ -16,7 +16,13 @@
 // with the fault phase (faults/apply.py fault_phase_local): node failures
 // kill and requeue the jobs on them, repairs restore the nodes, and the
 // generative mode draws the next outage with jax's threefry2x32 and XLA's
-// CPU f32 log written out, so that every draw is the reference's.
+// CPU f32 log written out, so that every draw is the reference's. The tap
+// form (kTap, a run with the metrics plane on a terminal prefix) closes the
+// span with the metrics tap (obs/device.py tap_tick): the per-cluster
+// accumulators against the cursor, and the cross-cluster half — the depth
+// histogram and the ring slot — with integer atomics and the last block.
+// Every form takes the windowed Arrivals ingest as a runtime branch of the
+// shared ingest step (Common::window >= 0).
 //
 // Every function here works on ONE cluster, walked by one thread, in
 // place, in the reference's order. Integer discipline: all arithmetic is
@@ -81,9 +87,12 @@ struct Common {
   int32_t* tr_node;
   int32_t* tr_src;
   int32_t* tr_n;          // [C]
-  const int32_t* rows;    // [C, K, NF] this tick's arrival rows
-  const int32_t* counts;  // [C]
+  const int32_t* rows;    // [C, K, NF] this tick's arrival rows, or the
+                          // whole packed stream (K = A) when windowed
+  const int32_t* counts;  // [C] their counts (the stream's valid prefix)
+  int32_t* drop_ingest;   // [C] drops.ingest, touched only when windowed
   int C, N, R, Q, S, K, E, QC, record_trace, t;
+  int window;  // min(max_ingest_per_tick, A) when windowed, else -1
 };
 
 // Common from the leading arguments of every launch function, in the
@@ -92,9 +101,10 @@ inline Common make_common(void* node_free, void* node_active, void* run,
                           void* run_active, void* arr_ptr, void* drop_queue,
                           void* drop_run_full, void* placed_total, void* tr_t,
                           void* tr_job, void* tr_node, void* tr_src,
-                          void* tr_n, void* rows, void* counts, int C, int N,
-                          int R, int Q, int S, int K, int E, int QC,
-                          int record_trace, int t) {
+                          void* tr_n, void* rows, void* counts,
+                          void* drop_ingest, int C, int N, int R, int Q,
+                          int S, int K, int E, int QC, int record_trace,
+                          int t, int window) {
   return Common{static_cast<int32_t*>(node_free),
                 static_cast<uint8_t*>(node_active),
                 static_cast<int32_t*>(run),
@@ -110,7 +120,8 @@ inline Common make_common(void* node_free, void* node_active, void* run,
                 static_cast<int32_t*>(tr_n),
                 static_cast<const int32_t*>(rows),
                 static_cast<const int32_t*>(counts),
-                C, N, R, Q, S, K, E, QC, record_trace, t};
+                static_cast<int32_t*>(drop_ingest),
+                C, N, R, Q, S, K, E, QC, record_trace, t, window};
 }
 
 // The emit form's outputs and flags, after each launch function's own
@@ -201,37 +212,45 @@ inline Faults make_faults(void* health, void* was_active, void* next_fail,
 // (kernels/fused_tick.py MAX_FAULT_NODES).
 constexpr int kMaxFaultNodes = 64;
 
-// Every span kernel is a template on <kEmit, kExpire, kFaults>; its launch
-// takes the three as int flags. Calls `launch` once, with the form they
-// name as three std::bool_constant tags, so that each source spells its
-// launch once:
-//   dispatch_forms(emit, expire, faults, [&](auto e, auto x, auto f) {
-//     kernel<decltype(e)::value, decltype(x)::value,
-//            decltype(f)::value><<<...>>>(a); });
+// Every span kernel is a template on <kEmit, kExpire, kFaults, kTap>; its
+// launch takes the four as int flags. Calls `launch` once, with the form
+// they name as four std::bool_constant tags, so that each source spells
+// its launch once:
+//   dispatch_forms(emit, expire, faults, tap, [&](auto e, auto x, auto f,
+//                                                auto p) {
+//     kernel<decltype(e)::value, decltype(x)::value, decltype(f)::value,
+//            decltype(p)::value><<<...>>>(a); });
+// The tap runs only on a terminal prefix and expiry only with the trader,
+// which is never terminal, so no form has both: 12 instantiations. Returns
+// false (launching nothing) when asked for both.
 template <class Launch>
-inline void dispatch_forms(int emit, int expire, int faults,
+inline bool dispatch_forms(int emit, int expire, int faults, int tap,
                            Launch&& launch) {
   using T = std::true_type;
   using F = std::false_type;
-  auto with_faults = [&](auto e, auto x) {
+  if (expire && tap) return false;
+  auto with_faults = [&](auto e, auto x, auto p) {
     if (faults) {
-      launch(e, x, T{});
+      launch(e, x, T{}, p);
     } else {
-      launch(e, x, F{});
+      launch(e, x, F{}, p);
     }
   };
-  auto with_expire = [&](auto e) {
+  auto with_expire_or_tap = [&](auto e) {
     if (expire) {
-      with_faults(e, T{});
+      with_faults(e, T{}, F{});
+    } else if (tap) {
+      with_faults(e, F{}, T{});
     } else {
-      with_faults(e, F{});
+      with_faults(e, F{}, F{});
     }
   };
   if (emit) {
-    with_expire(T{});
+    with_expire_or_tap(T{});
   } else {
-    with_expire(F{});
+    with_expire_or_tap(F{});
   }
+  return true;
 }
 
 // ---------------------------------------------------------------------------
@@ -650,20 +669,41 @@ struct Cluster {
     }
   }
 
-  // Ingest: append the tick's first counts[c] rows to queue `q` holding
-  // `count` rows; rows past its capacity count into `*drop_queue`, and the
-  // arrival cursor advances by the full count either way. Returns the new
-  // count.
-  __host__ __device__ int ingest(int32_t* q, int count, int* drop_queue) {
-    const int cnt = a.counts[c];
-    const int n_take = imin(imax(cnt, 0), a.K);
+  // Ingest: append this tick's arrivals to queue `q` holding `count`
+  // rows; rows past its capacity count into `*drop_queue`. Tick-indexed
+  // (window < 0): the first counts[c] rows of the tick's slice, and the
+  // arrival cursor advances by the full count. Windowed (core/engine.py
+  // _ingest_local): the stream's rows from the cursor arr_ptr on that are
+  // due (enq_t <= t) among its counts[c] valid ones — nondecreasing in
+  // enq_t, so a prefix, counted up to its first row not due — of which
+  // the first `window` are taken, the rest counting into drops.ingest;
+  // the cursor advances by the taken count. `*arrived` is the count the
+  // cursor advanced by. Returns the new count.
+  __host__ __device__ int ingest(int32_t* q, int count, int* drop_queue,
+                                 int* arrived) {
+    const int32_t* arows = a.rows + (size_t)c * a.K * NF;
+    int cnt, n_take;
+    if (a.window >= 0) {
+      const int ptr = a.arr_ptr[c];
+      const int end = imin(a.counts[c], a.K);
+      int due = 0;
+      for (int i = imax(ptr, 0); i < end && arows[i * NF + FENQ] <= a.t; ++i) {
+        ++due;
+      }
+      cnt = n_take = imin(due, a.window);
+      if (due > cnt) a.drop_ingest[c] += due - cnt;
+      arows += (size_t)imax(ptr, 0) * NF;
+    } else {
+      cnt = a.counts[c];
+      n_take = imin(imax(cnt, 0), a.K);
+    }
     const int room = a.Q - count;
     *drop_queue += imax(n_take - room, 0);
     const int added = imin(n_take, room);
-    const int32_t* arows = a.rows + (size_t)c * a.K * NF;
     for (int k = 0; k < added; ++k) copy_row(q + (count + k) * NF,
                                              arows + k * NF);
     a.arr_ptr[c] += cnt;
+    *arrived = cnt;
     return count + added;
   }
 
@@ -893,15 +933,16 @@ inline Level0Args make_level0(const Common& k, void* l0, void* l0_count,
 }
 
 // Ingest into Level0: append the tick's arrivals; wait_jobs and
-// jobs_in_queue grow by the arrival count, dropped rows included, as in
-// the reference. Returns Level0's new count.
+// jobs_in_queue grow by the arrival count (the cursor's advance), dropped
+// rows included, as in the reference. Returns Level0's new count.
 __host__ __device__ inline int ingest_level0(const Level0Args& a,
                                              Cluster& cl, int* drop_queue) {
   const int c = cl.c;
+  int arrived = 0;
   const int count = cl.ingest(a.l0 + (size_t)c * a.k.Q * NF, a.l0_count[c],
-                              drop_queue);
-  a.wait_jobs[c] += a.k.counts[c];
-  a.jobs_in_queue[c] += a.k.counts[c];
+                              drop_queue, &arrived);
+  a.wait_jobs[c] += arrived;
+  a.jobs_in_queue[c] += arrived;
   return count;
 }
 
@@ -956,6 +997,168 @@ __host__ __device__ void level0_prefix(const Level0Args& a, const Emit& e,
   k.drop_queue[c] += drop_queue;
   k.drop_run_full[c] += acc.run_full;
   k.placed_total[c] += cl.placed;
+}
+
+
+// ---------------------------------------------------------------------------
+// The metrics tap (obs/device.py tap_tick), the tap form's epilogue.
+// ---------------------------------------------------------------------------
+
+constexpr int kDepthBuckets = 16;  // obs/device.py OBS_DEPTH_BUCKETS
+
+// The tap form's operands, from the host array of pointers the wrapper
+// builds once per run (kernels/fused_tick.py _tap_args, in this order):
+// the buffer's per-cluster leaves and the cursor, updated in place; the
+// per-tick outputs; the buffer's cross-cluster leaves and a scratch of
+// three words (zero between launches); the state counters the tap reads.
+struct Tap {
+  int32_t *placed, *arrived, *borrows;
+  float* wait_accrued;
+  int32_t *ovf, *depth_sum, *depth_max, *kills, *requeues, *fail_drops,
+      *node_down_ms;
+  int32_t *c_placed, *c_arrived, *c_lent;
+  float* c_wait;
+  int32_t *c_ovf, *c_kills, *c_requeues, *c_fail_drops, *c_down_ms;
+  int32_t *placed_d, *depth;
+  int32_t *ticks, *depth_hist, *ring_placed, *ring_depth, *ring_t, *scratch;
+  const float* wait_total;
+  const int32_t *lent_count, *l0_count, *l1_count, *ready_count,
+      *wait_count, *kills_total, *requeues_total, *down_ms_total,
+      *drop_failed;
+  int slot;  // the ring slot of the post-tick clock, (t / tick_ms) % 64
+};
+
+inline Tap make_tap(const void* const* p, int slot) {
+  Tap t{};
+  if (p == nullptr) return t;
+  int i = 0;
+  auto i32 = [&]() { return static_cast<int32_t*>(const_cast<void*>(p[i++])); };
+  auto f32 = [&]() { return static_cast<float*>(const_cast<void*>(p[i++])); };
+  t.placed = i32(); t.arrived = i32(); t.borrows = i32();
+  t.wait_accrued = f32();
+  t.ovf = i32(); t.depth_sum = i32(); t.depth_max = i32(); t.kills = i32();
+  t.requeues = i32(); t.fail_drops = i32(); t.node_down_ms = i32();
+  t.c_placed = i32(); t.c_arrived = i32(); t.c_lent = i32();
+  t.c_wait = f32();
+  t.c_ovf = i32(); t.c_kills = i32(); t.c_requeues = i32();
+  t.c_fail_drops = i32(); t.c_down_ms = i32();
+  t.placed_d = i32(); t.depth = i32();
+  t.ticks = i32(); t.depth_hist = i32(); t.ring_placed = i32();
+  t.ring_depth = i32(); t.ring_t = i32(); t.scratch = i32();
+  t.wait_total = f32();
+  t.lent_count = i32(); t.l0_count = i32(); t.l1_count = i32();
+  t.ready_count = i32(); t.wait_count = i32(); t.kills_total = i32();
+  t.requeues_total = i32(); t.down_ms_total = i32(); t.drop_failed = i32();
+  t.slot = slot;
+  return t;
+}
+
+// The log2 bucket of a queue depth as the reference's compiled code
+// computes it (obs/device.py _depth_buckets): 1 + floor(log(f32(depth)) *
+// f32(1 / log 2)) with XLA's CPU f32 log, which puts 8192 in bucket 13;
+// 0 for an empty queue; clipped to the last bucket.
+__host__ __device__ inline int depth_bucket(int32_t depth) {
+  if (depth <= 0) return 0;
+  const float l = fmul_rn(xla_logf(i2f_rn(depth)), 0x1.715476p+0f);
+  const int b = 1 + (int)floorf(l);
+  return imin(imax(b, 0), kDepthBuckets - 1);
+}
+
+// The tap of cluster c after its span (active: c < C; every thread of the
+// block calls it, so that the warp-wide sums see the whole block). The
+// per-cluster half differences the counters against the cursor, in the
+// reference's arithmetic (int32 wrapping, the f32 wait delta added as one
+// subtraction and one addition), accumulates the eleven leaves and moves
+// the cursor. The cross-cluster half: each block (one warp) sums its
+// clusters' placements and depths and counts its depth buckets, adds them
+// with integer atomics — exact in any order — and the last block to
+// finish writes the ring slot (its value rows, the clock) and the tick
+// count and zeroes the scratch for the next launch. A call, not inlined:
+// inlined into the scored kernel, nvcc compiled the tesserae branch's
+// Level0 compaction wrong in the faults form (a placed slot stayed in
+// Level0; the comparison with the plain version on the card caught it);
+// as a call, every thread of the block also arrives converged at the
+// warp-wide sums.
+static __device__ __noinline__ void tap_epilogue(const Tap& p,
+                                                 const Common& k, int c,
+                                                 bool active) {
+  int32_t placed_d = 0, depth = 0;
+  int bucket = -1;
+  if (active) {
+    const int32_t placed = k.placed_total[c], arrived = k.arr_ptr[c];
+    const int32_t lent = p.lent_count[c];
+    const float wait = p.wait_total[c];
+    const int32_t kills = p.kills_total[c], requeues = p.requeues_total[c];
+    const int32_t fail = p.drop_failed[c], down = p.down_ms_total[c];
+    placed_d = wrap_sub(placed, p.c_placed[c]);
+    depth = wrap_add(wrap_add(wrap_add(p.l0_count[c], p.l1_count[c]),
+                              p.ready_count[c]),
+                     p.wait_count[c]);
+    p.placed[c] = wrap_add(p.placed[c], placed_d);
+    p.arrived[c] = wrap_add(p.arrived[c], wrap_sub(arrived, p.c_arrived[c]));
+    p.borrows[c] = wrap_add(p.borrows[c],
+                            imax(wrap_sub(lent, p.c_lent[c]), 0));
+    p.wait_accrued[c] = fadd_rn(p.wait_accrued[c],
+                                fsub_rn(wait, p.c_wait[c]));
+    p.ovf[c] = wrap_sub(p.ovf[c], p.c_ovf[c]);  // the wide layout's total: 0
+    p.depth_sum[c] = wrap_add(p.depth_sum[c], depth);
+    p.depth_max[c] = imax(p.depth_max[c], depth);
+    p.kills[c] = wrap_add(p.kills[c], wrap_sub(kills, p.c_kills[c]));
+    p.requeues[c] = wrap_add(p.requeues[c],
+                             wrap_sub(requeues, p.c_requeues[c]));
+    p.fail_drops[c] = wrap_add(p.fail_drops[c],
+                               wrap_sub(fail, p.c_fail_drops[c]));
+    p.node_down_ms[c] = wrap_add(p.node_down_ms[c],
+                                 wrap_sub(down, p.c_down_ms[c]));
+    p.c_placed[c] = placed;
+    p.c_arrived[c] = arrived;
+    p.c_lent[c] = lent;
+    p.c_wait[c] = wait;
+    p.c_ovf[c] = 0;
+    p.c_kills[c] = kills;
+    p.c_requeues[c] = requeues;
+    p.c_fail_drops[c] = fail;
+    p.c_down_ms[c] = down;
+    p.placed_d[c] = placed_d;
+    p.depth[c] = depth;
+    bucket = depth_bucket(depth);
+  }
+#ifdef __CUDA_ARCH__
+  const unsigned lanes =
+      blockDim.x >= 32 ? 0xFFFFFFFFu : (1u << blockDim.x) - 1u;
+  const uint32_t sum_placed = __reduce_add_sync(lanes, (uint32_t)placed_d);
+  const uint32_t sum_depth = __reduce_add_sync(lanes, (uint32_t)depth);
+  for (int b = 0; b < kDepthBuckets; ++b) {
+    const unsigned hits = __ballot_sync(lanes, bucket == b);
+    if (threadIdx.x == 0 && hits != 0u) {
+      atomicAdd(p.depth_hist + b, __popc(hits));
+    }
+  }
+  if (threadIdx.x != 0) return;
+  atomicAdd(reinterpret_cast<unsigned*>(p.scratch), sum_placed);
+  atomicAdd(reinterpret_cast<unsigned*>(p.scratch + 1), sum_depth);
+  __threadfence();
+  const unsigned done =
+      atomicAdd(reinterpret_cast<unsigned*>(p.scratch + 2), 1u);
+  if (done != gridDim.x - 1) return;
+  __threadfence();  // the last block: every block's sums are in
+  p.ring_placed[p.slot] = atomicExch(p.scratch, 0);
+  p.ring_depth[p.slot] = atomicExch(p.scratch + 1, 0);
+  p.scratch[2] = 0;
+#else
+  // a host build (a logic check) runs the threads one after another
+  if (active) {
+    p.scratch[0] = wrap_add(p.scratch[0], placed_d);
+    p.scratch[1] = wrap_add(p.scratch[1], depth);
+    p.depth_hist[bucket] += 1;
+  }
+  if (++p.scratch[2] != (int32_t)(gridDim.x * blockDim.x)) return;
+  p.ring_placed[p.slot] = p.scratch[0];
+  p.ring_depth[p.slot] = p.scratch[1];
+  p.scratch[0] = p.scratch[1] = p.scratch[2] = 0;
+#endif
+  p.ring_t[p.slot] = k.t;
+  *p.ticks += 1;
 }
 
 // Threads per block for the one-thread-per-cluster kernels: a warp, halved

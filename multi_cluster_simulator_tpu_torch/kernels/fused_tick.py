@@ -19,7 +19,10 @@ schedule slot (``KERNELS``):
   gavel | tesserae | rl]``, the Level0 sweep with a scored node pick
   (``csrc/fused_prefix_scored.cu``).
 
-Each comes in eight forms, instantiations of one template on three flags.
+Each comes in twelve forms, instantiations of one template on four flags:
+the eight combinations of the emit, expire and faults flags, and the four
+of the emit and faults flags with the tap flag (expiry needs the trader,
+which is never terminal, and the tap runs only on a terminal prefix).
 The emit flag (``emit_returns``: borrowing, or a ``run_io`` tick) makes
 the release step also pack the finished foreign jobs' return messages and
 the pass write the borrow request (``want``, ``bjob_vec``) — the outputs
@@ -32,12 +35,24 @@ faults flag (the fault plane, ``cfg.faults.enabled``) opens the span with
 the fault phase (faults/apply.py ``fault_phase_local``): nodes fail and
 repair, the jobs on failed nodes are killed and requeued into the
 member's ingest target or the LentQueue, and the generative mode draws
-the next outage on the card, bitwise the reference's draws. The FIFO emit
-form, the borrowing path's kernel, is counted as its own entry,
-``fused_prefix_fifo_emit``; the Level0 kernels' emit forms count under
-their kernel's name. Every expire form counts as an entry of its own
-(``..._expire``), the FIFO emit form's as ``fused_prefix_fifo_emit_expire``,
-and so does every faults form (``..._faults``, after the other suffixes).
+the next outage on the card, bitwise the reference's draws. The tap flag
+(a run with a ``MetricsBuffer`` on a terminal prefix) closes the span
+with the metrics tap (obs/device.py): the per-cluster half
+(``tap_tick_local``: the counters differenced against the cursor, the
+queue depth), and the cross-cluster half (``tap_tick_global``) folded in
+with integer atomics: the depth histogram, and the ring slot, written by
+the last block to finish. The FIFO emit form, the borrowing path's kernel,
+is counted as its own entry, ``fused_prefix_fifo_emit``; the Level0
+kernels' emit forms count under their kernel's name. Every expire form
+counts as an entry of its own (``..._expire``), the FIFO emit form's as
+``fused_prefix_fifo_emit_expire``, and so does every tap form
+(``..._tap``) and every faults form (``..._faults``, after the other
+suffixes).
+
+Every kernel also takes the windowed ``Arrivals`` form of the ingest
+(``windowed``): the whole packed stream ``[C, A, NF]`` and its counts in
+place of one tick's rows, and the window ``min(max_ingest_per_tick, A)``
+(-1 for a tick's rows); a runtime branch of the shared ingest step.
 
 Each source's header states what bounds it on the H100 and what its
 design does about that; what they share is ``csrc/prefix_common.cuh``.
@@ -56,10 +71,11 @@ engine's ``PolicySet``, read once at a run's entry (``host_params``).
   ingest and policy ops), and leaves the launch counts alone.
 
 Either way the state's tensors are updated in place, and it returns
-``(state, want, bjob_vec, ret_rows, ret_valid)``; the four outputs are
-None in the terminal form, which nothing after the prefix reads (the
-reference's terminal kernel computes ``want``/``bjob_vec`` and XLA drops
-them). ``cfg.fused`` is copied with the config but chooses nothing here.
+``(state, want, bjob_vec, ret_rows, ret_valid, obs_out)``; the four
+outputs are None in the terminal form, which nothing after the prefix
+reads (the reference's terminal kernel computes ``want``/``bjob_vec`` and
+XLA drops them), and ``obs_out`` is None without the tap.
+``cfg.fused`` is copied with the config but chooses nothing here.
 """
 
 from __future__ import annotations
@@ -71,6 +87,7 @@ import functools
 import torch
 
 from multi_cluster_simulator_tpu_torch.core.state import empty_io
+from multi_cluster_simulator_tpu_torch.obs import device as obs_device
 from multi_cluster_simulator_tpu_torch.ops import queues as Q
 from multi_cluster_simulator_tpu_torch.ops import runset as R
 from multi_cluster_simulator_tpu_torch.policies.kernels import _sweep_len
@@ -90,8 +107,9 @@ MAX_FAULT_NODES = 64
 class Kernel:
     """One hand-written prefix kernel: its name, the policy kinds whose
     spans it carries, the library that holds it (``kernels/build.py``;
-    its name unless given), whether it is an emit, an expire and a faults
-    form, and how many times the wrapper launched it."""
+    its name unless given), whether it is an emit, an expire, a tap and a
+    faults form, how many times the wrapper launched it, and how many of
+    those launches took the windowed ingest."""
 
     name: str
     kinds: tuple
@@ -99,7 +117,9 @@ class Kernel:
     emit: bool = False
     expire: bool = False
     faults: bool = False
+    tap: bool = False
     launches: int = 0
+    windowed_launches: int = 0
 
     def __post_init__(self):
         self.lib = self.lib or self.name
@@ -116,7 +136,7 @@ _LEVEL0 = (("fused_prefix_ffd", ("ffd",)),
 
 def _forms(faults: bool) -> tuple:
     """Every kernel form with the given faults flag, the faults forms
-    named by a ``_faults`` suffix."""
+    named by a ``_faults`` suffix, the tap forms by ``_tap`` before it."""
     sfx = "_faults" if faults else ""
     fifo = "fused_prefix_fifo"
     return (
@@ -130,6 +150,12 @@ def _forms(faults: bool) -> tuple:
         Kernel(f"{fifo}_emit_expire{sfx}", ("fifo",), lib=fifo, emit=True,
                expire=True, faults=faults),
         *(Kernel(f"{name}_expire{sfx}", kinds, lib=name, expire=True,
+                 faults=faults) for name, kinds in _LEVEL0),
+        Kernel(f"{fifo}_tap{sfx}", ("fifo",), lib=fifo, tap=True,
+               faults=faults),
+        Kernel(f"{fifo}_emit_tap{sfx}", ("fifo",), lib=fifo, emit=True,
+               tap=True, faults=faults),
+        *(Kernel(f"{name}_tap{sfx}", kinds, lib=name, tap=True,
                  faults=faults) for name, kinds in _LEVEL0))
 
 
@@ -137,14 +163,20 @@ KERNELS = {k.name: k for k in _forms(False) + _forms(True)}
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch counts to 0."""
     for k in KERNELS.values():
-        k.launches = 0
+        k.launches = k.windowed_launches = 0
 
 
 def launch_counts() -> dict:
     """{kernel name: launches since the last reset}."""
     return {k.name: k.launches for k in KERNELS.values()}
+
+
+def windowed_launch_counts() -> dict:
+    """{kernel name: launches with the windowed ingest since the last
+    reset}."""
+    return {k.name: k.windowed_launches for k in KERNELS.values()}
 
 
 def expires(cfg) -> bool:
@@ -163,14 +195,18 @@ def engaged_span(cfg) -> tuple[str, ...]:
 
 
 def kernel_for(member, emit: bool = False, expire: bool = False,
-               faults: bool = False) -> Kernel:
+               faults: bool = False, tap: bool = False) -> Kernel:
     """The kernel that carries the span of ``member`` (a ``PolicySpec``)
     on the card, in the emit form when ``emit``, the expire form when
-    ``expire`` and the faults form when ``faults`` (the FIFO emit forms
-    are entries of their own; the Level0 kernels' emit forms share their
-    kernel's)."""
+    ``expire``, the tap form when ``tap`` and the faults form when
+    ``faults`` (the FIFO emit forms are entries of their own; the Level0
+    kernels' emit forms share their kernel's). There is no form with both
+    expiry and the tap: the trader is never terminal."""
     found = [k for k in KERNELS.values() if member.kind in k.kinds
-             and k.expire == expire and k.faults == faults]
+             and k.expire == expire and k.faults == faults and k.tap == tap]
+    if not found:
+        raise ValueError(f"no {member.kind} kernel with expire={expire}, "
+                         f"tap={tap}")
     return next((k for k in found if k.emit == emit), found[0])
 
 
@@ -180,16 +216,21 @@ def provenance(engine, params=None) -> dict:
     return pack and the borrow request (``cfg.borrowing``, the form
     ``run``/``run_chunks`` take; ``run_io`` always emits), the member
     ``params.idx`` selects (the engine's default params unless given) and
-    the kernel that carries it on the card."""
+    the kernel that carries it on the card; ``epilogue_tap``: whether a
+    run with the metrics plane folds the tap into the kernel (a terminal
+    prefix), and then ``tap_kernel``, the form it launches."""
     member = engine.member(params)
     emit = engine.cfg.borrowing
-    k = kernel_for(member, emit, expires(engine.cfg),
-                   engine.cfg.faults.enabled)
+    faults = engine.cfg.faults.enabled
+    k = kernel_for(member, emit, expires(engine.cfg), faults)
+    terminal = engine.prefix_terminal()
     return {"span": list(engaged_span(engine.cfg)),
-            "terminal": engine.prefix_terminal(), "policy": member.name,
+            "terminal": terminal, "policy": member.name,
             "schedule": member.kind, "kernel": k.name, "route": "cuda",
             "source": k.source, "replaces": REPLACES, "emit_returns": emit,
-            "epilogue_tap": False}
+            "epilogue_tap": terminal,
+            "tap_kernel": (kernel_for(member, emit, False, faults,
+                                      tap=True).name if terminal else None)}
 
 
 def host_params(engine, params) -> dict:
@@ -197,7 +238,8 @@ def host_params(engine, params) -> dict:
     run's entry and never inside a chunk: the member ``params.idx``
     selects and its kernels (the terminal and the emit form, both expire
     forms where the config engages expiry, both faults forms where the
-    fault plane is on), and the parameters those read
+    fault plane is on, and on a terminal prefix the two tap forms), and
+    the parameters those read
     — FFD's tie-break, DELAY's promotion threshold, the scored kinds' 4x4
     f32 table (gavel's throughputs or rl's scores) and tesserae's 3 f32
     weights, as ctypes arrays handed to the kernel by pointer."""
@@ -206,9 +248,14 @@ def host_params(engine, params) -> dict:
         member.kind, torch.zeros(16))
     expire = expires(engine.cfg)
     faults = engine.cfg.faults.enabled
+    tap = engine.prefix_terminal()
     return {"member": member, "expire": expire, "faults": faults,
             "kernel": kernel_for(member, False, expire, faults),
             "emit_kernel": kernel_for(member, True, expire, faults),
+            "tap_kernel": (kernel_for(member, False, False, faults, tap=True)
+                           if tap else None),
+            "emit_tap_kernel": (kernel_for(member, True, False, faults,
+                                           tap=True) if tap else None),
             "ffd_mem_first": int(params.ffd_mem_first > 0),
             "max_wait_ms": int(params.max_wait_ms),
             "table": (ctypes.c_float * 16)(*table.flatten().tolist()),
@@ -216,63 +263,98 @@ def host_params(engine, params) -> dict:
 
 
 def fused_prefix_reference(engine, state, rows, counts, t: int, params,
-                           member=None, emit_returns: bool = False):
+                           member=None, emit_returns: bool = False, obs=None,
+                           windowed: bool = False):
     """The plain PyTorch version: the ported per-cluster prefix ops on any
-    device, for ``member`` (the one ``params.idx`` selects when None).
-    Returns ``(state, want, bjob_vec, ret_rows, ret_valid)`` as
-    ``Engine._span_prefix`` does, with a new state; the input is left as
-    it was."""
+    device, for ``member`` (the one ``params.idx`` selects when None), with
+    the metrics tap's per-cluster half after them when ``obs`` gives a
+    ``(pc, cursor)`` pair. Returns ``(state, want, bjob_vec, ret_rows,
+    ret_valid, obs_out)`` as ``Engine._span_prefix`` does, with a new
+    state; the input is left as it was."""
     return engine._span_prefix(state, rows, counts, t, params, member,
-                               emit_returns)
+                               emit_returns, obs, windowed)
+
+
+def _copy_into(dst, src) -> None:
+    for (_, d), (_, s_) in zip(leaves_with_keys(dst), leaves_with_keys(src)):
+        if d is not s_:
+            d.copy_(s_)
 
 
 def fused_prefix(engine, state, rows: torch.Tensor, counts: torch.Tensor,
                  t: int, params, host: dict, emit_returns: bool = False,
-                 out=None):
+                 out=None, obs=None, windowed: bool = False):
     """Run tick ``t``'s prefix (the fault phase where engaged -> release
     -> vnode expiry where engaged -> ingest -> the selected member's
     pass) on ``state`` in place. ``rows``
     [C, K, NF] int32 and ``counts`` [C] int32 are the tick's arrival
-    slice; ``t`` is the post-tick clock as a host int; ``params`` are the
-    policy's leaves (the plain path reads them) and ``host`` what the
-    kernels take (``host_params``).
+    slice — with ``windowed``, the whole packed stream [C, A, NF] and its
+    counts, from which the tick ingests its window; ``t`` is the
+    post-tick clock as a host int; ``params`` are the policy's leaves (the
+    plain path reads them) and ``host`` what the kernels take
+    (``host_params``).
     With ``emit_returns`` the release step also packs the return messages
     and the pass writes the borrow request, into ``out`` (a ``TickIO`` of
-    buffers on the state's device, allocated when None). Returns
-    ``(state, want, bjob_vec, ret_rows, ret_valid)``, the last four None
-    without ``emit_returns``."""
+    buffers on the state's device, allocated when None).
+    ``obs``, a ``(MetricsBuffer, TapCursor)`` pair on a terminal prefix,
+    closes the prefix with the metrics tap, both halves
+    (``obs.device.tap_tick``), updating the buffer and the cursor in place;
+    the kernels' operand pointers for it are checked once per (state,
+    buffer, cursor) objects and kept in ``host`` (a caller that swaps a
+    leaf tensor of one passes a new object).
+    Returns ``(state, want, bjob_vec, ret_rows, ret_valid, obs_out)``, the
+    four outputs None without ``emit_returns``, ``obs_out = (pc', cursor',
+    placed_d, depth)`` (the buffer's per-cluster leaves, the cursor, the
+    tick's placements and queue depths, [C] each) or None."""
     devices = {x.device for _, x in leaves_with_keys(state)}
     devices |= {rows.device, counts.device}
+    if obs is not None and not engine.prefix_terminal():
+        raise ValueError("fused_prefix: the metrics tap runs on a terminal "
+                         "prefix only")
     if devices == {torch.device("cpu")}:
-        new, *io = fused_prefix_reference(engine, state, rows, counts, t,
-                                          params, host["member"],
-                                          emit_returns)
-        for (_, dst), (_, src) in zip(leaves_with_keys(state),
-                                      leaves_with_keys(new)):
-            if dst is not src:
-                dst.copy_(src)
+        tap_in = None if obs is None else (obs_device.tap_pc(obs[0]), obs[1])
+        new, *io, obs_out = fused_prefix_reference(
+            engine, state, rows, counts, t, params, host["member"],
+            emit_returns, tap_in, windowed)
+        _copy_into(state, new)
+        if obs is not None:
+            pc, cur, placed_d, depth = obs_out
+            _copy_into(obs[0], obs_device.tap_tick_global(
+                obs[0].replace(**pc), placed_d, depth, t,
+                engine.cfg.tick_ms))
+            _copy_into(obs[1], cur)
+            obs_out = (obs_device.tap_pc(obs[0]), obs[1], placed_d, depth)
         if not emit_returns:
-            return state, None, None, None, None
+            return state, None, None, None, None, obs_out
         if out is None:
-            return (state, *io)
+            return (state, *io, obs_out)
         for (_, dst), src in zip(leaves_with_keys(out), io):
             dst.copy_(src)
-        return (state, *_outputs(out))
+        return (state, *_outputs(out), obs_out)
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(
             f"fused_prefix needs every tensor on one CUDA device or all on "
             f"the CPU; got {sorted(str(d) for d in devices)}")
-    if not emit_returns:
-        k = host["kernel"]
-        _LAUNCH[k.lib](engine.cfg, state, rows, counts, t, host, None)
-        k.launches += 1
-        return state, None, None, None, None
-    if out is None:
+    tap = None
+    if obs is not None:
+        tap = _tap_args(engine, state, obs[0], obs[1], host)
+    if emit_returns and out is None:
         out = empty_io((counts.shape[0],), engine.n_msgs(), counts.device)
-    k = host["emit_kernel"]
-    _LAUNCH[k.lib](engine.cfg, state, rows, counts, t, host, out)
+    io = out if emit_returns else None
+    if tap is None:
+        k = host["emit_kernel" if emit_returns else "kernel"]
+    else:
+        k = host["emit_tap_kernel" if emit_returns else "tap_kernel"]
+    _LAUNCH[k.lib](engine.cfg, state, rows, counts, t, host, io,
+                   windowed, tap)
     k.launches += 1
-    return (state, *_outputs(out))
+    if windowed:
+        k.windowed_launches += 1
+    obs_out = None if tap is None else (tap.pc, obs[1], tap.placed_d,
+                                        tap.depth)
+    if not emit_returns:
+        return state, None, None, None, None, obs_out
+    return (state, *_outputs(out), obs_out)
 
 
 def _outputs(io) -> tuple:
@@ -304,10 +386,12 @@ def _entry(name: str, n_ptr: int, n_int: int, n_host: int):
     return fn
 
 
-def _common(cfg, s, rows, counts, t: int):
+def _common(cfg, s, rows, counts, t: int, windowed: bool):
     """The checked pointers and ints every prefix kernel takes first: the
     node vectors, the running set, the counters of release/ingest/place,
-    the trace, and the tick's arrivals."""
+    the trace, the tick's arrivals (or the windowed stream and its
+    counts, with ``drops.ingest``) and the window (-1 for a tick's
+    rows)."""
     if not -2**31 <= t < 2**31:
         raise ValueError(f"fused_prefix: clock {t} does not fit int32")
     C, N, n_res = s.node_free.shape
@@ -332,10 +416,94 @@ def _common(cfg, s, rows, counts, t: int):
         _check("trace.n", s.trace.n, c_shape, i32),
         _check("rows", rows, (C, K, Q.NF), i32),
         _check("counts", counts, c_shape, i32),
+        _check("drops.ingest", s.drops.ingest, c_shape, i32)
+        if windowed else None,
     ]
+    window = min(cfg.max_ingest_per_tick, K) if windowed else -1
     ints = [C, N, n_res, Qc, S, K, E, _sweep_len(cfg), int(cfg.record_trace),
-            t]
+            t, window]
     return ptrs, ints
+
+
+@dataclasses.dataclass
+class TapArgs:
+    """The tap form's operands for one (state, buffer, cursor): the host
+    array of their pointers the kernel reads (``csrc/prefix_common.cuh
+    make_tap``'s order), the tensors it points at, the per-tick outputs
+    ``placed_d`` and ``depth``, and the buffer's per-cluster leaves as
+    ``obs_device.tap_pc`` gives them."""
+
+    key: tuple
+    ptrs: ctypes.Array
+    tensors: list
+    placed_d: torch.Tensor
+    depth: torch.Tensor
+    pc: dict
+
+
+def _tap_args(engine, state, mbuf, cur, host: dict) -> TapArgs:
+    """The tap form's checked operands, built once per (state, buffer,
+    cursor) objects and kept in ``host["tap"]`` (which holds the objects,
+    so their ids stay theirs): the buffer's per-cluster leaves
+    (``PC_LEAVES``), the cursor, the two per-tick outputs, the buffer's
+    cross-cluster leaves and a zeroed scratch of three words (the ring
+    sums and the count of blocks done), then the state counters the tap
+    reads."""
+    cached = host.get("tap")
+    if cached is not None and cached.key[0] is state and \
+            cached.key[1] is mbuf and cached.key[2] is cur:
+        return cached
+    C = state.arr_ptr.shape[0]
+    dev = state.device
+    i32, f32 = torch.int32, torch.float32
+    c_shape = (C,)
+    B, Rg = obs_device.OBS_DEPTH_BUCKETS, obs_device.OBS_RING
+
+    def leaf(name, x, dtype=i32, shape=c_shape):
+        return _check(name, x, shape, dtype)
+
+    placed_d = torch.empty(c_shape, dtype=i32, device=dev)
+    depth = torch.empty(c_shape, dtype=i32, device=dev)
+    tensors = [
+        *(leaf(f"mbuf.{k}", getattr(mbuf, k),
+               f32 if k == "wait_accrued" else i32)
+          for k in obs_device.PC_LEAVES),
+        *(leaf(f"cursor.{f.name}", getattr(cur, f.name),
+               f32 if f.name == "wait" else i32)
+          for f in dataclasses.fields(cur)),
+        placed_d, depth,
+        leaf("mbuf.ticks", mbuf.ticks, shape=()),
+        leaf("mbuf.depth_hist", mbuf.depth_hist, shape=(1, B)),
+        leaf("mbuf.ring_placed", mbuf.ring_placed, shape=(1, Rg)),
+        leaf("mbuf.ring_depth", mbuf.ring_depth, shape=(1, Rg)),
+        leaf("mbuf.ring_t", mbuf.ring_t, shape=(Rg,)),
+        torch.zeros(3, dtype=i32, device=dev),
+        leaf("wait_total", state.wait_total, f32),
+        leaf("lent.count", state.lent.count),
+        leaf("l0.count", state.l0.count),
+        leaf("l1.count", state.l1.count),
+        leaf("ready.count", state.ready.count),
+        leaf("wait.count", state.wait.count),
+        leaf("faults.kills", state.faults.kills),
+        leaf("faults.requeues", state.faults.requeues),
+        leaf("faults.down_ms", state.faults.down_ms),
+        leaf("drops.failed", state.drops.failed),
+    ]
+    if {x.device for x in tensors} != {dev}:
+        raise ValueError("fused_prefix: the metrics buffer and cursor must "
+                         f"live on the state's device {dev}")
+    ptrs = (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
+    host["tap"] = TapArgs((state, mbuf, cur), ptrs, tensors, placed_d, depth,
+                          obs_device.tap_pc(mbuf))
+    return host["tap"]
+
+
+def _tap(cfg, tap: TapArgs, t: int):
+    """The ints and the host pointer every launch function takes last:
+    whether the tap runs, the ring slot of clock ``t``, the operands."""
+    if tap is None:
+        return [0, 0], None
+    return [1, (t // cfg.tick_ms) % obs_device.OBS_RING], tap.ptrs
 
 
 def _queue(name: str, q, C: int, Qc: int):
@@ -426,41 +594,44 @@ def _run(name: str, ptrs, ints, rows, host_ptrs=()):
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     fn = _entry(name, len(ptrs), len(ints), len(host_ptrs))
     err = fn(*[None if p is None else p.data_ptr() for p in ptrs], *ints,
-             *[ctypes.addressof(h) for h in host_ptrs], stream)
+             *[None if h is None else ctypes.addressof(h) for h in host_ptrs],
+             stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({torch.cuda.get_device_name(rows.device)})")
 
 
-def _launch_fifo(cfg, s, rows, counts, t: int, host: dict,
-                 io=None) -> None:
-    ptrs, ints = _common(cfg, s, rows, counts, t)
+def _launch_fifo(cfg, s, rows, counts, t: int, host: dict, io=None,
+                 windowed: bool = False, tap: TapArgs = None) -> None:
+    ptrs, ints = _common(cfg, s, rows, counts, t, windowed)
     C, Qc = ints[0], ints[3]
     ptrs += (_queue("ready", s.ready, C, Qc) + _queue("wait", s.wait, C, Qc)
              + _queue("lent", s.lent, C, Qc))
     e_ptrs, e_ints = _emit(cfg, s, io)
     x_ptrs, x_ints = _expire(s, host)
     f_ptrs, f_ints = _faults(cfg, s, host)
+    t_ints, t_ptrs = _tap(cfg, tap, t)
     _run("fused_prefix_fifo", ptrs + e_ptrs + x_ptrs + f_ptrs,
-         ints + e_ints + x_ints + f_ints, rows)
+         ints + e_ints + x_ints + f_ints + t_ints, rows, (t_ptrs,))
 
 
-def _launch_ffd(cfg, s, rows, counts, t: int, host: dict,
-                io=None) -> None:
-    ptrs, ints = _common(cfg, s, rows, counts, t)
+def _launch_ffd(cfg, s, rows, counts, t: int, host: dict, io=None,
+                windowed: bool = False, tap: TapArgs = None) -> None:
+    ptrs, ints = _common(cfg, s, rows, counts, t, windowed)
     ptrs += _level0("fused_prefix_ffd", s, ints[0], ints[3])
     wave = int(not cfg.parity and cfg.ffd_sweep == "wave")
     ints += [wave, host["ffd_mem_first"]]
     e_ptrs, e_ints = _emit(cfg, s, io)
     x_ptrs, x_ints = _expire(s, host)
     f_ptrs, f_ints = _faults(cfg, s, host)
+    t_ints, t_ptrs = _tap(cfg, tap, t)
     _run("fused_prefix_ffd", ptrs + e_ptrs + x_ptrs + f_ptrs,
-         ints + e_ints + x_ints + f_ints, rows)
+         ints + e_ints + x_ints + f_ints + t_ints, rows, (t_ptrs,))
 
 
-def _launch_delay(cfg, s, rows, counts, t: int, host: dict,
-                  io=None) -> None:
-    ptrs, ints = _common(cfg, s, rows, counts, t)
+def _launch_delay(cfg, s, rows, counts, t: int, host: dict, io=None,
+                  windowed: bool = False, tap: TapArgs = None) -> None:
+    ptrs, ints = _common(cfg, s, rows, counts, t, windowed)
     C, Qc = ints[0], ints[3]
     ptrs += (_level0("fused_prefix_delay", s, C, Qc)
              + _queue("l1", s.l1, C, Qc))
@@ -469,17 +640,18 @@ def _launch_delay(cfg, s, rows, counts, t: int, host: dict,
     e_ptrs, e_ints = _emit(cfg, s, io)
     x_ptrs, x_ints = _expire(s, host)
     f_ptrs, f_ints = _faults(cfg, s, host)
+    t_ints, t_ptrs = _tap(cfg, tap, t)
     _run("fused_prefix_delay", ptrs + e_ptrs + x_ptrs + f_ptrs,
-         ints + e_ints + x_ints + f_ints, rows)
+         ints + e_ints + x_ints + f_ints + t_ints, rows, (t_ptrs,))
 
 
 # the scored kernel's picks (csrc/fused_prefix_scored.cu kTable, kTesserae)
 _PICK = {"gavel": 0, "rl": 0, "tesserae": 1}
 
 
-def _launch_scored(cfg, s, rows, counts, t: int, host: dict,
-                   io=None) -> None:
-    ptrs, ints = _common(cfg, s, rows, counts, t)
+def _launch_scored(cfg, s, rows, counts, t: int, host: dict, io=None,
+                   windowed: bool = False, tap: TapArgs = None) -> None:
+    ptrs, ints = _common(cfg, s, rows, counts, t, windowed)
     C, N = ints[0], ints[1]
     ptrs += _level0("fused_prefix_scored", s, C, ints[3]) + [
         _check("node_type", s.node_type, (C, N), torch.int32)]
@@ -487,9 +659,10 @@ def _launch_scored(cfg, s, rows, counts, t: int, host: dict,
     e_ptrs, e_ints = _emit(cfg, s, io)
     x_ptrs, x_ints = _expire(s, host)
     f_ptrs, f_ints = _faults(cfg, s, host)
+    t_ints, t_ptrs = _tap(cfg, tap, t)
     _run("fused_prefix_scored", ptrs + e_ptrs + x_ptrs + f_ptrs,
-         ints + e_ints + x_ints + f_ints, rows,
-         (host["table"], host["weights"]))
+         ints + e_ints + x_ints + f_ints + t_ints, rows,
+         (host["table"], host["weights"], t_ptrs))
 
 
 _LAUNCH = {"fused_prefix_fifo": _launch_fifo,

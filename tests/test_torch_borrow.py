@@ -483,5 +483,5 @@ def test_borrowing_provenance_and_emit_outputs():
     assert res[0] is state and res[1] is out.borrow_want
     assert res[3] is out.ret_rows and not out.ret_valid.any()
     assert tfused.fused_prefix(eng, state, rows, counts, 2_000,
-                               eng._default_params, host)[1:] == (None,) * 4
+                               eng._default_params, host)[1:] == (None,) * 5
     assert not any(tfused.launch_counts().values())

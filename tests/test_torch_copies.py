@@ -14,6 +14,9 @@ import pytest
 from multi_cluster_simulator_tpu import config as jconfig
 from multi_cluster_simulator_tpu.core import engine as jengine
 from multi_cluster_simulator_tpu.core import spec as jspec
+from multi_cluster_simulator_tpu.core import state as jstate
+from multi_cluster_simulator_tpu.obs import device as jdevice
+from multi_cluster_simulator_tpu.obs import profile as jprofile
 from multi_cluster_simulator_tpu.ops import fields as jfields
 from multi_cluster_simulator_tpu.policies import base as jbase
 from multi_cluster_simulator_tpu.workload import generator as jgen
@@ -21,6 +24,9 @@ from multi_cluster_simulator_tpu.workload import traces as jtraces
 from multi_cluster_simulator_tpu_torch import config as tconfig
 from multi_cluster_simulator_tpu_torch.core import engine as tengine
 from multi_cluster_simulator_tpu_torch.core import spec as tspec
+from multi_cluster_simulator_tpu_torch.core import state as tstate
+from multi_cluster_simulator_tpu_torch.obs import device as tdevice
+from multi_cluster_simulator_tpu_torch.obs import profile as tprofile
 from multi_cluster_simulator_tpu_torch import interop
 from multi_cluster_simulator_tpu_torch.ops import fields as tfields
 from multi_cluster_simulator_tpu_torch.policies import base as tbase
@@ -229,3 +235,23 @@ def test_pack_arrivals_chunks_equal(chunks, start):
 def test_round_up_pow2_equal():
     for k in (0, 1, 2, 3, 4, 5, 8, 9, 17, 1000):
         assert jengine.round_up_pow2(k) == tengine.round_up_pow2(k)
+
+
+@pytest.mark.parametrize("module,name", [
+    ("profile", "TICK_PHASES"), ("device", "OBS_RING"),
+    ("device", "OBS_DEPTH_BUCKETS"), ("device", "PC_LEAVES"),
+    ("state", "LEAP_BUCKETS")])
+def test_obs_constants_equal(module, name):
+    """The metrics plane's and the profile plane's constants."""
+    j = {"profile": jprofile, "device": jdevice, "state": jstate}[module]
+    t = {"profile": tprofile, "device": tdevice, "state": tstate}[module]
+    assert getattr(j, name) == getattr(t, name)
+
+
+@pytest.mark.parametrize("cls", ["MetricsBuffer", "TapCursor", "MetricSample"])
+def test_obs_leaf_names_equal(cls):
+    """The buffer's, the cursor's and the sample's leaves, in order."""
+    j = getattr(jstate if cls == "MetricSample" else jdevice, cls)
+    t = getattr(tstate if cls == "MetricSample" else tdevice, cls)
+    assert [f.name for f in dataclasses.fields(j)] == \
+        [f.name for f in dataclasses.fields(t)]

@@ -188,29 +188,51 @@ def test_port_run_equals_run_chunks():
     assert int(a.t) == 35 * cfg.tick_ms
 
 
-@pytest.mark.parametrize("change,policies,item", [
-    (dict(record_metrics=True), ("fifo", "ffd"), "A10"),
+@pytest.mark.parametrize("change,policies", [
+    (dict(record_metrics=True), ("fifo", "ffd")),
     (dict(trader=tconfig.TraderConfig(enabled=True), n_res=3,
-          record_metrics=True), None, "A10"),
-    (dict(record_metrics=True), None, "A10"),
-])
-def test_configs_outside_the_slice_raise(change, policies, item):
+          record_metrics=True), None),
+    (dict(record_metrics=True), None),
+], ids=["fifo_ffd_set", "trader", "plain"])
+def test_configs_outside_the_slice_raise(change, policies):
+    """The configurations that raised "ROADMAP A10" while the metrics
+    plane was not ported — ``record_metrics`` on a multi-member set, with
+    the trader, and alone — now run: the final state and the per-tick
+    ``MetricSample`` series equal the JAX engine's under ``jax.jit``,
+    bitwise (``avg_wait_ms`` f32 included)."""
+    from multi_cluster_simulator_tpu.config import TraderConfig
+    from multi_cluster_simulator_tpu.policies.base import PolicySet as JSet
     from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
 
-    cfg = dataclasses.replace(port_cfg(headline_cfg()), **change)
-    pset = None if policies is None else PolicySet(policies)
-    with pytest.raises(NotImplementedError, match=item):
-        tengine.Engine(cfg, device="cpu", policies=pset)
+    jchange = dict(change)
+    if "trader" in change:
+        jchange["trader"] = TraderConfig(enabled=True)
+    jcfg = dataclasses.replace(headline_cfg(), **jchange)
+    cfg = port_cfg(jcfg)
+    n = 40
+    arr, tarr = stream(n_clusters=4, horizon_ms=30_000, seed=3)
+    jspecs, tspecs = specs(4)
+    jeng = jengine.Engine(jcfg, policies=None if policies is None
+                          else JSet(policies))
+    want, want_series = jax.jit(jeng.run, static_argnums=(2,))(
+        jinit_state(jcfg, jspecs),
+        jengine.pack_arrivals_by_tick(arr, n, jcfg.tick_ms), n)
+    eng = tengine.Engine(cfg, device="cpu",
+                         policies=None if policies is None
+                         else PolicySet(policies))
+    got, series = eng.run(tstate.init_state(cfg, tspecs, device="cpu"),
+                          tengine.pack_arrivals_by_tick(tarr, n, cfg.tick_ms),
+                          n)
+    assert_leaves_equal(jax_leaves(want), interop.state_to_numpy(got))
+    assert_leaves_equal(jax_leaves(want_series), interop.to_numpy(series))
+    assert int(got.placed_total.sum()) > 0
 
 
 def test_unported_run_paths_raise():
     cfg = port_cfg(headline_cfg())
     eng = tengine.Engine(cfg, device="cpu")
-    _, arr = stream(n_clusters=2)
     _, tspecs = specs(2)
     state = tstate.init_state(cfg, tspecs, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        eng.run(state, arr, 5)
     with pytest.raises(NotImplementedError, match="A9"):
         eng.run_compressed(state, None, 5)
     with pytest.raises(NotImplementedError, match="A11"):

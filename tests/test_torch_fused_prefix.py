@@ -88,7 +88,7 @@ def test_fused_prefix_bitwise_equals_jax_pallas(jax_ticks, i, lent):
                                    torch.from_numpy(counts.copy()), t,
                                    params, tfused.host_params(eng, params))
     assert out is state, "the prefix updates the state in place"
-    assert io == [None] * 4, "the terminal form emits nothing"
+    assert io == [None] * 5, "the terminal form emits nothing, untapped"
     assert_leaves_equal(jax_leaves(want), interop.state_to_numpy(out))
     # the CPU takes the plain path
     assert not any(tfused.launch_counts().values())

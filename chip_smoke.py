@@ -54,7 +54,7 @@ holds each path's hand-written kernel against its plain PyTorch version:
       ingest): run (e), the market with expiry at full width, sampled,
       its expiries and attaches counted; 3 heavy ticks for each form on
       run (a)'s final state with nine in ten virtual nodes set to expire
-      (~1,300 expiries a launch); the first 400 ticks of quick-shape runs
+      (~1,300 expiries a launch); the first 250 ticks of quick-shape runs
       (DELAY, FFD, gavel) and the first 800 ticks of config 2 with the trader and
       expiry on, with and without borrowing, each counting its launches
       through ``Engine.run_chunks``;
@@ -67,7 +67,7 @@ holds each path's hand-written kernel against its plain PyTorch version:
       the Level0 forms and the expire forms, on borrowing run (b)'s state
       at tick 800 (foreign rows, full LentQueues) for the FIFO forms; runs
       with churn from the start, their launches counted through
-      ``run_chunks``: the first 100 ticks of DELAY, FFD and gavel at the
+      ``run_chunks``: the first 60 ticks of DELAY, FFD and gavel at the
       quick market shape with and without the sinkhorn market and expiry
       and of FIFO borrowing at 64 clusters, and
       tests/test_faults.py:299 (a failed slot hosting a traded virtual
@@ -84,7 +84,7 @@ holds each path's hand-written kernel against its plain PyTorch version:
       warm-up;
    c. ffd64 (bench.py:936-976): 64 clusters x 60,000 jobs, Level0 768
       deep, 6,100 ticks — kernel == plain on 8 ticks sampled from the
-      first 2,000, then one full run with the reference's asserts;
+      first 1,200, then one full run with the reference's asserts;
    d-h. the market shape, 4096 clusters x 400 jobs, 700 ticks, five runs
       of one world and stream: (a) config 4 itself (bench.py:1032-1093
       bench_sinkhorn: DELAY wave, the sinkhorn market, sane carve) — zero
@@ -135,14 +135,44 @@ holds each path's hand-written kernel against its plain PyTorch version:
       drops, the series at the 5 s marks equal to the committed
       bench_metrics.json (zero under FIFO), the first chunk's run == its
       plain run, 12 of its ticks compared and every launch timed beside
-      the untapped form, ``fifo_cluster_small_ticks_per_sec`` over 5
-      timed runs after 2 warm-ups with the plane off and on — then the
+      the untapped form, ``fifo_cluster_small_ticks_per_sec`` over 3
+      timed runs after 1 warm-up with the plane off and on — then the
       same world under DELAY, whose series moves; (q) the Level0 kernels'
       tap forms on borg4k and market runs (b)-(d) (counted runs with the
       plane bitwise the plane-off runs, kernel == plain and the tap timed
       beside the untapped form at 12 ticks each run reaches, the emit
       form's tap at 2) and their faults forms' taps on the first 50
-      ticks of DELAY, FFD and gavel at the quick market shape with churn.
+      ticks of DELAY, FFD and gavel at the quick market shape with churn;
+5. the compact state layout (core/compact.py: one narrow leaf per field,
+   the checked narrow store counting into ``ovf``), every kernel reading
+   and writing it through its column views:
+   a. this slice's main path, its counts set to 0 just before and read
+      just after: the headline on the compact layout, its plan from
+      ``derive_plan`` — the headline's gates with a narrow overflow total
+      of 0, 1,570 launches, ``to_wide`` of the final state bitwise 4a's,
+      the state's bytes in both layouts, the whole run tick by tick with
+      the untapped and the tap form == plain at 12 sampled ticks and
+      every launch timed against a bound at the narrow leaves' sizes,
+      wide and compact walls in 5 interleaved pairs, and the counted run
+      with the plane (its harvested overflow total the state's);
+   b. plans the checked store counts against: tests/test_kernels.py:283
+      (int8 cores, 500-core jobs) tiled to 4,096 clusters — kernel ==
+      plain, overflows counted, -128 stored and never 500 % 256; a denser
+      stream through the FIFO wave drain and the FFD and DELAY waves (the
+      kernels replay the waves where a demand is negative); the node exit
+      narrow on a hand-built plan (int8 node columns) through FIFO, its
+      tap form, DELAY, FFD, gavel and tesserae;
+   c. the FFD, scored and DELAY kernels and their tap forms on borg4k and
+      market runs (b)-(d), kernel == plain at sampled ticks of their first
+      ticks;
+   d. the FIFO emit form on borrowing run (b) (int16 node columns, widened
+      before the prefix and narrowed after the phases) and DELAY's expire
+      form on market run (e);
+   e. bench_faults's compact cell (retries int8) with the bench's gates
+      and ``to_wide`` bitwise 4k's run; the faults form and its tap form
+      at 4,096; DELAY, FFD and gavel with churn at the quick market shape;
+   f. BASELINE config 4 on the compact layout: the bench's gates, 700
+      launches, ``to_wide`` bitwise run (a)'s final state.
 
 Every number is printed beside the card's name and power limit. The last
 lines are a JSON record of each kernel (its time per launch, the plain
@@ -179,7 +209,7 @@ BORG_TIMED, BORG_WARMUPS, BORG_SAMPLES = 3, 1, 16
 # bench_ffd64 (bench.py:936-976)
 FFD64_C, FFD64_JOBS, FFD64_HORIZON_MS, FFD64_SAMPLES = 64, 60_000, \
     6_000_000, 8
-FFD64_PASS_CHUNKS = 5  # 4c's pass tick by tick: its first 2,000 ticks
+FFD64_PASS_CHUNKS = 3  # 4c's pass tick by tick: its first 1,200 ticks
 # the market shape: BASELINE config 4, bench.py:1032-1093 bench_sinkhorn,
 # sinkhorn_market_setup(4096, 400, 600_000, matching="sinkhorn"), and its
 # quick shape (64, 200, quick=True)
@@ -221,19 +251,24 @@ FAULTS_C, FAULTS_WIDE_C, FAULTS_JOBS, FAULTS_HORIZON_MS = 32, 4096, 200, \
 FAULTS_TIMED, FAULTS_SAMPLES, FAULTS_PROFILE_TICKS = 3, 12, 50
 FAULT_HEAVY_TICKS = 2  # 3k's heavy ticks per form and mode
 FAULT_VNODE_C, FAULT_VNODE_TICKS = 64, 20  # 3k's tests/test_faults.py:299
-FAULT_RUN_TICKS = 100  # 3k's other whole runs: their first 100 ticks
+FAULT_RUN_TICKS = 60  # 3k's other whole runs: their first 60 ticks
 # the metrics plane (4n-4q): sampled ticks a run, 4n's on/off pairs, and
 # bench.py's bound on the plane's overhead (bench.py:122, :671); 4q's
 # churn runs with the plane cover their first 50 ticks
 PLANE_SAMPLES, PLANE_TIMED, OBS_OVERHEAD_BOUND = 12, 5, 0.03
 PLANE_CHURN_TICKS = 50
+# the compact layout (5a-5f): 5a's wide/compact wall pairs; the other
+# forms' passes cover their first ticks, compared at a few of them
+COMPACT_PAIRS, COMPACT_PASS_TICKS, COMPACT_SAMPLES = 5, 150, 4
+COMPACT_CHURN_TICKS = 100
 # BASELINE config 1 (bench.py:839-895 bench_fifo_small): its ticks, its
 # chunk, its arrival slots, its timed runs after its warm-ups
 CONFIG1_TICKS, CONFIG1_CHUNK, CONFIG1_ARRIVALS = 3_600, 900, 2_048
-CONFIG1_TIMED, CONFIG1_WARMUPS = 5, 2
+CONFIG1_TIMED, CONFIG1_WARMUPS = 3, 1
 # the earlier paths' whole-run comparisons (3b, 3c, 3d and 3e's quick
 # runs) cover their first 200 ticks, to keep the script's time
 WHOLE_RUN_TICKS = 200
+EXPIRE_RUN_TICKS = 250  # 3i's quick-shape runs with expiry
 
 
 def smi_line() -> str:
@@ -312,10 +347,11 @@ def mixed_specs(P, C):
         for i, (k, m, g, d) in enumerate(nodes))) for c in range(C)]
 
 
-def market_stream(E, C, jobs, quick=False, seed=7):
+def market_stream(E, C, jobs, quick=False, seed=7, arrivals=False):
     """The market's stream, its 400-tick ragged-K chunks, and how many of
     its jobs can never place without the market: the gpu jobs of the
-    gpu-poor clusters."""
+    gpu-poor clusters; and with ``arrivals`` the stream itself (the
+    compact plan's audit reads it)."""
     from multi_cluster_simulator_tpu_torch.workload.traces import (
         uniform_stream,
     )
@@ -329,6 +365,8 @@ def market_stream(E, C, jobs, quick=False, seed=7):
     valid = np.arange(arr.t.shape[1])[None, :] < arr.n[:, None]
     poor = (np.arange(C) % 2 == 1)[:, None]
     unplaceable = int(((arr.gpu > 0) & valid & poor).sum())
+    if arrivals:
+        return chunks, n_ticks, unplaceable, arr
     return chunks, n_ticks, unplaceable
 
 
@@ -372,6 +410,58 @@ def max_abs_diff(a, b) -> float:
     return worst
 
 
+def row_bytes(x) -> int:
+    """Bytes of one row of a queue or the running set in its layout: the
+    wide row's 40, or the sum of the compact leaves' value sizes."""
+    if hasattr(x, "data"):
+        return x.data.shape[-1] * x.data.element_size()
+    return sum(leaf.element_size() for k, leaf in vars(x).items()
+               if k.startswith("f_"))
+
+
+def value_bytes(x, name: str) -> int:
+    """Bytes of one value of field ``name`` of a queue or the running set."""
+    if hasattr(x, "data"):
+        return x.data.element_size()
+    return x.leaf(name).element_size()
+
+
+def rows_changed_bytes(a, b):
+    """Bytes of the row elements of a table (queue or running set) that
+    differ between ``a`` and ``b`` (0-d int64 tensor), in its layout."""
+    from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
+
+    return sum((x != y).sum() * x.element_size() for (_, x), (_, y)
+               in zip(leaves_with_keys(a), leaves_with_keys(b))
+               if x.dim() >= 2)
+
+
+def set_field_(x, name: str, values) -> None:
+    """Overwrite field ``name`` of a queue or the running set in place
+    (a plain cast into a compact leaf)."""
+    from multi_cluster_simulator_tpu_torch.ops import fields as F
+
+    if hasattr(x, "data"):
+        index = (F.QUEUE_INDEX if hasattr(x, "count") else F.RUN_INDEX)[name]
+        x.data[..., index].copy_(values)
+    else:
+        x.leaf(name).copy_(values)
+
+
+def load_queue(q, rows, count) -> None:
+    """Put the int32 rows ``rows`` [C, K, NF] at the front of queue ``q``
+    and set its count, in place, in either layout."""
+    from multi_cluster_simulator_tpu_torch.ops import fields as F
+
+    K = rows.shape[1]
+    if hasattr(q, "data"):
+        q.data[:, :K] = rows
+    else:
+        for i, n in enumerate(F.QUEUE_FIELDS):
+            q.leaf(n)[:, :K] = rows[..., i]
+    q.count.copy_(count)
+
+
 def written_bytes(before, after):
     """Bytes of every state element the tick changed (0-d int64 tensor),
     and the same for the rows of Level0 and Level1 together."""
@@ -379,8 +469,8 @@ def written_bytes(before, after):
 
     written = sum((x != y).sum() * x.element_size() for (_, x), (_, y)
                   in zip(leaves_with_keys(before), leaves_with_keys(after)))
-    queues = ((before.l0.data != after.l0.data).sum()
-              + (before.l1.data != after.l1.data).sum()) * 4
+    queues = (rows_changed_bytes(before.l0, after.l0)
+              + rows_changed_bytes(before.l1, after.l1))
     return written, queues
 
 
@@ -390,15 +480,19 @@ def fixed_reads(s, n_counters: int):
     vectors, the running set's active flags."""
     C, N, n_res = s.node_free.shape
     S = s.run.active.shape[1]
-    return C * (4 * (1 + n_counters) + N * n_res * 4 + N + S)
+    return C * (4 * (1 + n_counters) + N * n_res * s.node_free.element_size()
+                + N + S)
 
 
 def run_reads(s, t: int):
     """Running-set reads: the end_t of each active slot, and the node and
     resources of each slot the tick releases."""
     n_res = s.node_free.shape[2]
-    due = s.run.active & (s.run.data[..., 0] <= t)  # end_t is field 0
-    return 4 * s.run.active.sum() + 4 * (1 + n_res) * due.sum()
+    due = s.run.active & (s.run.end_t <= t)
+    per_due = value_bytes(s.run, "node") + sum(
+        value_bytes(s.run, f) for f in ("cores", "mem", "gpu")[:n_res])
+    return value_bytes(s.run, "end_t") * s.run.active.sum() \
+        + per_due * due.sum()
 
 
 def expire_reads(s) -> int:
@@ -421,15 +515,16 @@ def tick_bytes(before, after, rows, counts, t: int, trace: bool):
     running set's active flags, the end_t of each active slot and the node
     and resources of each slot it releases, every live queue row, and the
     valid arrival rows. Rows that did not change, and queue slots past a
-    queue's count, need not move at all."""
+    queue's count, need not move at all. Every state element counts at its
+    storage size (the compact layout's narrow leaves)."""
     s = before
     row_b = rows.shape[2] * rows.element_size()
     written, _ = written_bytes(before, after)
-    live = sum(q.count.clamp(0, q.data.shape[1]).sum()
+    live = sum(q.count.clamp(0, q.capacity).sum()
                for q in (s.ready, s.wait, s.lent))
     valid = counts.clamp(0, rows.shape[1]).sum()
     read = (fixed_reads(s, 7 + int(trace)) + run_reads(s, t)
-            + row_b * (live + valid))
+            + row_bytes(s.ready) * live + row_b * valid)
     return read, written
 
 
@@ -451,15 +546,17 @@ def tick_cost_ffd(before, after, rows, counts, t: int, trace: bool, QC: int):
     s = before
     n_res = s.node_free.shape[2]
     N = s.node_free.shape[1]
-    Qc = s.l0.data.shape[1]
+    Qc = s.l0.capacity
     row_b = rows.shape[2] * rows.element_size()
+    q_row = row_bytes(s.l0)
+    keys = value_bytes(s.l0, "cores") + value_bytes(s.l0, "mem")
     written, l0_written = written_bytes(before, after)
     n_take = counts.clamp(0, rows.shape[1])
     live = (s.l0.count + n_take).clamp(0, Qc)  # [C] Level0 after ingest
     n_sweep = live.clamp(max=QC)
     read = (fixed_reads(s, 8 + int(trace)) + run_reads(s, t)
-            + 8 * live.sum() + (row_b - 8) * n_sweep.sum() + l0_written
-            + row_b * n_take.sum())
+            + keys * live.sum() + (q_row - keys) * n_sweep.sum()
+            + l0_written + row_b * n_take.sum())
     log2 = torch.log2(live.clamp(min=1).double()).ceil().long()
     ops = (live + n_sweep * log2 + n_sweep * N * (n_res + 1)).sum()
     return read, written, ops
@@ -480,14 +577,14 @@ def tick_cost_delay(before, after, rows, counts, t: int, trace: bool,
     Operations: N*(R+1) compares of first fit per attempted job."""
     s = before
     n_res, N = s.node_free.shape[2], s.node_free.shape[1]
-    Qc = s.l0.data.shape[1]
+    Qc = s.l0.capacity
     row_b = rows.shape[2] * rows.element_size()
     written, q_written = written_bytes(before, after)
     n_take = counts.clamp(0, rows.shape[1])
     head = ((s.l0.count + n_take).clamp(0, Qc) > 0).long()
     n_sweep = s.l1.count.clamp(max=QC).long()
     read = (fixed_reads(s, 9 + int(trace)) + run_reads(s, t)
-            + row_b * (n_sweep + head).sum() + q_written
+            + row_bytes(s.l1) * (n_sweep + head).sum() + q_written
             + row_b * n_take.sum())
     ops = ((n_sweep + head) * N * (n_res + 1)).sum()
     return read, written, ops
@@ -504,8 +601,7 @@ def tick_cost_scored(before, after, rows, counts, t: int, trace: bool,
     s = before
     n_res, N = s.node_free.shape[2], s.node_free.shape[1]
     n_take = counts.clamp(0, rows.shape[1])
-    n_sweep = (s.l0.count + n_take).clamp(0, s.l0.data.shape[1]).clamp(
-        max=QC)
+    n_sweep = (s.l0.count + n_take).clamp(0, s.l0.capacity).clamp(max=QC)
     if tesserae:
         read, written, ops = tick_cost_ffd(before, after, rows, counts, t,
                                            trace, QC)
@@ -513,8 +609,8 @@ def tick_cost_scored(before, after, rows, counts, t: int, trace: bool,
     row_b = rows.shape[2] * rows.element_size()
     written, q_written = written_bytes(before, after)
     read = (fixed_reads(s, 8 + int(trace)) + run_reads(s, t)
-            + row_b * n_sweep.sum() + q_written + row_b * n_take.sum()
-            + 4 * s.node_type.numel())
+            + row_bytes(s.l0) * n_sweep.sum() + q_written
+            + row_b * n_take.sum() + 4 * s.node_type.numel())
     return read, written, (n_sweep * N * (n_res + 2)).sum()
 
 
@@ -570,8 +666,7 @@ class Checker:
         if lent_rows:
             state = self.clone(state)
             K = min(rows.shape[1], state.lent.capacity)
-            state.lent.data[:, :K] = rows[:, :K]
-            state.lent.count.copy_(counts.clamp(max=K))
+            load_queue(state.lent, rows[:, :K], counts.clamp(max=K))
         ref_in = self.clone(state)
         ref_obs = tap_in = None
         if obs is not None:
@@ -594,8 +689,8 @@ class Checker:
                                counts, t, self.params, self.host, emit=emit,
                                windowed=windowed)
         k_in = self.clone(state)
-        if obs is not None:  # its operands checked outside the timed pair
-            self.ft._tap_args(self.engine, k_in, *k_obs, self.host)
+        # its operands checked outside the timed pair
+        self.ft.prepare(self.engine, k_in, self.host, emit, k_obs)
         kev = timed_launch_events()
         kev[0].record()
         out, *io, k_tap = self.ft.fused_prefix(
@@ -641,7 +736,9 @@ def timed_launch(fused_tick, engine, state, rows, counts, t, params, host,
                  emit=False, out=None, obs=None, windowed=False):
     """One kernel launch between a CUDA event pair, with the card kept
     busy ahead of it so the pair times the kernel and not the host;
-    ``emit`` launches the emit form into ``out``, ``obs`` the tap form."""
+    ``emit`` launches the emit form into ``out``, ``obs`` the tap form;
+    what the launch reads from the host is checked before the pair."""
+    fused_tick.prepare(engine, state, host, emit, obs)
     ev = timed_launch_events()
     ev[0].record()
     fused_tick.fused_prefix(engine, state, rows, counts, t, params, host,
@@ -955,11 +1052,12 @@ def phase_headline(P, E, card, dev):
                            n_ticks, chunks, h2d_s, card)
     return dict(launches=counts["fused_prefix_fifo"], placed=placed,
                 wall_min_s=wmin, wall_median_s=wmed, n_ticks=n_ticks,
-                h2d_s=h2d_s)
+                h2d_s=h2d_s, final=out, chunks=chunks, arr=arr, specs=specs)
 
 
-def borg_stream(E, C, jobs, horizon_ms, tick_ms):
-    """bench_borg4k's stream and its 400-tick ragged-K chunks."""
+def borg_stream(E, C, jobs, horizon_ms, tick_ms, arrivals=False):
+    """bench_borg4k's stream and its 400-tick ragged-K chunks (and with
+    ``arrivals`` the stream itself)."""
     from multi_cluster_simulator_tpu_torch.workload.traces import (
         borg_like_stream,
     )
@@ -967,7 +1065,8 @@ def borg_stream(E, C, jobs, horizon_ms, tick_ms):
     arr = borg_like_stream(C, jobs, horizon_ms, max_cores=32, max_mem=24_000,
                            seed=19)
     n_ticks = horizon_ms // tick_ms + 100
-    return E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), tick_ms), n_ticks
+    chunks = E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), tick_ms)
+    return (chunks, n_ticks, arr) if arrivals else (chunks, n_ticks)
 
 
 def market_step(E, engine, state, t, params, jitter, spans, fired):
@@ -1025,6 +1124,8 @@ def sampled_kernel_pass(E, chk, engine, s0, chunks, picks, QC, cost=None):
     extra = expire_reads(s0) if host["expire"] else 0
     vstart = engine.cfg.max_nodes
     state = clone_state(s0)
+    node_dt = s0.node_free.dtype
+    narrow = node_dt != torch.int32 and not engine.prefix_terminal()
     evs, read_b, written_b, ops, t, k_glob = [], 0, 0, 0, 0, 0
     spans = {"snapshot": [], "trade": []}
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1037,6 +1138,8 @@ def sampled_kernel_pass(E, chk, engine, s0, chunks, picks, QC, cost=None):
         for k in range(ch.rows.shape[0]):
             t += engine.cfg.tick_ms
             rows, counts = rows_all[k], counts_all[k]
+            if narrow:
+                state = E._widen_nodes(state)
             if k_glob in picks:
                 chk.compare(state, rows, counts, t)
             if host["expire"]:
@@ -1053,6 +1156,8 @@ def sampled_kernel_pass(E, chk, engine, s0, chunks, picks, QC, cost=None):
             max_l1 = torch.maximum(max_l1, state.l1.count.max())
             state = market_step(E, engine, state, t, params, jitter, spans,
                                 fired)
+            if narrow:
+                state = E._narrow_nodes(state, node_dt)
             state.t.fill_(t)
             k_glob += 1
     torch.cuda.synchronize()
@@ -1194,7 +1299,7 @@ def phase_borg4k(P, E, card, dev, borg):
 
 
 def phase_ffd64(P, E, card, dev):
-    """Phase 4c: bench_ffd64, Level0 768 deep: 8 ticks of the first 2,000
+    """Phase 4c: bench_ffd64, Level0 768 deep: 8 ticks of the first 1,200
     compared, every launch of those timed, then one full run with the
     reference's asserts."""
     from multi_cluster_simulator_tpu_torch.core.state import init_state
@@ -1264,7 +1369,7 @@ def delay_firings(QC):
     from multi_cluster_simulator_tpu_torch.core.state import SRC_L1
 
     def watch(seen, before, after, rows, counts):
-        room = before.l0.data.shape[1] - before.l0.count
+        room = before.l0.capacity - before.l0.count
         ingest_drops = (counts.clamp(0, rows.shape[1]) - room).clamp(min=0)
         seen["promoted"] += int((after.l1.count > before.l1.count).sum())
         seen["l1_full"] += int((after.drops.queue - before.drops.queue
@@ -1274,7 +1379,7 @@ def delay_firings(QC):
         if after.trace.t.shape[1] == 1:
             return
         n0, n1 = before.trace.n.cpu().numpy(), after.trace.n.cpu().numpy()
-        ids = before.l1.data[..., 0].cpu().numpy()
+        ids = before.l1.id.cpu().numpy()
         l1n = before.l1.count.cpu().numpy()
         job = after.trace.job.cpu().numpy()
         src = after.trace.src.cpu().numpy()
@@ -1292,7 +1397,7 @@ def level0_firings(QC):
     per-tick cap binding."""
     def watch(seen, before, after, rows, counts):
         pre = (before.l0.count + counts.clamp(0, rows.shape[1])).clamp(
-            max=before.l0.data.shape[1])
+            max=before.l0.capacity)
         seen["queue"] += int((after.drops.queue - before.drops.queue).sum())
         seen["run_full"] += int((after.drops.run_full
                                  - before.drops.run_full).sum())
@@ -1622,7 +1727,8 @@ def phase_market(P, E, card, dev, market, name, sampled):
     return dict(launches=counts[kernel], placed=placed, wall_min_s=wmin,
                 wall_median_s=wmed, n_ticks=n_ticks, h2d_s=h2d_s,
                 share=share, frac=frac, drops=drops, vnodes=vnodes,
-                fired=fired, profile=prof)
+                fired=fired, profile=prof,
+                final=out if gate == "market" else None)
 
 
 def expire_heavy(E, dev, engine, state, rows, counts, t0, n, cost, seen):
@@ -1676,7 +1782,7 @@ def phase_expire_kernel_vs_plain(P, E, card, dev, market, state_a):
     kernel == plain at sampled ticks, the nodes expired and attached
     counted; (b) heavy ticks on the state run (a) reached (its thousands
     of virtual nodes), nine in ten set to expire, for each kernel's expire
-    form; (c) the first 400 ticks of quick-shape runs (DELAY, FFD,
+    form; (c) the first 250 ticks of quick-shape runs (DELAY, FFD,
     gavel) with the trader and expiry; (d) the first 800 ticks of config 2 with expiry (the FIFO
     emit form) and (e) the same without borrowing (the FIFO state-only
     form). The runs count their launches through ``Engine.run_chunks``."""
@@ -1761,7 +1867,8 @@ def phase_expire_kernel_vs_plain(P, E, card, dev, market, state_a):
 
     # (c)-(e) whole runs with expiry, their launches counted
     qc_, qj = MARKET_QUICK
-    ch_q = market_stream(E, qc_, qj, quick=True)[0][:1]  # its first 400
+    ch_q = first_ticks(market_stream(E, qc_, qj, quick=True)[0],
+                       EXPIRE_RUN_TICKS)
     c2_short, _ = borrow_stream(P, E, 2, BORROW_A_TICKS)
     runs = [(f"quick {pol}", market_cfg(P, quick=True, jobs=qj,
                                         trader=EXPIRE),
@@ -1857,10 +1964,10 @@ def borrow_specs(P, C):
             for c in range(C)]
 
 
-def borrow_stream(P, E, C, n_ticks=None):
+def borrow_stream(P, E, C, n_ticks=None, arrivals=False):
     """Config 2's stream for C clusters (every cluster loaded), the
     400-tick ragged-K chunks of its first ``n_ticks``, and its number of
-    jobs."""
+    jobs (and with ``arrivals`` the stream itself)."""
     from multi_cluster_simulator_tpu_torch.workload.generator import (
         generate_arrivals,
     )
@@ -1868,7 +1975,8 @@ def borrow_stream(P, E, C, n_ticks=None):
     arr = generate_arrivals(P.WorkloadConfig(poisson_lambda_per_min=30.0),
                             C, 4096, BORROW_HORIZON_MS, 32, 24_000, seed=9)
     chunks = chunk_sizes(BORROW_TICKS if n_ticks is None else n_ticks)
-    return E.pack_arrivals_chunks(arr, chunks, 1_000), int(arr.n.sum())
+    out = E.pack_arrivals_chunks(arr, chunks, 1_000), int(arr.n.sum())
+    return (*out, arr) if arrivals else out
 
 
 def tick_cost_borrow(before, after, rows, counts, t: int, trace: bool,
@@ -1888,21 +1996,23 @@ def tick_cost_borrow(before, after, rows, counts, t: int, trace: bool,
     slot), and the valid arrival rows. The deep queues' other live rows
     need not move."""
     s = before
-    C, Qc = s.arr_ptr.shape[0], s.ready.data.shape[1]
+    C, Qc = s.arr_ptr.shape[0], s.ready.capacity
     row_b = rows.shape[2] * rows.element_size()
     written, _ = written_bytes(before, after)
-    moved = sum((q0.data != q1.data).sum() * 4 for q0, q1 in (
+    moved = sum(rows_changed_bytes(q0, q1) for q0, q1 in (
         (before.ready, after.ready), (before.wait, after.wait),
         (before.lent, after.lent)))
     n_take = counts.clamp(0, rows.shape[1])
     pre = (s.ready.count + n_take).clamp(max=Qc)
     drained = (pre - after.ready.count).clamp(min=0)
     heads = (pre > 0).long() + (s.wait.count > 0) + (s.lent.count > 0)
-    rf = s.run.data.shape[2]
+    out_row = 4 * len(("end_t", "node", "cores", "mem", "gpu", "id",
+                       "owner", "dur", "enq_t", "retries"))
     read = (fixed_reads(s, 8 + int(trace)) + run_reads(s, t) + moved
-            + row_b * (n_take.sum() + drained.sum() + heads.sum())
-            + C * M * rf * 4)
-    written = written + C * (M * rf * 4 + M + row_b + 1)
+            + row_b * n_take.sum()
+            + row_bytes(s.ready) * (drained.sum() + heads.sum())
+            + C * M * row_bytes(s.run))
+    written = written + C * (M * out_row + M + row_b + 1)
     return read, written
 
 
@@ -1938,6 +2048,7 @@ def borrow_pass(E, chk, s0, chunks, picks, until=None):
     C, M = s0.arr_ptr.shape[0], engine.n_msgs()
     io = empty_io((C,), M, dev)
     state = clone_state(s0)
+    node_dt = s0.node_free.dtype  # compact: widened for the tick's phases
     jitter = engine.jitter(C)
     extra = expire_reads(s0) if host["expire"] else 0
     evs = {"kernel": [], "deliver": [], "match": [], "snapshot": [],
@@ -1957,6 +2068,7 @@ def borrow_pass(E, chk, s0, chunks, picks, until=None):
                 break
             t += cfg.tick_ms
             rows, counts = rows_all[k], counts_all[k]
+            state = E._widen_nodes(state)
             if k_glob in picks:
                 chk.compare(state, rows, counts, t, emit=True)
             before = clone_state(state)
@@ -1977,6 +2089,8 @@ def borrow_pass(E, chk, s0, chunks, picks, until=None):
             evs["match"].append(ev)
             state = market_step(E, engine, state, t, params, jitter, evs,
                                 fired)
+            if node_dt != torch.int32:
+                state = E._narrow_nodes(state, node_dt)
             state.t.fill_(t)
             matched = (wait0 - state.wait.count).sum()
             fired["want"] = fired["want"] + io.borrow_want.sum()
@@ -2356,9 +2470,10 @@ def faults_cfg(P, **kw):
     return P.SimConfig(**base)
 
 
-def faults_stream(E, C):
+def faults_stream(E, C, arrivals=False):
     """bench_faults's stream for C clusters (seed 13), its 400-tick
-    ragged-K chunks and its tick count (T = 490)."""
+    ragged-K chunks and its tick count (T = 490), and with ``arrivals``
+    the stream itself."""
     from multi_cluster_simulator_tpu_torch.workload.traces import (
         uniform_stream,
     )
@@ -2366,7 +2481,8 @@ def faults_stream(E, C):
     arr = uniform_stream(C, FAULTS_JOBS, FAULTS_HORIZON_MS, max_cores=8,
                          max_mem=6_000, max_dur_ms=30_000, seed=13)
     n_ticks = FAULTS_HORIZON_MS // 1_000 + 90
-    return E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), 1_000), n_ticks
+    chunks = E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), 1_000)
+    return (chunks, n_ticks, arr) if arrivals else (chunks, n_ticks)
 
 
 def fault_reads(before, after, t: int):
@@ -2387,11 +2503,12 @@ def fault_reads(before, after, t: int):
     failing = fails.any(1)
     node = before.run.node.clamp(0, up.shape[1] - 1).long()
     killed = before.run.active & torch.gather(fails, 1, node)
-    rf = before.run.data.shape[2]
+    node_b = before.node_cap.element_size()
     return (up.numel() + 4 * up.numel() + 13 * events.sum()
-            + 8 * events.any(1).sum() + 4 * n_res * reps.sum()
-            + 4 * (before.run.active & failing[:, None]).sum()
-            + 4 * rf * killed.sum() + 8 * failing.sum())
+            + 8 * events.any(1).sum() + node_b * n_res * reps.sum()
+            + value_bytes(before.run, "node")
+            * (before.run.active & failing[:, None]).sum()
+            + row_bytes(before.run) * killed.sum() + 8 * failing.sum())
 
 
 def tick_cost_faults(before, after, rows, counts, t: int, trace: bool):
@@ -2434,7 +2551,7 @@ def fault_firings(engine, before, t, seen):
                                  engine.member().to_delay)
     f0, f1 = before.faults, after.faults
     gone = before.run.active & ~after.run.active
-    owner = before.run.data[..., 6]
+    owner = before.run.owner
     seen["kills"] += int((f1.kills - f0.kills).sum())
     seen["placeholders"] += int((gone & (owner == -2)).sum())
     seen["lent"] += int((after.lent.count - before.lent.count).sum())
@@ -2454,12 +2571,12 @@ def load_rows(state, rows, counts, dev, gen):
     C, S = state.run.active.shape
     nxt = ((torch.arange(C, device=dev) + 1) % C).to(torch.int32)[:, None]
     slot = torch.arange(S, device=dev)[None, :]
-    owner = state.run.data[..., 6]
-    owner.copy_(torch.where(state.run.active & (slot % 5 == 0), -2,
-                            torch.where(state.run.active & (slot % 5 == 2),
-                                        nxt, owner)))
+    owner = state.run.owner
+    set_field_(state.run, "owner", torch.where(
+        state.run.active & (slot % 5 == 0), -2,
+        torch.where(state.run.active & (slot % 5 == 2), nxt, owner)))
     q = state.lent
-    cap, K = q.data.shape[1], rows.shape[1]
+    cap, K = q.capacity, rows.shape[1]
     full = torch.rand(C, generator=gen, device=dev) < 0.5
     full &= counts.clamp(max=K) > 0
     src = torch.arange(cap, device=dev)[None, :] % counts.clamp(
@@ -2467,9 +2584,10 @@ def load_rows(state, rows, counts, dev, gen):
     fill = torch.gather(rows, 1, src[..., None].expand(-1, -1, rows.shape[2]))
     fill[..., 6] = nxt
     live = torch.arange(cap, device=dev)[None, :] < q.count[:, None]
-    q.data.copy_(torch.where(full[:, None, None] & ~live[..., None], fill,
-                             q.data))
-    q.count.copy_(torch.where(full, cap, q.count))
+    from multi_cluster_simulator_tpu_torch.ops import queues as Q
+
+    load_queue(q, torch.where(full[:, None, None] & ~live[..., None], fill,
+                              Q.rows_of(q)), torch.where(full, cap, q.count))
 
 
 def faults_heavy(dev, engine, state, rows, counts, t0, n, cost, seen, mode):
@@ -2630,7 +2748,7 @@ def phase_faults_kernel_vs_plain(P, E, card, dev, market, state_a, state_b):
     (b)'s (its foreign rows, its full LentQueues) — in generative mode
     (16 retries) and trace mode (0 retries, same-tick outages);
     (b) runs with churn from the start, their launches counted through
-    ``Engine.run_chunks``: the first 100 ticks of DELAY, FFD and gavel at
+    ``Engine.run_chunks``: the first 60 ticks of DELAY, FFD and gavel at
     the quick market shape, without and with the sinkhorn trader and
     expiry, and of FIFO with borrowing at 64 clusters; config
     2 with the greedy trader and expiry, with and without borrowing, its
@@ -2880,7 +2998,8 @@ def phase_faults_run(P, E, card, dev, C, label):
     run = dict(launches=counts["fused_prefix_fifo_faults"], placed=placed,
                wall_min_s=wmin, wall_median_s=wmed, n_ticks=n_ticks,
                h2d_s=h2d_s, kills=kills, requeues=requeues, down_ms=down_ms,
-               sampled=sp, plain_ms=chk.plain_ms, worst=chk.worst)
+               sampled=sp, plain_ms=chk.plain_ms, worst=chk.worst,
+               final=out if C == FAULTS_C else None)
     breakdown(f"churn ({C})", run, sp["kernel_ms"], card)
     if C == FAULTS_WIDE_C:
         prof = device_profile(E, engine, s0, chunks, FAULTS_PROFILE_TICKS)
@@ -2910,16 +3029,24 @@ def changed_bytes(a, b):
                in zip(leaves_with_keys(a), leaves_with_keys(b)))
 
 
-def tap_cost(shared: int, mb0, cur0, mb1, cur1):
+def tap_cost(shared: int, mb0, cur0, mb1, cur1, n_ovf: int = 0):
     """The tap's bytes beyond its span's, as (read, written): per cluster
     it reads the buffer's eleven per-cluster leaves, the cursor's nine and
     the twelve state counters it differences less the ``shared`` ones its
-    span's cost already reads; it writes every buffer and cursor element
-    that changed (the histogram and the ring slot included) and the
-    tick's placements and depths."""
+    span's cost already reads, and the compact layout's ``n_ovf``
+    overflow counters; it writes every buffer and cursor element that
+    changed (the histogram and the ring slot included) and the tick's
+    placements and depths."""
     C = cur0.placed.shape[0]
-    return (C * 4 * (11 + 9 + 12 - shared),
+    return (C * 4 * (11 + 9 + 12 - shared + n_ovf),
             8 * C + changed_bytes(mb0, mb1) + changed_bytes(cur0, cur1))
+
+
+def n_ovf_tables(state) -> int:
+    """How many of a state's tables carry an overflow counter (the compact
+    layout's seven; none on the wide layout)."""
+    return sum(hasattr(getattr(state, n), "ovf") for n in
+               ("l0", "l1", "ready", "wait", "lent", "borrowed", "run"))
 
 
 def cost_of(kind: str, engine, QC: int = 0):
@@ -2961,15 +3088,17 @@ def window_feed(rows, counts, before, after):
 
 
 def tap_pass(chk, engine, s0, feeds, picks, cost, shared, emit=False,
-             windowed=False):
+             windowed=False, both=False):
     """Drive a run tick by tick through the tap form with the run's own
     buffer and cursor, a CUDA event pair around every launch and the
     tick's bytes counted (the span's ``cost`` plus ``tap_cost``); at the
     global ticks in ``picks`` compare kernel and plain on copies of the
     state, buffer and cursor the run reached. ``feeds`` yields each tick's
     (rows, counts). Before each launch the untapped form runs on a copy
-    of the state, timed the same way. Returns both forms' per-launch
-    times, the mean bytes and operations, the final state and buffer."""
+    of the state, timed the same way; with ``both`` it is compared at the
+    picks too. Returns both forms' per-launch times, the mean bytes and
+    operations (``span_read``, ``span_written``: the untapped form's), the
+    final state and buffer."""
     from multi_cluster_simulator_tpu_torch.core.state import (
         clone_state, empty_io,
     )
@@ -2981,12 +3110,17 @@ def tap_pass(chk, engine, s0, feeds, picks, cost, shared, emit=False,
     out = (empty_io((state.arr_ptr.shape[0],), engine.n_msgs(),
                     state.device) if emit else None)
     evs, sevs, read_b, written_b, ops = [], [], 0, 0, 0
+    span_r = span_w = 0
+    n_ovf = n_ovf_tables(state)
     t, k_glob = int(s0.t), 0
     for rows, counts in feeds:
         t += engine.cfg.tick_ms
         if k_glob in picks:
             chk.compare(state, rows, counts, t, emit=emit, obs=(mb, cur),
                         windowed=windowed)
+            if both:
+                chk.compare(state, rows, counts, t, emit=emit,
+                            windowed=windowed)
         before = (clone_state(state), chk.clone(mb), chk.clone(cur))
         sevs.append(timed_launch(chk.ft, engine, clone_state(state), rows,
                                  counts, t, params, host, emit=emit,
@@ -3001,8 +3135,9 @@ def tap_pass(chk, engine, s0, feeds, picks, cost, shared, emit=False,
         else:
             rows_c, counts_c = rows, counts
         r, w, o = cost(before[0], state, rows_c, counts_c, t)
-        tr, tw = tap_cost(shared, *before[1:], mb, cur)
+        tr, tw = tap_cost(shared, *before[1:], mb, cur, n_ovf)
         read_b, written_b = read_b + r + tr + extra, written_b + w + tw
+        span_r, span_w = span_r + r + extra, span_w + w
         ops = ops + o
         state.t.fill_(t)
         k_glob += 1
@@ -3010,6 +3145,8 @@ def tap_pass(chk, engine, s0, feeds, picks, cost, shared, emit=False,
     return dict(kernel_ms=[a.elapsed_time(b) for a, b in evs],
                 untapped_ms=[a.elapsed_time(b) for a, b in sevs],
                 read=int(read_b) / k_glob, written=int(written_b) / k_glob,
+                span_read=int(span_r) / k_glob,
+                span_written=int(span_w) / k_glob,
                 ops=int(ops) / k_glob, state=state, mbuf=mb, ticks=k_glob)
 
 
@@ -3476,8 +3613,8 @@ def phase_config1(P, E, card, dev):
     the series at the 5 s marks equal to the committed bench_metrics.json;
     the first chunk's kernel run == its plain run (state, series, buffer);
     the first chunk's launches timed beside the untapped form's, kernel
-    == plain at 12 of its ticks; fifo_cluster_small_ticks_per_sec over 5
-    timed runs after 2 warm-ups, the plane off and on interleaved. Then
+    == plain at 12 of its ticks; fifo_cluster_small_ticks_per_sec over 3
+    timed runs after 1 warm-up, the plane off and on interleaved. Then
     the same world under DELAY, the reference's live scheduler, whose
     series moves (kernel == plain at 12 ticks of its first chunk)."""
     import json as _json
@@ -3708,6 +3845,7 @@ def phase_plane_level0(P, E, card, dev, borg, market, sampled):
                                          cost, shared, costs)
         if max(max_abs_diff(seg_state, on), max_abs_diff(seg_mb, mb)):
             raise AssertionError(f"{label}: the segmented run differs")
+        rec = tap_records(chk, kernel, counts[kernel], costs)
         print(f"phase 4q: {label} with the plane on, {n_ticks} ticks: state "
               f"bitwise the plane-off run's; harvest placed {h['placed']}, "
               f"depth max {h['queue_depth_max']}, histogram "
@@ -3715,10 +3853,10 @@ def phase_plane_level0(P, E, card, dev, borg, market, sampled):
               f"{chk.n} ticks it reached (the emit form's tap at 2), "
               f"{np.mean(chk.tap_ms) * 1e3:.2f} us/launch, the untapped "
               f"form {np.mean(chk.untap_ms) * 1e3:.2f} on the same states; "
+              f"bound {rec['bound'][0] * 1e3:.4f} us by {rec['bound'][1]}; "
               f"run wall {wall:.4f} s; launches "
               f"{ {k: v for k, v in counts.items() if v} } [{card}]")
-        if kernel not in records:
-            records[kernel] = tap_records(chk, kernel, counts[kernel], costs)
+        records.setdefault(kernel, rec)
 
     # the faults forms' taps at the quick market shape, with churn
     qc_, qj = MARKET_QUICK
@@ -3753,6 +3891,512 @@ def phase_plane_level0(P, E, card, dev, borg, market, sampled):
         if kernel not in records:
             records[kernel] = tap_records(chk, kernel, counts[kernel], costs)
     return dict(records=list(records.values()))
+
+
+
+# --------------------------------------------------------------------------
+# the compact layout (core/compact.py) and its checked narrow store: 5a (the
+# headline, this slice's main path), 5b (undersized plans, the waves
+# replayed, the node exit narrow), 5c (the Level0 forms), 5d (the emit and
+# expire forms), 5e (the faults forms), 5f (BASELINE config 4)
+# --------------------------------------------------------------------------
+
+def compact_record(name, launches, worst, ms, plain, read, written, ops=0.0):
+    """A kernel record of a compact-layout form, named ``<form>/compact``."""
+    return dict(record_of(name, launches, worst, ms, plain, read, written,
+                          ops), name=f"{name}/compact")
+
+
+def tap_pair_records(chk, name, launches, sp, tap_launches=None):
+    """The untapped and the tap form's compact records from one
+    ``tap_pass(..., both=True)``."""
+    tap = name.replace("fused_prefix_", "").split("_faults")[0]
+    tap_name = ("fused_prefix_" + tap + "_tap"
+                + ("_faults" if name.endswith("_faults") else ""))
+    return [compact_record(name, launches, chk.worst,
+                           float(np.mean(sp["untapped_ms"])), chk.plain_ms,
+                           sp["span_read"], sp["span_written"], sp["ops"]),
+            compact_record(tap_name, tap_launches or sp["ticks"], chk.worst,
+                           float(np.mean(sp["kernel_ms"])), chk.plain_ms,
+                           sp["read"], sp["written"], sp["ops"])]
+
+
+def layout_walls(engine, s_wide, s_compact, chunks, pairs):
+    """Interleaved walls of whole runs on the wide and the compact layout
+    (wide first in each pair); the counted runs before are the warm-ups."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+
+    wide, compact = [], []
+    for _ in range(pairs):
+        for walls, s0 in ((wide, s_wide), (compact, s_compact)):
+            state = clone_state(s0)
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            engine.run_chunks(state, chunks)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - w0)
+    return wide, compact
+
+
+def phase_compact_headline(P, E, card, dev, head):
+    """Phase 5a, this slice's main path: the headline (4,096 clusters x 250
+    jobs, 1,570 ticks) on the compact layout, its plan from
+    ``derive_plan(cfg, specs, arrivals)``: (a) the whole run tick by tick
+    through the tap form and, on a copy of each state, the untapped form,
+    every launch timed, both == plain at 12 sampled ticks, the bytes
+    counted at the narrow leaves' sizes; (b) the counted run through
+    ``run_chunks``: the headline's gates (zero drops, the narrow overflow
+    total among them; 99% placed; conservation; one launch a tick) and
+    ``to_wide`` of its final state bitwise the wide run's (4a); (c) the
+    state's bytes in both layouts; (d) wide and compact walls, 5
+    interleaved pairs; (e) the counted run with the plane, bitwise the
+    plane-off run, its harvested overflow total the state's."""
+    from multi_cluster_simulator_tpu_torch.core import compact as CC
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+
+    cfg = headline_cfg(P)
+    chunks, specs, n_ticks = head["chunks"], head["specs"], head["n_ticks"]
+    engine = E.Engine(cfg, device=dev)
+    plan = CC.derive_plan(cfg, specs, head["arr"])
+    s0 = init_state(cfg, specs, device=dev, plan=plan)
+    w0 = init_state(cfg, specs, device=dev)
+    nb_c, nb_w = CC.state_nbytes(s0), CC.state_nbytes(w0)
+    print(f"phase 5a: compact plan {plan.describe()}; state {nb_c} B "
+          f"against {nb_w} B wide ({nb_c / nb_w:.4f}) [{card}]")
+    chk = Checker(engine)
+    picks, peak = pick_ticks(chunks, PLANE_SAMPLES)
+    cost, shared = cost_of("fifo", engine)
+    sp = tap_pass(chk, engine, s0, chunk_feeds(chunks, dev), picks, cost,
+                  shared, both=True)
+    out, first_s, counts = counted_run(engine, s0, chunks,
+                                       "fused_prefix_fifo")
+    placed, drops = check_gates(out, n_ticks, cfg.tick_ms, HEADLINE_C * JOBS,
+                                0.99, "phase 5a")
+    ovf = CC.overflow_total(out)
+    d = max(max_abs_diff(CC.to_wide(out), head["final"]),
+            max_abs_diff(sp["state"], out))
+    if ovf or d:
+        raise AssertionError(f"phase 5a: overflow {ovf}; the compact run "
+                             f"against the wide one or its pass: {d}")
+    w_wide, w_comp = layout_walls(engine, w0, s0, chunks, COMPACT_PAIRS)
+    on, mb, _, pcounts = counted_plane_run(engine, s0, chunks,
+                                           "fused_prefix_fifo_tap")
+    if max_abs_diff(on, out) or max_abs_diff(sp["mbuf"], mb):
+        raise AssertionError("phase 5a: the compact headline with the plane "
+                             "differs from the plane-off run or its pass")
+    h = plane_gates(on, mb, n_ticks, cfg.tick_ms, "phase 5a")
+    if h["narrow_ovf"] != CC.overflow_total(on):
+        raise AssertionError(f"phase 5a: harvested narrow_ovf "
+                             f"{h['narrow_ovf']}, the state's "
+                             f"{CC.overflow_total(on)}")
+    ums, kms = np.mean(sp["untapped_ms"]), np.mean(sp["kernel_ms"])
+    b_ms, b_by = bound(sp["span_read"], sp["span_written"])
+    print(f"phase 5a: compact headline, {n_ticks} ticks: the FIFO kernel "
+          f"and its tap form == plain bitwise at {chk.n} comparisons on "
+          f"{len(picks)} ticks sampled as the kernel reached them (the peak "
+          f"{peak}); placed {placed}, drops {drops} (narrow overflow total "
+          f"{ovf}), conservation ok, launches {counts['fused_prefix_fifo']}"
+          f"; to_wide(final) bitwise the wide run's final state; the plane "
+          f"on: bitwise the plane-off run, harvested narrow_ovf "
+          f"{h['narrow_ovf']}, launches {pcounts['fused_prefix_fifo_tap']} "
+          f"[{card}]")
+    print(f"phase 5a: kernel fused_prefix_fifo on the compact layout "
+          f"{ums * 1e3:.2f} us/launch (the tap form {kms * 1e3:.2f}) mean "
+          f"over {len(sp['untapped_ms'])} launches; bound "
+          f"{b_ms * 1e3:.4f} us by {b_by} ({sp['span_read']:.1f} B read, "
+          f"{sp['span_written']:.1f} written a launch at the narrow leaves' "
+          f"sizes); plain {np.mean(chk.plain_ms):.3f} ms [{card}]")
+    print(f"phase 5a: headline jobs/s wide {placed / min(w_wide):.1f} (min "
+          f"of {len(w_wide)}), {placed / np.median(w_wide):.1f} (median); "
+          f"compact {placed / min(w_comp):.1f}, "
+          f"{placed / np.median(w_comp):.1f}; walls wide "
+          f"{[round(w, 4) for w in w_wide]}, compact "
+          f"{[round(w, 4) for w in w_comp]}; compact / wide min wall "
+          f"{min(w_comp) / min(w_wide):.4f} [{card}]")
+    return dict(records=tap_pair_records(
+        chk, "fused_prefix_fifo", counts["fused_prefix_fifo"], sp,
+        pcounts["fused_prefix_fifo_tap"]), nbytes=(nb_c, nb_w),
+        kernel_ms=sp["untapped_ms"], wall_min_s=min(w_comp),
+        h2d_s=head["h2d_s"], n_ticks=n_ticks)
+
+
+def undersized(CC, plan):
+    """``plan`` with int8 queue cores (tests/test_kernels.py:283)."""
+    import dataclasses
+
+    return dataclasses.replace(plan, queue=tuple(
+        (n, "int8" if n == "cores" else dt) for n, dt in plan.queue))
+
+
+def mixed_rows_tick(dev, chk, s0, qname, seed):
+    """One tick on a queue ``qname`` loaded with 12 rows a cluster mixing
+    -128-core jobs (a clamped store's value, counted in the queue's
+    ``ovf`` as the store that made it would) with jobs too big for any
+    node until one of them placed: the waves and the serial form differ
+    there. Kernel == plain."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.ops import queues as Q
+
+    C = s0.arr_ptr.shape[0]
+    gen = np.random.default_rng(seed)
+    n = 12
+    rows = np.zeros((C, n, Q.NF), np.int32)
+    rows[..., Q.FID] = np.arange(n)
+    rows[..., Q.FCORES] = gen.choice([-128, 70, 20, 5, 127], (C, n))
+    rows[..., Q.FMEM] = gen.integers(100, 20_000, (C, n))
+    rows[..., Q.FDUR] = 50_000
+    rows[..., Q.FOWNER] = -1
+    state = clone_state(s0)
+    q = getattr(state, qname)
+    load_queue(q, torch.from_numpy(rows).to(dev),
+               torch.full((C,), n, dtype=torch.int32, device=dev))
+    q.ovf.fill_(1)
+    arr = torch.zeros((C, 1, Q.NF), dtype=torch.int32, device=dev)
+    return chk.compare(state, arr, torch.zeros(C, dtype=torch.int32,
+                                               device=dev), 1_000)
+
+
+def phase_compact_undersized(P, E, card, dev):
+    """Phase 5b: plans the checked store must count against, at 4,096
+    clusters. (a) tests/test_kernels.py:283's case (int8 cores, 500-core
+    jobs) tiled: the FIFO kernel's whole run == plain, overflows counted,
+    the dtype minimum stored and never 500 % 256; (b) a denser stream on
+    that plan through the FIFO wave drain, the FFD and the DELAY waves
+    (the kernels replay the waves where a demand is negative) and one
+    tick of -128-core jobs mixed with big ones in Level1 (DELAY wave) and
+    Level0 (FFD wave, ffd-memfirst); (c) the terminal node exit narrow on
+    a hand-built plan (int8 node columns on 100-core nodes, which a
+    placed -128-core job lifts past 127): FIFO and its tap form, DELAY,
+    FFD, gavel, tesserae == plain, every cluster's run.ovf the same
+    nonzero total."""
+    import dataclasses
+
+    from multi_cluster_simulator_tpu_torch.core import compact as CC
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        Arrivals, init_state,
+    )
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        uniform_stream,
+    )
+
+    C = HEADLINE_C
+    cfg = headline_cfg(P)
+    specs = [P.uniform_cluster(c + 1, 5) for c in range(C)]
+    tile = lambda v: np.tile(np.asarray([v], np.int32), (C, 1))  # noqa
+    arr = Arrivals(t=tile([1_500, 2_500, 3_500, 4_500]),
+                   id=np.arange(4 * C, dtype=np.int32).reshape(C, 4),
+                   cores=tile([500, 2, 500, 2]), mem=tile([100] * 4),
+                   gpu=tile([0] * 4), dur=tile([5_000] * 4),
+                   n=np.full((C,), 4, np.int32))
+    under = undersized(CC, CC.derive_plan(cfg, specs, None))
+    chunks = E.pack_arrivals_chunks(arr, [10], cfg.tick_ms)
+    engine = E.Engine(cfg, device=dev)
+    _, _, out = whole_run_against_plain(
+        E, engine, init_state(cfg, specs, device=dev, plan=under), chunks,
+        "undersized")
+    ovf = CC.overflow_total(out)
+    # at tick 4 the first 500-core job runs, stored as the dtype minimum
+    _, _, mid = whole_run_against_plain(
+        E, engine, init_state(cfg, specs, device=dev, plan=under),
+        [first_ticks(chunks, 4)[0]], "undersized, 4 ticks")
+    held = int((mid.run.f_cores == -128).sum())
+    wrapped = sum(int((x.f_cores == 500 % 256).sum()) for x in
+                  (out.run, out.ready, mid.run, mid.ready))
+    if not ovf or wrapped or held < C:
+        raise AssertionError(f"phase 5b: overflow {ovf}, wrapped {wrapped}, "
+                             f"-128 rows {held}")
+    print(f"phase 5b: tests/test_kernels.py:283 tiled to {C} clusters: FIFO "
+          f"kernel == plain over its 10 ticks (and its first 4), overflows "
+          f"counted {ovf}; at tick 4 every cluster runs its 500-core jobs "
+          f"stored as -128 ({held} rows), none wrapped to 500 % 256 "
+          f"[{card}]")
+    big = uniform_stream(C, 20, 20_000, max_cores=600, max_mem=6_000,
+                         max_dur_ms=60_000, seed=3)
+    ch_big = E.pack_arrivals_chunks(big, [30], cfg.tick_ms)
+    wave = dataclasses.replace(borg_cfg(P), delay_sweep="wave",
+                               ffd_sweep="wave")
+    seen = {}
+    for what, c_, pol in (("FIFO wave drain", cfg, None),
+                          ("FFD wave", wave, "ffd"),
+                          ("DELAY wave", wave, "delay")):
+        eng = E.Engine(c_, device=dev, policies=None if pol is None
+                       else PolicySet((pol,)))
+        _, _, o = whole_run_against_plain(
+            E, eng, init_state(c_, specs, device=dev, plan=under), ch_big,
+            what)
+        seen[what] = CC.overflow_total(o)
+    for pol, qname in (("delay", "l1"), ("ffd", "l0"),
+                       ("ffd-memfirst", "l0")):
+        eng = E.Engine(wave, device=dev, policies=PolicySet((pol,)))
+        mixed_rows_tick(dev, Checker(eng),
+                        init_state(wave, specs, device=dev, plan=under),
+                        qname, 5)
+    print(f"phase 5b: the denser 600-core stream on the undersized plan, 30 "
+          f"ticks each, kernel == plain with overflows {seen}; one tick of "
+          f"-128-core jobs mixed with 70-core ones in Level1 (DELAY wave) "
+          f"and Level0 (FFD wave, ffd-memfirst) == plain [{card}]")
+    specs2 = [P.uniform_cluster(c + 1, 2, cores=100, memory=100)
+              for c in range(C)]
+    arr2 = uniform_stream(C, 4, 4_000, max_cores=600, max_mem=50,
+                          max_dur_ms=60_000, seed=4)
+    hand = undersized(CC, CC.derive_plan(cfg, specs2, None))
+    ch2 = E.pack_arrivals_chunks(arr2, [8], cfg.tick_ms)
+    totals = {}
+    for pol in ("fifo", "delay", "ffd", "gavel", "tesserae"):
+        eng = E.Engine(cfg, device=dev, policies=PolicySet((pol,)))
+        s2 = init_state(cfg, specs2, device=dev, plan=hand)
+        _, _, o = whole_run_against_plain(E, eng, s2, ch2, f"node exit "
+                                          f"{pol}")
+        run_ovf = o.run.ovf
+        if int(run_ovf.min()) <= 0 or not bool((run_ovf
+                                                == run_ovf[0]).all()):
+            raise AssertionError(f"phase 5b: node exit {pol}: run.ovf "
+                                 f"{run_ovf[:4].tolist()}")
+        totals[pol] = int(run_ovf[0])
+        if pol == "fifo":
+            _, _, o2, mb, _ = whole_plane_run_against_plain(
+                E, eng, s2, ch2, "node exit, the tap form")
+            from multi_cluster_simulator_tpu_torch.obs import device as D
+            if D.harvest(mb)["narrow_ovf"] != CC.overflow_total(o2):
+                raise AssertionError("phase 5b: the tap's ovf")
+    print(f"phase 5b: node exit narrow on a hand-built plan ({hand.node} "
+          f"node columns on 100-core nodes) at {C} clusters, 8 ticks: "
+          f"kernel == plain (FIFO and its tap form, DELAY, FFD, gavel, "
+          f"tesserae); the cross-cluster count added to every cluster's "
+          f"run.ovf, equal in all (after the run: {totals}) [{card}]")
+
+
+def phase_compact_level0(P, E, card, dev, market):
+    """Phase 5c: the Level0 kernels on the compact layout, kernel == plain
+    (the untapped and the tap form) at sampled ticks of the first 250
+    ticks of bench_borg4k (FFD) and the first 150 of market runs (b)
+    gavel, (c) tesserae and (d) DELAY parity (trader cut), every launch
+    timed."""
+    from multi_cluster_simulator_tpu_torch.core import compact as CC
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+
+    records = []
+    cfg = borg_cfg(P)
+    chunks, _, arr = borg_stream(E, BORG_C, BORG_JOBS, BORG_HORIZON_MS,
+                                 cfg.tick_ms, arrivals=True)
+    specs = [P.uniform_cluster(c + 1, 5) for c in range(BORG_C)]
+    runs = [("borg4k", "fused_prefix_ffd", cfg, "ffd", specs, chunks, arr,
+             COMPACT_PASS_TICKS + 100)]
+    for name, kernel in (("b", "fused_prefix_scored"),
+                         ("c", "fused_prefix_scored"),
+                         ("d", "fused_prefix_delay")):
+        policy, kw, _ = MARKET_RUNS[name]
+        runs.append((f"market ({name})", kernel, market_cfg(P, **kw), policy,
+                     market["specs"], market["chunks"], market["arr"],
+                     COMPACT_PASS_TICKS))
+    for what, kernel, c_, policy, specs_, chunks_, arr_, n in runs:
+        engine = E.Engine(c_, device=dev, policies=PolicySet((policy,)))
+        plan = CC.derive_plan(c_, specs_, arr_)
+        s0 = init_state(c_, specs_, device=dev, plan=plan)
+        chk = Checker(engine)
+        QC = min(c_.queue_capacity, c_.max_placements_per_tick) \
+            if not c_.parity else c_.queue_capacity
+        cost, shared = cost_of({"gavel": "gavel", "tesserae": "tesserae",
+                                "ffd": "ffd"}.get(policy, "delay"), engine,
+                               QC)
+        picks = set(np.linspace(0, n - 1, COMPACT_SAMPLES).astype(int)
+                    .tolist())
+        sp = tap_pass(chk, engine, s0, chunk_feeds(chunks_, dev, n), picks,
+                      cost, shared, both=True)
+        print(f"phase 5c: {what} on the compact layout ({policy}), first "
+              f"{n} ticks: {kernel} and its tap form == plain bitwise at "
+              f"{chk.n} comparisons; {np.mean(sp['untapped_ms']) * 1e3:.2f}"
+              f" us/launch (tap {np.mean(sp['kernel_ms']) * 1e3:.2f}); "
+              f"bound {bound(sp['span_read'], sp['span_written'], sp['ops'])[0] * 1e3:.4f}"
+              f" us; plain {np.mean(chk.plain_ms):.3f} ms [{card}]")
+        if what in ("borg4k", "market (b)", "market (d)"):
+            records += tap_pair_records(chk, kernel, sp["ticks"], sp)
+    return dict(records=records)
+
+
+def phase_compact_emit_expire(P, E, card, dev, market):
+    """Phase 5d: the non-terminal forms on the compact layout, where the
+    engine widens the node columns before the prefix and narrows them,
+    checked, after its last phase: the FIFO emit form on borrowing run
+    (b) (config 2 tiled to 4,096, trader cut: int16 node columns) and
+    DELAY's expire form on market run (e) (config 4 with expiry), their
+    first 150 ticks tick by tick with delivery, matching and the market,
+    kernel == plain at sampled ticks, every launch timed."""
+    from multi_cluster_simulator_tpu_torch.core import compact as CC
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+
+    n = COMPACT_PASS_TICKS
+    picks = set(np.linspace(0, n - 1, COMPACT_SAMPLES).astype(int).tolist())
+    cfg = borrow_cfg(P)
+    specs = borrow_specs(P, BORROW_C)
+    chunks, _, arr = borrow_stream(P, E, BORROW_C, n, arrivals=True)
+    plan = CC.derive_plan(cfg, specs, arr)
+    engine = E.Engine(cfg, device=dev)
+    chk = Checker(engine)
+    bp = borrow_pass(E, chk, init_state(cfg, specs, device=dev, plan=plan),
+                     chunks, picks, until=n)
+    if CC.overflow_total(bp["state"]):
+        raise AssertionError("phase 5d: borrowing overflowed")
+    print(f"phase 5d: borrowing run (b) on the compact layout (node columns "
+          f"{plan.node}), first {n} ticks: fused_prefix_fifo_emit == plain "
+          f"bitwise at {chk.n} ticks (state and outputs); "
+          f"{np.mean(bp['ms']['kernel']) * 1e3:.2f} us/launch; fired "
+          f"{bp['fired']} [{card}]")
+    records = [compact_record("fused_prefix_fifo_emit", bp["ticks"],
+                              chk.worst, float(np.mean(bp["ms"]["kernel"])),
+                              chk.plain_ms, bp["read"], bp["written"])]
+    policy, kw, _ = MARKET_RUNS["e"]
+    mcfg = market_cfg(P, **kw)
+    mplan = CC.derive_plan(mcfg, market["specs"], market["arr"])
+    meng = E.Engine(mcfg, device=dev, policies=PolicySet((policy,)))
+    mchk = Checker(meng)
+    QC = min(mcfg.queue_capacity, mcfg.max_placements_per_tick)
+
+    def cost(before, after, rows, counts, t):
+        return tick_cost_delay(before, after, rows, counts, t,
+                               mcfg.record_trace, QC)
+    sp = sampled_kernel_pass(E, mchk, meng, init_state(
+        mcfg, market["specs"], device=dev, plan=mplan),
+        first_ticks(market["chunks"], n), picks, QC, cost)
+    print(f"phase 5d: market run (e) on the compact layout (node columns "
+          f"{mplan.node}: the trader's contract totals), first {n} ticks: "
+          f"fused_prefix_delay_expire == plain bitwise at {mchk.n} ticks; "
+          f"{np.mean(sp['kernel_ms']) * 1e3:.2f} us/launch; attached "
+          f"{sp['fired']['attached']}, expired {sp['fired']['expired']} "
+          f"[{card}]")
+    records.append(compact_record(
+        "fused_prefix_delay_expire", sp["ticks"], mchk.worst,
+        float(np.mean(sp["kernel_ms"])), mchk.plain_ms, sp["read"],
+        sp["written"], sp["ops"]))
+    return dict(records=records)
+
+
+def phase_compact_faults(P, E, card, dev, churn, market):
+    """Phase 5e: the faults forms on the compact layout. bench_faults's
+    compact cell (bench.py:2990-3001) at its own 32 clusters, through
+    ``run_chunks``: retries narrowed to int8, the bench's gates (kills and
+    requeues, zero drops with the narrow overflow total, conservation, 490
+    launches) and ``to_wide`` bitwise the wide churn run (4k); at 4,096
+    clusters the first 100 ticks through the faults form and its tap form,
+    == plain at sampled ticks, every launch timed; and the first 50 ticks
+    of DELAY, FFD and gavel with churn at the quick market shape, whole
+    runs == plain."""
+    from multi_cluster_simulator_tpu_torch.core import compact as CC
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+    from multi_cluster_simulator_tpu_torch.utils.trace import (
+        check_conservation,
+    )
+
+    cfg = faults_cfg(P)
+    specs = [P.uniform_cluster(c + 1, 5) for c in range(FAULTS_C)]
+    chunks, n_ticks, arr = faults_stream(E, FAULTS_C, arrivals=True)
+    plan = CC.derive_plan(cfg, specs, arr)
+    if dict(plan.queue)["retries"] != "int8":
+        raise AssertionError(f"phase 5e: retries stored as "
+                             f"{dict(plan.queue)['retries']}")
+    engine = E.Engine(cfg, device=dev)
+    out, _, counts = counted_run(engine, init_state(cfg, specs, device=dev,
+                                                    plan=plan), chunks,
+                                 "fused_prefix_fifo_faults")
+    kills, requeues = int(out.faults.kills.sum()), int(
+        out.faults.requeues.sum())
+    drops = check_gates(out, n_ticks, cfg.tick_ms, FAULTS_C * FAULTS_JOBS,
+                        0.0, "phase 5e")[1]
+    check_conservation(out)
+    if not (kills and requeues) or max_abs_diff(CC.to_wide(out),
+                                                churn["final"]):
+        raise AssertionError(f"phase 5e: {kills} kills, {requeues} "
+                             f"requeues; to_wide against the wide run")
+    print(f"phase 5e: bench_faults's compact cell, {FAULTS_C} clusters, "
+          f"{n_ticks} ticks: kills {kills}, requeues {requeues}, drops "
+          f"{drops}, conservation ok, launches "
+          f"{counts['fused_prefix_fifo_faults']}, to_wide bitwise the wide "
+          f"churn run (4k) [{card}]")
+    wide_chunks, _, warr = faults_stream(E, FAULTS_WIDE_C, arrivals=True)
+    wspecs = [P.uniform_cluster(c + 1, 5) for c in range(FAULTS_WIDE_C)]
+    wplan = CC.derive_plan(cfg, wspecs, warr)
+    chk = Checker(engine)
+    cost, shared = cost_of("fifo_faults", engine)
+    n = COMPACT_CHURN_TICKS
+    picks = set(np.linspace(0, n - 1, COMPACT_SAMPLES).astype(int).tolist())
+    sp = tap_pass(chk, engine, init_state(cfg, wspecs, device=dev,
+                                          plan=wplan),
+                  chunk_feeds(wide_chunks, dev, n), picks, cost, shared,
+                  both=True)
+    print(f"phase 5e: churn at {FAULTS_WIDE_C} clusters on the compact "
+          f"layout, first {n} ticks: fused_prefix_fifo_faults and its tap "
+          f"form == plain bitwise at {chk.n} comparisons; "
+          f"{np.mean(sp['untapped_ms']) * 1e3:.2f} us/launch (tap "
+          f"{np.mean(sp['kernel_ms']) * 1e3:.2f}) [{card}]")
+    qc_, qj = MARKET_QUICK
+    ch_q = first_ticks(market_stream(E, qc_, qj, quick=True)[0],
+                       PLANE_CHURN_TICKS)
+    qarr = market_stream(E, qc_, qj, quick=True, arrivals=True)[3]
+    for policy in ("delay", "ffd", "gavel"):
+        qcfg = market_cfg(P, quick=True, faults=churn_faults(P))
+        qspecs = market_specs(P, qc_)
+        eng = E.Engine(qcfg, device=dev, policies=PolicySet((policy,)))
+        whole_run_against_plain(E, eng, init_state(
+            qcfg, qspecs, device=dev, plan=CC.derive_plan(qcfg, qspecs,
+                                                          qarr)),
+            ch_q, f"{policy} with churn, compact")
+    print(f"phase 5e: DELAY, FFD and gavel with churn at the quick market "
+          f"shape on the compact layout, {PLANE_CHURN_TICKS} ticks each: "
+          f"kernel == plain [{card}]")
+    return dict(records=tap_pair_records(chk, "fused_prefix_fifo_faults",
+                                         sp["ticks"], sp))
+
+
+def phase_compact_config4(P, E, card, dev, market, run_a):
+    """Phase 5f: BASELINE config 4 (bench_sinkhorn's world, 4,096 x 400,
+    700 ticks) on the compact layout through ``run_chunks``: non-terminal,
+    its node columns in the plan's dtype for the trader's contract
+    totals. The bench's gates (zero drops, the narrow overflow total
+    among them; 85% of all jobs placed; 1,000 virtual nodes), 700
+    launches, and ``to_wide`` bitwise run (a)'s final state (4d)."""
+    from multi_cluster_simulator_tpu_torch.core import compact as CC
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+    from multi_cluster_simulator_tpu_torch.utils.trace import (
+        check_conservation, total_drops,
+    )
+
+    policy, kw, _ = MARKET_RUNS["a"]
+    cfg = market_cfg(P, **kw)
+    plan = CC.derive_plan(cfg, market["specs"], market["arr"])
+    engine = E.Engine(cfg, device=dev, policies=PolicySet((policy,)))
+    s0 = init_state(cfg, market["specs"], device=dev, plan=plan)
+    kernel = fused_tick.host_params(engine, engine._default_params)[
+        "kernel"].name
+    out, first_s, counts = counted_run(engine, s0, market["chunks"], kernel)
+    drops = total_drops(out)
+    placed = int(out.placed_total.sum())
+    n_jobs = MARKET_C * MARKET_JOBS
+    vnodes = int(out.node_active[:, cfg.max_nodes:].sum())
+    check_conservation(out)
+    if any(drops.values()) or placed < MARKET_FLOOR * n_jobs or \
+            vnodes < VNODE_FLOOR:
+        raise AssertionError(f"phase 5f: drops {drops}, placed {placed}, "
+                             f"vnodes {vnodes}")
+    d = max_abs_diff(CC.to_wide(out), run_a["final"])
+    if d:
+        raise AssertionError(f"phase 5f: to_wide differs from run (a) ({d})")
+    walls, h2d_s, _ = timed_runs(engine, s0, market["chunks"], 0, 1)
+    print(f"phase 5f: config 4 on the compact layout (plan "
+          f"{plan.describe()}): placed {placed} of {n_jobs} "
+          f"({placed / n_jobs:.4f}), virtual nodes {vnodes}, drops {drops}, "
+          f"conservation ok, launches {counts[kernel]}, to_wide bitwise run "
+          f"(a)'s final state; state {CC.state_nbytes(s0)} B against "
+          f"{CC.state_nbytes(init_state(cfg, market['specs'], device=dev))} "
+          f"B wide; wall {walls[0]:.4f} s ({placed / walls[0]:.1f} jobs/s; "
+          f"run (a) min {run_a['wall_min_s']:.4f} s), first run "
+          f"{first_s:.4f} s [{card}]")
 
 
 def bound(read, written, ops=0.0):
@@ -3827,9 +4471,10 @@ def main(device: str = "cuda") -> int:
     print(f"phases 3a-c, 4a-c: {time.perf_counter() - w0:.1f} s")
 
     w1 = time.perf_counter()
-    chunks, n_ticks, unplaceable = market_stream(E, MARKET_C, MARKET_JOBS)
+    chunks, n_ticks, unplaceable, m_arr = market_stream(
+        E, MARKET_C, MARKET_JOBS, arrivals=True)
     market = dict(chunks=chunks, n_ticks=n_ticks, unplaceable=unplaceable,
-                  specs=market_specs(P, MARKET_C))
+                  specs=market_specs(P, MARKET_C), arr=m_arr)
     print(f"market stream: {MARKET_C * MARKET_JOBS} jobs in {len(chunks)} "
           f"chunks, {sum(ch.nbytes() for ch in chunks)} B of rows (K per "
           f"chunk {[ch.rows.shape[2] for ch in chunks]}), unplaceable "
@@ -3895,6 +4540,21 @@ def main(device: str = "cuda") -> int:
     plane_l0 = phase_plane_level0(P, E, card, dev, borg, market, sampled)
     lap("4q")
     print(f"phases 4n-4q: {time.perf_counter() - w4:.1f} s")
+
+    w5 = time.perf_counter()
+    compact = phase_compact_headline(P, E, card, dev, head)
+    lap("5a")
+    phase_compact_undersized(P, E, card, dev)
+    lap("5b")
+    c_l0 = phase_compact_level0(P, E, card, dev, market)
+    lap("5c")
+    c_emit = phase_compact_emit_expire(P, E, card, dev, market)
+    lap("5d")
+    c_faults = phase_compact_faults(P, E, card, dev, churn, market)
+    lap("5e")
+    phase_compact_config4(P, E, card, dev, market, runs["a"])
+    lap("5f")
+    print(f"phases 5a-5f: {time.perf_counter() - w5:.1f} s")
 
     records = []
     kms = float(np.mean(check["kernel_ms"]))
@@ -4048,7 +4708,9 @@ def main(device: str = "cuda") -> int:
 
     # the metrics plane's tap forms and the windowed ingest
     breakdown("headline, the plane on", plane, plane["kernel_ms"], card)
-    for group in (plane, plane_churn, config1, plane_l0):
+    breakdown("headline, compact", compact, compact["kernel_ms"], card)
+    for group in (plane, plane_churn, config1, plane_l0, compact, c_l0,
+                  c_emit, c_faults):
         for r in group["records"]:
             b_ms, b_by = r["bound"]
             print(f"kernel {r.get('name', r['kernel'].name)}: "

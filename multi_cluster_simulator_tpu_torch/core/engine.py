@@ -112,7 +112,7 @@ def _pack_returns(run: R.RunningSet, done: torch.Tensor, M: int):
     non-returning slots. owner >= 0 is a borrower index; FOREIGN (-2)
     trader placeholders are returned to nobody (Go posts to the literal
     URL "Foreign" and gives up). ``dropped`` counts returns beyond M."""
-    is_ret = done & (run.data[..., R.ROWNER] >= 0)  # [C, S]
+    is_ret = done & (run.owner >= 0)  # [C, S]
     order = torch.sort((~is_ret).to(torch.uint8), dim=1,
                        stable=True).indices[:, :M]
     take = torch.gather(is_ret, 1, order)
@@ -120,8 +120,8 @@ def _pack_returns(run: R.RunningSet, done: torch.Tensor, M: int):
     return rows, take, isum(is_ret, 1) - isum(take, 1)
 
 
-_MATCH = ((R.RID, Q.FID), (R.RCORES, Q.FCORES), (R.RMEM, Q.FMEM),
-          (R.RDUR, Q.FDUR))
+_MATCH = ((R.RID, "id"), (R.RCORES, "cores"), (R.RMEM, "mem"),
+          (R.RDUR, "dur"))
 
 
 def _deliver_returns(state: SimState, rows: torch.Tensor,
@@ -142,7 +142,7 @@ def _deliver_returns(state: SimState, rows: torch.Tensor,
     accumulator rows, spread so that the adds do not contend."""
     C_loc, M = take.shape
     q = state.borrowed
-    dev = q.data.device
+    dev = q.device
     msg_dst = ex.gather(torch.where(take, rows[..., R.ROWNER], -1)).reshape(-1)
     msg_rows = ex.gather(rows).reshape(-1, R.RF)
     n = msg_dst.shape[0]
@@ -151,7 +151,7 @@ def _deliver_returns(state: SimState, rows: torch.Tensor,
     dst = torch.where(mine, local, 0).long()
     hit = mine[:, None]
     for rf, qf in _MATCH:
-        hit = hit & (q.data[:, :, qf][dst] == msg_rows[:, rf, None])
+        hit = hit & (Q.field(q, qf)[dst] == msg_rows[:, rf, None])
     spare = C_loc + torch.arange(n, device=dev) % max(C_loc, 1)
     acc = torch.zeros((2 * C_loc, q.capacity), dtype=I32, device=dev)
     acc.index_add_(0, torch.where(mine, dst, spare), hit.to(I32))
@@ -398,6 +398,30 @@ def _snapshot(state: SimState) -> SimState:
         snap_avg_wait=st.avg_wait_ms(state)))
 
 
+def _widen_nodes(state: SimState) -> SimState:
+    """The span-entry widen of narrow node columns (core/compact.py): every
+    phase computes on int32 as on the wide layout. Nothing is checked: the
+    values were stored through the checked exit narrow."""
+    if state.node_free.dtype == I32:
+        return state
+    return state.replace(node_free=F.widen(state.node_free),
+                         node_cap=F.widen(state.node_cap))
+
+
+def _narrow_nodes(state: SimState, dtype) -> SimState:
+    """The CHECKED exit narrow of the node columns into ``dtype``: a value
+    the plan did not size for (a contract total beyond its node bound, a
+    hand-built state) clamps to the dtype minimum and counts. As in the
+    reference, whose narrow runs on the whole batch, the count is ONE total
+    over every cluster's free and capacity words, added to every cluster's
+    ``run.ovf`` (the node columns have no counter of their own)."""
+    free_n, bad_f = F.narrow_store(state.node_free, dtype)
+    cap_n, bad_c = F.narrow_store(state.node_cap, dtype)
+    return state.replace(node_free=free_n, node_cap=cap_n,
+                         run=state.run.replace(ovf=state.run.ovf + bad_f
+                                               + bad_c))
+
+
 def _with_owner(vec: torch.Tensor, owner: torch.Tensor) -> torch.Tensor:
     out = vec.clone()
     out[..., Q.FOWNER] = owner
@@ -500,8 +524,13 @@ class Engine:
         ret_valid, obs_out)``, the return rows None when ``emit_returns``
         is off and ``obs_out = (pc', cursor', placed_d, depth)`` or None,
         as the reference's. The CUDA kernels are held against exactly this
-        function."""
+        function. On the compact layout the node columns are widened at
+        entry, and on a terminal prefix narrowed back through the checked
+        exit narrow before the tap (``_narrow_nodes``); a non-terminal
+        tick narrows them after its last phase instead (``_tick``)."""
         member = self.member(params) if member is None else member
+        node_dt = state.node_free.dtype
+        state = _widen_nodes(state)
         if self.cfg.faults.enabled:
             state = faults_apply.fault_phase_local(state, t, self.cfg,
                                                    member.to_delay)
@@ -523,6 +552,8 @@ class Engine:
                                          member.to_delay)
         state, want, bjob_vec = self.pset.dispatch(state, t, params,
                                                    self.cfg, member)
+        if node_dt != I32 and self.prefix_terminal():
+            state = _narrow_nodes(state, node_dt)
         obs_out = None
         if obs is not None:
             if not self.prefix_terminal():
@@ -547,9 +578,15 @@ class Engine:
         epilogue updates both in place; otherwise ``tap_tick`` runs after
         the clock and returns new ones. Returns ``(state, obs)``; the
         cross-cluster phases rebuild the state (``run_chunks`` writes it
-        back)."""
+        back). On the compact layout a non-terminal tick widens the node
+        columns before the prefix and narrows them, checked, after the
+        market round, so the phases after the prefix compute on int32 as
+        the reference's do; a terminal prefix narrows them itself."""
         emit = self.cfg.borrowing or out is not None
         terminal = self.prefix_terminal()
+        node_dt = state.node_free.dtype
+        if not terminal:
+            state = _widen_nodes(state)
         with phase_scope("fused_prefix"):
             state, *io, _ = fused_tick.fused_prefix(
                 self, state, rows, counts, t, params, host,
@@ -558,6 +595,8 @@ class Engine:
                 obs=obs if terminal else None, windowed=windowed)
         state = self._cross_cluster(state, *io)
         state = self._market(state, t, params, host["jitter"])
+        if node_dt != I32 and not terminal:
+            state = _narrow_nodes(state, node_dt)
         state.t.fill_(t)
         if obs is not None and not terminal:
             obs = obs_device.tap_tick(obs[0], obs[1], state,

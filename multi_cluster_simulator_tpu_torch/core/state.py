@@ -253,12 +253,10 @@ def init_state(cfg: SimConfig, specs: Sequence[ClusterSpec], plan=None,
     (the card by default; see ``resolve_device``). ``fault_events`` is the
     trace-mode fault schedule (``faults.schedule.pack_fault_trace``);
     generative churn draws first failures for the initially active slots
-    only. Only the wide layout is ported: a compact ``plan`` is ROADMAP
-    A11."""
-    if plan is not None:
-        raise NotImplementedError(
-            "the compact state layout (plan=...) is not ported yet: "
-            "ROADMAP A11")
+    only. ``plan``, a ``core.compact.CompactPlan``, builds the six queues
+    and the running set in the compact SoA layout with the plan's storage
+    dtypes, and the node columns in its node dtype; ``None`` keeps the
+    wide int32 layout."""
     dev = resolve_device(device)
     C = len(specs)
     N = cfg.total_nodes
@@ -266,8 +264,14 @@ def init_state(cfg: SimConfig, specs: Sequence[ClusterSpec], plan=None,
     if cfg.n_res < RES and cap_phys[..., cfg.n_res:].any():
         raise ValueError(
             f"specs declare gpu capacity but n_res={cfg.n_res} drops the axis")
-    cap = np.zeros((C, N, cfg.n_res), dtype=np.int32)
-    cap[:, : cfg.max_nodes] = cap_phys[..., : cfg.n_res]
+    node_dt = np.int32 if plan is None else plan.node_dtype()
+    phys = cap_phys[..., : cfg.n_res]
+    if phys.size and int(phys.max()) > np.iinfo(node_dt).max:
+        raise ValueError(
+            f"compact plan's node dtype {np.dtype(node_dt).name} cannot hold "
+            f"capacity {int(phys.max())} — derive the plan from these specs")
+    cap = np.zeros((C, N, cfg.n_res), dtype=node_dt)
+    cap[:, : cfg.max_nodes] = phys
     active = cap.sum(-1) > 0
     ntype = np.zeros((C, N), dtype=np.int32)
     ntype[:, : cfg.max_nodes] = node_types_array(specs, cfg.max_nodes)
@@ -279,7 +283,9 @@ def init_state(cfg: SimConfig, specs: Sequence[ClusterSpec], plan=None,
         return torch.zeros((C,), dtype=dtype, device=dev)
 
     def queue():
-        return Q.empty(C, cfg.queue_capacity, dev)
+        if plan is None:
+            return Q.empty(C, cfg.queue_capacity, dev)
+        return Q.empty_soa(C, cfg.queue_capacity, plan.queue_dtypes(), dev)
 
     # trace buffers are only materialized when recording
     E = cfg.max_trace_events if cfg.record_trace else 1
@@ -293,7 +299,8 @@ def init_state(cfg: SimConfig, specs: Sequence[ClusterSpec], plan=None,
         node_type=t_(ntype),
         l0=queue(), l1=queue(), ready=queue(), wait=queue(), lent=queue(),
         borrowed=queue(),
-        run=R.empty(C, cfg.max_running, dev),
+        run=(R.empty(C, cfg.max_running, dev) if plan is None else
+             R.empty_soa(C, cfg.max_running, plan.run_dtypes(), dev)),
         arr_ptr=zeros(),
         wait_total=zeros(torch.float32),
         wait_jobs=zeros(),
@@ -306,8 +313,10 @@ def init_state(cfg: SimConfig, specs: Sequence[ClusterSpec], plan=None,
             snap_core_util=zeros(torch.float32),
             snap_mem_util=zeros(torch.float32),
             snap_avg_wait=zeros(torch.float32),
-            snap_total_cores=t_(cap[:, :, CORES].sum(1).astype(np.int32)),
-            snap_total_mem=t_(cap[:, :, MEM].sum(1).astype(np.int32)),
+            snap_total_cores=t_(cap[:, :, CORES].astype(np.int32).sum(1)
+                                .astype(np.int32)),
+            snap_total_mem=t_(cap[:, :, MEM].astype(np.int32).sum(1)
+                              .astype(np.int32)),
             cooldown_until=zeros(),
             seller_locked_until=zeros(),
             next_contract_id=torch.ones((C,), dtype=torch.int32, device=dev),

@@ -58,10 +58,10 @@ def sig_parts(state) -> list:
             isum(fs.kills, None) + isum(fs.requeues, None)]
 
 
-def _requeue_rows(run: R.RunningSet, t: int) -> torch.Tensor:
+def _requeue_rows(run, t: int) -> torch.Tensor:
     """[C, S, NF] queue rows of the running rows: identity and demand kept,
     the wait clock restarted at ``t``, the retry budget bumped."""
-    d = run.data
+    d = R.rows_of(run)
     zeros = torch.zeros_like(d[..., R.RID])
     cores, gpu = d[..., R.RCORES], d[..., R.RGPU]
     vals = {"id": d[..., R.RID], "cores": cores, "mem": d[..., R.RMEM],
@@ -89,8 +89,8 @@ def fault_phase_local(s, t: int, cfg: SimConfig, to_delay: bool):
     on_failed = on_node & torch.gather(
         fail_now, 1, node.clamp(0, N - 1).long())
     killed = run.active & on_failed  # [C, S]
-    owner = run.data[..., R.ROWNER]
-    retries = run.data[..., R.RRETRIES]
+    owner = run.owner
+    retries = run.retries
     is_job = killed & (owner != FOREIGN)
     retryable = is_job & (retries < fc.max_retries)
     exhausted = isum(is_job & (retries >= fc.max_retries), 1)

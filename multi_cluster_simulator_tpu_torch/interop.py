@@ -7,8 +7,11 @@ leaves and the arrival stream take their place. A state crosses as a dict
 of numpy arrays keyed by leaf path — ``.node_free``, ``.l0.data``,
 ``.drops.queue`` (``.ffd_mem_first`` for params) — which is how
 ``jax.tree_util.keystr`` spells the paths of
-``jax.tree_util.tree_flatten_with_path`` on the JAX pytree. The port never
-imports jax; the caller (a test) builds the JAX side of the dict.
+``jax.tree_util.tree_flatten_with_path`` on the JAX pytree. A compact state
+(core/compact.py) crosses the same way, its queues and running set as
+their SoA leaves (``.l0.f_cores``, ``.l0.ovf``, ``.run.f_node``) in their
+storage dtypes. The port never imports jax; the caller (a test) builds the
+JAX side of the dict.
 """
 
 from __future__ import annotations
@@ -21,11 +24,21 @@ import torch
 
 from multi_cluster_simulator_tpu_torch.core.state import SimState, resolve_device
 from multi_cluster_simulator_tpu_torch.obs.device import MetricsBuffer
+from multi_cluster_simulator_tpu_torch.ops import queues as Q
+from multi_cluster_simulator_tpu_torch.ops import runset as R
 from multi_cluster_simulator_tpu_torch.policies.base import PolicyParams
 from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
 
 
+# a field typed with a wide class holds its compact class where the leaves
+# are the compact layout's (keyed by the class's first SoA leaf)
+_COMPACT = {Q.JobQueue: (Q.SoAJobQueue, ".f_id"),
+            R.RunningSet: (R.SoARunningSet, ".f_end_t")}
+
+
 def _build(cls, leaves: dict, prefix: str, device, used: set):
+    if cls in _COMPACT and prefix + _COMPACT[cls][1] in leaves:
+        cls = _COMPACT[cls][0]
     hints = typing.get_type_hints(cls)
     kw = {}
     for f in dataclasses.fields(cls):

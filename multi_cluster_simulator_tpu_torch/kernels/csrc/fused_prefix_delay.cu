@@ -5,8 +5,8 @@
 //   fused_prefix (its pallas_call), on the span the reference's live
 //   scheduler engages: [release, ingest (packed rows -> Level0), schedule:
 //   DELAY in its serial form (with the parity-mode remove-then-skip quirk)
-//   or its wave form], terminal, wide layout, with or without the metrics
-//   tap. The TPU kernel replays the traced jaxpr of Engine._span_prefix on
+//   or its wave form], terminal, either state layout, with or without the
+//   metrics tap. The TPU kernel replays the traced jaxpr of Engine._span_prefix on
 //   a block of clusters; this kernel is written from the semantics instead
 //   (core/engine.py _release_local and _ingest_packed_local,
 //   policies/kernels.py _delay_local / _delay_wave_local / _delay_l0_head
@@ -55,8 +55,7 @@
 //   reads each node slot's active flag and expiry (N + 4N B) and writes
 //   the slots that expire (their flag, 3 capacity and 3 free words, and
 //   the expiry). Another instantiation, so the forms without it keep
-//   their code, registers and stacks (nvcc -Xptxas -v: 64 registers
-//   each, PERF.md).
+//   their code, registers and stacks.
 //
 // The faults form (kFaults; the fault plane) opens the span with
 //   prefix_common.cuh's fault step, requeueing killed jobs into Level0 (and
@@ -74,8 +73,9 @@
 //   their code and registers (the tap keeps ~20 more values live and needs
 //   every thread of a block at its warp-wide sums). It is instantiated
 //   without the expire flag only, since the trader is never terminal: 12
-//   forms in all. nvcc -Xptxas -v on the H100 build: 64 registers in all
-//   12, 128 B of stack, no spills.
+//   forms in all.
+//
+// The state layout is a runtime property, as in fused_prefix_fifo.cu.
 //
 // The windowed ingest (an Arrivals stream: BASELINE config 1, the oracle
 //   parity runs) is a runtime branch of prefix_common.cuh Cluster::ingest
@@ -97,7 +97,7 @@ using namespace prefix;
 
 struct Args {
   Level0Args q;
-  int32_t* l1;        // [C, Q, NF]
+  QueueTable l1;      // [C, Q] rows
   int32_t* l1_count;  // [C]
   int skip;           // parity mode's remove-then-skip quirk
   int32_t max_wait;   // params.max_wait_ms
@@ -107,12 +107,14 @@ struct Args {
   Tap p;
 };
 
+// The span of one cluster; returns the node exit narrow's count.
 template <bool kEmit, bool kExpire, bool kFaults>
-__device__ __forceinline__ void delay_prefix(const Args& a, int c) {
+__device__ __forceinline__ int delay_prefix(const Args& a, int c) {
   const Common& k = a.q.k;
-  Cluster cl(k, c);
-  int32_t* l0 = a.q.l0 + (size_t)c * k.Q * NF;
-  int32_t* l1 = a.l1 + (size_t)c * k.Q * NF;
+  int32_t lfree[kNodeWords];
+  Cluster cl(k, c, lfree);
+  const QueueRows l0 = queue_rows(a.q.l0, c, k.Q);
+  const QueueRows l1 = queue_rows(a.l1, c, k.Q);
 
   // 0. the faults form's fault phase, requeueing into Level0.
   int drop_queue = 0;
@@ -132,31 +134,32 @@ __device__ __forceinline__ void delay_prefix(const Args& a, int c) {
   uint32_t mask[kMaskWords];
   QueueOrder order;
   sweep(cl, l1, n1, imin(n1, k.QC), order, FirstFitPick{}, SRC_L1,
-        a.q.wave != 0, a.skip != 0, acc, mask);
+        a.q.wave != 0, clamped(a.q.l0, c) || clamped(a.l1, c), a.skip != 0,
+        acc, mask);
   n1 = compact_placed(l1, n1, acc, mask);
+  int l1_bad = acc.bad;
 
-  // 4. the Level0 head.
+  // 4. the Level0 head: its rec_wait store (set_field_elem) and the
+  //    promotion's push_back are checked.
   if (n0 > 0) {
-    int32_t* job = l0;
+    int32_t job[NF];
+    l0.load(0, job);
     record_wait(job, k.t, false, acc);  // one f32 add, after the sweep's
+    l0.count(c, l0.set_checked(0, FREC, job[FREC]));
     const bool success = cl.attempt(job, SRC_L0, &acc.run_full);
     const bool promote =
         !success && wrap_sub(k.t, job[FENQ]) >= a.max_wait;
     if (promote) {
       if (n1 < k.Q) {
-        copy_row(l1 + n1 * NF, job);
+        l1_bad += l1.store_checked(n1, job);
         ++n1;
       } else {
         ++drop_queue;
       }
     }
-    if (success || promote) {
-      for (int i = 0; i + 1 < n0; ++i) copy_row(l0 + i * NF,
-                                                 l0 + (i + 1) * NF);
-      set_queue_invalid(l0 + (n0 - 1) * NF);
-      --n0;
-    }
+    if (success || promote) n0 = pop_front_n(l0, n0, 1);
   }
+  l1.count(c, l1_bad);
 
   a.q.l0_count[c] = n0;
   a.l1_count[c] = n1;
@@ -165,6 +168,7 @@ __device__ __forceinline__ void delay_prefix(const Args& a, int c) {
   k.drop_queue[c] += drop_queue;
   k.drop_run_full[c] += acc.run_full;
   k.placed_total[c] += cl.placed;
+  return cl.store_nodes();
 }
 
 // One thread per cluster runs its span; the tap form then closes it with
@@ -176,54 +180,56 @@ __global__ void __launch_bounds__(32)
 fused_prefix_delay_kernel(const __grid_constant__ Args a) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = c < a.q.k.C;
-  if (active) delay_prefix<kEmit, kExpire, kFaults>(a, c);
+  const int bad = active ? delay_prefix<kEmit, kExpire, kFaults>(a, c) : 0;
   if (kTap) tap_epilogue(a.p, a.q.k, c, active);
+  if (a.q.k.node_size != 4) node_exit_epilogue(a.q.k, a.p, kTap, bad);
 }
 
 }  // namespace
 
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
 // so the Python wrapper can raise on a refused launch. The leading
-// arguments are prefix_common.cuh's Common, in its order; then Level0 and
-// its counters, Level1, the emit outputs, the expire form's node columns,
-// the flags and the promotion threshold, the emit flags (the terminal
-// form when `emit` is 0) and the expire flag.
-// The faults form's leaves, node capacities and lent queue follow the
+// arguments are prefix_common.cuh's Common, in its order; then Level0's
+// count and counters, Level1's count, the emit outputs, the expire form's
+// node columns, the flags and the promotion threshold, the emit flags (the
+// terminal form when `emit` is 0) and the expire flag.
+// The faults form's leaves, node capacities and lent count follow the
 // expire form's columns, and its flag and settings (interval slots, trace
 // mode, mttf, mttr, retry budget) the expire flag; its pointers are null
-// and unread when `faults` is 0.
+// and unread when `faults` is 0. `layout` (host memory) holds the node
+// columns' value size, the node exit scratch, and the column views of the
+// running set, the lent queue, Level0 and Level1.
 extern "C" int fused_prefix_delay_launch(
-    void* node_free, void* node_active, void* run, void* run_active,
-    void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
-    void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
-    void* rows, void* counts, void* drop_ingest, void* l0, void* l0_count,
-    void* wait_total, void* wait_jobs, void* jobs_in_queue, void* l1,
-    void* l1_count, void* ret_rows, void* ret_valid, void* drop_msgs,
-    void* want, void* bjob, void* node_cap, void* node_expire, void* health,
-    void* was_active, void* next_fail, void* down_until, void* down_since,
-    void* n_fails, void* kills, void* requeues, void* down_ms, void* fail_t,
-    void* repair_t, void* key, void* drop_failed, void* fault_cap,
-    void* fault_lent, void* fault_lent_count, int C, int N, int R, int Q,
-    int S, int K, int E, int QC, int record_trace, int t, int window, int wave,
-    int skip, int max_wait, int M, int emit, int borrowing, int expire,
-    int faults, int fault_events, int fault_trace, int mttf, int mttr,
-    int max_retries, int tap, int slot, const void* const* tap_ptrs,
-    void* stream) {
+    void* node_free, void* node_active, void* run_active, void* arr_ptr,
+    void* drop_queue, void* drop_run_full, void* placed_total, void* tr_t,
+    void* tr_job, void* tr_node, void* tr_src, void* tr_n, void* rows,
+    void* counts, void* drop_ingest, void* l0_count, void* wait_total,
+    void* wait_jobs, void* jobs_in_queue, void* l1_count, void* ret_rows,
+    void* ret_valid, void* drop_msgs, void* want, void* bjob, void* node_cap,
+    void* node_expire, void* health, void* was_active, void* next_fail,
+    void* down_until, void* down_since, void* n_fails, void* kills,
+    void* requeues, void* down_ms, void* fail_t, void* repair_t, void* key,
+    void* drop_failed, void* fault_cap, void* fault_lent_count, int C, int N,
+    int R, int Q, int S, int K, int E, int QC, int record_trace, int t,
+    int window, int wave, int skip, int max_wait, int M, int emit,
+    int borrowing, int expire, int faults, int fault_events, int fault_trace,
+    int mttf, int mttr, int max_retries, int tap, int slot,
+    const int64_t* layout, const void* const* tap_ptrs, void* stream) {
   if (Q > kMaxQueue) return static_cast<int>(cudaErrorInvalidValue);
-  const Common k = make_common(node_free, node_active, run, run_active,
-                               arr_ptr, drop_queue, drop_run_full,
-                               placed_total, tr_t, tr_job, tr_node, tr_src,
-                               tr_n, rows, counts, drop_ingest, C, N, R, Q, S,
-                               K, E, QC, record_trace, t, window);
-  Args a{make_level0(k, l0, l0_count, wait_total, wait_jobs, jobs_in_queue,
-                     wave),
-         static_cast<int32_t*>(l1), static_cast<int32_t*>(l1_count), skip,
-         max_wait,
+  const Common k = make_common(node_free, node_active, run_active, arr_ptr,
+                               drop_queue, drop_run_full, placed_total, tr_t,
+                               tr_job, tr_node, tr_src, tr_n, rows, counts,
+                               drop_ingest, C, N, R, Q, S, K, E, QC,
+                               record_trace, t, window, layout);
+  Args a{make_level0(k, layout, l0_count, wait_total, wait_jobs,
+                     jobs_in_queue, wave),
+         make_table<NF>(layout, kOwnTable + 1),
+         static_cast<int32_t*>(l1_count), skip, max_wait,
          make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing),
          make_expire(node_cap, node_expire),
          make_faults(health, was_active, next_fail, down_until, down_since,
                      n_fails, kills, requeues, down_ms, fail_t, repair_t, key,
-                     drop_failed, fault_cap, fault_lent, fault_lent_count,
+                     drop_failed, fault_cap, layout, fault_lent_count,
                      fault_events, fault_trace, mttf, mttr, max_retries),
          make_tap(tap ? tap_ptrs : nullptr, slot)};
   if (C > 0) {

@@ -4,8 +4,8 @@
 // Replaces: the TPU kernel multi_cluster_simulator_tpu/kernels/fused_tick.py
 //   fused_prefix (its pallas_call), on the span the first-fit-decreasing
 //   bin-pack engages: [release, ingest (packed rows -> Level0), schedule:
-//   FFD in its serial or its wave form], terminal, wide layout, with or
-//   without the metrics tap. The TPU kernel replays the traced jaxpr of
+//   FFD in its serial or its wave form], terminal, either state layout,
+//   with or without the metrics tap. The TPU kernel replays the traced jaxpr of
 //   Engine._span_prefix on a block of clusters; this kernel is written
 //   from the semantics instead
 //   (core/engine.py _release_local and _ingest_packed_local,
@@ -75,8 +75,9 @@
 //   their code and registers (the tap keeps ~20 more values live and needs
 //   every thread of a block at its warp-wide sums). It is instantiated
 //   without the expire flag only, since the trader is never terminal: 12
-//   forms in all. nvcc -Xptxas -v on the H100 build: 64 registers in all
-//   12, 128 or 144 B of stack, no spills.
+//   forms in all.
+//
+// The state layout is a runtime property, as in fused_prefix_fifo.cu.
 //
 // The windowed ingest (an Arrivals stream: BASELINE config 1, the oracle
 //   parity runs) is a runtime branch of prefix_common.cuh Cluster::ingest
@@ -116,55 +117,59 @@ __global__ void __launch_bounds__(32)
 fused_prefix_ffd_kernel(const __grid_constant__ Args a) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = c < a.q.k.C;
+  int bad = 0;
   if (active) {
-    level0_prefix<kEmit, kExpire, kFaults>(a.q, a.e, a.x, a.f, c,
-                                           BfdOrder(a.mem_first),
-                                           FirstFitPick{});
+    bad = level0_prefix<kEmit, kExpire, kFaults>(a.q, a.e, a.x, a.f, c,
+                                                 BfdOrder(a.mem_first),
+                                                 FirstFitPick{});
   }
   if (kTap) tap_epilogue(a.p, a.q.k, c, active);
+  if (a.q.k.node_size != 4) node_exit_epilogue(a.q.k, a.p, kTap, bad);
 }
 
 }  // namespace
 
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
 // so the Python wrapper can raise on a refused launch. The leading
-// arguments are prefix_common.cuh's Common, in its order; then Level0 and
-// the FFD counters, the emit outputs, the two flags, and the emit flags
-// (the terminal form when `emit` is 0).
-// The faults form's leaves, node capacities and lent queue follow the
+// arguments are prefix_common.cuh's Common, in its order; then Level0's
+// count and the FFD counters, the emit outputs, the two flags, and the
+// emit flags (the terminal form when `emit` is 0).
+// The faults form's leaves, node capacities and lent count follow the
 // expire form's columns, and its flag and settings (interval slots, trace
 // mode, mttf, mttr, retry budget) the expire flag; its pointers are null
-// and unread when `faults` is 0.
+// and unread when `faults` is 0. `layout` (host memory) holds the node
+// columns' value size, the node exit scratch, and the column views of the
+// running set, the lent queue and Level0.
 extern "C" int fused_prefix_ffd_launch(
-    void* node_free, void* node_active, void* run, void* run_active,
-    void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
-    void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
-    void* rows, void* counts, void* drop_ingest, void* l0, void* l0_count,
-    void* wait_total, void* wait_jobs, void* jobs_in_queue, void* ret_rows,
-    void* ret_valid, void* drop_msgs, void* want, void* bjob, void* node_cap,
+    void* node_free, void* node_active, void* run_active, void* arr_ptr,
+    void* drop_queue, void* drop_run_full, void* placed_total, void* tr_t,
+    void* tr_job, void* tr_node, void* tr_src, void* tr_n, void* rows,
+    void* counts, void* drop_ingest, void* l0_count, void* wait_total,
+    void* wait_jobs, void* jobs_in_queue, void* ret_rows, void* ret_valid,
+    void* drop_msgs, void* want, void* bjob, void* node_cap,
     void* node_expire, void* health, void* was_active, void* next_fail,
     void* down_until, void* down_since, void* n_fails, void* kills,
     void* requeues, void* down_ms, void* fail_t, void* repair_t, void* key,
-    void* drop_failed, void* fault_cap, void* fault_lent,
-    void* fault_lent_count, int C, int N, int R, int Q, int S, int K, int E,
-    int QC, int record_trace, int t, int window, int wave, int mem_first,
-    int M, int emit, int borrowing, int expire, int faults, int fault_events,
-    int fault_trace, int mttf, int mttr, int max_retries, int tap, int slot,
+    void* drop_failed, void* fault_cap, void* fault_lent_count, int C, int N,
+    int R, int Q, int S, int K, int E, int QC, int record_trace, int t,
+    int window, int wave, int mem_first, int M, int emit, int borrowing,
+    int expire, int faults, int fault_events, int fault_trace, int mttf,
+    int mttr, int max_retries, int tap, int slot, const int64_t* layout,
     const void* const* tap_ptrs, void* stream) {
   if (Q > kMaxQueue) return static_cast<int>(cudaErrorInvalidValue);
-  const Common k = make_common(node_free, node_active, run, run_active,
-                               arr_ptr, drop_queue, drop_run_full,
-                               placed_total, tr_t, tr_job, tr_node, tr_src,
-                               tr_n, rows, counts, drop_ingest, C, N, R, Q, S,
-                               K, E, QC, record_trace, t, window);
-  Args a{make_level0(k, l0, l0_count, wait_total, wait_jobs, jobs_in_queue,
-                     wave),
+  const Common k = make_common(node_free, node_active, run_active, arr_ptr,
+                               drop_queue, drop_run_full, placed_total, tr_t,
+                               tr_job, tr_node, tr_src, tr_n, rows, counts,
+                               drop_ingest, C, N, R, Q, S, K, E, QC,
+                               record_trace, t, window, layout);
+  Args a{make_level0(k, layout, l0_count, wait_total, wait_jobs,
+                     jobs_in_queue, wave),
          mem_first,
          make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing),
          make_expire(node_cap, node_expire),
          make_faults(health, was_active, next_fail, down_until, down_since,
                      n_fails, kills, requeues, down_ms, fail_t, repair_t, key,
-                     drop_failed, fault_cap, fault_lent, fault_lent_count,
+                     drop_failed, fault_cap, layout, fault_lent_count,
                      fault_events, fault_trace, mttf, mttr, max_retries),
          make_tap(tap ? tap_ptrs : nullptr, slot)};
   if (C > 0) {

@@ -4,8 +4,8 @@
 // Replaces: the TPU kernel multi_cluster_simulator_tpu/kernels/fused_tick.py
 //   fused_prefix (its pallas_call), on the spans FIFO engages: [release,
 //   ingest (packed rows -> ReadyQueue or the windowed stream), schedule:
-//   FIFO], wide layout, with or without the metrics tap; terminal on the
-//   headline, and in the emit form (kEmit) with borrowing or run_io: the
+//   FIFO], either state layout, with or without the metrics tap; terminal
+//   on the headline, and in the emit form (kEmit) with borrowing or run_io: the
 //   release step's return pack (core/engine.py _pack_returns and
 //   drops.msgs) and the borrow request, want and bjob_vec
 //   (policies/kernels.py _fifo_local). The TPU kernel replays the traced
@@ -58,7 +58,7 @@
 //   flag and expiry (N + 4N B) and writes the slots that expire (their
 //   flag, 3 capacity and 3 free words, and the expiry). Another
 //   instantiation, so the forms without it keep their code, registers
-//   and stacks (nvcc -Xptxas -v: 64 registers each, PERF.md).
+//   and stacks.
 //
 // The faults form (kFaults; the fault plane, cfg.faults.enabled) opens the
 //   span with the fault phase (faults/apply.py fault_phase_local,
@@ -83,9 +83,27 @@
 //   their code and registers (the tap keeps ~20 more values live and needs
 //   every thread of a block at its warp-wide sums). It is instantiated
 //   without the expire flag only, since the trader is never terminal: 12
-//   forms in all. nvcc -Xptxas -v on the H100 build: 64 registers in all
-//   12, no stack but 8 B in two, no spills.
+//   forms in all.
 //
+// The state layout (core/compact.py) is a runtime property, as the
+//   windowed ingest is: the queues and the running set arrive as column
+//   views (prefix_common.cuh Col/Table/Rows) over the wide layout's
+//   packed int32 rows or the compact layout's narrow leaves (int8/int16/
+//   int32, one a field), so no template flag doubles the forms. A load
+//   widens to int32 and the steps compute as on the wide layout; a store
+//   into a narrow leaf is the checked narrow store (clamped to the dtype
+//   minimum, counted into the table's ovf) where the reference checks, a
+//   plain one where it moves stored values. On the packed rows every
+//   access keeps the rows' own pointer arithmetic (a uniform branch). The
+//   compact layout moves fewer bytes — the bound falls with them — but a
+//   row is ten scattered narrow loads. Narrow node columns (a terminal
+//   prefix) are widened into a local copy at entry and narrowed back,
+//   checked, at exit, the cross-cluster count applied by the last block
+//   (node_exit_epilogue). The local copy and the wave replay's arrays
+//   (prefix_common.cuh fifo_drain_waves, wave_place) cost each form about
+//   1.2-1.5 KB of stack frame, untouched on the wide layout; chip_smoke.py
+//   prints nvcc's registers, stack and spills for every form.
+
 // The windowed ingest (an Arrivals stream: BASELINE config 1, the oracle
 //   parity runs) is a runtime branch of prefix_common.cuh Cluster::ingest
 //   (Common::window >= 0), not a template axis, which would double the
@@ -109,12 +127,13 @@ constexpr int kThreads = 32;  // one warp per block, one cluster per thread
 
 struct Args {
   Common k;
-  int32_t* ready;        // [C, Q, NF]
+  QueueTable ready;      // [C, Q] rows
   int32_t* ready_count;  // [C]
-  int32_t* wait;
+  QueueTable wait;
   int32_t* wait_count;
-  int32_t* lent;
+  QueueTable lent;
   int32_t* lent_count;
+  int wave;              // cfg.fifo_drain == "wave"
   Emit e;
   Expire x;
   Faults f;
@@ -123,21 +142,20 @@ struct Args {
 
 // pop_front of a non-empty queue: shift the live rows left by one, INVALID
 // into the last live row (the rows past it are INVALID already).
-__device__ void pop_front(int32_t* q, int* count) {
-  const int n = *count;
-  for (int i = 0; i + 1 < n; ++i) copy_row(q + i * NF, q + (i + 1) * NF);
-  set_queue_invalid(q + (n - 1) * NF);
-  *count = n - 1;
+__device__ void pop_front(const QueueRows& q, int* count) {
+  *count = pop_front_n(q, *count, 1);
 }
 
+// The span of one cluster; returns the node exit narrow's count.
 template <bool kEmit, bool kExpire, bool kFaults>
-__device__ __forceinline__ void fifo_prefix(const Args& a, int c) {
+__device__ __forceinline__ int fifo_prefix(const Args& a, int c) {
   const Common& k = a.k;
   const int Q = k.Q;
-  Cluster cl(k, c);
-  int32_t* ready = a.ready + (size_t)c * Q * NF;
-  int32_t* wait = a.wait + (size_t)c * Q * NF;
-  int32_t* lent = a.lent + (size_t)c * Q * NF;
+  int32_t lfree[kNodeWords];
+  Cluster cl(k, c, lfree);
+  const QueueRows ready = queue_rows(a.ready, c, Q);
+  const QueueRows wait = queue_rows(a.wait, c, Q);
+  const QueueRows lent = queue_rows(a.lent, c, Q);
 
   // 0. the faults form's fault phase: kills on failed nodes, requeues into
   //    the ready queue (own jobs) and the lent queue (foreign ones),
@@ -145,7 +163,7 @@ __device__ __forceinline__ void fifo_prefix(const Args& a, int c) {
   int drop_queue = 0;
   if (kFaults) {
     int n_ingest = 0;
-    cl.faults(a.f, ready, a.ready_count + c, &drop_queue, &n_ingest);
+    cl.faults(a.f, a.ready, a.ready_count + c, &drop_queue, &n_ingest);
   }
 
   // 1. release every due running slot (the emit form packs the returns),
@@ -155,7 +173,7 @@ __device__ __forceinline__ void fifo_prefix(const Args& a, int c) {
 
   // 2. ingest: append the tick's arrivals to the ready queue.
   int arrived = 0;
-  int rcount = cl.ingest(ready, a.ready_count[c], &drop_queue, &arrived);
+  int rcount = cl.ingest(a.ready, a.ready_count[c], &drop_queue, &arrived);
 
   // 3. FIFO (Fifo(), scheduler.go:216-296).
   int run_full = 0;
@@ -166,34 +184,28 @@ __device__ __forceinline__ void fifo_prefix(const Args& a, int c) {
   //     head until the first failure, which moves to the wait queue.
   int n_taken = 0;
   bool any_fail = false;
-  int32_t fail_job[NF];
-  if (!wait_active) {
-    const int lim = imin(rcount, k.QC);
+  int32_t job[NF];  // the last job the drain attempted: the failing one
+  const int lim = wait_active ? 0 : imin(rcount, k.QC);
+  if (a.wave && clamped(a.ready, c) && k.N <= kMaxNarrowNodes &&
+      any_negative_demand(ready, lim)) {
+    fifo_drain_waves(cl, ready, lim, &run_full, &n_taken, &any_fail, job);
+  } else {
     for (int i = 0; i < lim; ++i) {
-      const int32_t* job = ready + i * NF;
+      ready.load(i, job);
       ++n_taken;  // the drain pops the failing job too
       if (!cl.attempt(job, SRC_READY, &run_full)) {
         any_fail = true;
-        copy_row(fail_job, job);
         break;
       }
     }
   }
-  // pop_front_n(ready, n_taken): rows [n_taken, rcount) move to the front,
-  // every row from the new count on becomes INVALID (those past the old
-  // count are).
-  if (n_taken > 0) {
-    const int n = imin(n_taken, rcount);
-    const int newcount = rcount - n;
-    for (int i = 0; i < newcount; ++i) copy_row(ready + i * NF,
-                                                ready + (i + n) * NF);
-    for (int i = newcount; i < rcount; ++i) set_queue_invalid(ready + i * NF);
-    rcount = newcount;
-  }
-  // push_back(wait, fail_job, any_fail); the drop reads the old count.
+  // pop_front_n(ready, n_taken)
+  rcount = pop_front_n(ready, rcount, n_taken);
+  // push_back(wait, fail_job, any_fail), checked; the drop reads the old
+  // count.
   if (any_fail) {
     if (wcount < Q) {
-      copy_row(wait + wcount * NF, fail_job);
+      wait.count(c, wait.store_checked(wcount, job));
       ++wcount;
     } else {
       ++drop_queue;
@@ -205,8 +217,12 @@ __device__ __forceinline__ void fifo_prefix(const Args& a, int c) {
   //     with borrowing, whether the attempt failed: the BorrowResources
   //     request (scheduler.go:234).
   const bool process_w = wcount > 0;
-  if (kEmit) copy_row(a.e.bjob + (size_t)c * NF, wait);
-  const bool wsuccess = process_w && cl.attempt(wait, SRC_WAIT, &run_full);
+  wait.load(0, job);
+  if (kEmit) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) a.e.bjob[(size_t)c * NF + f] = job[f];
+  }
+  const bool wsuccess = process_w && cl.attempt(job, SRC_WAIT, &run_full);
   if (wsuccess) pop_front(wait, &wcount);
   if (kEmit) a.e.want[c] = a.e.borrowing && process_w && !wsuccess;
 
@@ -215,9 +231,9 @@ __device__ __forceinline__ void fifo_prefix(const Args& a, int c) {
   int lcount = a.lent_count[c];
   //     A lent row's owner (the borrower's index) goes into its running
   //     row, so that its completion returns it.
-  if (!wait_active && !any_fail && rcount == 0 && lcount > 0 &&
-      cl.attempt(lent, SRC_LENT, &run_full)) {
-    pop_front(lent, &lcount);
+  if (!wait_active && !any_fail && rcount == 0 && lcount > 0) {
+    lent.load(0, job);
+    if (cl.attempt(job, SRC_LENT, &run_full)) pop_front(lent, &lcount);
   }
 
   a.ready_count[c] = rcount;
@@ -226,6 +242,7 @@ __device__ __forceinline__ void fifo_prefix(const Args& a, int c) {
   k.drop_queue[c] += drop_queue;
   k.drop_run_full[c] += run_full;
   k.placed_total[c] += cl.placed;
+  return cl.store_nodes();
 }
 
 // One thread per cluster runs its span; the tap form then closes it with
@@ -237,8 +254,9 @@ __global__ void __launch_bounds__(kThreads)
 fused_prefix_fifo_kernel(const __grid_constant__ Args a) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = c < a.k.C;
-  if (active) fifo_prefix<kEmit, kExpire, kFaults>(a, c);
+  const int bad = active ? fifo_prefix<kEmit, kExpire, kFaults>(a, c) : 0;
   if (kTap) tap_epilogue(a.p, a.k, c, active);
+  if (a.k.node_size != 4) node_exit_epilogue(a.k, a.p, kTap, bad);
 }
 
 }  // namespace
@@ -246,41 +264,47 @@ fused_prefix_fifo_kernel(const __grid_constant__ Args a) {
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
 // so the Python wrapper can raise on a refused launch. The leading
 // arguments are prefix_common.cuh's Common, in its order; then the three
-// FIFO queues, the emit outputs, the expire form's node columns, the emit
-// flags (the terminal form when `emit` is 0, its pointers then null) and
-// the expire flag (its pointers null when 0).
-// The faults form's leaves, node capacities and lent queue follow the
+// FIFO queues' counts, the emit outputs, the expire form's node columns,
+// the emit flags (the terminal form when `emit` is 0, its pointers then
+// null) and the expire flag (its pointers null when 0).
+// The faults form's leaves, node capacities and lent count follow the
 // expire form's columns, and its flag and settings (interval slots, trace
 // mode, mttf, mttr, retry budget) the expire flag; its pointers are null
-// and unread when `faults` is 0.
+// and unread when `faults` is 0. `wave` is the drain's form (the waves
+// replayed where a row demands a negative amount, prefix_common.cuh
+// fifo_drain_waves). `layout` (host memory) holds the node columns' value
+// size, the node exit scratch, and the column views of the running set,
+// the lent, ready and wait queues (prefix_common.cuh make_table's order).
 extern "C" int fused_prefix_fifo_launch(
-    void* node_free, void* node_active, void* run, void* run_active,
-    void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
-    void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
-    void* rows, void* counts, void* drop_ingest, void* ready,
-    void* ready_count, void* wait, void* wait_count, void* lent,
+    void* node_free, void* node_active, void* run_active, void* arr_ptr,
+    void* drop_queue, void* drop_run_full, void* placed_total, void* tr_t,
+    void* tr_job, void* tr_node, void* tr_src, void* tr_n, void* rows,
+    void* counts, void* drop_ingest, void* ready_count, void* wait_count,
     void* lent_count, void* ret_rows, void* ret_valid, void* drop_msgs,
     void* want, void* bjob, void* node_cap, void* node_expire, void* health,
     void* was_active, void* next_fail, void* down_until, void* down_since,
     void* n_fails, void* kills, void* requeues, void* down_ms, void* fail_t,
     void* repair_t, void* key, void* drop_failed, void* fault_cap,
-    void* fault_lent, void* fault_lent_count, int C, int N, int R, int Q,
-    int S, int K, int E, int QC, int record_trace, int t, int window, int M,
-    int emit, int borrowing, int expire, int faults, int fault_events,
-    int fault_trace, int mttf, int mttr, int max_retries, int tap, int slot,
-    const void* const* tap_ptrs, void* stream) {
-  Args a{make_common(node_free, node_active, run, run_active, arr_ptr,
-                     drop_queue, drop_run_full, placed_total, tr_t, tr_job,
-                     tr_node, tr_src, tr_n, rows, counts, drop_ingest, C, N, R,
-                     Q, S, K, E, QC, record_trace, t, window),
-         static_cast<int32_t*>(ready), static_cast<int32_t*>(ready_count),
-         static_cast<int32_t*>(wait), static_cast<int32_t*>(wait_count),
-         static_cast<int32_t*>(lent), static_cast<int32_t*>(lent_count),
+    void* fault_lent_count, int C, int N, int R, int Q, int S, int K, int E,
+    int QC, int record_trace, int t, int window, int wave, int M, int emit,
+    int borrowing, int expire, int faults, int fault_events, int fault_trace,
+    int mttf, int mttr, int max_retries, int tap, int slot,
+    const int64_t* layout, const void* const* tap_ptrs, void* stream) {
+  Args a{make_common(node_free, node_active, run_active, arr_ptr, drop_queue,
+                     drop_run_full, placed_total, tr_t, tr_job, tr_node,
+                     tr_src, tr_n, rows, counts, drop_ingest, C, N, R, Q, S,
+                     K, E, QC, record_trace, t, window, layout),
+         make_table<NF>(layout, kOwnTable),
+         static_cast<int32_t*>(ready_count),
+         make_table<NF>(layout, kOwnTable + 1),
+         static_cast<int32_t*>(wait_count),
+         make_table<NF>(layout, kLentTable),
+         static_cast<int32_t*>(lent_count), wave,
          make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing),
          make_expire(node_cap, node_expire),
          make_faults(health, was_active, next_fail, down_until, down_since,
                      n_fails, kills, requeues, down_ms, fail_t, repair_t, key,
-                     drop_failed, fault_cap, fault_lent, fault_lent_count,
+                     drop_failed, fault_cap, layout, fault_lent_count,
                      fault_events, fault_trace, mttf, mttr, max_retries),
          make_tap(tap ? tap_ptrs : nullptr, slot)};
   if (C > 0) {

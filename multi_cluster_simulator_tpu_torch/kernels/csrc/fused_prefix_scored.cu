@@ -4,8 +4,8 @@
 // Replaces: the TPU kernel multi_cluster_simulator_tpu/kernels/fused_tick.py
 //   fused_prefix (its pallas_call), on the spans the scored kinds of the
 //   policy zoo engage: [release, ingest (packed rows -> Level0), schedule:
-//   the serial Level0 sweep with a scored node pick], terminal, wide
-//   layout, with or without the metrics tap. Written from the semantics
+//   the serial Level0 sweep with a scored node pick], terminal, either
+//   state layout, with or without the metrics tap. Written from the semantics
 //   (policies/kernels.py _scored_sweep_local with _gavel_local,
 //   _tesserae_local and _rl_local of the port) and held bitwise against
 //   the port's plain PyTorch version (kernels/fused_tick.py
@@ -64,8 +64,9 @@
 //   their code and registers (the tap keeps ~20 more values live and needs
 //   every thread of a block at its warp-wide sums). It is instantiated
 //   without the expire flag only, since the trader is never terminal: 12
-//   forms in all. nvcc -Xptxas -v on the H100 build: 67 registers in the
-//   untapped forms and 70 in the tap forms, 144 B of stack, no spills.
+//   forms in all.
+//
+// The state layout is a runtime property, as in fused_prefix_fifo.cu.
 //
 // The windowed ingest (an Arrivals stream: BASELINE config 1, the oracle
 //   parity runs) is a runtime branch of prefix_common.cuh Cluster::ingest
@@ -143,8 +144,9 @@ struct TesseraePick {
   __device__ int operator()(const Cluster& cl, const int32_t* job) const {
     const int R = cl.a.R;
     float rw[3];
-    for (int r = 0; r < R; ++r) {
-      rw[r] = __fmul_rn(__int2float_rn(job[FCORES + r]), w[r]);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {  // constant indices: `job` in registers
+      if (r < R) rw[r] = __fmul_rn(__int2float_rn(job[FCORES + r]), w[r]);
     }
     return best_scored_fit(cl, job, [&](int n) {
       const int32_t* f = cl.free + n * R;
@@ -164,59 +166,66 @@ __global__ void __launch_bounds__(32)
 fused_prefix_scored_kernel(const __grid_constant__ Args a) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = c < a.q.k.C;
+  int bad = 0;
   if (active && a.pick == kTesserae) {
-    level0_prefix<kEmit, kExpire, kFaults>(a.q, a.e, a.x, a.f, c,
-                                           BfdOrder(0), TesseraePick{a.w});
+    bad = level0_prefix<kEmit, kExpire, kFaults>(a.q, a.e, a.x, a.f, c,
+                                                 BfdOrder(0),
+                                                 TesseraePick{a.w});
   } else if (active) {
-    level0_prefix<kEmit, kExpire, kFaults>(
+    bad = level0_prefix<kEmit, kExpire, kFaults>(
         a.q, a.e, a.x, a.f, c, QueueOrder{},
         TablePick{a.table, a.node_type + (size_t)c * a.q.k.N});
   }
   if (kTap) tap_epilogue(a.p, a.q.k, c, active);
+  if (a.q.k.node_size != 4) node_exit_epilogue(a.q.k, a.p, kTap, bad);
 }
 
 }  // namespace
 
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
 // so the Python wrapper can raise on a refused launch. The leading
-// arguments are prefix_common.cuh's Common, in its order; then Level0 and
-// its counters, the node types, the emit outputs, the pick, the emit flags
-// (the terminal form when `emit` is 0), and the member's 16 table scores
-// and 3 weights (host memory, copied into the kernel's parameters).
-// The faults form's leaves, node capacities and lent queue follow the
+// arguments are prefix_common.cuh's Common, in its order; then Level0's
+// count and counters, the node types, the emit outputs, the pick, the emit
+// flags (the terminal form when `emit` is 0), then (host memory) the
+// layout — the node columns' value size, the node exit scratch, and the
+// column views of the running set, the lent queue and Level0 — and the
+// member's 16 table scores and 3 weights, copied into the kernel's
+// parameters.
+// The faults form's leaves, node capacities and lent count follow the
 // expire form's columns, and its flag and settings (interval slots, trace
 // mode, mttf, mttr, retry budget) the expire flag; its pointers are null
 // and unread when `faults` is 0.
 extern "C" int fused_prefix_scored_launch(
-    void* node_free, void* node_active, void* run, void* run_active,
-    void* arr_ptr, void* drop_queue, void* drop_run_full, void* placed_total,
-    void* tr_t, void* tr_job, void* tr_node, void* tr_src, void* tr_n,
-    void* rows, void* counts, void* drop_ingest, void* l0, void* l0_count,
-    void* wait_total, void* wait_jobs, void* jobs_in_queue, void* node_type,
-    void* ret_rows, void* ret_valid, void* drop_msgs, void* want, void* bjob,
-    void* node_cap, void* node_expire, void* health, void* was_active,
-    void* next_fail, void* down_until, void* down_since, void* n_fails,
-    void* kills, void* requeues, void* down_ms, void* fail_t, void* repair_t,
-    void* key, void* drop_failed, void* fault_cap, void* fault_lent,
-    void* fault_lent_count, int C, int N, int R, int Q, int S, int K, int E,
-    int QC, int record_trace, int t, int window, int pick, int M, int emit,
-    int borrowing, int expire, int faults, int fault_events, int fault_trace,
-    int mttf, int mttr, int max_retries, int tap, int slot, const float* table,
-    const float* w, const void* const* tap_ptrs, void* stream) {
+    void* node_free, void* node_active, void* run_active, void* arr_ptr,
+    void* drop_queue, void* drop_run_full, void* placed_total, void* tr_t,
+    void* tr_job, void* tr_node, void* tr_src, void* tr_n, void* rows,
+    void* counts, void* drop_ingest, void* l0_count, void* wait_total,
+    void* wait_jobs, void* jobs_in_queue, void* node_type, void* ret_rows,
+    void* ret_valid, void* drop_msgs, void* want, void* bjob, void* node_cap,
+    void* node_expire, void* health, void* was_active, void* next_fail,
+    void* down_until, void* down_since, void* n_fails, void* kills,
+    void* requeues, void* down_ms, void* fail_t, void* repair_t, void* key,
+    void* drop_failed, void* fault_cap, void* fault_lent_count, int C, int N,
+    int R, int Q, int S, int K, int E, int QC, int record_trace, int t,
+    int window, int pick, int M, int emit, int borrowing, int expire,
+    int faults, int fault_events, int fault_trace, int mttf, int mttr,
+    int max_retries, int tap, int slot, const int64_t* layout,
+    const float* table, const float* w, const void* const* tap_ptrs,
+    void* stream) {
   if (Q > kMaxQueue || R > 3) return static_cast<int>(cudaErrorInvalidValue);
-  const Common k = make_common(node_free, node_active, run, run_active,
-                               arr_ptr, drop_queue, drop_run_full,
-                               placed_total, tr_t, tr_job, tr_node, tr_src,
-                               tr_n, rows, counts, drop_ingest, C, N, R, Q, S,
-                               K, E, QC, record_trace, t, window);
-  Args a{make_level0(k, l0, l0_count, wait_total, wait_jobs, jobs_in_queue,
-                     0),
+  const Common k = make_common(node_free, node_active, run_active, arr_ptr,
+                               drop_queue, drop_run_full, placed_total, tr_t,
+                               tr_job, tr_node, tr_src, tr_n, rows, counts,
+                               drop_ingest, C, N, R, Q, S, K, E, QC,
+                               record_trace, t, window, layout);
+  Args a{make_level0(k, layout, l0_count, wait_total, wait_jobs,
+                     jobs_in_queue, 0),
          static_cast<const int32_t*>(node_type), pick, {}, {},
          make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing),
          make_expire(node_cap, node_expire),
          make_faults(health, was_active, next_fail, down_until, down_since,
                      n_fails, kills, requeues, down_ms, fail_t, repair_t, key,
-                     drop_failed, fault_cap, fault_lent, fault_lent_count,
+                     drop_failed, fault_cap, layout, fault_lent_count,
                      fault_events, fault_trace, mttf, mttr, max_retries),
          make_tap(tap ? tap_ptrs : nullptr, slot)};
   for (int i = 0; i < kClasses * kDeviceTypes; ++i) a.table[i] = table[i];

@@ -24,6 +24,26 @@
 // Every form takes the windowed Arrivals ingest as a runtime branch of the
 // shared ingest step (Common::window >= 0).
 //
+// The state layout is a runtime property too (core/compact.py): every
+// queue and the running set reach the kernels as a column view (Col, one
+// per field: a base, the bytes between rows and the value's size), which
+// serves the wide rows (base = data + 4 f, stride 4 NF, size 4) and the
+// compact layout's narrow leaves (base = the leaf, stride = size = 1, 2 or
+// 4) alike, so no template flag doubles the forms. Loads sign-extend to
+// int32 and a job or a running row is read into a local int32_t[NF] (the
+// reference's JobRec.vec) that the steps compute on unchanged. A store is
+// either the checked narrow store (ops/fields.py narrow_store: a value
+// outside the size's range is stored as its minimum and counted into the
+// table's ovf[c]) where the reference checks — arrival ingest, the fault
+// phase's requeues, the push_back of a queue, a rec_wait write — or a plain
+// store where it only moves stored values (compaction, the pops, the
+// placements' running rows). Narrow node columns (a terminal prefix; a
+// non-terminal tick hands the kernel the engine's widened ones) are read
+// into a local int32 copy at entry and stored back checked at exit, and
+// the exit's count — ONE total over every cluster, as the reference's
+// batch-wide narrow gives — is added to every cluster's run.ovf by the
+// last block to finish (node_exit_epilogue).
+//
 // Every function here works on ONE cluster, walked by one thread, in
 // place, in the reference's order. Integer discipline: all arithmetic is
 // int32 as in the reference; sums that could overflow (end_t = t + dur,
@@ -70,13 +90,247 @@ __host__ __device__ __forceinline__ int32_t wrap_sub(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a - (uint32_t)b);
 }
 
+// ---------------------------------------------------------------------------
+// The column view of a table (a queue or the running set) in either layout.
+// ---------------------------------------------------------------------------
+
+// One field of a [C, L] table: element (c, i) at base + (c L + i) stride,
+// stored in `size` bytes. Every access is scalar and naturally aligned to
+// its own size (a narrow leaf is not 4-byte aligned).
+struct Col {
+  char* base;
+  int32_t stride;
+  int32_t size;
+};
+
+// A table's W columns and its checked-narrow overflow counter ([C]; null
+// on the wide layout, whose stores never narrow). `rows` is set where the
+// columns are the wide layout's packed int32 rows (field f at word f of a
+// W-word row): the accessors then take the rows' own pointer arithmetic,
+// as the kernels did before the view, and a uniform branch picks it.
+template <int W>
+struct Table {
+  Col f[W];
+  int32_t* ovf;
+  int32_t* rows;
+};
+using QueueTable = Table<NF>;
+using RunTable = Table<RF>;
+
+// The host array of the tables' views (kernels/fused_tick.py _layout): two
+// header words (the node columns' value size, the node exit scratch), then
+// per table each field's base, stride and size and the ovf pointer, in the
+// order run, lent, then the kernel's own queues.
+constexpr int kLayoutHead = 2;
+constexpr int kTableWords = 3 * NF + 1;
+constexpr int kRunTable = 0, kLentTable = 1, kOwnTable = 2;
+
+template <int W>
+inline Table<W> make_table(const int64_t* layout, int index) {
+  const int64_t* w = layout + kLayoutHead + index * kTableWords;
+  Table<W> t;
+  for (int f = 0; f < W; ++f) {
+    t.f[f] = Col{reinterpret_cast<char*>(static_cast<intptr_t>(w[3 * f])),
+                 static_cast<int32_t>(w[3 * f + 1]),
+                 static_cast<int32_t>(w[3 * f + 2])};
+  }
+  t.ovf = reinterpret_cast<int32_t*>(static_cast<intptr_t>(w[3 * W]));
+  bool packed = true;
+  for (int f = 0; f < W; ++f) {
+    packed = packed && t.f[f].size == 4 && t.f[f].stride == 4 * W &&
+             t.f[f].base == t.f[0].base + 4 * f;
+  }
+  t.rows = packed ? reinterpret_cast<int32_t*>(t.f[0].base) : nullptr;
+  return t;
+}
+
+__host__ __device__ __forceinline__ int32_t load_as(const char* p, int size) {
+  if (size == 1) return *reinterpret_cast<const int8_t*>(p);
+  if (size == 2) return *reinterpret_cast<const int16_t*>(p);
+  return *reinterpret_cast<const int32_t*>(p);
+}
+
+// A plain store: the low bytes, as the reference's unchecked astype.
+__host__ __device__ __forceinline__ void store_as(char* p, int size,
+                                                  int32_t v) {
+  if (size == 1) {
+    *reinterpret_cast<int8_t*>(p) = static_cast<int8_t>(v);
+  } else if (size == 2) {
+    *reinterpret_cast<int16_t*>(p) = static_cast<int16_t>(v);
+  } else {
+    *reinterpret_cast<int32_t*>(p) = v;
+  }
+}
+
+// The checked narrow store (ops/fields.py narrow_store): a value outside
+// the size's range is stored as its minimum, never wrapped; returns 1
+// then, for the caller to count.
+__host__ __device__ __forceinline__ int store_checked_as(char* p, int size,
+                                                         int32_t v) {
+  const int32_t lo = size == 1 ? -128 : (size == 2 ? -32768 : INT32_MIN);
+  const int32_t hi = size == 1 ? 127 : (size == 2 ? 32767 : INT32_MAX);
+  const bool fit = v >= lo && v <= hi;
+  store_as(p, size, fit ? v : lo);
+  return fit ? 0 : 1;
+}
+
+// One cluster's rows of a table: slot i is table row r0 + i. On the
+// packed wide rows `rp` points at the cluster's first row and every access
+// is its own pointer arithmetic (null on narrow columns). Moves of whole
+// rows (the pops, the compaction) go field by field on narrow columns,
+// each column's size branch taken once per move.
+template <int W>
+struct Rows {
+  const Table<W>* t;
+  size_t r0;
+  int32_t* rp;
+
+  __host__ __device__ Rows(const Table<W>* table, size_t first)
+      : t(table), r0(first),
+        rp(table->rows != nullptr ? table->rows + first * W : nullptr) {}
+
+  __host__ __device__ char* at(int i, int f) const {
+    return t->f[f].base + (r0 + i) * (size_t)t->f[f].stride;
+  }
+  __host__ __device__ int32_t get(int i, int f) const {
+    if (rp != nullptr) return rp[(size_t)i * W + f];
+    return load_as(at(i, f), t->f[f].size);
+  }
+  __host__ __device__ void set(int i, int f, int32_t v) const {
+    if (rp != nullptr) {
+      rp[(size_t)i * W + f] = v;
+    } else {
+      store_as(at(i, f), t->f[f].size, v);
+    }
+  }
+  __host__ __device__ int set_checked(int i, int f, int32_t v) const {
+    if (rp != nullptr) {
+      rp[(size_t)i * W + f] = v;
+      return 0;
+    }
+    return store_checked_as(at(i, f), t->f[f].size, v);
+  }
+  __host__ __device__ void load(int i, int32_t* out) const {
+    if (rp != nullptr) {
+      const int32_t* r = rp + (size_t)i * W;
+#pragma unroll
+      for (int f = 0; f < W; ++f) out[f] = r[f];
+      return;
+    }
+#pragma unroll
+    for (int f = 0; f < W; ++f) out[f] = load_as(at(i, f), t->f[f].size);
+  }
+  __host__ __device__ void store(int i, const int32_t* in) const {
+    if (rp != nullptr) {
+      int32_t* r = rp + (size_t)i * W;
+#pragma unroll
+      for (int f = 0; f < W; ++f) r[f] = in[f];
+      return;
+    }
+#pragma unroll
+    for (int f = 0; f < W; ++f) store_as(at(i, f), t->f[f].size, in[f]);
+  }
+  // Returns how many of the row's values were outside their column.
+  __host__ __device__ int store_checked(int i, const int32_t* in) const {
+    if (rp != nullptr) {
+      store(i, in);
+      return 0;
+    }
+    int bad = 0;
+#pragma unroll
+    for (int f = 0; f < W; ++f) {
+      bad += store_checked_as(at(i, f), t->f[f].size, in[f]);
+    }
+    return bad;
+  }
+  __host__ __device__ void copy(int dst, int src) const {
+    if (rp != nullptr) {
+      int32_t* d = rp + (size_t)dst * W;
+      const int32_t* s = rp + (size_t)src * W;
+#pragma unroll
+      for (int f = 0; f < W; ++f) d[f] = s[f];
+      return;
+    }
+#pragma unroll
+    for (int f = 0; f < W; ++f) set(dst, f, get(src, f));
+  }
+  // Rows [src, src + n) to [dst, dst + n), dst < src (a forward copy).
+  __host__ __device__ void move(int dst, int src, int n) const {
+    if (rp != nullptr) {  // the packed rows are one run of words
+      int32_t* d = rp + (size_t)dst * W;
+      const int32_t* s = rp + (size_t)src * W;
+      if (W % 2 == 0 && ((reinterpret_cast<uintptr_t>(d) |
+                          reinterpret_cast<uintptr_t>(s)) & 7) == 0) {
+        // two words a load where both runs lie 8-byte aligned (an even W
+        // keeps every row so)
+        int2* d2 = reinterpret_cast<int2*>(d);
+        const int2* s2 = reinterpret_cast<const int2*>(s);
+        for (int k = 0; k < n * W / 2; ++k) d2[k] = s2[k];
+      } else {
+        for (int k = 0; k < n * W; ++k) d[k] = s[k];
+      }
+      return;
+    }
+    for (int f = 0; f < W; ++f) {
+      const size_t st = t->f[f].stride;
+      char* d = at(dst, f);
+      const char* s = at(src, f);
+      switch (t->f[f].size) {
+        case 1:
+          for (int k = 0; k < n; ++k) {
+            *reinterpret_cast<int8_t*>(d + k * st) =
+                *reinterpret_cast<const int8_t*>(s + k * st);
+          }
+          break;
+        case 2:
+          for (int k = 0; k < n; ++k) {
+            *reinterpret_cast<int16_t*>(d + k * st) =
+                *reinterpret_cast<const int16_t*>(s + k * st);
+          }
+          break;
+        default:
+          for (int k = 0; k < n; ++k) {
+            *reinterpret_cast<int32_t*>(d + k * st) =
+                *reinterpret_cast<const int32_t*>(s + k * st);
+          }
+      }
+    }
+  }
+  // Every field of rows [from, to) set to `invalid(f)`.
+  template <class Invalid>
+  __host__ __device__ void fill(int from, int to, Invalid invalid) const {
+    if (rp != nullptr) {
+      for (int i = from; i < to; ++i) {
+#pragma unroll
+        for (int f = 0; f < W; ++f) rp[(size_t)i * W + f] = invalid(f);
+      }
+      return;
+    }
+    for (int f = 0; f < W; ++f) {
+      const int32_t v = invalid(f);
+      for (int i = from; i < to; ++i) store_as(at(i, f), t->f[f].size, v);
+    }
+  }
+  // Add `bad` checked-store overflows to cluster c's counter.
+  __host__ __device__ void count(int c, int bad) const {
+    if (bad != 0) t->ovf[c] = wrap_add(t->ovf[c], bad);
+  }
+};
+using QueueRows = Rows<NF>;
+using RunRows = Rows<RF>;
+
+__host__ __device__ __forceinline__ QueueRows queue_rows(const QueueTable& t,
+                                                         int c, int Q) {
+  return QueueRows(&t, (size_t)c * Q);
+}
+
 // The pointers and sizes every prefix kernel takes first. Every pointer is
 // a tensor the Python wrapper checked for device, dtype, shape and
 // contiguity (kernels/fused_tick.py _common).
 struct Common {
-  int32_t* node_free;    // [C, N, R]
+  void* node_free;       // [C, N, R], node_size bytes a value
   uint8_t* node_active;  // [C, N], written by the expiry and fault steps
-  int32_t* run;                // [C, S, RF]
+  RunTable run;                // [C, S] rows of RF fields
   uint8_t* run_active;         // [C, S]
   int32_t* arr_ptr;            // [C]
   int32_t* drop_queue;         // [C]
@@ -93,21 +347,23 @@ struct Common {
   int32_t* drop_ingest;   // [C] drops.ingest, touched only when windowed
   int C, N, R, Q, S, K, E, QC, record_trace, t;
   int window;  // min(max_ingest_per_tick, A) when windowed, else -1
+  int node_size;          // 4, or the compact node columns' 1 or 2
+  int32_t* exit_scratch;  // [2] the node exit's total and blocks done
 };
 
 // Common from the leading arguments of every launch function, in the
-// wrapper's order.
-inline Common make_common(void* node_free, void* node_active, void* run,
+// wrapper's order, and the layout array.
+inline Common make_common(void* node_free, void* node_active,
                           void* run_active, void* arr_ptr, void* drop_queue,
                           void* drop_run_full, void* placed_total, void* tr_t,
                           void* tr_job, void* tr_node, void* tr_src,
                           void* tr_n, void* rows, void* counts,
                           void* drop_ingest, int C, int N, int R, int Q,
                           int S, int K, int E, int QC, int record_trace,
-                          int t, int window) {
-  return Common{static_cast<int32_t*>(node_free),
+                          int t, int window, const int64_t* layout) {
+  return Common{node_free,
                 static_cast<uint8_t*>(node_active),
-                static_cast<int32_t*>(run),
+                make_table<RF>(layout, kRunTable),
                 static_cast<uint8_t*>(run_active),
                 static_cast<int32_t*>(arr_ptr),
                 static_cast<int32_t*>(drop_queue),
@@ -121,7 +377,9 @@ inline Common make_common(void* node_free, void* node_active, void* run,
                 static_cast<const int32_t*>(rows),
                 static_cast<const int32_t*>(counts),
                 static_cast<int32_t*>(drop_ingest),
-                C, N, R, Q, S, K, E, QC, record_trace, t, window};
+                C, N, R, Q, S, K, E, QC, record_trace, t, window,
+                static_cast<int>(layout[0]),
+                reinterpret_cast<int32_t*>(static_cast<intptr_t>(layout[1]))};
 }
 
 // The emit form's outputs and flags, after each launch function's own
@@ -175,8 +433,8 @@ struct Faults {
   const int32_t* repair_t;  // [C, N, E] and ends
   const uint32_t* key;      // [C, 2] generative mode's stream roots
   int32_t* drop_failed;     // [C] drops.failed
-  const int32_t* node_cap;  // [C, N, R]
-  int32_t* lent;            // [C, Q, NF]
+  const char* node_cap;     // [C, N, R], Common::node_size bytes a value
+  QueueTable lent;          // [C, Q] rows
   int32_t* lent_count;      // [C]
   int E, trace, mttf, mttr, max_retries;
 };
@@ -185,9 +443,9 @@ inline Faults make_faults(void* health, void* was_active, void* next_fail,
                           void* down_until, void* down_since, void* n_fails,
                           void* kills, void* requeues, void* down_ms,
                           void* fail_t, void* repair_t, void* key,
-                          void* drop_failed, void* node_cap, void* lent,
-                          void* lent_count, int E, int trace, int mttf,
-                          int mttr, int max_retries) {
+                          void* drop_failed, void* node_cap,
+                          const int64_t* layout, void* lent_count, int E,
+                          int trace, int mttf, int mttr, int max_retries) {
   return Faults{static_cast<uint8_t*>(health),
                 static_cast<uint8_t*>(was_active),
                 static_cast<int32_t*>(next_fail),
@@ -201,8 +459,8 @@ inline Faults make_faults(void* health, void* was_active, void* next_fail,
                 static_cast<const int32_t*>(repair_t),
                 static_cast<const uint32_t*>(key),
                 static_cast<int32_t*>(drop_failed),
-                static_cast<const int32_t*>(node_cap),
-                static_cast<int32_t*>(lent),
+                static_cast<const char*>(node_cap),
+                make_table<NF>(layout, kLentTable),
                 static_cast<int32_t*>(lent_count),
                 E, trace, mttf, mttr, max_retries};
 }
@@ -422,15 +680,25 @@ __host__ __device__ __forceinline__ int32_t run_invalid(int f) {
   return f == REND ? NEVER : ((f == RID || f == ROWNER) ? -1 : 0);
 }
 
-__host__ __device__ __forceinline__ void set_queue_invalid(int32_t* row) {
-#pragma unroll
-  for (int f = 0; f < NF; ++f) row[f] = queue_invalid(f);
+struct QueueInvalid {
+  __host__ __device__ int32_t operator()(int f) const {
+    return queue_invalid(f);
+  }
+};
+struct RunInvalid {
+  __host__ __device__ int32_t operator()(int f) const {
+    return run_invalid(f);
+  }
+};
+
+__host__ __device__ __forceinline__ void set_queue_invalid(const QueueRows& q,
+                                                          int from, int to) {
+  q.fill(from, to, QueueInvalid{});
 }
 
-__host__ __device__ __forceinline__ void copy_row(int32_t* dst,
-                                                  const int32_t* src) {
-#pragma unroll
-  for (int f = 0; f < NF; ++f) dst[f] = src[f];
+__host__ __device__ __forceinline__ void set_run_invalid(const RunRows& r,
+                                                        int s) {
+  r.fill(s, s + 1, RunInvalid{});
 }
 
 // Whether a node's free resources `f` cover the job (ScheduleJob's >=,
@@ -452,26 +720,63 @@ __host__ __device__ inline int first_fit(const int32_t* free,
   return -1;
 }
 
+// The node slots a cluster may have on the compact layout's narrow node
+// columns: their free words are computed on in a local int32 copy
+// (kernels/fused_tick.py MAX_NARROW_NODES; the wrapper raises above it).
+constexpr int kMaxNarrowNodes = 32;
+constexpr int kNodeWords = kMaxNarrowNodes * 3;
+
 // One cluster's node vectors and running set, and what the tick has done
 // to them so far.
 struct Cluster {
   const Common& a;
   int c;
-  int32_t* free;
+  int32_t* free;  // the node free words: in place, or the local copy
   const uint8_t* nact;
-  int32_t* run;
+  RunRows run;
   uint8_t* ract;
   int slot;      // insertion cursor: every slot below it is active
   int n_active;  // active running slots
   int placed;    // placements this tick
 
-  __host__ __device__ Cluster(const Common& args, int cluster)
+  // On narrow node columns the free words are widened into `lfree` (the
+  // caller's kNodeWords, the span-entry widen, core/engine.py
+  // _widen_nodes) and computed on there.
+  __host__ __device__ Cluster(const Common& args, int cluster,
+                              int32_t* lfree)
       : a(args), c(cluster),
-        free(args.node_free + (size_t)cluster * args.N * args.R),
+        free(static_cast<int32_t*>(args.node_free) +
+             (size_t)cluster * args.N * args.R),
         nact(args.node_active + (size_t)cluster * args.N),
-        run(args.run + (size_t)cluster * args.S * RF),
+        run(&args.run, (size_t)cluster * args.S),
         ract(args.run_active + (size_t)cluster * args.S),
-        slot(0), n_active(0), placed(0) {}
+        slot(0), n_active(0), placed(0) {
+    if (a.node_size != 4) {
+      const int n = a.N * a.R;
+      const char* src = static_cast<const char*>(a.node_free) +
+                        (size_t)c * n * a.node_size;
+      for (int i = 0; i < n; ++i) {
+        lfree[i] = load_as(src + i * a.node_size, a.node_size);
+      }
+      free = lfree;
+    }
+  }
+
+  // The terminal exit narrow of narrow node columns (core/engine.py
+  // _narrow_nodes): each free word stored back checked; returns how many
+  // did not fit (0 on int32 columns, computed on in place). The capacity
+  // words need no store: no step of a terminal prefix writes them, and
+  // stored narrow they fit.
+  __host__ __device__ int store_nodes() const {
+    if (a.node_size == 4) return 0;
+    const int n = a.N * a.R;
+    char* dst = static_cast<char*>(a.node_free) + (size_t)c * n * a.node_size;
+    int bad = 0;
+    for (int i = 0; i < n; ++i) {
+      bad += store_checked_as(dst + i * a.node_size, a.node_size, free[i]);
+    }
+    return bad;
+  }
 
   // Release: every active slot with end_t <= t returns its resources to
   // its node and becomes an invalid, inactive row; counts the rest. The
@@ -492,11 +797,11 @@ struct Cluster {
       valid = e->ret_valid + (size_t)c * e->M;
       int n_ret = 0;
       for (int s = 0; s < a.S; ++s) {
-        const int32_t* row = run + s * RF;
-        if (!ract[s] || row[REND] > a.t || row[ROWNER] < 0) continue;
+        if (!ract[s] || run.get(s, REND) > a.t || run.get(s, ROWNER) < 0) {
+          continue;
+        }
         if (m < e->M) {
-#pragma unroll
-          for (int f = 0; f < RF; ++f) out[m * RF + f] = row[f];
+          run.load(s, out + m * RF);
           valid[m++] = 1;
         }
         ++n_ret;
@@ -504,19 +809,18 @@ struct Cluster {
       e->drop_msgs[c] += imax(n_ret - e->M, 0);
     }
     for (int s = 0; s < a.S; ++s) {
-      int32_t* row = run + s * RF;
       if (kEmit && m < e->M &&
-          !(ract[s] && row[REND] <= a.t && row[ROWNER] >= 0)) {
-#pragma unroll
-        for (int f = 0; f < RF; ++f) out[m * RF + f] = row[f];
+          !(ract[s] && run.get(s, REND) <= a.t && run.get(s, ROWNER) >= 0)) {
+        run.load(s, out + m * RF);
         valid[m++] = 0;
       }
       if (!ract[s]) continue;
-      if (row[REND] <= a.t) {
-        int node = imin(imax(row[RNODE], 0), a.N - 1);
-        for (int r = 0; r < a.R; ++r) free[node * a.R + r] += row[RCORES + r];
-#pragma unroll
-        for (int f = 0; f < RF; ++f) row[f] = run_invalid(f);
+      if (run.get(s, REND) <= a.t) {
+        int node = imin(imax(run.get(s, RNODE), 0), a.N - 1);
+        for (int r = 0; r < a.R; ++r) {
+          free[node * a.R + r] += run.get(s, RCORES + r);
+        }
+        set_run_invalid(run, s);
         ract[s] = 0;
       } else {
         ++n_active;
@@ -536,16 +840,17 @@ struct Cluster {
   // under its retry budget is requeued with enq_t = t, rec_wait = 0 and
   // retries + 1 — an own job into the ingest target `tgt` (its count at
   // *tgt_count; the requeues go into *n_ingest), a foreign one (owner >=
-  // 0) into the lent queue — past capacity into *drop_queue; a job at its
+  // 0) into the lent queue — past capacity into *drop_queue, each row
+  // through the checked store (the reference's push_many); a job at its
   // budget counts into drops.failed; a carve placeholder (owner -2) is
   // only killed.
-  __host__ __device__ void faults(const Faults& f, int32_t* tgt,
+  __host__ __device__ void faults(const Faults& f, const QueueTable& tgt_t,
                                   int32_t* tgt_count, int* drop_queue,
                                   int* n_ingest) {
     const int N = a.N, R = a.R, t = a.t;
     const size_t cn = (size_t)c * N;
     uint8_t* act = a.node_active + cn;
-    const int32_t* cap = f.node_cap + cn * R;
+    const char* cap = f.node_cap + cn * R * a.node_size;
     uint32_t failed[kMaxFaultNodes / 32] = {0u, 0u};
     bool any = false;
     int32_t down_ms = 0;
@@ -571,7 +876,10 @@ struct Cluster {
       }
       if (until <= t) {  // repairs now
         act[n] = f.was_active[i];
-        for (int r = 0; r < R; ++r) free[n * R + r] = cap[n * R + r];
+        for (int r = 0; r < R; ++r) {
+          free[n * R + r] = load_as(cap + (n * R + r) * a.node_size,
+                                    a.node_size);
+        }
         down_ms = wrap_add(down_ms, wrap_sub(t, f.down_since[i]));
         const int32_t k = f.n_fails[i] + 1;
         f.n_fails[i] = k;
@@ -585,9 +893,10 @@ struct Cluster {
     }
     if (down_ms != 0) f.down_ms[c] = wrap_add(f.down_ms[c], down_ms);
     if (!any) return;
-    int32_t* lent = f.lent + (size_t)c * a.Q * NF;
+    const QueueRows lent = queue_rows(f.lent, c, a.Q);
+    const QueueRows tgt = queue_rows(tgt_t, c, a.Q);
     int lcount = f.lent_count[c], tcount = *tgt_count;
-    int kills = 0, requeues = 0, exhausted = 0;
+    int kills = 0, requeues = 0, exhausted = 0, lbad = 0, tbad = 0;
     for (int s = 0; s < a.S; ++s) {
       // the active flags, 16 at a time where they lie 8-byte aligned: a
       // run of inactive slots (the slots past the lowest free one, mostly)
@@ -601,46 +910,45 @@ struct Cluster {
         }
       }
       if (!ract[s]) continue;
-      int32_t* row = run + s * RF;
-      const int32_t node = row[RNODE];
+      const int32_t node = run.get(s, RNODE);
       if (node < 0 || node >= N ||
           !(failed[node >> 5] & (1u << (node & 31)))) {
         continue;
       }
+      int32_t row[RF];
+      run.load(s, row);
       const int32_t owner = row[ROWNER];
       if (owner != -2) {  // a job, not a carve placeholder
         ++kills;
         if (row[RRETRIES] < f.max_retries) {
           ++requeues;
-          int32_t* dst = nullptr;
+          const int32_t job[NF] = {
+              row[RID], row[RCORES], row[RMEM], row[RGPU], row[RDUR], t,
+              owner, 0, (row[RGPU] > 0) * 2 + (row[RCORES] > 8),
+              wrap_add(row[RRETRIES], 1)};
           if (owner >= 0) {
-            dst = lcount < a.Q ? lent + (lcount++) * NF : nullptr;
+            if (lcount < a.Q) {
+              lbad += lent.store_checked(lcount++, job);
+            } else {
+              ++*drop_queue;
+            }
           } else {
             ++*n_ingest;
-            dst = tcount < a.Q ? tgt + (tcount++) * NF : nullptr;
-          }
-          if (dst == nullptr) {
-            ++*drop_queue;
-          } else {
-            dst[FID] = row[RID];
-            dst[FCORES] = row[RCORES];
-            dst[FMEM] = row[RMEM];
-            dst[FGPU] = row[RGPU];
-            dst[FDUR] = row[RDUR];
-            dst[FENQ] = t;
-            dst[FOWNER] = owner;
-            dst[FREC] = 0;
-            dst[FJCLASS] = (row[RGPU] > 0) * 2 + (row[RCORES] > 8);
-            dst[FRETRIES] = wrap_add(row[RRETRIES], 1);
+            if (tcount < a.Q) {
+              tbad += tgt.store_checked(tcount++, job);
+            } else {
+              ++*drop_queue;
+            }
           }
         } else {
           ++exhausted;
         }
       }
-#pragma unroll
-      for (int k = 0; k < RF; ++k) row[k] = run_invalid(k);
+      set_run_invalid(run, s);
       ract[s] = 0;
     }
+    lent.count(c, lbad);
+    tgt.count(c, tbad);
     f.lent_count[c] = lcount;
     *tgt_count = tcount;
     f.kills[c] += kills;
@@ -653,7 +961,8 @@ struct Cluster {
   // and free zeroed and its expiry back to NEVER. Physical nodes and
   // contracts that never end hold NEVER. One pass over the N node slots,
   // reading each slot's active flag and expiry and writing only the
-  // slots that expire.
+  // slots that expire. Expiry needs the trader, which is never terminal:
+  // the node columns are the engine's widened int32 ones.
   __host__ __device__ void expire(const Expire& x) {
     uint8_t* act = a.node_active + (size_t)c * a.N;
     int32_t* cap = x.node_cap + (size_t)c * a.N * a.R;
@@ -678,9 +987,11 @@ struct Cluster {
   // enq_t, so a prefix, counted up to its first row not due — of which
   // the first `window` are taken, the rest counting into drops.ingest;
   // the cursor advances by the taken count. `*arrived` is the count the
-  // cursor advanced by. Returns the new count.
-  __host__ __device__ int ingest(int32_t* q, int count, int* drop_queue,
-                                 int* arrived) {
+  // cursor advanced by. Each row goes through the checked store (the
+  // reference's push_many), counted into the queue's ovf. Returns the new
+  // count.
+  __host__ __device__ int ingest(const QueueTable& qt, int count,
+                                 int* drop_queue, int* arrived) {
     const int32_t* arows = a.rows + (size_t)c * a.K * NF;
     int cnt, n_take;
     if (a.window >= 0) {
@@ -700,29 +1011,30 @@ struct Cluster {
     const int room = a.Q - count;
     *drop_queue += imax(n_take - room, 0);
     const int added = imin(n_take, room);
-    for (int k = 0; k < added; ++k) copy_row(q + (count + k) * NF,
-                                             arows + k * NF);
+    const QueueRows q = queue_rows(qt, c, a.Q);
+    int bad = 0;
+    for (int k = 0; k < added; ++k) {
+      bad += q.store_checked(count + k, arows + k * NF);
+    }
+    q.count(c, bad);
     a.arr_ptr[c] += cnt;
     *arrived = cnt;
     return count + added;
   }
 
   // Start `job` on `node`: occupy its resources, write its running row into
-  // the lowest inactive slot, count it, and trace it.
+  // the lowest inactive slot (a plain store, as the reference's
+  // start_many), count it, and trace it.
   __host__ __device__ void place(const int32_t* job, int node, int32_t src) {
-    for (int r = 0; r < a.R; ++r) free[node * a.R + r] -= job[FCORES + r];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {  // constant indices: `job` stays in registers
+      if (r < a.R) free[node * a.R + r] -= job[FCORES + r];
+    }
     while (slot < a.S && ract[slot]) ++slot;  // caller checked n_active < S
-    int32_t* row = run + slot * RF;
-    row[REND] = wrap_add(a.t, job[FDUR]);
-    row[RNODE] = node;
-    row[RCORES] = job[FCORES];
-    row[RMEM] = job[FMEM];
-    row[RGPU] = job[FGPU];
-    row[RID] = job[FID];
-    row[ROWNER] = job[FOWNER];
-    row[RDUR] = job[FDUR];
-    row[RENQ] = job[FENQ];
-    row[RRETRIES] = job[FRETRIES];
+    const int32_t row[RF] = {wrap_add(a.t, job[FDUR]), node, job[FCORES],
+                             job[FMEM], job[FGPU], job[FID], job[FOWNER],
+                             job[FDUR], job[FENQ], job[FRETRIES]};
+    run.store(slot, row);
     ract[slot] = 1;
     ++n_active;
     ++placed;
@@ -773,7 +1085,7 @@ struct Cluster {
 // Queue order: position p is slot p.
 struct QueueOrder {
   int p = 0;
-  __host__ __device__ int next(const int32_t*, int) { return p++; }
+  __host__ __device__ int next(const QueueRows&, int) { return p++; }
 };
 
 // The best-fit-decreasing order, valid slots by (-key1, -key2, slot) with
@@ -797,12 +1109,12 @@ struct BfdOrder {
     return ai < bi;
   }
 
-  __host__ __device__ int next(const int32_t* q, int count) {
+  __host__ __device__ int next(const QueueRows& q, int count) {
     int best = -1;
     int32_t b1 = 0, b2 = 0;
     for (int i = 0; i < count; ++i) {
-      const int32_t* row = q + i * NF;
-      const int32_t k1 = wrap_sub(0, row[f1]), k2 = wrap_sub(0, row[f2]);
+      const int32_t k1 = wrap_sub(0, q.get(i, f1));
+      const int32_t k2 = wrap_sub(0, q.get(i, f2));
       if (last_i >= 0 && !less(last1, last2, last_i, k1, k2, i)) continue;
       if (best < 0 || less(k1, k2, i, b1, b2, best)) {
         best = i;
@@ -832,6 +1144,7 @@ struct SweepAcc {
   long long wave_sum = 0;  // the wave form's exact sum of wait deltas
   int run_full = 0;        // attempts that fit a node but found no slot
   int placed = 0;          // placements of this sweep
+  int bad = 0;             // rec_wait stores outside their column
 
   __host__ __device__ explicit SweepAcc(float wait_total)
       : total(wait_total) {}
@@ -853,22 +1166,199 @@ __host__ __device__ __forceinline__ void record_wait(int32_t* job, int t,
   job[FREC] = cur;
 }
 
+// ---------------------------------------------------------------------------
+// The speculative waves as the reference computes them, for rows with a
+// negative demand. The reference pins its wave forms equal to the serial
+// ones because free only shrinks as jobs place; a demand the compact
+// layout's checked store clamped to the dtype minimum (a mis-sized plan:
+// ovf > 0) is negative, and then a job that fits no node against the
+// wave's starting free may fit after an earlier job of the same wave
+// placed, where the serial form places it and the wave does not. So the
+// kernels run the serial form (its equal) unless a clamp reached the queue
+// (its ovf counter; arrival demands are not negative) and a row the sweep
+// may place has a negative demand, and then these, which replay the waves
+// (for at most kMaxNarrowNodes node slots, their local arrays: the wrapper
+// refuses a compact layout with more): each wave probes every unresolved
+// row against the free words at the wave's start (first fit, the
+// cumulative demand per target node against that node's free), and places
+// rows in position order — the order the reference's placement buffer
+// keeps — so the running slots and the trace come out the same.
+// ---------------------------------------------------------------------------
+
+// Has a checked store clamped a value into table t of cluster c (its
+// overflow counter, cumulative over the run)? Only a clamp makes a stored
+// demand negative: arrival demands are not, and a row's demand is stored
+// checked where it enters the cluster's queues.
+__host__ __device__ __forceinline__ bool clamped(const QueueTable& t, int c) {
+  return t.ovf != nullptr && t.ovf[c] != 0;
+}
+
+// Does one of the first `n` rows of `q` demand a negative amount?
+__host__ __device__ inline bool any_negative_demand(const QueueRows& q,
+                                                    int n) {
+  for (int i = 0; i < n; ++i) {
+    if (q.get(i, FCORES) < 0 || q.get(i, FMEM) < 0 || q.get(i, FGPU) < 0) {
+      return true;
+    }
+  }
+  return false;
+}
+
+// One wave's probe of one row: its first-fit node against the wave's
+// starting free words `w0` (-1: none), and whether the cumulative demand
+// `cum` of the rows that target that node, this one included, exceeds its
+// free words there (the reference's overflow).
+__host__ __device__ inline int wave_probe(const Cluster& cl,
+                                          const int32_t* w0, int32_t* cum,
+                                          const int32_t* job, bool* overflow) {
+  const int R = cl.a.R;
+  const int tgt = first_fit(w0, cl.nact, cl.a.N, R, job);
+  *overflow = false;
+  if (tgt < 0) return tgt;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    if (r >= R) break;
+    cum[tgt * R + r] = wrap_add(cum[tgt * R + r], job[FCORES + r]);
+    *overflow = *overflow || cum[tgt * R + r] > w0[tgt * R + r];
+  }
+  return tgt;
+}
+
+// The reference's _fifo_drain_wave over the ready queue's first `lim`
+// rows: each wave places the rows before its first breaker — a row that
+// overflows its node's group (probed again in the next wave), fits no
+// node or finds no running slot (both stop the drain: the failure). Sets
+// the jobs taken (placed, and the failing one), whether the drain failed
+// and the failing row into `job`.
+__host__ __device__ inline void fifo_drain_waves(Cluster& cl,
+                                                 const QueueRows& q, int lim,
+                                                 int* run_full, int* n_taken,
+                                                 bool* any_fail,
+                                                 int32_t* job) {
+  int32_t w0[kMaxNarrowNodes * 3], cum[kMaxNarrowNodes * 3];
+  const int nr = cl.a.N * cl.a.R;
+  int done = 0;  // rows [0, done) are resolved: the drain takes a prefix
+  *any_fail = false;
+  while (done < lim && !*any_fail) {
+    for (int i = 0; i < nr; ++i) {
+      w0[i] = cl.free[i];
+      cum[i] = 0;
+    }
+    const int cap_left = cl.a.S - cl.n_active;
+    int rank = 0;
+    for (int i = done; i < lim; ++i) {
+      q.load(i, job);
+      bool overflow;
+      const int tgt = wave_probe(cl, w0, cum, job, &overflow);
+      if (overflow) break;  // probed again next wave
+      if (tgt < 0 || rank >= cap_left) {  // the drain fails on this row
+        if (tgt >= 0) ++*run_full;
+        *any_fail = true;
+        ++done;
+        break;
+      }
+      cl.place(job, tgt, SRC_READY);
+      ++rank;
+      ++done;
+    }
+  }
+  *n_taken = done;
+}
+
+// The reference's _wave_place over the first `n_sweep` positions of
+// `order` (first fit): each wave resolves the rows that fit no node (never
+// placed), and, before its first overflowing row, places each row that
+// fits while running slots last and counts the rest into run_full; the
+// overflowing row and those after it are probed again. `mask` gets the
+// placed slots.
+template <class Order>
+__host__ __device__ void wave_place(Cluster& cl, const QueueRows& q,
+                                    int count, int n_sweep,
+                                    const Order& first, int32_t src,
+                                    SweepAcc& acc, uint32_t* mask) {
+  int32_t w0[kMaxNarrowNodes * 3], cum[kMaxNarrowNodes * 3];
+  uint32_t resolved[kMaskWords];
+  const int nr = cl.a.N * cl.a.R;
+  for (int w = 0; w < (n_sweep + 31) / 32; ++w) resolved[w] = 0u;
+  int left = n_sweep;
+  while (left > 0) {
+    for (int i = 0; i < nr; ++i) {
+      w0[i] = cl.free[i];
+      cum[i] = 0;
+    }
+    const int cap_left = cl.a.S - cl.n_active;
+    int rank = 0;
+    bool blocked = false;
+    Order order = first;
+    for (int p = 0; p < n_sweep; ++p) {
+      const int i = order.next(q, count);
+      if (resolved[p >> 5] & (1u << (p & 31))) continue;
+      int32_t job[NF];
+      q.load(i, job);
+      bool overflow = false;
+      const int tgt = blocked ? first_fit(w0, cl.nact, cl.a.N, cl.a.R, job)
+                              : wave_probe(cl, w0, cum, job, &overflow);
+      blocked = blocked || overflow;
+      if (tgt >= 0 && blocked) continue;
+      resolved[p >> 5] |= 1u << (p & 31);
+      --left;
+      if (tgt < 0) continue;  // fits no node: never placed
+      if (rank++ < cap_left) {
+        cl.place(job, tgt, src);
+        mask[i >> 5] |= 1u << (i & 31);
+      } else {
+        ++acc.run_full;
+      }
+    }
+  }
+}
+
+// The rows a sweep of `n_sweep` positions may place: the first `n_sweep`
+// slots in queue order, the whole queue in another order.
+__host__ __device__ inline int swept_rows(const QueueOrder&, int,
+                                          int n_sweep) {
+  return n_sweep;
+}
+template <class Order>
+__host__ __device__ inline int swept_rows(const Order&, int count, int) {
+  return count;
+}
+
 // The first `n_sweep` positions of `order` over the queue `q` holding
-// `count` rows, serially: each records its wait and is attempted on the
-// node `pick` chooses, with the has-slot check, and a placed slot is
-// marked in `mask`; `skip_after_success` is DELAY's parity quirk (a
-// success passes over the next position). The wave form's exact wait sum
-// is added to the total once, at the end. Placement is serial in both
-// forms: the reference pins its wave sweeps equal to the serial ones
-// (tests/test_kernel_equiv.py).
+// `count` rows, serially: each is read into a local row, records its wait
+// (the rec_wait store checked, as the reference's set_field; the count in
+// acc.bad) and is attempted on the node `pick` chooses, with the has-slot
+// check, and a placed slot is marked in `mask`; `skip_after_success` is
+// DELAY's parity quirk (a success passes over the next position). The
+// wave form's exact wait sum is added to the total once, at the end.
+// Placement is serial in both forms: the reference pins its wave sweeps
+// equal to the serial ones (tests/test_kernel_equiv.py).
+// `may_replay` (a clamp reached the queue) lets a negative demand among
+// the swept rows replay the waves in the wave form instead.
 template <class Order, class Pick>
-__host__ __device__ void sweep(Cluster& cl, int32_t* q, int count,
+__host__ __device__ void sweep(Cluster& cl, const QueueRows& q, int count,
                                int n_sweep, Order& order, const Pick& pick,
-                               int32_t src, bool wave,
+                               int32_t src, bool wave, bool may_replay,
                                bool skip_after_success, SweepAcc& acc,
                                uint32_t* mask) {
   for (int w = 0; w < (count + 31) / 32; ++w) mask[w] = 0u;
   const int before = cl.placed;
+  if (wave && may_replay && cl.a.N <= kMaxNarrowNodes &&
+      any_negative_demand(q, swept_rows(order, count, n_sweep))) {
+    // the waves' wait accounting, then their placements
+    const Order first = order;
+    for (int p = 0; p < n_sweep; ++p) {
+      const int i = order.next(q, count);
+      int32_t job[NF];
+      q.load(i, job);
+      record_wait(job, cl.a.t, true, acc);
+      acc.bad += q.set_checked(i, FREC, job[FREC]);
+    }
+    wave_place(cl, q, count, n_sweep, first, src, acc, mask);
+    acc.total = acc.total + (float)acc.wave_sum;
+    acc.placed = cl.placed - before;
+    return;
+  }
   bool skip = false;
   for (int p = 0; p < n_sweep; ++p) {
     const int i = order.next(q, count);
@@ -876,8 +1366,10 @@ __host__ __device__ void sweep(Cluster& cl, int32_t* q, int count,
       skip = false;
       continue;
     }
-    int32_t* job = q + i * NF;
+    int32_t job[NF];
+    q.load(i, job);
     record_wait(job, cl.a.t, wave, acc);
+    acc.bad += q.set_checked(i, FREC, job[FREC]);
     if (cl.attempt_on(job, pick(cl, job), src, &acc.run_full)) {
       mask[i >> 5] |= 1u << (i & 31);
       skip = skip_after_success;
@@ -890,18 +1382,42 @@ __host__ __device__ void sweep(Cluster& cl, int32_t* q, int count,
 // Stable-remove the slots the sweep placed from the queue's first `count`
 // rows; rows from the new count on become INVALID (rows at or past the
 // old count are INVALID already). Returns the new count.
-__host__ __device__ inline int compact_placed(int32_t* q, int count,
+__host__ __device__ inline int compact_placed(const QueueRows& q, int count,
                                               const SweepAcc& acc,
                                               const uint32_t* mask) {
   if (acc.placed == 0) return count;
   int kept = 0;
-  for (int i = 0; i < count; ++i) {
-    if (mask[i >> 5] & (1u << (i & 31))) continue;
-    if (kept != i) copy_row(q + kept * NF, q + i * NF);
-    ++kept;
+  if (q.rp != nullptr) {
+    for (int i = 0; i < count; ++i) {
+      if (mask[i >> 5] & (1u << (i & 31))) continue;
+      if (kept != i) q.copy(kept, i);
+      ++kept;
+    }
+  } else {
+    for (int f = 0; f < NF; ++f) {  // field by field on narrow columns
+      kept = 0;
+      for (int i = 0; i < count; ++i) {
+        if (mask[i >> 5] & (1u << (i & 31))) continue;
+        if (kept != i) q.set(kept, f, q.get(i, f));
+        ++kept;
+      }
+    }
   }
-  for (int i = kept; i < count; ++i) set_queue_invalid(q + i * NF);
+  set_queue_invalid(q, kept, count);
   return kept;
+}
+
+// pop_front_n of a queue holding `count` rows: rows [n, count) move to the
+// front and every row from the new count on becomes INVALID (those past
+// the old count are). Returns the new count.
+__host__ __device__ inline int pop_front_n(const QueueRows& q, int count,
+                                           int n) {
+  n = imin(n, count);
+  if (n <= 0) return count;
+  const int newcount = count - n;
+  q.move(0, n, newcount);
+  set_queue_invalid(q, newcount, count);
+  return newcount;
 }
 
 // ---------------------------------------------------------------------------
@@ -911,7 +1427,7 @@ __host__ __device__ inline int compact_placed(int32_t* q, int count,
 
 struct Level0Args {
   Common k;
-  int32_t* l0;             // [C, Q, NF]
+  QueueTable l0;           // [C, Q] rows
   int32_t* l0_count;       // [C]
   float* wait_total;       // [C]
   int32_t* wait_jobs;      // [C]
@@ -920,11 +1436,12 @@ struct Level0Args {
 };
 
 // Level0Args from the arguments after Common, in the wrappers' order.
-inline Level0Args make_level0(const Common& k, void* l0, void* l0_count,
-                              void* wait_total, void* wait_jobs,
-                              void* jobs_in_queue, int wave) {
+inline Level0Args make_level0(const Common& k, const int64_t* layout,
+                              void* l0_count, void* wait_total,
+                              void* wait_jobs, void* jobs_in_queue,
+                              int wave) {
   return Level0Args{k,
-                    static_cast<int32_t*>(l0),
+                    make_table<NF>(layout, kOwnTable),
                     static_cast<int32_t*>(l0_count),
                     static_cast<float*>(wait_total),
                     static_cast<int32_t*>(wait_jobs),
@@ -939,8 +1456,7 @@ __host__ __device__ inline int ingest_level0(const Level0Args& a,
                                              Cluster& cl, int* drop_queue) {
   const int c = cl.c;
   int arrived = 0;
-  const int count = cl.ingest(a.l0 + (size_t)c * a.k.Q * NF, a.l0_count[c],
-                              drop_queue, &arrived);
+  const int count = cl.ingest(a.l0, a.l0_count[c], drop_queue, &arrived);
   a.wait_jobs[c] += arrived;
   a.jobs_in_queue[c] += arrived;
   return count;
@@ -963,8 +1479,7 @@ __host__ __device__ inline void faults_level0(const Level0Args& a,
                                               int* drop_queue) {
   const int c = cl.c;
   int n_ingest = 0;
-  cl.faults(f, a.l0 + (size_t)c * a.k.Q * NF, a.l0_count + c, drop_queue,
-            &n_ingest);
+  cl.faults(f, a.l0, a.l0_count + c, drop_queue, &n_ingest);
   a.wait_jobs[c] += n_ingest;
   a.jobs_in_queue[c] += n_ingest;
 }
@@ -974,13 +1489,15 @@ __host__ __device__ inline void faults_level0(const Level0Args& a,
 // counters; the emit form also packs the returns and writes no borrow
 // request, the expire form expires the ended virtual nodes between
 // release and ingest, and the faults form opens with the fault phase.
+// Returns the node exit narrow's count (0 on int32 node columns).
 template <bool kEmit, bool kExpire, bool kFaults, class Order, class Pick>
-__host__ __device__ void level0_prefix(const Level0Args& a, const Emit& e,
-                                       const Expire& x, const Faults& f,
-                                       int c, Order order, const Pick& pick) {
+__host__ __device__ int level0_prefix(const Level0Args& a, const Emit& e,
+                                      const Expire& x, const Faults& f,
+                                      int c, Order order, const Pick& pick) {
   const Common& k = a.k;
-  Cluster cl(k, c);
-  int32_t* l0 = a.l0 + (size_t)c * k.Q * NF;
+  int32_t lfree[kNodeWords];
+  Cluster cl(k, c, lfree);
+  const QueueRows l0 = queue_rows(a.l0, c, k.Q);
   int drop_queue = 0;
   if (kFaults) faults_level0(a, cl, f, &drop_queue);
   cl.release<kEmit>(&e);
@@ -990,13 +1507,15 @@ __host__ __device__ void level0_prefix(const Level0Args& a, const Emit& e,
   SweepAcc acc(a.wait_total[c]);
   uint32_t mask[kMaskWords];
   sweep(cl, l0, count, imin(count, k.QC), order, pick, SRC_L0, a.wave != 0,
-        false, acc, mask);
+        clamped(a.l0, c), false, acc, mask);
   a.l0_count[c] = compact_placed(l0, count, acc, mask);
+  l0.count(c, acc.bad);
   a.wait_total[c] = acc.total;
   a.jobs_in_queue[c] -= cl.placed;
   k.drop_queue[c] += drop_queue;
   k.drop_run_full[c] += acc.run_full;
   k.placed_total[c] += cl.placed;
+  return cl.store_nodes();
 }
 
 
@@ -1010,7 +1529,11 @@ constexpr int kDepthBuckets = 16;  // obs/device.py OBS_DEPTH_BUCKETS
 // builds once per run (kernels/fused_tick.py _tap_args, in this order):
 // the buffer's per-cluster leaves and the cursor, updated in place; the
 // per-tick outputs; the buffer's cross-cluster leaves and a scratch of
-// three words (zero between launches); the state counters the tap reads.
+// three words (zero between launches); the state counters the tap reads;
+// the seven overflow counters of the compact layout (l0, l1, ready, wait,
+// lent, borrowed, run; null on the wide layout).
+constexpr int kOvfCounters = 7;
+
 struct Tap {
   int32_t *placed, *arrived, *borrows;
   float* wait_accrued;
@@ -1025,6 +1548,7 @@ struct Tap {
   const int32_t *lent_count, *l0_count, *l1_count, *ready_count,
       *wait_count, *kills_total, *requeues_total, *down_ms_total,
       *drop_failed;
+  const int32_t* ovf_total[kOvfCounters];
   int slot;  // the ring slot of the post-tick clock, (t / tick_ms) % 64
 };
 
@@ -1049,6 +1573,7 @@ inline Tap make_tap(const void* const* p, int slot) {
   t.lent_count = i32(); t.l0_count = i32(); t.l1_count = i32();
   t.ready_count = i32(); t.wait_count = i32(); t.kills_total = i32();
   t.requeues_total = i32(); t.down_ms_total = i32(); t.drop_failed = i32();
+  for (int k = 0; k < kOvfCounters; ++k) t.ovf_total[k] = i32();
   t.slot = slot;
   return t;
 }
@@ -1090,6 +1615,10 @@ static __device__ __noinline__ void tap_epilogue(const Tap& p,
     const float wait = p.wait_total[c];
     const int32_t kills = p.kills_total[c], requeues = p.requeues_total[c];
     const int32_t fail = p.drop_failed[c], down = p.down_ms_total[c];
+    int32_t ovf = 0;  // obs/device.py _ovf_total: 0 on the wide layout
+    for (int q = 0; q < kOvfCounters; ++q) {
+      if (p.ovf_total[q] != nullptr) ovf = wrap_add(ovf, p.ovf_total[q][c]);
+    }
     placed_d = wrap_sub(placed, p.c_placed[c]);
     depth = wrap_add(wrap_add(wrap_add(p.l0_count[c], p.l1_count[c]),
                               p.ready_count[c]),
@@ -1100,7 +1629,7 @@ static __device__ __noinline__ void tap_epilogue(const Tap& p,
                             imax(wrap_sub(lent, p.c_lent[c]), 0));
     p.wait_accrued[c] = fadd_rn(p.wait_accrued[c],
                                 fsub_rn(wait, p.c_wait[c]));
-    p.ovf[c] = wrap_sub(p.ovf[c], p.c_ovf[c]);  // the wide layout's total: 0
+    p.ovf[c] = wrap_add(p.ovf[c], wrap_sub(ovf, p.c_ovf[c]));
     p.depth_sum[c] = wrap_add(p.depth_sum[c], depth);
     p.depth_max[c] = imax(p.depth_max[c], depth);
     p.kills[c] = wrap_add(p.kills[c], wrap_sub(kills, p.c_kills[c]));
@@ -1114,7 +1643,7 @@ static __device__ __noinline__ void tap_epilogue(const Tap& p,
     p.c_arrived[c] = arrived;
     p.c_lent[c] = lent;
     p.c_wait[c] = wait;
-    p.c_ovf[c] = 0;
+    p.c_ovf[c] = ovf;
     p.c_kills[c] = kills;
     p.c_requeues[c] = requeues;
     p.c_fail_drops[c] = fail;
@@ -1159,6 +1688,52 @@ static __device__ __noinline__ void tap_epilogue(const Tap& p,
 #endif
   p.ring_t[p.slot] = k.t;
   *p.ticks += 1;
+}
+
+// The cross-cluster half of the terminal node exit narrow (core/engine.py
+// _narrow_nodes), after the span and the tap: the reference counts the
+// free and capacity words that do not fit over the WHOLE batch and adds
+// that one total to every cluster's run.ovf (and so, through the tap's
+// ovf reading, to the buffer's ovf and the cursor's). Each block (one
+// warp) adds its clusters' counts `bad` atomically; the last block to
+// finish applies a nonzero total to every cluster and zeroes the scratch
+// for the next launch. Every thread of the block calls it; each fences
+// its own stores first, so the last block reads them. A call, like
+// tap_epilogue.
+static __device__ __noinline__ void node_exit_epilogue(const Common& k,
+                                                       const Tap& p, bool tap,
+                                                       int bad) {
+  int32_t total = 0;
+#ifdef __CUDA_ARCH__
+  const unsigned lanes =
+      blockDim.x >= 32 ? 0xFFFFFFFFu : (1u << blockDim.x) - 1u;
+  __threadfence();
+  const uint32_t sum = __reduce_add_sync(lanes, (uint32_t)bad);
+  if (threadIdx.x != 0) return;
+  if (sum != 0u) atomicAdd(reinterpret_cast<unsigned*>(k.exit_scratch), sum);
+  __threadfence();
+  const unsigned done =
+      atomicAdd(reinterpret_cast<unsigned*>(k.exit_scratch + 1), 1u);
+  if (done != gridDim.x - 1) return;
+  __threadfence();  // the last block: every block's count is in
+  total = (int32_t)atomicExch(reinterpret_cast<unsigned*>(k.exit_scratch),
+                              0u);
+  k.exit_scratch[1] = 0;
+#else
+  // a host build (a logic check) runs the threads one after another
+  k.exit_scratch[0] = wrap_add(k.exit_scratch[0], bad);
+  if (++k.exit_scratch[1] != (int32_t)(gridDim.x * blockDim.x)) return;
+  total = k.exit_scratch[0];
+  k.exit_scratch[0] = k.exit_scratch[1] = 0;
+#endif
+  if (total == 0) return;
+  for (int c = 0; c < k.C; ++c) {
+    k.run.ovf[c] = wrap_add(k.run.ovf[c], total);
+    if (tap) {
+      p.ovf[c] = wrap_add(p.ovf[c], total);
+      p.c_ovf[c] = wrap_add(p.c_ovf[c], total);
+    }
+  }
 }
 
 // Threads per block for the one-thread-per-cluster kernels: a warp, halved

@@ -5,8 +5,7 @@ The port of ``multi_cluster_simulator_tpu/kernels/fused_tick.py``. There,
 one ``pallas_call`` over cluster blocks, so that each state column is
 loaded and stored once per tick. Generic jaxpr replay has no Hopper
 counterpart, so the port writes one CUDA kernel per engaged span. The
-spans ported so far are wide-layout and untapped, and differ in the
-schedule slot (``KERNELS``):
+kernels differ in the schedule slot (``KERNELS``):
 
 - ``fused_prefix_fifo`` — ``[release, ingest -> ReadyQueue, schedule:
   FIFO]`` (``csrc/fused_prefix_fifo.cu``);
@@ -54,6 +53,19 @@ Every kernel also takes the windowed ``Arrivals`` form of the ingest
 place of one tick's rows, and the window ``min(max_ingest_per_tick, A)``
 (-1 for a tick's rows); a runtime branch of the shared ingest step.
 
+Every kernel takes both state layouts (core/compact.py) as a runtime
+property too: the queues and the running set reach it as column views —
+per field a base address, the bytes between rows and the value's size —
+in a host array (``_layout``: the wide rows' fields at 4-byte offsets in
+40-byte rows, or the compact layout's narrow leaves), built once per
+state objects and kept in ``host``. Its stores into a narrow leaf are the
+checked narrow store of ``ops/fields.py`` where the reference checks, into
+the table's ``ovf``. Narrow node columns (the terminal prefix of a compact
+state; a non-terminal tick hands the kernel the widened columns the
+engine made, ``core/engine.py _widen_nodes``) are widened at the span's
+entry and narrowed back, checked, at its exit, the cross-cluster count
+added to every cluster's ``run.ovf`` by the last block.
+
 Each source's header states what bounds it on the H100 and what its
 design does about that; what they share is ``csrc/prefix_common.cuh``.
 The kernel is the one of the member ``params.idx`` selects in the
@@ -88,6 +100,7 @@ import torch
 
 from multi_cluster_simulator_tpu_torch.core.state import empty_io
 from multi_cluster_simulator_tpu_torch.obs import device as obs_device
+from multi_cluster_simulator_tpu_torch.ops import fields as F
 from multi_cluster_simulator_tpu_torch.ops import queues as Q
 from multi_cluster_simulator_tpu_torch.ops import runset as R
 from multi_cluster_simulator_tpu_torch.policies.kernels import _sweep_len
@@ -101,6 +114,11 @@ CSRC = "multi_cluster_simulator_tpu_torch/kernels/csrc/"
 MAX_QUEUE = 1024
 # The fault step's failed-node mask, likewise (kMaxFaultNodes).
 MAX_FAULT_NODES = 64
+# The node slots a cluster may have on narrow node columns: a thread
+# computes on a local int32 copy of them (kMaxNarrowNodes).
+MAX_NARROW_NODES = 32
+# The storage dtypes a column view takes (1, 2 or 4 bytes a value).
+_INT_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 
 @dataclasses.dataclass
@@ -306,11 +324,15 @@ def fused_prefix(engine, state, rows: torch.Tensor, counts: torch.Tensor,
     four outputs None without ``emit_returns``, ``obs_out = (pc', cursor',
     placed_d, depth)`` (the buffer's per-cluster leaves, the cursor, the
     tick's placements and queue depths, [C] each) or None."""
-    devices = {x.device for _, x in leaves_with_keys(state)}
-    devices |= {rows.device, counts.device}
+    devices = _state_devices(state, host) | {rows.device, counts.device}
     if obs is not None and not engine.prefix_terminal():
         raise ValueError("fused_prefix: the metrics tap runs on a terminal "
                          "prefix only")
+    if state.node_free.dtype != torch.int32 and not engine.prefix_terminal():
+        raise ValueError(
+            "fused_prefix: narrow node columns on a non-terminal prefix; "
+            "the engine's tick widens them first (core/engine.py "
+            "_widen_nodes) and narrows them after its last phase")
     if devices == {torch.device("cpu")}:
         tap_in = None if obs is None else (obs_device.tap_pc(obs[0]), obs[1])
         new, *io, obs_out = fused_prefix_reference(
@@ -357,6 +379,34 @@ def fused_prefix(engine, state, rows: torch.Tensor, counts: torch.Tensor,
     return (state, *_outputs(out), obs_out)
 
 
+def _state_devices(state, host) -> set:
+    """The devices of every leaf of ``state``, walked once per state object
+    and kept in ``host`` (the engine updates a state's tensors in place;
+    a caller that swaps a leaf tensor of one passes a new object, as for
+    the tap's operands)."""
+    cached = host.get("devices")
+    if cached is not None and cached[0] is state:
+        return cached[1]
+    devices = {x.device for _, x in leaves_with_keys(state)}
+    host["devices"] = (state, devices)
+    return devices
+
+
+def prepare(engine, state, host: dict, emit_returns: bool = False,
+            obs=None) -> None:
+    """Check and keep in ``host`` what a launch on ``state`` reads from
+    the host (its leaves' devices, its column views and, with ``obs``,
+    the tap's operands), as the first launch on it would: a caller timing
+    a launch does this outside the timed span."""
+    _state_devices(state, host)
+    if state.device.type != "cuda":
+        return
+    lib = host["emit_kernel" if emit_returns else "kernel"].lib
+    _layout(engine.cfg, state, _OWN_TABLES[lib](state), host)
+    if obs is not None:
+        _tap_args(engine, state, obs[0], obs[1], host)
+
+
 def _outputs(io) -> tuple:
     return io.borrow_want, io.borrow_job, io.ret_rows, io.ret_valid
 
@@ -400,10 +450,12 @@ def _common(cfg, s, rows, counts, t: int, windowed: bool):
     E = s.trace.t.shape[-1]
     i32, u8 = torch.int32, torch.bool
     c_shape = (C,)
+    if s.node_free.dtype not in _INT_DTYPES:
+        raise ValueError(f"fused_prefix: node_free of dtype "
+                         f"{s.node_free.dtype}")
     ptrs = [
-        _check("node_free", s.node_free, (C, N, n_res), i32),
+        _check("node_free", s.node_free, (C, N, n_res), s.node_free.dtype),
         _check("node_active", s.node_active, (C, N), u8),
-        _check("run.data", s.run.data, (C, S, R.RF), i32),
         _check("run.active", s.run.active, (C, S), u8),
         _check("arr_ptr", s.arr_ptr, c_shape, i32),
         _check("drops.queue", s.drops.queue, c_shape, i32),
@@ -441,6 +493,9 @@ class TapArgs:
     pc: dict
 
 
+_OVF_TABLES = ("l0", "l1", "ready", "wait", "lent", "borrowed", "run")
+
+
 def _tap_args(engine, state, mbuf, cur, host: dict) -> TapArgs:
     """The tap form's checked operands, built once per (state, buffer,
     cursor) objects and kept in ``host["tap"]`` (which holds the objects,
@@ -448,7 +503,7 @@ def _tap_args(engine, state, mbuf, cur, host: dict) -> TapArgs:
     (``PC_LEAVES``), the cursor, the two per-tick outputs, the buffer's
     cross-cluster leaves and a zeroed scratch of three words (the ring
     sums and the count of blocks done), then the state counters the tap
-    reads."""
+    reads, then the seven overflow counters (null on a wide table)."""
     cached = host.get("tap")
     if cached is not None and cached.key[0] is state and \
             cached.key[1] is mbuf and cached.key[2] is cur:
@@ -492,7 +547,15 @@ def _tap_args(engine, state, mbuf, cur, host: dict) -> TapArgs:
     if {x.device for x in tensors} != {dev}:
         raise ValueError("fused_prefix: the metrics buffer and cursor must "
                          f"live on the state's device {dev}")
-    ptrs = (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
+    # the compact layout's overflow counters (csrc/prefix_common.cuh
+    # kOvfCounters), null where a table is wide
+    ovf = [getattr(getattr(state, n), "ovf", None) for n in _OVF_TABLES]
+    ovf = [x if x is None else leaf(f"{n}.ovf", x)
+           for n, x in zip(_OVF_TABLES, ovf)]
+    ptrs = (ctypes.c_void_p * (len(tensors) + len(ovf)))(
+        *[x.data_ptr() for x in tensors],
+        *[None if x is None else x.data_ptr() for x in ovf])
+    tensors += [x for x in ovf if x is not None]
     host["tap"] = TapArgs((state, mbuf, cur), ptrs, tensors, placed_d, depth,
                           obs_device.tap_pc(mbuf))
     return host["tap"]
@@ -506,9 +569,92 @@ def _tap(cfg, tap: TapArgs, t: int):
     return [1, (t // cfg.tick_ms) % obs_device.OBS_RING], tap.ptrs
 
 
-def _queue(name: str, q, C: int, Qc: int):
-    return [_check(f"{name}.data", q.data, (C, Qc, Q.NF), torch.int32),
-            _check(f"{name}.count", q.count, (C,), torch.int32)]
+def _count(name: str, q, C: int):
+    return [_check(f"{name}.count", q.count, (C,), torch.int32)]
+
+
+def _table_words(name: str, x, C: int, L: int) -> list:
+    """The layout words of one table (``csrc/prefix_common.cuh
+    make_table``): per field its base address, the bytes between rows and
+    the value's size, then the ``ovf`` counter's address (0 on the wide
+    layout). The wide rows' field f lies at byte 4 f of a 4 NF-byte row."""
+    fields = F.QUEUE_FIELDS if isinstance(x, (Q.JobQueue, Q.SoAJobQueue)) \
+        else F.RUN_FIELDS
+    if isinstance(x, (Q.JobQueue, R.RunningSet)):
+        p = _check(f"{name}.data", x.data, (C, L, len(fields)),
+                   torch.int32).data_ptr()
+        return [w for f in range(len(fields))
+                for w in (p + 4 * f, 4 * len(fields), 4)] + [0]
+    words = []
+    for n in fields:
+        leaf = x.leaf(n)
+        if leaf.dtype not in _INT_DTYPES:
+            raise ValueError(f"fused_prefix: {name}.f_{n} of dtype "
+                             f"{leaf.dtype}")
+        _check(f"{name}.f_{n}", leaf, (C, L), leaf.dtype)
+        words += [leaf.data_ptr(), leaf.element_size(), leaf.element_size()]
+    return words + [_check(f"{name}.ovf", x.ovf, (C,),
+                           torch.int32).data_ptr()]
+
+
+@dataclasses.dataclass
+class Layout:
+    """The layout array of one set of tables (``_layout``): the objects it
+    was built from, the host array, and the node exit's scratch."""
+
+    key: tuple
+    words: ctypes.Array
+    scratch: torch.Tensor
+
+
+# the layouts ``_layout`` keeps in ``host``, the newest last
+_LAYOUTS_KEPT = 4
+# each kernel's own queues, after the running set and the lent queue
+_OWN_TABLES = {"fused_prefix_fifo": lambda s: (s.ready, s.wait),
+               "fused_prefix_ffd": lambda s: (s.l0,),
+               "fused_prefix_delay": lambda s: (s.l0, s.l1),
+               "fused_prefix_scored": lambda s: (s.l0,)}
+
+
+def _layout(cfg, s, own: tuple, host: dict) -> ctypes.Array:
+    """The host array every launch function takes (``csrc/prefix_common.cuh
+    make_table``'s order): the node columns' value size and the node exit
+    scratch (two zeroed words, 0 on int32 columns), then the column views
+    of the running set, the lent queue and the kernel's own queues
+    ``own``. Built once per (node dtype, table objects); the newest few
+    are kept in ``host["layouts"]``, which holds the objects, so their ids
+    stay theirs."""
+    key = (s.node_free.dtype, s.run, s.lent, *own)
+    kept = host.setdefault("layouts", [])
+    for cached in kept:
+        if len(cached.key) == len(key) and cached.key[0] == key[0] and \
+                all(a is b for a, b in zip(cached.key[1:], key[1:])):
+            return cached.words
+    C, N, n_res = s.node_free.shape
+    Qc, S = cfg.queue_capacity, cfg.max_running
+    size = s.node_free.element_size()
+    scratch = torch.zeros(2, dtype=torch.int32, device=s.device)
+    compact = size != 4 or any(isinstance(x, (Q.SoAJobQueue,
+                                              R.SoARunningSet))
+                               for x in key[1:])
+    if compact and (N > MAX_NARROW_NODES or n_res > 3):
+        # the local node copies of the narrow exit and the wave replay
+        raise ValueError(f"fused_prefix: the compact layout's {N} x {n_res} "
+                         f"node words exceed the kernel's "
+                         f"{MAX_NARROW_NODES} x 3")
+    if size != 4:
+        if not isinstance(s.run, R.SoARunningSet):
+            raise ValueError("fused_prefix: narrow node columns count into "
+                             "the compact running set's ovf")
+    words = [size, scratch.data_ptr() if size != 4 else 0]
+    words += _table_words("run", s.run, C, S)
+    words += _table_words("lent", s.lent, C, Qc)
+    for i, q in enumerate(own):
+        words += _table_words(f"queue {i}", q, C, Qc)
+    arr = (ctypes.c_int64 * len(words))(*words)
+    kept.append(Layout(key, arr, scratch))
+    del kept[:-_LAYOUTS_KEPT]
+    return arr
 
 
 def _level0(name: str, s, C: int, Qc: int):
@@ -518,7 +664,7 @@ def _level0(name: str, s, C: int, Qc: int):
         raise ValueError(f"{name}: queue_capacity {Qc} exceeds the kernel's "
                          f"limit {MAX_QUEUE}")
     c_shape = (C,)
-    return _queue("l0", s.l0, C, Qc) + [
+    return _count("l0", s.l0, C) + [
         _check("wait_total", s.wait_total, c_shape, torch.float32),
         _check("wait_jobs", s.wait_jobs, c_shape, torch.int32),
         _check("jobs_in_queue", s.jobs_in_queue, c_shape, torch.int32),
@@ -558,11 +704,12 @@ def _expire(s, host: dict):
 
 def _faults(cfg, s, host: dict):
     """The faults form's leaves (None without the fault plane) with the
-    node capacities and the lent queue its repairs and requeues need, and
+    node capacities (in the node columns' dtype) and the lent count its
+    repairs and requeues need (the lent queue's view is in ``_layout``), and
     its flag and settings, which every launch function takes after the
     expire arguments."""
     if not host["faults"]:
-        return [None] * 16, [0, 1, 0, 0, 0, 0]
+        return [None] * 15, [0, 1, 0, 0, 0, 0]
     C, N, n_res = s.node_free.shape
     if N > MAX_FAULT_NODES:
         raise ValueError(f"fused_prefix: {N} node slots exceed the fault "
@@ -584,8 +731,8 @@ def _faults(cfg, s, host: dict):
             _check("faults.repair_t", fs.repair_t, (C, N, E), i32),
             _check("faults.key", fs.key, (C, 2), torch.uint32),
             _check("drops.failed", s.drops.failed, c_shape, i32),
-            _check("node_cap", s.node_cap, (C, N, n_res), i32),
-            *_queue("lent", s.lent, C, cfg.queue_capacity)]
+            _check("node_cap", s.node_cap, (C, N, n_res), s.node_free.dtype),
+            *_count("lent", s.lent, C)]
     return ptrs, [1, E, int(fc.mode == "trace"), int(fc.mttf_ms),
                   int(fc.mttr_ms), int(fc.max_retries)]
 
@@ -604,15 +751,17 @@ def _run(name: str, ptrs, ints, rows, host_ptrs=()):
 def _launch_fifo(cfg, s, rows, counts, t: int, host: dict, io=None,
                  windowed: bool = False, tap: TapArgs = None) -> None:
     ptrs, ints = _common(cfg, s, rows, counts, t, windowed)
-    C, Qc = ints[0], ints[3]
-    ptrs += (_queue("ready", s.ready, C, Qc) + _queue("wait", s.wait, C, Qc)
-             + _queue("lent", s.lent, C, Qc))
+    C = ints[0]
+    ints += [int(cfg.fifo_drain == "wave")]
+    ptrs += (_count("ready", s.ready, C) + _count("wait", s.wait, C)
+             + _count("lent", s.lent, C))
     e_ptrs, e_ints = _emit(cfg, s, io)
     x_ptrs, x_ints = _expire(s, host)
     f_ptrs, f_ints = _faults(cfg, s, host)
     t_ints, t_ptrs = _tap(cfg, tap, t)
+    layout = _layout(cfg, s, _OWN_TABLES["fused_prefix_fifo"](s), host)
     _run("fused_prefix_fifo", ptrs + e_ptrs + x_ptrs + f_ptrs,
-         ints + e_ints + x_ints + f_ints + t_ints, rows, (t_ptrs,))
+         ints + e_ints + x_ints + f_ints + t_ints, rows, (layout, t_ptrs))
 
 
 def _launch_ffd(cfg, s, rows, counts, t: int, host: dict, io=None,
@@ -625,24 +774,25 @@ def _launch_ffd(cfg, s, rows, counts, t: int, host: dict, io=None,
     x_ptrs, x_ints = _expire(s, host)
     f_ptrs, f_ints = _faults(cfg, s, host)
     t_ints, t_ptrs = _tap(cfg, tap, t)
+    layout = _layout(cfg, s, _OWN_TABLES["fused_prefix_ffd"](s), host)
     _run("fused_prefix_ffd", ptrs + e_ptrs + x_ptrs + f_ptrs,
-         ints + e_ints + x_ints + f_ints + t_ints, rows, (t_ptrs,))
+         ints + e_ints + x_ints + f_ints + t_ints, rows, (layout, t_ptrs))
 
 
 def _launch_delay(cfg, s, rows, counts, t: int, host: dict, io=None,
                   windowed: bool = False, tap: TapArgs = None) -> None:
     ptrs, ints = _common(cfg, s, rows, counts, t, windowed)
     C, Qc = ints[0], ints[3]
-    ptrs += (_level0("fused_prefix_delay", s, C, Qc)
-             + _queue("l1", s.l1, C, Qc))
+    ptrs += _level0("fused_prefix_delay", s, C, Qc) + _count("l1", s.l1, C)
     wave = int(not cfg.parity and cfg.delay_sweep == "wave")
     ints += [wave, int(cfg.parity), host["max_wait_ms"]]
     e_ptrs, e_ints = _emit(cfg, s, io)
     x_ptrs, x_ints = _expire(s, host)
     f_ptrs, f_ints = _faults(cfg, s, host)
     t_ints, t_ptrs = _tap(cfg, tap, t)
+    layout = _layout(cfg, s, _OWN_TABLES["fused_prefix_delay"](s), host)
     _run("fused_prefix_delay", ptrs + e_ptrs + x_ptrs + f_ptrs,
-         ints + e_ints + x_ints + f_ints + t_ints, rows, (t_ptrs,))
+         ints + e_ints + x_ints + f_ints + t_ints, rows, (layout, t_ptrs))
 
 
 # the scored kernel's picks (csrc/fused_prefix_scored.cu kTable, kTesserae)
@@ -660,9 +810,10 @@ def _launch_scored(cfg, s, rows, counts, t: int, host: dict, io=None,
     x_ptrs, x_ints = _expire(s, host)
     f_ptrs, f_ints = _faults(cfg, s, host)
     t_ints, t_ptrs = _tap(cfg, tap, t)
+    layout = _layout(cfg, s, _OWN_TABLES["fused_prefix_scored"](s), host)
     _run("fused_prefix_scored", ptrs + e_ptrs + x_ptrs + f_ptrs,
          ints + e_ints + x_ints + f_ints + t_ints, rows,
-         (host["table"], host["weights"], t_ptrs))
+         (layout, host["table"], host["weights"], t_ptrs))
 
 
 _LAUNCH = {"fused_prefix_fifo": _launch_fifo,

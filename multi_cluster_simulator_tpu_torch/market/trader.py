@@ -346,7 +346,9 @@ def _seller_apply(state: SimState, t: int, amounts, csel: Contract,
     occupied node takes the k-th free slot, while free slots last
     (``R.start_many``). The node_free decrement is gated on the row
     inserting (without a slot nothing would release the resources later);
-    a skipped occupation counts into ``drops.carve``."""
+    a skipped occupation counts into ``drops.carve``. The placeholder rows
+    are a value entry point: on the compact layout their store is checked
+    (the reference's ``insert_row``)."""
     run = state.run
     C, N = amounts.shape[:2]
     dev = amounts.device
@@ -362,7 +364,7 @@ def _seller_apply(state: SimState, t: int, amounts, csel: Contract,
                       time_ms, full(i32(t)), full(0))  # [C, N, RF]
     order = torch.sort((~ok).to(torch.uint8), dim=1, stable=True).indices
     rows = torch.gather(rows, 1, order[..., None].expand(-1, -1, R.RF))
-    run = R.start_many(run, rows, isum(ok, 1))
+    run = R.start_many(run, rows, isum(ok, 1), checked=True)
     free = state.node_free - torch.where(ok[..., None], amounts, 0)
     return run, free, isum(occ & ~ok, 1)
 

@@ -35,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from multi_cluster_simulator_tpu_torch.core.compact import ovf_per_cluster
 from multi_cluster_simulator_tpu_torch.core.state import LEAP_BUCKETS, SimState
 from multi_cluster_simulator_tpu_torch.faults.schedule import xla_log_f32
 from multi_cluster_simulator_tpu_torch.ops.queues import I32
@@ -101,9 +102,9 @@ def queue_depth(state: SimState) -> torch.Tensor:
 
 
 def _ovf_total(state: SimState) -> torch.Tensor:
-    """[C] checked-narrow overflow total: zeros on the wide layout, which
-    carries no counters (the compact layout is ROADMAP A11)."""
-    return torch.zeros_like(state.arr_ptr)
+    """[C] checked-narrow overflow total: every queue's and the running
+    set's ``ovf`` (zeros on the wide layout, which carries no counters)."""
+    return ovf_per_cluster(state)
 
 
 def metrics_init(state: SimState) -> MetricsBuffer:

@@ -22,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from multi_cluster_simulator_tpu_torch.ops import fields as F
 from multi_cluster_simulator_tpu_torch.ops import queues as Q
 from multi_cluster_simulator_tpu_torch.ops.queues import I32, JobQueue, icumsum
 from multi_cluster_simulator_tpu_torch.ops.floats import fma_f32
@@ -90,7 +91,7 @@ def _accepted(valid, price, budget: float):
 
 
 def _masked(l1: JobQueue, f: int, valid) -> torch.Tensor:
-    return torch.where(valid, l1.data[..., f], 0)
+    return torch.where(valid, Q.field(l1, F.QUEUE_FIELDS[f]), 0)
 
 
 def fast_node_contract(l1: JobQueue, budget: float, core_cost: float,

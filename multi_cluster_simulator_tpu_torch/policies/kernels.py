@@ -176,7 +176,7 @@ def _record_wait(total, rec_wait, enq_t, t: int, do):
     return total + delta, torch.where(do, cur, rec_wait)
 
 
-def _bfd_order(q: Q.JobQueue, params) -> torch.Tensor:
+def _bfd_order(q, params) -> torch.Tensor:
     """Best-fit-decreasing slot order [C, Q] with the FFD tie-break as
     data: ``params.ffd_mem_first`` (a 0-d tensor, read without a host
     sync) swaps the (cores, mem) sort-key priority. ``params=None`` is
@@ -215,9 +215,10 @@ def _delay_local(s: SimState, t: int, cfg: SimConfig, params=None):
     placements flushed into the running set, and the Level0 head runs."""
     QC = _sweep_len(cfg)
     C = s.l1.count.shape[0]
-    dev = s.l1.data.device
+    dev = s.l1.device
     n_sweep = torch.clamp(s.l1.count, max=QC)
     n_active = isum(s.run.active, 1)
+    rows = Q.rows_of(s.l1)  # the loop changes no Level1 row but rec_wait
     rec = s.l1.rec_wait.clone()
     placed = torch.zeros((C, s.l1.capacity), dtype=torch.bool, device=dev)
     skip_next = torch.zeros((C,), dtype=torch.bool, device=dev)
@@ -226,7 +227,7 @@ def _delay_local(s: SimState, t: int, cfg: SimConfig, params=None):
     events = []
     for i in range(int(n_sweep.max()) if C else 0):
         process = (i < n_sweep) & ~skip_next
-        vec = s.l1.data[:, i].clone()
+        vec = rows[:, i].clone()
         vec[:, Q.FREC] = rec[:, i]
         job = Q.JobRec(vec=vec)
         total, rec[:, i] = _record_wait(s.wait_total, rec[:, i], job.enq_t,
@@ -279,7 +280,7 @@ def _delay_wave_local(s: SimState, t: int, cfg: SimConfig, params=None):
     Level0 head."""
     QC = min(cfg.queue_capacity, cfg.max_placements_per_tick)
     cap = s.l1.capacity
-    dev = s.l1.data.device
+    dev = s.l1.device
     n_sweep = torch.clamp(s.l1.count, max=QC)
     n_active = isum(s.run.active, 1)
     act0 = torch.arange(QC, dtype=I32, device=dev)[None, :] < n_sweep[:, None]
@@ -365,7 +366,7 @@ def _fifo_drain_wave(s: SimState, t: int, cfg: SimConfig,
     ``(s, n_taken, fail_job, stopped, buf, cnt)``."""
     ready = s.ready
     C = ready.count.shape[0]
-    dev = ready.data.device
+    dev = ready.device
     n_sweep = torch.where(wait_active, 0, torch.clamp(ready.count, max=QC))
     pos = torch.arange(QC, dtype=I32, device=dev)
     act0 = pos[None, :] < n_sweep[:, None]
@@ -430,7 +431,7 @@ def _fifo_drain_serial(s: SimState, t: int, cfg: SimConfig,
     """The one-job-per-step ready drain (the reference's ``dstep`` loop),
     ``QC`` masked steps. Same return shape as ``_fifo_drain_wave``."""
     C = s.ready.count.shape[0]
-    dev = s.ready.data.device
+    dev = s.ready.device
     stopped = torch.zeros((C,), dtype=torch.bool, device=dev)
     n_taken = torch.zeros((C,), dtype=I32, device=dev)
     fail_job = Q.invalid_row(dev).expand(C, Q.NF).clone()
@@ -513,7 +514,7 @@ def _scored_sweep_local(s: SimState, t: int, cfg: SimConfig, params,
     ``P.best_scored_fit``; ``None`` keeps first fit."""
     QC = _sweep_len(cfg)
     C, cap = s.l0.count.shape[0], s.l0.capacity
-    dev = s.l0.data.device
+    dev = s.l0.device
     n_sweep = torch.clamp(s.l0.count, max=QC)  # order puts valid slots first
     n_active = isum(s.run.active, 1)
     slots = torch.arange(cap, dtype=I32, device=dev)
@@ -590,7 +591,7 @@ def _ffd_wave_local(s: SimState, t: int, cfg: SimConfig, params=None):
     the wait accounting done once per tick at the slot level."""
     QC = min(cfg.queue_capacity, cfg.max_placements_per_tick)
     cap = s.l0.capacity
-    dev = s.l0.data.device
+    dev = s.l0.device
     order = _bfd_order(s.l0, params)[:, :QC]  # [C, QC]
     n_sweep = torch.clamp(s.l0.count, max=QC)
     n_active = isum(s.run.active, 1)
@@ -664,10 +665,10 @@ def _tesserae_scores(node_free: torch.Tensor, job: Q.JobRec, params):
     return score
 
 
-def _queue_order(q: Q.JobQueue) -> torch.Tensor:
+def _queue_order(q) -> torch.Tensor:
     C = q.count.shape[0]
     return torch.arange(q.capacity, dtype=I32,
-                        device=q.data.device)[None, :].expand(C, -1)
+                        device=q.device)[None, :].expand(C, -1)
 
 
 def _gavel_local(s: SimState, t: int, cfg: SimConfig, params):

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from multi_cluster_simulator_tpu_torch.core.compact import overflow_total
 from multi_cluster_simulator_tpu_torch.core.state import SimState
 
 
@@ -42,11 +43,12 @@ def check_conservation(state: SimState) -> None:
 
 def total_drops(state: SimState) -> dict:
     """Summed ``SimState.drops`` counters — every one should be zero on a
-    correctly sized config. ``narrow`` (the compact layouts' checked-narrow
-    overflow total) is 0: the port has only the wide layout."""
+    correctly sized config. ``narrow`` is the compact layouts'
+    checked-narrow overflow total (core/compact.py ``overflow_total``):
+    nonzero means a narrowing store clamped instead of wrapping."""
     d = state.drops
     out = {k: int(getattr(d, k).sum())
            for k in ("queue", "msgs", "run_full", "vslot", "carve", "ingest",
                      "failed")}
-    out["narrow"] = 0
+    out["narrow"] = overflow_total(state)
     return out

@@ -4,7 +4,8 @@ The JAX package threads its state as pytrees of ``flax.struct`` dataclasses.
 The port keeps the same nesting as plain dataclasses whose leaves are
 tensors (or numpy arrays on the host side), plus the two tree walks the
 engine, the interop layer and the tests need. A leaf's key is its dotted
-attribute path with a leading dot (``.l0.data``, ``.drops.queue``), the
+attribute path with a leading dot (``.l0.data`` or, on the compact layout,
+``.l0.f_cores``; ``.drops.queue``), the
 spelling ``jax.tree_util.keystr`` gives the same leaf of the JAX state.
 """
 

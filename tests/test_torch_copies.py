@@ -74,7 +74,7 @@ def test_config_constants_and_total_nodes_equal():
 @pytest.mark.parametrize("name", [
     "QUEUE_FIELDS", "QUEUE_INDEX", "QUEUE_INVALID", "RUN_FIELDS",
     "RUN_INDEX", "RUN_INVALID", "NEVER_I", "N_JOB_CLASSES",
-    "N_DEVICE_TYPES"])
+    "N_DEVICE_TYPES", "NARROWABLE", "WIDE_DTYPE"])
 def test_field_schemas_equal(name):
     assert getattr(jfields, name) == getattr(tfields, name)
 
@@ -255,3 +255,30 @@ def test_obs_leaf_names_equal(cls):
     t = getattr(tstate if cls == "MetricSample" else tdevice, cls)
     assert [f.name for f in dataclasses.fields(j)] == \
         [f.name for f in dataclasses.fields(t)]
+
+
+@pytest.mark.parametrize("module,cls", [
+    ("queues", "SoAJobQueue"), ("runset", "SoARunningSet"),
+    ("compact", "CompactPlan")])
+def test_compact_leaf_names_equal(module, cls):
+    """The compact layout's leaves (``f_<field>``, the count or the active
+    flags, ``ovf``) and the plan's fields, in order."""
+    from multi_cluster_simulator_tpu.core import compact as jcompact
+    from multi_cluster_simulator_tpu.ops import queues as jqueues
+    from multi_cluster_simulator_tpu.ops import runset as jrunset
+    from multi_cluster_simulator_tpu_torch.core import compact as tcompact
+    from multi_cluster_simulator_tpu_torch.ops import queues as tqueues
+    from multi_cluster_simulator_tpu_torch.ops import runset as trunset
+
+    j = {"queues": jqueues, "runset": jrunset, "compact": jcompact}[module]
+    t = {"queues": tqueues, "runset": trunset, "compact": tcompact}[module]
+    assert [f.name for f in dataclasses.fields(getattr(j, cls))] == \
+        [f.name for f in dataclasses.fields(getattr(t, cls))]
+
+
+def test_compact_candidates_equal():
+    """The planner's storage candidates, smallest first."""
+    from multi_cluster_simulator_tpu.core import compact as jcompact
+    from multi_cluster_simulator_tpu_torch.core import compact as tcompact
+
+    assert jcompact._CANDIDATES == tcompact._CANDIDATES

@@ -235,5 +235,3 @@ def test_unported_run_paths_raise():
     state = tstate.init_state(cfg, tspecs, device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         eng.run_compressed(state, None, 5)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tstate.init_state(cfg, tspecs, plan=object(), device="cpu")

@@ -2,8 +2,9 @@
 
 The scenarios of tests/test_faults.py, mirrored port against JAX: the
 faults-off baseline and the enabled plane with an empty trace schedule
-(:70); generative churn dense and in ragged chunks (:93 — its compact,
-compressed and mesh cells wait for ROADMAP A11, A9 and A16); the
+(:70); generative churn dense and in ragged chunks (:93 — its compact
+cell is tests/test_torch_compact.py's; its compressed and mesh cells wait
+for ROADMAP A9 and A16); the
 adversarial trace schedules (:186, :205, :215, :227, :238); a killed
 foreign job back into the LentQueue (:249); a failed node hosting a traded
 virtual node (:299). Then the fused kernel's own test

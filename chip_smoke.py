@@ -185,6 +185,7 @@ script non-zero.
 from __future__ import annotations
 
 import bisect
+import ctypes
 import json
 import math
 import subprocess
@@ -231,6 +232,7 @@ MARKET_RUNS = {"a": ("delay", {"trader": SINKHORN}, "market"),
                "e": ("delay", {"trader": EXPIRE}, "expire")}
 MARKET_PROFILE_TICKS = 30  # a torch.profiler window: three market rounds
 HEAVY_EXPIRE_TICKS = 3  # 3i's heavy ticks per expire form
+HEAVY_EXPIRE_REPS = 5  # 3i's timed launches per heavy tick, each on a copy
 MATCHER_TICKS = 300  # 3j's short greedy and cvx runs: 30 rounds each
 # tools/tournament.py DEFAULT_POLICIES, dispatched as one PolicySet
 LINEUP = ("fifo", "delay", "delay-eager", "delay-patient", "ffd",
@@ -1336,7 +1338,17 @@ def phase_ffd64(P, E, card, dev):
           f"{first_s:.4f} s); kernel {kms * 1e3:.2f} us/launch mean over "
           f"{len(sp['kernel_ms'])} launches, plain "
           f"{np.mean(chk.plain_ms):.3f} ms [{card}]")
-    return dict(worst=chk.worst)
+    b_ms, b_by = bound(sp["read"], sp["written"], sp["ops"])
+    print(f"phase 4c: ffd64 bound {b_ms * 1e3:.4f} us by {b_by} "
+          f"({sp['read'] + sp['written']:.1f} B per launch, mean of "
+          f"{sp['read']:.1f} read and {sp['written']:.1f} written; "
+          f"{sp['ops']:.1f} compares per launch) over the first "
+          f"{sp['ticks']} ticks; kernel / bound {kms / b_ms:.1f} [{card}]")
+    return dict(worst=chk.worst, record=dict(
+        name="fused_prefix_ffd (ffd64)",
+        kernel=fused_tick.KERNELS["fused_prefix_ffd"],
+        launches=counts["fused_prefix_ffd"], worst=chk.worst, ms=kms,
+        plain=chk.plain_ms, bound=(b_ms, b_by)))
 
 
 def heavy_ticks(E, chk, cfg, specs, arr, dev, seen, watch):
@@ -1735,15 +1747,22 @@ def expire_heavy(E, dev, engine, state, rows, counts, t0, n, cost, seen):
     """``n`` heavy ticks for an expire form on ``state``: before each, the
     expiry of nine in ten active virtual slots is set to at most the
     tick's clock, so that thousands of nodes expire in one launch; kernel
-    == plain on every tick (and every emit output), and each launch timed
-    on a copy with its bytes counted. Adds the expiries to ``seen``;
-    returns the Checker, the per-launch times and the mean bytes."""
+    == plain on every tick (and every emit output), and each tick's launch
+    timed ``HEAVY_EXPIRE_REPS`` times, each on its own copy, after one
+    untimed launch of the form; bytes counted on the first copy. Adds the
+    expiries to ``seen``; returns the Checker, the per-launch times and
+    the mean bytes."""
     from multi_cluster_simulator_tpu_torch.core.state import clone_state
 
     chk = Checker(engine)
     emit = engine.cfg.borrowing
     vstart = engine.cfg.max_nodes
     gen = torch.Generator(device=dev).manual_seed(5)
+    # one untimed launch first, on a copy: a form's first launch on the
+    # card loads its module and can cost many times its work
+    chk.ft.fused_prefix(engine, clone_state(state), rows[0], counts[0],
+                        t0 + engine.cfg.tick_ms, chk.params, chk.host,
+                        emit_returns=emit)
     evs, read_b, written_b, t = [], 0, 0, t0
     seen.setdefault("per_launch", [])
     for k in range(n):
@@ -1760,14 +1779,16 @@ def expire_heavy(E, dev, engine, state, rows, counts, t0, n, cost, seen):
         seen["expired"] += hits
         seen["per_launch"].append(hits)
         before = clone_state(state)
-        timed = clone_state(state)
-        evs.append(timed_launch(chk.ft, engine, timed, rows[k], counts[k], t,
-                                chk.params, chk.host, emit=emit))
-        r, w = cost(before, timed, rows[k], counts[k], t)
+        copies = [clone_state(state) for _ in range(HEAVY_EXPIRE_REPS)]
+        for timed in copies:
+            evs.append(timed_launch(chk.ft, engine, timed, rows[k],
+                                    counts[k], t, chk.params, chk.host,
+                                    emit=emit))
+        r, w = cost(before, copies[0], rows[k], counts[k], t)
         read_b, written_b = read_b + r + expire_reads(before), written_b + w
         out = chk.compare(state, rows[k], counts[k], t, emit=emit)
         state = out[0] if emit else out
-        if max_abs_diff(timed, state):
+        if any(max_abs_diff(timed, state) for timed in copies):
             raise AssertionError("a timed launch differs from the compared "
                                  "one")
         state.t.fill_(t)
@@ -4421,6 +4442,41 @@ def breakdown(label, run, kernel_ms, card):
           f"{100 * kernel_s / run['wall_min_s']:.1f}% of the wall [{card}]")
 
 
+def ptxas_lines(report: str):
+    """(form, line) for each resource line of nvcc's ``-Xptxas -v``
+    report: the registers, static shared memory, stack frame and spills
+    of each kernel form, the form read off the mangled template flags
+    (``<emit, expire, faults, tap>``)."""
+    import re
+
+    form = ""
+    names = ("emit", "expire", "faults", "tap")
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        callee = "Function properties" in line and re.search(
+            r"(tap|node_exit)_epilogue", line)
+        if entry:
+            flags = re.findall(r"Lb([01])E", entry.group(1))[:4]
+            form = "<" + ",".join(n for n, f in zip(names, flags)
+                                  if f == "1") + ">"
+        elif callee:
+            scope = "warp::" if "4warp" in line else ""
+            form = f" ({scope}{callee.group(0)}, a call)"
+        elif "registers" in line or "spill" in line:
+            yield form, line.split(":", 1)[-1].strip()
+
+
+def launch_geometry(build, kernel: str, C: int, N: int, R: int,
+                    Q: int) -> tuple[int, int]:
+    """The warps a block and the dynamic shared-memory bytes a warp with
+    which ``kernel``'s launcher launches at (C, N, R, Q), from its
+    ``<kernel>_geometry`` export."""
+    warps, warp_bytes = ctypes.c_int(), ctypes.c_int64()
+    getattr(build.load(kernel), kernel + "_geometry")(
+        C, N, R, Q, ctypes.byref(warps), ctypes.byref(warp_bytes))
+    return warps.value, warp_bytes.value
+
+
 def lap_timer():
     """A function that prints, under a label, the seconds since its last
     call (or since it was made): where the script's time goes."""
@@ -4451,9 +4507,18 @@ def main(device: str = "cuda") -> int:
     print(f"phase 2: built {sorted(reports)} in "
           f"{time.perf_counter() - w0:.2f} s")
     for kernel, report in reports.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"phase 2: {kernel}: {line.strip()}")
+        for form, line in ptxas_lines(report):
+            print(f"phase 2: {kernel}{form}: {line}")
+    for kernel in ("fused_prefix_fifo", "fused_prefix_ffd"):
+        shapes = {"the headline": (4096, 5, 2, 8), "borg4k": (4096, 5, 2, 32),
+                  "ffd64": (64, 10, 2, 768), "config 2": (2, 10, 2, 1024),
+                  "config 2 tiled": (4096, 10, 2, 1024)}
+        sizes = []
+        for what, shape in shapes.items():
+            warps, b = launch_geometry(build, kernel, *shape)
+            sizes.append(f"{what} {b} B a warp, {warps} warps a block")
+        print(f"phase 2: {kernel}: dynamic shared memory and blocks: "
+              f"{'; '.join(sizes)}")
 
     dev = torch.device(device)
     w0 = time.perf_counter()
@@ -4589,6 +4654,7 @@ def main(device: str = "cuda") -> int:
                         launches=b4k["launches"],
                         worst=max(borg["worst"], f64["worst"]), ms=kms,
                         plain=borg["plain_ms"], bound=(b_ms, b_by)))
+    records.append(f64["record"])
 
     # the market runs: the record of each kernel is its first run's, (a)
     # for DELAY and (b) for the scored sweep; every run is printed (run

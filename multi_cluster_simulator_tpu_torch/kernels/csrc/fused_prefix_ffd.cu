@@ -23,15 +23,15 @@
 //   the lowest free running slots in sweep order; last, Level0 is
 //   compacted stably in slot order.
 //
-// The BFD order needs no [Q] scratch: position p's slot is the smallest
-//   (key1, key2, slot) strictly after position p-1's, found by one pass
-//   over the live rows (prefix_common.cuh BfdOrder). That is stable by
-//   construction and costs QC x |L0| key reads, which stays small at
-//   Level0 depths of hundreds (Q = 768 in the ffd64 config). The placed
-//   slots are a bit mask of at most MAX_QUEUE bits; the wrapper raises
-//   above it. The whole per-cluster body is prefix_common.cuh's
-//   level0_prefix with the BFD order and the first-fit pick, the template
-//   the scored kernel (fused_prefix_scored.cu) instantiates with its own.
+// The BFD order is computed before the sweep, which never changes the
+//   keys (prefix_warp.cuh WarpCluster::bfd_order): the live rows' keys
+//   (-key1, -key2) go into the warp's shared memory as one int64 each,
+//   the slot the last key; then a warp bitonic sort of all the rows
+//   orders them, and the sweep takes the first QC positions. Keys
+//   stay full int32: a clamped demand (-128, -32,768) negates to a
+//   positive key. Shared memory a warp: 10 B a slot of the power of two
+//   >= Q (10 KB at Q = 768), the placed-slot mask (MAX_QUEUE bits; the
+//   wrapper raises above it) and the node words.
 //
 // wait_total (f32): the serial form adds each processed job's delta in
 //   sweep order, one f32 add per job, as _record_wait does. The wave form
@@ -43,14 +43,15 @@
 //   and the plain version keeps the wave form, so every on-card
 //   comparison of the wave config also checks wave == serial.
 //
-// The expire form (kExpire; the trader's expire_virtual_nodes) runs
-//   prefix_common.cuh's vnode expiry step between release and ingest, a
-//   separate instantiation of level0_prefix, as the emit form is.
+// The expire form (kExpire; the trader's expire_virtual_nodes) runs the
+//   vnode expiry step between release and ingest, a lane a node slot; a
+//   separate instantiation, as the emit form is.
 //
 // The faults form (kFaults; the fault plane) opens the span with
-//   prefix_common.cuh's fault step, requeueing killed jobs into Level0 (and
-//   a peer's into the lent queue) and counting them in wait_jobs and
-//   jobs_in_queue; another instantiation, as the emit and expire forms are.
+//   prefix_common.cuh's fault step on lane 0, requeueing killed jobs into
+//   Level0 (and a peer's into the lent queue) and counting them in
+//   wait_jobs and jobs_in_queue; another instantiation, as the emit and
+//   expire forms are.
 //
 // Bound on the H100: device-memory bytes, counting only what the tick's
 //   data needs moved: per cluster the arrival count and the counters it
@@ -62,42 +63,36 @@
 //   changes as a write (chip_smoke.py tick_bytes). At borg4k (C=4096,
 //   N=5, R=2, Q=32, S=96) that is a few hundred bytes per cluster, about
 //   a microsecond per tick at 3.35 TB/s; the kernel is far above it
-//   (PERF.md), because one thread walks each cluster's rows serially.
+//   (PERF.md).
 //
 // The tap form (kTap; a run with the metrics plane on a terminal prefix)
-//   closes the span with prefix_common.cuh's tap_epilogue
-//   (obs/device.py tap_tick): per cluster it reads the buffer's eleven
-//   per-cluster leaves, the cursor's nine and the counters it differences
-//   (under 128 B), writes those that change and the tick's placements and
-//   depth (8 B); each block (one warp) adds its sums and bucket counts
-//   with integer atomics, and the last block to finish writes the ring
-//   slot. A template flag, not a runtime branch: the forms without it keep
-//   their code and registers (the tap keeps ~20 more values live and needs
-//   every thread of a block at its warp-wide sums). It is instantiated
-//   without the expire flag only, since the trader is never terminal: 12
-//   forms in all.
+//   closes the span with prefix_warp.cuh's tap_epilogue, as the FIFO
+//   kernel's tap form does. It is instantiated without the expire flag
+//   only, since the trader is never terminal: 12 forms in all.
 //
-// The state layout is a runtime property, as in fused_prefix_fifo.cu.
+// The state layout and the windowed ingest are runtime properties, as in
+//   fused_prefix_fifo.cu.
 //
-// The windowed ingest (an Arrivals stream: BASELINE config 1, the oracle
-//   parity runs) is a runtime branch of prefix_common.cuh Cluster::ingest
-//   (Common::window >= 0), not a template axis, which would double the
-//   forms for a path that runs one cluster: per cluster it reads the enq_t
-//   of each due row and the first not due, and copies the taken rows.
-//
-// Design: one thread per cluster, in place, as in the FIFO kernel. Blocks
-//   shrink below a warp when there are fewer than 32 x 132 clusters, so
-//   that every SM holds some clusters (ffd64: 64 clusters, one per block)
-//   and each cluster's Level0 has more of an SM's L1 for the QC passes.
+// Design: a warp per cluster, in place, as in the FIFO kernel
+//   (prefix_warp.cuh): the lanes release, ingest, stage and order the
+//   keys, and compact Level0 (each kept row's destination the popc
+//   prefix of the placed mask's complement, 32 rows at a time: read, sync,
+//   write); the sweep is serial and uniform, first fit and the free
+//   running slot by ballot, the running row a field a lane. Where a clamp
+//   made a demand negative, lane 0 replays the reference's waves over the
+//   same order (prefix_common.cuh sweep, wave_place). Blocks of up to 16
+//   warps, fewer while that would leave SMs without a block: ffd64's 64
+//   clusters are 64 blocks of one warp, borg4k's 4,096 are 256 of 16.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //   -Xcompiler -fPIC (kernels/build.py); bound to PyTorch with ctypes.
 
-#include "prefix_common.cuh"
+#include "prefix_warp.cuh"
 
 namespace {
 
 using namespace prefix;
+using warp::WarpCluster;
 
 struct Args {
   Level0Args q;
@@ -108,23 +103,78 @@ struct Args {
   Tap p;
 };
 
-// One thread per cluster runs its span; the tap form then closes it with
-// the metrics tap, every thread of the block taking part. The parameters
-// are __grid_constant__: the tap epilogue, a call, reads them where they
-// are instead of from a copy of them in each thread's local memory.
+// The span of cluster c, carried by the calling warp (prefix_common.cuh
+// level0_prefix with the BFD order and first fit): release, ingest into
+// Level0, the sweep over the first min(|L0|, QC) positions of the order,
+// the compaction, and the counters; the emit form also packs the returns
+// and writes no borrow request, the expire form expires the ended virtual
+// nodes between release and ingest, and the faults form opens with the
+// fault phase. Returns the node exit narrow's count (in every lane).
+template <bool kEmit, bool kExpire, bool kFaults>
+__device__ __forceinline__ int ffd_prefix(const Args& a, int c,
+                                          const warp::WarpMem& m) {
+  const Level0Args& q = a.q;
+  const Common& k = q.k;
+  // Level0's count and the wait total, read before the entry's other
+  // loads complete
+  int count = q.l0_count[c];
+  SweepAcc acc(q.wait_total[c]);
+  WarpCluster cl(k, c, m);
+  const QueueRows l0 = queue_rows(q.l0, c, k.Q);
+  int drop_queue = 0;
+  int requeued = 0;  // counted as re-arrivals, as faults_level0 does
+  if (kFaults) {
+    cl.faults(a.f, q.l0, q.l0_count + c, &drop_queue, &requeued);
+    count = q.l0_count[c];
+  }
+  cl.release<kEmit>(&a.e);
+  if (kEmit) {  // emit_no_borrow
+    warp::lanes([&](int l) {
+      if (l < NF) a.e.bjob[(size_t)c * NF + l] = 0;
+      if (l == 0) a.e.want[c] = 0;
+    });
+  }
+  if (kExpire) cl.expire(a.x);
+  int arrived = 0;
+  count = cl.ingest(q.l0, count, &drop_queue, &arrived);
+  const int n_sweep = imin(count, k.QC);
+  cl.bfd_order(l0, count, n_sweep, a.mem_first);
+  cl.sweep(l0, count, n_sweep, SRC_L0, q.wave != 0, clamped(q.l0, c), acc);
+  const int kept = warp::compact_placed(l0, count, acc.placed, m.mask);
+  const int placed = cl.placed;
+  warp::lane0([&] {
+    // counters move only by what the tick added (no read when nothing)
+    const int entered = arrived + requeued;
+    if (entered != 0) q.wait_jobs[c] += entered;
+    if (entered != placed) q.jobs_in_queue[c] += entered - placed;
+    q.l0_count[c] = kept;
+    l0.count(c, acc.bad);
+    q.wait_total[c] = acc.total;
+    if (drop_queue != 0) k.drop_queue[c] += drop_queue;
+    if (acc.run_full != 0) k.drop_run_full[c] += acc.run_full;
+    if (placed != 0) k.placed_total[c] += placed;
+  });
+  return cl.store_nodes();
+}
+
+// A warp per cluster runs its span; the tap form then closes it with the
+// metrics tap, every thread of the block taking part. The parameters are
+// __grid_constant__: the steps and the epilogues read them where they are
+// instead of from a copy of them in each thread's local memory.
 template <bool kEmit, bool kExpire, bool kFaults, bool kTap>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(warp::kMaxWarps * warp::kLanes,
+                                  warp::kMinBlocks)
 fused_prefix_ffd_kernel(const __grid_constant__ Args a) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = c < a.q.k.C;
+  const Common& k = a.q.k;
+  const int c = warp::cluster_index();
+  const bool active = c < k.C;  // the same in every lane of the warp
   int bad = 0;
   if (active) {
-    bad = level0_prefix<kEmit, kExpire, kFaults>(a.q, a.e, a.x, a.f, c,
-                                                 BfdOrder(a.mem_first),
-                                                 FirstFitPick{});
+    bad = ffd_prefix<kEmit, kExpire, kFaults>(
+        a, c, warp::warp_mem(k.N, k.R, k.Q, true));
   }
-  if (kTap) tap_epilogue(a.p, a.q.k, c, active);
-  if (a.q.k.node_size != 4) node_exit_epilogue(a.q.k, a.p, kTap, bad);
+  if (kTap) warp::tap_epilogue(a.p, k, c, active);
+  if (k.node_size != 4) warp::node_exit_epilogue(k, a.p, kTap, bad);
 }
 
 }  // namespace
@@ -173,16 +223,26 @@ extern "C" int fused_prefix_ffd_launch(
                      fault_events, fault_trace, mttf, mttr, max_retries),
          make_tap(tap ? tap_ptrs : nullptr, slot)};
   if (C > 0) {
-    const int threads = threads_for(C);
-    const int blocks = (C + threads - 1) / threads;
+    const warp::Geometry g = warp::geometry(C, N, R, Q, true);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    bool launched = false;
     const bool ok = dispatch_forms(emit, expire, faults, tap,
                                    [&](auto e, auto x, auto f, auto p) {
-      fused_prefix_ffd_kernel<decltype(e)::value, decltype(x)::value,
-                              decltype(f)::value, decltype(p)::value>
-          <<<blocks, threads, 0, s>>>(a);
+      launched = warp::launch_warps(
+          fused_prefix_ffd_kernel<decltype(e)::value, decltype(x)::value,
+                                  decltype(f)::value, decltype(p)::value>,
+          g.blocks(C), g.warps, g.smem(), s, a);
     });
-    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    if (!ok || !launched) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch's shape at (C, N, R, Q): warps a block and shared-memory bytes
+// a warp, as fused_prefix_ffd_launch takes it.
+extern "C" void fused_prefix_ffd_geometry(
+    int C, int N, int R, int Q, int* warps, int64_t* warp_bytes) {
+  const warp::Geometry g = warp::geometry(C, N, R, Q, true);
+  *warps = g.warps;
+  *warp_bytes = static_cast<int64_t>(g.warp_bytes);
 }

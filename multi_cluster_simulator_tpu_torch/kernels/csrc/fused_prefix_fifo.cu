@@ -30,35 +30,39 @@
 //   data, and PERF.md records it. The whole state is about 16 MB, so
 //   between ticks it can stay in the 50 MB L2.
 //
-// Design: one thread per cluster walks its cluster's rows in place, once,
-//   in the reference's order: release every due running slot, append the
-//   tick's arrivals, drain the ready queue serially until the first job
-//   that fits no node or finds the running set full (the reference's
-//   "serial" drain, which tests/test_kernel_equiv.py pins equal to the
-//   wave form), then the wait-head and lent-head attempts. Rows are
-//   touched once each and nothing is staged or allocated: the kernel
-//   updates the state tensors in place. Blocks are one warp, so the 4096
-//   clusters spread over 128 SMs. This is the simple form: neighbouring
-//   threads read rows 1.3 KB apart, so loads do not coalesce and the tick
-//   is latency-bound well above the byte bound (PERF.md has the times).
-//   A warp per cluster, and a loop over a whole chunk of ticks inside one
-//   launch, are the next steps. Pops move only the live rows: the slots
-//   past a queue's count hold INVALID rows already, so the 1,024-deep
-//   queues of the borrowing shapes cost what they hold.
+// Design: a warp per cluster (prefix_warp.cuh), in place, in the
+//   reference's order: the lanes release the running slots (due ones by
+//   ballot, their resources back to the node words in shared memory by
+//   shared atomics) and append the tick's arrivals a row a lane; then the
+//   ready queue drains serially until the first job that fits no node or
+//   finds the running set full (the reference's "serial" drain, which
+//   tests/test_kernel_equiv.py pins equal to the wave form) and the
+//   wait-head and lent-head attempts follow — decisions every lane takes
+//   alike from the same loads, first fit a lane a node by ballot, the
+//   free running slot by ballot from the cursor, the running row a field
+//   a lane. The pops move the live rows down 32 at a time (read, sync,
+//   write); the slots past a count hold INVALID rows already, so the
+//   1,024-deep queues of the borrowing shapes cost what they hold. Blocks
+//   of up to 16 warps, fewer while that would leave SMs without a block:
+//   at the headline 4,096 warps in 256 blocks, all resident at once (64
+//   registers a thread at most); config 1's one cluster is one warp. The
+//   node words and flags take N (4R + 1) B of shared memory a warp.
 //
 // The emit form adds per cluster the M return rows and flags and the
 //   borrow request (M*RF*4 + M + NF*4 + 1 B written), the M rows it
-//   copies, and drops.msgs (chip_smoke.py tick_cost_borrow). It is a
-//   separate instantiation of the same kernel, so the terminal form's
-//   code, registers and stack stay as they were.
+//   copies, and drops.msgs (chip_smoke.py tick_cost_borrow): the pack's
+//   positions are ballot prefixes, the returns first, then the other
+//   slots (prefix_warp.cuh WarpCluster::release). It is a separate
+//   instantiation of the same kernel, so the terminal form's code and
+//   registers stay as they were.
 //
 // The expire form (kExpire; the trader's expire_virtual_nodes) runs the
 //   vnode expiry step (core/engine.py _expire_vnodes_local) between
-//   release and ingest: per cluster it reads each node slot's active
-//   flag and expiry (N + 4N B) and writes the slots that expire (their
-//   flag, 3 capacity and 3 free words, and the expiry). Another
-//   instantiation, so the forms without it keep their code, registers
-//   and stacks.
+//   release and ingest, a lane a node slot: per cluster it reads each
+//   slot's active flag and expiry (N + 4N B) and writes the slots that
+//   expire (their flag, 3 capacity and 3 free words, and the expiry).
+//   Another instantiation, so the forms without it keep their code and
+//   registers.
 //
 // The faults form (kFaults; the fault plane, cfg.faults.enabled) opens the
 //   span with the fault phase (faults/apply.py fault_phase_local,
@@ -68,22 +72,23 @@
 //   bench_faults's shape tiled to 4,096 clusters); only where a node
 //   fails, one pass over the S running slots, killing those on a failed
 //   node and requeueing them into the ready queue (own jobs) or the lent
-//   queue (a peer's); draws only where a node fails or repairs. Another
-//   instantiation, so the forms without it keep their code, registers
-//   and stacks.
+//   queue (a peer's); draws only where a node fails or repairs. It runs
+//   on lane 0 of the cluster's warp, over the shared node words (rare
+//   work: a quiet tick reads the node slots and returns). Another
+//   instantiation, so the forms without it keep their code and
+//   registers.
 //
 // The tap form (kTap; a run with the metrics plane on a terminal prefix)
-//   closes the span with prefix_common.cuh's tap_epilogue
-//   (obs/device.py tap_tick): per cluster it reads the buffer's eleven
-//   per-cluster leaves, the cursor's nine and the counters it differences
-//   (under 128 B), writes those that change and the tick's placements and
-//   depth (8 B); each block (one warp) adds its sums and bucket counts
-//   with integer atomics, and the last block to finish writes the ring
-//   slot. A template flag, not a runtime branch: the forms without it keep
-//   their code and registers (the tap keeps ~20 more values live and needs
-//   every thread of a block at its warp-wide sums). It is instantiated
-//   without the expire flag only, since the trader is never terminal: 12
-//   forms in all.
+//   closes the span with prefix_warp.cuh's tap_epilogue (obs/device.py
+//   tap_tick): per cluster lane 0 reads the buffer's eleven per-cluster
+//   leaves, the cursor's nine and the counters it differences (under
+//   128 B), writes those that change and the tick's placements and depth
+//   (8 B); each block sums its warps through shared memory and adds its
+//   sums and bucket counts with integer atomics, and the last block to
+//   finish writes the ring slot. A template flag, not a runtime branch:
+//   the forms without it keep their code and registers. It is
+//   instantiated without the expire flag only, since the trader is never
+//   terminal: 12 forms in all.
 //
 // The state layout (core/compact.py) is a runtime property, as the
 //   windowed ingest is: the queues and the running set arrive as column
@@ -95,35 +100,38 @@
 //   minimum, counted into the table's ovf) where the reference checks, a
 //   plain one where it moves stored values. On the packed rows every
 //   access keeps the rows' own pointer arithmetic (a uniform branch). The
-//   compact layout moves fewer bytes — the bound falls with them — but a
-//   row is ten scattered narrow loads. Narrow node columns (a terminal
-//   prefix) are widened into a local copy at entry and narrowed back,
-//   checked, at exit, the cross-cluster count applied by the last block
-//   (node_exit_epilogue). The local copy and the wave replay's arrays
-//   (prefix_common.cuh fifo_drain_waves, wave_place) cost each form about
-//   1.2-1.5 KB of stack frame, untouched on the wide layout; chip_smoke.py
-//   prints nvcc's registers, stack and spills for every form.
+//   compact layout moves fewer bytes — the bound falls with them — and
+//   the lanes read a narrow leaf of 32 neighbouring rows in one load. The
+//   node words are widened into the warp's shared memory at entry, on
+//   either layout, and stored back at exit — checked on narrow columns,
+//   the cross-cluster count applied by the last block
+//   (node_exit_epilogue). Where a clamp made a queued demand negative,
+//   lane 0 replays the reference's wave drain (prefix_common.cuh
+//   fifo_drain_waves), whose arrays cost the forms about 1.2 KB of stack
+//   frame, untouched otherwise; chip_smoke.py prints nvcc's registers,
+//   shared memory, stack and spills for every form.
 
 // The windowed ingest (an Arrivals stream: BASELINE config 1, the oracle
-//   parity runs) is a runtime branch of prefix_common.cuh Cluster::ingest
-//   (Common::window >= 0), not a template axis, which would double the
-//   forms for a path that runs one cluster: per cluster it reads the enq_t
-//   of each due row and the first not due, and copies the taken rows.
+//   parity runs) is a runtime branch of the ingest step
+//   (prefix_warp.cuh WarpCluster::ingest, Common::window >= 0), not a
+//   template axis, which would double the forms for a path that runs one
+//   cluster: per cluster the lanes read the enq_t of 32 rows at a time
+//   up to the first not due, and copy the taken rows.
 //
-// Shared with the FFD kernel (prefix_common.cuh): release, the arrival
-// append, first-fit, placement and the trace, and the integer discipline
-// (int32 as in the reference, wrapping sums done in uint32).
+// Shared with the FFD kernel (prefix_warp.cuh): release, the arrival
+// append, first fit, placement and the trace, the row moves, and the
+// integer discipline (int32 as in the reference, wrapping sums done in
+// uint32).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //   -Xcompiler -fPIC (kernels/build.py); bound to PyTorch with ctypes.
 
-#include "prefix_common.cuh"
+#include "prefix_warp.cuh"
 
 namespace {
 
 using namespace prefix;
-
-constexpr int kThreads = 32;  // one warp per block, one cluster per thread
+using warp::WarpCluster;
 
 struct Args {
   Common k;
@@ -140,19 +148,17 @@ struct Args {
   Tap p;
 };
 
-// pop_front of a non-empty queue: shift the live rows left by one, INVALID
-// into the last live row (the rows past it are INVALID already).
-__device__ void pop_front(const QueueRows& q, int* count) {
-  *count = pop_front_n(q, *count, 1);
-}
-
-// The span of one cluster; returns the node exit narrow's count.
+// The span of cluster c, carried by the calling warp; returns the node exit
+// narrow's count (in every lane).
 template <bool kEmit, bool kExpire, bool kFaults>
-__device__ __forceinline__ int fifo_prefix(const Args& a, int c) {
+__device__ __forceinline__ int fifo_prefix(const Args& a, int c,
+                                           const warp::WarpMem& m) {
   const Common& k = a.k;
   const int Q = k.Q;
-  int32_t lfree[kNodeWords];
-  Cluster cl(k, c, lfree);
+  // the queue counts, read before the entry's other loads complete
+  int rcount = a.ready_count[c], wcount = a.wait_count[c];
+  int lcount = a.lent_count[c];
+  WarpCluster cl(k, c, m);
   const QueueRows ready = queue_rows(a.ready, c, Q);
   const QueueRows wait = queue_rows(a.wait, c, Q);
   const QueueRows lent = queue_rows(a.lent, c, Q);
@@ -164,6 +170,8 @@ __device__ __forceinline__ int fifo_prefix(const Args& a, int c) {
   if (kFaults) {
     int n_ingest = 0;
     cl.faults(a.f, a.ready, a.ready_count + c, &drop_queue, &n_ingest);
+    rcount = a.ready_count[c];
+    lcount = a.lent_count[c];
   }
 
   // 1. release every due running slot (the emit form packs the returns),
@@ -173,11 +181,10 @@ __device__ __forceinline__ int fifo_prefix(const Args& a, int c) {
 
   // 2. ingest: append the tick's arrivals to the ready queue.
   int arrived = 0;
-  int rcount = cl.ingest(a.ready, a.ready_count[c], &drop_queue, &arrived);
+  rcount = cl.ingest(a.ready, rcount, &drop_queue, &arrived);
 
   // 3. FIFO (Fifo(), scheduler.go:216-296).
   int run_full = 0;
-  int wcount = a.wait_count[c];
   const bool wait_active = wcount > 0;
 
   // 3a. ready drain, only when the wait queue is empty: place from the
@@ -187,8 +194,8 @@ __device__ __forceinline__ int fifo_prefix(const Args& a, int c) {
   int32_t job[NF];  // the last job the drain attempted: the failing one
   const int lim = wait_active ? 0 : imin(rcount, k.QC);
   if (a.wave && clamped(a.ready, c) && k.N <= kMaxNarrowNodes &&
-      any_negative_demand(ready, lim)) {
-    fifo_drain_waves(cl, ready, lim, &run_full, &n_taken, &any_fail, job);
+      warp::any_negative_demand(ready, lim)) {
+    cl.drain_waves(ready, lim, &run_full, &n_taken, &any_fail, job);
   } else {
     for (int i = 0; i < lim; ++i) {
       ready.load(i, job);
@@ -199,13 +206,13 @@ __device__ __forceinline__ int fifo_prefix(const Args& a, int c) {
       }
     }
   }
-  // pop_front_n(ready, n_taken)
-  rcount = pop_front_n(ready, rcount, n_taken);
+  rcount = warp::pop_front_n(ready, rcount, n_taken);
   // push_back(wait, fail_job, any_fail), checked; the drop reads the old
   // count.
   if (any_fail) {
     if (wcount < Q) {
-      wait.count(c, wait.store_checked(wcount, job));
+      const int bad = warp::store_row(wait, wcount, job, true);
+      warp::lane0([&] { wait.count(c, bad); });
       ++wcount;
     } else {
       ++drop_queue;
@@ -217,46 +224,58 @@ __device__ __forceinline__ int fifo_prefix(const Args& a, int c) {
   //     with borrowing, whether the attempt failed: the BorrowResources
   //     request (scheduler.go:234).
   const bool process_w = wcount > 0;
-  wait.load(0, job);
+  if (process_w || kEmit) wait.load(0, job);
   if (kEmit) {
-#pragma unroll
-    for (int f = 0; f < NF; ++f) a.e.bjob[(size_t)c * NF + f] = job[f];
+    warp::lanes([&](int l) {
+      if (l < NF) a.e.bjob[(size_t)c * NF + l] = warp::field_at(job, l);
+    });
   }
   const bool wsuccess = process_w && cl.attempt(job, SRC_WAIT, &run_full);
-  if (wsuccess) pop_front(wait, &wcount);
-  if (kEmit) a.e.want[c] = a.e.borrowing && process_w && !wsuccess;
+  if (wsuccess) wcount = warp::pop_front_n(wait, wcount, 1);
 
   // 3c. lent best-effort (scheduler.go:277-291): only in a tick where the
-  //     wait queue was empty and the ready queue drained clean.
-  int lcount = a.lent_count[c];
-  //     A lent row's owner (the borrower's index) goes into its running
-  //     row, so that its completion returns it.
+  //     wait queue was empty and the ready queue drained clean. A lent
+  //     row's owner (the borrower's index) goes into its running row, so
+  //     that its completion returns it.
   if (!wait_active && !any_fail && rcount == 0 && lcount > 0) {
     lent.load(0, job);
-    if (cl.attempt(job, SRC_LENT, &run_full)) pop_front(lent, &lcount);
+    if (cl.attempt(job, SRC_LENT, &run_full)) {
+      lcount = warp::pop_front_n(lent, lcount, 1);
+    }
   }
 
-  a.ready_count[c] = rcount;
-  a.wait_count[c] = wcount;
-  a.lent_count[c] = lcount;
-  k.drop_queue[c] += drop_queue;
-  k.drop_run_full[c] += run_full;
-  k.placed_total[c] += cl.placed;
+  const int placed = cl.placed;
+  warp::lane0([&] {
+    if (kEmit) a.e.want[c] = a.e.borrowing && process_w && !wsuccess;
+    a.ready_count[c] = rcount;
+    a.wait_count[c] = wcount;
+    a.lent_count[c] = lcount;
+    // counters move only by what the tick added (no read when nothing)
+    if (drop_queue != 0) k.drop_queue[c] += drop_queue;
+    if (run_full != 0) k.drop_run_full[c] += run_full;
+    if (placed != 0) k.placed_total[c] += placed;
+  });
   return cl.store_nodes();
 }
 
-// One thread per cluster runs its span; the tap form then closes it with
-// the metrics tap, every thread of the block taking part. The parameters
-// are __grid_constant__: the tap epilogue, a call, reads them where they
-// are instead of from a copy of them in each thread's local memory.
+// A warp per cluster runs its span; the tap form then closes it with the
+// metrics tap, every thread of the block taking part. The parameters are
+// __grid_constant__: the steps and the epilogues read them where they are
+// instead of from a copy of them in each thread's local memory.
 template <bool kEmit, bool kExpire, bool kFaults, bool kTap>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(warp::kMaxWarps * warp::kLanes,
+                                  warp::kMinBlocks)
 fused_prefix_fifo_kernel(const __grid_constant__ Args a) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = c < a.k.C;
-  const int bad = active ? fifo_prefix<kEmit, kExpire, kFaults>(a, c) : 0;
-  if (kTap) tap_epilogue(a.p, a.k, c, active);
-  if (a.k.node_size != 4) node_exit_epilogue(a.k, a.p, kTap, bad);
+  const Common& k = a.k;
+  const int c = warp::cluster_index();
+  const bool active = c < k.C;  // the same in every lane of the warp
+  int bad = 0;
+  if (active) {
+    bad = fifo_prefix<kEmit, kExpire, kFaults>(
+        a, c, warp::warp_mem(k.N, k.R, k.Q, false));
+  }
+  if (kTap) warp::tap_epilogue(a.p, k, c, active);
+  if (k.node_size != 4) warp::node_exit_epilogue(k, a.p, kTap, bad);
 }
 
 }  // namespace
@@ -308,15 +327,26 @@ extern "C" int fused_prefix_fifo_launch(
                      fault_events, fault_trace, mttf, mttr, max_retries),
          make_tap(tap ? tap_ptrs : nullptr, slot)};
   if (C > 0) {
-    const int blocks = (C + kThreads - 1) / kThreads;
+    const warp::Geometry g = warp::geometry(C, N, R, Q, false);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    bool launched = false;
     const bool ok = dispatch_forms(emit, expire, faults, tap,
                                    [&](auto e, auto x, auto f, auto p) {
-      fused_prefix_fifo_kernel<decltype(e)::value, decltype(x)::value,
-                               decltype(f)::value, decltype(p)::value>
-          <<<blocks, kThreads, 0, s>>>(a);
+      launched = warp::launch_warps(
+          fused_prefix_fifo_kernel<decltype(e)::value, decltype(x)::value,
+                                   decltype(f)::value, decltype(p)::value>,
+          g.blocks(C), g.warps, g.smem(), s, a);
     });
-    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    if (!ok || !launched) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch's shape at (C, N, R, Q): warps a block and shared-memory bytes
+// a warp, as fused_prefix_fifo_launch takes it.
+extern "C" void fused_prefix_fifo_geometry(
+    int C, int N, int R, int Q, int* warps, int64_t* warp_bytes) {
+  const warp::Geometry g = warp::geometry(C, N, R, Q, false);
+  *warps = g.warps;
+  *warp_bytes = static_cast<int64_t>(g.warp_bytes);
 }

@@ -762,6 +762,18 @@ struct Cluster {
     }
   }
 
+  // A cluster whose free words the caller already holds widened, where
+  // it keeps them (prefix_warp.cuh: the warp's shared copy): nothing is
+  // copied, and the caller sets the cursor and the counts.
+  struct Words {};
+  __host__ __device__ Cluster(const Common& args, int cluster, int32_t* words,
+                              Words)
+      : a(args), c(cluster), free(words),
+        nact(args.node_active + (size_t)cluster * args.N),
+        run(&args.run, (size_t)cluster * args.S),
+        ract(args.run_active + (size_t)cluster * args.S),
+        slot(0), n_active(0), placed(0) {}
+
   // The terminal exit narrow of narrow node columns (core/engine.py
   // _narrow_nodes): each free word stored back checked; returns how many
   // did not fit (0 on int32 columns, computed on in place). The capacity
@@ -1589,18 +1601,82 @@ __host__ __device__ inline int depth_bucket(int32_t depth) {
   return imin(imax(b, 0), kDepthBuckets - 1);
 }
 
-// The tap of cluster c after its span (active: c < C; every thread of the
-// block calls it, so that the warp-wide sums see the whole block). The
-// per-cluster half differences the counters against the cursor, in the
+// The per-cluster half of the tap (obs/device.py tap_tick_local) for
+// cluster c: the counters differenced against the cursor, in the
 // reference's arithmetic (int32 wrapping, the f32 wait delta added as one
-// subtraction and one addition), accumulates the eleven leaves and moves
-// the cursor. The cross-cluster half: each block (one warp) sums its
-// clusters' placements and depths and counts its depth buckets, adds them
-// with integer atomics — exact in any order — and the last block to
-// finish writes the ring slot (its value rows, the clock) and the tick
-// count and zeroes the scratch for the next launch. A call, not inlined:
-// inlined into the scored kernel, nvcc compiled the tesserae branch's
-// Level0 compaction wrong in the faults form (a placed slot stayed in
+// subtraction and one addition), the eleven leaves accumulated, the
+// cursor moved; sets the tick's placements, the queue depth and its
+// bucket. Every value is loaded before the first store, so that the loads
+// go out together instead of each waiting on the stores before it (the
+// compiler cannot tell the leaves apart).
+__device__ __forceinline__ void tap_cluster(const Tap& p, const Common& k,
+                                            int c, int32_t* placed_d_out,
+                                            int32_t* depth_out,
+                                            int* bucket_out) {
+  // the state's counters
+  const int32_t placed = k.placed_total[c], arrived = k.arr_ptr[c];
+  const int32_t lent = p.lent_count[c];
+  const float wait = p.wait_total[c];
+  const int32_t kills = p.kills_total[c], requeues = p.requeues_total[c];
+  const int32_t fail = p.drop_failed[c], down = p.down_ms_total[c];
+  int32_t ovf = 0;  // obs/device.py _ovf_total: 0 on the wide layout
+  for (int q = 0; q < kOvfCounters; ++q) {
+    if (p.ovf_total[q] != nullptr) ovf = wrap_add(ovf, p.ovf_total[q][c]);
+  }
+  const int32_t depth = wrap_add(
+      wrap_add(wrap_add(p.l0_count[c], p.l1_count[c]), p.ready_count[c]),
+      p.wait_count[c]);
+  // the cursor
+  const int32_t c_placed = p.c_placed[c], c_arrived = p.c_arrived[c];
+  const int32_t c_lent = p.c_lent[c], c_ovf = p.c_ovf[c];
+  const float c_wait = p.c_wait[c];
+  const int32_t c_kills = p.c_kills[c], c_requeues = p.c_requeues[c];
+  const int32_t c_fail = p.c_fail_drops[c], c_down = p.c_down_ms[c];
+  // the accumulators
+  const int32_t b_placed = p.placed[c], b_arrived = p.arrived[c];
+  const int32_t b_borrows = p.borrows[c], b_ovf = p.ovf[c];
+  const float b_wait = p.wait_accrued[c];
+  const int32_t b_depth_sum = p.depth_sum[c], b_depth_max = p.depth_max[c];
+  const int32_t b_kills = p.kills[c], b_requeues = p.requeues[c];
+  const int32_t b_fail = p.fail_drops[c], b_down = p.node_down_ms[c];
+
+  const int32_t placed_d = wrap_sub(placed, c_placed);
+  p.placed[c] = wrap_add(b_placed, placed_d);
+  p.arrived[c] = wrap_add(b_arrived, wrap_sub(arrived, c_arrived));
+  p.borrows[c] = wrap_add(b_borrows, imax(wrap_sub(lent, c_lent), 0));
+  p.wait_accrued[c] = fadd_rn(b_wait, fsub_rn(wait, c_wait));
+  p.ovf[c] = wrap_add(b_ovf, wrap_sub(ovf, c_ovf));
+  p.depth_sum[c] = wrap_add(b_depth_sum, depth);
+  p.depth_max[c] = imax(b_depth_max, depth);
+  p.kills[c] = wrap_add(b_kills, wrap_sub(kills, c_kills));
+  p.requeues[c] = wrap_add(b_requeues, wrap_sub(requeues, c_requeues));
+  p.fail_drops[c] = wrap_add(b_fail, wrap_sub(fail, c_fail));
+  p.node_down_ms[c] = wrap_add(b_down, wrap_sub(down, c_down));
+  p.c_placed[c] = placed;
+  p.c_arrived[c] = arrived;
+  p.c_lent[c] = lent;
+  p.c_wait[c] = wait;
+  p.c_ovf[c] = ovf;
+  p.c_kills[c] = kills;
+  p.c_requeues[c] = requeues;
+  p.c_fail_drops[c] = fail;
+  p.c_down_ms[c] = down;
+  p.placed_d[c] = placed_d;
+  p.depth[c] = depth;
+  bucket_out[0] = depth_bucket(depth);
+  placed_d_out[0] = placed_d;
+  depth_out[0] = depth;
+}
+
+// The tap of cluster c after its span (active: c < C; every thread of the
+// block calls it, so that the warp-wide sums see the whole block): the
+// per-cluster half (tap_cluster), then the cross-cluster half: each block
+// (one warp) sums its clusters' placements and depths and counts its depth
+// buckets, adds them with integer atomics — exact in any order — and the
+// last block to finish writes the ring slot (its value rows, the clock)
+// and the tick count and zeroes the scratch for the next launch. A call,
+// not inlined: inlined into the scored kernel, nvcc compiled the tesserae
+// branch's Level0 compaction wrong in the faults form (a placed slot stayed in
 // Level0; the comparison with the plain version on the card caught it);
 // as a call, every thread of the block also arrives converged at the
 // warp-wide sums.
@@ -1609,49 +1685,7 @@ static __device__ __noinline__ void tap_epilogue(const Tap& p,
                                                  bool active) {
   int32_t placed_d = 0, depth = 0;
   int bucket = -1;
-  if (active) {
-    const int32_t placed = k.placed_total[c], arrived = k.arr_ptr[c];
-    const int32_t lent = p.lent_count[c];
-    const float wait = p.wait_total[c];
-    const int32_t kills = p.kills_total[c], requeues = p.requeues_total[c];
-    const int32_t fail = p.drop_failed[c], down = p.down_ms_total[c];
-    int32_t ovf = 0;  // obs/device.py _ovf_total: 0 on the wide layout
-    for (int q = 0; q < kOvfCounters; ++q) {
-      if (p.ovf_total[q] != nullptr) ovf = wrap_add(ovf, p.ovf_total[q][c]);
-    }
-    placed_d = wrap_sub(placed, p.c_placed[c]);
-    depth = wrap_add(wrap_add(wrap_add(p.l0_count[c], p.l1_count[c]),
-                              p.ready_count[c]),
-                     p.wait_count[c]);
-    p.placed[c] = wrap_add(p.placed[c], placed_d);
-    p.arrived[c] = wrap_add(p.arrived[c], wrap_sub(arrived, p.c_arrived[c]));
-    p.borrows[c] = wrap_add(p.borrows[c],
-                            imax(wrap_sub(lent, p.c_lent[c]), 0));
-    p.wait_accrued[c] = fadd_rn(p.wait_accrued[c],
-                                fsub_rn(wait, p.c_wait[c]));
-    p.ovf[c] = wrap_add(p.ovf[c], wrap_sub(ovf, p.c_ovf[c]));
-    p.depth_sum[c] = wrap_add(p.depth_sum[c], depth);
-    p.depth_max[c] = imax(p.depth_max[c], depth);
-    p.kills[c] = wrap_add(p.kills[c], wrap_sub(kills, p.c_kills[c]));
-    p.requeues[c] = wrap_add(p.requeues[c],
-                             wrap_sub(requeues, p.c_requeues[c]));
-    p.fail_drops[c] = wrap_add(p.fail_drops[c],
-                               wrap_sub(fail, p.c_fail_drops[c]));
-    p.node_down_ms[c] = wrap_add(p.node_down_ms[c],
-                                 wrap_sub(down, p.c_down_ms[c]));
-    p.c_placed[c] = placed;
-    p.c_arrived[c] = arrived;
-    p.c_lent[c] = lent;
-    p.c_wait[c] = wait;
-    p.c_ovf[c] = ovf;
-    p.c_kills[c] = kills;
-    p.c_requeues[c] = requeues;
-    p.c_fail_drops[c] = fail;
-    p.c_down_ms[c] = down;
-    p.placed_d[c] = placed_d;
-    p.depth[c] = depth;
-    bucket = depth_bucket(depth);
-  }
+  if (active) tap_cluster(p, k, c, &placed_d, &depth, &bucket);
 #ifdef __CUDA_ARCH__
   const unsigned lanes =
       blockDim.x >= 32 ? 0xFFFFFFFFu : (1u << blockDim.x) - 1u;

@@ -68,6 +68,9 @@ added to every cluster's ``run.ovf`` by the last block.
 
 Each source's header states what bounds it on the H100 and what its
 design does about that; what they share is ``csrc/prefix_common.cuh``.
+The FIFO and FFD kernels carry a cluster per warp, their cooperative
+steps in ``csrc/prefix_warp.cuh``; the DELAY and scored kernels a
+cluster per thread.
 The kernel is the one of the member ``params.idx`` selects in the
 engine's ``PolicySet``, read once at a run's entry (``host_params``).
 
@@ -110,12 +113,14 @@ REPLACES = "multi_cluster_simulator_tpu/kernels/fused_tick.py:160"
 CSRC = "multi_cluster_simulator_tpu_torch/kernels/csrc/"
 
 # The Level0 and Level1 sweeps' static limit: their placed-slot mask is a
-# fixed-size bit array per thread (csrc/prefix_common.cuh kMaxQueue).
+# fixed-size bit array (csrc/prefix_common.cuh kMaxQueue), and the FFD
+# kernel's order holds this many keys in a warp's shared memory.
 MAX_QUEUE = 1024
 # The fault step's failed-node mask, likewise (kMaxFaultNodes).
 MAX_FAULT_NODES = 64
-# The node slots a cluster may have on narrow node columns: a thread
-# computes on a local int32 copy of them (kMaxNarrowNodes).
+# The node slots a cluster may have on narrow node columns: the DELAY and
+# scored kernels compute on a local int32 copy of them, and every kernel's
+# replay of the waves on local arrays (kMaxNarrowNodes).
 MAX_NARROW_NODES = 32
 # The storage dtypes a column view takes (1, 2 or 4 bytes a value).
 _INT_DTYPES = (torch.int8, torch.int16, torch.int32)

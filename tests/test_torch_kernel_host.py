@@ -1,0 +1,434 @@
+"""The warp-per-cluster prefix kernels (``kernels/csrc/fused_prefix_fifo.cu``
+and ``fused_prefix_ffd.cu``) built as host C++ with g++ and held, tick by
+tick, against their plain PyTorch version on the CPU.
+
+The sources compile for the host against a shim ``cuda_runtime.h`` (the
+CUDA qualifiers defined away) with ``-ffp-contract=off``; the lane helpers
+of ``csrc/prefix_warp.cuh`` have a host meaning (the 32 lanes one after
+another) and ``launch_warps`` runs each warp as one call. ``build.load``
+returns these libraries and ``torch.cuda.current_stream`` a null stream,
+so ``fused_tick._LAUNCH`` drives them on CPU tensors exactly as it drives
+the card. Every run goes through the engine's entry points with
+``fused_tick.fused_prefix`` replaced by ``Checked``: each tick the host
+kernel updates the state in place and ``fused_prefix_reference`` runs on a
+copy; every state leaf (``wait_total`` bitwise), every emit output and,
+with the metrics plane, every buffer and cursor leaf must be equal.
+Cases cover the FIFO headline shape, the emit form with borrowing and
+returns past the message slots, the expire, faults and tap forms, the
+windowed ingest, FFD with a cap below the queue, the whole queue
+(parity) and ``ffd-memfirst``, both
+state layouts, undersized plans whose clamped demands replay the waves,
+the node exit narrow, and cluster counts that leave a block's last warps
+idle. Needs g++ (skipped without one, decided in a fixture)."""
+
+import collections
+import ctypes
+import dataclasses
+import shutil
+import subprocess
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import multi_cluster_simulator_tpu_torch as P
+from multi_cluster_simulator_tpu_torch.core import compact as CC
+from multi_cluster_simulator_tpu_torch.core import engine as E
+from multi_cluster_simulator_tpu_torch.core.state import (
+    clone_state, empty_io, init_state,
+)
+from multi_cluster_simulator_tpu_torch.kernels import build, fused_tick
+from multi_cluster_simulator_tpu_torch.obs import device as D
+from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
+from multi_cluster_simulator_tpu_torch.workload.traces import uniform_stream
+
+torch.set_num_threads(1)
+
+NAMES = ("fused_prefix_fifo", "fused_prefix_ffd")
+
+# The CUDA runtime as the host build sees it: the qualifiers defined away,
+# the launch geometry as globals that launch_warps' host loop sets.
+SHIM = """#pragma once
+#include <stddef.h>
+#include <stdint.h>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __noinline__
+#define __launch_bounds__(...)
+#define __grid_constant__
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+struct dim3 { unsigned x = 1, y = 1, z = 1; };
+struct int2 { int x, y; };
+static dim3 gridDim, blockDim, blockIdx, threadIdx;
+"""
+
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    """The two sources built with g++ into a temporary directory and
+    routed to: ``build.load`` returns them, the stream is null."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++: the kernels' host build needs a C++17 "
+                    "compiler")
+    d = tmp_path_factory.mktemp("host_kernels")
+    (d / "cuda_runtime.h").write_text(SHIM)
+    procs = {}
+    for name in NAMES:
+        cmd = [gxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+               "-ffp-contract=off", "-w", "-I", str(d), "-x", "c++",
+               str(build.CSRC / build.SOURCES[name]), "-o",
+               str(d / f"lib{name}.so")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, f"g++ failed for {name}:\n{out}"
+        libs[name] = ctypes.CDLL(str(d / f"lib{name}.so"))
+    stream = types.SimpleNamespace(cuda_stream=0)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(build, "load", lambda name: libs[name])
+        mp.setattr(torch.cuda, "current_stream", lambda device=None: stream)
+        fused_tick._entry.cache_clear()
+        yield libs
+    fused_tick._entry.cache_clear()
+
+
+def assert_same(want, got, what: str) -> None:
+    """Every leaf equal, floats bitwise."""
+    for (k, a), (_, b) in zip(leaves_with_keys(want), leaves_with_keys(got)):
+        assert a.dtype == b.dtype and a.shape == b.shape, f"{what} {k}"
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()[:4].tolist()
+            raise AssertionError(f"{what}: {k} differs at {bad}")
+
+
+class Checked:
+    """``fused_tick.fused_prefix`` for runs on CPU tensors: the host-built
+    kernel on the state in place, the plain version on a copy, every leaf
+    held equal; counts the launches of each form."""
+
+    def __init__(self):
+        self.launches = collections.Counter()
+        self.real = fused_tick.fused_prefix
+
+    def __call__(self, engine, state, rows, counts, t, params, host,
+                 emit_returns=False, out=None, obs=None, windowed=False):
+        ref = clone_state(state)
+        ref_obs = None if obs is None else tuple(map(clone_state, obs))
+        _, *ref_io, _ = self.real(engine, ref, rows, counts, t, params, host,
+                                  emit_returns, None, ref_obs, windowed)
+        tap = None
+        if obs is not None:
+            tap = fused_tick._tap_args(engine, state, obs[0], obs[1], host)
+        io = None
+        if emit_returns:
+            io = out if out is not None else empty_io(
+                (counts.shape[0],), engine.n_msgs(), counts.device)
+        k = host[("emit_" if emit_returns else "")
+                 + ("tap_kernel" if tap is not None else "kernel")]
+        fused_tick._LAUNCH[k.lib](engine.cfg, state, rows, counts, t, host,
+                                  io, windowed, tap)
+        self.launches[k.name] += 1
+        what = f"{k.name} at t={t}"
+        assert_same(ref, state, what)
+        obs_out = None
+        if obs is not None:
+            assert_same(ref_obs[0], obs[0], what + " (buffer)")
+            assert_same(ref_obs[1], obs[1], what + " (cursor)")
+            obs_out = (tap.pc, obs[1], tap.placed_d, tap.depth)
+        if not emit_returns:
+            return state, None, None, None, None, obs_out
+        got = fused_tick._outputs(io)
+        for name, a, b in zip(("want", "bjob_vec", "ret_rows", "ret_valid"),
+                              ref_io, got):
+            assert torch.equal(a, b), f"{what}: {name}"
+        return (state, *got, obs_out)
+
+
+@pytest.fixture
+def checked(host_kernels, monkeypatch):
+    chk = Checked()
+    monkeypatch.setattr(fused_tick, "fused_prefix", chk)
+    return chk
+
+
+# ---------------------------------------------------------------------------
+# the worlds
+# ---------------------------------------------------------------------------
+
+def fifo_cfg(**kw):
+    """The headline's config (bench.py _fifo_parity_scale) at its own
+    queue and running-set sizes."""
+    base = dict(policy=P.PolicyKind.FIFO, queue_capacity=8, max_running=32,
+                max_arrivals=64, max_ingest_per_tick=8, parity=True,
+                n_res=2, max_nodes=5, max_virtual_nodes=0)
+    base.update(kw)
+    return P.SimConfig(**base)
+
+
+def ffd_cfg(**kw):
+    """bench_borg4k's config (bench.py:1236) at a smaller queue."""
+    base = dict(policy=P.PolicyKind.FFD, parity=False,
+                max_placements_per_tick=16, queue_capacity=32,
+                max_running=24, max_arrivals=64, max_ingest_per_tick=8,
+                max_nodes=5, max_virtual_nodes=0, n_res=2)
+    base.update(kw)
+    return P.SimConfig(**base)
+
+
+def specs(C, n_nodes=5, **kw):
+    return [P.uniform_cluster(c + 1, n_nodes, **kw) for c in range(C)]
+
+
+def stream(C, jobs, horizon_ms=40_000, max_cores=16, max_mem=12_000,
+           max_dur_ms=20_000, seed=5):
+    return uniform_stream(C, jobs, horizon_ms, max_cores=max_cores,
+                          max_mem=max_mem, max_dur_ms=max_dur_ms, seed=seed)
+
+
+def chunks_of(arr, n_ticks, cfg):
+    half = n_ticks // 2
+    return E.pack_arrivals_chunks(arr, [half, n_ticks - half], cfg.tick_ms)
+
+
+def undersized(plan):
+    """``plan`` with int8 queue cores (tests/test_kernels.py:283): a 600-core
+    demand is stored as -128."""
+    return dataclasses.replace(plan, queue=tuple(
+        (n, "int8" if n == "cores" else dt) for n, dt in plan.queue))
+
+
+def run(engine, state, arr, n_ticks, plane=False):
+    """``n_ticks`` ticks of ``arr`` through ``run_chunks`` (the metrics
+    plane on with ``plane``)."""
+    mbuf = D.metrics_init(state) if plane else None
+    out = engine.run_chunks(state, chunks_of(arr, n_ticks, engine.cfg),
+                            mbuf=mbuf)
+    return out[0] if plane else out
+
+
+def fifo_headline(compact=False, plane=False, C=16, **kw):
+    cfg = fifo_cfg(**kw)
+    sp = specs(C)
+    arr = stream(C, 60)
+    plan = CC.derive_plan(cfg, sp, arr) if compact else None
+    state = init_state(cfg, sp, device="cpu", plan=plan)
+    return run(E.Engine(cfg, device="cpu"), state, arr, 45, plane)
+
+
+def fifo_emit(compact=False):
+    """Borrowing (BASELINE config 2's semantics) on small queues with one
+    message slot: the even clusters are loaded and borrow, the odd ones
+    lend; returns past the slot count into drops.msgs. A run_io chunk
+    (the emit form's other caller) closes it."""
+    cfg = fifo_cfg(parity=False, borrowing=True, queue_capacity=16,
+                   max_running=16, max_msgs=1, max_nodes=5)
+    C = 4
+    sp = specs(C, n_nodes=2)
+    arr = stream(C, 80, horizon_ms=30_000, max_cores=24, max_dur_ms=8_000)
+    arr = dataclasses.replace(arr, n=np.where(np.arange(C) % 2 == 0,
+                                              arr.n, 0).astype(np.int32))
+    plan = CC.derive_plan(cfg, sp, arr) if compact else None
+    state = init_state(cfg, sp, device="cpu", plan=plan)
+    engine = E.Engine(cfg, device="cpu")
+    out = run(engine, state, arr, 40)
+    ta = E.pack_arrivals_by_tick(arr, 50, cfg.tick_ms)
+    rows = torch.from_numpy(ta.rows[40:50].copy())
+    counts = torch.from_numpy(ta.counts[40:50].copy())
+    out, io = engine.run_io(out, rows, counts)
+    return out
+
+
+def with_vnodes(state, n_phys, expire_at):
+    """Every virtual node slot active with a physical node's capacity, its
+    contract ending at ``expire_at``: jobs place on them, then they
+    expire."""
+    v = slice(n_phys, None)
+    state.node_active[:, v] = True
+    state.node_cap[:, v] = state.node_cap[:, :1]
+    state.node_free[:, v] = state.node_cap[:, :1]
+    state.node_expire[:, v] = expire_at
+    return state
+
+
+def expiring(policy, borrowing=False):
+    """The expire forms: the trader on with expiry, the virtual slots
+    loaded and expiring at 6 s."""
+    trader = P.TraderConfig(enabled=True, expire_virtual_nodes=True)
+    make = fifo_cfg if policy == "fifo" else ffd_cfg
+    cfg = make(max_virtual_nodes=2, n_res=3, trader=trader,
+               borrowing=borrowing, queue_capacity=16, max_running=24)
+    C = 4
+    sp = specs(C, n_nodes=3)
+    state = with_vnodes(init_state(cfg, sp, device="cpu"), 3, 6_000)
+    return run(E.Engine(cfg, device="cpu"), state, stream(C, 60), 20)
+
+
+def faulty(policy, compact=False, plane=False):
+    """Generative churn fast enough to fail nodes within the run."""
+    faults = P.FaultConfig(enabled=True, mode="generative", mttf_ms=15_000,
+                           mttr_ms=4_000, seed=29, max_retries=2)
+    make = fifo_cfg if policy == "fifo" else ffd_cfg
+    cfg = make(faults=faults, queue_capacity=32, max_running=32)
+    C = 8
+    sp = specs(C)
+    arr = stream(C, 60, max_dur_ms=30_000)
+    plan = CC.derive_plan(cfg, sp, arr) if compact else None
+    state = init_state(cfg, sp, device="cpu", plan=plan)
+    return run(E.Engine(cfg, device="cpu"), state, arr, 40, plane)
+
+
+def windowed():
+    """BASELINE config 1's shape at two clusters: the windowed Arrivals
+    stream, the plane on (the tap form)."""
+    cfg = fifo_cfg(parity=False, queue_capacity=64, max_running=32,
+                   max_arrivals=256, max_ingest_per_tick=4)
+    sp = specs(2)
+    state = init_state(cfg, sp, device="cpu")
+    arr = stream(2, 200, horizon_ms=30_000, max_dur_ms=60_000)
+    engine = E.Engine(cfg, device="cpu")
+    return engine.run(state, arr, 35, mbuf=D.metrics_init(state))[0]
+
+
+def undersized_fifo():
+    """The wave drain on an undersized plan: 600-core demands stored as
+    -128 place and lift their node's free cores; the kernel replays the
+    reference's waves."""
+    cfg = fifo_cfg(parity=False, fifo_drain="wave")
+    C = 8
+    sp = specs(C)
+    arr = stream(C, 30, horizon_ms=20_000, max_cores=600, max_mem=6_000,
+                 max_dur_ms=60_000, seed=3)
+    plan = undersized(CC.derive_plan(cfg, sp, None))
+    state = init_state(cfg, sp, device="cpu", plan=plan)
+    return run(E.Engine(cfg, device="cpu"), state, arr, 25)
+
+
+def node_exit(policy):
+    """The terminal node exit narrow on a hand-built plan: int8 node
+    columns on 100-core nodes, which a placed -128-core job lifts past
+    127; the one total over every cluster lands in each run.ovf."""
+    cfg = fifo_cfg()
+    C = 6
+    sp = specs(C, n_nodes=2, cores=100, memory=100)
+    arr = stream(C, 4, horizon_ms=4_000, max_cores=600, max_mem=50,
+                 max_dur_ms=60_000, seed=4)
+    plan = undersized(CC.derive_plan(cfg, sp, None))
+    state = init_state(cfg, sp, device="cpu", plan=plan)
+    engine = E.Engine(cfg, device="cpu", policies=PolicySet((policy,)))
+    return run(engine, state, arr, 8, plane=policy == "fifo")
+
+
+def ffd_run(policy="ffd", compact=False, plane=False, C=8, jobs=120,
+            plan_of=None, max_cores=16, **kw):
+    cfg = ffd_cfg(**kw)
+    sp = specs(C)
+    arr = stream(C, jobs, horizon_ms=30_000, max_cores=max_cores,
+                 max_dur_ms=40_000)
+    plan = plan_of(cfg, sp, arr) if plan_of else (
+        CC.derive_plan(cfg, sp, arr) if compact else None)
+    state = init_state(cfg, sp, device="cpu", plan=plan)
+    engine = E.Engine(cfg, device="cpu", policies=PolicySet((policy,)))
+    return run(engine, state, arr, 40, plane)
+
+
+def ffd_emit():
+    """The FFD kernel's emit form: run_io (every tick emits)."""
+    cfg = ffd_cfg(max_msgs=4)
+    C = 4
+    sp = specs(C)
+    arr = stream(C, 80, horizon_ms=20_000)
+    ta = E.pack_arrivals_by_tick(arr, 24, cfg.tick_ms)
+    state = init_state(cfg, sp, device="cpu")
+    out, _ = E.Engine(cfg, device="cpu").run_io(
+        state, torch.from_numpy(ta.rows.copy()),
+        torch.from_numpy(ta.counts.copy()))
+    return out
+
+
+def ffd_undersized():
+    """FFD's wave sweep on an undersized plan, over a queue deeper than
+    its cap: the clamped rows make the kernel replay the waves over the
+    warp's order."""
+    return ffd_run(C=8, jobs=60, ffd_sweep="wave", max_cores=600,
+                   plan_of=lambda cfg, sp, arr: undersized(
+                       CC.derive_plan(cfg, sp, None)),
+                   max_placements_per_tick=4)
+
+
+FIFO, EMIT = "fused_prefix_fifo", "fused_prefix_fifo_emit"
+FFD = "fused_prefix_ffd"
+
+# name -> (the run, the kernel forms it must launch, a check of its state)
+CASES = {
+    "fifo-headline": (lambda: fifo_headline(), [FIFO], None),
+    "fifo-headline-compact": (lambda: fifo_headline(compact=True), [FIFO],
+                              None),
+    "fifo-tap": (lambda: fifo_headline(plane=True), [FIFO + "_tap"], None),
+    "fifo-tap-compact": (lambda: fifo_headline(compact=True, plane=True),
+                         [FIFO + "_tap"], None),
+    "fifo-odd-C": (lambda: fifo_headline(C=301), [FIFO], None),
+    "fifo-emit": (lambda: fifo_emit(), [EMIT],
+                  lambda s: int(s.drops.msgs.sum()) > 0
+                  and int(s.lent.count.sum() + s.borrowed.count.sum()) > 0),
+    "fifo-emit-compact": (lambda: fifo_emit(compact=True), [EMIT], None),
+    "fifo-expire": (lambda: expiring("fifo"), [FIFO + "_expire"],
+                    lambda s: not bool(s.node_active[:, 3:].any())),
+    "fifo-emit-expire": (lambda: expiring("fifo", borrowing=True),
+                         [EMIT + "_expire"], None),
+    "fifo-faults": (lambda: faulty("fifo"), [FIFO + "_faults"],
+                    lambda s: int(s.faults.kills.sum()) > 0),
+    "fifo-faults-tap-compact": (
+        lambda: faulty("fifo", compact=True, plane=True),
+        [FIFO + "_tap_faults"], lambda s: int(s.faults.kills.sum()) > 0),
+    "fifo-windowed": (windowed, [FIFO + "_tap"],
+                      lambda s: int(s.drops.ingest.sum()) > 0),
+    "fifo-undersized-waves": (undersized_fifo, [FIFO],
+                              lambda s: CC.overflow_total(s) > 0),
+    "fifo-node-exit": (lambda: node_exit("fifo"), [FIFO + "_tap"],
+                       lambda s: int(s.run.ovf.min()) > 0),
+    "ffd-cap2": (lambda: ffd_run(max_placements_per_tick=2,
+                                 queue_capacity=64), [FFD], None),
+    "ffd-cap16": (lambda: ffd_run(max_running=8), [FFD],
+                  lambda s: int(s.drops.run_full.sum()) > 0),
+    "ffd-parity": (lambda: ffd_run(parity=True), [FFD], None),
+    "ffd-memfirst-serial": (lambda: ffd_run("ffd-memfirst",
+                                            ffd_sweep="serial",
+                                            max_placements_per_tick=3),
+                            [FFD], None),
+    "ffd-compact-tap": (lambda: ffd_run(compact=True, plane=True),
+                        [FFD + "_tap"], None),
+    "ffd-odd-C": (lambda: ffd_run(C=299, jobs=20), [FFD], None),
+    "ffd-emit": (ffd_emit, [FFD], None),
+    "ffd-expire": (lambda: expiring("ffd"), [FFD + "_expire"], None),
+    "ffd-faults-tap": (lambda: faulty("ffd", plane=True),
+                       [FFD + "_tap_faults"],
+                       lambda s: int(s.faults.kills.sum()) > 0),
+    "ffd-faults-compact": (lambda: faulty("ffd", compact=True),
+                           [FFD + "_faults"], None),
+    "ffd-undersized-waves": (ffd_undersized, [FFD],
+                             lambda s: CC.overflow_total(s) > 0),
+    "ffd-node-exit": (lambda: node_exit("ffd"), [FFD],
+                      lambda s: int(s.run.ovf.min()) > 0),
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_host_kernel_equals_plain(checked, name):
+    make, forms, check = CASES[name]
+    out = make()
+    assert set(checked.launches) == set(forms), dict(checked.launches)
+    assert min(checked.launches.values()) >= 8
+    if check is not None:
+        assert check(out), f"{name}: the run missed the branch it is for"
+

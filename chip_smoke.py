@@ -1134,6 +1134,8 @@ def sampled_kernel_pass(E, chk, engine, s0, chunks, picks, QC, cost=None):
     fired = {"expired": zero, "attached": zero}
     max_l0 = torch.zeros((), dtype=torch.int32, device=dev)
     max_l1 = torch.zeros((), dtype=torch.int32, device=dev)
+    swept_max = torch.zeros((), dtype=torch.int32, device=dev)
+    swept_sum = torch.zeros((), dtype=torch.int64, device=dev)
     for ch in chunks:
         rows_all = torch.from_numpy(ch.rows).to(dev)
         counts_all = torch.from_numpy(ch.counts).to(dev)
@@ -1149,6 +1151,9 @@ def sampled_kernel_pass(E, chk, engine, s0, chunks, picks, QC, cost=None):
                     state.node_active & (state.node_expire <= t))[
                         :, vstart:].sum()
             before = clone_state(state)
+            swept = before.l1.count.clamp(max=QC)  # DELAY's Level1 sweep
+            swept_max = torch.maximum(swept_max, swept.max())
+            swept_sum = swept_sum + swept.sum()
             evs.append(timed_launch(chk.ft, engine, state, rows, counts,
                                     t, params, host))
             r, w, o = cost(before, state, rows, counts, t)
@@ -1166,7 +1171,9 @@ def sampled_kernel_pass(E, chk, engine, s0, chunks, picks, QC, cost=None):
     return dict(kernel_ms=[a.elapsed_time(b) for a, b in evs],
                 read=int(read_b) / k_glob, written=int(written_b) / k_glob,
                 ops=int(ops) / k_glob, max_l0=int(max_l0),
-                max_l1=int(max_l1), ticks=k_glob, state=state,
+                max_l1=int(max_l1), l1_swept_max=int(swept_max),
+                l1_swept_mean=int(swept_sum) / (k_glob * swept.numel()),
+                ticks=k_glob, state=state,
                 spans={k: [a.elapsed_time(b) for a, b in v]
                        for k, v in spans.items()},
                 fired={k: int(v) for k, v in fired.items()})
@@ -1448,8 +1455,10 @@ def phase_delay_kernel_vs_plain(P, E, card, dev, market):
         print(f"phase 3d: DELAY kernel == plain bitwise on {chk.n} ticks of "
               f"run ({name}) sampled as the kernel reached them (ticks "
               f"{sorted(picks)}, the peak {peak} included), C={MARKET_C}; "
-              f"max Level0 depth {sp['max_l0']}, Level1 {sp['max_l1']}"
-              f"{market_note(sp)} [{card}]")
+              f"max Level0 depth {sp['max_l0']}, Level1 {sp['max_l1']}; "
+              f"Level1 rows the sweep took a tick (min(|L1|, {QC})) max "
+              f"{sp['l1_swept_max']}, mean {sp['l1_swept_mean']:.4f} per "
+              f"cluster-tick{market_note(sp)} [{card}]")
 
     # heavier streams at the same width, every tick compared, on an
     # 8-deep queue so that 30 ticks fill Level1: a dense stream fires
@@ -3109,7 +3118,7 @@ def window_feed(rows, counts, before, after):
 
 
 def tap_pass(chk, engine, s0, feeds, picks, cost, shared, emit=False,
-             windowed=False, both=False):
+             windowed=False, both=False, l1_cap=None):
     """Drive a run tick by tick through the tap form with the run's own
     buffer and cursor, a CUDA event pair around every launch and the
     tick's bytes counted (the span's ``cost`` plus ``tap_cost``); at the
@@ -3119,7 +3128,9 @@ def tap_pass(chk, engine, s0, feeds, picks, cost, shared, emit=False,
     of the state, timed the same way; with ``both`` it is compared at the
     picks too. Returns both forms' per-launch times, the mean bytes and
     operations (``span_read``, ``span_written``: the untapped form's), the
-    final state and buffer."""
+    final state and buffer; with ``l1_cap`` (DELAY's sweep length) also the
+    Level1 rows the sweep took a tick, min(|L1|, l1_cap): their max and
+    their mean per cluster-tick."""
     from multi_cluster_simulator_tpu_torch.core.state import (
         clone_state, empty_io,
     )
@@ -3133,9 +3144,15 @@ def tap_pass(chk, engine, s0, feeds, picks, cost, shared, emit=False,
     evs, sevs, read_b, written_b, ops = [], [], 0, 0, 0
     span_r = span_w = 0
     n_ovf = n_ovf_tables(state)
+    swept_max = torch.zeros((), dtype=torch.int32, device=state.device)
+    swept_sum = torch.zeros((), dtype=torch.int64, device=state.device)
     t, k_glob = int(s0.t), 0
     for rows, counts in feeds:
         t += engine.cfg.tick_ms
+        if l1_cap is not None:
+            swept = state.l1.count.clamp(max=l1_cap)
+            swept_max = torch.maximum(swept_max, swept.max())
+            swept_sum = swept_sum + swept.sum()
         if k_glob in picks:
             chk.compare(state, rows, counts, t, emit=emit, obs=(mb, cur),
                         windowed=windowed)
@@ -3168,7 +3185,10 @@ def tap_pass(chk, engine, s0, feeds, picks, cost, shared, emit=False,
                 read=int(read_b) / k_glob, written=int(written_b) / k_glob,
                 span_read=int(span_r) / k_glob,
                 span_written=int(span_w) / k_glob,
-                ops=int(ops) / k_glob, state=state, mbuf=mb, ticks=k_glob)
+                ops=int(ops) / k_glob, state=state, mbuf=mb, ticks=k_glob,
+                l1_swept_max=int(swept_max),
+                l1_swept_mean=int(swept_sum) / (k_glob
+                                                * state.l1.count.numel()))
 
 
 def chunk_feeds(chunks, dev, n=None):
@@ -3674,8 +3694,10 @@ def phase_config1(P, E, card, dev):
         cost, shared = cost_of(
             "fifo" if policy == P.PolicyKind.FIFO else "delay", engine,
             K._sweep_len(cfg))
+        delay = policy == P.PolicyKind.DELAY
         sp = tap_pass(chk, engine, s0, ((rows, n) for _ in range(
-            CONFIG1_CHUNK)), picks, cost, shared, windowed=True)
+            CONFIG1_CHUNK)), picks, cost, shared, windowed=True,
+            l1_cap=K._sweep_len(cfg) if delay else None)
         # the main path, counted
         torch.cuda.synchronize()
         fused_tick.reset_launches()
@@ -3767,7 +3789,11 @@ def phase_config1(P, E, card, dev):
                   f"marks, final {marks['avg_wait_ms'][-1]}; harvest wait "
                   f"accrued {h['wait_accrued_ms']} ms, depth max "
                   f"{h['queue_depth_max']}; launches "
-                  f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+                  f"{ {k: v for k, v in counts.items() if v} }; Level1 rows "
+                  f"the sweep took a tick over the first {CONFIG1_CHUNK} "
+                  f"ticks (min(|L1|, {K._sweep_len(cfg)})) max "
+                  f"{sp['l1_swept_max']}, mean {sp['l1_swept_mean']:.4f} "
+                  f"[{card}]")
         print(f"phase 4p: {kernel.name} (windowed ingest) == plain bitwise "
               f"at {chk.n} ticks of the first chunk under {name} (state, "
               f"buffer, cursor), {np.mean(sp['kernel_ms']) * 1e3:.2f} "
@@ -3872,8 +3898,11 @@ def phase_plane_level0(P, E, card, dev, borg, market, sampled):
               f"depth max {h['queue_depth_max']}, histogram "
               f"{h['depth_hist_log2']}; {kernel} == plain bitwise at "
               f"{chk.n} ticks it reached (the emit form's tap at 2), "
-              f"{np.mean(chk.tap_ms) * 1e3:.2f} us/launch, the untapped "
-              f"form {np.mean(chk.untap_ms) * 1e3:.2f} on the same states; "
+              f"{np.mean(chk.tap_ms) * 1e3:.2f} us/launch (median "
+              f"{np.median(chk.tap_ms) * 1e3:.2f}, max "
+              f"{np.max(chk.tap_ms) * 1e3:.2f}), the untapped form "
+              f"{np.mean(chk.untap_ms) * 1e3:.2f} (median "
+              f"{np.median(chk.untap_ms) * 1e3:.2f}) on the same states; "
               f"bound {rec['bound'][0] * 1e3:.4f} us by {rec['bound'][1]}; "
               f"run wall {wall:.4f} s; launches "
               f"{ {k: v for k, v in counts.items() if v} } [{card}]")
@@ -4466,14 +4495,14 @@ def ptxas_lines(report: str):
             yield form, line.split(":", 1)[-1].strip()
 
 
-def launch_geometry(build, kernel: str, C: int, N: int, R: int,
-                    Q: int) -> tuple[int, int]:
+def launch_geometry(build, kernel: str, C: int, N: int, R: int, Q: int,
+                    *extra: int) -> tuple[int, int]:
     """The warps a block and the dynamic shared-memory bytes a warp with
-    which ``kernel``'s launcher launches at (C, N, R, Q), from its
-    ``<kernel>_geometry`` export."""
+    which ``kernel``'s launcher launches at (C, N, R, Q) (and ``extra``,
+    the scored kernel's pick), from its ``<kernel>_geometry`` export."""
     warps, warp_bytes = ctypes.c_int(), ctypes.c_int64()
     getattr(build.load(kernel), kernel + "_geometry")(
-        C, N, R, Q, ctypes.byref(warps), ctypes.byref(warp_bytes))
+        C, N, R, Q, *extra, ctypes.byref(warps), ctypes.byref(warp_bytes))
     return warps.value, warp_bytes.value
 
 
@@ -4509,13 +4538,22 @@ def main(device: str = "cuda") -> int:
     for kernel, report in reports.items():
         for form, line in ptxas_lines(report):
             print(f"phase 2: {kernel}{form}: {line}")
-    for kernel in ("fused_prefix_fifo", "fused_prefix_ffd"):
-        shapes = {"the headline": (4096, 5, 2, 8), "borg4k": (4096, 5, 2, 32),
+    # each kernel's launch shape at the (C, N, R, Q) of the cells it runs
+    # (the scored kernel's also by its pick: 0 gavel and rl, 1 tesserae)
+    warp_cells = {"the headline": (4096, 5, 2, 8), "borg4k": (4096, 5, 2, 32),
                   "ffd64": (64, 10, 2, 768), "config 2": (2, 10, 2, 1024),
                   "config 2 tiled": (4096, 10, 2, 1024)}
+    level_cells = {"config 4": (4096, 9, 3, 256), "config 1": (1, 5, 2, 768)}
+    for kernel, cells, pick in (
+            ("fused_prefix_fifo", warp_cells, ()),
+            ("fused_prefix_ffd", warp_cells, ()),
+            ("fused_prefix_delay", level_cells, ()),
+            ("fused_prefix_scored gavel/rl", level_cells, (0,)),
+            ("fused_prefix_scored tesserae", level_cells, (1,))):
         sizes = []
-        for what, shape in shapes.items():
-            warps, b = launch_geometry(build, kernel, *shape)
+        for what, shape in cells.items():
+            warps, b = launch_geometry(build, kernel.split()[0], *shape,
+                                       *pick)
             sizes.append(f"{what} {b} B a warp, {warps} warps a block")
         print(f"phase 2: {kernel}: dynamic shared memory and blocks: "
               f"{'; '.join(sizes)}")
@@ -4657,8 +4695,9 @@ def main(device: str = "cuda") -> int:
     records.append(f64["record"])
 
     # the market runs: the record of each kernel is its first run's, (a)
-    # for DELAY and (b) for the scored sweep; every run is printed (run
-    # (e), the expire form's, below)
+    # for DELAY and (b) for the scored sweep, and each other run's a record
+    # of its own, (d) the parity sweep and (c) tesserae; every run is
+    # printed (run (e), the expire form's, below)
     for kernel, group, first in (("fused_prefix_delay", delay, "a"),
                                  ("fused_prefix_scored", scored, "b")):
         for run in [n for n in MARKET_RUNS if n in group]:
@@ -4677,12 +4716,13 @@ def main(device: str = "cuda") -> int:
                   f"{1e6 * sp['ops'] / SCALAR_OPS_PER_S:.4f} us); kernel / "
                   f"bound {kms / b_ms:.1f} [{card}]")
             breakdown(f"market ({run})", runs[run], sp["kernel_ms"], card)
-            if run == first:
-                records.append(dict(
-                    kernel=fused_tick.KERNELS[kernel],
-                    launches=runs[run]["launches"], worst=group["worst"],
-                    ms=kms, plain=group[run]["plain_ms"],
-                    bound=(b_ms, b_by)))
+            rec = dict(kernel=fused_tick.KERNELS[kernel],
+                       launches=runs[run]["launches"], worst=group["worst"],
+                       ms=kms, plain=group[run]["plain_ms"],
+                       bound=(b_ms, b_by))
+            if run != first:
+                rec["name"] = f"{kernel} ({run})"
+            records.append(rec)
 
     sp = bb["sampled"]
     kms = float(np.mean(sp["ms"]["kernel"]))

@@ -46,54 +46,60 @@
 //   active slots, the processed Level1 rows and the Level0 head, the
 //   queue elements the compactions and the pop rewrite, the valid arrival
 //   rows, and every element the tick changes. The kernel is far above it
-//   (PERF.md): one thread walks each cluster's rows serially, and the
-//   Level0 pop shifts the live rows by one.
+//   (PERF.md): the Level1 sweep and the head are serial, each position
+//   waiting on its row's load and on the running-slot ballot.
 //
 // The expire form (kExpire; the trader's expire_virtual_nodes, the
 //   market's expire-on run) runs the vnode expiry step (core/engine.py
-//   _expire_vnodes_local) between release and ingest: per cluster it
-//   reads each node slot's active flag and expiry (N + 4N B) and writes
-//   the slots that expire (their flag, 3 capacity and 3 free words, and
-//   the expiry). Another instantiation, so the forms without it keep
-//   their code, registers and stacks.
+//   _expire_vnodes_local) between release and ingest, a lane a node slot:
+//   per cluster it reads each node slot's active flag and expiry (N + 4N
+//   B) and writes the slots that expire (their flag, 3 capacity and 3
+//   free words, and the expiry). Another instantiation, so the forms
+//   without it keep their code, registers and stacks.
 //
 // The faults form (kFaults; the fault plane) opens the span with
-//   prefix_common.cuh's fault step, requeueing killed jobs into Level0 (and
-//   a peer's into the lent queue) and counting them in wait_jobs and
-//   jobs_in_queue; another instantiation, as the emit and expire forms are.
+//   prefix_common.cuh's fault step on lane 0, requeueing killed jobs into
+//   Level0 (and a peer's into the lent queue) and counting them in
+//   wait_jobs and jobs_in_queue; another instantiation, as the emit and
+//   expire forms are.
 //
 // The tap form (kTap; a run with the metrics plane on a terminal prefix)
-//   closes the span with prefix_common.cuh's tap_epilogue
-//   (obs/device.py tap_tick): per cluster it reads the buffer's eleven
-//   per-cluster leaves, the cursor's nine and the counters it differences
-//   (under 128 B), writes those that change and the tick's placements and
-//   depth (8 B); each block (one warp) adds its sums and bucket counts
-//   with integer atomics, and the last block to finish writes the ring
-//   slot. A template flag, not a runtime branch: the forms without it keep
-//   their code and registers (the tap keeps ~20 more values live and needs
-//   every thread of a block at its warp-wide sums). It is instantiated
-//   without the expire flag only, since the trader is never terminal: 12
-//   forms in all.
+//   closes the span with prefix_warp.cuh's tap_epilogue (obs/device.py
+//   tap_tick), as the FIFO and FFD kernels' tap forms do: lane 0 of each
+//   warp does the per-cluster half, the block sums its warps, and the
+//   last block to finish writes the ring slot. It is instantiated without
+//   the expire flag only, since the trader is never terminal: 12 forms in
+//   all.
 //
-// The state layout is a runtime property, as in fused_prefix_fifo.cu.
+// The state layout and the windowed ingest (an Arrivals stream: BASELINE
+//   config 1, the oracle parity runs) are runtime properties, as in
+//   fused_prefix_fifo.cu.
 //
-// The windowed ingest (an Arrivals stream: BASELINE config 1, the oracle
-//   parity runs) is a runtime branch of prefix_common.cuh Cluster::ingest
-//   (Common::window >= 0), not a template axis, which would double the
-//   forms for a path that runs one cluster: per cluster it reads the enq_t
-//   of each due row and the first not due, and copies the taken rows.
-//
-// Design: one thread per cluster, in place, as the FIFO and FFD kernels;
-//   the sweep, the compaction and the placement are prefix_common.cuh's.
+// Design: a warp per cluster, in place, as the FIFO and FFD kernels
+//   (prefix_warp.cuh): the lanes release, ingest, compact Level1 (each
+//   kept row's destination the popc prefix of the placed mask's
+//   complement, 32 rows at a time) and pop the Level0 head (the live rows
+//   moved 32 at a time: read, sync, write). The Level1 sweep is serial and
+//   uniform in queue order — no order staged, so a warp's shared memory
+//   is its node words, its scratch and the placed mask, about 384 B at
+//   config 4's shape — first fit and the free running slot by ballot, the
+//   running row a field a lane; the parity skip is a uniform flag of the
+//   sweep. The head is read by every lane as a swept row is; its rec_wait
+//   store and the promotion's push_back are checked. Where a clamp made a
+//   swept demand negative, lane 0 replays the reference's waves in queue
+//   order (prefix_common.cuh sweep, wave_place). Blocks of up to 16 warps,
+//   fewer while that would leave SMs without a block: config 4's 4,096
+//   clusters are 256 blocks of 16, config 1's one a block of one warp.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //   -Xcompiler -fPIC (kernels/build.py); bound to PyTorch with ctypes.
 
-#include "prefix_common.cuh"
+#include "prefix_warp.cuh"
 
 namespace {
 
 using namespace prefix;
+using warp::WarpCluster;
 
 struct Args {
   Level0Args q;
@@ -107,82 +113,106 @@ struct Args {
   Tap p;
 };
 
-// The span of one cluster; returns the node exit narrow's count.
+// The span of cluster c, carried by the calling warp; returns the node exit
+// narrow's count (in every lane).
 template <bool kEmit, bool kExpire, bool kFaults>
-__device__ __forceinline__ int delay_prefix(const Args& a, int c) {
-  const Common& k = a.q.k;
-  int32_t lfree[kNodeWords];
-  Cluster cl(k, c, lfree);
-  const QueueRows l0 = queue_rows(a.q.l0, c, k.Q);
+__device__ __forceinline__ int delay_prefix(const Args& a, int c,
+                                            const warp::WarpMem& m) {
+  const Level0Args& q = a.q;
+  const Common& k = q.k;
+  // the queue counts and the wait total, read before the entry's other
+  // loads complete
+  int n0 = q.l0_count[c], n1 = a.l1_count[c];
+  SweepAcc acc(q.wait_total[c]);
+  WarpCluster cl(k, c, m);
+  const QueueRows l0 = queue_rows(q.l0, c, k.Q);
   const QueueRows l1 = queue_rows(a.l1, c, k.Q);
 
-  // 0. the faults form's fault phase, requeueing into Level0.
+  // 0. the faults form's fault phase, requeueing into Level0 (counted as
+  //    re-arrivals).
   int drop_queue = 0;
-  if (kFaults) faults_level0(a.q, cl, a.f, &drop_queue);
+  int requeued = 0;
+  if (kFaults) {
+    cl.faults(a.f, q.l0, q.l0_count + c, &drop_queue, &requeued);
+    n0 = q.l0_count[c];
+  }
 
   // 1. release (the emit form packs the returns and writes no borrow
   //    request), the expire form's vnode expiry, then the arrivals into
   //    Level0.
   cl.release<kEmit>(&a.e);
-  if (kEmit) emit_no_borrow(a.e, c);
+  if (kEmit) warp::emit_no_borrow(a.e, c);
   if (kExpire) cl.expire(a.x);
-  int n0 = ingest_level0(a.q, cl, &drop_queue);
+  int arrived = 0;
+  n0 = cl.ingest(q.l0, n0, &drop_queue, &arrived);
 
   // 2-3. the Level1 sweep in queue order, then its compaction.
-  int n1 = a.l1_count[c];
-  SweepAcc acc(a.q.wait_total[c]);
-  uint32_t mask[kMaskWords];
-  QueueOrder order;
-  sweep(cl, l1, n1, imin(n1, k.QC), order, FirstFitPick{}, SRC_L1,
-        a.q.wave != 0, clamped(a.q.l0, c) || clamped(a.l1, c), a.skip != 0,
-        acc, mask);
-  n1 = compact_placed(l1, n1, acc, mask);
+  cl.sweep(l1, n1, imin(n1, k.QC), SRC_L1, false, q.wave != 0,
+           clamped(q.l0, c) || clamped(a.l1, c), a.skip != 0,
+           warp::FirstFit{}, acc);
+  n1 = warp::compact_placed(l1, n1, acc.placed, m.mask);
   int l1_bad = acc.bad;
 
   // 4. the Level0 head: its rec_wait store (set_field_elem) and the
   //    promotion's push_back are checked.
+  int l0_bad = 0;
   if (n0 > 0) {
     int32_t job[NF];
     l0.load(0, job);
     record_wait(job, k.t, false, acc);  // one f32 add, after the sweep's
-    l0.count(c, l0.set_checked(0, FREC, job[FREC]));
+    const int rec_size = l0.rp == nullptr ? l0.t->f[FREC].size : 4;
+    l0_bad = warp::fits_size(rec_size, job[FREC]) ? 0 : 1;
+    warp::lane0([&] { l0.set_checked(0, FREC, job[FREC]); });
     const bool success = cl.attempt(job, SRC_L0, &acc.run_full);
     const bool promote =
         !success && wrap_sub(k.t, job[FENQ]) >= a.max_wait;
     if (promote) {
       if (n1 < k.Q) {
-        l1_bad += l1.store_checked(n1, job);
+        l1_bad += warp::store_row(l1, n1, job, true);
         ++n1;
       } else {
         ++drop_queue;
       }
     }
-    if (success || promote) n0 = pop_front_n(l0, n0, 1);
+    if (success || promote) n0 = warp::pop_front_n(l0, n0, 1);
   }
-  l1.count(c, l1_bad);
 
-  a.q.l0_count[c] = n0;
-  a.l1_count[c] = n1;
-  a.q.wait_total[c] = acc.total;
-  a.q.jobs_in_queue[c] -= cl.placed;
-  k.drop_queue[c] += drop_queue;
-  k.drop_run_full[c] += acc.run_full;
-  k.placed_total[c] += cl.placed;
+  // 5. the counters, by lane 0; they move only by what the tick added
+  const int placed = cl.placed;
+  warp::lane0([&] {
+    const int entered = arrived + requeued;
+    if (entered != 0) q.wait_jobs[c] += entered;
+    if (entered != placed) q.jobs_in_queue[c] += entered - placed;
+    q.l0_count[c] = n0;
+    a.l1_count[c] = n1;
+    l0.count(c, l0_bad);
+    l1.count(c, l1_bad);
+    q.wait_total[c] = acc.total;
+    if (drop_queue != 0) k.drop_queue[c] += drop_queue;
+    if (acc.run_full != 0) k.drop_run_full[c] += acc.run_full;
+    if (placed != 0) k.placed_total[c] += placed;
+  });
   return cl.store_nodes();
 }
 
-// One thread per cluster runs its span; the tap form then closes it with
-// the metrics tap, every thread of the block taking part. The parameters
-// are __grid_constant__: the tap epilogue, a call, reads them where they
-// are instead of from a copy of them in each thread's local memory.
+// A warp per cluster runs its span; the tap form then closes it with the
+// metrics tap, every thread of the block taking part. The parameters are
+// __grid_constant__: the steps and the epilogues read them where they are
+// instead of from a copy of them in each thread's local memory.
 template <bool kEmit, bool kExpire, bool kFaults, bool kTap>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(warp::kMaxWarps * warp::kLanes,
+                                  warp::kMinBlocks)
 fused_prefix_delay_kernel(const __grid_constant__ Args a) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = c < a.q.k.C;
-  const int bad = active ? delay_prefix<kEmit, kExpire, kFaults>(a, c) : 0;
-  if (kTap) tap_epilogue(a.p, a.q.k, c, active);
-  if (a.q.k.node_size != 4) node_exit_epilogue(a.q.k, a.p, kTap, bad);
+  const Common& k = a.q.k;
+  const int c = warp::cluster_index();
+  const bool active = c < k.C;  // the same in every lane of the warp
+  int bad = 0;
+  if (active) {
+    bad = delay_prefix<kEmit, kExpire, kFaults>(
+        a, c, warp::warp_mem(k.N, k.R, k.Q, false));
+  }
+  if (kTap) warp::tap_epilogue(a.p, k, c, active);
+  if (k.node_size != 4) warp::node_exit_epilogue(k, a.p, kTap, bad);
 }
 
 }  // namespace
@@ -233,16 +263,26 @@ extern "C" int fused_prefix_delay_launch(
                      fault_events, fault_trace, mttf, mttr, max_retries),
          make_tap(tap ? tap_ptrs : nullptr, slot)};
   if (C > 0) {
-    const int threads = threads_for(C);
-    const int blocks = (C + threads - 1) / threads;
+    const warp::Geometry g = warp::geometry(C, N, R, Q, false);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    bool launched = false;
     const bool ok = dispatch_forms(emit, expire, faults, tap,
                                    [&](auto e, auto x, auto f, auto p) {
-      fused_prefix_delay_kernel<decltype(e)::value, decltype(x)::value,
-                                decltype(f)::value, decltype(p)::value>
-          <<<blocks, threads, 0, s>>>(a);
+      launched = warp::launch_warps(
+          fused_prefix_delay_kernel<decltype(e)::value, decltype(x)::value,
+                                    decltype(f)::value, decltype(p)::value>,
+          g.blocks(C), g.warps, g.smem(), s, a);
     });
-    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    if (!ok || !launched) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch's shape at (C, N, R, Q): warps a block and shared-memory bytes
+// a warp, as fused_prefix_delay_launch takes it.
+extern "C" void fused_prefix_delay_geometry(
+    int C, int N, int R, int Q, int* warps, int64_t* warp_bytes) {
+  const warp::Geometry g = warp::geometry(C, N, R, Q, false);
+  *warps = g.warps;
+  *warp_bytes = static_cast<int64_t>(g.warp_bytes);
 }

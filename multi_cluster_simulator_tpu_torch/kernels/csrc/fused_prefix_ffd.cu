@@ -92,7 +92,6 @@
 namespace {
 
 using namespace prefix;
-using warp::WarpCluster;
 
 struct Args {
   Level0Args q;
@@ -102,60 +101,6 @@ struct Args {
   Faults f;
   Tap p;
 };
-
-// The span of cluster c, carried by the calling warp (prefix_common.cuh
-// level0_prefix with the BFD order and first fit): release, ingest into
-// Level0, the sweep over the first min(|L0|, QC) positions of the order,
-// the compaction, and the counters; the emit form also packs the returns
-// and writes no borrow request, the expire form expires the ended virtual
-// nodes between release and ingest, and the faults form opens with the
-// fault phase. Returns the node exit narrow's count (in every lane).
-template <bool kEmit, bool kExpire, bool kFaults>
-__device__ __forceinline__ int ffd_prefix(const Args& a, int c,
-                                          const warp::WarpMem& m) {
-  const Level0Args& q = a.q;
-  const Common& k = q.k;
-  // Level0's count and the wait total, read before the entry's other
-  // loads complete
-  int count = q.l0_count[c];
-  SweepAcc acc(q.wait_total[c]);
-  WarpCluster cl(k, c, m);
-  const QueueRows l0 = queue_rows(q.l0, c, k.Q);
-  int drop_queue = 0;
-  int requeued = 0;  // counted as re-arrivals, as faults_level0 does
-  if (kFaults) {
-    cl.faults(a.f, q.l0, q.l0_count + c, &drop_queue, &requeued);
-    count = q.l0_count[c];
-  }
-  cl.release<kEmit>(&a.e);
-  if (kEmit) {  // emit_no_borrow
-    warp::lanes([&](int l) {
-      if (l < NF) a.e.bjob[(size_t)c * NF + l] = 0;
-      if (l == 0) a.e.want[c] = 0;
-    });
-  }
-  if (kExpire) cl.expire(a.x);
-  int arrived = 0;
-  count = cl.ingest(q.l0, count, &drop_queue, &arrived);
-  const int n_sweep = imin(count, k.QC);
-  cl.bfd_order(l0, count, n_sweep, a.mem_first);
-  cl.sweep(l0, count, n_sweep, SRC_L0, q.wave != 0, clamped(q.l0, c), acc);
-  const int kept = warp::compact_placed(l0, count, acc.placed, m.mask);
-  const int placed = cl.placed;
-  warp::lane0([&] {
-    // counters move only by what the tick added (no read when nothing)
-    const int entered = arrived + requeued;
-    if (entered != 0) q.wait_jobs[c] += entered;
-    if (entered != placed) q.jobs_in_queue[c] += entered - placed;
-    q.l0_count[c] = kept;
-    l0.count(c, acc.bad);
-    q.wait_total[c] = acc.total;
-    if (drop_queue != 0) k.drop_queue[c] += drop_queue;
-    if (acc.run_full != 0) k.drop_run_full[c] += acc.run_full;
-    if (placed != 0) k.placed_total[c] += placed;
-  });
-  return cl.store_nodes();
-}
 
 // A warp per cluster runs its span; the tap form then closes it with the
 // metrics tap, every thread of the block taking part. The parameters are
@@ -170,8 +115,9 @@ fused_prefix_ffd_kernel(const __grid_constant__ Args a) {
   const bool active = c < k.C;  // the same in every lane of the warp
   int bad = 0;
   if (active) {
-    bad = ffd_prefix<kEmit, kExpire, kFaults>(
-        a, c, warp::warp_mem(k.N, k.R, k.Q, true));
+    bad = warp::level0_prefix<kEmit, kExpire, kFaults>(
+        a.q, a.e, a.x, a.f, c, warp::warp_mem(k.N, k.R, k.Q, true),
+        a.mem_first, warp::FirstFit{});
   }
   if (kTap) warp::tap_epilogue(a.p, k, c, active);
   if (k.node_size != 4) warp::node_exit_epilogue(k, a.p, kTap, bad);

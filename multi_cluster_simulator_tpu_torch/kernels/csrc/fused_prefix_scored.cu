@@ -11,7 +11,7 @@
 //   the port's plain PyTorch version (kernels/fused_tick.py
 //   fused_prefix_reference).
 //
-// It is the FFD kernel's body (prefix_common.cuh level0_prefix) with
+// It is the FFD kernel's body (prefix_warp.cuh level0_prefix) with
 //   another order and pick, so the FFD code path compiles without a score
 //   branch:
 //   - gavel and rl sweep Level0 in queue order and score node n for a job
@@ -22,30 +22,35 @@
 //     first) and scores sum_r f32(free[n, r]) * (f32(res[r]) * w[r])
 //     under the 3 f32 weights params.tess_w.
 //   The pick is the first maximum of the scores with infeasible nodes at
-//   -inf (ties go to the lowest index), and no node when none fits; a NaN
-//   score wins as it does in torch.argmax and jnp.argmax.
+//   -inf and in the reduction (ties go to the lowest index, so with every
+//   feasible node at -inf the pick is node 0, as the reference's
+//   jnp.argmax), and no node when none fits; a NaN score wins as it does
+//   in torch.argmax and jnp.argmax.
 //
 // The float hazard: the tesserae products pass 2^24 and are not integers
 //   (w[1] = 1e-3), so the bits of the score, and with them the argmax and
 //   the placements, depend on the order of the operations and on whether
 //   a multiply and an add are fused. The reference's XLA CPU dot rounds
 //   the first product and adds each later one with a fused multiply-add;
-//   this kernel does exactly that, spelled out with __fmul_rn and
-//   __fmaf_rn, and the file is built with --fmad=false (kernels/build.py)
-//   so that nvcc contracts nothing else. The plain version computes the
-//   fused multiply-add exactly (policies/kernels.py fma_f32).
+//   this kernel does exactly that, spelled out with prefix_common.cuh's
+//   fmul_rn and fma_rn (the card's __fmul_rn and __fmaf_rn, their plain
+//   meanings on a host build compiled without contraction), and the file
+//   is built with --fmad=false (kernels/build.py) so that nvcc contracts
+//   nothing else. The plain version computes the fused multiply-add
+//   exactly (policies/kernels.py fma_f32).
 //
 // wait_total (f32): one add per processed job, in sweep order, as FFD's
 //   serial form; the scored kinds have no wave form.
 //
-// The expire form (kExpire; the trader's expire_virtual_nodes) runs
-//   prefix_common.cuh's vnode expiry step between release and ingest, a
-//   separate instantiation of level0_prefix, as the emit form is.
+// The expire form (kExpire; the trader's expire_virtual_nodes) runs the
+//   vnode expiry step between release and ingest, a lane a node slot; a
+//   separate instantiation, as the emit form is.
 //
 // The faults form (kFaults; the fault plane) opens the span with
-//   prefix_common.cuh's fault step, requeueing killed jobs into Level0 (and
-//   a peer's into the lent queue) and counting them in wait_jobs and
-//   jobs_in_queue; another instantiation, as the emit and expire forms are.
+//   prefix_common.cuh's fault step on lane 0, requeueing killed jobs into
+//   Level0 (and a peer's into the lent queue) and counting them in
+//   wait_jobs and jobs_in_queue; another instantiation, as the emit and
+//   expire forms are.
 //
 // Bound on the H100: device-memory bytes, as FFD's (chip_smoke.py
 //   tick_cost): the counters, the node vectors and types, the running
@@ -54,39 +59,35 @@
 //   and every element the tick changes; plus the score operations.
 //
 // The tap form (kTap; a run with the metrics plane on a terminal prefix)
-//   closes the span with prefix_common.cuh's tap_epilogue
-//   (obs/device.py tap_tick): per cluster it reads the buffer's eleven
-//   per-cluster leaves, the cursor's nine and the counters it differences
-//   (under 128 B), writes those that change and the tick's placements and
-//   depth (8 B); each block (one warp) adds its sums and bucket counts
-//   with integer atomics, and the last block to finish writes the ring
-//   slot. A template flag, not a runtime branch: the forms without it keep
-//   their code and registers (the tap keeps ~20 more values live and needs
-//   every thread of a block at its warp-wide sums). It is instantiated
-//   without the expire flag only, since the trader is never terminal: 12
-//   forms in all.
+//   closes the span with prefix_warp.cuh's tap_epilogue, as the FIFO and
+//   FFD kernels' tap forms do. It is instantiated without the expire flag
+//   only, since the trader is never terminal: 12 forms in all.
 //
-// The state layout is a runtime property, as in fused_prefix_fifo.cu.
+// The state layout and the windowed ingest are runtime properties, as in
+//   fused_prefix_fifo.cu.
 //
-// The windowed ingest (an Arrivals stream: BASELINE config 1, the oracle
-//   parity runs) is a runtime branch of prefix_common.cuh Cluster::ingest
-//   (Common::window >= 0), not a template axis, which would double the
-//   forms for a path that runs one cluster: per cluster it reads the enq_t
-//   of each due row and the first not due, and copies the taken rows.
-//
-// Design: one thread per cluster, in place, as the other prefix kernels.
+// Design: a warp per cluster, in place, as the FFD kernel (prefix_warp.cuh
+//   level0_prefix): the lanes release, ingest, stage and sort tesserae's
+//   keys, and compact Level0; the sweep is serial and uniform, the pick a
+//   lane a node — each lane scores its node from the same loads and in the
+//   same float steps as the plain version — reduced to the winner by warp
+//   shuffles (WarpCluster::scored_fit), 32 nodes a round. The keys and the
+//   order are staged for tesserae only: the launcher takes the pick and
+//   sizes each warp's shared memory by it (fused_prefix_scored_geometry),
+//   so gavel and rl warps need only the node words and the placed mask
+//   (about 0.4 KB at config 4's shape, against 3 KB with the order) and
+//   more of them fit a block where Q is deep. Blocks of up to 16 warps.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //   --fmad=false -shared -Xcompiler -fPIC (kernels/build.py); bound to
 //   PyTorch with ctypes.
 
-#include <math.h>
-
-#include "prefix_common.cuh"
+#include "prefix_warp.cuh"
 
 namespace {
 
 using namespace prefix;
+using warp::WarpCluster;
 
 constexpr int kClasses = 4, kDeviceTypes = 4;  // ops/fields.py
 constexpr int kTable = 0, kTesserae = 1;       // the pick, as the wrapper
@@ -103,35 +104,16 @@ struct Args {
   Tap p;
 };
 
-// The first maximum of score(n) over the nodes, infeasible nodes at -inf;
-// -1 when no node fits.
-template <class Score>
-__device__ int best_scored_fit(const Cluster& cl, const int32_t* job,
-                               const Score& score) {
-  bool any = false;
-  int arg = 0;
-  float best = 0.0f;
-  for (int n = 0; n < cl.a.N; ++n) {
-    const bool ok = cl.nact[n] && fits(cl.free + n * cl.a.R, cl.a.R, job);
-    const float v = ok ? score(n) : -INFINITY;
-    any = any || ok;
-    if (n == 0 || (isnan(v) && !isnan(best)) || (!isnan(best) && v > best)) {
-      arg = n;
-      best = v;
-    }
-  }
-  return any ? arg : -1;
-}
-
 // gavel and rl: the table entry of the job's class and the node's type.
 struct TablePick {
+  static constexpr bool kWaves = false;
   const float* table;
   const int32_t* node_type;  // this cluster's [N]
 
-  __device__ int operator()(const Cluster& cl, const int32_t* job) const {
+  __device__ int operator()(const WarpCluster& cl, const int32_t* job) const {
     const float* row =
         table + imin(imax(job[FJCLASS], 0), kClasses - 1) * kDeviceTypes;
-    return best_scored_fit(cl, job, [&](int n) {
+    return cl.scored_fit(job, [&](int n) {
       return row[imin(imax(node_type[n], 0), kDeviceTypes - 1)];
     });
   }
@@ -139,45 +121,55 @@ struct TablePick {
 
 // tesserae: the weighted demand-free alignment, in XLA's CPU order.
 struct TesseraePick {
+  static constexpr bool kWaves = false;
   const float* w;
 
-  __device__ int operator()(const Cluster& cl, const int32_t* job) const {
+  __device__ int operator()(const WarpCluster& cl, const int32_t* job) const {
     const int R = cl.a.R;
-    float rw[3];
+    float rw[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int r = 0; r < 3; ++r) {  // constant indices: `job` in registers
-      if (r < R) rw[r] = __fmul_rn(__int2float_rn(job[FCORES + r]), w[r]);
+      if (r < R) rw[r] = fmul_rn(i2f_rn(job[FCORES + r]), w[r]);
     }
-    return best_scored_fit(cl, job, [&](int n) {
-      const int32_t* f = cl.free + n * R;
-      float s = __fmul_rn(__int2float_rn(f[0]), rw[0]);
-      for (int r = 1; r < R; ++r) s = __fmaf_rn(__int2float_rn(f[r]), rw[r], s);
+    return cl.scored_fit(job, [&](int n) {
+      const int32_t* f = cl.m.free + n * R;
+      float s = fmul_rn(i2f_rn(f[0]), rw[0]);
+#pragma unroll
+      for (int r = 1; r < 3; ++r) {
+        if (r < R) s = fma_rn(i2f_rn(f[r]), rw[r], s);
+      }
       return s;
     });
   }
 };
 
-// __grid_constant__: the picks point into the parameters (the table and
-// the weights) without a copy of them in local memory.
-// One thread per cluster runs its span; the tap form then closes it with
-// the metrics tap, every thread of the block taking part.
+// A warp per cluster runs its span; the tap form then closes it with the
+// metrics tap, every thread of the block taking part. __grid_constant__:
+// the picks point into the parameters (the table and the weights), and
+// the steps and the epilogues read them where they are, without a copy of
+// them in local memory.
 template <bool kEmit, bool kExpire, bool kFaults, bool kTap>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(warp::kMaxWarps * warp::kLanes,
+                                  warp::kMinBlocks)
 fused_prefix_scored_kernel(const __grid_constant__ Args a) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = c < a.q.k.C;
+  const Common& k = a.q.k;
+  const int c = warp::cluster_index();
+  const bool active = c < k.C;  // the same in every lane of the warp
+  const bool tesserae = a.pick == kTesserae;
   int bad = 0;
-  if (active && a.pick == kTesserae) {
-    bad = level0_prefix<kEmit, kExpire, kFaults>(a.q, a.e, a.x, a.f, c,
-                                                 BfdOrder(0),
-                                                 TesseraePick{a.w});
-  } else if (active) {
-    bad = level0_prefix<kEmit, kExpire, kFaults>(
-        a.q, a.e, a.x, a.f, c, QueueOrder{},
-        TablePick{a.table, a.node_type + (size_t)c * a.q.k.N});
+  if (active) {
+    const warp::WarpMem m = warp::warp_mem(k.N, k.R, k.Q, tesserae);
+    if (tesserae) {
+      bad = warp::level0_prefix<kEmit, kExpire, kFaults>(
+          a.q, a.e, a.x, a.f, c, m, 0, TesseraePick{a.w});
+    } else {
+      bad = warp::level0_prefix<kEmit, kExpire, kFaults>(
+          a.q, a.e, a.x, a.f, c, m, -1,
+          TablePick{a.table, a.node_type + (size_t)c * k.N});
+    }
   }
-  if (kTap) tap_epilogue(a.p, a.q.k, c, active);
-  if (a.q.k.node_size != 4) node_exit_epilogue(a.q.k, a.p, kTap, bad);
+  if (kTap) warp::tap_epilogue(a.p, k, c, active);
+  if (k.node_size != 4) warp::node_exit_epilogue(k, a.p, kTap, bad);
 }
 
 }  // namespace
@@ -231,16 +223,27 @@ extern "C" int fused_prefix_scored_launch(
   for (int i = 0; i < kClasses * kDeviceTypes; ++i) a.table[i] = table[i];
   for (int r = 0; r < 3; ++r) a.w[r] = w[r];
   if (C > 0) {
-    const int threads = threads_for(C);
-    const int blocks = (C + threads - 1) / threads;
+    const warp::Geometry g = warp::geometry(C, N, R, Q, pick == kTesserae);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    bool launched = false;
     const bool ok = dispatch_forms(emit, expire, faults, tap,
                                    [&](auto e, auto x, auto f, auto p) {
-      fused_prefix_scored_kernel<decltype(e)::value, decltype(x)::value,
-                                 decltype(f)::value, decltype(p)::value>
-          <<<blocks, threads, 0, s>>>(a);
+      launched = warp::launch_warps(
+          fused_prefix_scored_kernel<decltype(e)::value, decltype(x)::value,
+                                     decltype(f)::value, decltype(p)::value>,
+          g.blocks(C), g.warps, g.smem(), s, a);
     });
-    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    if (!ok || !launched) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch's shape at (C, N, R, Q) for `pick` (kTable or kTesserae):
+// warps a block and shared-memory bytes a warp, as
+// fused_prefix_scored_launch takes it.
+extern "C" void fused_prefix_scored_geometry(
+    int C, int N, int R, int Q, int pick, int* warps, int64_t* warp_bytes) {
+  const warp::Geometry g = warp::geometry(C, N, R, Q, pick == kTesserae);
+  *warps = g.warps;
+  *warp_bytes = static_cast<int64_t>(g.warp_bytes);
 }

@@ -1,26 +1,28 @@
 // What the per-cluster tick-prefix kernels share (fused_prefix_fifo.cu,
-// fused_prefix_ffd.cu, fused_prefix_delay.cu, fused_prefix_scored.cu): the
-// row schemas, the pointers and sizes common to every span, and the phases
-// and steps the spans have in common — release of due running slots, the
-// append of the tick's arrivals to a queue, first-fit over the nodes,
-// placing a job (occupy its node, insert its running row into the lowest
-// free slot, count it, trace it), and the serial queue sweep with its wait
-// accounting and the stable compaction of the placed slots, templated over
-// the sweep order and the node pick. The emit form of every span (its
-// kernel's template instantiated with kEmit) also packs, in the release
-// step, the return messages of the finished foreign jobs, and writes the
-// borrow request the cross-cluster phases after the prefix consume. The
-// expire form of every span (kExpire) runs the vnode expiry step between
-// release and ingest, as the reference does when the trader's
-// expire_virtual_nodes is on. The faults form (kFaults) opens the span
-// with the fault phase (faults/apply.py fault_phase_local): node failures
-// kill and requeue the jobs on them, repairs restore the nodes, and the
-// generative mode draws the next outage with jax's threefry2x32 and XLA's
-// CPU f32 log written out, so that every draw is the reference's. The tap
-// form (kTap, a run with the metrics plane on a terminal prefix) closes the
-// span with the metrics tap (obs/device.py tap_tick): the per-cluster
-// accumulators against the cursor, and the cross-cluster half — the depth
-// histogram and the ring slot — with integer atomics and the last block.
+// fused_prefix_ffd.cu, fused_prefix_delay.cu, fused_prefix_scored.cu, each
+// a warp per cluster on prefix_warp.cuh): the row schemas, the column
+// views of the tables, the pointers and sizes common to every span, the
+// forms' dispatch, and the steps one lane of a warp runs on its own where
+// they are rare — the fault phase (Cluster::faults), the reference's waves
+// replayed where a clamped store made a demand negative (fifo_drain_waves,
+// sweep and wave_place), placing a job (occupy its node, insert its
+// running row into the lowest free slot, count it, trace it) — and the
+// per-cluster half of the metrics tap (tap_cluster). The emit form of
+// every span (its kernel's template instantiated with kEmit) also packs,
+// in the release step, the return messages of the finished foreign jobs,
+// and writes the borrow request the cross-cluster phases after the prefix
+// consume. The expire form of every span (kExpire) runs the vnode expiry
+// step between release and ingest, as the reference does when the
+// trader's expire_virtual_nodes is on. The faults form (kFaults) opens the
+// span with the fault phase (faults/apply.py fault_phase_local): node
+// failures kill and requeue the jobs on them, repairs restore the nodes,
+// and the generative mode draws the next outage with jax's threefry2x32
+// and XLA's CPU f32 log written out, so that every draw is the
+// reference's. The tap form (kTap, a run with the metrics plane on a
+// terminal prefix) closes the span with the metrics tap (obs/device.py
+// tap_tick): the per-cluster accumulators against the cursor, and the
+// cross-cluster half — the depth histogram and the ring slot — with
+// integer atomics and the last block (prefix_warp.cuh tap_epilogue).
 // Every form takes the windowed Arrivals ingest as a runtime branch of the
 // shared ingest step (Common::window >= 0).
 //
@@ -38,18 +40,19 @@
 // phase's requeues, the push_back of a queue, a rec_wait write — or a plain
 // store where it only moves stored values (compaction, the pops, the
 // placements' running rows). Narrow node columns (a terminal prefix; a
-// non-terminal tick hands the kernel the engine's widened ones) are read
-// into a local int32 copy at entry and stored back checked at exit, and
-// the exit's count — ONE total over every cluster, as the reference's
-// batch-wide narrow gives — is added to every cluster's run.ovf by the
-// last block to finish (node_exit_epilogue).
+// non-terminal tick hands the kernel the engine's widened ones) are
+// widened into the warp's shared memory at entry and stored back checked
+// at exit, and the exit's count — ONE total over every cluster, as the
+// reference's batch-wide narrow gives — is added to every cluster's
+// run.ovf by the last block to finish (prefix_warp.cuh
+// node_exit_epilogue).
 //
-// Every function here works on ONE cluster, walked by one thread, in
-// place, in the reference's order. Integer discipline: all arithmetic is
-// int32 as in the reference; sums that could overflow (end_t = t + dur,
-// waits t - enq_t) are done in uint32 and cast back, which is the
-// reference's two's-complement wrap without signed overflow in C++. NEVER
-// (2^31-1) is only compared. torch bool tensors arrive as uint8_t.
+// Every step here works on ONE cluster, walked by one lane, in place, in
+// the reference's order. Integer discipline: all arithmetic is int32 as in
+// the reference; sums that could overflow (end_t = t + dur, waits t -
+// enq_t) are done in uint32 and cast back, which is the reference's
+// two's-complement wrap without signed overflow in C++. NEVER (2^31-1) is
+// only compared. torch bool tensors arrive as uint8_t.
 
 #pragma once
 
@@ -176,9 +179,7 @@ __host__ __device__ __forceinline__ int store_checked_as(char* p, int size,
 
 // One cluster's rows of a table: slot i is table row r0 + i. On the
 // packed wide rows `rp` points at the cluster's first row and every access
-// is its own pointer arithmetic (null on narrow columns). Moves of whole
-// rows (the pops, the compaction) go field by field on narrow columns,
-// each column's size branch taken once per move.
+// is its own pointer arithmetic (null on narrow columns).
 template <int W>
 struct Rows {
   const Table<W>* t;
@@ -242,59 +243,6 @@ struct Rows {
       bad += store_checked_as(at(i, f), t->f[f].size, in[f]);
     }
     return bad;
-  }
-  __host__ __device__ void copy(int dst, int src) const {
-    if (rp != nullptr) {
-      int32_t* d = rp + (size_t)dst * W;
-      const int32_t* s = rp + (size_t)src * W;
-#pragma unroll
-      for (int f = 0; f < W; ++f) d[f] = s[f];
-      return;
-    }
-#pragma unroll
-    for (int f = 0; f < W; ++f) set(dst, f, get(src, f));
-  }
-  // Rows [src, src + n) to [dst, dst + n), dst < src (a forward copy).
-  __host__ __device__ void move(int dst, int src, int n) const {
-    if (rp != nullptr) {  // the packed rows are one run of words
-      int32_t* d = rp + (size_t)dst * W;
-      const int32_t* s = rp + (size_t)src * W;
-      if (W % 2 == 0 && ((reinterpret_cast<uintptr_t>(d) |
-                          reinterpret_cast<uintptr_t>(s)) & 7) == 0) {
-        // two words a load where both runs lie 8-byte aligned (an even W
-        // keeps every row so)
-        int2* d2 = reinterpret_cast<int2*>(d);
-        const int2* s2 = reinterpret_cast<const int2*>(s);
-        for (int k = 0; k < n * W / 2; ++k) d2[k] = s2[k];
-      } else {
-        for (int k = 0; k < n * W; ++k) d[k] = s[k];
-      }
-      return;
-    }
-    for (int f = 0; f < W; ++f) {
-      const size_t st = t->f[f].stride;
-      char* d = at(dst, f);
-      const char* s = at(src, f);
-      switch (t->f[f].size) {
-        case 1:
-          for (int k = 0; k < n; ++k) {
-            *reinterpret_cast<int8_t*>(d + k * st) =
-                *reinterpret_cast<const int8_t*>(s + k * st);
-          }
-          break;
-        case 2:
-          for (int k = 0; k < n; ++k) {
-            *reinterpret_cast<int16_t*>(d + k * st) =
-                *reinterpret_cast<const int16_t*>(s + k * st);
-          }
-          break;
-        default:
-          for (int k = 0; k < n; ++k) {
-            *reinterpret_cast<int32_t*>(d + k * st) =
-                *reinterpret_cast<const int32_t*>(s + k * st);
-          }
-      }
-    }
   }
   // Every field of rows [from, to) set to `invalid(f)`.
   template <class Invalid>
@@ -691,11 +639,6 @@ struct RunInvalid {
   }
 };
 
-__host__ __device__ __forceinline__ void set_queue_invalid(const QueueRows& q,
-                                                          int from, int to) {
-  q.fill(from, to, QueueInvalid{});
-}
-
 __host__ __device__ __forceinline__ void set_run_invalid(const RunRows& r,
                                                         int s) {
   r.fill(s, s + 1, RunInvalid{});
@@ -721,17 +664,18 @@ __host__ __device__ inline int first_fit(const int32_t* free,
 }
 
 // The node slots a cluster may have on the compact layout's narrow node
-// columns: their free words are computed on in a local int32 copy
-// (kernels/fused_tick.py MAX_NARROW_NODES; the wrapper raises above it).
+// columns: the waves' replay computes on local int32 copies of their free
+// words (kernels/fused_tick.py MAX_NARROW_NODES; the wrapper raises above
+// it).
 constexpr int kMaxNarrowNodes = 32;
-constexpr int kNodeWords = kMaxNarrowNodes * 3;
 
 // One cluster's node vectors and running set, and what the tick has done
-// to them so far.
+// to them so far, for the steps one lane runs (prefix_warp.cuh
+// WarpCluster::lane_cluster): the free words are the warp's shared copy.
 struct Cluster {
   const Common& a;
   int c;
-  int32_t* free;  // the node free words: in place, or the local copy
+  int32_t* free;  // the node free words: the warp's shared copy
   const uint8_t* nact;
   RunRows run;
   uint8_t* ract;
@@ -739,32 +683,9 @@ struct Cluster {
   int n_active;  // active running slots
   int placed;    // placements this tick
 
-  // On narrow node columns the free words are widened into `lfree` (the
-  // caller's kNodeWords, the span-entry widen, core/engine.py
-  // _widen_nodes) and computed on there.
-  __host__ __device__ Cluster(const Common& args, int cluster,
-                              int32_t* lfree)
-      : a(args), c(cluster),
-        free(static_cast<int32_t*>(args.node_free) +
-             (size_t)cluster * args.N * args.R),
-        nact(args.node_active + (size_t)cluster * args.N),
-        run(&args.run, (size_t)cluster * args.S),
-        ract(args.run_active + (size_t)cluster * args.S),
-        slot(0), n_active(0), placed(0) {
-    if (a.node_size != 4) {
-      const int n = a.N * a.R;
-      const char* src = static_cast<const char*>(a.node_free) +
-                        (size_t)c * n * a.node_size;
-      for (int i = 0; i < n; ++i) {
-        lfree[i] = load_as(src + i * a.node_size, a.node_size);
-      }
-      free = lfree;
-    }
-  }
-
-  // A cluster whose free words the caller already holds widened, where
-  // it keeps them (prefix_warp.cuh: the warp's shared copy): nothing is
-  // copied, and the caller sets the cursor and the counts.
+  // The caller holds the free words widened, where it keeps them
+  // (prefix_warp.cuh: the warp's shared copy): nothing is copied, and the
+  // caller sets the cursor and the counts.
   struct Words {};
   __host__ __device__ Cluster(const Common& args, int cluster, int32_t* words,
                               Words)
@@ -773,72 +694,6 @@ struct Cluster {
         run(&args.run, (size_t)cluster * args.S),
         ract(args.run_active + (size_t)cluster * args.S),
         slot(0), n_active(0), placed(0) {}
-
-  // The terminal exit narrow of narrow node columns (core/engine.py
-  // _narrow_nodes): each free word stored back checked; returns how many
-  // did not fit (0 on int32 columns, computed on in place). The capacity
-  // words need no store: no step of a terminal prefix writes them, and
-  // stored narrow they fit.
-  __host__ __device__ int store_nodes() const {
-    if (a.node_size == 4) return 0;
-    const int n = a.N * a.R;
-    char* dst = static_cast<char*>(a.node_free) + (size_t)c * n * a.node_size;
-    int bad = 0;
-    for (int i = 0; i < n; ++i) {
-      bad += store_checked_as(dst + i * a.node_size, a.node_size, free[i]);
-    }
-    return bad;
-  }
-
-  // Release: every active slot with end_t <= t returns its resources to
-  // its node and becomes an invalid, inactive row; counts the rest. The
-  // emit form first packs the return messages as the reference's stable
-  // argsort of ~is_ret over the pre-release rows does (core/engine.py
-  // _pack_returns): the due slots owned by a borrower (owner >= 0) in
-  // slot order, then every other slot in slot order — their pre-release
-  // rows, the own jobs this release clears included — up to M; returns
-  // past M count into drops.msgs. The first pass only reads; the second
-  // copies each other slot's row before releasing it.
-  template <bool kEmit = false>
-  __host__ __device__ void release(const Emit* e = nullptr) {
-    int m = 0;
-    int32_t* out = nullptr;
-    uint8_t* valid = nullptr;
-    if (kEmit) {
-      out = e->ret_rows + (size_t)c * e->M * RF;
-      valid = e->ret_valid + (size_t)c * e->M;
-      int n_ret = 0;
-      for (int s = 0; s < a.S; ++s) {
-        if (!ract[s] || run.get(s, REND) > a.t || run.get(s, ROWNER) < 0) {
-          continue;
-        }
-        if (m < e->M) {
-          run.load(s, out + m * RF);
-          valid[m++] = 1;
-        }
-        ++n_ret;
-      }
-      e->drop_msgs[c] += imax(n_ret - e->M, 0);
-    }
-    for (int s = 0; s < a.S; ++s) {
-      if (kEmit && m < e->M &&
-          !(ract[s] && run.get(s, REND) <= a.t && run.get(s, ROWNER) >= 0)) {
-        run.load(s, out + m * RF);
-        valid[m++] = 0;
-      }
-      if (!ract[s]) continue;
-      if (run.get(s, REND) <= a.t) {
-        int node = imin(imax(run.get(s, RNODE), 0), a.N - 1);
-        for (int r = 0; r < a.R; ++r) {
-          free[node * a.R + r] += run.get(s, RCORES + r);
-        }
-        set_run_invalid(run, s);
-        ract[s] = 0;
-      } else {
-        ++n_active;
-      }
-    }
-  }
 
   // The fault phase (faults/apply.py fault_phase_local), before release.
   // One pass over the N nodes: a healthy node whose next_fail <= t fails —
@@ -968,72 +823,6 @@ struct Cluster {
     f.drop_failed[c] += exhausted;
   }
 
-  // Vnode expiry (core/engine.py _expire_vnodes_local): every active node
-  // whose contract has ended (expire <= t) goes inactive, its capacity
-  // and free zeroed and its expiry back to NEVER. Physical nodes and
-  // contracts that never end hold NEVER. One pass over the N node slots,
-  // reading each slot's active flag and expiry and writing only the
-  // slots that expire. Expiry needs the trader, which is never terminal:
-  // the node columns are the engine's widened int32 ones.
-  __host__ __device__ void expire(const Expire& x) {
-    uint8_t* act = a.node_active + (size_t)c * a.N;
-    int32_t* cap = x.node_cap + (size_t)c * a.N * a.R;
-    int32_t* until = x.node_expire + (size_t)c * a.N;
-    for (int n = 0; n < a.N; ++n) {
-      if (!act[n] || until[n] > a.t) continue;
-      act[n] = 0;
-      for (int r = 0; r < a.R; ++r) {
-        cap[n * a.R + r] = 0;
-        free[n * a.R + r] = 0;
-      }
-      until[n] = NEVER;
-    }
-  }
-
-  // Ingest: append this tick's arrivals to queue `q` holding `count`
-  // rows; rows past its capacity count into `*drop_queue`. Tick-indexed
-  // (window < 0): the first counts[c] rows of the tick's slice, and the
-  // arrival cursor advances by the full count. Windowed (core/engine.py
-  // _ingest_local): the stream's rows from the cursor arr_ptr on that are
-  // due (enq_t <= t) among its counts[c] valid ones — nondecreasing in
-  // enq_t, so a prefix, counted up to its first row not due — of which
-  // the first `window` are taken, the rest counting into drops.ingest;
-  // the cursor advances by the taken count. `*arrived` is the count the
-  // cursor advanced by. Each row goes through the checked store (the
-  // reference's push_many), counted into the queue's ovf. Returns the new
-  // count.
-  __host__ __device__ int ingest(const QueueTable& qt, int count,
-                                 int* drop_queue, int* arrived) {
-    const int32_t* arows = a.rows + (size_t)c * a.K * NF;
-    int cnt, n_take;
-    if (a.window >= 0) {
-      const int ptr = a.arr_ptr[c];
-      const int end = imin(a.counts[c], a.K);
-      int due = 0;
-      for (int i = imax(ptr, 0); i < end && arows[i * NF + FENQ] <= a.t; ++i) {
-        ++due;
-      }
-      cnt = n_take = imin(due, a.window);
-      if (due > cnt) a.drop_ingest[c] += due - cnt;
-      arows += (size_t)imax(ptr, 0) * NF;
-    } else {
-      cnt = a.counts[c];
-      n_take = imin(imax(cnt, 0), a.K);
-    }
-    const int room = a.Q - count;
-    *drop_queue += imax(n_take - room, 0);
-    const int added = imin(n_take, room);
-    const QueueRows q = queue_rows(qt, c, a.Q);
-    int bad = 0;
-    for (int k = 0; k < added; ++k) {
-      bad += q.store_checked(count + k, arows + k * NF);
-    }
-    q.count(c, bad);
-    a.arr_ptr[c] += cnt;
-    *arrived = cnt;
-    return count + added;
-  }
-
   // Start `job` on `node`: occupy its resources, write its running row into
   // the lowest inactive slot (a plain store, as the reference's
   // start_many), count it, and trace it.
@@ -1063,17 +852,10 @@ struct Cluster {
     }
   }
 
-  // One attempt (the reference's _attempt / _attempt_deferred): place
-  // `job` on its first-fit node if there is one and the running set has a
-  // free slot; returns whether it did. A job that fits a node but finds
-  // the running set full counts into `*run_full`.
-  __host__ __device__ bool attempt(const int32_t* job, int32_t src,
-                                   int* run_full) {
-    return attempt_on(job, first_fit(free, nact, a.N, a.R, job), src,
-                      run_full);
-  }
-
-  // The same attempt with the node already picked (-1: none fits).
+  // One attempt (the reference's _attempt / _attempt_deferred) with the
+  // node already picked (-1: none fits): place `job` there if the running
+  // set has a free slot; returns whether it did. A job that fits a node
+  // but finds the running set full counts into `*run_full`.
   __host__ __device__ bool attempt_on(const int32_t* job, int node,
                                       int32_t src, int* run_full) {
     if (node < 0) return false;
@@ -1089,56 +871,15 @@ struct Cluster {
 
 // ---------------------------------------------------------------------------
 // The serial queue sweep (the reference's _scored_sweep_local and the
-// Level1 sweep of _delay_local): for each of the first n positions of an
-// order over a queue, record the job's wait and attempt it on the node the
-// pick chooses; then compact the placed slots out, stably.
+// Level1 sweep of _delay_local) as the lane-0 replay of the waves runs it:
+// for each of the first n positions of an order over a queue, record the
+// job's wait and attempt it on the node the pick chooses.
 // ---------------------------------------------------------------------------
 
 // Queue order: position p is slot p.
 struct QueueOrder {
   int p = 0;
   __host__ __device__ int next(const QueueRows&, int) { return p++; }
-};
-
-// The best-fit-decreasing order, valid slots by (-key1, -key2, slot) with
-// key1 = cores and key2 = mem, or swapped with `mem_first`, without a [Q]
-// scratch: position p's slot is the smallest triple strictly after
-// position p-1's, found by one pass over the live rows. Stable by
-// construction; QC x |Q| key reads per tick.
-struct BfdOrder {
-  int f1, f2;
-  int32_t last1 = 0, last2 = 0;
-  int last_i = -1;
-
-  __host__ __device__ explicit BfdOrder(int mem_first)
-      : f1(mem_first ? FMEM : FCORES), f2(mem_first ? FCORES : FMEM) {}
-
-  // (a1, a2, ai) < (b1, b2, bi), lexicographically.
-  __host__ __device__ static bool less(int32_t a1, int32_t a2, int ai,
-                                       int32_t b1, int32_t b2, int bi) {
-    if (a1 != b1) return a1 < b1;
-    if (a2 != b2) return a2 < b2;
-    return ai < bi;
-  }
-
-  __host__ __device__ int next(const QueueRows& q, int count) {
-    int best = -1;
-    int32_t b1 = 0, b2 = 0;
-    for (int i = 0; i < count; ++i) {
-      const int32_t k1 = wrap_sub(0, q.get(i, f1));
-      const int32_t k2 = wrap_sub(0, q.get(i, f2));
-      if (last_i >= 0 && !less(last1, last2, last_i, k1, k2, i)) continue;
-      if (best < 0 || less(k1, k2, i, b1, b2, best)) {
-        best = i;
-        b1 = k1;
-        b2 = k2;
-      }
-    }
-    last1 = b1;
-    last2 = b2;
-    last_i = best;
-    return best;
-  }
 };
 
 // The reference's first-fit pick.
@@ -1189,8 +930,8 @@ __host__ __device__ __forceinline__ void record_wait(int32_t* job, int t,
 // kernels run the serial form (its equal) unless a clamp reached the queue
 // (its ovf counter; arrival demands are not negative) and a row the sweep
 // may place has a negative demand, and then these, which replay the waves
-// (for at most kMaxNarrowNodes node slots, their local arrays: the wrapper
-// refuses a compact layout with more): each wave probes every unresolved
+// on lane 0 (for at most kMaxNarrowNodes node slots, their local arrays:
+// the wrapper refuses a compact layout with more): each wave probes every unresolved
 // row against the free words at the wave's start (first fit, the
 // cumulative demand per target node against that node's free), and places
 // rows in position order — the order the reference's placement buffer
@@ -1391,50 +1132,9 @@ __host__ __device__ void sweep(Cluster& cl, const QueueRows& q, int count,
   acc.placed = cl.placed - before;
 }
 
-// Stable-remove the slots the sweep placed from the queue's first `count`
-// rows; rows from the new count on become INVALID (rows at or past the
-// old count are INVALID already). Returns the new count.
-__host__ __device__ inline int compact_placed(const QueueRows& q, int count,
-                                              const SweepAcc& acc,
-                                              const uint32_t* mask) {
-  if (acc.placed == 0) return count;
-  int kept = 0;
-  if (q.rp != nullptr) {
-    for (int i = 0; i < count; ++i) {
-      if (mask[i >> 5] & (1u << (i & 31))) continue;
-      if (kept != i) q.copy(kept, i);
-      ++kept;
-    }
-  } else {
-    for (int f = 0; f < NF; ++f) {  // field by field on narrow columns
-      kept = 0;
-      for (int i = 0; i < count; ++i) {
-        if (mask[i >> 5] & (1u << (i & 31))) continue;
-        if (kept != i) q.set(kept, f, q.get(i, f));
-        ++kept;
-      }
-    }
-  }
-  set_queue_invalid(q, kept, count);
-  return kept;
-}
-
-// pop_front_n of a queue holding `count` rows: rows [n, count) move to the
-// front and every row from the new count on becomes INVALID (those past
-// the old count are). Returns the new count.
-__host__ __device__ inline int pop_front_n(const QueueRows& q, int count,
-                                           int n) {
-  n = imin(n, count);
-  if (n <= 0) return count;
-  const int newcount = count - n;
-  q.move(0, n, newcount);
-  set_queue_invalid(q, newcount, count);
-  return newcount;
-}
-
 // ---------------------------------------------------------------------------
-// The Level0 prefix the FFD and the scored kernels share: release, the
-// arrivals into Level0, the sweep of `order` with `pick`, the compaction.
+// Level0 and the counters its sweeps update (the FFD, DELAY and scored
+// kernels; prefix_warp.cuh level0_prefix).
 // ---------------------------------------------------------------------------
 
 struct Level0Args {
@@ -1461,78 +1161,11 @@ inline Level0Args make_level0(const Common& k, const int64_t* layout,
                     wave};
 }
 
-// Ingest into Level0: append the tick's arrivals; wait_jobs and
-// jobs_in_queue grow by the arrival count (the cursor's advance), dropped
-// rows included, as in the reference. Returns Level0's new count.
-__host__ __device__ inline int ingest_level0(const Level0Args& a,
-                                             Cluster& cl, int* drop_queue) {
-  const int c = cl.c;
-  int arrived = 0;
-  const int count = cl.ingest(a.l0, a.l0_count[c], drop_queue, &arrived);
-  a.wait_jobs[c] += arrived;
-  a.jobs_in_queue[c] += arrived;
-  return count;
-}
-
-// The emit form's borrow request of a kind that never borrows (the
-// Level0 kinds): want false and a zero row, as the reference's _zero_io.
-__host__ __device__ inline void emit_no_borrow(const Emit& e, int c) {
-  e.want[c] = 0;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) e.bjob[(size_t)c * NF + f] = 0;
-}
-
-// The faults form's step for a kernel whose ingest target is Level0: the
-// fault phase with Level0 as the target, and the requeues into it counted
-// as re-arrivals in wait_jobs and jobs_in_queue, as the arrival ingest
-// counts arrivals.
-__host__ __device__ inline void faults_level0(const Level0Args& a,
-                                              Cluster& cl, const Faults& f,
-                                              int* drop_queue) {
-  const int c = cl.c;
-  int n_ingest = 0;
-  cl.faults(f, a.l0, a.l0_count + c, drop_queue, &n_ingest);
-  a.wait_jobs[c] += n_ingest;
-  a.jobs_in_queue[c] += n_ingest;
-}
-
-// One cluster's whole tick: release, ingest into Level0, the sweep over
-// the first min(|L0|, QC) positions of `order`, the compaction, and the
-// counters; the emit form also packs the returns and writes no borrow
-// request, the expire form expires the ended virtual nodes between
-// release and ingest, and the faults form opens with the fault phase.
-// Returns the node exit narrow's count (0 on int32 node columns).
-template <bool kEmit, bool kExpire, bool kFaults, class Order, class Pick>
-__host__ __device__ int level0_prefix(const Level0Args& a, const Emit& e,
-                                      const Expire& x, const Faults& f,
-                                      int c, Order order, const Pick& pick) {
-  const Common& k = a.k;
-  int32_t lfree[kNodeWords];
-  Cluster cl(k, c, lfree);
-  const QueueRows l0 = queue_rows(a.l0, c, k.Q);
-  int drop_queue = 0;
-  if (kFaults) faults_level0(a, cl, f, &drop_queue);
-  cl.release<kEmit>(&e);
-  if (kEmit) emit_no_borrow(e, c);
-  if (kExpire) cl.expire(x);
-  const int count = ingest_level0(a, cl, &drop_queue);
-  SweepAcc acc(a.wait_total[c]);
-  uint32_t mask[kMaskWords];
-  sweep(cl, l0, count, imin(count, k.QC), order, pick, SRC_L0, a.wave != 0,
-        clamped(a.l0, c), false, acc, mask);
-  a.l0_count[c] = compact_placed(l0, count, acc, mask);
-  l0.count(c, acc.bad);
-  a.wait_total[c] = acc.total;
-  a.jobs_in_queue[c] -= cl.placed;
-  k.drop_queue[c] += drop_queue;
-  k.drop_run_full[c] += acc.run_full;
-  k.placed_total[c] += cl.placed;
-  return cl.store_nodes();
-}
-
 
 // ---------------------------------------------------------------------------
-// The metrics tap (obs/device.py tap_tick), the tap form's epilogue.
+// The metrics tap (obs/device.py tap_tick): its operands and the
+// per-cluster half, which prefix_warp.cuh tap_epilogue runs on each warp's
+// lane 0 before the cross-cluster half.
 // ---------------------------------------------------------------------------
 
 constexpr int kDepthBuckets = 16;  // obs/device.py OBS_DEPTH_BUCKETS
@@ -1666,117 +1299,6 @@ __device__ __forceinline__ void tap_cluster(const Tap& p, const Common& k,
   bucket_out[0] = depth_bucket(depth);
   placed_d_out[0] = placed_d;
   depth_out[0] = depth;
-}
-
-// The tap of cluster c after its span (active: c < C; every thread of the
-// block calls it, so that the warp-wide sums see the whole block): the
-// per-cluster half (tap_cluster), then the cross-cluster half: each block
-// (one warp) sums its clusters' placements and depths and counts its depth
-// buckets, adds them with integer atomics — exact in any order — and the
-// last block to finish writes the ring slot (its value rows, the clock)
-// and the tick count and zeroes the scratch for the next launch. A call,
-// not inlined: inlined into the scored kernel, nvcc compiled the tesserae
-// branch's Level0 compaction wrong in the faults form (a placed slot stayed in
-// Level0; the comparison with the plain version on the card caught it);
-// as a call, every thread of the block also arrives converged at the
-// warp-wide sums.
-static __device__ __noinline__ void tap_epilogue(const Tap& p,
-                                                 const Common& k, int c,
-                                                 bool active) {
-  int32_t placed_d = 0, depth = 0;
-  int bucket = -1;
-  if (active) tap_cluster(p, k, c, &placed_d, &depth, &bucket);
-#ifdef __CUDA_ARCH__
-  const unsigned lanes =
-      blockDim.x >= 32 ? 0xFFFFFFFFu : (1u << blockDim.x) - 1u;
-  const uint32_t sum_placed = __reduce_add_sync(lanes, (uint32_t)placed_d);
-  const uint32_t sum_depth = __reduce_add_sync(lanes, (uint32_t)depth);
-  for (int b = 0; b < kDepthBuckets; ++b) {
-    const unsigned hits = __ballot_sync(lanes, bucket == b);
-    if (threadIdx.x == 0 && hits != 0u) {
-      atomicAdd(p.depth_hist + b, __popc(hits));
-    }
-  }
-  if (threadIdx.x != 0) return;
-  atomicAdd(reinterpret_cast<unsigned*>(p.scratch), sum_placed);
-  atomicAdd(reinterpret_cast<unsigned*>(p.scratch + 1), sum_depth);
-  __threadfence();
-  const unsigned done =
-      atomicAdd(reinterpret_cast<unsigned*>(p.scratch + 2), 1u);
-  if (done != gridDim.x - 1) return;
-  __threadfence();  // the last block: every block's sums are in
-  p.ring_placed[p.slot] = atomicExch(p.scratch, 0);
-  p.ring_depth[p.slot] = atomicExch(p.scratch + 1, 0);
-  p.scratch[2] = 0;
-#else
-  // a host build (a logic check) runs the threads one after another
-  if (active) {
-    p.scratch[0] = wrap_add(p.scratch[0], placed_d);
-    p.scratch[1] = wrap_add(p.scratch[1], depth);
-    p.depth_hist[bucket] += 1;
-  }
-  if (++p.scratch[2] != (int32_t)(gridDim.x * blockDim.x)) return;
-  p.ring_placed[p.slot] = p.scratch[0];
-  p.ring_depth[p.slot] = p.scratch[1];
-  p.scratch[0] = p.scratch[1] = p.scratch[2] = 0;
-#endif
-  p.ring_t[p.slot] = k.t;
-  *p.ticks += 1;
-}
-
-// The cross-cluster half of the terminal node exit narrow (core/engine.py
-// _narrow_nodes), after the span and the tap: the reference counts the
-// free and capacity words that do not fit over the WHOLE batch and adds
-// that one total to every cluster's run.ovf (and so, through the tap's
-// ovf reading, to the buffer's ovf and the cursor's). Each block (one
-// warp) adds its clusters' counts `bad` atomically; the last block to
-// finish applies a nonzero total to every cluster and zeroes the scratch
-// for the next launch. Every thread of the block calls it; each fences
-// its own stores first, so the last block reads them. A call, like
-// tap_epilogue.
-static __device__ __noinline__ void node_exit_epilogue(const Common& k,
-                                                       const Tap& p, bool tap,
-                                                       int bad) {
-  int32_t total = 0;
-#ifdef __CUDA_ARCH__
-  const unsigned lanes =
-      blockDim.x >= 32 ? 0xFFFFFFFFu : (1u << blockDim.x) - 1u;
-  __threadfence();
-  const uint32_t sum = __reduce_add_sync(lanes, (uint32_t)bad);
-  if (threadIdx.x != 0) return;
-  if (sum != 0u) atomicAdd(reinterpret_cast<unsigned*>(k.exit_scratch), sum);
-  __threadfence();
-  const unsigned done =
-      atomicAdd(reinterpret_cast<unsigned*>(k.exit_scratch + 1), 1u);
-  if (done != gridDim.x - 1) return;
-  __threadfence();  // the last block: every block's count is in
-  total = (int32_t)atomicExch(reinterpret_cast<unsigned*>(k.exit_scratch),
-                              0u);
-  k.exit_scratch[1] = 0;
-#else
-  // a host build (a logic check) runs the threads one after another
-  k.exit_scratch[0] = wrap_add(k.exit_scratch[0], bad);
-  if (++k.exit_scratch[1] != (int32_t)(gridDim.x * blockDim.x)) return;
-  total = k.exit_scratch[0];
-  k.exit_scratch[0] = k.exit_scratch[1] = 0;
-#endif
-  if (total == 0) return;
-  for (int c = 0; c < k.C; ++c) {
-    k.run.ovf[c] = wrap_add(k.run.ovf[c], total);
-    if (tap) {
-      p.ovf[c] = wrap_add(p.ovf[c], total);
-      p.c_ovf[c] = wrap_add(p.c_ovf[c], total);
-    }
-  }
-}
-
-// Threads per block for the one-thread-per-cluster kernels: a warp, halved
-// while that would leave SMs without clusters (an H100 SXM has 132), so
-// that few clusters spread over many SMs.
-inline int threads_for(int C) {
-  int threads = 32;
-  while (threads > 1 && (C + threads - 1) / threads < 132) threads /= 2;
-  return threads;
 }
 
 }  // namespace prefix

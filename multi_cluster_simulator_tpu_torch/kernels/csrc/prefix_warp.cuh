@@ -1,24 +1,25 @@
-// The cooperative steps of the warp-per-cluster prefix kernels
-// (fused_prefix_fifo.cu, fused_prefix_ffd.cu): one warp carries one
-// cluster, its node words in shared memory, and its lanes share each
-// walk over the running set and the queues.
+// The cooperative steps of the prefix kernels (fused_prefix_fifo.cu,
+// fused_prefix_ffd.cu, fused_prefix_delay.cu, fused_prefix_scored.cu): one
+// warp carries one cluster, its node words in shared memory, and its lanes
+// share each walk over the running set and the queues.
 //
-// Why: one thread per cluster (prefix_common.cuh, the DELAY and scored
-// kernels) walks its cluster's rows serially, and neighbouring threads
-// read rows a cluster apart, so no load coalesces; a few clusters (ffd64's
-// 64) leave most of the card idle. With a warp per cluster the lanes read
-// neighbouring rows (a narrow leaf of 32 rows in one load), the release
-// and the row moves take S/32 and n/32 steps, and the FFD order is a warp
-// bitonic sort over keys in shared memory.
+// Why: one thread per cluster walks its cluster's rows serially, and
+// neighbouring threads read rows a cluster apart, so no load coalesces; a
+// few clusters (ffd64's 64, config 1's one) leave most of the card idle.
+// With a warp per cluster the lanes read neighbouring rows (a narrow leaf
+// of 32 rows in one load), the release and the row moves take S/32 and
+// n/32 steps, the BFD order is a warp bitonic sort over keys in shared
+// memory, first fit a ballot over 32 nodes and the scored pick a shuffle
+// reduction over 32 nodes' scores.
 //
 // How the code is written. Outside the lane helpers below, the code is
 // uniform: every lane computes the same values from the same loads (a
 // queue row every lane loads is one broadcast transaction), so decisions
 // that are serial in the reference — the FIFO drain to its first failure,
-// first-fit's choice, the sweep in order — stay serial and need no
-// broadcast. Work that differs by lane goes through a helper that takes it
-// as a lambda of the lane (`lanes`, `strided`, `ballot`, `reduce_add`),
-// and state a lane keeps across helper calls lives in a
+// the pick, the sweep in order, DELAY's Level0 head — stay serial and need
+// no broadcast. Work that differs by lane goes through a helper that takes
+// it as a lambda of the lane (`lanes`, `strided`, `ballot`, `reduce_add`,
+// `best_of`), and state a lane keeps across helper calls lives in a
 // PerLane<T>. Every helper has a host meaning (a build without nvcc):
 // the 32 lanes one after another, PerLane an array of 32, the
 // synchronisation a no-op, atomics plain adds; a host build of a kernel
@@ -31,9 +32,9 @@
 //
 // What a lane does on its own stays on lane 0 where it is rare: the fault
 // step and the waves' replay on negative demands (prefix_common.cuh
-// Cluster::faults, fifo_drain_waves, wave_place), on a Cluster over the
-// warp's shared node words, its results passed to the warp through the
-// warp's scratch (`from_lane0`).
+// Cluster::faults, fifo_drain_waves, sweep and wave_place), on a Cluster
+// over the warp's shared node words, its results passed to the warp
+// through the warp's scratch (`from_lane0`).
 
 #pragma once
 
@@ -113,6 +114,25 @@ __device__ __forceinline__ bool key_less(const Key& a, const Key& b) {
   return a.k != b.k ? a.k < b.k : a.i < b.i;
 }
 
+// A node's score and index, the scored pick's candidate.
+struct Scored {
+  float v;
+  int32_t i;
+};
+
+// Does a rank before b in the scored pick's order: a NaN before any number
+// (torch.argmax's NaN wins), then the larger score — compared as floats, so
+// -0.0 and +0.0 tie, as do -inf and -inf — then the lower index (the first
+// maximum). A total order over distinct indices, so a reduction in any
+// grouping gives the serial scan's winner.
+__device__ __forceinline__ bool ranks_before(const Scored& a,
+                                             const Scored& b) {
+  const bool an = a.v != a.v, bn = b.v != b.v;  // NaN
+  if (an != bn) return an;
+  if (!an && a.v != b.v) return a.v > b.v;
+  return a.i < b.i;
+}
+
 #ifdef __CUDACC__
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
@@ -165,6 +185,21 @@ __device__ __forceinline__ T from_lane0(char* scratch, F&& f) {
   return v;
 }
 
+// The candidate f(lane) that ranks first over the warp, in every lane: a
+// butterfly of shuffles, each lane keeping the better of its own and its
+// partner's.
+template <class F>
+__device__ __forceinline__ Scored best_of(F&& f) {
+  Scored s = f(lane_id());
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) {
+    const Scored x{__shfl_xor_sync(kFull, s.v, o),
+                   __shfl_xor_sync(kFull, s.i, o)};
+    if (ranks_before(x, s)) s = x;
+  }
+  return s;
+}
+
 #else  // a host build: the lanes one after another
 
 __device__ __forceinline__ void sync() {}
@@ -208,6 +243,16 @@ T from_lane0(char*, F&& f) {
   return f();
 }
 
+template <class F>
+Scored best_of(F&& f) {
+  Scored s = f(0);
+  for (int l = 1; l < kLanes; ++l) {
+    const Scored x = f(l);
+    if (ranks_before(x, s)) s = x;
+  }
+  return s;
+}
+
 inline char* host_smem() {
   alignas(16) static char buf[kHostSmem];
   return buf;
@@ -227,17 +272,18 @@ __device__ __forceinline__ void lane0(F&& f) {
 
 // ---------------------------------------------------------------------------
 // A warp's shared memory: its scratch, the node free words (widened to
-// int32) and active flags, and for the FFD order the keys, the order and
-// the placed-slot mask. Sized from N, R and Q at launch.
+// int32) and active flags, the placed-slot mask of the sweeps, and for the
+// BFD order (FFD, tesserae; `order`) the keys and the order. Sized from N,
+// R and Q at launch.
 // ---------------------------------------------------------------------------
 
 struct WarpMem {
   char* scratch;
-  int32_t* free;  // [N R]
-  uint8_t* act;   // [N]
+  int32_t* free;   // [N R]
+  uint8_t* act;    // [N]
+  uint32_t* mask;  // [kMaskWords] the slots the sweep placed
   long long* key;  // [P] the sort keys, P the power of two >= Q
   int16_t* idx;    // [P] the order: position -> slot
-  uint32_t* mask;  // [kMaskWords] the slots the sweep placed
 };
 
 __host__ __device__ __forceinline__ size_t round16(size_t b) {
@@ -252,10 +298,11 @@ __host__ __device__ __forceinline__ int pow2_at_least(int n) {
 
 __host__ __device__ inline size_t warp_mem_bytes(int N, int R, int Q,
                                                  bool order) {
-  size_t b = kScratchBytes + round16(4 * (size_t)N * R) + round16(N);
+  size_t b = kScratchBytes + round16(4 * (size_t)N * R) + round16(N) +
+             4 * kMaskWords;
   if (order) {
     const size_t P = pow2_at_least(Q);
-    b += round16(8 * P) + round16(2 * P) + 4 * kMaskWords;
+    b += round16(8 * P) + round16(2 * P);
   }
   return b;
 }
@@ -274,13 +321,13 @@ __device__ __forceinline__ WarpMem warp_mem(int N, int R, int Q, bool order) {
   p += round16(4 * (size_t)N * R);
   m.act = reinterpret_cast<uint8_t*>(p);
   p += round16(N);
+  m.mask = reinterpret_cast<uint32_t*>(p);
+  p += 4 * kMaskWords;
   if (order) {
     const size_t P = pow2_at_least(Q);
     m.key = reinterpret_cast<long long*>(p);
     p += round16(8 * P);
     m.idx = reinterpret_cast<int16_t*>(p);
-    p += round16(2 * P);
-    m.mask = reinterpret_cast<uint32_t*>(p);
   }
   return m;
 }
@@ -393,7 +440,9 @@ __device__ void move_down(const QueueRows& q, int n, Src src) {
   sync();
 }
 
-// pop_front_n (prefix_common.cuh) by the warp.
+// pop_front_n of a queue holding `count` rows: rows [n, count) move to the
+// front, a lane a row, and every row from the new count on becomes INVALID
+// (those past the old count are). Returns the new count.
 __device__ inline int pop_front_n(const QueueRows& q, int count, int n) {
   n = imin(n, count);
   if (n <= 0) return count;
@@ -403,9 +452,11 @@ __device__ inline int pop_front_n(const QueueRows& q, int count, int n) {
   return newcount;
 }
 
-// compact_placed (prefix_common.cuh) by the warp: each kept row's
-// destination is the count of kept rows before it (the popc prefix of the
-// mask's complement, a 32-row word at a time).
+// Stable-remove the slots `mask` marks (the sweep's placements) from the
+// queue's first `count` rows; rows from the new count on become INVALID.
+// Each kept row's destination is the count of kept rows before it (the
+// popc prefix of the mask's complement, a 32-row word at a time). Returns
+// the new count.
 __device__ inline int compact_placed(const QueueRows& q, int count,
                                      int placed, const uint32_t* mask) {
   if (placed == 0) return count;
@@ -445,7 +496,7 @@ __device__ inline bool any_negative_demand(const QueueRows& q, int n) {
   return false;
 }
 
-// An order over precomputed positions (the warp's FFD order in shared
+// An order over precomputed positions (the warp's BFD order in shared
 // memory), for the serial steps that take an Order (wave_place, sweep).
 struct ArrayOrder {
   const int16_t* idx;
@@ -508,8 +559,9 @@ struct WarpCluster {
   }
 
   // The free words back to the node columns at the span's exit: on narrow
-  // columns the checked exit narrow (Cluster::store_nodes), returning how
-  // many words did not fit (in every lane).
+  // columns the checked exit narrow (core/engine.py _narrow_nodes),
+  // returning how many words did not fit (in every lane). The capacity
+  // words need no store: no step of a terminal prefix writes them.
   __device__ int store_nodes() {
     const int size = a.node_size;
     char* dst = static_cast<char*>(a.node_free) +
@@ -544,10 +596,10 @@ struct WarpCluster {
     return ract[s] && run.get(s, REND) <= a.t && run.get(s, ROWNER) >= 0;
   }
 
-  // Release (Cluster::release), the lanes over the running slots: a due
-  // slot gives its resources back to its node (shared-memory atomics:
-  // int32 wrapping adds, exact in any order) and becomes an INVALID,
-  // inactive row; the others are counted. The emit form packs the return
+  // Release, the lanes over the running slots: a due slot (end_t <= t)
+  // gives its resources back to its node (shared-memory atomics: int32
+  // wrapping adds, exact in any order) and becomes an INVALID, inactive
+  // row; the others are counted. The emit form packs the return
   // messages in the reference's order: first the due slots owned by a
   // borrower, in slot order, then every other slot (its pre-release row),
   // in slot order, up to M — each lane's position the count of such slots
@@ -619,7 +671,11 @@ struct WarpCluster {
     sync();
   }
 
-  // Vnode expiry (Cluster::expire), a lane a node slot.
+  // Vnode expiry (core/engine.py _expire_vnodes_local), a lane a node
+  // slot: every active node whose contract has ended (expire <= t) goes
+  // inactive, its capacity and free zeroed and its expiry back to NEVER.
+  // Expiry needs the trader, which is never terminal: the node columns are
+  // the engine's widened int32 ones.
   __device__ void expire(const Expire& x) {
     uint8_t* act = a.node_active + (size_t)c * a.N;
     int32_t* cap = x.node_cap + (size_t)c * a.N * a.R;
@@ -655,9 +711,16 @@ struct WarpCluster {
     *n_ingest = out.y;
   }
 
-  // Ingest (Cluster::ingest), the arrival rows a lane a row through the
-  // checked store; the windowed stream's due prefix found 32 rows at a
-  // time by ballot.
+  // Ingest: append this tick's arrivals to queue `qt` holding `count` rows,
+  // a lane a row through the checked store (the reference's push_many,
+  // counted into the queue's ovf); rows past its capacity count into
+  // `*drop_queue`. Tick-indexed (window < 0): the first counts[c] rows of
+  // the tick's slice, the cursor advancing by the full count. Windowed
+  // (core/engine.py _ingest_local): the stream's rows from the cursor on
+  // that are due (enq_t <= t), nondecreasing in enq_t, so a prefix found
+  // 32 rows at a time by ballot, of which the first `window` are taken,
+  // the rest counting into drops.ingest. `*arrived` is the cursor's
+  // advance. Returns the new count.
   __device__ int ingest(const QueueTable& qt, int count, int* drop_queue,
                         int* arrived) {
     const int32_t* arows = a.rows + (size_t)c * a.K * NF;
@@ -756,7 +819,9 @@ struct WarpCluster {
     sync();
   }
 
-  // Cluster::attempt and attempt_on.
+  // One attempt on the first-fit node, or on a node already picked (-1:
+  // none fits), with the has-slot check (prefix_common.cuh
+  // Cluster::attempt_on).
   __device__ bool attempt(const int32_t* job, int32_t src, int* run_full) {
     return attempt_on(job, first_fit(job), src, run_full);
   }
@@ -794,11 +859,12 @@ struct WarpCluster {
     for (int f = 0; f < NF; ++f) job[f] = o.job.v[f];
   }
 
-  // The best-fit-decreasing order (prefix_common.cuh BfdOrder) of q's
-  // `count` rows, into m.idx: the keys (-key1, -key2) of every live row
-  // staged in shared memory as one int64 each, (-key1) in the high word
-  // and (-key2) biased in the low one, so that the int64 order with the
-  // slot as the last key is BfdOrder's; keys stay full int32 (a clamped
+  // The best-fit-decreasing order of q's `count` rows, valid slots by
+  // (-key1, -key2, slot) with key1 = cores and key2 = mem, or swapped with
+  // `mem_first`, into m.idx: the keys of every live row staged in shared
+  // memory as one int64 each, (-key1) in the high word and (-key2) biased
+  // in the low one, so that the int64 order with the slot as the last key
+  // is the reference's stable one; keys stay full int32 (a clamped
   // demand negates to a positive key). The sweep never changes the keys,
   // so the order is computed before it, by a warp bitonic sort of all the
   // rows (P the power of two >= count, padded with kNoKey).
@@ -842,36 +908,77 @@ struct WarpCluster {
     }
   }
 
+  // The scored pick: the node whose score(n) ranks first (ranks_before),
+  // infeasible nodes at -inf and in the reduction (so with every feasible
+  // node at -inf too the pick is node 0, fit or not, as the reference's
+  // argmax), -1 when no node fits; a lane a node, 32 nodes a round, the
+  // best carried across rounds.
+  template <class Score>
+  __device__ int scored_fit(const int32_t* job, const Score& score) const {
+    Scored best{-INFINITY, INT32_MAX};  // ranks after every node
+    bool any = false;
+    for (int n0 = 0; n0 < a.N; n0 += kLanes) {
+      auto ok = [&](int l) {
+        const int n = n0 + l;
+        return n < a.N && m.act[n] && fits(m.free + n * a.R, a.R, job);
+      };
+      any = any || ballot(ok) != 0u;
+      const Scored r = best_of([&](int l) {
+        return Scored{ok(l) ? score(n0 + l) : -INFINITY, n0 + l};
+      });
+      if (ranks_before(r, best)) best = r;
+    }
+    return any ? best.i : -1;
+  }
+
   // The serial sweep (prefix_common.cuh sweep) over the first n positions
-  // of m.idx, uniform: each job records its wait (the rec_wait store,
-  // checked, by lane 0), is attempted on its first-fit node, and a placed
-  // slot is marked in m.mask. Where a clamp reached the queue and a row
-  // demands a negative amount, lane 0 replays the reference's waves
-  // instead (the serial `sweep` of prefix_common.cuh, over the same
-  // order).
+  // of an order over q's `count` rows — m.idx where `ordered` (the BFD
+  // order), else queue order (position p is slot p) — uniform: each job
+  // records its wait (the rec_wait store, checked, by lane 0), is
+  // attempted on the node `pick` chooses, and a placed slot is marked in
+  // m.mask; with `skip` (DELAY's parity quirk) a success passes over the
+  // next position. Where a clamp reached the queue and a swept row demands
+  // a negative amount, lane 0 replays the reference's waves instead (the
+  // serial `sweep` of prefix_common.cuh, over the same order): only the
+  // first-fit picks have a wave form.
+  template <class Pick>
   __device__ void sweep(const QueueRows& q, int count, int n, int32_t src,
-                        bool wave, bool may_replay, SweepAcc& acc) {
+                        bool ordered, bool wave, bool may_replay, bool skip,
+                        const Pick& pick, SweepAcc& acc) {
     strided(kMaskWords, [&](int, int w) { m.mask[w] = 0u; });
     sync();
     const int before = placed;
-    if (wave && may_replay && a.N <= kMaxNarrowNodes &&
-        warp::any_negative_demand(q, count)) {
-      const SweepOut o = from_lane0<SweepOut>(m.scratch, [&] {
-        Cluster cl = lane_cluster();
-        SweepAcc r = acc;
-        ArrayOrder order{m.idx};
-        prefix::sweep(cl, q, count, n, order, FirstFitPick{}, src, true,
-                      true, false, r, m.mask);
-        return SweepOut{r, cl.slot, cl.n_active, cl.placed};
-      });
-      acc = o.acc;
-      absorb(o.slot, o.n_active, o.placed);
-      return;
+    if constexpr (Pick::kWaves) {
+      if (wave && may_replay && a.N <= kMaxNarrowNodes &&
+          warp::any_negative_demand(q, ordered ? count : n)) {
+        const SweepOut o = from_lane0<SweepOut>(m.scratch, [&] {
+          Cluster cl = lane_cluster();
+          SweepAcc r = acc;
+          if (ordered) {
+            ArrayOrder order{m.idx};
+            prefix::sweep(cl, q, count, n, order, FirstFitPick{}, src, true,
+                          true, skip, r, m.mask);
+          } else {
+            QueueOrder order;
+            prefix::sweep(cl, q, count, n, order, FirstFitPick{}, src, true,
+                          true, skip, r, m.mask);
+          }
+          return SweepOut{r, cl.slot, cl.n_active, cl.placed};
+        });
+        acc = o.acc;
+        absorb(o.slot, o.n_active, o.placed);
+        return;
+      }
     }
     const bool narrow = q.rp == nullptr;
     const int rec_size = narrow ? q.t->f[FREC].size : 4;
+    bool skipping = false;
     for (int p = 0; p < n; ++p) {
-      const int i = m.idx[p];
+      if (skipping) {
+        skipping = false;
+        continue;
+      }
+      const int i = ordered ? m.idx[p] : p;
       int32_t job[NF];
       q.load(i, job);
       record_wait(job, a.t, wave, acc);
@@ -879,10 +986,11 @@ struct WarpCluster {
       lanes([&](int l) {
         if (l == 0) q.set_checked(i, FREC, job[FREC]);
       });
-      if (attempt(job, src, &acc.run_full)) {
+      if (attempt_on(job, pick(*this, job), src, &acc.run_full)) {
         lanes([&](int l) {
           if (l == 0) m.mask[i >> 5] |= 1u << (i & 31);
         });
+        skipping = skip;
       }
     }
     if (wave) acc.total = acc.total + (float)acc.wave_sum;
@@ -891,16 +999,96 @@ struct WarpCluster {
   }
 };
 
+// The first-fit pick of the warp, by ballot (FFD, DELAY).
+struct FirstFit {
+  static constexpr bool kWaves = true;
+  __device__ int operator()(const WarpCluster& cl, const int32_t* job) const {
+    return cl.first_fit(job);
+  }
+};
+
+// The emit form's borrow request of a kind that never borrows (the
+// Level0 kinds): want false and a zero row, as the reference's _zero_io.
+__device__ __forceinline__ void emit_no_borrow(const Emit& e, int c) {
+  lanes([&](int l) {
+    if (l < NF) e.bjob[(size_t)c * NF + l] = 0;
+    if (l == 0) e.want[c] = 0;
+  });
+}
+
+// The Level0 span of cluster c, carried by the calling warp (FFD and the
+// scored kinds): release, ingest into Level0, the sweep over the first
+// min(|L0|, QC) positions of the BFD order (`mem_first` its first key: 0
+// cores, 1 mem; -1 for queue order, which stages no keys) with `pick`,
+// the compaction, and the counters; the emit form also packs the returns
+// and writes no borrow request, the expire form expires the ended virtual
+// nodes between release and ingest, and the faults form opens with the
+// fault phase, its requeues into Level0 counted as re-arrivals in
+// wait_jobs and jobs_in_queue. Returns the node exit narrow's count (in
+// every lane).
+template <bool kEmit, bool kExpire, bool kFaults, class Pick>
+__device__ __forceinline__ int level0_prefix(const Level0Args& q,
+                                             const Emit& e, const Expire& x,
+                                             const Faults& f, int c,
+                                             const WarpMem& m, int mem_first,
+                                             const Pick& pick) {
+  const Common& k = q.k;
+  // Level0's count and the wait total, read before the entry's other
+  // loads complete
+  int count = q.l0_count[c];
+  SweepAcc acc(q.wait_total[c]);
+  WarpCluster cl(k, c, m);
+  const QueueRows l0 = queue_rows(q.l0, c, k.Q);
+  int drop_queue = 0;
+  int requeued = 0;
+  if (kFaults) {
+    cl.faults(f, q.l0, q.l0_count + c, &drop_queue, &requeued);
+    count = q.l0_count[c];
+  }
+  cl.release<kEmit>(&e);
+  if (kEmit) emit_no_borrow(e, c);
+  if (kExpire) cl.expire(x);
+  int arrived = 0;
+  count = cl.ingest(q.l0, count, &drop_queue, &arrived);
+  const int n_sweep = imin(count, k.QC);
+  const bool ordered = mem_first >= 0;
+  if (ordered) cl.bfd_order(l0, count, n_sweep, mem_first);
+  cl.sweep(l0, count, n_sweep, SRC_L0, ordered, q.wave != 0,
+           clamped(q.l0, c), false, pick, acc);
+  const int kept = compact_placed(l0, count, acc.placed, m.mask);
+  const int placed = cl.placed;
+  lane0([&] {
+    // counters move only by what the tick added (no read when nothing)
+    const int entered = arrived + requeued;
+    if (entered != 0) q.wait_jobs[c] += entered;
+    if (entered != placed) q.jobs_in_queue[c] += entered - placed;
+    q.l0_count[c] = kept;
+    l0.count(c, acc.bad);
+    q.wait_total[c] = acc.total;
+    if (drop_queue != 0) k.drop_queue[c] += drop_queue;
+    if (acc.run_full != 0) k.drop_run_full[c] += acc.run_full;
+    if (placed != 0) k.placed_total[c] += placed;
+  });
+  return cl.store_nodes();
+}
+
 // ---------------------------------------------------------------------------
 // The epilogues with a warp a cluster: lane 0 of each warp does the
 // per-cluster half, the block sums its warps through shared memory, then
-// the integer atomics and the last block's step of prefix_common.cuh's
-// tap_epilogue and node_exit_epilogue. Every thread of every block calls
-// them, those of warps past C included.
+// each block adds its sums with integer atomics — exact in any order — and
+// the last block to finish does the cross-cluster step. Every thread of
+// every block calls them, those of warps past C included.
 // ---------------------------------------------------------------------------
 
-// The metrics tap (prefix_common.cuh tap_epilogue). A call, not inlined,
-// as there.
+// The metrics tap of cluster c after its span (active: c < C): the
+// per-cluster half (prefix_common.cuh tap_cluster) on lane 0, then the
+// block's placements and depths summed and its depth buckets counted, added
+// with integer atomics; the last block to finish writes the ring slot (its
+// value rows, the clock) and the tick count and zeroes the scratch for the
+// next launch. A call, not inlined: inlined into the one-thread scored
+// kernel of earlier versions, nvcc compiled the tesserae branch's Level0
+// compaction wrong in the faults form (a placed slot stayed in Level0; the
+// comparison with the plain version on the card caught it).
 static __device__ __noinline__ void tap_epilogue(const Tap& p,
                                                  const Common& k, int c,
                                                  bool active) {
@@ -971,9 +1159,15 @@ __device__ __forceinline__ void apply_exit_total(const Common& k,
   }
 }
 
-// The cross-cluster half of the terminal node exit narrow
-// (prefix_common.cuh node_exit_epilogue), `bad` the warp's count; the last
-// block's threads apply a nonzero total to every cluster.
+// The cross-cluster half of the terminal node exit narrow (core/engine.py
+// _narrow_nodes), after the span and the tap: the reference counts the
+// free and capacity words that do not fit over the WHOLE batch and adds
+// that one total to every cluster's run.ovf (and so, through the tap's ovf
+// reading, to the buffer's ovf and the cursor's). `bad` is the warp's
+// count; each block adds its warps' counts atomically, and the last
+// block's threads apply a nonzero total to every cluster and zero the
+// scratch for the next launch. Each thread fences its own stores first,
+// so the last block reads them. A call, like tap_epilogue.
 static __device__ __noinline__ void node_exit_epilogue(const Common& k,
                                                        const Tap& p, bool tap,
                                                        int bad) {

@@ -67,10 +67,12 @@ entry and narrowed back, checked, at its exit, the cross-cluster count
 added to every cluster's ``run.ovf`` by the last block.
 
 Each source's header states what bounds it on the H100 and what its
-design does about that; what they share is ``csrc/prefix_common.cuh``.
-The FIFO and FFD kernels carry a cluster per warp, their cooperative
-steps in ``csrc/prefix_warp.cuh``; the DELAY and scored kernels a
-cluster per thread.
+design does about that. Every kernel carries a cluster per warp, their
+cooperative steps in ``csrc/prefix_warp.cuh`` (FFD and the scored kinds
+share its Level0 prefix, ``level0_prefix``, with another order and
+pick); what they share besides, the column views and the steps one lane
+runs on its own (the fault step, the waves' replay), is
+``csrc/prefix_common.cuh``.
 The kernel is the one of the member ``params.idx`` selects in the
 engine's ``PolicySet``, read once at a run's entry (``host_params``).
 
@@ -113,14 +115,13 @@ REPLACES = "multi_cluster_simulator_tpu/kernels/fused_tick.py:160"
 CSRC = "multi_cluster_simulator_tpu_torch/kernels/csrc/"
 
 # The Level0 and Level1 sweeps' static limit: their placed-slot mask is a
-# fixed-size bit array (csrc/prefix_common.cuh kMaxQueue), and the FFD
-# kernel's order holds this many keys in a warp's shared memory.
+# fixed-size bit array (csrc/prefix_common.cuh kMaxQueue), and the BFD
+# order (FFD, tesserae) holds this many keys in a warp's shared memory.
 MAX_QUEUE = 1024
 # The fault step's failed-node mask, likewise (kMaxFaultNodes).
 MAX_FAULT_NODES = 64
-# The node slots a cluster may have on narrow node columns: the DELAY and
-# scored kernels compute on a local int32 copy of them, and every kernel's
-# replay of the waves on local arrays (kMaxNarrowNodes).
+# The node slots a cluster may have on the compact layout: every kernel's
+# replay of the waves computes on local arrays of them (kMaxNarrowNodes).
 MAX_NARROW_NODES = 32
 # The storage dtypes a column view takes (1, 2 or 4 bytes a value).
 _INT_DTYPES = (torch.int8, torch.int16, torch.int32)
@@ -643,7 +644,7 @@ def _layout(cfg, s, own: tuple, host: dict) -> ctypes.Array:
                                               R.SoARunningSet))
                                for x in key[1:])
     if compact and (N > MAX_NARROW_NODES or n_res > 3):
-        # the local node copies of the narrow exit and the wave replay
+        # the wave replay's local node arrays
         raise ValueError(f"fused_prefix: the compact layout's {N} x {n_res} "
                          f"node words exceed the kernel's "
                          f"{MAX_NARROW_NODES} x 3")

@@ -1,5 +1,6 @@
-"""The warp-per-cluster prefix kernels (``kernels/csrc/fused_prefix_fifo.cu``
-and ``fused_prefix_ffd.cu``) built as host C++ with g++ and held, tick by
+"""The warp-per-cluster prefix kernels (``kernels/csrc/fused_prefix_fifo.cu``,
+``fused_prefix_ffd.cu``, ``fused_prefix_delay.cu`` and
+``fused_prefix_scored.cu``) built as host C++ with g++ and held, tick by
 tick, against their plain PyTorch version on the CPU.
 
 The sources compile for the host against a shim ``cuda_runtime.h`` (the
@@ -16,10 +17,14 @@ with the metrics plane, every buffer and cursor leaf must be equal.
 Cases cover the FIFO headline shape, the emit form with borrowing and
 returns past the message slots, the expire, faults and tap forms, the
 windowed ingest, FFD with a cap below the queue, the whole queue
-(parity) and ``ffd-memfirst``, both
-state layouts, undersized plans whose clamped demands replay the waves,
-the node exit narrow, and cluster counts that leave a block's last warps
-idle. Needs g++ (skipped without one, decided in a fixture)."""
+(parity) and ``ffd-memfirst``, DELAY in parity (the skip firing) and in
+its wave form under a cap below Level1, promotions into a full Level1,
+the scored kinds (gavel and rl tables, tesserae, a NaN score, scores all
+``-inf``, more than 32 nodes), both state layouts, undersized plans whose
+clamped demands replay the waves, the node exit narrow, and cluster
+counts that leave a block's last warps idle. Each case also checks that
+the branch it is for fired. Needs g++ (skipped without one, decided in a
+fixture)."""
 
 import collections
 import ctypes
@@ -40,13 +45,15 @@ from multi_cluster_simulator_tpu_torch.core.state import (
 )
 from multi_cluster_simulator_tpu_torch.kernels import build, fused_tick
 from multi_cluster_simulator_tpu_torch.obs import device as D
+from multi_cluster_simulator_tpu_torch.policies import kernels as K
 from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
 from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
 from multi_cluster_simulator_tpu_torch.workload.traces import uniform_stream
 
 torch.set_num_threads(1)
 
-NAMES = ("fused_prefix_fifo", "fused_prefix_ffd")
+NAMES = ("fused_prefix_fifo", "fused_prefix_ffd", "fused_prefix_delay",
+         "fused_prefix_scored")
 
 # The CUDA runtime as the host build sees it: the qualifiers defined away,
 # the launch geometry as globals that launch_warps' host loop sets.
@@ -71,8 +78,8 @@ static dim3 gridDim, blockDim, blockIdx, threadIdx;
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """The two sources built with g++ into a temporary directory and
-    routed to: ``build.load`` returns them, the stream is null."""
+    """The sources built with g++ into a temporary directory and routed
+    to: ``build.load`` returns them, the stream is null."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++: the kernels' host build needs a C++17 "
@@ -115,14 +122,19 @@ def assert_same(want, got, what: str) -> None:
 class Checked:
     """``fused_tick.fused_prefix`` for runs on CPU tensors: the host-built
     kernel on the state in place, the plain version on a copy, every leaf
-    held equal; counts the launches of each form."""
+    held equal; counts the launches of each form (and the windowed ones in
+    ``seen``). A run may set ``watch(seen, before, after, rows, counts)``,
+    called after every tick, to count in ``seen`` the branches it fired."""
 
     def __init__(self):
         self.launches = collections.Counter()
+        self.seen = collections.Counter()
+        self.watch = None
         self.real = fused_tick.fused_prefix
 
     def __call__(self, engine, state, rows, counts, t, params, host,
                  emit_returns=False, out=None, obs=None, windowed=False):
+        before = clone_state(state) if self.watch is not None else None
         ref = clone_state(state)
         ref_obs = None if obs is None else tuple(map(clone_state, obs))
         _, *ref_io, _ = self.real(engine, ref, rows, counts, t, params, host,
@@ -139,8 +151,12 @@ class Checked:
         fused_tick._LAUNCH[k.lib](engine.cfg, state, rows, counts, t, host,
                                   io, windowed, tap)
         self.launches[k.name] += 1
+        self.seen["windowed"] += int(windowed)
+        self.seen["emit"] += int(emit_returns)
         what = f"{k.name} at t={t}"
         assert_same(ref, state, what)
+        if self.watch is not None:
+            self.watch(self.seen, before, state, rows, counts)
         obs_out = None
         if obs is not None:
             assert_same(ref_obs[0], obs[0], what + " (buffer)")
@@ -208,12 +224,12 @@ def undersized(plan):
         (n, "int8" if n == "cores" else dt) for n, dt in plan.queue))
 
 
-def run(engine, state, arr, n_ticks, plane=False):
+def run(engine, state, arr, n_ticks, plane=False, params=None):
     """``n_ticks`` ticks of ``arr`` through ``run_chunks`` (the metrics
     plane on with ``plane``)."""
     mbuf = D.metrics_init(state) if plane else None
     out = engine.run_chunks(state, chunks_of(arr, n_ticks, engine.cfg),
-                            mbuf=mbuf)
+                            params=params, mbuf=mbuf)
     return out[0] if plane else out
 
 
@@ -261,6 +277,14 @@ def with_vnodes(state, n_phys, expire_at):
     return state
 
 
+def engine_for(cfg, policy):
+    """The engine of ``cfg`` running ``policy`` (the config's own kind for
+    fifo and ffd)."""
+    if policy in ("fifo", "ffd"):
+        return E.Engine(cfg, device="cpu")
+    return E.Engine(cfg, device="cpu", policies=PolicySet((policy,)))
+
+
 def expiring(policy, borrowing=False):
     """The expire forms: the trader on with expiry, the virtual slots
     loaded and expiring at 6 s."""
@@ -271,7 +295,7 @@ def expiring(policy, borrowing=False):
     C = 4
     sp = specs(C, n_nodes=3)
     state = with_vnodes(init_state(cfg, sp, device="cpu"), 3, 6_000)
-    return run(E.Engine(cfg, device="cpu"), state, stream(C, 60), 20)
+    return run(engine_for(cfg, policy), state, stream(C, 60), 20)
 
 
 def faulty(policy, compact=False, plane=False):
@@ -285,7 +309,7 @@ def faulty(policy, compact=False, plane=False):
     arr = stream(C, 60, max_dur_ms=30_000)
     plan = CC.derive_plan(cfg, sp, arr) if compact else None
     state = init_state(cfg, sp, device="cpu", plan=plan)
-    return run(E.Engine(cfg, device="cpu"), state, arr, 40, plane)
+    return run(engine_for(cfg, policy), state, arr, 40, plane)
 
 
 def windowed():
@@ -366,10 +390,216 @@ def ffd_undersized():
                    max_placements_per_tick=4)
 
 
+def watching(watch):
+    """Count the branches a run fires (``Checked.watch``)."""
+    fused_tick.fused_prefix.watch = watch
+
+
+def delay_cfg(**kw):
+    """sinkhorn_market_setup's DELAY config (bench.py:993, config 4) at
+    small queues, the trace on."""
+    base = dict(policy=P.PolicyKind.DELAY, parity=False,
+                max_placements_per_tick=8, queue_capacity=16,
+                max_running=24, max_arrivals=128, max_ingest_per_tick=8,
+                max_nodes=5, max_virtual_nodes=0, n_res=3,
+                delay_sweep="wave", record_trace=True, max_trace_events=512)
+    base.update(kw)
+    return P.SimConfig(**base)
+
+
+def delay_watch(QC):
+    """Promotions (Level1 grows only by them), promotions dropped by a full
+    Level1 (the tick's drops.queue less the ingest's), run_full, a Level1
+    deeper than the cap, a negative demand among the swept Level1 rows,
+    and the parity skip (a Level1 slot placed while the next one was still
+    inside the sweep: the skip passes over it; needs the trace)."""
+    def watch(seen, before, after, rows, counts):
+        room = before.l0.capacity - before.l0.count
+        ingest_drops = (counts.clamp(0, rows.shape[1]) - room).clamp(min=0)
+        seen["promoted"] += int((after.l1.count > before.l1.count).sum())
+        seen["l1_full"] += int((after.drops.queue - before.drops.queue
+                                - ingest_drops).sum())
+        seen["run_full"] += int((after.drops.run_full
+                                 - before.drops.run_full).sum())
+        n_sweep = before.l1.count.clamp(max=QC)
+        seen["capped"] += int((before.l1.count > QC).sum())
+        swept = torch.arange(before.l1.capacity) < n_sweep[:, None]
+        seen["negative"] += int(((before.l1.cores < 0) & swept).sum())
+        n0, n1 = before.trace.n.tolist(), after.trace.n.tolist()
+        for c in range(len(n0)):
+            new = slice(n0[c], n1[c])
+            placed = set(after.trace.job[c, new][
+                after.trace.src[c, new] == 0].tolist())  # SRC_L1
+            ids = before.l1.id[c].tolist()
+            seen["skips"] += sum(1 for i in range(int(n_sweep[c]) - 1)
+                                 if ids[i] in placed)
+    return watch
+
+
+def delay_run(compact=False, plane=False, C=8, jobs=120, n_ticks=40,
+              policy="delay", plan_of=None, max_cores=24, max_mem=18_000,
+              **kw):
+    """DELAY (``policy``: delay, delay-eager) on the market's gpu-rich and
+    gpu-poor clusters, its branches counted."""
+    cfg = delay_cfg(**kw)
+    sp = specs(C)
+    arr = stream(C, jobs, horizon_ms=30_000, max_cores=max_cores,
+                 max_mem=max_mem, max_dur_ms=40_000)
+    plan = plan_of(cfg, sp, arr) if plan_of else (
+        CC.derive_plan(cfg, sp, arr) if compact else None)
+    state = init_state(cfg, sp, device="cpu", plan=plan)
+    watching(delay_watch(K._sweep_len(cfg)))
+    return run(engine_for(cfg, policy), state, arr, n_ticks, plane)
+
+
+def delay_emit():
+    """The DELAY kernel's emit form: run_io (every tick emits)."""
+    cfg = delay_cfg(max_msgs=4)
+    C = 4
+    arr = stream(C, 80, horizon_ms=20_000, max_cores=24)
+    ta = E.pack_arrivals_by_tick(arr, 24, cfg.tick_ms)
+    state = init_state(cfg, specs(C), device="cpu")
+    out, _ = E.Engine(cfg, device="cpu").run_io(
+        state, torch.from_numpy(ta.rows.copy()),
+        torch.from_numpy(ta.counts.copy()))
+    return out
+
+
+def delay_windowed():
+    """BASELINE config 1's shape (bench.py:839-895) under DELAY: one
+    cluster_small, queue 768, running 512, the windowed Arrivals stream,
+    record_metrics and the plane on (the tap form), its first 40 ticks."""
+    cfg = P.SimConfig(policy=P.PolicyKind.DELAY, queue_capacity=768,
+                      max_running=512, max_arrivals=512, max_nodes=5,
+                      n_res=2, record_metrics=True)
+    state = init_state(cfg, [P.uniform_cluster(1, 5)], device="cpu")
+    arr = uniform_stream(1, 512, 60_000, max_cores=16, max_mem=12_000,
+                         max_dur_ms=600_000, seed=9)
+    return E.Engine(cfg, device="cpu").run(state, arr, 40,
+                                           mbuf=D.metrics_init(state))[0]
+
+
+def mixed_specs(C, n_nodes=5):
+    """Clusters with nodes of all four device types (chip_smoke.py
+    mixed_specs), where the class tables of gavel and rl choose between
+    nodes; ``n_nodes`` past 5 repeats them."""
+    kinds = ((32, 24_000, 0, 0), (16, 12_000, 0, 2), (64, 48_000, 4, 3),
+             (32, 24_000, 8, 1), (32, 24_000, 0, 0))
+    return [P.ClusterSpec(id=c + 1, nodes=tuple(
+        P.NodeSpec(id=i + 1, cores=k, memory=m, gpus=g, device_type=d)
+        for i, (k, m, g, d) in ((i, kinds[i % 5]) for i in range(n_nodes))))
+        for c in range(C)]
+
+
+def table(rows):
+    return torch.tensor(rows, dtype=torch.float32)
+
+
+RNG = np.random.default_rng(17)
+# a non-uniform gavel table and seeded rl scores (tests/test_torch_scored.py)
+GAVEL = table(RNG.uniform(0.5, 4.0, size=(4, 4)))
+RL = table(RNG.normal(size=(4, 4)))
+# a NaN score wins wherever its node fits; every score -inf sends every
+# job to node 0 while any node fits, fit or not (the reference's argmax)
+NAN = table([[1.0, 2.0, float("nan"), 1.0]] * 4)
+NEG_INF = table([[float("-inf")] * 4] * 4)
+
+
+def scored_cfg(**kw):
+    """tests/test_kernels.py:98's scored config, the trace on."""
+    base = dict(policy=P.PolicyKind.DELAY, parity=False,
+                max_placements_per_tick=8, queue_capacity=32,
+                max_running=64, max_arrivals=128, max_ingest_per_tick=8,
+                n_res=3, max_nodes=5, max_virtual_nodes=0,
+                record_trace=True, max_trace_events=512)
+    base.update(kw)
+    return P.SimConfig(**base)
+
+
+def scored_run(policy, leaves=None, compact=False, plane=False, C=8,
+               jobs=100, n_nodes=5, n_ticks=40, first_fit_twin=False,
+               **kw):
+    """A scored kind on clusters of mixed device types, a gpu job in
+    five; ``leaves`` replaces parameter leaves. With ``first_fit_twin`` the
+    same world also runs through the plain version under first fit (rl's
+    zero scores, the same queue order), and ``seen["off_first_fit"]``
+    counts the clusters whose placements the scores moved."""
+    cfg = scored_cfg(max_nodes=n_nodes, **kw)
+    sp = mixed_specs(C, n_nodes)
+    arr = uniform_stream(C, jobs, 30_000, max_cores=16, max_mem=12_000,
+                         max_dur_ms=40_000, seed=3, max_gpus=2,
+                         gpu_frac=0.2)
+    plan = CC.derive_plan(cfg, sp, arr) if compact else None
+    engine = engine_for(cfg, policy)
+    params = engine._default_params.replace(**(leaves or {}))
+    out = run(engine, init_state(cfg, sp, device="cpu", plan=plan), arr,
+              n_ticks, plane, params)
+    if first_fit_twin:
+        chk = fused_tick.fused_prefix
+        twin = engine_for(cfg, "rl")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(fused_tick, "fused_prefix", chk.real)
+            ff = run(twin, init_state(cfg, sp, device="cpu"), arr, n_ticks)
+        trace = (CC.to_wide(out) if compact else out).trace
+        moved = (trace.node != ff.trace.node).any(dim=1)
+        chk.seen["off_first_fit"] += int(moved.sum())
+    return out
+
+
+def scored_emit(policy):
+    """The scored kernel's emit form: run_io (every tick emits)."""
+    cfg = scored_cfg(max_msgs=4)
+    C = 4
+    arr = uniform_stream(C, 80, 20_000, max_cores=16, max_mem=12_000,
+                         max_dur_ms=20_000, seed=3, max_gpus=2,
+                         gpu_frac=0.2)
+    ta = E.pack_arrivals_by_tick(arr, 24, cfg.tick_ms)
+    state = init_state(cfg, mixed_specs(C), device="cpu")
+    out, _ = engine_for(cfg, policy).run_io(
+        state, torch.from_numpy(ta.rows.copy()),
+        torch.from_numpy(ta.counts.copy()))
+    return out
+
+
+def vnodes_expired(seen, before, after, rows, counts):
+    """Virtual node slots the prefix deactivated (only expiry does, without
+    the fault plane); the trader's rounds may attach them again."""
+    v = slice(before.node_active.shape[1] - 2, None)
+    seen["expired"] += int((before.node_active[:, v]
+                            & ~after.node_active[:, v]).sum())
+
+
+def level0_capped(QC):
+    """Ticks where Level0, its arrivals in, holds more rows than the
+    sweep's cap."""
+    def watch(seen, before, after, rows, counts):
+        depth = (before.l0.count + counts.clamp(0, rows.shape[1])).clamp(
+            max=before.l0.capacity)
+        seen["capped"] += int((depth > QC).sum())
+    return watch
+
+
+def idle_warps(name, C, *pick):
+    """Whether ``name``'s launch at C clusters (config 4's N, R and Q)
+    leaves its last block's last warps without a cluster."""
+    warps, warp_bytes = ctypes.c_int(), ctypes.c_int64()
+    getattr(build.load(name), name + "_geometry")(
+        C, 9, 3, 256, *pick, ctypes.byref(warps), ctypes.byref(warp_bytes))
+    return C % warps.value != 0
+
+
+def node_zero_overdrawn(seen, before, after, rows, counts):
+    """The index-0 pick on a node that does not fit: node 0's free goes
+    negative."""
+    seen["node0_overdrawn"] += int((after.node_free[:, 0] < 0).any())
+
+
 FIFO, EMIT = "fused_prefix_fifo", "fused_prefix_fifo_emit"
 FFD = "fused_prefix_ffd"
+DELAY, SCORED = "fused_prefix_delay", "fused_prefix_scored"
 
-# name -> (the run, the kernel forms it must launch, a check of its state)
+# name -> (the run, the kernel forms it must launch, a check of its final
+# state and of the branches its watch counted)
 CASES = {
     "fifo-headline": (lambda: fifo_headline(), [FIFO], None),
     "fifo-headline-compact": (lambda: fifo_headline(compact=True), [FIFO],
@@ -379,28 +609,28 @@ CASES = {
                          [FIFO + "_tap"], None),
     "fifo-odd-C": (lambda: fifo_headline(C=301), [FIFO], None),
     "fifo-emit": (lambda: fifo_emit(), [EMIT],
-                  lambda s: int(s.drops.msgs.sum()) > 0
+                  lambda s, seen: int(s.drops.msgs.sum()) > 0
                   and int(s.lent.count.sum() + s.borrowed.count.sum()) > 0),
     "fifo-emit-compact": (lambda: fifo_emit(compact=True), [EMIT], None),
     "fifo-expire": (lambda: expiring("fifo"), [FIFO + "_expire"],
-                    lambda s: not bool(s.node_active[:, 3:].any())),
+                    lambda s, seen: not bool(s.node_active[:, 3:].any())),
     "fifo-emit-expire": (lambda: expiring("fifo", borrowing=True),
                          [EMIT + "_expire"], None),
     "fifo-faults": (lambda: faulty("fifo"), [FIFO + "_faults"],
-                    lambda s: int(s.faults.kills.sum()) > 0),
+                    lambda s, seen: int(s.faults.kills.sum()) > 0),
     "fifo-faults-tap-compact": (
         lambda: faulty("fifo", compact=True, plane=True),
-        [FIFO + "_tap_faults"], lambda s: int(s.faults.kills.sum()) > 0),
+        [FIFO + "_tap_faults"], lambda s, seen: int(s.faults.kills.sum()) > 0),
     "fifo-windowed": (windowed, [FIFO + "_tap"],
-                      lambda s: int(s.drops.ingest.sum()) > 0),
+                      lambda s, seen: int(s.drops.ingest.sum()) > 0),
     "fifo-undersized-waves": (undersized_fifo, [FIFO],
-                              lambda s: CC.overflow_total(s) > 0),
+                              lambda s, seen: CC.overflow_total(s) > 0),
     "fifo-node-exit": (lambda: node_exit("fifo"), [FIFO + "_tap"],
-                       lambda s: int(s.run.ovf.min()) > 0),
+                       lambda s, seen: int(s.run.ovf.min()) > 0),
     "ffd-cap2": (lambda: ffd_run(max_placements_per_tick=2,
                                  queue_capacity=64), [FFD], None),
     "ffd-cap16": (lambda: ffd_run(max_running=8), [FFD],
-                  lambda s: int(s.drops.run_full.sum()) > 0),
+                  lambda s, seen: int(s.drops.run_full.sum()) > 0),
     "ffd-parity": (lambda: ffd_run(parity=True), [FFD], None),
     "ffd-memfirst-serial": (lambda: ffd_run("ffd-memfirst",
                                             ffd_sweep="serial",
@@ -413,13 +643,113 @@ CASES = {
     "ffd-expire": (lambda: expiring("ffd"), [FFD + "_expire"], None),
     "ffd-faults-tap": (lambda: faulty("ffd", plane=True),
                        [FFD + "_tap_faults"],
-                       lambda s: int(s.faults.kills.sum()) > 0),
+                       lambda s, seen: int(s.faults.kills.sum()) > 0),
     "ffd-faults-compact": (lambda: faulty("ffd", compact=True),
                            [FFD + "_faults"], None),
     "ffd-undersized-waves": (ffd_undersized, [FFD],
-                             lambda s: CC.overflow_total(s) > 0),
+                             lambda s, seen: CC.overflow_total(s) > 0),
     "ffd-node-exit": (lambda: node_exit("ffd"), [FFD],
-                      lambda s: int(s.run.ovf.min()) > 0),
+                      lambda s, seen: int(s.run.ovf.min()) > 0),
+    # DELAY: the Level1 sweep in parity (the skip) and in its wave form
+    # under a cap below Level1, promotions into a full Level1, the head's
+    # run_full, every form, both layouts
+    "delay-parity-skip": (lambda: delay_run(parity=True, policy="delay-eager"),
+                          [DELAY], lambda s, seen: seen["skips"] > 0),
+    "delay-wave-capped": (lambda: delay_run(max_placements_per_tick=2,
+                                            policy="delay-eager"),
+                          [DELAY], lambda s, seen: seen["capped"] > 0
+                          and seen["promoted"] > 0),
+    "delay-serial-full-l1": (
+        lambda: delay_run(queue_capacity=4, max_running=8, jobs=160,
+                          delay_sweep="serial", policy="delay-eager"),
+        [DELAY], lambda s, seen: seen["l1_full"] > 0
+        and seen["run_full"] > 0),
+    "delay-compact": (lambda: delay_run(compact=True, policy="delay-eager"),
+                      [DELAY], lambda s, seen: seen["promoted"] > 0),
+    "delay-tap": (lambda: delay_run(plane=True, policy="delay-eager"),
+                  [DELAY + "_tap"], lambda s, seen: seen["promoted"] > 0),
+    "delay-tap-compact-parity": (
+        lambda: delay_run(compact=True, plane=True, parity=True,
+                          policy="delay-eager"),
+        [DELAY + "_tap"], lambda s, seen: seen["skips"] > 0),
+    "delay-odd-C": (lambda: delay_run(C=297, jobs=16, n_ticks=20), [DELAY],
+                    lambda s, seen: idle_warps(DELAY, 297)),
+    "delay-emit": (delay_emit, [DELAY], lambda s, seen: seen["emit"] >= 8),
+    "delay-expire": (lambda: (watching(vnodes_expired),
+                              expiring("delay"))[1], [DELAY + "_expire"],
+                     lambda s, seen: seen["expired"] > 0),
+    "delay-faults-tap": (lambda: faulty("delay", plane=True),
+                         [DELAY + "_tap_faults"],
+                         lambda s, seen: int(s.faults.kills.sum()) > 0),
+    "delay-faults-compact": (lambda: faulty("delay", compact=True),
+                             [DELAY + "_faults"],
+                             lambda s, seen: int(s.faults.kills.sum()) > 0),
+    # 600-core demands stored as -128 that no node's memory fits: promoted,
+    # they sit in Level1, and the wave sweep replays the waves
+    "delay-undersized-waves": (
+        lambda: delay_run(jobs=60, max_cores=600, max_mem=30_000,
+                          policy="delay-eager",
+                          plan_of=lambda cfg, sp, arr: undersized(
+                              CC.derive_plan(cfg, sp, None))),
+        [DELAY], lambda s, seen: CC.overflow_total(s) > 0
+        and seen["negative"] > 0),
+    "delay-node-exit": (lambda: node_exit("delay"), [DELAY],
+                        lambda s, seen: int(s.run.ovf.min()) > 0),
+    "delay-windowed": (delay_windowed, [DELAY + "_tap"],
+                       lambda s, seen: seen["windowed"] >= 8),
+    # the scored kinds: the pick's tables, NaN and -inf scores, a second
+    # round of 32 nodes, tesserae's order and score, every form
+    "gavel-table": (lambda: scored_run("gavel", {"gavel_tput": GAVEL},
+                                       first_fit_twin=True),
+                    [SCORED], lambda s, seen: seen["off_first_fit"] > 0),
+    "gavel-tap-compact": (lambda: scored_run("gavel", compact=True,
+                                             plane=True),
+                          [SCORED + "_tap"], None),
+    "rl-seeded": (lambda: scored_run("rl", {"rl_scores": RL},
+                                     first_fit_twin=True),
+                  [SCORED], lambda s, seen: seen["off_first_fit"] > 0),
+    "gavel-nan": (lambda: scored_run("gavel", {"gavel_tput": NAN},
+                                     first_fit_twin=True),
+                  [SCORED], lambda s, seen: seen["off_first_fit"] > 0),
+    "gavel-all-neg-inf": (
+        lambda: (watching(node_zero_overdrawn),
+                 scored_run("gavel", {"gavel_tput": NEG_INF}))[1],
+        [SCORED], lambda s, seen: seen["node0_overdrawn"] > 0),
+    "gavel-40-nodes": (
+        lambda: scored_run("gavel", {"gavel_tput": table(
+            [[1.0, 1.0, 1.0, 2.0]] * 4)}, n_nodes=40, C=4),
+        [SCORED], lambda s, seen: int(s.trace.node.max()) >= 32),
+    "gavel-odd-C": (lambda: scored_run("gavel", C=299, jobs=12,
+                                       n_ticks=20), [SCORED],
+                    lambda s, seen: idle_warps(SCORED, 299, 0)),
+    "gavel-emit": (lambda: scored_emit("gavel"), [SCORED],
+                   lambda s, seen: seen["emit"] >= 8),
+    "gavel-node-exit": (lambda: node_exit("gavel"), [SCORED],
+                        lambda s, seen: int(s.run.ovf.min()) > 0),
+    "tesserae": (lambda: (watching(level0_capped(3)),
+                          scored_run("tesserae",
+                                     max_placements_per_tick=3))[1],
+                 [SCORED], lambda s, seen: seen["capped"] > 0),
+    "tesserae-big-weights": (
+        lambda: scored_run("tesserae", {"tess_w": torch.ones(3)}),
+        [SCORED], None),
+    "tesserae-compact-tap": (lambda: scored_run("tesserae", compact=True,
+                                                plane=True),
+                             [SCORED + "_tap"], None),
+    "tesserae-emit": (lambda: scored_emit("tesserae"), [SCORED],
+                      lambda s, seen: seen["emit"] >= 8),
+    "tesserae-expire": (lambda: (watching(vnodes_expired),
+                                 expiring("tesserae"))[1],
+                        [SCORED + "_expire"],
+                        lambda s, seen: seen["expired"] > 0),
+    "tesserae-faults": (lambda: faulty("tesserae"), [SCORED + "_faults"],
+                        lambda s, seen: int(s.faults.kills.sum()) > 0),
+    "tesserae-faults-tap-compact": (
+        lambda: faulty("tesserae", compact=True, plane=True),
+        [SCORED + "_tap_faults"],
+        lambda s, seen: int(s.faults.kills.sum()) > 0),
+    "tesserae-node-exit": (lambda: node_exit("tesserae"), [SCORED],
+                           lambda s, seen: int(s.run.ovf.min()) > 0),
 }
 
 
@@ -430,5 +760,6 @@ def test_host_kernel_equals_plain(checked, name):
     assert set(checked.launches) == set(forms), dict(checked.launches)
     assert min(checked.launches.values()) >= 8
     if check is not None:
-        assert check(out), f"{name}: the run missed the branch it is for"
+        assert check(out, checked.seen), (
+            f"{name}: the run missed the branch it is for: {dict(checked.seen)}")
 

@@ -271,6 +271,22 @@ CONFIG1_TIMED, CONFIG1_WARMUPS = 3, 1
 # runs) cover their first 200 ticks, to keep the script's time
 WHOLE_RUN_TICKS = 200
 EXPIRE_RUN_TICKS = 250  # 3i's quick-shape runs with expiry
+# event-compressed time (6a-6e): bench_sparse_bursts (bench.py:2510-2575)
+# at its full shape, churn_bursts_setup (:2467-2507), the leap classes of
+# tests/test_pipeline.py:245-291 tiled, and bench_borg_replay (:1431-1520)
+SPARSE_C, SPARSE_BURSTS, SPARSE_PER_BURST = 1024, 12, 24
+SPARSE_INTERVAL_MS, SPARSE_WINDOW_MS = 300_000, 20_000
+SPARSE_TIMED, SPARSE_WARMUPS = 3, 1
+CHURN_BURSTS_C, CHURN_BURSTS_CHUNK = 256, 100
+LEAP_CLASS_C, LEAP_CLASS_TICKS = 1024, 80
+REPLAY_TIMED, REPLAY_WARMUPS, REPLAY_SAMPLES = 3, 1, 12
+COMPRESS_SAMPLES = 12  # kernel == plain at this many executed ticks
+PROBE_REPS = 500  # 6a's timed probes, each way
+# bench.py's --time-compress auto thresholds (bench.py:94-95)
+COMPRESS_AUTO_GAP, COMPRESS_AUTO_EMPTY_FRAC = 8, 0.5
+# where the sample's process leaves the joined jobs, and how long 6e waits
+BORG_JOBS_NPZ = "build/borg_jobs.npz"
+BORG_SAMPLE_TIMEOUT_S = 600
 
 
 def smi_line() -> str:
@@ -4449,6 +4465,676 @@ def phase_compact_config4(P, E, card, dev, market, run_a):
           f"{first_s:.4f} s [{card}]")
 
 
+# --------------------------------------------------------------------------
+# 6: event-compressed time (Engine.run_compressed) and the Borg replay
+# --------------------------------------------------------------------------
+
+def leapable(counts) -> bool:
+    """bench.py's per-chunk ``--time-compress auto`` choice (bench.py:99-113
+    ``_leapable``; bench code, so copied here): a chunk runs compressed
+    when at least half its ticks have no arrivals and one run of empty
+    ticks is at least 8 long."""
+    empty = ~np.asarray(counts).any(axis=1)
+    if not empty.any() or empty.mean() < COMPRESS_AUTO_EMPTY_FRAC:
+        return False
+    edges = np.flatnonzero(np.diff(np.concatenate(
+        ([0], empty.astype(np.int8), [0]))))
+    return int((edges[1::2] - edges[::2]).max()) >= COMPRESS_AUTO_GAP
+
+
+def drive(engine, state, chunks, leap, mbuf=None):
+    """``state`` through ``chunks``, chunk ``i`` by ``run_compressed`` where
+    ``leap[i]`` and by ``run_chunks`` otherwise (the buffer carried over);
+    returns the state, the buffer, the ticks executed (a dense chunk's
+    every tick), the probe reads the compressed chunks should make (one
+    an executed tick without arrivals: every tick with arrivals executes
+    and skips its probe), the leap histogram and the series chunk by
+    chunk."""
+    from multi_cluster_simulator_tpu_torch.core.state import LEAP_BUCKETS
+
+    res = dict(executed=0, probed=0, series=[],
+               leaps=np.zeros(LEAP_BUCKETS, np.int64))
+    record = engine.cfg.record_metrics
+    for ch, comp in zip(chunks, leap):
+        n = ch.rows.shape[0]
+        if comp:
+            out = engine.run_compressed(state, ch, n, None, mbuf)
+            stats = out[2 if record else 1]
+            res["executed"] += int(stats.ticks_executed)
+            res["probed"] += int(stats.ticks_executed) - int(
+                ch.counts[:n].any(axis=1).sum())
+            res["leaps"] += stats.leaps.cpu().numpy()
+        else:
+            out = engine.run_chunks(state, [ch], None, mbuf)
+            res["executed"] += n
+        out = out if isinstance(out, tuple) else (out,)
+        state = out[0]
+        if record:
+            res["series"].append(out[1])
+    res.update(state=state, mbuf=mbuf)
+    return res
+
+
+def counted_drive(engine, s0, chunks, leap, kernel, plane=False):
+    """A counted run through ``drive`` from a copy of ``s0`` (with a fresh
+    buffer with ``plane``): every launch count and the engine's probe
+    reads set to 0 just before, read just after; ``kernel`` must have
+    launched once an executed tick and no other kernel at all, and the
+    probe read once an executed tick without arrivals of the compressed
+    chunks."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+
+    state = clone_state(s0)
+    mb = D.metrics_init(state) if plane else None
+    torch.cuda.synchronize()
+    fused_tick.reset_launches()
+    engine.probe_reads = 0
+    w0 = time.perf_counter()
+    res = drive(engine, state, chunks, leap, mb)
+    torch.cuda.synchronize()
+    res["wall"] = time.perf_counter() - w0
+    res["counts"] = fused_tick.launch_counts()
+    res["reads"] = engine.probe_reads
+    check_launches(res["counts"], kernel, res["executed"], kernel)
+    if res["reads"] != res["probed"]:
+        raise AssertionError(f"{kernel}: {res['reads']} probe reads, "
+                             f"{res['probed']} expected")
+    return res
+
+
+def drive_walls(engine, s0, chunks, leap, warmups, runs):
+    """Walls of ``runs`` runs through ``drive`` after ``warmups``, each from
+    a copy of ``s0``."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+
+    walls = []
+    for i in range(warmups + runs):
+        state = clone_state(s0)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        drive(engine, state, chunks, leap)
+        torch.cuda.synchronize()
+        if i >= warmups:
+            walls.append(time.perf_counter() - w0)
+    return walls
+
+
+class LaunchProbe:
+    """Stands in for ``fused_tick.fused_prefix`` during one run on the card:
+    each launch between a CUDA event pair with the card kept busy ahead of
+    it, the tick's least bytes and operations counted by ``cost(before,
+    after, rows, counts, t)``, and at the launches whose ordinal is in
+    ``picks`` the kernel held against its plain version (``Checker``) on
+    the state the run reached. Install it with ``with probe:``."""
+
+    def __init__(self, chk, cost, picks):
+        from multi_cluster_simulator_tpu_torch.core.state import clone_state
+        from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+
+        self.ft, self.clone, self.chk = fused_tick, clone_state, chk
+        self.cost, self.picks = cost, set(picks)
+        self.real = fused_tick.fused_prefix
+        self.evs, self.read, self.written, self.ops = [], 0, 0, 0
+
+    def __enter__(self):
+        self.ft.fused_prefix = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ft.fused_prefix = self.real
+
+    def __call__(self, engine, state, rows, counts, t, params, host,
+                 emit_returns=False, out=None, obs=None, windowed=False):
+        if len(self.evs) in self.picks:  # compare launches the real one
+            self.ft.fused_prefix = self.real
+            try:
+                self.chk.compare(state, rows, counts, t)
+            finally:
+                self.ft.fused_prefix = self
+        before = self.clone(state)
+        self.ft.prepare(engine, state, host, emit_returns, obs)
+        ev = timed_launch_events()
+        ev[0].record()
+        res = self.real(engine, state, rows, counts, t, params, host,
+                        emit_returns, out, obs, windowed)
+        ev[1].record()
+        self.evs.append(ev)
+        r, w, o = self.cost(before, state, rows, counts, t)
+        self.read, self.written, self.ops = (self.read + r,
+                                             self.written + w, self.ops + o)
+        return res
+
+    def summary(self):
+        torch.cuda.synchronize()
+        n = max(len(self.evs), 1)
+        return dict(kernel_ms=[a.elapsed_time(b) for a, b in self.evs],
+                    read=int(self.read) / n, written=int(self.written) / n,
+                    ops=int(self.ops) / n)
+
+
+def probe_costs(E, engine, state, t: int, n: int):
+    """The compressed driver's per-tick probe on ``state`` (the fingerprint,
+    the next-event time, the vote and the packed pair, as ``run_compressed``
+    enqueues them): microseconds a probe over ``n`` probes enqueued back to
+    back with one synchronise at the end, and over ``n`` each followed by
+    its host read. Their difference is what the read adds."""
+    params = engine._default_params
+    member = engine.member(params)
+    sig0 = E._quiescence_sig(state)
+
+    def probe():
+        sig = E._quiescence_sig(state)
+        return torch.stack([
+            engine.ex.alland((sig == sig0).all()).to(torch.int32),
+            engine.ex.allmin(E._next_event_t(state, t, engine.cfg, params,
+                                             member))])
+    out = []
+    for read in (False, True):
+        probe().tolist()
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        for _ in range(n):
+            p = probe()
+            if read:
+                p.tolist()
+        torch.cuda.synchronize()
+        out.append(1e6 * (time.perf_counter() - w0) / n)
+    return out
+
+
+def spread(n_exec: int, k: int) -> list[int]:
+    """``k`` launch ordinals spread over ``n_exec`` launches."""
+    return sorted({int(x) for x in np.linspace(0, max(n_exec - 1, 0), k)})
+
+
+def leap_line(leaps) -> str:
+    nz = np.flatnonzero(leaps)
+    return str(leaps[:nz[-1] + 1].tolist() if len(nz) else [])
+
+
+def walls_line(walls) -> str:
+    return (f"min {min(walls):.4f} s, median {float(np.median(walls)):.4f} s"
+            f" (walls {[round(w, 4) for w in walls]})")
+
+
+def sparse_cfg(P, **kw):
+    """bench_sparse_bursts' config (bench.py:2548-2552), as the port's."""
+    base = dict(policy=P.PolicyKind.FIFO, queue_capacity=32, max_running=64,
+                max_arrivals=SPARSE_BURSTS * SPARSE_PER_BURST,
+                max_ingest_per_tick=16, parity=True, n_res=2, max_nodes=5,
+                max_virtual_nodes=0)
+    base.update(kw)
+    return P.SimConfig(**base)
+
+
+def sparse_stream(C):
+    """bench_sparse_bursts' stream (bench.py:2554-2556): 12 bursts of 24
+    jobs each 300 s, each within 20 s, and its tick count."""
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        bursty_stream,
+    )
+
+    arr = bursty_stream(C, SPARSE_BURSTS, SPARSE_PER_BURST,
+                        SPARSE_INTERVAL_MS, SPARSE_WINDOW_MS, max_cores=8,
+                        max_mem=6_000, max_dur_ms=60_000, seed=11)
+    return arr, SPARSE_BURSTS * SPARSE_INTERVAL_MS // 1_000 + 70
+
+
+def phase_sparse_bursts(P, E, card, dev):
+    """Phases 6a and 6b: bench_sparse_bursts (bench.py:2510-2575) at its
+    full shape, dense, compressed and by the ``auto`` choice, then with the
+    metrics plane."""
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        clone_state, init_state,
+    )
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+    from multi_cluster_simulator_tpu_torch.utils.trace import assert_no_drops
+
+    cfg = sparse_cfg(P)
+    arr, n_ticks = sparse_stream(SPARSE_C)
+    chunks = E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), cfg.tick_ms)
+    specs = [P.uniform_cluster(c + 1, 5) for c in range(SPARSE_C)]
+    engine = E.Engine(cfg, device=dev)
+    s0 = init_state(cfg, specs, device=dev)
+    n_jobs = SPARSE_C * SPARSE_BURSTS * SPARSE_PER_BURST
+    dense = [False] * len(chunks)
+    comp = [True] * len(chunks)
+    auto = [leapable(ch.counts) for ch in chunks]
+    kernel = "fused_prefix_fifo"
+
+    d_out, d_first, _ = counted_run(engine, s0, chunks, kernel)
+    placed, drops = check_gates(d_out, n_ticks, cfg.tick_ms, n_jobs, 0.99,
+                                "6a dense")
+    runs = {}
+    for name, leap in (("compressed", comp), ("auto", auto)):
+        res = counted_drive(engine, s0, chunks, leap, kernel)
+        check_gates(res["state"], n_ticks, cfg.tick_ms, n_jobs, 0.99,
+                    f"6a {name}")
+        assert_no_drops(res["state"])
+        d = max_abs_diff(d_out, res["state"])
+        if d:
+            raise AssertionError(f"6a: the {name} run differs from the "
+                                 f"dense run (max |diff| {d})")
+        runs[name] = res
+    c = runs["compressed"]
+    if not c["executed"] < n_ticks:
+        raise AssertionError(f"6a: executed {c['executed']} of {n_ticks}")
+    walls = {"dense": drive_walls(engine, s0, chunks, dense, SPARSE_WARMUPS,
+                                  SPARSE_TIMED)}
+    for name, leap in (("compressed", comp), ("auto", auto)):
+        walls[name] = drive_walls(engine, s0, chunks, leap, SPARSE_WARMUPS,
+                                  SPARSE_TIMED)
+    chk = Checker(engine)
+    cost = lambda b, a, r, k, t: (*tick_bytes(b, a, r, k, t, False), 0)  # noqa: E731
+    with LaunchProbe(chk, cost, spread(c["executed"],
+                                       COMPRESS_SAMPLES)) as probe:
+        drive(engine, clone_state(s0), chunks, comp)
+    sp = probe.summary()
+    kms = float(np.mean(sp["kernel_ms"]))
+    b_ms, b_by = bound(sp["read"], sp["written"])
+    print(f"phase 6a: sparse bursts {SPARSE_C} clusters x "
+          f"{SPARSE_BURSTS} x {SPARSE_PER_BURST} jobs, {n_ticks} ticks in "
+          f"{len(chunks)} chunks: placed {placed} of {n_jobs} "
+          f"({100 * placed / n_jobs:.3f}%), drops {drops}, conservation ok; "
+          f"compressed and auto final states bitwise the dense run's "
+          f"[{card}]")
+    print(f"phase 6a: compressed: ticks executed {c['executed']} of "
+          f"{n_ticks} simulated ({100 * c['executed'] / n_ticks:.2f}%), "
+          f"host probe reads {c['reads']}, leap histogram (log2 buckets) "
+          f"{leap_line(c['leaps'])}, launches {c['counts'][kernel]}; auto: "
+          f"chunks compressed {sum(auto)} of {len(chunks)}, ticks executed "
+          f"{runs['auto']['executed']}, probe reads {runs['auto']['reads']}")
+    for name in ("dense", "compressed", "auto"):
+        w = walls[name]
+        print(f"phase 6a: {name} wall {walls_line(w)}; jobs/s "
+              f"{placed / min(w):.1f} (min), "
+              f"{placed / float(np.median(w)):.1f} (median); us per "
+              f"simulated tick {1e6 * min(w) / n_ticks:.1f} [{card}]")
+    ex = c["executed"]
+    enq_us, read_us = probe_costs(E, engine, d_out, n_ticks * cfg.tick_ms,
+                                  PROBE_REPS)
+    arrival_ticks = int(sum(ch.counts.any(axis=1).sum() for ch in chunks))
+    print(f"phase 6a: the probe of an executed tick without arrivals "
+          f"({ex - arrival_ticks} of the {ex}; the {arrival_ticks} ticks "
+          f"with arrivals skip it): {enq_us:.1f} us enqueued back to back, "
+          f"{read_us:.1f} us with its host read ({read_us - enq_us:.1f} us "
+          f"the read), over {PROBE_REPS} probes on the final state "
+          f"[{card}]")
+    print(f"phase 6a: compressed us per executed tick "
+          f"{1e6 * min(walls['compressed']) / ex:.1f} against dense "
+          f"{1e6 * min(walls['dense']) / n_ticks:.1f} per tick; kernel "
+          f"fused_prefix_fifo on the executed ticks {kms * 1e3:.2f} us/launch"
+          f" mean over {len(sp['kernel_ms'])} launches (CUDA events), "
+          f"median {float(np.median(sp['kernel_ms'])) * 1e3:.2f}, == plain "
+          f"at {chk.n} of them (plain {np.mean(chk.plain_ms):.3f} ms), "
+          f"bound {b_ms * 1e3:.4f} us by {b_by} "
+          f"({sp['read'] + sp['written']:.1f} B per launch) [{card}]")
+    record = dict(kernel=fused_tick.KERNELS[kernel],
+                  name="fused_prefix_fifo (6a, compressed)",
+                  launches=c["counts"][kernel], worst=chk.worst, ms=kms,
+                  plain=chk.plain_ms, bound=(b_ms, b_by))
+
+    # 6b: the plane under compression
+    dp = counted_drive(engine, s0, chunks, dense, kernel + "_tap",
+                       plane=True)
+    cp = counted_drive(engine, s0, chunks, comp, kernel + "_tap",
+                       plane=True)
+    d = max(max_abs_diff(d_out, dp["state"]), max_abs_diff(d_out,
+                                                           cp["state"]))
+    mb_d, mb_c = dp["mbuf"], cp["mbuf"]
+    d = max(d, max_abs_diff(mb_d, mb_c.replace(leap_hist=mb_d.leap_hist)))
+    if d:
+        raise AssertionError(f"6b: the plane under compression differs "
+                             f"(max |diff| {d})")
+    if not np.array_equal(mb_c.leap_hist.cpu().numpy(), cp["leaps"]):
+        raise AssertionError("6b: the buffer's leap histogram is not the "
+                             "driver's")
+    h = D.harvest(mb_c)
+    if h["ticks"] != n_ticks or h["placed"] != placed:
+        raise AssertionError(f"6b: harvest {h['ticks']} ticks, "
+                             f"{h['placed']} placed")
+    print(f"phase 6b: the plane on: compressed buffer bitwise the dense "
+          f"run's (leap_hist aside: {leap_line(cp['leaps'])}, the driver's "
+          f"own), both states bitwise the plane-off run's; harvest "
+          f"{h['ticks']} ticks, {h['placed']} placed; tap form launches "
+          f"dense {dp['counts'][kernel + '_tap']}, compressed "
+          f"{cp['counts'][kernel + '_tap']}; walls of the counted runs "
+          f"dense {dp['wall']:.4f} s, compressed {cp['wall']:.4f} s "
+          f"[{card}]")
+    return dict(record=record, executed=c["executed"], n_ticks=n_ticks)
+
+
+def phase_churn_bursts(P, E, card, dev):
+    """Phase 6c: churn_bursts_setup (bench.py:2467-2507) at its full shape:
+    the sparse bursts at 256 clusters, trace-mode churn in every burst,
+    compressed on the derived compact plan, against the dense wide run."""
+    from multi_cluster_simulator_tpu_torch.core import compact as CC
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        clone_state, init_state,
+    )
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.utils.trace import (
+        assert_no_drops, check_conservation,
+    )
+
+    C = CHURN_BURSTS_C
+    cfg = sparse_cfg(P, faults=P.FaultConfig(
+        enabled=True, mode="trace", max_retries=16,
+        max_events=SPARSE_BURSTS))
+    events = [(c, b % cfg.max_nodes, b * SPARSE_INTERVAL_MS + 5_000,
+               b * SPARSE_INTERVAL_MS + 15_000)
+              for c in range(0, C, max(C // 8, 1))
+              for b in range(SPARSE_BURSTS)]
+    specs = [P.uniform_cluster(c + 1, 5) for c in range(C)]
+    arr, n_ticks = sparse_stream(C)
+    sizes = [CHURN_BURSTS_CHUNK] * (n_ticks // CHURN_BURSTS_CHUNK)
+    sizes += [n_ticks % CHURN_BURSTS_CHUNK] if n_ticks % CHURN_BURSTS_CHUNK \
+        else []
+    chunks = E.pack_arrivals_chunks(arr, sizes, cfg.tick_ms)
+    engine = E.Engine(cfg, device=dev)
+    kernel = "fused_prefix_fifo_faults"
+    s_wide = init_state(cfg, specs, fault_events=events, device=dev)
+    plan = CC.derive_plan(cfg, specs, arr)
+    s_comp = init_state(cfg, specs, plan=plan, fault_events=events,
+                        device=dev)
+    dense, d_wall, _ = counted_run(engine, s_wide, chunks, kernel)
+    comp = [True] * len(chunks)
+    res = counted_drive(engine, s_comp, chunks, comp, kernel)
+    out = res["state"]
+    d = max_abs_diff(dense, CC.to_wide(out))
+    if d:
+        raise AssertionError(f"6c: compact compressed differs from the "
+                             f"dense wide run (max |diff| {d})")
+    n_jobs = C * SPARSE_BURSTS * SPARSE_PER_BURST
+    kills = int(dense.faults.kills.sum())
+    placed = int(dense.placed_total.sum())
+    if kills <= 0 or not res["executed"] < n_ticks:
+        raise AssertionError(f"6c: kills {kills}, executed "
+                             f"{res['executed']} of {n_ticks}")
+    if placed < 0.99 * n_jobs:
+        raise AssertionError(f"6c: only {placed}/{n_jobs} placed")
+    assert_no_drops(dense)
+    assert_no_drops(out)
+    check_conservation(dense)
+    chk = Checker(engine)
+    cost = lambda b, a, r, k, t: tick_cost_faults(b, a, r, k, t, False)  # noqa: E731
+    with LaunchProbe(chk, cost, spread(res["executed"],
+                                       COMPRESS_SAMPLES)) as probe:
+        drive(engine, clone_state(s_comp), chunks, comp)
+    sp = probe.summary()
+    kms = float(np.mean(sp["kernel_ms"]))
+    b_ms, b_by = bound(sp["read"], sp["written"])
+    print(f"phase 6c: churn bursts {C} clusters, {len(events)} trace "
+          f"outages, {n_ticks} ticks in {len(chunks)} chunks of "
+          f"{CHURN_BURSTS_CHUNK}: placed {placed} of {n_jobs}, kills "
+          f"{kills}, requeues {int(dense.faults.requeues.sum())}, drops 0, "
+          f"narrow overflow {CC.overflow_total(out)}; to_wide(compressed "
+          f"compact) bitwise the dense wide run; ticks executed "
+          f"{res['executed']} ({100 * res['executed'] / n_ticks:.2f}%), "
+          f"probe reads {res['reads']}, leaps {leap_line(res['leaps'])}; "
+          f"walls dense wide {d_wall:.4f} s, compressed compact "
+          f"{res['wall']:.4f} s (one counted run each) [{card}]")
+    print(f"phase 6c: kernel {kernel} (compact) on the executed ticks "
+          f"{kms * 1e3:.2f} us/launch mean over {len(sp['kernel_ms'])}, == "
+          f"plain at {chk.n} (plain {np.mean(chk.plain_ms):.3f} ms), bound "
+          f"{b_ms * 1e3:.4f} us by {b_by} [{card}]")
+    return dict(record=dict(
+        kernel=fused_tick.KERNELS[kernel],
+        name=f"{kernel} (6c, compact, compressed)",
+        launches=res["counts"][kernel], worst=chk.worst, ms=kms,
+        plain=chk.plain_ms, bound=(b_ms, b_by)))
+
+
+def leap_classes(P, C):
+    """tests/test_pipeline.py:245-291 ``_tc_scenarios``, each cluster
+    pattern tiled to ``C`` clusters, as the port's: name -> (cfg,
+    arrivals, specs). A sixth, the trader scenario with vnode expiry,
+    puts the expire form and the expiry event under the driver."""
+    from multi_cluster_simulator_tpu_torch.core.state import Arrivals
+
+    base = dict(n_res=2, queue_capacity=16, max_running=32, max_arrivals=4,
+                max_ingest_per_tick=8, max_nodes=5, max_virtual_nodes=0,
+                record_metrics=True)
+    t4 = [2_500, 3_500, 40_000, 60_500]
+
+    def arrivals(t_rows, cores_rows, dur_rows, n=None):
+        reps = C // len(t_rows)
+        t = np.tile(np.asarray(t_rows, np.int32), (reps, 1))
+        A = t.shape[1]
+        n = [A] * len(t_rows) if n is None else n
+        return Arrivals(
+            t=t, id=np.arange(C * A, dtype=np.int32).reshape(C, A),
+            cores=np.tile(np.asarray(cores_rows, np.int32), (reps, 1)),
+            mem=np.full((C, A), 500, np.int32),
+            gpu=np.zeros((C, A), np.int32),
+            dur=np.tile(np.asarray(dur_rows, np.int32), (reps, 1)),
+            n=np.tile(np.asarray(n, np.int32), reps))
+
+    def tiled(*make):
+        return [make[c % len(make)](c + 1) for c in range(C)]
+
+    five = lambda i: P.uniform_cluster(i, 5)  # noqa: E731
+    trader = dict(base, n_res=3, max_virtual_nodes=2)
+    out = {
+        "delay_parity": (
+            P.SimConfig(policy=P.PolicyKind.DELAY, parity=True, **base),
+            arrivals([t4], [[8, 2, 8, 2]], [[5_000] * 4]), tiled(five)),
+        "delay_blocked": (
+            P.SimConfig(policy=P.PolicyKind.DELAY, parity=True, **base),
+            arrivals([t4], [[64, 2, 64, 2]], [[5_000] * 4]), tiled(five)),
+        "ffd": (
+            P.SimConfig(policy=P.PolicyKind.FFD, parity=False, **base),
+            arrivals([t4], [[8, 2, 8, 2]], [[5_000] * 4]), tiled(five)),
+        "fifo_borrowing": (
+            P.SimConfig(policy=P.PolicyKind.FIFO, parity=True,
+                        borrowing=True, **dict(base, max_nodes=10)),
+            arrivals([[2_500, 2_600, 2_700, 40_000], [0] * 4],
+                     [[14, 14, 14, 2], [1] * 4],
+                     [[20_000, 20_000, 20_000, 5_000], [1_000] * 4],
+                     n=[4, 0]),
+            tiled(lambda i: P.uniform_cluster(i, 2, cores=16, memory=8_000),
+                  lambda i: P.uniform_cluster(i, 10))),
+    }
+    for name, expire in (("delay_wave_trader", False),
+                         ("delay_wave_trader_expire", True)):
+        out[name] = (
+            P.SimConfig(policy=P.PolicyKind.DELAY, parity=False,
+                        delay_sweep="wave", trader=P.TraderConfig(
+                            enabled=True, expire_virtual_nodes=expire),
+                        **trader),
+            arrivals([t4] * 2, [[8, 2, 8, 2]] * 2, [[5_000] * 4] * 2),
+            tiled(five))
+    return out
+
+
+def phase_leap_classes(P, E, card, dev):
+    """Phase 6d: the five leap classes (and the trader's with expiry),
+    tiled to LEAP_CLASS_C clusters: compressed bitwise dense, the
+    record_metrics series included."""
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        clone_state, init_state,
+    )
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+
+    for name, (cfg, arr, specs) in leap_classes(P, LEAP_CLASS_C).items():
+        ta = E.pack_arrivals_by_tick(arr, LEAP_CLASS_TICKS, cfg.tick_ms)
+        engine = E.Engine(cfg, device=dev)
+        s0 = init_state(cfg, specs, device=dev)
+        fused_tick.reset_launches()
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        d_state, d_ser = engine.run_chunks(clone_state(s0), [ta])
+        torch.cuda.synchronize()
+        d_wall = time.perf_counter() - w0
+        d_counts = {k: v for k, v in fused_tick.launch_counts().items() if v}
+        fused_tick.reset_launches()
+        engine.probe_reads = 0
+        w0 = time.perf_counter()
+        c_state, c_ser, stats = engine.run_compressed(
+            clone_state(s0), ta, LEAP_CLASS_TICKS)
+        torch.cuda.synchronize()
+        c_wall = time.perf_counter() - w0
+        c_counts = {k: v for k, v in fused_tick.launch_counts().items() if v}
+        executed = int(stats.ticks_executed)
+        d = max(max_abs_diff(d_state, c_state), max_abs_diff(d_ser, c_ser))
+        if d:
+            raise AssertionError(f"6d {name}: compressed differs from dense "
+                                 f"(max |diff| {d})")
+        arrival_ticks = int(ta.counts.any(axis=1).sum())
+        if sum(c_counts.values()) != executed or \
+                sum(d_counts.values()) != LEAP_CLASS_TICKS or \
+                engine.probe_reads != executed - arrival_ticks:
+            raise AssertionError(f"6d {name}: launches {d_counts} dense, "
+                                 f"{c_counts} compressed, {executed} "
+                                 f"executed, {engine.probe_reads} reads")
+        if int(c_state.placed_total.sum()) <= 0:
+            raise AssertionError(f"6d {name}: nothing placed")
+        print(f"phase 6d: {name} x {LEAP_CLASS_C} clusters, "
+              f"{LEAP_CLASS_TICKS} ticks: compressed == dense bitwise, the "
+              f"series too; executed {executed}, leaps "
+              f"{leap_line(stats.leaps.cpu().numpy())}, placed "
+              f"{int(c_state.placed_total.sum())}, vnodes "
+              f"{int(c_state.node_active[:, cfg.max_nodes:].sum())}; "
+              f"launches {c_counts} (dense {d_counts}); walls dense "
+              f"{d_wall:.4f} s, compressed {c_wall:.4f} s [{card}]")
+
+
+def start_borg_sample():
+    """Start BASELINE config 5's sample in a process of its own, beside the
+    build and the earlier phases: tools/make_borg_sample.py ``ensure()``
+    generates it from a fixed seed (nothing is fetched), the port's
+    ``workload/borg.py load_borg`` parses it, and the joined jobs go to
+    ``BORG_JOBS_NPZ``; its one line of output gives the seconds of each.
+    Phase 6e waits for it; ``main`` stops it on every way out."""
+    code = (
+        "import json, os, time\n"
+        "import numpy as np\n"
+        "t0 = time.perf_counter()\n"
+        "from tools.make_borg_sample import ensure\n"
+        "path = ensure()\n"
+        "t1 = time.perf_counter()\n"
+        "from multi_cluster_simulator_tpu_torch.workload.borg import "
+        "load_borg\n"
+        "jobs = load_borg(path)\n"
+        "t2 = time.perf_counter()\n"
+        f"os.makedirs(os.path.dirname({BORG_JOBS_NPZ!r}), exist_ok=True)\n"
+        f"np.savez({BORG_JOBS_NPZ!r}, t_us=jobs.t_us, cpus=jobs.cpus, "
+        "mem=jobs.mem, dur_us=jobs.dur_us, n_events=jobs.n_events)\n"
+        "print(json.dumps({'build_s': t1 - t0, 'parse_s': t2 - t1, "
+        "'path': path}))\n")
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def phase_borg_replay(P, E, card, dev, sample):
+    """Phase 6e: BASELINE config 5, bench_borg_replay (bench.py:1431-1520)
+    at its bench shape: the generated sample's jobs dealt over the
+    clusters, FFD serial, each 400-tick chunk dense or compressed by the
+    ``auto`` choice."""
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.utils.trace import (
+        assert_no_drops, check_conservation,
+    )
+    from multi_cluster_simulator_tpu_torch.workload.borg import (
+        BorgJobs, to_arrivals,
+    )
+
+    w0 = time.perf_counter()
+    out, err = sample.communicate(timeout=BORG_SAMPLE_TIMEOUT_S)
+    if sample.returncode != 0:
+        raise RuntimeError(f"6e: the sample's build failed:\n{err[-4000:]}")
+    waited = time.perf_counter() - w0
+    times = json.loads(out.strip().splitlines()[-1])
+    z = np.load(BORG_JOBS_NPZ)
+    jobs = BorgJobs(t_us=z["t_us"], cpus=z["cpus"], mem=z["mem"],
+                    dur_us=z["dur_us"], n_events=int(z["n_events"]))
+    if len(jobs) < 48:
+        raise AssertionError(f"6e: {len(jobs)} replayable jobs")
+    C = 4096
+    while C > 1 and len(jobs) // C < 48:
+        C //= 2
+    jobs_per = min(len(jobs) // C, 4096)
+    native_span_ms = max(int(jobs.t_us[-1] - jobs.t_us[0]) // 1000, 1)
+    time_scale = max(native_span_ms / 750_000.0, 1.0)
+    w1 = time.perf_counter()
+    arr, meta = to_arrivals(jobs, C, jobs_per, max_cores=32, max_mem=24_000,
+                            time_scale=time_scale)
+    cfg = P.SimConfig(policy=P.PolicyKind.FFD, parity=False,
+                      max_placements_per_tick=32, queue_capacity=128,
+                      max_running=max(jobs_per + 8, 64),
+                      max_arrivals=jobs_per, max_ingest_per_tick=32,
+                      max_nodes=5, max_virtual_nodes=0, n_res=2,
+                      ffd_sweep="serial")
+    specs = [P.uniform_cluster(c + 1, 5) for c in range(C)]
+    n_ticks = meta["span_ms"] // cfg.tick_ms + 200
+    chunks = E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), cfg.tick_ms)
+    pack_s = time.perf_counter() - w1
+    auto = [leapable(ch.counts) for ch in chunks]
+    engine = E.Engine(cfg, device=dev)
+    s0 = init_state(cfg, specs, device=dev)
+    kernel = "fused_prefix_ffd"
+    res = counted_drive(engine, s0, chunks, auto, kernel)
+    out_s = res["state"]
+    total = meta["rows_used"]
+    placed = int(out_s.placed_total.sum())
+    if placed < 0.95 * total:
+        raise AssertionError(f"6e: only {placed}/{total} replayed jobs "
+                             "placed")
+    assert_no_drops(out_s)
+    check_conservation(out_s)
+    dense = [False] * len(chunks)
+    if any(auto):  # the compressed chunks bitwise the dense run
+        d_res = counted_drive(engine, s0, chunks, dense, kernel)
+        d = max_abs_diff(d_res["state"], out_s)
+        if d:
+            raise AssertionError(f"6e: auto differs from dense (max |diff| "
+                                 f"{d})")
+    walls = drive_walls(engine, s0, chunks, auto, REPLAY_WARMUPS,
+                        REPLAY_TIMED)
+    chk = Checker(engine)
+    picks, peak = pick_ticks(chunks, REPLAY_SAMPLES)
+    sp = sampled_kernel_pass(E, chk, engine, s0, chunks, picks,
+                             cfg.max_placements_per_tick)
+    if max_abs_diff(sp["state"], out_s):
+        raise AssertionError("6e: the sampled pass's final state differs "
+                             "from the counted run's")
+    kms = float(np.mean(sp["kernel_ms"]))
+    b_ms, b_by = bound(sp["read"], sp["written"], sp["ops"])
+    print(f"phase 6e: Borg replay (BASELINE config 5): sample built in "
+          f"{times['build_s']:.1f} s and parsed in {times['parse_s']:.1f} s "
+          f"(its own process, beside the earlier phases; waited "
+          f"{waited:.1f} s for it here), {jobs.n_events} events, "
+          f"{len(jobs)} jobs; dealt over {C} clusters x {jobs_per} "
+          f"(rows used {total}), time_scale {time_scale:.3f}, span "
+          f"{meta['span_ms']} ms, {n_ticks} ticks in {len(chunks)} chunks "
+          f"(K {[ch.rows.shape[2] for ch in chunks]}), packed in "
+          f"{pack_s:.1f} s; chunks compressed by auto {sum(auto)} of "
+          f"{len(chunks)} [{card}]")
+    print(f"phase 6e: placed {placed} of {total} "
+          f"({100 * placed / total:.3f}%), drops 0, conservation ok, "
+          f"launches {res['counts'][kernel]}, ticks executed "
+          f"{res['executed']}, probe reads {res['reads']}; jobs/s "
+          f"{placed / min(walls):.1f} (min of {len(walls)}), "
+          f"{placed / float(np.median(walls)):.1f} (median); wall "
+          f"{walls_line(walls)} [{card}]")
+    print(f"phase 6e: kernel {kernel} (serial) {kms * 1e3:.2f} us/launch "
+          f"mean over {len(sp['kernel_ms'])} launches (CUDA events), == "
+          f"plain at {chk.n} sampled ticks (the peak {peak} among them; "
+          f"plain {np.mean(chk.plain_ms):.3f} ms), bound (tick_cost_ffd) "
+          f"{b_ms * 1e3:.4f} us by {b_by} ({sp['read'] + sp['written']:.1f}"
+          f" B, {sp['ops']:.1f} operations per launch) [{card}]")
+    return dict(record=dict(
+        kernel=fused_tick.KERNELS[kernel],
+        name=f"{kernel} (6e, serial, Borg replay)",
+        launches=res["counts"][kernel], worst=chk.worst, ms=kms,
+        plain=chk.plain_ms, bound=(b_ms, b_by)))
+
+
 def bound(read, written, ops=0.0):
     """The least time (ms) for a launch's bytes and operations, and which
     of the two bounds it."""
@@ -4522,6 +5208,19 @@ def main(device: str = "cuda") -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    import multi_cluster_simulator_tpu_torch as P  # noqa: F401
+
+    sample = start_borg_sample()
+    try:
+        return run_phases(device, sample)
+    finally:
+        if sample.poll() is None:
+            sample.kill()
+        sample.wait()
+
+
+def run_phases(device: str, sample) -> int:
+    """Every phase in order, then the records and the result line."""
     import multi_cluster_simulator_tpu_torch as P
     from multi_cluster_simulator_tpu_torch.core import engine as E
     from multi_cluster_simulator_tpu_torch.kernels import build, fused_tick
@@ -4658,6 +5357,17 @@ def main(device: str = "cuda") -> int:
     phase_compact_config4(P, E, card, dev, market, runs["a"])
     lap("5f")
     print(f"phases 5a-5f: {time.perf_counter() - w5:.1f} s")
+
+    w6 = time.perf_counter()
+    sparse = phase_sparse_bursts(P, E, card, dev)
+    lap("6a-6b")
+    churn_b = phase_churn_bursts(P, E, card, dev)
+    lap("6c")
+    phase_leap_classes(P, E, card, dev)
+    lap("6d")
+    replay = phase_borg_replay(P, E, card, dev, sample)
+    lap("6e")
+    print(f"phases 6a-6e: {time.perf_counter() - w6:.1f} s")
 
     records = []
     kms = float(np.mean(check["kernel_ms"]))
@@ -4825,6 +5535,16 @@ def main(device: str = "cuda") -> int:
                   f"by {b_by}, launches {r['launches']}; kernel / bound "
                   f"{r['ms'] / b_ms:.1f} [{card}]")
             records.append(r)
+
+    # event-compressed time and the Borg replay: the kernels' times on the
+    # executed ticks of 6a and 6c and on 6e's replay
+    for r in (sparse["record"], churn_b["record"], replay["record"]):
+        b_ms, b_by = r["bound"]
+        print(f"kernel {r['name']}: {r['ms'] * 1e3:.2f} us/launch, plain "
+              f"{np.mean(r['plain']):.3f} ms, bound {b_ms * 1e3:.4f} us by "
+              f"{b_by}, launches {r['launches']}; kernel / bound "
+              f"{r['ms'] / b_ms:.1f} [{card}]")
+        records.append(r)
 
     print(json.dumps({"kernels": [{
         "name": r.get("name", r["kernel"].name), "route": "cuda",

@@ -39,6 +39,11 @@ the Borg-like replay — a list of ragged-K chunks, each chunk's rows copied
 to the device once, the clock kept on the host, and no host
 synchronisation inside a chunk — and ``run_io`` is the serving tier's
 dispatch unit: one staged chunk, with every tick's ``TickIO`` stacked.
+``run_compressed`` is the event-compressed driver over one staged chunk:
+it executes a tick only where something can happen and leaps the clock
+over the quiescent ticks between, bitwise the dense run (one small
+device-to-host read per executed tick without arrivals decides each
+leap).
 
 Configurations outside the slice raise ``NotImplementedError`` naming the
 ROADMAP item that ports them; nothing falls back silently.
@@ -53,6 +58,7 @@ import torch
 
 from multi_cluster_simulator_tpu_torch.config import MatchKind, SimConfig
 from multi_cluster_simulator_tpu_torch.core import state as st
+from multi_cluster_simulator_tpu_torch.core.compact import ovf_per_cluster
 from multi_cluster_simulator_tpu_torch.core.state import (
     Arrivals, SimState, TickIO, empty_io, resolve_device,
 )
@@ -75,6 +81,110 @@ from multi_cluster_simulator_tpu_torch.policies.base import (
 from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
 
 _QUEUE_INVALID = np.asarray(F.QUEUE_INVALID, np.int32)
+
+
+# --------------------------------------------------------------------------
+# time compression: quiescence predicate, next-event probe, leap accrual
+# (the event-compressed driver, Engine.run_compressed)
+# --------------------------------------------------------------------------
+
+def _quiescence_sig(state: SimState) -> torch.Tensor:
+    """Fixed-point fingerprint for the leap driver, the reference's int32
+    vector of sums: it changes whenever a tick changes anything the NEXT
+    tick's decisions read. Queue membership, placements, completions,
+    arrivals, node activations, every drop counter with the compact
+    layout's overflow counters (``ovf_per_cluster``) and the fault plane's
+    terms (``faults.apply.sig_parts``) are covered; the clock, the wait
+    accounting (``wait_total``, the queues' ``rec_wait``) and the trader's
+    snapshot, cooldown and lock columns are not: they evolve in closed
+    form over a leap or are read only on cadence boundaries the driver
+    never skips (``next_cadence_t``). The per-cluster counters are summed
+    in one reduction over a stack, so the vector costs a few launches; a
+    new tensor, which a later in-place tick leaves as it was."""
+    d = state.drops
+    sums = isum(torch.stack([
+        state.placed_total, state.arr_ptr, state.l0.count, state.l1.count,
+        state.ready.count, state.wait.count, state.lent.count,
+        state.borrowed.count, d.queue, d.msgs, d.run_full, d.vslot, d.carve,
+        d.ingest, d.failed, ovf_per_cluster(state)]), 1)
+    return torch.stack([
+        sums[0], sums[1], isum(state.run.active, None), *sums[2:8],
+        isum(state.node_active, None), isum(sums[8:], 0),
+        *faults_apply.sig_parts(state)])
+
+
+def _next_event_t(state: SimState, t: int, cfg: SimConfig, params,
+                  member) -> torch.Tensor:
+    """Earliest future virtual time (0-d int32 on the state's device) at
+    which a quiescent constellation can change again: the first
+    completion (``R.next_end_t``); for a DELAY member the head's Level0 ->
+    Level1 promotion at ``enq_t + params.max_wait_ms``; with the trader
+    the next market cadence boundary (``next_cadence_t`` of the host
+    clock ``t``) and, with expiry, the first virtual-node expiry; with the
+    fault plane the next failure or repair. The next non-empty arrival
+    tick is the driver's (from the host counts). Raw event times: the
+    driver rounds them up to the tick grid."""
+    ev = R.next_end_t(state.run).min()
+    if member.kind == "delay":
+        promote = torch.where(
+            state.l0.count > 0,
+            state.l0.enq_t[:, 0] + params.max_wait_ms.to(I32), R.NEVER)
+        ev = torch.minimum(ev, promote.min())
+    if cfg.trader.enabled:
+        ev = torch.clamp(ev, max=market.next_cadence_t(t, cfg.trader))
+        if cfg.trader.expire_virtual_nodes:
+            ev = torch.minimum(ev, torch.where(
+                state.node_active, state.node_expire, R.NEVER).min())
+    if cfg.faults.enabled:
+        ev = torch.minimum(ev, faults_apply.next_fault_event_t(state.faults))
+    return ev
+
+
+def _leap_local(s: SimState, new_t: int, cfg: SimConfig, pset: PolicySet,
+                params, member):
+    """Advance every cluster's wait accounting to the clock ``new_t`` (a
+    host int) in closed form: the per-tick wait records of a quiescent gap
+    (TotalTime -= map[id]; map[id] = since(enqueue); TotalTime += map[id],
+    scheduler.go:309-312) telescope to ``new_cur - old_rec`` per processed
+    slot. Returns ``(state', rate)``, ``rate`` [C] f32 the per-tick
+    accrual (processed slots x tick_ms) the series reconstruction uses.
+
+    The driver calls it only after a tick the quiescence vote passed:
+    after a busy tick the masks, computed from the post-tick state, can
+    cover slots the pass did not process (a successor rotated into the
+    Level0 head), whose stale ``rec_wait`` would accrue what the dense
+    driver records a tick later. The closed form adds the telescoped sum
+    once where the dense pass adds one f32 per tick; both are exact, so
+    bitwise equal, while the accrued values are integer-valued f32 below
+    2^24 ms (PARITY.md §time compression). Which slots accrue is the
+    member's kernel family's (``PolicySet.leap_masks``)."""
+    l0_mask, l1_mask = pset.leap_masks(s, cfg, params, member)
+
+    def accrue(q, mask, total):
+        cur = new_t - q.enq_t
+        frec = q.rec_wait
+        delta = torch.where(mask, (cur - frec).to(torch.float32), 0.0)
+        q = Q.set_field(q, "rec_wait", torch.where(mask, cur, frec))
+        return q, total + delta.sum(dim=1)
+
+    # dense tick order: the Level1 sweep records before the Level0 head
+    l1, total = accrue(s.l1, l1_mask, s.wait_total)
+    l0, total = accrue(s.l0, l0_mask, total)
+    rate = (isum(l0_mask, 1) + isum(l1_mask, 1)).to(torch.float32) \
+        * cfg.tick_ms
+    return s.replace(l0=l0, l1=l1, wait_total=total), rate
+
+
+def _next_arrival_ticks(counts: np.ndarray) -> np.ndarray:
+    """[T + 1] host int64: entry i is the first tick index >= i with
+    arrivals on any cluster (T where none), one reverse cumulative
+    minimum over the chunk's counts [T, C]."""
+    T = counts.shape[0]
+    idx = np.where(np.asarray(counts).any(axis=1), np.arange(T), T)
+    out = np.full(T + 1, T, np.int64)
+    if T:
+        out[:T] = np.minimum.accumulate(idx[::-1])[::-1]
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -473,6 +583,10 @@ class Engine:
         self.ex = LocalExchange()
         self._default_params = self.pset.params_for(cfg, device=self.device)
         self._jitter = {}
+        # host reads of the compressed driver's leap probe, one per
+        # executed tick without arrivals (run_compressed); a caller resets
+        # it to count a run
+        self.probe_reads = 0
 
     def prefix_terminal(self) -> bool:
         """Does the tick END with the per-cluster prefix? True when no
@@ -809,7 +923,134 @@ class Engine:
             return state, io
         return state, io, _write_back(mbuf, obs[0])
 
-    def run_compressed(self, *args, **kwargs):
-        raise NotImplementedError(
-            "event-compressed time (run_compressed) is not ported yet: "
-            "ROADMAP A9")
+    def run_compressed(self, state: SimState, arrivals: st.TickArrivals,
+                       n_ticks: int, params=None, mbuf=None):
+        """``run`` with event-compressed virtual time over one
+        ``TickArrivals`` chunk: a tick executes only where something can
+        happen, and the clock otherwise leaps to the tick before the next
+        event in one step, bitwise the dense run.
+
+        After each executed tick the driver compares the state's
+        fingerprint (``_quiescence_sig``) with the one before the tick:
+        unchanged, the constellation is at a fixed point, so every tick
+        before the next event — the next tick with arrivals (from the
+        chunk's host counts), the first completion, DELAY promotion,
+        market cadence boundary, vnode expiry or fault event
+        (``_next_event_t``) — is a no-op but for the wait accrual, which
+        ``_leap_local`` applies in closed form. The vote and the event
+        time leave the card as ONE packed int32 pair, a host read per
+        executed tick (``probe_reads`` counts them), since the host holds
+        the clock and needs the landing tick before it launches the next;
+        a tick with arrivals is never quiet (it moves ``arr_ptr``), so it
+        skips the probe and its read. A busy tick pays no mask work. A
+        leap never passes the chunk's end, so consecutive calls compose
+        like ``run_chunks``.
+
+        Returns ``(state, LeapStats)``, or ``(state, series, LeapStats)``
+        with ``cfg.record_metrics`` (the dense per-tick series: executed
+        ticks sample as the dense run does; skipped ticks replicate the
+        fixed point with the accrual folded into ``avg_wait_ms``), with
+        the buffer last when ``mbuf`` is given (executed ticks tap as in
+        ``run``; ``obs.device.tap_leap`` adds the skipped ticks' samples
+        in closed form). The state and the buffer are updated in place."""
+        cfg = self.cfg
+        if not isinstance(arrivals, st.TickArrivals):
+            raise ValueError("time compression requires pre-bucketed "
+                             "TickArrivals (pack_arrivals_by_tick / "
+                             "pack_arrivals_chunks)")
+        if arrivals.rows.shape[0] < n_ticks:
+            raise ValueError(
+                f"TickArrivals covers {arrivals.rows.shape[0]} ticks, "
+                f"run asked for {n_ticks}")
+        params, host, t0 = self._entry(state, params)
+        obs = self._obs_entry(state, mbuf)
+        member = host["member"]
+        C, dev = state.arr_ptr.shape[0], self.device
+        tick = cfg.tick_ms
+        record = cfg.record_metrics
+        executed = 0
+        leaps = np.zeros(st.LEAP_BUCKETS, np.int32)
+        if record:
+            ser_t = torch.zeros((n_ticks,), dtype=I32, device=dev)
+            ser_jq = torch.zeros((n_ticks, C), dtype=I32, device=dev)
+            ser_avg = torch.zeros((n_ticks, C), dtype=torch.float32,
+                                  device=dev)
+        counts_host = np.asarray(arrivals.counts[:n_ticks])
+        with annotate_dispatch("chunk"):
+            rows = torch.from_numpy(np.ascontiguousarray(
+                arrivals.rows[:n_ticks])).to(dev)
+            counts = torch.from_numpy(
+                np.ascontiguousarray(counts_host)).to(dev)
+        next_arr = _next_arrival_ticks(counts_host)
+        t_end = t0 + n_ticks * tick
+        inf_t = t_end + tick  # "no event inside this chunk"
+        # a tick with arrivals moves arr_ptr, so it is never quiet: the
+        # host skips its vote and read, and the fingerprint before the next
+        # tick is taken only where that tick may be quiet
+        has_arr = counts_host.any(axis=1)
+        cur, t, sig = state, t0, None
+        while t < t_end:
+            i = (t - t0) // tick
+            t += tick
+            if sig is None and not has_arr[i]:
+                sig = _quiescence_sig(cur)
+            cur, obs = self._tick(cur, rows[i], counts[i], t, params, host,
+                                  obs=obs)
+            executed += 1
+            if record:
+                samp = st.metric_sample(cur)
+                ser_t[i] = t
+                ser_jq[i] = samp.jobs_in_queue
+                ser_avg[i] = samp.avg_wait_ms
+            if has_arr[i]:
+                sig = None
+                continue
+            sig_before, sig = sig, _quiescence_sig(cur)
+            probe = torch.stack([
+                self.ex.alland((sig == sig_before).all()).to(I32),
+                self.ex.allmin(_next_event_t(cur, t, cfg, params, member))])
+            quiet, ev = probe.tolist()
+            self.probe_reads += 1
+            if not quiet:
+                continue
+            ev_clock = (min(ev, inf_t) + tick - 1) // tick * tick
+            arr_clock = t0 + (int(next_arr[i + 1]) + 1) * tick
+            new_t = max(min(ev_clock, arr_clock, inf_t) - tick, t)
+            n_skip = (new_t - t) // tick
+            if member.kind != "fifo":  # FIFO's pass records no wait
+                leapt, rate = _leap_local(cur, new_t, cfg, self.pset,
+                                          params, member)
+                if record and n_skip:  # the skipped samples' accrual
+                    k = torch.arange(1, n_skip + 1, device=dev,
+                                     dtype=torch.float32)[:, None]
+                    totals = cur.wait_total[None, :] + k * rate[None, :]
+                    ser_avg[i + 1:i + 1 + n_skip] = torch.where(
+                        cur.wait_jobs[None, :] > 0,
+                        totals / cur.wait_jobs.clamp(min=1)[None, :], 0.0)
+                cur = _write_back(cur, leapt)
+            elif record and n_skip:
+                ser_avg[i + 1:i + 1 + n_skip] = ser_avg[i]
+            if record and n_skip:
+                ser_t[i + 1:i + 1 + n_skip] = torch.arange(
+                    t + tick, new_t + tick, tick, dtype=I32, device=dev)
+                ser_jq[i + 1:i + 1 + n_skip] = ser_jq[i]
+            cur.t.fill_(new_t)
+            t = new_t
+            if obs is not None:  # in place: the tap form keeps its operands
+                mb, cur_obs = obs_device.tap_leap(obs[0], obs[1], cur,
+                                                  n_skip, tick)
+                obs = (_write_back(obs[0], mb), _write_back(obs[1], cur_obs))
+            if n_skip:
+                leaps[obs_device.leap_bucket(n_skip)] += 1
+        state = _write_back(state, cur)
+        stats = st.leap_stats_init(dev)
+        stats.ticks_executed.fill_(executed)
+        stats.leaps.copy_(torch.from_numpy(leaps))
+        out = (state,)
+        if record:
+            out += (st.MetricSample(t=ser_t, jobs_in_queue=ser_jq,
+                                    avg_wait_ms=ser_avg),)
+        out += (stats,)
+        if mbuf is not None:
+            out += (_write_back(mbuf, obs[0]),)
+        return out

@@ -212,9 +212,27 @@ def stack_samples(samples: Sequence[MetricSample],
         for f in dataclasses.fields(MetricSample)})
 
 
-# log2 histogram width of the leap sizes (the metrics buffer's
-# ``leap_hist``; time compression, ROADMAP A9, fills it)
+# log2 histogram width for LeapStats.leaps (and the metrics buffer's
+# ``leap_hist``): bucket b counts leaps that skipped [2^b, 2^(b+1)) ticks,
+# as XLA's CPU f32 log2 rounds it; 32 buckets cover any int32 tick count
 LEAP_BUCKETS = 32
+
+
+@dataclasses.dataclass
+class LeapStats(Tree):
+    """Event-compression accounting of ``Engine.run_compressed``: the
+    ticks the driver executed (the dense driver executes one per
+    ``tick_ms`` of virtual time) and a log2 histogram of the leap
+    lengths."""
+
+    ticks_executed: torch.Tensor  # [] i32
+    leaps: torch.Tensor  # [LEAP_BUCKETS] i32
+
+
+def leap_stats_init(device="cpu") -> LeapStats:
+    return LeapStats(
+        ticks_executed=torch.zeros((), dtype=torch.int32, device=device),
+        leaps=torch.zeros((LEAP_BUCKETS,), dtype=torch.int32, device=device))
 
 
 def snapshot_utilization(s: SimState) -> tuple[torch.Tensor, torch.Tensor]:

@@ -45,14 +45,14 @@ FOREIGN = -2  # market/trader.py's carve-placeholder owner
 def next_fault_event_t(fs: FaultState) -> torch.Tensor:
     """Earliest future fault event over the clusters: an up node's next
     failure or a down node's repair (0-d int32). Time compression folds it
-    into its leap bound (ROADMAP A9)."""
+    into its leap bound (core/engine.py ``_next_event_t``)."""
     return torch.where(fs.health, fs.next_fail, fs.down_until).min()
 
 
 def sig_parts(state) -> list:
-    """The fault plane's terms of the quiescence fingerprint (ROADMAP A9):
-    health membership, completed outages, and the kill and requeue
-    counters."""
+    """The fault plane's terms of the quiescence fingerprint (core/engine.py
+    ``_quiescence_sig``): health membership, completed outages, and the
+    kill and requeue counters."""
     fs = state.faults
     return [isum(fs.health, None), isum(fs.n_fails, None),
             isum(fs.kills, None) + isum(fs.requeues, None)]

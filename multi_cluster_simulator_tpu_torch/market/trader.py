@@ -396,6 +396,18 @@ def _buyer_apply(state: SimState, t: int, cfg: SimConfig, free, con,
         (got & ~any_free).to(I32)
 
 
+def next_cadence_t(t: int, mcfg) -> int:
+    """The next virtual time strictly after ``t`` (a host int) at which
+    the market can act: the 5 s state-stream refresh (the snapshot) or
+    the 10 s monitor wakeup (the round). Between two boundaries both
+    phases are no-ops whatever the data, which lets the event-compressed
+    driver (core/engine.py ``run_compressed``) leap straight to the next
+    one. A host int, as the port's clock is on the host."""
+    def nxt(c: int) -> int:
+        return (t // c + 1) * c
+    return min(nxt(mcfg.state_cadence_ms), nxt(mcfg.monitor_period_ms))
+
+
 def trade_round(state: SimState, t: int, cfg: SimConfig, ex, params,
                 jitter) -> SimState:
     """One market round at clock ``t`` (a host int; the engine calls it on

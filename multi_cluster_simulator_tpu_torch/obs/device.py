@@ -25,7 +25,9 @@ runs and what each kernel's tap form is held against on the card
 (kernels/fused_tick.py). The kernels fold the cross-cluster half in too,
 with integer atomics, whose sums are exact in any order.
 
-``tap_leap`` (time compression) waits for ROADMAP A9.
+``tap_leap`` is the event-compressed driver's half: the samples of the
+ticks a leap skipped, in closed form, bitwise what the dense taps over the
+fixed point accumulate.
 """
 
 from __future__ import annotations
@@ -223,6 +225,57 @@ def tap_tick(mbuf: MetricsBuffer, cur: TapCursor, state: SimState,
     mbuf = tap_tick_global(mbuf.replace(**pc), placed_d, depth, state.t,
                            tick_ms)
     return mbuf, cur
+
+
+def leap_bucket(n_skip: int) -> int:
+    """The log2 bucket of a leap of ``n_skip`` >= 1 ticks: floor(log2) in
+    XLA's CPU f32 steps (``xla_log_f32`` times ``INV_LN2``), clipped to
+    the last bucket. Those steps round some powers of two down (a leap of
+    exactly 2^k ticks can land in bucket k - 1); the leap histograms of
+    both ``LeapStats`` and the buffer use this one rule."""
+    x = torch.tensor([max(n_skip, 1)], dtype=torch.float32)
+    b = int(torch.floor(xla_log_f32(x) * INV_LN2).to(I32))
+    return min(max(b, 0), LEAP_BUCKETS - 1)
+
+
+def tap_leap(mbuf: MetricsBuffer, cur: TapCursor, state: SimState,
+             n_skip: int, tick_ms: int) -> tuple[MetricsBuffer, TapCursor]:
+    """The samples of the ``n_skip`` ticks a quiescent leap skipped, in
+    closed form: exactly what ``n_skip`` dense ``tap_tick`` calls over the
+    fixed point accumulate. ``state`` is the POST-leap state (its clock at
+    the landing tick, the wait accrual applied); ``n_skip`` a host int,
+    0 the identity. At a fixed point the per-tick deltas (placed, arrived,
+    borrows, overflow and the fault counters: a leap never jumps a fault
+    event) are zero, so only the wait cursor moves; the levels replicate:
+    ``depth_sum += n_skip * depth``, the fixed depth's histogram bucket
+    gains ``n_skip``, and each ring slot a skipped tick maps to takes the
+    LATEST such tick (slot j keeps ordinal q = m + n_skip - ((m + n_skip -
+    j) mod R), covered iff q > m, m the executed tick's ordinal). Reads
+    the clock on the device: no host sync. Returns new tensors."""
+    depth = queue_depth(state)
+    dev = mbuf.ring_t.device
+    m = torch.div(state.t, tick_ms, rounding_mode="floor") - n_skip
+    j = torch.arange(OBS_RING, dtype=I32, device=dev)
+    q = m + n_skip - torch.remainder(m + n_skip - j, OBS_RING)
+    covered = (q > m) & (n_skip > 0)
+    hist = torch.zeros(OBS_DEPTH_BUCKETS, dtype=I32, device=dev).index_add_(
+        0, _depth_buckets(depth).long(),
+        torch.full_like(depth, n_skip, dtype=I32))
+    mbuf = mbuf.replace(
+        ticks=mbuf.ticks + n_skip,
+        wait_accrued=mbuf.wait_accrued + (state.wait_total - cur.wait),
+        depth_sum=mbuf.depth_sum + n_skip * depth,
+        depth_max=torch.maximum(mbuf.depth_max, depth),
+        depth_hist=mbuf.depth_hist + hist[None, :],
+        ring_placed=torch.where(covered[None, :], 0, mbuf.ring_placed),
+        ring_depth=torch.where(covered[None, :], depth.sum().to(I32),
+                               mbuf.ring_depth),
+        ring_t=torch.where(covered, (q * tick_ms).to(I32), mbuf.ring_t),
+        leap_hist=mbuf.leap_hist.clone(),
+    )
+    if n_skip > 0:
+        mbuf.leap_hist[leap_bucket(n_skip)] += 1
+    return mbuf, dataclasses.replace(cur, wait=state.wait_total.clone())
 
 
 def reduce_metrics(mbuf: MetricsBuffer, ex) -> MetricsBuffer:

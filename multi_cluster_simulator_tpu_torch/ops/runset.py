@@ -241,6 +241,14 @@ def release(rs, free: torch.Tensor, t: int):
     return _store_rows(rs, data, rs.active & ~done), free, done
 
 
+def next_end_t(rs) -> torch.Tensor:
+    """[C] earliest completion time in each cluster's set (NEVER when
+    empty), either layout: the event-compressed driver folds the minimum
+    into its next-event time (core/engine.py ``_next_event_t``), since no
+    release fires before the first tick whose clock reaches it."""
+    return torch.where(rs.active, rs.end_t, NEVER).amin(dim=1)
+
+
 def kill(rs, dead: torch.Tensor):
     """Clear the active slots where ``dead`` [C, S] is set WITHOUT
     returning their resources to the free tensor: the fault plane's

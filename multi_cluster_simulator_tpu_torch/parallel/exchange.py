@@ -12,12 +12,13 @@ over several:
 - ``allmin``  — global minimum across shards
 - ``allmax``  — global maximum across shards (the market's rounding)
 - ``allsum``  — global sum across shards (the market's column sums)
+- ``alland``  — global AND across shards (the compressed driver's
+  quiescence vote, ``Engine.run_compressed``)
 - ``offset``  — my shard's global cluster offset
 
 On one H100 the whole cluster axis is local: ``LocalExchange``, whose
 collectives are identities. The sharded form (``MeshExchange``, over
-``torch.distributed``) is ROADMAP A16; the reference's ``alland`` comes
-with it, when a caller needs it.
+``torch.distributed``) is ROADMAP A16.
 """
 
 from __future__ import annotations
@@ -39,6 +40,12 @@ class Exchange:
 
     def allsum(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def alland(self, x: torch.Tensor) -> torch.Tensor:
+        """Cross-shard logical AND of a bool: ``allmin`` over its 0/1
+        form, as the reference's. The event-compressed driver's quiescence
+        vote: every shard must see a fixed point before any shard leaps."""
+        return self.allmin(x.to(torch.int32)) > 0
 
     def offset(self, c_local: int) -> int:
         raise NotImplementedError

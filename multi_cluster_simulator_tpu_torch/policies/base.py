@@ -257,3 +257,11 @@ class PolicySet:
         as the reference's ``lax.switch`` does."""
         spec = self.member(params.idx) if member is None else member
         return _run_kind(spec, state, t, params, cfg)
+
+    def leap_masks(self, s: SimState, cfg: SimConfig, params: PolicyParams,
+                   member: PolicySpec = None):
+        """The leap-accrual masks (``kernels.leap_wait_masks``) of the
+        member ``params.idx`` selects (or ``member``, when the caller read
+        the index already), as ``dispatch`` runs its pass."""
+        spec = self.member(params.idx) if member is None else member
+        return K.leap_wait_masks(spec.kind, s, cfg, params)

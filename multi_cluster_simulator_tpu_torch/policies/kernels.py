@@ -701,3 +701,41 @@ def _rl_local(s: SimState, t: int, cfg: SimConfig, params):
                                     params.rl_scores)
 
     return _scored_sweep_local(s, t, cfg, params, _queue_order(s.l0), score)
+
+
+# --------------------------------------------------------------------------
+# leap-accrual masks (the event-compressed driver's closed-form wait)
+# --------------------------------------------------------------------------
+
+def leap_wait_masks(kind: str, s: SimState, cfg: SimConfig, params=None):
+    """Queue slots whose wait clock the scheduling pass advances every
+    tick at a placement fixed point: exactly the slots the dense pass
+    records a wait on when nothing places. Returns ``(l0_mask [C, Q],
+    l1_mask [C, Q])``. FIFO records no wait in its pass; DELAY processes
+    the first ``min(|L1|, QC)`` Level1 slots and the Level0 head; gavel
+    and rl sweep the first ``min(|L0|, QC)`` slots in queue order; FFD and
+    tesserae the slots at the first ``min(|L0|, QC)`` positions of the BFD
+    order (FFD's tie-break from ``params``, tesserae's the default).
+    ``kind`` is the policy kind (``PolicySet.leap_masks`` dispatches
+    it)."""
+    C, cap0 = s.l0.count.shape[0], s.l0.capacity
+    dev = s.l0.device
+    zl1 = torch.zeros((C, s.l1.capacity), dtype=torch.bool, device=dev)
+    if kind == "fifo":
+        return torch.zeros((C, cap0), dtype=torch.bool, device=dev), zl1
+    QC = _sweep_len(cfg)
+    pos0 = torch.arange(cap0, dtype=I32, device=dev)[None, :]
+    if kind == "delay":
+        pos1 = torch.arange(s.l1.capacity, dtype=I32, device=dev)[None, :]
+        l1_mask = s.l1.slot_valid() & (
+            pos1 < torch.clamp(s.l1.count, max=QC)[:, None])
+        l0_mask = (pos0 == 0) & (s.l0.count > 0)[:, None]
+        return l0_mask, l1_mask
+    n_sweep = torch.clamp(s.l0.count, max=QC)[:, None]
+    if kind in ("gavel", "rl"):  # queue-order sweeps: positions are slots
+        return s.l0.slot_valid() & (pos0 < n_sweep), zl1
+    # ffd / tesserae: the slots at the BFD order's first n_sweep positions
+    order = _bfd_order(s.l0, params if kind == "ffd" else None)
+    l0_mask = torch.zeros((C, cap0), dtype=torch.bool, device=dev)
+    l0_mask.scatter_(1, order.long(), (pos0 < n_sweep).expand(C, -1))
+    return l0_mask, zl1

@@ -52,3 +52,11 @@ def total_drops(state: SimState) -> dict:
                      "failed")}
     out["narrow"] = overflow_total(state)
     return out
+
+
+def assert_no_drops(state: SimState) -> None:
+    """Fail unless every drop counter and the narrow overflow total are
+    zero (``total_drops``): a parity claim needs no static bound to
+    bind."""
+    drops = total_drops(state)
+    assert all(v == 0 for v in drops.values()), f"static bounds bound: {drops}"

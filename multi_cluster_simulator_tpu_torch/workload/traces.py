@@ -1,13 +1,15 @@
 """Bulk workload synthesis for the scale harness (the port's copies of
-``uniform_stream`` and ``borg_like_stream`` from
-``multi_cluster_simulator_tpu/workload/traces.py``; host numpy, pinned
-equal to the originals by tests/test_torch_copies.py).
+``uniform_stream``, ``borg_like_stream``, ``bursty_stream`` and
+``from_arrays`` from ``multi_cluster_simulator_tpu/workload/traces.py``;
+host numpy, pinned equal to the originals by tests/test_torch_copies.py).
 
 ``uniform_stream`` — N jobs per cluster with sorted-uniform arrival times —
 is the load shape of the headline benchmark; ``borg_like_stream`` — heavy
-tails and a diurnal arrival intensity — is the Borg-like replay's. The
-bursty shape and the on-device generative draw are later slices (ROADMAP
-A14).
+tails and a diurnal arrival intensity — is the Borg-like replay's;
+``bursty_stream`` — bursts with quiet valleys between — is the shape the
+event-compressed driver leaps over; ``from_arrays`` replays a loaded trace
+(workload/borg.py). The on-device generative draw is a later slice
+(ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -72,3 +74,31 @@ def borg_like_stream(n_clusters: int, jobs_per_cluster: int, horizon_ms: int,
     dur = np.clip(np.exp(rng.normal(np.log(90_000.0), 1.2, (C, A))), 1_000,
                   3_600_000)
     return _pack(t, cores, mem, dur)
+
+
+def bursty_stream(n_clusters: int, bursts: int, jobs_per_burst: int,
+                  interval_ms: int, window_ms: int, max_cores: int,
+                  max_mem: int, max_dur_ms: int, seed: int = 0,
+                  beta: float = 2.0) -> Arrivals:
+    """Burst-sparse arrivals: ``bursts`` bursts per cluster of
+    ``jobs_per_burst`` jobs each, burst ``b``'s jobs landing uniformly in
+    ``[b*interval_ms, b*interval_ms + window_ms)``. With ``max_dur_ms +
+    window_ms`` well under ``interval_ms`` the constellation drains and
+    idles between bursts, so most ticks are provably no-ops."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    C, A = n_clusters, bursts * jobs_per_burst
+    base = np.repeat(np.arange(bursts, dtype=np.int64) * interval_ms,
+                     jobs_per_burst)  # [A]
+    t = base[None, :] + rng.integers(0, window_ms, (C, A))
+    cores = np.floor(rng.beta(beta, beta, (C, A)) * max_cores)
+    mem = np.floor(rng.beta(beta, beta, (C, A)) * max_mem)
+    dur = rng.integers(0, max_dur_ms, (C, A))
+    return _pack(t, cores, mem, dur)
+
+
+def from_arrays(t_ms, cores, mem, dur_ms, gpus=None) -> Arrivals:
+    """Replay an externally loaded trace (a parsed Borg file, say): [C, A]
+    arrays, times not necessarily sorted."""
+    return _pack(np.asarray(t_ms), np.asarray(cores), np.asarray(mem),
+                 np.asarray(dur_ms),
+                 None if gpus is None else np.asarray(gpus))

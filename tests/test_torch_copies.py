@@ -136,6 +136,33 @@ def test_borg_like_stream_equal(kw):
                            ttraces.borg_like_stream(**kw))
 
 
+@pytest.mark.parametrize("kw", [
+    dict(n_clusters=6, bursts=5, jobs_per_burst=10, interval_ms=300_000,
+         window_ms=20_000, max_cores=8, max_mem=6_000, max_dur_ms=60_000,
+         seed=11),
+    dict(n_clusters=3, bursts=2, jobs_per_burst=7, interval_ms=50_000,
+         window_ms=5_000, max_cores=16, max_mem=12_000, max_dur_ms=9_000,
+         seed=4, beta=3.0),
+])
+def test_bursty_stream_equal(kw):
+    _assert_arrivals_equal(jtraces.bursty_stream(**kw),
+                           ttraces.bursty_stream(**kw))
+
+
+@pytest.mark.parametrize("gpus", [False, True])
+def test_from_arrays_equal(gpus):
+    """An unsorted trace replayed through both: the same sort, ids and
+    int32 casts (float and int64 inputs)."""
+    rng = np.random.default_rng(21)
+    shape = (4, 30)
+    args = (rng.integers(0, 2**31 - 1, shape), rng.random(shape) * 32,
+            rng.integers(1, 24_000, shape).astype(np.float64),
+            rng.integers(1, 10**6, shape))
+    g = rng.integers(0, 3, shape) if gpus else None
+    _assert_arrivals_equal(jtraces.from_arrays(*args, gpus=g),
+                           ttraces.from_arrays(*args, gpus=g))
+
+
 def test_policy_registry_equal():
     """The same names, kinds, ingest targets and overrides, in the same
     registration order."""
@@ -248,11 +275,15 @@ def test_obs_constants_equal(module, name):
     assert getattr(j, name) == getattr(t, name)
 
 
-@pytest.mark.parametrize("cls", ["MetricsBuffer", "TapCursor", "MetricSample"])
+@pytest.mark.parametrize("cls", ["MetricsBuffer", "TapCursor", "MetricSample",
+                                 "LeapStats"])
 def test_obs_leaf_names_equal(cls):
-    """The buffer's, the cursor's and the sample's leaves, in order."""
-    j = getattr(jstate if cls == "MetricSample" else jdevice, cls)
-    t = getattr(tstate if cls == "MetricSample" else tdevice, cls)
+    """The buffer's, the cursor's, the sample's and the leap stats'
+    leaves, in order."""
+    j = getattr(jdevice if cls in ("MetricsBuffer", "TapCursor") else jstate,
+                cls)
+    t = getattr(tdevice if cls in ("MetricsBuffer", "TapCursor") else tstate,
+                cls)
     assert [f.name for f in dataclasses.fields(j)] == \
         [f.name for f in dataclasses.fields(t)]
 

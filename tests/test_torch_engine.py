@@ -229,9 +229,16 @@ def test_configs_outside_the_slice_raise(change, policies):
 
 
 def test_unported_run_paths_raise():
+    """A batched ``params.idx`` (the tournament's cell axis) is not
+    ported: a run refuses it by its ROADMAP item."""
     cfg = port_cfg(headline_cfg())
     eng = tengine.Engine(cfg, device="cpu")
     _, tspecs = specs(2)
     state = tstate.init_state(cfg, tspecs, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        eng.run_compressed(state, None, 5)
+    params = eng._default_params.replace(
+        idx=torch.zeros((2,), dtype=torch.int32))
+    chunk = tengine.pack_arrivals_by_tick(stream(2)[1], 5, cfg.tick_ms)
+    with pytest.raises(NotImplementedError, match="A13"):
+        eng.run(state, chunk, 5, params)
+    with pytest.raises(NotImplementedError, match="A13"):
+        eng.run_compressed(state, chunk, 5, params)

@@ -191,6 +191,17 @@ def test_sinkhorn_round_at_4096_clusters_equals_jax():
     assert inexact == []
 
 
+def test_cvx_round_at_4096_clusters_equals_jax():
+    """One cvx round at config 4's width from a random state, beside the
+    sinkhorn one (ROADMAP C1's check: the ``exp`` and the matrix-vector
+    order of the dual ascent at width): every winner and attach equal,
+    and every float leaf too (the tolerance allows less; none was
+    needed)."""
+    inexact, attached = _fractional_round(MatchKind.CVX, 0, 4096)
+    assert attached > 10
+    assert inexact == []
+
+
 @pytest.mark.parametrize("expire", [False, True], ids=["keep", "expire"])
 @pytest.mark.parametrize("matching", MATCHERS)
 def test_quick_market_shape_equals_jax(matching, expire):

@@ -172,7 +172,31 @@ holds each path's hand-written kernel against its plain PyTorch version:
       and ``to_wide`` bitwise 4k's run; the faults form and its tap form
       at 4,096; DELAY, FFD and gavel with churn at the quick market shape;
    f. BASELINE config 4 on the compact layout: the bench's gates, 700
-      launches, ``to_wide`` bitwise run (a)'s final state.
+      launches, ``to_wide`` bitwise run (a)'s final state;
+6. event-compressed time and the Borg replay (6a-6e, their docstrings);
+7. checkpoints, preemption and the phase-prefix ablation:
+   a. the headline saved through ``AsyncCheckpointer`` at its inner chunk
+      boundaries (ticks 400, 800, 1,200) and resumed from each file on the
+      same engine, bitwise 4a's final state; the file's bytes, the µs a
+      submit holds the dispatching thread, the writer's seconds a save,
+      the walls without and with a save at every boundary;
+   b. 5a's compact headline with the metrics plane cut at tick 800: state,
+      buffer and harvest bitwise; a wide template refused by the header;
+   c. 6a's sparse bursts compressed, cut in a quiet stretch: the state
+      bitwise, the executed ticks and the leap histogram folded over the
+      cut equal to the uninterrupted run's;
+   d. a child process (``chip_smoke.py --preempt-child PATH``) running the
+      headline under ``PreemptionGuard``, sent SIGTERM after its first
+      save: exit 75 and the ``# preempted:`` line; a second child
+      (``--resume``) ends bitwise at 7a's state; a checkpoint the plain
+      path writes on the CPU at 256 clusters resumes on the kernel,
+      bitwise the card's uninterrupted run;
+   e. ``Engine.run_prefix`` on the headline's first 150 ticks at every
+      phase limit (tools/profile_capture.py ``phase_table``): the kernel
+      launched once a tick from limit 5 and never below, the whole tick
+      bitwise ``run``; a ``start_trace`` session holding the
+      ``tick.fused_prefix`` range and the kernel; and the checkpoint bytes
+      of config 4's and config 5's final states.
 
 Every number is printed beside the card's name and power limit. The last
 lines are a JSON record of each kernel (its time per launch, the plain
@@ -5132,7 +5156,537 @@ def phase_borg_replay(P, E, card, dev, sample):
         kernel=fused_tick.KERNELS[kernel],
         name=f"{kernel} (6e, serial, Borg replay)",
         launches=res["counts"][kernel], worst=chk.worst, ms=kms,
-        plain=chk.plain_ms, bound=(b_ms, b_by)))
+        plain=chk.plain_ms, bound=(b_ms, b_by)), cfg=cfg, final=out_s)
+
+
+# --------------------------------------------------------------------------
+# phase 7: checkpoint and preemption (core/checkpoint.py, core/preempt.py),
+# and the phase-prefix ablation (Engine.run_prefix, tools/profile_capture)
+# --------------------------------------------------------------------------
+
+CKPT_DIR = "build/phase7"  # the phase's checkpoint files and trace
+CKPT_CUTS = (400, 800, 1200)  # 7a's inner chunk boundaries of the headline
+CKPT_PAIRS = 3  # 7a's interleaved walls without and with a save a boundary
+CKPT_COMPACT_CUT = 800  # 7b
+CKPT_SPARSE_CUT = 400  # 7c: between bursts 2 and 3 (300 s apart)
+CHILD_HOLD_S = 300  # 7d: how long the child waits for the signal
+PREFIX_TICKS, PREFIX_TIMED, PREFIX_WARMUPS = 150, 2, 1  # 7e's ablation
+TRACE_TICKS = 50  # 7e's trace session
+
+
+def headline_world(P, E, C=None):
+    """The headline's config, specs, stream and tick count (4a's) at
+    ``C`` clusters (the headline's own by default)."""
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        uniform_stream,
+    )
+
+    C = HEADLINE_C if C is None else C
+    cfg = headline_cfg(P)
+    specs = [P.uniform_cluster(c + 1, 5) for c in range(C)]
+    arr = uniform_stream(C, JOBS, HORIZON_MS, max_cores=8, max_mem=6_000,
+                         max_dur_ms=60_000, seed=9)
+    return cfg, specs, arr, HORIZON_MS // cfg.tick_ms + 70
+
+
+def chunks_from(E, arr, cfg, n_ticks: int, start: int = 0):
+    """The chunks of ticks ``[start, n_ticks)`` (``start`` a chunk
+    boundary), bucketed from the cut as a resuming driver buckets them."""
+    sizes = chunk_sizes(n_ticks)[start // CHUNK:]
+    return E.pack_arrivals_chunks(arr, sizes, cfg.tick_ms, start=start)
+
+
+def ckpt_path(name: str) -> str:
+    import os
+
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    path = os.path.join(CKPT_DIR, name)
+    for p in (path, path + ".tmp", path + ".final"):
+        if os.path.exists(p):
+            os.remove(p)
+    return path
+
+
+def timed_saves(preempt, log: list):
+    """A ``save_fn`` for AsyncCheckpointer that times each save on the
+    writer thread (serialize, write, fsync, rename) into ``log``."""
+    def save(path, state, **kw):
+        w0 = time.perf_counter()
+        preempt.save_run(path, state, **kw)
+        log.append(time.perf_counter() - w0)
+    return save
+
+
+def saved_run(engine, state, chunks, cks: dict, done: int = 0):
+    """``state`` through ``chunks`` chunk by chunk, submitting the state at
+    every boundary before the last to ``cks[tick]`` (or to ``cks[None]``
+    for every boundary); returns the state and the µs each submit held the
+    dispatching thread."""
+    submit_us = []
+    for i, ch in enumerate(chunks):
+        state = engine.run_chunks(state, [ch])
+        done += ch.rows.shape[0]
+        if i == len(chunks) - 1:
+            break
+        ck = cks.get(done, cks.get(None))
+        if ck is not None:
+            w0 = time.perf_counter()
+            ck.submit(state, meta={"chunk_idx": i + 1, "dense_ticks": done})
+            submit_us.append(1e6 * (time.perf_counter() - w0))
+    return state, submit_us
+
+
+def phase_ckpt_headline(P, E, card, dev, head):
+    """Phase 7a: the headline cut at each inner chunk boundary (400, 800,
+    1200 ticks): one counted run saving through an AsyncCheckpointer at
+    every boundary, each file loaded by ``load_run`` into a fresh template
+    and resumed on the same engine over the chunks re-bucketed from the
+    cut, bitwise 4a's uninterrupted run; the bytes, the µs a submit costs
+    the dispatching thread, the writer's seconds a save, and the wall
+    without and with a save at every boundary (interleaved pairs)."""
+    import os
+
+    from multi_cluster_simulator_tpu_torch.core import preempt
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        clone_state, init_state,
+    )
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+
+    cfg, specs, arr = headline_cfg(P), head["specs"], head["arr"]
+    chunks, final, n_ticks = head["chunks"], head["final"], head["n_ticks"]
+    engine = E.Engine(cfg, device=dev)
+    pd = preempt.policy_digest_for(cfg)
+    s0 = init_state(cfg, specs, device=dev)
+    saves = []
+    cks = {b: preempt.AsyncCheckpointer(
+        ckpt_path(f"headline_{b}.ckpt"), cfg=cfg, plan=None,
+        policy_digest=pd, tick_ms=cfg.tick_ms,
+        save_fn=timed_saves(preempt, saves)) for b in CKPT_CUTS}
+    torch.cuda.synchronize()
+    fused_tick.reset_launches()
+    out, submit_us = saved_run(engine, clone_state(s0), chunks, cks)
+    torch.cuda.synchronize()
+    check_launches(fused_tick.launch_counts(), "fused_prefix_fifo", n_ticks,
+                   "phase 7a")
+    for ck in cks.values():
+        ck.close()
+    if max_abs_diff(out, final):
+        raise AssertionError("phase 7a: the run with saves differs from 4a")
+    nbytes = {}
+    for b in CKPT_CUTS:
+        path = cks[b].path
+        nbytes[b] = os.path.getsize(path)
+        rc = preempt.load_run(path, init_state(cfg, specs, device=dev),
+                              cfg=cfg, plan=None, policy_digest=pd)
+        if rc.tick != b or rc.meta["ticks_executed"] != b:
+            raise AssertionError(f"phase 7a: cursors {rc.meta} at {b}")
+        rest = chunks_from(E, arr, cfg, n_ticks, b)
+        fused_tick.reset_launches()
+        res = engine.run_chunks(rc.state, rest)
+        torch.cuda.synchronize()
+        check_launches(fused_tick.launch_counts(), "fused_prefix_fifo",
+                       n_ticks - b, f"phase 7a resumed at {b}")
+        d = max_abs_diff(res, final)
+        if d:
+            raise AssertionError(f"phase 7a: resumed at tick {b}, the final "
+                                 f"state differs (max |diff| {d})")
+    walls = {"without": [], "with": []}
+    wall_saves = []
+    ck = preempt.AsyncCheckpointer(
+        ckpt_path("headline_every.ckpt"), cfg=cfg, plan=None,
+        policy_digest=pd, tick_ms=cfg.tick_ms,
+        save_fn=timed_saves(preempt, wall_saves))
+    pair_submit = []
+    for _ in range(CKPT_PAIRS):
+        for name, cks_ in (("without", {}), ("with", {None: ck})):
+            state = clone_state(s0)
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            state, us = saved_run(engine, state, chunks, cks_)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - w0)
+            ck.flush()  # outside the timer, as bench.py's overhead run
+            pair_submit += us
+    ck.close()
+    wo, wi = min(walls["without"]), min(walls["with"])
+    print(f"phase 7a: headline {HEADLINE_C} clusters, {n_ticks} ticks, "
+          f"saved through AsyncCheckpointer at ticks {list(CKPT_CUTS)}, "
+          f"launches {n_ticks} in the saving run; each file loaded into a "
+          f"fresh template and resumed on the same engine: final state "
+          f"bitwise 4a's at every cut [{card}]")
+    print(f"phase 7a: checkpoint bytes (wide headline state, header "
+          f"included) {nbytes[CKPT_CUTS[0]]}; submit (one packing copy and "
+          f"an event on the dispatching thread) {np.mean(submit_us):.1f} us "
+          f"mean of {len(submit_us)}, {np.mean(pair_submit):.1f} us over "
+          f"the timed runs' {len(pair_submit)}; writer thread (serialize, "
+          f"write, fsync, rename) {np.mean(saves):.4f} s a save, mean of "
+          f"{len(saves)} (max {max(saves):.4f}) [{card}]")
+    print(f"phase 7a: headline wall without saves "
+          f"{walls_line(walls['without'])}; with a save at every boundary "
+          f"{walls_line(walls['with'])}; "
+          f"with / without (min) {wi / wo:.4f} ({100 * (wi / wo - 1):+.2f}%;"
+          f" bench.py records this overhead and does not gate it) [{card}]")
+    return dict(nbytes=nbytes[CKPT_CUTS[0]], submit_us=submit_us,
+                pair_submit_us=pair_submit, save_s=saves + wall_saves,
+                walls=walls)
+
+
+def phase_ckpt_compact(P, E, card, dev, head):
+    """Phase 7b: 5a's compact headline with the metrics plane, cut at tick
+    800: the resumed state and buffer (and their harvest) bitwise the
+    uninterrupted run's; a wide template is refused with the reference's
+    layout message."""
+    import os
+
+    from multi_cluster_simulator_tpu_torch.core import compact as CC
+    from multi_cluster_simulator_tpu_torch.core import preempt
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+
+    cfg, specs, arr = headline_cfg(P), head["specs"], head["arr"]
+    n_ticks = head["n_ticks"]
+    plan = CC.derive_plan(cfg, specs, arr)
+    engine = E.Engine(cfg, device=dev)
+    pd = preempt.policy_digest_for(cfg)
+    chunks = head["chunks"]
+    s = init_state(cfg, specs, device=dev, plan=plan)
+    straight, mb_s = engine.run_chunks(s, chunks, None, D.metrics_init(s))
+    path = ckpt_path("compact_800.ckpt")
+    ck = preempt.AsyncCheckpointer(path, cfg=cfg, plan=plan,
+                                   policy_digest=pd, tick_ms=cfg.tick_ms)
+    cut = CKPT_COMPACT_CUT // CHUNK
+    s = init_state(cfg, specs, device=dev, plan=plan)
+    s, mb = engine.run_chunks(s, chunks[:cut], None, D.metrics_init(s))
+    ck.submit(s, mbuf=mb, meta={"chunk_idx": cut,
+                                "dense_ticks": CKPT_COMPACT_CUT})
+    ck.close()
+    try:
+        preempt.load_run(path, init_state(cfg, specs, device=dev), cfg=cfg,
+                         plan=None, policy_digest=pd)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("phase 7b: a wide template loaded a compact "
+                             "checkpoint")
+    if "checkpoint layout: compact, expected: wide" not in refusal:
+        raise AssertionError(f"phase 7b: refusal {refusal!r}")
+    rc = preempt.load_run(path, init_state(cfg, specs, device=dev, plan=plan),
+                          cfg=cfg, plan=plan, policy_digest=pd)
+    if rc.mbuf is None:
+        raise AssertionError("phase 7b: the buffer did not ride the file")
+    out, mb_r = engine.run_chunks(
+        rc.state, chunks_from(E, arr, cfg, n_ticks, CKPT_COMPACT_CUT), None,
+        rc.mbuf)
+    d = max(max_abs_diff(out, straight), max_abs_diff(mb_r, mb_s))
+    if d or D.harvest(mb_r) != D.harvest(mb_s):
+        raise AssertionError(f"phase 7b: the resumed compact run differs "
+                             f"(max |diff| {d})")
+    nbytes = os.path.getsize(path)
+    print(f"phase 7b: compact headline with the plane cut at tick "
+          f"{CKPT_COMPACT_CUT}: resumed state, buffer and harvest bitwise "
+          f"the uninterrupted run's (placed {D.harvest(mb_r)['placed']}); "
+          f"checkpoint bytes (compact state and buffer) {nbytes} against "
+          f"{CC.state_nbytes(out)} B of state; a wide template refused: "
+          f"{refusal.split(' — ', 1)[-1]!r} [{card}]")
+    return dict(nbytes=nbytes)
+
+
+def phase_ckpt_sparse(P, E, card, dev):
+    """Phase 7c: 6a's sparse bursts under ``run_compressed``, cut at the
+    chunk boundary at tick 400, inside the quiet stretch between bursts:
+    the resumed state bitwise the uninterrupted compressed run's, and
+    ``ticks_executed`` and the leap histogram folded over the cut
+    (``fold_cursors``) equal to the uninterrupted run's."""
+    from multi_cluster_simulator_tpu_torch.core import preempt
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        clone_state, init_state,
+    )
+
+    cfg = sparse_cfg(P)
+    arr, n_ticks = sparse_stream(SPARSE_C)
+    chunks = E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), cfg.tick_ms)
+    specs = [P.uniform_cluster(c + 1, 5) for c in range(SPARSE_C)]
+    engine = E.Engine(cfg, device=dev)
+    s0 = init_state(cfg, specs, device=dev)
+    cut = CKPT_SPARSE_CUT // CHUNK
+    around = np.concatenate([chunks[cut - 1].counts[-10:],
+                             chunks[cut].counts[:10]])
+    if around.any():
+        raise AssertionError("phase 7c: the cut is not in a quiet stretch")
+    comp = [True] * len(chunks)
+    whole = drive(engine, clone_state(s0), chunks, comp)
+    path = ckpt_path("sparse_400.ckpt")
+    ck = preempt.AsyncCheckpointer(path, cfg=cfg, plan=None,
+                                   tick_ms=cfg.tick_ms)
+    s, stats = engine.run_compressed(clone_state(s0), chunks[0],
+                                     chunks[0].rows.shape[0])
+    ck.submit(s, meta={"chunk_idx": cut, "leap_stats": [stats]})
+    ck.close()
+    rc = preempt.load_run(path, init_state(cfg, specs, device=dev), cfg=cfg,
+                          plan=None)
+    rest = E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks)[cut:],
+                                  cfg.tick_ms, start=CKPT_SPARSE_CUT)
+    res = drive(engine, rc.state, rest, comp[cut:])
+    d = max_abs_diff(res["state"], whole["state"])
+    executed = rc.meta["ticks_executed"] + res["executed"]
+    hist = np.zeros_like(whole["leaps"])
+    hist[:len(rc.meta["leap_hist"])] += rc.meta["leap_hist"]
+    hist += res["leaps"]
+    if d or executed != whole["executed"] or not np.array_equal(
+            hist, whole["leaps"]):
+        raise AssertionError(f"phase 7c: resumed state |diff| {d}, executed "
+                             f"{executed} against {whole['executed']}, "
+                             f"leaps {hist} against {whole['leaps']}")
+    print(f"phase 7c: sparse bursts {SPARSE_C} clusters compressed, cut at "
+          f"tick {CKPT_SPARSE_CUT} (no arrivals within 10 ticks of it): "
+          f"resumed state bitwise the uninterrupted run's; ticks executed "
+          f"{rc.meta['ticks_executed']} before the cut + {res['executed']} "
+          f"after = {executed}, the uninterrupted run's; leap histogram "
+          f"{leap_line(hist)} folded equal [{card}]")
+
+
+def child_cmd(path: str, dev, *extra: str) -> list:
+    import os
+
+    return [sys.executable, os.path.abspath(__file__), "--preempt-child",
+            path, "--device", str(dev), *extra]
+
+
+def phase_ckpt_preempt(P, E, card, dev, head):
+    """Phase 7d: a child process (``chip_smoke.py --preempt-child``) runs
+    7a's headline under ``PreemptionGuard`` and is sent SIGTERM once
+    ``peek_checkpoint_t`` shows its first boundary saved: it must exit 75
+    with the ``# preempted:`` line; a second child resumes the file to the
+    end, bitwise 7a's uninterrupted run. Then a checkpoint the plain path
+    writes on the CPU at 256 clusters resumes on the card's kernel,
+    bitwise the card's uninterrupted run."""
+    import os
+    import signal
+
+    from multi_cluster_simulator_tpu_torch.core import preempt
+    from multi_cluster_simulator_tpu_torch.core.checkpoint import (
+        peek_checkpoint_t,
+    )
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = ckpt_path("child.ckpt")
+    w0 = time.perf_counter()
+    child = subprocess.Popen(child_cmd(path, dev), cwd=root, text=True,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        seen = 0
+        while child.poll() is None and time.perf_counter() - w0 < 600:
+            if os.path.exists(path):
+                seen = peek_checkpoint_t(path)
+                if seen > 0:
+                    break
+            time.sleep(0.05)
+        if not seen:
+            raise AssertionError(f"phase 7d: the child saved nothing "
+                                 f"(exit {child.poll()})")
+        child.send_signal(signal.SIGTERM)
+        out, err = child.communicate(timeout=CHILD_HOLD_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != preempt.EXIT_PREEMPTED or \
+            "# preempted:" not in err:
+        raise AssertionError(f"phase 7d: the child exited "
+                             f"{child.returncode}: {err[-2000:]}")
+    line = next(ln for ln in err.splitlines() if ln.startswith("# preempted:"))
+    first_s = time.perf_counter() - w0
+    w1 = time.perf_counter()
+    res = subprocess.run(child_cmd(path, dev, "--resume"), cwd=root,
+                         text=True,
+                         capture_output=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"phase 7d: the resuming child exited "
+                             f"{res.returncode}: {res.stderr[-2000:]}")
+    cfg, specs, arr, n_ticks = headline_world(P, E)
+    rc = preempt.load_run(path + ".final", init_state(cfg, specs,
+                                                      device=dev), cfg=cfg)
+    d = max_abs_diff(rc.state, head["final"])
+    if d or rc.meta["ticks_executed"] != n_ticks:
+        raise AssertionError(f"phase 7d: the resumed child's final state "
+                             f"differs (max |diff| {d}; cursors {rc.meta})")
+    print(f"phase 7d: child under PreemptionGuard saw SIGTERM after its "
+          f"save at t={seen} ms and exited {child.returncode}: {line!r} "
+          f"({first_s:.1f} s); the resuming child ran ticks "
+          f"{seen // cfg.tick_ms}..{n_ticks} ({time.perf_counter() - w1:.1f}"
+          f" s): final state bitwise 7a's uninterrupted run, ticks_executed "
+          f"{rc.meta['ticks_executed']} [{card}]")
+
+    # a checkpoint the plain path writes on the CPU resumes on the kernel
+    cfg, specs, arr, n_ticks = headline_world(P, E, RUN_C)
+    chunks = E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), cfg.tick_ms)
+    cpu = E.Engine(cfg, device="cpu")
+    s = cpu.run_chunks(init_state(cfg, specs, device="cpu"), chunks[:1])
+    path = ckpt_path("cpu_256.ckpt")
+    preempt.save_run(path, s, meta={"chunk_idx": 1, "dense_ticks": CHUNK},
+                     cfg=cfg, plan=None,
+                     policy_digest=preempt.policy_digest_for(cfg))
+    engine = E.Engine(cfg, device=dev)
+    straight = engine.run_chunks(init_state(cfg, specs, device=dev), chunks)
+    rc = preempt.load_run(path, init_state(cfg, specs, device=dev), cfg=cfg,
+                          plan=None,
+                          policy_digest=preempt.policy_digest_for(cfg))
+    if rc.state.device.type != dev.type:
+        raise AssertionError("phase 7d: load_run left the state off the card")
+    torch.cuda.synchronize()
+    fused_tick.reset_launches()
+    out = engine.run_chunks(rc.state, chunks_from(E, arr, cfg, n_ticks,
+                                                  CHUNK))
+    torch.cuda.synchronize()
+    check_launches(fused_tick.launch_counts(), "fused_prefix_fifo",
+                   n_ticks - CHUNK, "phase 7d (CPU checkpoint)")
+    d = max_abs_diff(out, straight)
+    if d:
+        raise AssertionError(f"phase 7d: the CPU checkpoint resumed on the "
+                             f"card differs (max |diff| {d})")
+    print(f"phase 7d: a checkpoint the plain path wrote on the CPU at "
+          f"{RUN_C} clusters, tick {CHUNK}, resumed on the card: "
+          f"{n_ticks - CHUNK} launches of fused_prefix_fifo, final state "
+          f"bitwise the card's uninterrupted run [{card}]")
+
+
+def phase_prefix_ablation(P, E, card, dev, head):
+    """Phase 7e: ``run_prefix`` on the headline's first 150 ticks at every
+    phase limit k = 0..8 (1 warm-up, 2 timed: tools/profile_capture.py's
+    ``phase_table``): the table with its routes; the FIFO kernel launched
+    once a tick for k >= 5 and never below; k = 8 bitwise ``run``; and one
+    ``start_trace`` session over 50 ticks whose artifact holds the
+    ``tick.fused_prefix`` range and the kernel's name."""
+    import json as _json
+    import os
+    import shutil
+
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        clone_state, init_state,
+    )
+    from multi_cluster_simulator_tpu_torch.tools import profile_capture as pc
+
+    cfg, specs = headline_cfg(P), head["specs"]
+    engine = E.Engine(cfg, device=dev)
+    s0 = init_state(cfg, specs, device=dev)
+    ta = E.pack_arrivals_by_tick(head["arr"], PREFIX_TICKS, cfg.tick_ms)
+    table = pc.phase_table(engine, s0, ta, PREFIX_TICKS,
+                           repeats=PREFIX_TIMED, warmups=PREFIX_WARMUPS)
+    rows = table["rows"]
+    kernel = engine.fused_provenance()["kernel"]
+    for k, r in enumerate([rows[-1]] + rows[:-1]):
+        want_route, want_launch = ((kernel, 1.0) if k >= 5 else ("plain", 0))
+        if r["route"] != want_route or r["launches_per_tick"] != want_launch:
+            raise AssertionError(f"phase 7e: prefix {k}: route "
+                                 f"{r['route']}, launches a tick "
+                                 f"{r['launches_per_tick']}")
+        if not math.isfinite(r["ms_per_tick"]):
+            raise AssertionError(f"phase 7e: prefix {k} timed {r}")
+    full = engine.run(clone_state(s0), ta, PREFIX_TICKS)
+    if max_abs_diff(full, table["last"]):
+        raise AssertionError("phase 7e: run_prefix at 8 differs from run")
+    for r in rows:
+        print(f"phase 7e: {r['phase']:13s} {r['ms_per_tick']:8.4f} ms/tick "
+              f"(cum {r['cum_ms_per_tick']:.4f}, {r['fraction']:.1%}), "
+              f"bytes delta {r['prefix_bytes_delta']}, route {r['route']}, "
+              f"launches a tick {r['launches_per_tick']:g} [{card}]")
+    out_dir = os.path.join(CKPT_DIR, "trace")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    arts = pc.capture_trace(engine, s0, ta, TRACE_TICKS, out_dir)
+    text = "".join(open(a).read() for a in arts)
+    if "tick.fused_prefix" not in text or kernel + "_kernel" not in text:
+        raise AssertionError(f"phase 7e: the trace {arts} lacks the prefix "
+                             f"range or the kernel {kernel}_kernel")
+    events = _json.loads(text) if len(arts) == 1 else {}
+    n_kern = sum(1 for e in events.get("traceEvents", [])
+                 if kernel + "_kernel" in str(e.get("name", "")))
+    print(f"phase 7e: run_prefix on the headline's first {PREFIX_TICKS} "
+          f"ticks, min of {PREFIX_TIMED} after {PREFIX_WARMUPS} warm-up: "
+          f"whole tick {table['full_ms']:.4f} ms; the kernel once a tick "
+          f"from k = 5, never below; k = 8 bitwise run; trace over "
+          f"{TRACE_TICKS} ticks {arts} ({len(text)} B) holds "
+          f"tick.fused_prefix and {n_kern} events of {kernel}_kernel "
+          f"[{card}]")
+    return dict(rows=rows, full_ms=table["full_ms"])
+
+
+def phase_ckpt_bytes(P, E, card, dev, states: dict):
+    """The checkpoint bytes of the other configs' final states (config 4,
+    config 5), each read back bitwise."""
+    import os
+
+    from multi_cluster_simulator_tpu_torch.core import checkpoint as ck
+
+    for name, (cfg, state) in states.items():
+        path = ckpt_path(f"{name}.ckpt")
+        ck.save_state(state, path, cfg=cfg)
+        back = ck.load_state(path, state, cfg=cfg)
+        if max_abs_diff(back, state):
+            raise AssertionError(f"phase 7: {name} did not round-trip")
+        print(f"phase 7: checkpoint bytes of {name}'s final state "
+              f"{os.path.getsize(path)} (read back bitwise) [{card}]")
+
+
+def preempt_child(argv) -> int:
+    """7d's child: the headline on the card under ``PreemptionGuard``,
+    saving at every chunk boundary through an AsyncCheckpointer to PATH;
+    at the first boundary it waits (up to ``CHILD_HOLD_S``) for the signal,
+    so the parent's SIGTERM lands mid-run. ``--resume`` continues from
+    PATH's cut to the end and saves the final state to PATH.final."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --preempt-child")
+    ap.add_argument("path")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    import multi_cluster_simulator_tpu_torch as P
+    from multi_cluster_simulator_tpu_torch.core import engine as E
+    from multi_cluster_simulator_tpu_torch.core import preempt
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+
+    dev = torch.device(args.device)
+    cfg, specs, arr, n_ticks = headline_world(P, E)
+    engine = E.Engine(cfg, device=dev)
+    pd = preempt.policy_digest_for(cfg)
+    start, prior = 0, {}
+    state = init_state(cfg, specs, device=dev)
+    if args.resume:
+        rc = preempt.load_run(args.path, state, cfg=cfg, plan=None,
+                              policy_digest=pd)
+        state, start, prior = rc.state, rc.tick, rc.meta
+    ck = preempt.AsyncCheckpointer(args.path, cfg=cfg, plan=None,
+                                   policy_digest=pd, tick_ms=cfg.tick_ms)
+    done = start
+    with preempt.PreemptionGuard() as guard:
+        for ch in chunks_from(E, arr, cfg, n_ticks, start):
+            state = engine.run_chunks(state, [ch])
+            done += ch.rows.shape[0]
+            meta = {"chunk_idx": done // CHUNK, "dense_ticks": done - start,
+                    "prior": prior}
+            if guard.triggered:
+                guard.save_and_exit(ck, state, meta=meta)
+            if done == n_ticks:
+                break
+            ck.submit(state, meta=meta)
+            if not args.resume and done == CHUNK:
+                ck.flush()
+                w0 = time.perf_counter()
+                while not guard.triggered and \
+                        time.perf_counter() - w0 < CHILD_HOLD_S:
+                    time.sleep(0.01)
+                if guard.triggered:
+                    guard.save_and_exit(ck, state, meta=meta)
+    ck.close()
+    preempt.save_run(args.path + ".final", state, meta=meta, cfg=cfg,
+                     plan=None, policy_digest=pd, tick_ms=cfg.tick_ms)
+    print(f"# preempt child: ran ticks {start}..{done}")
+    return 0
 
 
 def bound(read, written, ops=0.0):
@@ -5369,6 +5923,24 @@ def run_phases(device: str, sample) -> int:
     lap("6e")
     print(f"phases 6a-6e: {time.perf_counter() - w6:.1f} s")
 
+    w7 = time.perf_counter()
+    phase_ckpt_headline(P, E, card, dev, head)
+    lap("7a")
+    phase_ckpt_compact(P, E, card, dev, head)
+    lap("7b")
+    phase_ckpt_sparse(P, E, card, dev)
+    lap("7c")
+    phase_ckpt_preempt(P, E, card, dev, head)
+    lap("7d")
+    phase_prefix_ablation(P, E, card, dev, head)
+    lap("7e")
+    phase_ckpt_bytes(P, E, card, dev, {
+        "config 4 (market run (a))": (market_cfg(P, **MARKET_RUNS["a"][1]),
+                                      runs["a"]["final"]),
+        "config 5 (6e)": (replay["cfg"], replay["final"])})
+    lap("7 bytes")
+    print(f"phases 7a-7e: {time.perf_counter() - w7:.1f} s")
+
     records = []
     kms = float(np.mean(check["kernel_ms"]))
     per_launch = check["read_per_launch"] + check["written_per_launch"]
@@ -5560,4 +6132,6 @@ def run_phases(device: str, sample) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--preempt-child"]:
+        sys.exit(preempt_child(sys.argv[2:]))
     sys.exit(main())

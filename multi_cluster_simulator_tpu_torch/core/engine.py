@@ -43,7 +43,9 @@ dispatch unit: one staged chunk, with every tick's ``TickIO`` stacked.
 it executes a tick only where something can happen and leaps the clock
 over the quiescent ticks between, bitwise the dense run (one small
 device-to-host read per executed tick without arrivals decides each
-leap).
+leap). ``run_prefix`` is the profile plane's ablation driver: ``run`` with
+the tick truncated after its first ``phase_limit`` phases
+(obs.profile.TICK_PHASES order).
 
 Configurations outside the slice raise ``NotImplementedError`` naming the
 ROADMAP item that ports them; nothing falls back silently.
@@ -76,7 +78,7 @@ from multi_cluster_simulator_tpu_torch.ops import runset as R
 from multi_cluster_simulator_tpu_torch.ops.queues import I32, isum
 from multi_cluster_simulator_tpu_torch.parallel.exchange import LocalExchange
 from multi_cluster_simulator_tpu_torch.policies.base import (
-    PolicyParams, PolicySet,
+    PolicyParams, PolicySet, _zero_io, params_digest,
 )
 from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
 
@@ -464,9 +466,14 @@ def _borrow_match(state: SimState, want: torch.Tensor, jobs: Q.JobRec,
     C_tot = g_want.shape[0]
     bidx = torch.arange(C_tot, dtype=I32, device=dev)
 
-    # feas[l_local, b_global]: can my lender l host borrower b's job?
+    # feas[l_local, b_global]: can my lender l host borrower b's job? As
+    # the reference asks it, of the job's cores and mem alone (its JobRec
+    # is made of those two, its core/engine.py:540-543): a gpu demand
+    # never blocks a lend
+    lend_vec = g_vec.clone()
+    lend_vec[:, Q.FGPU] = 0
     feas = P.can_lend(state.node_free[:, None], state.node_active[:, None],
-                      Q.JobRec(vec=g_vec))
+                      Q.JobRec(vec=lend_vec))
     feas &= gidx[:, None] != bidx[None, :]  # no self-lend
     feas &= g_want[None, :]
     local_best = torch.where(feas, gidx[:, None], _INF).amin(dim=0)
@@ -532,6 +539,14 @@ def _narrow_nodes(state: SimState, dtype) -> SimState:
                                                + bad_c))
 
 
+def _phase_on(phase_limit):
+    """Does phase k (obs.profile.TICK_PHASES, from 1) run under
+    ``phase_limit``? Every phase where it is None."""
+    if phase_limit is None:
+        return lambda k: True
+    return lambda k: k <= phase_limit
+
+
 def _with_owner(vec: torch.Tensor, owner: torch.Tensor) -> torch.Tensor:
     out = vec.clone()
     out[..., Q.FOWNER] = owner
@@ -594,6 +609,48 @@ class Engine:
         (``cfg.borrowing``) and no trader snapshot or market round."""
         return not self.cfg.borrowing and not self.cfg.trader.enabled
 
+    def fused_active(self) -> bool:
+        """Does this engine run the per-cluster prefix as a hand-written
+        kernel? On the card always, on the CPU never (the port has no
+        interpret mode: the CPU runs the plain version)."""
+        return self.device.type == "cuda"
+
+    def fused_provenance(self) -> dict:
+        """What a recorded number ran: the engaged span, the member and the
+        kernel that carries it (``kernels.fused_tick.provenance``)."""
+        return fused_tick.provenance(self)
+
+    def prefix_phases(self) -> tuple[str, ...]:
+        """The tick phases this config's per-cluster prefix engages, in
+        obs.profile.TICK_PHASES order (``fused_tick.engaged_span``)."""
+        return fused_tick.engaged_span(self.cfg)
+
+    def policy_provenance(self, params=None) -> dict:
+        """(registered policy name(s), params digest) for detail dicts:
+        the singleton policy with the default params, else the set."""
+        if params is None and len(self.pset.names) == 1:
+            return self.pset.provenance(self.cfg)
+        p = params if params is not None else self._default_params
+        return {"name": "|".join(self.pset.names),
+                "params_digest": params_digest(p)}
+
+    def market_provenance(self, params=None) -> dict:
+        """Which matching priced this run's trade rounds, at what solver
+        depth, under which parameter leaves (the params digest covers the
+        ``mkt_*`` leaves)."""
+        tc = self.cfg.trader
+        out = {"enabled": bool(tc.enabled),
+               "matching": tc.matching.value if tc.enabled else None}
+        if tc.enabled:
+            out["params_digest"] = params_digest(
+                params if params is not None else self._default_params)
+            if tc.matching is MatchKind.SINKHORN:
+                out.update(iters=tc.sinkhorn_iters, eps=tc.sinkhorn_eps)
+            elif tc.matching is MatchKind.CVX:
+                out.update(iters=tc.cvx_iters, step=tc.cvx_step,
+                           rho=tc.cvx_rho, smooth=tc.cvx_smooth)
+        return out
+
     def jitter(self, c_loc: int):
         """The sinkhorn/cvx tie-break table for ``c_loc`` local clusters on
         the engine's device, made on the host once per shape
@@ -620,7 +677,7 @@ class Engine:
     def _span_prefix(self, state: SimState, rows: torch.Tensor,
                      counts: torch.Tensor, t: int, params: PolicyParams,
                      member=None, emit_returns: bool = False, obs=None,
-                     windowed: bool = False):
+                     windowed: bool = False, phase_limit=None):
         """Phases 1-5 of the tick on this slice's paths, as plain PyTorch
         ops: the fault phase where ``cfg.faults`` engages it (its requeues
         into the member's ingest target), completions (and, with
@@ -641,31 +698,39 @@ class Engine:
         function. On the compact layout the node columns are widened at
         entry, and on a terminal prefix narrowed back through the checked
         exit narrow before the tap (``_narrow_nodes``); a non-terminal
-        tick narrows them after its last phase instead (``_tick``)."""
+        tick narrows them after its last phase instead (``_tick``).
+        ``phase_limit`` (the ablation's, ``run_prefix``) runs only phases
+        ``1..phase_limit`` of obs.profile.TICK_PHASES; the widen and the
+        narrow run regardless, as in the reference."""
         member = self.member(params) if member is None else member
+        on = _phase_on(phase_limit)
         node_dt = state.node_free.dtype
         state = _widen_nodes(state)
-        if self.cfg.faults.enabled:
+        if self.cfg.faults.enabled and on(1):
             state = faults_apply.fault_phase_local(state, t, self.cfg,
                                                    member.to_delay)
-        run_before = state.run
-        state, done = _release_local(state, t)
         ret_rows = ret_valid = None
-        if emit_returns:
-            ret_rows, ret_valid, dropped = _pack_returns(
-                run_before, done, self.cfg.max_msgs)
-            state = state.replace(drops=state.drops.replace(
-                msgs=state.drops.msgs + dropped))
-        if fused_tick.expires(self.cfg):
+        if on(2):
+            run_before = state.run
+            state, done = _release_local(state, t)
+            if emit_returns:
+                ret_rows, ret_valid, dropped = _pack_returns(
+                    run_before, done, self.cfg.max_msgs)
+                state = state.replace(drops=state.drops.replace(
+                    msgs=state.drops.msgs + dropped))
+        if fused_tick.expires(self.cfg) and on(3):
             state = _expire_vnodes_local(state, t)
-        if windowed:
+        if on(4) and windowed:
             state = _ingest_local(state, rows, counts, t, self.cfg,
                                   member.to_delay)
-        else:
+        elif on(4):
             state = _ingest_packed_local(state, rows, counts,
                                          member.to_delay)
-        state, want, bjob_vec = self.pset.dispatch(state, t, params,
-                                                   self.cfg, member)
+        if on(5):
+            state, want, bjob_vec = self.pset.dispatch(state, t, params,
+                                                       self.cfg, member)
+        else:
+            want, bjob_vec = _zero_io(state)
         if node_dt != I32 and self.prefix_terminal():
             state = _narrow_nodes(state, node_dt)
         obs_out = None
@@ -681,7 +746,7 @@ class Engine:
     def _tick(self, state: SimState, rows: torch.Tensor,
               counts: torch.Tensor, t: int, params: PolicyParams,
               host: dict, out: TickIO = None, obs=None,
-              windowed: bool = False):
+              windowed: bool = False, phase_limit=None):
         """One tick ending at clock ``t`` (a host int): the prefix, then
         with borrowing return delivery and borrow matching, then with the
         trader the snapshot and the market round on their cadences, then
@@ -695,20 +760,30 @@ class Engine:
         back). On the compact layout a non-terminal tick widens the node
         columns before the prefix and narrows them, checked, after the
         market round, so the phases after the prefix compute on int32 as
-        the reference's do; a terminal prefix narrows them itself."""
+        the reference's do; a terminal prefix narrows them itself.
+        ``phase_limit`` truncates the tick after its first ``phase_limit``
+        phases (``run_prefix``; the clock advances at any limit): from 5
+        up the prefix is the kernel as always; below 5 it is the plain
+        span truncated, as in the reference, where a half-span is a
+        diagnostic and not a kernel."""
         emit = self.cfg.borrowing or out is not None
         terminal = self.prefix_terminal()
         node_dt = state.node_free.dtype
         if not terminal:
             state = _widen_nodes(state)
-        with phase_scope("fused_prefix"):
-            state, *io, _ = fused_tick.fused_prefix(
-                self, state, rows, counts, t, params, host,
-                emit_returns=emit,
-                out=out if out is not None else host.get("io"),
-                obs=obs if terminal else None, windowed=windowed)
-        state = self._cross_cluster(state, *io)
-        state = self._market(state, t, params, host["jitter"])
+        if phase_limit is not None and phase_limit < 5:
+            state, *io, _ = self._span_prefix(
+                state, rows, counts, t, params, host["member"], emit,
+                windowed=windowed, phase_limit=phase_limit)
+        else:
+            with phase_scope("fused_prefix"):
+                state, *io, _ = fused_tick.fused_prefix(
+                    self, state, rows, counts, t, params, host,
+                    emit_returns=emit,
+                    out=out if out is not None else host.get("io"),
+                    obs=obs if terminal else None, windowed=windowed)
+        state = self._cross_cluster(state, *io, phase_limit=phase_limit)
+        state = self._market(state, t, params, host["jitter"], phase_limit)
         if node_dt != I32 and not terminal:
             state = _narrow_nodes(state, node_dt)
         state.t.fill_(t)
@@ -730,32 +805,37 @@ class Engine:
         mcfg = self.cfg.trader
         return mcfg.enabled and t % mcfg.monitor_period_ms == 0
 
-    def _market(self, state: SimState, t: int, params,
-                jitter) -> SimState:
-        """Phases 7 and 8 where due: the snapshot before any trade in the
-        same tick (MARKET.md §clock), then the market round."""
-        if self.snapshot_due(t):
+    def _market(self, state: SimState, t: int, params, jitter,
+                phase_limit=None) -> SimState:
+        """Phases 7 and 8 where due (and within ``phase_limit``): the
+        snapshot before any trade in the same tick (MARKET.md §clock),
+        then the market round."""
+        on = _phase_on(phase_limit)
+        if self.snapshot_due(t) and on(7):
             with phase_scope("snapshot"):
                 state = _snapshot(state)
-        if self.round_due(t):
+        if self.round_due(t) and on(8):
             with phase_scope("trade"):
                 state = market.trade_round(state, t, self.cfg, self.ex,
                                            params, jitter)
         return state
 
     def _cross_cluster(self, state: SimState, want, bjob_vec, ret_rows,
-                       ret_valid) -> SimState:
+                       ret_valid, phase_limit=None) -> SimState:
         """The phases after the prefix (none without borrowing), on the
-        prefix's outputs: return delivery, then borrow matching."""
+        prefix's outputs: return delivery (with phase 2), then borrow
+        matching (phase 6), within ``phase_limit``."""
         if not self.cfg.borrowing:
             return state
+        on = _phase_on(phase_limit)
         # 2b. return delivery: after the whole prefix, bitwise the same as
         # before it, because it touches only ``state.borrowed``, which no
         # prefix phase reads
-        with phase_scope("release"):
-            state = _deliver_returns(state, ret_rows, ret_valid, self.ex)
+        if on(2):
+            with phase_scope("release"):
+                state = _deliver_returns(state, ret_rows, ret_valid, self.ex)
         # 6. borrow matching (want is all False for non-FIFO members)
-        if self.pset.has_fifo:
+        if self.pset.has_fifo and on(6):
             with phase_scope("borrow"):
                 state = _borrow_match(state, want, Q.JobRec(vec=bjob_vec),
                                       self.cfg, self.ex)
@@ -859,6 +939,45 @@ class Engine:
                     np.ascontiguousarray(chunk.counts)).to(self.device)
             for k in range(rows.shape[0]):
                 yield rows[k], counts[k], False
+
+    def run_prefix(self, state: SimState, arrivals: st.TickArrivals,
+                   n_ticks: int, phase_limit: int, params=None) -> SimState:
+        """``run`` over a pre-bucketed stream with every tick truncated
+        after its first ``phase_limit`` phases (obs.profile.TICK_PHASES
+        order; the clock still advances at 0): the profile plane's
+        ablation driver, phase k's cost at a shape being wall(prefix k) -
+        wall(prefix k-1) on the real tick (tools/profile_capture.py).
+        From 5 up each tick launches the kernel once, as ``run`` does;
+        below 5 the truncated span runs as the plain ops on the engine's
+        device. Diagnostic only: a truncated tick is not a simulation. The
+        state is updated in place and returned."""
+        if arrivals.rows.shape[0] < n_ticks:
+            raise ValueError(
+                f"TickArrivals covers {arrivals.rows.shape[0]} ticks, "
+                f"run_prefix asked for {n_ticks}")
+        params, host, t = self._entry(state, params)
+        part = st.TickArrivals(rows=arrivals.rows[:n_ticks],
+                               counts=arrivals.counts[:n_ticks])
+        cur = state
+        for rows, counts, _ in self._chunk_feeds([part]):
+            t += self.cfg.tick_ms
+            cur, _ = self._tick(cur, rows, counts, t, params, host,
+                                phase_limit=phase_limit)
+        return _write_back(state, cur)
+
+    def step_tick(self, state: SimState, rows, counts,
+                  params=None) -> SimState:
+        """One tick of one tick's pre-bucketed arrivals (``rows [C, K,
+        NF]``, ``counts [C]``, numpy or tensors): ``run`` over one tick,
+        the environment mode's step (the reference's ``step_tick``).
+        ``params`` selects and parameterizes the pass. The state is
+        updated in place and returned."""
+        params, host, t = self._entry(state, params)
+        rows, counts = (torch.as_tensor(x).to(self.device).contiguous()
+                        for x in (rows, counts))
+        cur, _ = self._tick(state, rows, counts, t + self.cfg.tick_ms,
+                            params, host)
+        return _write_back(state, cur)
 
     def run_chunks(self, state: SimState, chunks: Sequence[st.TickArrivals],
                    params=None, mbuf=None):

@@ -10,8 +10,10 @@ profiler session is active (``start_trace`` here, or any
 ``torch.profiler.profile`` around the run), and are a null context
 otherwise: a run that nobody traces pays one flag check per scope.
 
-``Engine.run_prefix`` (the phase-prefix ablation) and
-``tools/profile_capture.py`` are still to port (ROADMAP).
+The phase-prefix ablation is ``Engine.run_prefix`` (the tick truncated
+after its first k phases of ``TICK_PHASES``), and
+``multi_cluster_simulator_tpu_torch/tools/profile_capture.py`` drives it
+and one ``start_trace`` session around a run.
 """
 
 from __future__ import annotations

@@ -15,11 +15,15 @@
   kind of the zoo; a scalar ``params.idx`` selects the member
   (``dispatch``). A batched index, the tournament's cell axis
   (``stacked_params``), is ROADMAP A13.
+- ``params_digest`` — the provenance digest of concrete parameter leaves,
+  the reference's character for character: what the checkpoint header
+  records (core/checkpoint.py) and ``PolicySet.provenance`` reports.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -139,6 +143,23 @@ def default_params(cfg: SimConfig, spec: PolicySpec, idx: int = 0,
                            for k, v in vals.items()})
 
 
+def params_digest(params: PolicyParams) -> str:
+    """Provenance digest of concrete parameter leaves (host-side): sha1[:12]
+    over each leaf's key path and C-order bytes, the leaves sorted by the
+    path's string. The path strings are the ones jax's
+    ``tree_flatten_with_path`` gives the reference's flax dataclass —
+    ``"(GetAttrKey(name='idx'),)"`` — so the digest is the reference's."""
+    h = hashlib.sha1()
+    leaves = sorted(((f"(GetAttrKey(name={f.name!r}),)",
+                      getattr(params, f.name))
+                     for f in dataclasses.fields(params)),
+                    key=lambda kv: kv[0])
+    for path, leaf in leaves:
+        h.update(path.encode())
+        h.update(np.ascontiguousarray(leaf.detach().cpu().numpy()).tobytes())
+    return h.hexdigest()[:12]
+
+
 # --------------------------------------------------------------------------
 # dispatch
 # --------------------------------------------------------------------------
@@ -219,6 +240,12 @@ class PolicySet:
         name = self.names[0] if name is None else name
         i = self.index_of(name)
         return default_params(cfg, self.specs[i], idx=i, device=device)
+
+    def provenance(self, cfg: SimConfig, name=None) -> dict:
+        """(registered name, param digest) for detail dicts."""
+        name = self.names[0] if name is None else name
+        return {"name": name,
+                "params_digest": params_digest(self.params_for(cfg, name))}
 
     def ingest_to_delay(self):
         """Arrival ingest target across the set: a bool when every member

@@ -279,6 +279,37 @@ def test_borrow_match_equals_jax(seed):
     assert (own.numpy() & want_b).any()
 
 
+@pytest.mark.parametrize("n_res", [2, 3])
+def test_borrow_match_lends_gpu_jobs_as_jax(n_res):
+    """The reference asks a lender for the wanting head's cores and mem
+    only (its JobRec is made of those two, core/engine.py:540-543): a head
+    demanding a gpu is lent wherever it fits on them, to gpu-less nodes
+    and on the narrowed n_res=2 axis too."""
+    rng = np.random.default_rng(130 + n_res)
+    cfg = dataclasses.replace(BASE, queue_capacity=QCAP, max_running=16,
+                              borrowing=True, n_res=n_res)
+    cap, active = rand_nodes(rng, n_res)
+    free = (cap * rng.uniform(0.2, 1.0, cap.shape)).astype(np.int32)
+    wait = np.broadcast_to(np.asarray(jF.QUEUE_INVALID, np.int32),
+                           (C, QCAP, jQ.NF)).copy()
+    wait[:, 0] = rand_rows(rng, (C,), gpu_frac=1.0)
+    wcount = np.ones(C, np.int32)
+    jstate = jstate_with(cfg, C, node_free=free, node_active=active,
+                         wait=jQ.JobQueue(data=wait, count=wcount))
+    want_b = rng.random(C) < 0.8
+    jobs = wait[:, 0]
+    out = jengine._borrow_match(jstate, jnp.asarray(want_b),
+                                jQ.JobRec(vec=jnp.asarray(jobs)), cfg,
+                                JLocalExchange())
+    got = tengine._borrow_match(port_of(jstate), t_(want_b),
+                                tQ.JobRec(vec=t_(jobs)), port_cfg(cfg),
+                                LocalExchange())
+    assert_leaves_equal(jax_leaves(out), interop.state_to_numpy(got))
+    lent = got.lent.data[..., tQ.FGPU][
+        torch.arange(QCAP)[None, :] < got.lent.count[:, None]]
+    assert int((lent > 0).sum()) > 0, "no gpu job was lent"
+
+
 def test_local_exchange_equals_jax():
     x = np.arange(12, dtype=np.int32).reshape(4, 3) - 5
     j, t = JLocalExchange(), LocalExchange()

@@ -196,7 +196,41 @@ holds each path's hand-written kernel against its plain PyTorch version:
       launched once a tick from limit 5 and never below, the whole tick
       bitwise ``run``; a ``start_trace`` session holding the
       ``tick.fused_prefix`` range and the kernel; and the checkpoint bytes
-      of config 4's and config 5's final states.
+      of config 4's and config 5's final states;
+8. the lane axis: a batch of L constellations as one lane-stacked run,
+   each kernel source launched once a tick over all L C clusters, its
+   parameters read per lane (the launch counts set to 0 just before each
+   main-path drive and read just after):
+   a. bench.py bench_tenants' full shape (256 tenants x 2 clusters, 32
+      ticks, 262,144 jobs, a fault seed and a threshold a tenant): one
+      FIFO launch a tick; every job placed, no drops; tenants {0, 85,
+      170, 255} == their standalone ``Engine.run``; the whole batch ==
+      the plain per-lane loop on the card over its first 4 ticks with the
+      metrics plane on (each tenant's buffer its own); every launch of a
+      run timed, 2 held against the plain loop; the batch's wall against
+      the serial loop of 256 standalone runs; the lane form's launch
+      beside the one-lane launch over the same 512 clusters;
+   b. tools/tournament.py's lineup plus rl (a seeded action) as one
+      PolicySet, two tenants a member under a batched ``params.idx``, on
+      the tournament's world (64 clusters, its first 60 ticks): one launch
+      a kernel source a tick (DELAY's variants in one, gavel, tesserae
+      and rl in one), every lane == its standalone run, the masked lane
+      forms == the plain loop at sampled ticks, each source timed on its
+      own lanes;
+   c. tests/test_tenancy.py's compact, compressed and generative-fault
+      worlds tiled to 64 tenants (sampled tenants == standalone), and 4
+      tenants of config 2's pair with borrowing and the greedy market,
+      800 ticks, each == its standalone run;
+   d. bench.py bench_env's full shape (1,024 envs x 8 clusters, episodes
+      of 50 ticks, 125 steps, the rl action port): every episode counter
+      reads 2, no drops, one scored launch a step, the timed step loop
+      under ``torch.cuda.set_sync_debug_mode("error")``, envs x steps a
+      second against a serial loop of single-env steps, the scored lane
+      form beside its one-lane launch over the same 8,192 clusters;
+   e. the env at 8d's shape, 50 steps, a distinct seeded action a env:
+      the scored lane form == the plain per-lane loop at sampled steps,
+      every leaf; a batch-1 replay env == ``Engine.run`` over the same
+      bucketed arrivals.
 
 Every number is printed beside the card's name and power limit. The last
 lines are a JSON record of each kernel (its time per launch, the plain
@@ -309,6 +343,20 @@ PROBE_REPS = 500  # 6a's timed probes, each way
 # bench.py's --time-compress auto thresholds (bench.py:94-95)
 COMPRESS_AUTO_GAP, COMPRESS_AUTO_EMPTY_FRAC = 8, 0.5
 # where the sample's process leaves the joined jobs, and how long 6e waits
+# phases 8a-8e, the lane axis: bench.py bench_tenants' full shape (8a),
+# the tournament's lineup with rl as a mixed batch on its world (8b, cut
+# to its first ticks), tests/test_tenancy.py's worlds tiled (8c; config
+# 2's pair with borrowing and the greedy market at 4 tenants), bench.py
+# bench_env's full shape (8d, 8e)
+TENANTS_T, TENANTS_C, TENANTS_TICKS, TENANTS_JOBS = 256, 2, 32, 512
+TENANTS_PLAIN_TICKS = 4  # 8a's whole batch against the plain per-lane loop
+TENANTS_WALLS = 3
+LANE_REPS = 20  # timed launches of a lane form and of its one-lane twin
+MIXED_C, MIXED_TICKS = 64, 60
+COMPOSED_T, COMPOSED_BORROW_TICKS = 64, 800
+ENV_B, ENV_C, ENV_EP, ENV_STEPS = 1024, 8, 50, 125
+ENV_WALLS, ENV_SERIAL = 2, 16
+ENV_LANE_STEPS, ENV_PLAIN_STEPS = 50, (1, 30)
 BORG_JOBS_NPZ = "build/borg_jobs.npz"
 BORG_SAMPLE_TIMEOUT_S = 600
 
@@ -5689,6 +5737,814 @@ def preempt_child(argv) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phases 8a-8e: the lane axis — tenant batches and env batches, each kernel
+# launched once a tick over every lane, its parameters read per lane
+# ---------------------------------------------------------------------------
+
+def lane_flat(state):
+    """A lane-stacked state's clusters end to end ([L C, ...] views) as one
+    constellation, with lane 0's clock."""
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+
+    return fused_tick._flat(state, (".t",)).replace(t=state.t[0])
+
+
+def lane_sync():
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+class LaneProbe:
+    """Stands in for ``fused_tick.fused_prefix_lanes`` during one run on
+    the card: each launch between a CUDA event pair with the card kept
+    busy ahead of it, the tick's least bytes and operations counted by
+    ``cost(before, after, rows, counts, t)`` on the batch's clusters end
+    to end, and at the ticks whose ordinal is in ``picks`` the launch held
+    against the plain per-lane loop (``fused_prefix_lanes_reference`` on
+    the card, timed) on copies of the state the run reached, every leaf
+    (and with the plane, every buffer and cursor leaf) bitwise. Install it
+    with ``with probe:``."""
+
+    def __init__(self, cost, picks):
+        from multi_cluster_simulator_tpu_torch.core.state import clone_state
+        from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+
+        self.ft, self.clone = fused_tick, clone_state
+        self.cost, self.picks = cost, set(picks)
+        self.real = fused_tick.fused_prefix_lanes
+        self.evs, self.plain_ms = [], []
+        self.read, self.written, self.ops, self.worst, self.n = 0, 0, 0, 0.0, 0
+
+    def __enter__(self):
+        self.ft.fused_prefix_lanes = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ft.fused_prefix_lanes = self.real
+
+    def compare(self, engine, state, rows, counts, t, params, host, emit,
+                obs):
+        """The launch on a copy against the plain per-lane loop on
+        another; raises on any difference. The comparison's launch is not
+        counted."""
+        saved = self.ft.launch_counts()
+        ref = self.clone(state)
+        ref_obs = None if obs is None else tuple(map(self.clone, obs))
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        _, *ref_io, _ = self.ft.fused_prefix_lanes_reference(
+            engine, ref, rows, counts, t, params, host, emit, None, ref_obs)
+        ev[1].record()
+        got = self.clone(state)
+        got_obs = None if obs is None else tuple(map(self.clone, obs))
+        _, *io, _ = self.real(engine, got, rows, counts, t, params, host,
+                              emit, None, got_obs)
+        torch.cuda.synchronize()
+        for k in self.ft.KERNELS.values():
+            k.launches = saved[k.name]
+        self.plain_ms.append(ev[0].elapsed_time(ev[1]))
+        d = max_abs_diff(ref, got)
+        if emit:
+            d = max(d, io_diff(ref_io, io))
+        if obs is not None:
+            d = max(d, max_abs_diff(ref_obs[0], got_obs[0]),
+                    max_abs_diff(ref_obs[1], got_obs[1]))
+        if d:
+            raise AssertionError(f"lane form differs from the plain per-lane "
+                                 f"loop at t={t}: max |diff| {d}")
+        self.worst, self.n = max(self.worst, d), self.n + 1
+
+    def __call__(self, engine, state, rows, counts, t, params, host,
+                 emit_returns=False, out=None, obs=None, windowed=False):
+        if len(self.evs) in self.picks:
+            self.compare(engine, state, rows, counts, t, params, host,
+                         emit_returns, obs)
+        before = self.clone(state)
+        self.ft.prepare_lanes(engine, state, host, emit_returns, obs)
+        ev = timed_launch_events()
+        ev[0].record()
+        res = self.real(engine, state, rows, counts, t, params, host,
+                        emit_returns, out, obs, windowed)
+        ev[1].record()
+        self.evs.append(ev)
+        L, C = state.arr_ptr.shape
+        r, w, o = self.cost(lane_flat(before), lane_flat(state),
+                            rows.view(L * C, *rows.shape[2:]),
+                            counts.view(L * C), t)
+        self.read, self.written, self.ops = (self.read + r, self.written + w,
+                                             self.ops + o)
+        return res
+
+    def summary(self):
+        torch.cuda.synchronize()
+        n = max(len(self.evs), 1)
+        return dict(kernel_ms=[a.elapsed_time(b) for a, b in self.evs],
+                    read=int(self.read) / n, written=int(self.written) / n,
+                    ops=int(self.ops) / n, plain_ms=self.plain_ms,
+                    worst=self.worst, compared=self.n)
+
+
+def lane_vs_one_lane(E, engine, state, rows, counts, t, params, reps):
+    """The lane form's launch (``fused_prefix_lanes``) and the one-lane
+    kernel's over the same L C clusters as one constellation
+    (``fused_prefix`` on the clusters end to end, the lanes' shared
+    parameters), each ``reps`` times on copies of ``state`` in turns, by
+    CUDA events: (lane ms, one-lane ms) a launch. The launch counts are
+    restored after."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+
+    saved = fused_tick.launch_counts()
+    L, C = state.arr_ptr.shape
+    host = fused_tick.host_params(engine, engine.lane_params(params, L))
+    p1 = fused_tick.lane(engine.lane_params(params, L), 0)
+    host1 = fused_tick.host_params(engine, p1)
+    rows1, counts1 = rows.view(L * C, *rows.shape[2:]), counts.view(L * C)
+    lane_ms, one_ms = [], []
+    for _ in range(reps):
+        for form in ("lane", "one"):
+            s = clone_state(state)
+            if form == "lane":
+                fused_tick.prepare_lanes(engine, s, host)
+                ev = timed_launch_events()
+                ev[0].record()
+                fused_tick.fused_prefix_lanes(engine, s, rows, counts, t,
+                                              params, host)
+                ev[1].record()
+                lane_ms.append(ev)
+            else:
+                s1 = lane_flat(s)
+                fused_tick.prepare(engine, s1, host1)
+                ev = timed_launch_events()
+                ev[0].record()
+                fused_tick.fused_prefix(engine, s1, rows1, counts1, t, p1,
+                                        host1)
+                ev[1].record()
+                one_ms.append(ev)
+    torch.cuda.synchronize()
+    for k in fused_tick.KERNELS.values():
+        k.launches = saved[k.name]
+    return (float(np.mean([a.elapsed_time(b) for a, b in lane_ms])),
+            float(np.mean([a.elapsed_time(b) for a, b in one_ms])))
+
+
+def group_launches(engine, state, rows, counts, t, params, costs, reps):
+    """Each kernel source's launch over its own lanes alone (the lane form
+    with the other sources' lanes masked out), ``reps`` times on copies
+    of ``state`` by CUDA events, and the least bytes and operations of the
+    lanes it carries (``costs[lib](before, after, rows, counts, t,
+    tesserae)`` on those lanes' clusters end to end; the scored source's
+    table and tesserae lanes counted apart). Returns {lib: dict(ms, read,
+    written, ops, lanes)}; the launch counts are restored after."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.utils.tree import tree_map
+
+    saved = fused_tick.launch_counts()
+    L, C = state.arr_ptr.shape
+    host = fused_tick.host_params(engine, engine.lane_params(params, L))
+    out = {}
+    for g in host["groups"]:
+        lib = g.kernels["kernel"].lib
+        one = dict(host, groups=[g])
+        evs = []
+        for _ in range(reps):
+            s = clone_state(state)
+            fused_tick.prepare_lanes(engine, s, one)
+            ev = timed_launch_events()
+            ev[0].record()
+            fused_tick.launch_lanes(engine, s, rows, counts, t, one)
+            ev[1].record()
+            evs.append(ev)
+        after = clone_state(state)
+        fused_tick.launch_lanes(engine, after, rows, counts, t, one)
+        read = written = ops = 0
+        mine = [i for i, spec in enumerate(host["specs"])
+                if fused_tick.kernel_for(spec).lib == lib]
+        for tess in (False, True):
+            idx = [i for i in mine
+                   if (host["specs"][i].kind == "tesserae") == tess]
+            if not idx:
+                continue
+            ix = torch.tensor(idx, device=rows.device)
+
+            def pick(x):
+                if x.dtype == torch.uint32:  # no index kernel for uint32
+                    return x.view(torch.int32)[ix].view(torch.uint32)
+                return x[ix]
+            b, a = (lane_flat(tree_map(pick, x)) for x in (state, after))
+            r = rows[ix].reshape(len(idx) * C, *rows.shape[2:])
+            c = counts[ix].reshape(-1)
+            rd, wr, op = costs[lib](b, a, r, c, t, tess)
+            read, written, ops = (read + int(rd), written + int(wr),
+                                  ops + int(op))
+        torch.cuda.synchronize()
+        out[lib] = dict(ms=float(np.mean([a.elapsed_time(b)
+                                          for a, b in evs])),
+                        read=read, written=written, ops=ops,
+                        lanes=len(mine))
+    for k in fused_tick.KERNELS.values():
+        k.launches = saved[k.name]
+    return out
+
+
+def expect_lane_launches(counts, allowed, n_ticks, what):
+    """Each kernel in ``allowed`` launched exactly ``n_ticks`` times (one
+    launch a tick over every lane), every other kernel never."""
+    want = {k: (n_ticks if k in allowed else 0) for k in counts}
+    if counts != want:
+        got = {k: v for k, v in counts.items() if v}
+        raise AssertionError(f"{what}: launches {got}, want "
+                             f"{ {k: n_ticks for k in allowed} }")
+
+
+def tenant_world(P, E, dev, T, C, n_ticks, jobs, seed0=11):
+    """bench.py bench_tenants' world (bench.py:2079-2250) as the port's: T
+    tenants of C clusters, FIFO parity on lean shapes, a fault seed and a
+    promotion threshold a tenant, the streams padded to the tenant-max K
+    and stacked."""
+    from multi_cluster_simulator_tpu_torch import tenancy
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        uniform_stream,
+    )
+
+    cfg = P.SimConfig(policy=P.PolicyKind.FIFO, parity=True, n_res=2,
+                      queue_capacity=64, max_running=128, max_arrivals=64,
+                      max_ingest_per_tick=64, max_nodes=5,
+                      max_virtual_nodes=0)
+    specs = [P.uniform_cluster(c + 1, 5) for c in range(C)]
+    tb = tenancy.TenantBatch(cfg, specs, device=dev)
+    cells = []
+    for i in range(T):
+        cell = tenancy.default_tenant_params(cfg, pset=tb.engine.pset,
+                                             fault_seed=i, device=dev)
+        cells.append(cell.replace(policy=cell.policy.replace(
+            max_wait_ms=torch.tensor(2_000 + 250 * i, dtype=torch.int32,
+                                     device=dev))))
+    tp = tenancy.stack_tenant_params(cells)
+    tas = [E.pack_arrivals_by_tick(
+        uniform_stream(C, jobs, n_ticks * cfg.tick_ms, 4, 2_000,
+                       2 * cfg.tick_ms, seed=seed0 + i), n_ticks, cfg.tick_ms)
+        for i in range(T)]
+    k = max(ta.rows.shape[2] for ta in tas)
+    tas = [tenancy.pad_tick_arrivals(ta, k) for ta in tas]
+    return dict(cfg=cfg, specs=specs, tb=tb, tp=tp, tas=tas,
+                sta=tenancy.stack_tick_arrivals(tas), jobs=T * C * jobs)
+
+
+def cut_ticks(sta, n):
+    from multi_cluster_simulator_tpu_torch.core.state import TickArrivals
+
+    return TickArrivals(rows=np.ascontiguousarray(sta.rows[:, :n]),
+                        counts=np.ascontiguousarray(sta.counts[:, :n]))
+
+
+def phase_tenants(P, E, card, dev):
+    """Phase 8a: bench_tenants' full shape (256 tenants x 2 clusters, 32
+    ticks, 262,144 jobs) as one lane-stacked run: one FIFO launch a tick
+    over all 512 clusters; every job placed, no drops; sampled tenants ==
+    their standalone runs; the whole batch == the plain per-lane loop (the
+    first ticks, every lane, the plane on: each tenant's buffer its own);
+    batch and serial walls; the lane form's launch beside the one-lane
+    launch over the same 512 clusters."""
+    from multi_cluster_simulator_tpu_torch import tenancy
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+
+    w = tenant_world(P, E, dev, TENANTS_T, TENANTS_C, TENANTS_TICKS,
+                     TENANTS_JOBS)
+    tb, tp, sta, T, NT = w["tb"], w["tp"], w["sta"], TENANTS_T, TENANTS_TICKS
+    eng = tb.engine
+    s0 = tb.init_stacked(tp)
+    run = tb.run_fn(NT)
+    run(clone_state(s0), sta, tp)  # warm-up: the kernel built and loaded
+    out = clone_state(s0)
+    w0 = lane_sync()
+    fused_tick.reset_launches()
+    out = run(out, sta, tp)
+    wall = lane_sync() - w0
+    counts = fused_tick.launch_counts()
+    expect_lane_launches(counts, {"fused_prefix_fifo"}, NT, "8a")
+    placed = tenancy.aggregate_placed(out)
+    drops = tenancy.aggregate_drops(out)
+    if placed != w["jobs"] or any(drops.values()):
+        raise AssertionError(f"8a: placed {placed} of {w['jobs']}, drops "
+                             f"{drops}")
+    sampled = sorted({0, T // 3, 2 * T // 3, T - 1})
+    for i in sampled:
+        cell = tenancy.tenant_cell(tp, i)
+        solo = eng.run(tenancy.init_tenant_state(w["cfg"], w["specs"], cell,
+                                                 device=dev),
+                       w["tas"][i], NT, params=cell.policy)
+        d = max_abs_diff(solo, tenancy.tenant_cell(out, i))
+        if d:
+            raise AssertionError(f"8a: tenant {i} differs from its "
+                                 f"standalone run by {d}")
+    # the whole batch against the plain per-lane loop, the plane on (the
+    # tap form, each tenant's buffer its own): every leaf, every lane
+    part = cut_ticks(sta, TENANTS_PLAIN_TICKS)
+    want = clone_state(s0)
+    mb_want = tb.metrics_init(want)
+    real = fused_tick.fused_prefix_lanes
+    fused_tick.fused_prefix_lanes = fused_tick.fused_prefix_lanes_reference
+    try:
+        w0 = lane_sync()
+        want, mb_want = eng.run(want, part, TENANTS_PLAIN_TICKS, tp.policy,
+                                mbuf=mb_want)
+        plain_wall = lane_sync() - w0
+    finally:
+        fused_tick.fused_prefix_lanes = real
+    got = clone_state(s0)
+    got, mb_got = eng.run(got, part, TENANTS_PLAIN_TICKS, tp.policy,
+                          mbuf=tb.metrics_init(got))
+    d = max(max_abs_diff(want, got), max_abs_diff(mb_want, mb_got))
+    if d:
+        raise AssertionError(f"8a: the batch differs from the plain per-lane "
+                             f"loop by {d}")
+    # the sampled pass: every launch timed, some held against the plain loop
+    probe = LaneProbe(lambda b, a, r, c, t: (*tick_bytes(b, a, r, c, t,
+                                                         False), 0),
+                      picks=(0, NT - 1))
+    with probe:
+        mid = run(clone_state(s0), sta, tp)
+    sp = probe.summary()
+    # walls: the batch (min of runs) and the serial loop of T standalone
+    # runs on the same engine
+    walls = []
+    for _ in range(TENANTS_WALLS):
+        s = clone_state(s0)
+        w0 = lane_sync()
+        run(s, sta, tp)
+        walls.append(lane_sync() - w0)
+    cells = [tenancy.tenant_cell(tp, i) for i in range(T)]
+    solos = [tenancy.init_tenant_state(w["cfg"], w["specs"], c, device=dev)
+             for c in cells]
+    w0 = lane_sync()
+    for i in range(T):
+        eng.run(solos[i], w["tas"][i], NT, params=cells[i].policy)
+    serial = lane_sync() - w0
+    batch = min(walls)
+    if batch >= serial:
+        raise AssertionError(f"8a: the batch ({batch:.4f} s) did not beat "
+                             f"the serial loop ({serial:.4f} s)")
+    # the lane form's launch beside the one-lane launch over the same
+    # 512 clusters, at the state the run reaches half way
+    tick = NT // 2
+    half = eng.run(clone_state(s0), cut_ticks(sta, tick), tick, tp.policy)
+    rows = torch.from_numpy(np.ascontiguousarray(sta.rows[:, tick])).to(dev)
+    cnts = torch.from_numpy(np.ascontiguousarray(sta.counts[:, tick])).to(dev)
+    lane_ms, one_ms = lane_vs_one_lane(E, eng, half, rows, cnts,
+                                       (tick + 1) * w["cfg"].tick_ms,
+                                       tp.policy, LANE_REPS)
+    b_ms, b_by = bound(sp["read"], sp["written"])
+    print(f"phase 8a: {T} tenants x {TENANTS_C} clusters, {NT} ticks, "
+          f"{w['jobs']} jobs: placed {placed}, drops {drops}; launches "
+          f"{counts['fused_prefix_fifo']} (one a tick over all "
+          f"{T * TENANTS_C} clusters); tenants {sampled} == standalone; the "
+          f"batch == the plain per-lane loop over {TENANTS_PLAIN_TICKS} "
+          f"ticks with the plane on ({plain_wall:.2f} s plain); batch wall "
+          f"{batch:.4f} s (walls {[round(x, 4) for x in walls]}, counted run "
+          f"{wall:.4f} s), serial loop of {T} standalone runs {serial:.4f} s,"
+          f" ratio {serial / batch:.1f}x; {w['jobs'] / batch:.0f} jobs/s "
+          f"[{card}]")
+    print(f"phase 8a: lane form {lane_ms * 1e3:.2f} us/launch ({T} lanes x "
+          f"{TENANTS_C}) vs one-lane {one_ms * 1e3:.2f} us/launch (1 x "
+          f"{T * TENANTS_C}), {LANE_REPS} each in turns; sampled pass "
+          f"{np.mean(sp['kernel_ms']) * 1e3:.2f} us/launch over "
+          f"{len(sp['kernel_ms'])} launches, bound {b_ms * 1e3:.4f} us by "
+          f"{b_by} ({sp['read'] + sp['written']:.1f} B a launch), plain "
+          f"per-lane loop {np.mean(sp['plain_ms']):.2f} ms a tick "
+          f"({sp['compared']} ticks held bitwise) [{card}]")
+    rec = dict(kernel=fused_tick.KERNELS["fused_prefix_fifo"],
+               name=f"fused_prefix_fifo (lanes {T}x{TENANTS_C})",
+               launches=counts["fused_prefix_fifo"], worst=sp["worst"],
+               ms=float(np.mean(sp["kernel_ms"])), plain=sp["plain_ms"],
+               bound=(b_ms, b_by), lane_ms=lane_ms, one_ms=one_ms)
+    return dict(world=w, out=out, record=rec, mid=mid)
+
+
+def tournament_specs(P, C):
+    """tools/tournament.py _specs: five 32-core nodes, the last two typed as
+    accelerators (device type 1)."""
+    return [P.ClusterSpec(id=c + 1, nodes=tuple(
+        P.NodeSpec(id=i + 1, cores=32, memory=24_000,
+                   device_type=1 if i >= 3 else 0) for i in range(5)))
+        for c in range(C)]
+
+
+def phase_mixed_tenants(P, E, card, dev):
+    """Phase 8b: the tournament's lineup plus rl (a seeded action) as one
+    PolicySet, two tenants a member under a batched idx, on the
+    tournament's world (tools/tournament.py _specs(64), _cfg()): at most
+    one launch a kernel source a tick (DELAY's three variants in one
+    DELAY launch, gavel, tesserae and rl in one scored launch), every lane
+    == its standalone run, the masked lane forms == the plain per-lane
+    loop at sampled ticks."""
+    from multi_cluster_simulator_tpu_torch import tenancy
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        clone_state, init_state,
+    )
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        uniform_stream,
+    )
+
+    names = LINEUP + ("rl",)
+    cfg = P.SimConfig(policy=P.PolicyKind.FIFO, parity=True, n_res=2,
+                      queue_capacity=96, max_running=96, max_arrivals=120,
+                      max_ingest_per_tick=32, max_nodes=5,
+                      max_virtual_nodes=0)
+    pset = PolicySet(names)
+    eng = E.Engine(cfg, device=dev, policies=pset)
+    specs = tournament_specs(P, MIXED_C)
+    seeds = (17, 18)  # the tournament's first two seeds, a tenant each
+    arrs = {s: uniform_stream(MIXED_C, 120, 240_000, max_cores=24,
+                              max_mem=18_000, max_dur_ms=30_000, seed=s)
+            for s in seeds}
+    tas = {s: E.pack_arrivals_by_tick(a, MIXED_TICKS, cfg.tick_ms)
+           for s, a in arrs.items()}
+    k = max(ta.rows.shape[2] for ta in tas.values())
+    tas = {s: tenancy.pad_tick_arrivals(ta, k) for s, ta in tas.items()}
+    scores = torch.from_numpy(np.random.default_rng(17).normal(
+        size=(4, 4)).astype(np.float32)).to(dev)
+    lanes = [(n, s) for n in names for s in seeds]
+    cells = []
+    for n, _ in lanes:
+        p = pset.params_for(cfg, n, device=dev)
+        cells.append(p.replace(rl_scores=scores) if n == "rl" else p)
+    params = tenancy.stack_lanes(cells)
+    sta = tenancy.stack_tick_arrivals([tas[s] for _, s in lanes])
+    s0 = tenancy.stack_tenant_states(
+        [init_state(cfg, specs, device=dev) for _ in lanes])
+    eng.run(clone_state(s0), cut_ticks(sta, 2), 2, params)  # warm-up
+    w0 = lane_sync()
+    fused_tick.reset_launches()
+    out = eng.run(clone_state(s0), sta, MIXED_TICKS, params)
+    wall = lane_sync() - w0
+    counts = fused_tick.launch_counts()
+    sources = {"fused_prefix_fifo", "fused_prefix_ffd", "fused_prefix_delay",
+               "fused_prefix_scored"}
+    expect_lane_launches(counts, sources, MIXED_TICKS, "8b")
+    for i, (n, s) in enumerate(lanes):
+        solo = eng.run(init_state(cfg, specs, device=dev), tas[s],
+                       MIXED_TICKS, cells[i])
+        d = max_abs_diff(solo, tenancy.tenant_cell(out, i))
+        if d:
+            raise AssertionError(f"8b: lane {i} ({n}, seed {s}) differs from "
+                                 f"its standalone run by {d}")
+    QC = cfg.queue_capacity
+    probe = LaneProbe(lambda b, a, r, c, t: (0, 0, 0),
+                      picks=(1, MIXED_TICKS // 2))
+    with probe:
+        eng.run(clone_state(s0), sta, MIXED_TICKS, params)
+    sp = probe.summary()
+    # each source's launch on its own lanes, at the state half way
+    tick = MIXED_TICKS // 2
+    half = eng.run(clone_state(s0), cut_ticks(sta, tick), tick, params)
+    rows = torch.from_numpy(np.ascontiguousarray(sta.rows[:, tick])).to(dev)
+    cnts = torch.from_numpy(np.ascontiguousarray(sta.counts[:, tick])).to(dev)
+    costs = {
+        "fused_prefix_fifo": lambda b, a, r, c, t, tess: (
+            *tick_bytes(b, a, r, c, t, False), 0),
+        "fused_prefix_ffd": lambda b, a, r, c, t, tess: tick_cost_ffd(
+            b, a, r, c, t, False, QC),
+        "fused_prefix_delay": lambda b, a, r, c, t, tess: tick_cost_delay(
+            b, a, r, c, t, False, QC),
+        "fused_prefix_scored": lambda b, a, r, c, t, tess: tick_cost_scored(
+            b, a, r, c, t, False, QC, tess)}
+    groups = group_launches(eng, half, rows, cnts,
+                            (tick + 1) * cfg.tick_ms, params, costs,
+                            LANE_REPS)
+    print(f"phase 8b: {len(lanes)} tenants ({len(names)} members x 2) x "
+          f"{MIXED_C} clusters, {MIXED_TICKS} ticks: launches "
+          f"{ {k: v for k, v in counts.items() if v} } (one a source a "
+          f"tick); every lane == its standalone run; {sp['compared']} ticks "
+          f"== the plain per-lane loop (plain {np.mean(sp['plain_ms']):.2f} "
+          f"ms a tick); wall {wall:.3f} s, the tick's launches "
+          f"{np.mean(sp['kernel_ms']) * 1e3:.2f} us together [{card}]")
+    recs = []
+    for name in sorted(sources):
+        g = groups[name]
+        b_ms, b_by = bound(g["read"], g["written"], g["ops"])
+        print(f"phase 8b: {name} on its {g['lanes']} lanes (the others "
+              f"masked): {g['ms'] * 1e3:.2f} us/launch over {LANE_REPS}, "
+              f"bound {b_ms * 1e3:.4f} us by {b_by} "
+              f"({g['read'] + g['written']:.1f} B, {g['ops']:.0f} ops) "
+              f"[{card}]")
+        recs.append(dict(kernel=fused_tick.KERNELS[name],
+                         name=f"{name} (lanes {len(lanes)}x{MIXED_C}, mixed)",
+                         launches=counts[name], worst=sp["worst"],
+                         ms=g["ms"], plain=sp["plain_ms"],
+                         bound=(b_ms, b_by)))
+    return dict(records=recs)
+
+
+def test_tenancy_world(P, dev, **kw):
+    """tests/test_tenancy.py's world (tests/test_pipeline.py _cfg, 3
+    clusters, 8 ticks of 12 jobs a cluster)."""
+    base = dict(policy=P.PolicyKind.FIFO, parity=True, n_res=2,
+                queue_capacity=16, max_running=32, max_arrivals=16,
+                max_ingest_per_tick=8, max_nodes=5, max_virtual_nodes=0)
+    base.update(kw)
+    return P.SimConfig(**base), [P.uniform_cluster(c + 1, 5)
+                                 for c in range(3)]
+
+
+def phase_tenants_composed(P, E, card, dev):
+    """Phase 8c: tests/test_tenancy.py's compact, compressed and
+    generative-fault worlds tiled to 64 tenants, each sampled lane ==
+    its standalone run; then 4 tenants of config 2's pair with borrowing
+    and the greedy market, each == its standalone run."""
+    from multi_cluster_simulator_tpu_torch import tenancy
+    from multi_cluster_simulator_tpu_torch.core import compact as CC
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.workload.generator import (
+        generate_arrivals,
+    )
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        uniform_stream,
+    )
+
+    T, NT = COMPOSED_T, 8
+    sampled = sorted({0, T // 3, 2 * T // 3, T - 1})
+    worlds = {
+        "compact": dict(),
+        "compressed": dict(),
+        "generative faults": dict(faults=P.FaultConfig(
+            enabled=True, mode="generative", mttf_ms=4_000, mttr_ms=2_000,
+            seed=3)),
+    }
+    for label, kw in worlds.items():
+        cfg, specs = test_tenancy_world(P, dev, **kw)
+        arrs = [uniform_stream(3, 12, NT * cfg.tick_ms, 24, 18_000,
+                               3 * cfg.tick_ms, seed=7 + i) for i in range(T)]
+        plan = CC.derive_plan(cfg, specs, arrs[0]) if label == "compact" \
+            else None
+        tb = tenancy.TenantBatch(cfg, specs, plan=plan, device=dev)
+        tp = tb.default_params(T)
+        tas = [E.pack_arrivals_by_tick(a, NT, cfg.tick_ms) for a in arrs]
+        k = max(ta.rows.shape[2] for ta in tas)
+        tas = [tenancy.pad_tick_arrivals(ta, k) for ta in tas]
+        sta = tenancy.stack_tick_arrivals(tas)
+        fused_tick.reset_launches()
+        if label == "compressed":
+            out = tb.run_compressed_fn(NT)(tb.init_stacked(tp), sta, tp)
+        else:
+            out, _ = tb.run_io_fn()(tb.init_stacked(tp), sta.rows,
+                                    sta.counts, tp)
+        counts = {k: v for k, v in fused_tick.launch_counts().items() if v}
+        for i in sampled:
+            cell = tenancy.tenant_cell(tp, i)
+            s_i = tenancy.init_tenant_state(cfg, specs, cell, plan=plan,
+                                            device=dev)
+            if label == "compressed":
+                solo = tb.engine.run_compressed(s_i, tas[i], NT,
+                                                params=cell.policy)[0]
+            else:
+                solo, _ = tb.engine.run_io(s_i, tas[i].rows, tas[i].counts,
+                                           params=cell.policy)
+            d = max_abs_diff(solo, tenancy.tenant_cell(out, i))
+            if d:
+                raise AssertionError(f"8c {label}: tenant {i} differs from "
+                                     f"its standalone run by {d}")
+        if label == "generative faults" and max_abs_diff(
+                tenancy.tenant_cell(out, 0).faults,
+                tenancy.tenant_cell(out, 1).faults) == 0:
+            raise AssertionError("8c: tenants 0 and 1 ran one fault timeline")
+        print(f"phase 8c: {label}: {T} tenants x 3 clusters, {NT} ticks, "
+              f"launches {counts}; tenants {sampled} == standalone [{card}]")
+    # config 2's pair with borrowing and the greedy market, 4 tenants
+    cfg = borrow_cfg(P, {})
+    specs = borrow_specs(P, 2)
+    eng = E.Engine(cfg, device=dev)
+    tas = []
+    for i in range(4):
+        arr = generate_arrivals(P.WorkloadConfig(poisson_lambda_per_min=30.0),
+                                2, 4096, BORROW_HORIZON_MS, 32, 24_000,
+                                seed=9 + i)
+        tas.append(E.pack_arrivals_by_tick(arr, COMPOSED_BORROW_TICKS,
+                                           cfg.tick_ms))
+    k = max(ta.rows.shape[2] for ta in tas)
+    tas = [tenancy.pad_tick_arrivals(ta, k) for ta in tas]
+    s0 = tenancy.stack_tenant_states(
+        [init_state(cfg, specs, device=dev) for _ in tas])
+    fused_tick.reset_launches()
+    out = eng.run(s0, tenancy.stack_tick_arrivals(tas),
+                  COMPOSED_BORROW_TICKS)
+    counts = {k: v for k, v in fused_tick.launch_counts().items() if v}
+    for i in range(4):
+        solo = eng.run(init_state(cfg, specs, device=dev), tas[i],
+                       COMPOSED_BORROW_TICKS)
+        d = max_abs_diff(solo, tenancy.tenant_cell(out, i))
+        if d:
+            raise AssertionError(f"8c borrowing: tenant {i} differs from its "
+                                 f"standalone run by {d}")
+    lent = int(out.lent.count.sum() + out.borrowed.count.sum())
+    vnodes = int((out.node_active[..., cfg.max_nodes:]).sum())
+    print(f"phase 8c: config 2 pair, borrowing + greedy market, 4 tenants, "
+          f"{COMPOSED_BORROW_TICKS} ticks: launches {counts}; each tenant == "
+          f"its standalone run ({int(out.placed_total.sum())} placements, "
+          f"{lent} lent/borrowed rows held, {vnodes} virtual nodes active) "
+          f"[{card}]")
+
+
+def env_world(P, dev, B=None):
+    """bench.py bench_env's full shape (bench.py:2632-): 1,024 envs of 8
+    clusters, episodes of 50 ticks, the generative stream, FIFO parity on
+    queue 16 / running 64, the rl action port, neg_mean_wait."""
+    from multi_cluster_simulator_tpu_torch.envs import ClusterEnv, StreamGen
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+
+    cfg = P.SimConfig(policy=P.PolicyKind.FIFO, parity=True, n_res=2,
+                      queue_capacity=16, max_running=64, max_arrivals=8,
+                      max_ingest_per_tick=8, max_nodes=5,
+                      max_virtual_nodes=0)
+    specs = [P.uniform_cluster(c + 1, 5) for c in range(ENV_C)]
+    gen = StreamGen(rate=2.0, k_max=8, max_cores=8, max_mem=6_000,
+                    max_dur_ms=15_000)
+    return cfg, specs, ClusterEnv(cfg, specs, episode_ticks=ENV_EP, gen=gen,
+                                  policies=PolicySet(("rl",)),
+                                  reward="neg_mean_wait", device=dev)
+
+
+def phase_env(P, E, card, dev):
+    """Phase 8d: the env at bench_env's full shape, 125 steps: auto-reset
+    engages (every env's episode counter reads 2), no drops, the timed
+    step loop under torch.cuda.set_sync_debug_mode("error") (no host
+    synchronisation in a step, auto-reset included), the batched step
+    against a serial loop of single-env steps, envs x steps a second; the
+    scored kernel's lane form beside its one-lane launch over the same
+    clusters."""
+    from multi_cluster_simulator_tpu_torch import tenancy
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.utils import prng
+    from multi_cluster_simulator_tpu_torch.utils.trace import total_drops
+
+    cfg, specs, env = env_world(P, dev)
+    B = ENV_B
+    action = torch.zeros((B,) + env.action_shape, dtype=torch.float32,
+                         device=dev)
+    step = env.batch_step_fn()
+    _, es = env.reset_batch(prng.prng_key(17, dev), B)
+    step(es, action)  # warm-up: the lane plan made and the kernel loaded
+    walls = []
+    for rep in range(ENV_WALLS):
+        # a fresh batch from the reset, whose clock the env holds on the
+        # host: the step loop reads nothing from the card
+        _, es = env.reset_batch(prng.prng_key(17, dev), B)
+        torch.cuda.synchronize()
+        if rep == 0:
+            fused_tick.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            w0 = time.perf_counter()
+            for _ in range(ENV_STEPS):
+                obs, r, d, info, es = step(es, action)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - w0)
+        if rep == 0:
+            counts = {k: v for k, v in fused_tick.launch_counts().items()
+                      if v}
+            kernel = fused_tick.KERNELS["fused_prefix_scored"]
+            if counts != {kernel.name: ENV_STEPS}:
+                raise AssertionError(f"8d: launches {counts}, want one "
+                                     f"scored launch a step")
+    episodes = es.episodes.tolist()
+    want_eps = ENV_STEPS // ENV_EP
+    if set(episodes) != {want_eps}:
+        raise AssertionError(f"8d: episode counters {sorted(set(episodes))}, "
+                             f"want {want_eps}")
+    drops = total_drops(es.sim)
+    if any(drops.values()):
+        raise AssertionError(f"8d: drops {drops}")
+    if not bool(torch.isfinite(obs).all()) or \
+            not bool(torch.isfinite(r).all()):
+        raise AssertionError("8d: non-finite observations or rewards")
+    wall = min(walls)
+    rate = B * ENV_STEPS / wall
+    # the serial loop of single-env steps (the host-stepped gym)
+    _, one = env.reset(prng.prng_key(17, dev))
+    single = env.step_fn(donate=True)
+    act1 = action[0]
+    single(one, act1)
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    for _ in range(ENV_SERIAL):
+        single(one, act1)
+    torch.cuda.synchronize()
+    serial = (time.perf_counter() - w0) / ENV_SERIAL
+    per = wall / (B * ENV_STEPS)
+    if per >= serial:
+        raise AssertionError(f"8d: a batched env-step {per * 1e6:.2f} us did "
+                             f"not beat a single-env step "
+                             f"{serial * 1e6:.2f} us")
+    # the scored lane form's launch beside the one-lane launch over the
+    # same 8,192 clusters, on the state the run reached
+    sim = es.sim
+    ks = prng.split(es.key, 2)
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        tick_arrivals_device,
+    )
+    g = env.gen
+    t_host = int(sim.t[0])
+    rows, cnts = tick_arrivals_device(ks[:, 1], sim.t + cfg.tick_ms, ENV_C,
+                                      g.k_max, g.rate, g.max_cores,
+                                      g.max_mem, g.max_dur_ms, g.beta)
+    params = env._params
+    lane_ms, one_ms = lane_vs_one_lane(E, env.engine, sim, rows, cnts,
+                                       t_host + cfg.tick_ms, params,
+                                       LANE_REPS)
+    print(f"phase 8d: {B} envs x {ENV_C} clusters, episodes of {ENV_EP} "
+          f"ticks, {ENV_STEPS} steps: episodes {want_eps} everywhere, no "
+          f"drops, launches {counts} (one scored launch a step over "
+          f"{B * ENV_C} clusters); the timed loop ran under "
+          f"set_sync_debug_mode('error'); wall {wall:.4f} s (walls "
+          f"{[round(x, 4) for x in walls]}): {rate:.0f} envs.steps/s, "
+          f"{per * 1e6:.3f} us an env-step; a single-env step "
+          f"{serial * 1e6:.1f} us ({serial / per:.0f}x) [{card}]")
+    print(f"phase 8d: scored lane form {lane_ms * 1e3:.2f} us/launch ({B} "
+          f"lanes x {ENV_C}) vs one-lane {one_ms * 1e3:.2f} us/launch "
+          f"(1 x {B * ENV_C}), {LANE_REPS} each in turns [{card}]")
+    return dict(env=env, es=es, counts=counts, lane_ms=lane_ms,
+                one_ms=one_ms, rate=rate)
+
+
+def phase_env_lanes(P, E, card, dev):
+    """Phase 8e: the env at 8d's shape for 50 steps with a distinct seeded
+    action a env (every lane's table its own): the scored lane form ==
+    the plain per-lane loop at sampled steps, every leaf; a batch-1 replay
+    env == Engine.run over the same bucketed arrivals."""
+    from multi_cluster_simulator_tpu_torch.core.state import (
+        TickArrivals, init_state,
+    )
+    from multi_cluster_simulator_tpu_torch.envs import ClusterEnv
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.utils import prng
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        uniform_stream,
+    )
+
+    cfg, specs, env = env_world(P, dev)
+    B = ENV_B
+    rng = np.random.default_rng(23)
+    action = torch.from_numpy(rng.normal(size=(B,) + env.action_shape)
+                              .astype(np.float32)).to(dev)
+    _, es = env.reset_batch(prng.prng_key(17, dev), B)
+    step = env.batch_step_fn()
+
+    def cost(b, a, r, c, t):
+        return tick_cost_scored(b, a, r, c, t, False, cfg.queue_capacity,
+                                False)
+    probe = LaneProbe(cost, picks=ENV_PLAIN_STEPS)
+    placed = torch.zeros((), dtype=torch.int64, device=dev)
+    fused_tick.reset_launches()
+    with probe:
+        for _ in range(ENV_LANE_STEPS):
+            *_, info, es = step(es, action)
+            placed += info.placed.sum()  # the last step's reset zeroes it
+    sp = probe.summary()
+    launches = fused_tick.launch_counts()["fused_prefix_scored"]
+    placed = int(placed)
+    # a batch-1 replay env against Engine.run
+    arr = uniform_stream(ENV_C, 60, 40_000, max_cores=8, max_mem=6_000,
+                         max_dur_ms=15_000, seed=3)
+    ta = E.pack_arrivals_by_tick(arr, 45, cfg.tick_ms)
+    renv = ClusterEnv(cfg, specs, episode_ticks=45, arrivals=ta, device=dev)
+    _, res = renv.reset(prng.prng_key(0, dev))
+    rstep = renv.step_fn(donate=True)
+    for _ in range(40):
+        rstep(res)
+    ref = E.Engine(cfg, device=dev).run(
+        init_state(cfg, specs, device=dev),
+        TickArrivals(rows=ta.rows, counts=ta.counts), 40)
+    d = max_abs_diff(ref, res.sim)
+    if d:
+        raise AssertionError(f"8e: the batch-1 replay env differs from "
+                             f"Engine.run by {d}")
+    b_ms, b_by = bound(sp["read"] + 4 * 20 * B, sp["written"], sp["ops"])
+    print(f"phase 8e: {B} envs x {ENV_C}, {ENV_LANE_STEPS} steps, a distinct "
+          f"seeded action a env: the scored lane form == the plain per-lane "
+          f"loop at steps {sorted(ENV_PLAIN_STEPS)} (every leaf; plain "
+          f"{np.mean(sp['plain_ms']):.1f} ms a step), {launches} launches, "
+          f"{np.mean(sp['kernel_ms']) * 1e3:.2f} us/launch, bound "
+          f"{b_ms * 1e3:.4f} us by {b_by} ({sp['read'] + sp['written']:.1f} "
+          f"B a launch, the lanes' tables and weights included), {placed} "
+          f"placements; a batch-1 replay env == Engine.run over 40 ticks "
+          f"({int(res.sim.placed_total.sum())} placements) [{card}]")
+    return dict(record=dict(
+        kernel=fused_tick.KERNELS["fused_prefix_scored"],
+        name=f"fused_prefix_scored (lanes {B}x{ENV_C}, rl)",
+        launches=launches, worst=sp["worst"],
+        ms=float(np.mean(sp["kernel_ms"])), plain=sp["plain_ms"],
+        bound=(b_ms, b_by)))
+
+
 def bound(read, written, ops=0.0):
     """The least time (ms) for a launch's bytes and operations, and which
     of the two bounds it."""
@@ -5736,13 +6592,16 @@ def ptxas_lines(report: str):
 
 
 def launch_geometry(build, kernel: str, C: int, N: int, R: int, Q: int,
-                    *extra: int) -> tuple[int, int]:
+                    *extra: int, lanes: int = 1) -> tuple[int, int]:
     """The warps a block and the dynamic shared-memory bytes a warp with
-    which ``kernel``'s launcher launches at (C, N, R, Q) (and ``extra``,
-    the scored kernel's pick), from its ``<kernel>_geometry`` export."""
+    which ``kernel``'s launcher launches ``lanes`` lanes of C clusters at
+    (N, R, Q) (and ``extra``, whether the scored kernel stages the BFD
+    order: a lane picks tesserae), from its ``<kernel>_geometry``
+    export."""
     warps, warp_bytes = ctypes.c_int(), ctypes.c_int64()
     getattr(build.load(kernel), kernel + "_geometry")(
-        C, N, R, Q, *extra, ctypes.byref(warps), ctypes.byref(warp_bytes))
+        C, lanes, N, R, Q, *extra, ctypes.byref(warps),
+        ctypes.byref(warp_bytes))
     return warps.value, warp_bytes.value
 
 
@@ -5810,6 +6669,18 @@ def run_phases(device: str, sample) -> int:
             sizes.append(f"{what} {b} B a warp, {warps} warps a block")
         print(f"phase 2: {kernel}: dynamic shared memory and blocks: "
               f"{'; '.join(sizes)}")
+    # the lane forms' launch shapes: (lanes, C, N, R, Q[, order])
+    for kernel, shape in (
+            ("fused_prefix_fifo 8a", (TENANTS_T, TENANTS_C, 5, 2, 64)),
+            ("fused_prefix_scored 8d", (ENV_B, ENV_C, 5, 2, 16, 0)),
+            ("fused_prefix_scored 8b", (18, MIXED_C, 5, 2, 96, 1)),
+            ("fused_prefix_ffd 8b", (18, MIXED_C, 5, 2, 96)),
+            ("fused_prefix_delay 8b", (18, MIXED_C, 5, 2, 96))):
+        L, C, *rest = shape
+        warps, b = launch_geometry(build, kernel.split()[0], C, *rest,
+                                   lanes=L)
+        print(f"phase 2: {kernel}: {L} lanes x {C} clusters: {warps} warps "
+              f"a block, {-(-C // warps)} blocks a lane, {b} B a warp")
 
     dev = torch.device(device)
     w0 = time.perf_counter()
@@ -5940,6 +6811,19 @@ def run_phases(device: str, sample) -> int:
         "config 5 (6e)": (replay["cfg"], replay["final"])})
     lap("7 bytes")
     print(f"phases 7a-7e: {time.perf_counter() - w7:.1f} s")
+
+    w8 = time.perf_counter()
+    tenants = phase_tenants(P, E, card, dev)
+    lap("8a")
+    mixed = phase_mixed_tenants(P, E, card, dev)
+    lap("8b")
+    phase_tenants_composed(P, E, card, dev)
+    lap("8c")
+    env = phase_env(P, E, card, dev)
+    lap("8d")
+    env_lanes = phase_env_lanes(P, E, card, dev)
+    lap("8e")
+    print(f"phases 8a-8e: {time.perf_counter() - w8:.1f} s")
 
     records = []
     kms = float(np.mean(check["kernel_ms"]))
@@ -6117,6 +7001,21 @@ def run_phases(device: str, sample) -> int:
               f"{b_by}, launches {r['launches']}; kernel / bound "
               f"{r['ms'] / b_ms:.1f} [{card}]")
         records.append(r)
+
+    # the lane forms: 8a's tenant batch, 8b's mixed batch, 8e's env batch
+    for r in (tenants["record"], *mixed["records"], env_lanes["record"]):
+        b_ms, b_by = r["bound"]
+        print(f"kernel {r['name']}: {r['ms'] * 1e3:.2f} us/launch, plain "
+              f"per-lane loop {np.mean(r['plain']):.3f} ms, bound "
+              f"{b_ms * 1e3:.4f} us by {b_by}, launches {r['launches']}; "
+              f"kernel / bound {r['ms'] / b_ms:.1f} [{card}]")
+        records.append(r)
+    print(f"lane forms beside one lane over the same clusters: FIFO "
+          f"{tenants['record']['lane_ms'] * 1e3:.2f} us ({TENANTS_T} x "
+          f"{TENANTS_C}) vs {tenants['record']['one_ms'] * 1e3:.2f} us (1 x "
+          f"{TENANTS_T * TENANTS_C}); scored rl {env['lane_ms'] * 1e3:.2f} us "
+          f"({ENV_B} x {ENV_C}) vs {env['one_ms'] * 1e3:.2f} us (1 x "
+          f"{ENV_B * ENV_C}) [{card}]")
 
     print(json.dumps({"kernels": [{
         "name": r.get("name", r["kernel"].name), "route": "cuda",

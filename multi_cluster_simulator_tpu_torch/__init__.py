@@ -11,7 +11,9 @@ and cvx matching, with or without virtual-node expiry) and the fault
 plane (generative or trace node churn), ticks driven in ragged-K chunks,
 and checkpoints any run at a chunk boundary to resume it bit-exactly
 (``save_state``/``load_state``; ``core/preempt.py`` for run bundles), in
-the reference's file format.
+the reference's file format. A lane-stacked batch of constellations runs
+as one (``tenancy/`` for tenants, ``envs/`` for a batched gym), each
+kernel launched once a tick over every lane.
 On an NVIDIA H100 each tick's per-cluster prefix (``faults -> release ->
 vnode expiry -> ingest -> schedule``) runs as a hand-written CUDA kernel
 (``kernels/csrc/``); the cross-cluster phases and the market

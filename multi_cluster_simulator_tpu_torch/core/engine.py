@@ -47,12 +47,24 @@ leap). ``run_prefix`` is the profile plane's ablation driver: ``run`` with
 the tick truncated after its first ``phase_limit`` phases
 (obs.profile.TICK_PHASES order).
 
+A lane-stacked state (every leaf with a leading lane axis [L], the clock
+``t`` [L]; ``lanes_of``) runs L independent constellations — tenants,
+envs — in lockstep through ``run``, ``run_chunks``, ``run_io`` and
+``step_tick``, with batched params (``params.idx`` [L] selecting each
+lane's member; leaves of one member's shape serve every lane): the prefix
+is one launch a kernel source over all L C clusters, each lane reading
+its own parameters (``fused_tick.fused_prefix_lanes``), and the phases
+after it run per lane on the lane's [C] views, so nothing crosses lanes.
+``run_compressed`` drives a lane-stacked state lane by lane, each lane
+leaping its own gaps.
+
 Configurations outside the slice raise ``NotImplementedError`` naming the
 ROADMAP item that ports them; nothing falls back silently.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
@@ -556,9 +568,14 @@ def _with_owner(vec: torch.Tensor, owner: torch.Tensor) -> torch.Tensor:
 def _write_back(dst: SimState, src: SimState) -> SimState:
     """Copy into ``dst``'s tensors every leaf ``src`` holds anew (the
     cross-cluster phases return new tensors), so that a run updates the
-    caller's state in place. Returns ``dst``."""
+    caller's state in place; a leaf that already lies where ``dst``'s does
+    (the same tensor, or a view of a batch's lane taken twice) is not
+    copied onto itself. Returns ``dst``."""
     for (_, d), (_, s_) in zip(leaves_with_keys(dst), leaves_with_keys(src)):
-        if d is not s_:
+        if d is not s_ and not (d.data_ptr() == s_.data_ptr()
+                                and d.dtype == s_.dtype
+                                and d.stride() == s_.stride()
+                                and d.shape == s_.shape):
             d.copy_(s_)
     return dst
 
@@ -598,6 +615,9 @@ class Engine:
         self.ex = LocalExchange()
         self._default_params = self.pset.params_for(cfg, device=self.device)
         self._jitter = {}
+        # the lane plans fused_tick.host_params caches, per (members,
+        # device): a run over the same lanes copies nothing to the device
+        self._lane_plans = {}
         # host reads of the compressed driver's leap probe, one per
         # executed tick without arrivals (run_compressed); a caller resets
         # it to count a run
@@ -766,6 +786,9 @@ class Engine:
         up the prefix is the kernel as always; below 5 it is the plain
         span truncated, as in the reference, where a half-span is a
         diagnostic and not a kernel."""
+        if host["stacked"]:
+            return self._tick_lanes(state, rows, counts, t, params, host,
+                                    out, obs, windowed)
         emit = self.cfg.borrowing or out is not None
         terminal = self.prefix_terminal()
         node_dt = state.node_free.dtype
@@ -790,6 +813,50 @@ class Engine:
         if obs is not None and not terminal:
             obs = obs_device.tap_tick(obs[0], obs[1], state,
                                       self.cfg.tick_ms)
+        return state, obs
+
+    def _tick_lanes(self, state: SimState, rows: torch.Tensor,
+                    counts: torch.Tensor, t: int, params: PolicyParams,
+                    host: dict, out: TickIO = None, obs=None,
+                    windowed: bool = False):
+        """``_tick`` over a lane-stacked state, the lanes in lockstep on the
+        host clock ``t``: the prefix as ONE launch a kernel source over
+        every lane (``fused_tick.fused_prefix_lanes``; the plain per-lane
+        loop on the CPU), then, where the tick does not end there, each
+        lane's cross-cluster phases, market, exit narrow and tap as PyTorch
+        ops on that lane's [C] views: borrowing and the market never cross
+        lanes, and the node exit narrow counts per lane. The state, the
+        buffer and the cursor are updated in place; returns ``(state,
+        obs)``."""
+        emit = self.cfg.borrowing or out is not None
+        terminal = self.prefix_terminal()
+        node_dt = state.node_free.dtype
+        cur = state if terminal else _widen_nodes(state)
+        with phase_scope("fused_prefix"):
+            cur, *io, _ = fused_tick.fused_prefix_lanes(
+                self, cur, rows, counts, t, params, host, emit_returns=emit,
+                out=out if out is not None else host.get("io"),
+                obs=obs if terminal else None, windowed=windowed)
+        if not terminal:
+            for i in range(host["L"]):
+                s_i = fused_tick.lane(cur, i)
+                s_i = self._cross_cluster(
+                    s_i, *(None if x is None else x[i] for x in io))
+                s_i = self._market(s_i, t, fused_tick.lane(params, i),
+                                   host["jitter"])
+                if node_dt != I32:
+                    s_i = _narrow_nodes(s_i, node_dt)
+                _write_back(fused_tick.lane(state, i), s_i)
+        state.t.fill_(t)
+        if obs is not None and not terminal:
+            for i in range(host["L"]):
+                mb_i = fused_tick.lane(obs[0], i)
+                cur_i = fused_tick.lane(obs[1], i)
+                mb, c = obs_device.tap_tick(mb_i, cur_i,
+                                            fused_tick.lane(state, i),
+                                            self.cfg.tick_ms)
+                _write_back(mb_i, mb)
+                _write_back(cur_i, c)
         return state, obs
 
     def snapshot_due(self, t: int) -> bool:
@@ -855,18 +922,79 @@ class Engine:
             raise ValueError(f"state lives on {state.device}, the engine "
                              f"on {self.device}")
 
-    def _entry(self, state: SimState, params):
-        """What a run reads once at its entry: the checked params, the
-        kernels' host parameters (with a scratch TickIO when borrowing
-        emits every tick) and the clock."""
+    def lanes_of(self, state: SimState, params=None):
+        """The lane count of a lane-stacked run, None for one
+        constellation. A state is lane-stacked when its clock has a lane
+        axis (``t`` [L], every other leaf [L, C, ...]); params are batched
+        when ``idx`` is [L]. A batched ``idx`` needs a lane-stacked state
+        of as many lanes; shared params serve every lane."""
+        params = self._default_params if params is None else params
+        idx = params.idx
+        if state.t.dim() == 0:
+            if idx.dim() != 0:
+                raise ValueError(
+                    f"a batched params.idx of shape {tuple(idx.shape)} needs "
+                    f"a lane-stacked state (t of shape [L], every leaf with "
+                    f"a leading [L]); this state's t has shape ()")
+            return None
+        L = state.t.shape[0]
+        if state.t.dim() != 1 or state.arr_ptr.dim() != 2 or \
+                state.arr_ptr.shape[0] != L:
+            raise ValueError(f"a lane-stacked state has t [L] and [L, C] "
+                             f"counters; got t {tuple(state.t.shape)}, "
+                             f"arr_ptr {tuple(state.arr_ptr.shape)}")
+        if idx.dim() == 1 and idx.shape[0] != L:
+            raise ValueError(f"params.idx of shape {tuple(idx.shape)} for a "
+                             f"state of {L} lanes")
+        return L
+
+    def lane_params(self, params, L: int) -> PolicyParams:
+        """``params`` with every leaf on the lane axis [L, ...]: leaves of
+        one member's shape are broadcast (views), batched ones checked."""
+        ref = dict(leaves_with_keys(self._default_params))
+
+        def lift(key, x):
+            if x.dim() == ref[key].dim():
+                return x.expand(L, *x.shape)
+            if x.dim() != ref[key].dim() + 1 or x.shape[0] != L:
+                raise ValueError(f"params{key} of shape {tuple(x.shape)} for "
+                                 f"{L} lanes")
+            return x
+        return PolicyParams(**{k[1:]: lift(k, x)
+                               for k, x in leaves_with_keys(params)})
+
+    def _clock(self, state: SimState) -> int:
+        """The run's host clock, read once at its entry: a lane-stacked
+        state's lanes must share it (they run in lockstep)."""
+        if state.t.dim() == 0:
+            return int(state.t)
+        ts = set(state.t.tolist())
+        if len(ts) != 1:
+            raise ValueError(f"lanes out of lockstep: clocks {sorted(ts)}; "
+                             f"run, run_chunks, run_io and step_tick step "
+                             f"every lane on one clock (run_compressed "
+                             f"drives each lane on its own)")
+        return ts.pop()
+
+    def _entry(self, state: SimState, params, clock=None, members=None):
+        """What a run reads once at its entry: the checked params (every
+        leaf on the lane axis for a lane-stacked state), the kernels' host
+        parameters (with a scratch TickIO when borrowing emits every tick)
+        and the clock. ``clock`` (a host int) and ``members`` (the lanes'
+        member indices) spare the two host reads."""
         self._check_state(state)
         params = self._params(params)
-        host = fused_tick.host_params(self, params)
-        host["jitter"] = self.jitter(state.arr_ptr.shape[0])
+        L = self.lanes_of(state, params)
+        if L is not None:
+            params = self.lane_params(params, L)
+        host = fused_tick.host_params(self, params, members)
+        C = state.arr_ptr.shape[-1]
+        host["jitter"] = self.jitter(C)
         if self.cfg.borrowing:
-            host["io"] = empty_io((state.arr_ptr.shape[0],), self.n_msgs(),
-                                  self.device)
-        return params, host, int(state.t)
+            host["io"] = empty_io((C,) if L is None else (L, C),
+                                  self.n_msgs(), self.device)
+        t = self._clock(state) if clock is None else int(clock)
+        return params, host, t
 
     def _obs_entry(self, state: SimState, mbuf):
         """The run's ``(MetricsBuffer, TapCursor)`` (None without a
@@ -901,7 +1029,11 @@ class Engine:
         state = _write_back(state, cur)
         out = (state,)
         if self.cfg.record_metrics:
-            out += (st.stack_samples(series, state),)
+            ser = st.stack_samples(series, state)
+            if host["stacked"]:  # [T, L, ...] -> the lanes' [L, T, ...]
+                ser = st.MetricSample(**{
+                    k[1:]: x.movedim(0, 1) for k, x in leaves_with_keys(ser)})
+            out += (ser,)
         if mbuf is not None:
             out += (_write_back(mbuf, obs[0]),)
         return out if len(out) > 1 else out[0]
@@ -916,27 +1048,42 @@ class Engine:
         the metrics plane. Returns the state — or, as the reference's, a
         tuple of the state, the [T] / [T, C] ``MetricSample`` series when
         ``cfg.record_metrics`` is set, and the buffer when ``mbuf`` was
-        given. The state and the buffer are updated in place."""
+        given. The state and the buffer are updated in place.
+
+        A lane-stacked state (``lanes_of``) runs its lanes in lockstep over
+        a lane-stacked ``TickArrivals`` (rows [L, T, C, K, NF], counts [L,
+        T, C]; ``tenancy.stack_tick_arrivals``) with lane-stacked or shared
+        params; its series come back [L, T, ...] and the buffer is the
+        lanes' stacked buffers."""
+        lanes = state.t.dim() == 1
         if isinstance(arrivals, Arrivals):
+            if lanes:
+                raise ValueError("a lane-stacked run takes a lane-stacked "
+                                 "TickArrivals, not a windowed Arrivals "
+                                 "stream")
             rows, n = (torch.from_numpy(x).to(self.device)
                        for x in pack_arrivals(arrivals))
             feeds = ((rows, n, True) for _ in range(n_ticks))
             return self._drive(state, params, mbuf, feeds)
-        if arrivals.rows.shape[0] < n_ticks:
+        T = arrivals.rows.shape[1 if lanes else 0]
+        if T < n_ticks:
             raise ValueError(
-                f"TickArrivals covers {arrivals.rows.shape[0]} ticks, "
-                f"run asked for {n_ticks}")
-        part = st.TickArrivals(rows=arrivals.rows[:n_ticks],
-                               counts=arrivals.counts[:n_ticks])
+                f"TickArrivals covers {T} ticks, run asked for {n_ticks}")
+        cut = (slice(None), slice(n_ticks)) if lanes else slice(n_ticks)
+        part = st.TickArrivals(rows=arrivals.rows[cut],
+                               counts=arrivals.counts[cut])
         return self.run_chunks(state, [part], params, mbuf)
 
     def _chunk_feeds(self, chunks: Sequence[st.TickArrivals]):
         for chunk in chunks:
+            rows, counts = chunk.rows, chunk.counts
+            if np.ndim(counts) == 3:  # lane-stacked: tick-major, once
+                rows, counts = (np.swapaxes(x, 0, 1) for x in (rows, counts))
             with annotate_dispatch("chunk"):
                 rows = torch.from_numpy(
-                    np.ascontiguousarray(chunk.rows)).to(self.device)
+                    np.ascontiguousarray(rows)).to(self.device)
                 counts = torch.from_numpy(
-                    np.ascontiguousarray(chunk.counts)).to(self.device)
+                    np.ascontiguousarray(counts)).to(self.device)
             for k in range(rows.shape[0]):
                 yield rows[k], counts[k], False
 
@@ -951,6 +1098,9 @@ class Engine:
         below 5 the truncated span runs as the plain ops on the engine's
         device. Diagnostic only: a truncated tick is not a simulation. The
         state is updated in place and returned."""
+        if state.t.dim() != 0:
+            raise ValueError("run_prefix drives one constellation; run a "
+                             "lane of a batch (fused_tick.lane)")
         if arrivals.rows.shape[0] < n_ticks:
             raise ValueError(
                 f"TickArrivals covers {arrivals.rows.shape[0]} ticks, "
@@ -965,14 +1115,18 @@ class Engine:
                                 phase_limit=phase_limit)
         return _write_back(state, cur)
 
-    def step_tick(self, state: SimState, rows, counts,
-                  params=None) -> SimState:
+    def step_tick(self, state: SimState, rows, counts, params=None,
+                  clock=None, members=None) -> SimState:
         """One tick of one tick's pre-bucketed arrivals (``rows [C, K,
-        NF]``, ``counts [C]``, numpy or tensors): ``run`` over one tick,
-        the environment mode's step (the reference's ``step_tick``).
-        ``params`` selects and parameterizes the pass. The state is
-        updated in place and returned."""
-        params, host, t = self._entry(state, params)
+        NF]``, ``counts [C]``, numpy or tensors; [L, C, ...] for a
+        lane-stacked state): ``run`` over one tick, the environment mode's
+        step (the reference's ``step_tick``). ``params`` selects and
+        parameterizes the pass. ``clock`` (the state's clock as a host
+        int) and ``members`` (each lane's member index) spare the entry's
+        host reads: with both, and the rows on the device, the step never
+        synchronises the host. The state is updated in place and
+        returned."""
+        params, host, t = self._entry(state, params, clock, members)
         rows, counts = (torch.as_tensor(x).to(self.device).contiguous()
                         for x in (rows, counts))
         cur, _ = self._tick(state, rows, counts, t + self.cfg.tick_ms,
@@ -992,6 +1146,9 @@ class Engine:
 
     def _windowed_tick(self, state: SimState, arrivals: Arrivals,
                        out) -> SimState:
+        if state.t.dim() != 0:
+            raise ValueError("tick and tick_io drive one constellation; a "
+                             "lane-stacked state steps through step_tick")
         params, host, t = self._entry(state, None)
         rows, n = (torch.from_numpy(x).to(self.device)
                    for x in pack_arrivals(arrivals))
@@ -1022,13 +1179,19 @@ class Engine:
         exact: ``run_io`` over consecutive chunks equals ``run`` over their
         concatenation. Every tick emits its returns, so ``drops.msgs``
         counts returns beyond ``cfg.max_msgs`` here even without
-        borrowing, as in the reference."""
+        borrowing, as in the reference.
+
+        A lane-stacked state takes ``rows [L, T, C, K, NF]`` and ``counts
+        [L, T, C]`` and returns the ``TickIO`` stack [L, T, C, ...]."""
         params, host, t = self._entry(state, params)
         obs = self._obs_entry(state, mbuf)
-        rows, counts = (torch.as_tensor(x).to(self.device).contiguous()
+        rows, counts = (torch.as_tensor(x).to(self.device)
                         for x in (rows, counts))
-        T, C = counts.shape
-        io = empty_io((T, C), self.n_msgs(), self.device)
+        if host["stacked"]:  # tick-major, so each tick's rows are contiguous
+            rows, counts = rows.transpose(0, 1), counts.transpose(0, 1)
+        rows, counts = rows.contiguous(), counts.contiguous()
+        T, lead = counts.shape[0], tuple(counts.shape[1:])
+        io = empty_io((T, *lead), self.n_msgs(), self.device)
         cur = state
         for k in range(T):
             t += self.cfg.tick_ms
@@ -1038,6 +1201,9 @@ class Engine:
             cur, obs = self._tick(cur, rows[k], counts[k], t, params, host,
                                   out, obs=obs)
         state = _write_back(state, cur)
+        if host["stacked"]:
+            io = TickIO(**{k[1:]: x.transpose(0, 1).contiguous()
+                           for k, x in leaves_with_keys(io)})
         if mbuf is None:
             return state, io
         return state, io, _write_back(mbuf, obs[0])
@@ -1077,6 +1243,9 @@ class Engine:
             raise ValueError("time compression requires pre-bucketed "
                              "TickArrivals (pack_arrivals_by_tick / "
                              "pack_arrivals_chunks)")
+        if state.t.dim() == 1:
+            return self._run_compressed_lanes(state, arrivals, n_ticks,
+                                              params, mbuf)
         if arrivals.rows.shape[0] < n_ticks:
             raise ValueError(
                 f"TickArrivals covers {arrivals.rows.shape[0]} ticks, "
@@ -1172,4 +1341,36 @@ class Engine:
         out += (stats,)
         if mbuf is not None:
             out += (_write_back(mbuf, obs[0]),)
+        return out
+
+    def _run_compressed_lanes(self, state: SimState,
+                              arrivals: st.TickArrivals, n_ticks: int,
+                              params=None, mbuf=None):
+        """``run_compressed`` over a lane-stacked state, lane by lane: each
+        lane leaps its own quiescent gaps, as the reference's batched
+        ``while_loop`` masks finished lanes, so the lanes leave lockstep.
+        Each lane is the standalone compressed run on the lane's views
+        (its kernel launched once per executed tick over that lane's C
+        clusters). Returns what ``run_compressed`` does, every part
+        stacked on the lane axis."""
+        params = self._params(params)
+        L = self.lanes_of(state, params)
+        params = self.lane_params(params, L)
+        outs = []
+        for i in range(L):
+            ta = st.TickArrivals(rows=arrivals.rows[i],
+                                 counts=arrivals.counts[i])
+            outs.append(self.run_compressed(
+                fused_tick.lane(state, i), ta, n_ticks,
+                fused_tick.lane(params, i),
+                None if mbuf is None else fused_tick.lane(mbuf, i)))
+        out = (state,)
+        for k in range(1, len(outs[0])):
+            if mbuf is not None and k == len(outs[0]) - 1:
+                out += (mbuf,)  # the lanes' views, updated in place
+                continue
+            parts = [o[k] for o in outs]
+            out += (type(parts[0])(**{
+                f.name: torch.stack([getattr(x, f.name) for x in parts])
+                for f in dataclasses.fields(parts[0])}),)
         return out

@@ -235,6 +235,17 @@ def leap_stats_init(device="cpu") -> LeapStats:
         leaps=torch.zeros((LEAP_BUCKETS,), dtype=torch.int32, device=device))
 
 
+def utilization(s: SimState) -> tuple[torch.Tensor, torch.Tensor]:
+    """(core_util, mem_util) per cluster as GetResourceUtilization
+    (cluster.go:46-63) computes them: used over total, both over active
+    nodes; [..., C] f32 (any leading lane axes)."""
+    act = s.node_active[..., None]
+    used = Q.isum(torch.where(act, s.node_cap - s.node_free, 0), -2)
+    total = Q.isum(torch.where(act, s.node_cap, 0), -2)
+    util = used.to(torch.float32) / total.clamp(min=1).to(torch.float32)
+    return util[..., 0], util[..., 1]
+
+
 def snapshot_utilization(s: SimState) -> tuple[torch.Tensor, torch.Tensor]:
     """(core_util, mem_util) [C] f32 as the streamed ClusterState computes
     them (GetResourceUtilization, cluster.go:46-63): usage summed over

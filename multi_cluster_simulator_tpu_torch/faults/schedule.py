@@ -88,6 +88,16 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
+def to_u32(x: torch.Tensor) -> torch.Tensor:
+    """32-bit values held in a wider integer tensor as a uint32 tensor,
+    through an int32 of the same bits (a conversion the card's kernels
+    have for every build of torch; a uint32 tensor takes copies and views
+    only)."""
+    x = x.to(torch.int64) & M32
+    return (x - ((x >= 2**31).to(torch.int64) << 32)).to(torch.int32).view(
+        torch.uint32)
+
+
 def fold_in(k0, k1, data):
     """``jax.random.fold_in(key, data)``: threefry2x32 of the key over the
     counter ``(0, uint32(data))``; returns the new key's two words."""
@@ -308,7 +318,8 @@ def reseed(fs: FaultState, key: torch.Tensor, fc: FaultConfig,
     c = torch.arange(C, dtype=torch.int64, device=dev)
     k0, k1 = fold_in(k[0] + (c & 0), k[1] + (c & 0), c)
     keys = torch.stack([k0, k1], 1)
-    next_fail = initial_next_fail(keys.to(torch.uint32), N, fc, eligible)
+    keys = to_u32(keys)
+    next_fail = initial_next_fail(keys, N, fc, eligible)
 
     def full(shape, value, dtype=torch.int32):
         return torch.full(shape, value, dtype=dtype, device=dev)
@@ -319,4 +330,4 @@ def reseed(fs: FaultState, key: torch.Tensor, fc: FaultConfig,
         next_fail=next_fail, down_until=full((C, N), NEVER),
         down_since=full((C, N), 0), n_fails=full((C, N), 0),
         kills=full((C,), 0), requeues=full((C,), 0), down_ms=full((C,), 0),
-        key=keys.to(torch.uint32))
+        key=keys)

@@ -10,8 +10,13 @@ of numpy arrays keyed by leaf path — ``.node_free``, ``.l0.data``,
 ``jax.tree_util.tree_flatten_with_path`` on the JAX pytree. A compact state
 (core/compact.py) crosses the same way, its queues and running set as
 their SoA leaves (``.l0.f_cores``, ``.l0.ovf``, ``.run.f_node``) in their
-storage dtypes. The port never imports jax; the caller (a test) builds the
-JAX side of the dict.
+storage dtypes. A lane-stacked batch (a tenant batch, an env batch)
+crosses the same way, every leaf with its leading [L]: a stacked
+``SimState`` through ``state_from_numpy``, stacked ``TenantParams``
+through ``tenant_params_from_numpy`` (``.policy.idx``, ``.fault_seed``),
+an ``EnvState`` through ``env_state_from_numpy`` (``.sim.l0.data``,
+``.key``, ``.t_ep``). The port never imports jax; the caller (a test)
+builds the JAX side of the dict.
 """
 
 from __future__ import annotations
@@ -23,10 +28,12 @@ import numpy as np
 import torch
 
 from multi_cluster_simulator_tpu_torch.core.state import SimState, resolve_device
+from multi_cluster_simulator_tpu_torch.envs.cluster_env import EnvInfo, EnvState
 from multi_cluster_simulator_tpu_torch.obs.device import MetricsBuffer
 from multi_cluster_simulator_tpu_torch.ops import queues as Q
 from multi_cluster_simulator_tpu_torch.ops import runset as R
 from multi_cluster_simulator_tpu_torch.policies.base import PolicyParams
+from multi_cluster_simulator_tpu_torch.tenancy.params import TenantParams
 from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
 
 
@@ -101,3 +108,24 @@ def metrics_from_numpy(leaves: dict, device=None) -> MetricsBuffer:
 # a MetricsBuffer and a MetricSample series cross the same way, keyed like
 # the reference's (.placed, .ring_t; .t, .jobs_in_queue, .avg_wait_ms)
 metrics_to_numpy = series_to_numpy = to_numpy
+
+
+def tenant_params_from_numpy(leaves: dict, device=None) -> TenantParams:
+    """Port ``TenantParams`` (one cell or a stacked batch) from numpy
+    leaves keyed by path (``.policy.max_wait_ms``, ``.fault_seed``)."""
+    return _from_numpy(TenantParams, leaves, device)
+
+
+def env_state_from_numpy(leaves: dict, device=None) -> EnvState:
+    """A port ``EnvState`` (one env or a batch) from numpy leaves keyed by
+    path (``.sim.node_free``, ``.key``, ``.episodes``)."""
+    return _from_numpy(EnvState, leaves, device)
+
+
+def env_info_from_numpy(leaves: dict, device=None) -> EnvInfo:
+    """A port ``EnvInfo`` from numpy leaves keyed by path."""
+    return _from_numpy(EnvInfo, leaves, device)
+
+
+# stacked TenantParams, an EnvState and an EnvInfo cross back the same way
+tenant_params_to_numpy = env_state_to_numpy = env_info_to_numpy = to_numpy

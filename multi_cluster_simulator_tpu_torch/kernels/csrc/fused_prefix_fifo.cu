@@ -267,15 +267,17 @@ __global__ void __launch_bounds__(warp::kMaxWarps * warp::kLanes,
                                   warp::kMinBlocks)
 fused_prefix_fifo_kernel(const __grid_constant__ Args a) {
   const Common& k = a.k;
-  const int c = warp::cluster_index();
-  const bool active = c < k.C;  // the same in every lane of the warp
+  const int bl = warp::batch_lane();
+  if (!warp::lane_runs(k, bl)) return;  // the whole block: another member's
+  const int c = bl * k.C + warp::cluster_index();  // over the batch
+  const bool active = warp::cluster_index() < k.C;  // uniform in the warp
   int bad = 0;
   if (active) {
     bad = fifo_prefix<kEmit, kExpire, kFaults>(
         a, c, warp::warp_mem(k.N, k.R, k.Q, false));
   }
-  if (kTap) warp::tap_epilogue(a.p, k, c, active);
-  if (k.node_size != 4) warp::node_exit_epilogue(k, a.p, kTap, bad);
+  if (kTap) warp::tap_epilogue(a.p, k, bl, c, active);
+  if (k.node_size != 4) warp::node_exit_epilogue(k, a.p, kTap, bl, bad);
 }
 
 }  // namespace
@@ -294,25 +296,31 @@ fused_prefix_fifo_kernel(const __grid_constant__ Args a) {
 // fifo_drain_waves). `layout` (host memory) holds the node columns' value
 // size, the node exit scratch, and the column views of the running set,
 // the lent, ready and wait queues (prefix_common.cuh make_table's order).
+// The lane form: `lane_on` ([L] bytes, null to run every lane) follows
+// drops.ingest and L follows C; every [C, ...] array is then [L, C, ...]
+// (the tenants or envs of a batch, a row of blocks each), and the
+// per-lane parameters are [L] device arrays.
 extern "C" int fused_prefix_fifo_launch(
     void* node_free, void* node_active, void* run_active, void* arr_ptr,
     void* drop_queue, void* drop_run_full, void* placed_total, void* tr_t,
     void* tr_job, void* tr_node, void* tr_src, void* tr_n, void* rows,
-    void* counts, void* drop_ingest, void* ready_count, void* wait_count,
+    void* counts, void* drop_ingest, void* lane_on, void* ready_count, void* wait_count,
     void* lent_count, void* ret_rows, void* ret_valid, void* drop_msgs,
     void* want, void* bjob, void* node_cap, void* node_expire, void* health,
     void* was_active, void* next_fail, void* down_until, void* down_since,
     void* n_fails, void* kills, void* requeues, void* down_ms, void* fail_t,
     void* repair_t, void* key, void* drop_failed, void* fault_cap,
-    void* fault_lent_count, int C, int N, int R, int Q, int S, int K, int E,
+    void* fault_lent_count, int C, int L, int N, int R, int Q, int S, int K,
+    int E,
     int QC, int record_trace, int t, int window, int wave, int M, int emit,
     int borrowing, int expire, int faults, int fault_events, int fault_trace,
     int mttf, int mttr, int max_retries, int tap, int slot,
     const int64_t* layout, const void* const* tap_ptrs, void* stream) {
   Args a{make_common(node_free, node_active, run_active, arr_ptr, drop_queue,
                      drop_run_full, placed_total, tr_t, tr_job, tr_node,
-                     tr_src, tr_n, rows, counts, drop_ingest, C, N, R, Q, S,
-                     K, E, QC, record_trace, t, window, layout),
+                     tr_src, tr_n, rows, counts, drop_ingest, lane_on, C, L,
+                     N, R, Q, S, K, E, QC, record_trace, t, window,
+                     layout),
          make_table<NF>(layout, kOwnTable),
          static_cast<int32_t*>(ready_count),
          make_table<NF>(layout, kOwnTable + 1),
@@ -327,7 +335,7 @@ extern "C" int fused_prefix_fifo_launch(
                      fault_events, fault_trace, mttf, mttr, max_retries),
          make_tap(tap ? tap_ptrs : nullptr, slot)};
   if (C > 0) {
-    const warp::Geometry g = warp::geometry(C, N, R, Q, false);
+    const warp::Geometry g = warp::geometry(C, L, N, R, Q, false);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     bool launched = false;
     const bool ok = dispatch_forms(emit, expire, faults, tap,
@@ -335,18 +343,18 @@ extern "C" int fused_prefix_fifo_launch(
       launched = warp::launch_warps(
           fused_prefix_fifo_kernel<decltype(e)::value, decltype(x)::value,
                                    decltype(f)::value, decltype(p)::value>,
-          g.blocks(C), g.warps, g.smem(), s, a);
+          g.blocks(C), L, g.warps, g.smem(), s, a);
     });
     if (!ok || !launched) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch's shape at (C, N, R, Q): warps a block and shared-memory bytes
-// a warp, as fused_prefix_fifo_launch takes it.
+// The launch's shape at (C, L, N, R, Q): warps a block and shared-memory
+// bytes a warp, as fused_prefix_fifo_launch takes it.
 extern "C" void fused_prefix_fifo_geometry(
-    int C, int N, int R, int Q, int* warps, int64_t* warp_bytes) {
-  const warp::Geometry g = warp::geometry(C, N, R, Q, false);
+    int C, int L, int N, int R, int Q, int* warps, int64_t* warp_bytes) {
+  const warp::Geometry g = warp::geometry(C, L, N, R, Q, false);
   *warps = g.warps;
   *warp_bytes = static_cast<int64_t>(g.warp_bytes);
 }

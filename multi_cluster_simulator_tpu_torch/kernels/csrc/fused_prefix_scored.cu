@@ -95,9 +95,12 @@ constexpr int kTable = 0, kTesserae = 1;       // the pick, as the wrapper
 struct Args {
   Level0Args q;
   const int32_t* node_type;  // [C, N]
-  int pick;                  // kTable (gavel, rl) or kTesserae
-  float table[kClasses * kDeviceTypes];
-  float w[3];
+  // a batch lane each: the pick, kTable (gavel, rl) or kTesserae; the
+  // member's 16 table scores (gavel's throughputs, rl's action); tesserae's
+  // 3 weights
+  const int32_t* pick;  // [L]
+  const float* table;   // [L, kClasses kDeviceTypes]
+  const float* w;       // [L, 3]
   Emit e;
   Expire x;
   Faults f;
@@ -145,31 +148,34 @@ struct TesseraePick {
 
 // A warp per cluster runs its span; the tap form then closes it with the
 // metrics tap, every thread of the block taking part. __grid_constant__:
-// the picks point into the parameters (the table and the weights), and
-// the steps and the epilogues read them where they are, without a copy of
-// them in local memory.
+// the steps and the epilogues read the parameters where they are, without
+// a copy of them in local memory. A lane's pick, table row and weights
+// are its own.
 template <bool kEmit, bool kExpire, bool kFaults, bool kTap>
 __global__ void __launch_bounds__(warp::kMaxWarps * warp::kLanes,
                                   warp::kMinBlocks)
 fused_prefix_scored_kernel(const __grid_constant__ Args a) {
   const Common& k = a.q.k;
-  const int c = warp::cluster_index();
-  const bool active = c < k.C;  // the same in every lane of the warp
-  const bool tesserae = a.pick == kTesserae;
+  const int bl = warp::batch_lane();
+  if (!warp::lane_runs(k, bl)) return;  // the whole block: another member's
+  const int c = bl * k.C + warp::cluster_index();  // over the batch
+  const bool active = warp::cluster_index() < k.C;  // uniform in the warp
+  const bool tesserae = a.pick[bl] == kTesserae;
   int bad = 0;
   if (active) {
     const warp::WarpMem m = warp::warp_mem(k.N, k.R, k.Q, tesserae);
     if (tesserae) {
       bad = warp::level0_prefix<kEmit, kExpire, kFaults>(
-          a.q, a.e, a.x, a.f, c, m, 0, TesseraePick{a.w});
+          a.q, a.e, a.x, a.f, c, m, 0, TesseraePick{a.w + 3 * bl});
     } else {
       bad = warp::level0_prefix<kEmit, kExpire, kFaults>(
           a.q, a.e, a.x, a.f, c, m, -1,
-          TablePick{a.table, a.node_type + (size_t)c * k.N});
+          TablePick{a.table + kClasses * kDeviceTypes * bl,
+                    a.node_type + (size_t)c * k.N});
     }
   }
-  if (kTap) warp::tap_epilogue(a.p, k, c, active);
-  if (k.node_size != 4) warp::node_exit_epilogue(k, a.p, kTap, bad);
+  if (kTap) warp::tap_epilogue(a.p, k, bl, c, active);
+  if (k.node_size != 4) warp::node_exit_epilogue(k, a.p, kTap, bl, bad);
 }
 
 }  // namespace
@@ -177,42 +183,48 @@ fused_prefix_scored_kernel(const __grid_constant__ Args a) {
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
 // so the Python wrapper can raise on a refused launch. The leading
 // arguments are prefix_common.cuh's Common, in its order; then Level0's
-// count and counters, the node types, the emit outputs, the pick, the emit
-// flags (the terminal form when `emit` is 0), then (host memory) the
+// count and counters, the node types, the per-lane picks, table scores
+// and weights, the emit outputs, whether a lane of the launch picks
+// tesserae (`order`: its warps stage the BFD order in shared memory), the
+// emit flags (the terminal form when `emit` is 0), then (host memory) the
 // layout — the node columns' value size, the node exit scratch, and the
-// column views of the running set, the lent queue and Level0 — and the
-// member's 16 table scores and 3 weights, copied into the kernel's
-// parameters.
+// column views of the running set, the lent queue and Level0.
 // The faults form's leaves, node capacities and lent count follow the
 // expire form's columns, and its flag and settings (interval slots, trace
 // mode, mttf, mttr, retry budget) the expire flag; its pointers are null
 // and unread when `faults` is 0.
+// The lane form: `lane_on` ([L] bytes, null to run every lane) follows
+// drops.ingest and L follows C; every [C, ...] array is then [L, C, ...]
+// (the tenants or envs of a batch, a row of blocks each), and the
+// per-lane parameters are [L] device arrays.
 extern "C" int fused_prefix_scored_launch(
     void* node_free, void* node_active, void* run_active, void* arr_ptr,
     void* drop_queue, void* drop_run_full, void* placed_total, void* tr_t,
     void* tr_job, void* tr_node, void* tr_src, void* tr_n, void* rows,
-    void* counts, void* drop_ingest, void* l0_count, void* wait_total,
-    void* wait_jobs, void* jobs_in_queue, void* node_type, void* ret_rows,
+    void* counts, void* drop_ingest, void* lane_on, void* l0_count, void* wait_total,
+    void* wait_jobs, void* jobs_in_queue, void* node_type, void* pick,
+    void* table, void* w, void* ret_rows,
     void* ret_valid, void* drop_msgs, void* want, void* bjob, void* node_cap,
     void* node_expire, void* health, void* was_active, void* next_fail,
     void* down_until, void* down_since, void* n_fails, void* kills,
     void* requeues, void* down_ms, void* fail_t, void* repair_t, void* key,
-    void* drop_failed, void* fault_cap, void* fault_lent_count, int C, int N,
-    int R, int Q, int S, int K, int E, int QC, int record_trace, int t,
-    int window, int pick, int M, int emit, int borrowing, int expire,
+    void* drop_failed, void* fault_cap, void* fault_lent_count, int C, int L,
+    int N, int R, int Q, int S, int K, int E, int QC, int record_trace, int t,
+    int window, int order, int M, int emit, int borrowing, int expire,
     int faults, int fault_events, int fault_trace, int mttf, int mttr,
     int max_retries, int tap, int slot, const int64_t* layout,
-    const float* table, const float* w, const void* const* tap_ptrs,
-    void* stream) {
+    const void* const* tap_ptrs, void* stream) {
   if (Q > kMaxQueue || R > 3) return static_cast<int>(cudaErrorInvalidValue);
   const Common k = make_common(node_free, node_active, run_active, arr_ptr,
                                drop_queue, drop_run_full, placed_total, tr_t,
                                tr_job, tr_node, tr_src, tr_n, rows, counts,
-                               drop_ingest, C, N, R, Q, S, K, E, QC,
-                               record_trace, t, window, layout);
+                               drop_ingest, lane_on, C, L, N, R, Q, S, K,
+                               E, QC, record_trace, t, window, layout);
   Args a{make_level0(k, layout, l0_count, wait_total, wait_jobs,
                      jobs_in_queue, 0),
-         static_cast<const int32_t*>(node_type), pick, {}, {},
+         static_cast<const int32_t*>(node_type),
+         static_cast<const int32_t*>(pick), static_cast<const float*>(table),
+         static_cast<const float*>(w),
          make_emit(ret_rows, ret_valid, drop_msgs, want, bjob, M, borrowing),
          make_expire(node_cap, node_expire),
          make_faults(health, was_active, next_fail, down_until, down_since,
@@ -220,10 +232,8 @@ extern "C" int fused_prefix_scored_launch(
                      drop_failed, fault_cap, layout, fault_lent_count,
                      fault_events, fault_trace, mttf, mttr, max_retries),
          make_tap(tap ? tap_ptrs : nullptr, slot)};
-  for (int i = 0; i < kClasses * kDeviceTypes; ++i) a.table[i] = table[i];
-  for (int r = 0; r < 3; ++r) a.w[r] = w[r];
   if (C > 0) {
-    const warp::Geometry g = warp::geometry(C, N, R, Q, pick == kTesserae);
+    const warp::Geometry g = warp::geometry(C, L, N, R, Q, order != 0);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     bool launched = false;
     const bool ok = dispatch_forms(emit, expire, faults, tap,
@@ -231,19 +241,20 @@ extern "C" int fused_prefix_scored_launch(
       launched = warp::launch_warps(
           fused_prefix_scored_kernel<decltype(e)::value, decltype(x)::value,
                                      decltype(f)::value, decltype(p)::value>,
-          g.blocks(C), g.warps, g.smem(), s, a);
+          g.blocks(C), L, g.warps, g.smem(), s, a);
     });
     if (!ok || !launched) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch's shape at (C, N, R, Q) for `pick` (kTable or kTesserae):
-// warps a block and shared-memory bytes a warp, as
+// The launch's shape at (C, L, N, R, Q) with `order` (a lane picks
+// tesserae): warps a block and shared-memory bytes a warp, as
 // fused_prefix_scored_launch takes it.
 extern "C" void fused_prefix_scored_geometry(
-    int C, int N, int R, int Q, int pick, int* warps, int64_t* warp_bytes) {
-  const warp::Geometry g = warp::geometry(C, N, R, Q, pick == kTesserae);
+    int C, int L, int N, int R, int Q, int order, int* warps,
+    int64_t* warp_bytes) {
+  const warp::Geometry g = warp::geometry(C, L, N, R, Q, order != 0);
   *warps = g.warps;
   *warp_bytes = static_cast<int64_t>(g.warp_bytes);
 }

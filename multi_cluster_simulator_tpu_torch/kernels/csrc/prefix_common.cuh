@@ -296,7 +296,12 @@ struct Common {
   int C, N, R, Q, S, K, E, QC, record_trace, t;
   int window;  // min(max_ingest_per_tick, A) when windowed, else -1
   int node_size;          // 4, or the compact node columns' 1 or 2
-  int32_t* exit_scratch;  // [2] the node exit's total and blocks done
+  int32_t* exit_scratch;  // [L, 2] the node exit's total and blocks done
+  // The lane form: L batch lanes of C clusters each, every [C, ...] array
+  // above [L, C, ...] (cluster c of lane bl at index bl C + c), and the
+  // lanes this launch runs (null: all).
+  int L;
+  const uint8_t* lane_on;  // [L]
 };
 
 // Common from the leading arguments of every launch function, in the
@@ -306,9 +311,10 @@ inline Common make_common(void* node_free, void* node_active,
                           void* drop_run_full, void* placed_total, void* tr_t,
                           void* tr_job, void* tr_node, void* tr_src,
                           void* tr_n, void* rows, void* counts,
-                          void* drop_ingest, int C, int N, int R, int Q,
-                          int S, int K, int E, int QC, int record_trace,
-                          int t, int window, const int64_t* layout) {
+                          void* drop_ingest, void* lane_on, int C, int L,
+                          int N, int R, int Q, int S, int K, int E, int QC,
+                          int record_trace, int t, int window,
+                          const int64_t* layout) {
   return Common{node_free,
                 static_cast<uint8_t*>(node_active),
                 make_table<RF>(layout, kRunTable),
@@ -327,7 +333,8 @@ inline Common make_common(void* node_free, void* node_active,
                 static_cast<int32_t*>(drop_ingest),
                 C, N, R, Q, S, K, E, QC, record_trace, t, window,
                 static_cast<int>(layout[0]),
-                reinterpret_cast<int32_t*>(static_cast<intptr_t>(layout[1]))};
+                reinterpret_cast<int32_t*>(static_cast<intptr_t>(layout[1])),
+                L, static_cast<const uint8_t*>(lane_on)};
 }
 
 // The emit form's outputs and flags, after each launch function's own
@@ -1169,12 +1176,15 @@ inline Level0Args make_level0(const Common& k, const int64_t* layout,
 // ---------------------------------------------------------------------------
 
 constexpr int kDepthBuckets = 16;  // obs/device.py OBS_DEPTH_BUCKETS
+constexpr int kObsRing = 64;       // obs/device.py OBS_RING
 
 // The tap form's operands, from the host array of pointers the wrapper
 // builds once per run (kernels/fused_tick.py _tap_args, in this order):
 // the buffer's per-cluster leaves and the cursor, updated in place; the
-// per-tick outputs; the buffer's cross-cluster leaves and a scratch of
-// three words (zero between launches); the state counters the tap reads;
+// per-tick outputs; the buffer's cross-cluster leaves (a set per batch
+// lane: ticks [L], depth_hist [L, B], the rings [L, kObsRing]) and a
+// scratch of three words a lane (zero between launches); the state
+// counters the tap reads;
 // the seven overflow counters of the compact layout (l0, l1, ready, wait,
 // lent, borrowed, run; null on the wide layout).
 constexpr int kOvfCounters = 7;

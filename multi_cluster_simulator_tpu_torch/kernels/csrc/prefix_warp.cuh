@@ -30,6 +30,14 @@
 // rows into registers, syncs, then writes, since a move by fewer than 32
 // rows overlaps its own source within the chunk.
 //
+// The lane form (a batch of L constellations: tenants, envs) is a second
+// grid dimension: blockIdx.y is the batch lane (`batch_lane`; not a warp's
+// lane), blockIdx.x covers its C clusters, so a block never spans two
+// batch lanes. A warp addresses its cluster as bl C + c in every [L, C,
+// ...] array; the per-lane parameters are [L] arrays; a launch for one
+// member of a mixed set skips the other members' lanes a block at a time
+// (`lane_runs`); the epilogues keep a scratch set per batch lane.
+//
 // What a lane does on its own stays on lane 0 where it is rare: the fault
 // step and the waves' replay on negative demands (prefix_common.cuh
 // Cluster::faults, fifo_drain_waves, sweep and wave_place), on a Cluster
@@ -65,9 +73,16 @@ constexpr int kScratchBytes = 128;
 // A host build's shared memory for the one warp it runs at a time.
 constexpr size_t kHostSmem = 1 << 18;
 
-inline int warps_for(int C, size_t warp_bytes) {
+// The lane form (L batch lanes of C clusters each: the tenants of a tenant
+// batch, the envs of an env batch) adds a second grid dimension, a batch
+// lane a row of blocks, so a block never spans two batch lanes; it also
+// stops halving once half the warps would exceed C (two clusters a lane
+// take blocks of two warps). With L = 1 the shape is the one-lane
+// kernel's.
+inline int warps_for(int C, int L, size_t warp_bytes) {
   int w = kMaxWarps;
-  while (w > 1 && ((C + w - 1) / w < kSMs || w * warp_bytes > kBlockSmem)) {
+  while (w > 1 && ((C + w - 1) / w * (long long)L < kSMs ||
+                   w * warp_bytes > kBlockSmem || w / 2 >= C)) {
     w /= 2;
   }
   return w;
@@ -75,9 +90,21 @@ inline int warps_for(int C, size_t warp_bytes) {
 
 __device__ __forceinline__ int warp_in_block() { return threadIdx.x >> 5; }
 
-// The cluster this warp carries.
+// The cluster this warp carries, within its batch lane.
 __device__ __forceinline__ int cluster_index() {
   return blockIdx.x * (blockDim.x >> 5) + warp_in_block();
+}
+
+// The batch lane this block carries (a tenant or an env; not a warp's
+// lane): the grid's second dimension.
+__device__ __forceinline__ int batch_lane() { return blockIdx.y; }
+
+// Does this launch run batch lane `bl`? A launch of one member of a mixed
+// set runs the lanes that select it (`lane_on`, null for every lane); the
+// test is uniform over the block, so a block of another member's lane
+// returns before any step or epilogue.
+__device__ __forceinline__ bool lane_runs(const Common& k, int bl) {
+  return k.lane_on == nullptr || k.lane_on[bl] != 0;
 }
 
 __device__ __forceinline__ int popc(uint32_t v) {
@@ -341,30 +368,36 @@ struct Geometry {
   size_t smem() const { return warps * warp_bytes; }
 };
 
-inline Geometry geometry(int C, int N, int R, int Q, bool order) {
+inline Geometry geometry(int C, int L, int N, int R, int Q, bool order) {
   const size_t b = warp_mem_bytes(N, R, Q, order);
-  return Geometry{warps_for(C, b), b};
+  return Geometry{warps_for(C, L, b), b};
 }
 
-// Launch `kernel` on `blocks` blocks of `warps` warps with `smem` bytes of
-// dynamic shared memory (warps_for keeps it within the default 48 KB). A
-// host build runs the warps one after another, each as one call. Returns
-// false where the launch cannot be made.
+// Launch `kernel` on `blocks` x `L` blocks (a row of blocks a batch lane)
+// of `warps` warps with `smem` bytes of dynamic shared memory (warps_for
+// keeps it within the default 48 KB). A host build runs the warps one
+// after another, each as one call. Returns false where the launch cannot
+// be made.
 template <class A>
-inline bool launch_warps(void (*kernel)(A), int blocks, int warps,
+inline bool launch_warps(void (*kernel)(A), int blocks, int L, int warps,
                          size_t smem, cudaStream_t stream, const A& a) {
+  if (L < 1 || L > 65535) return false;  // the grid's second dimension
 #ifdef __CUDACC__
-  kernel<<<blocks, warps * kLanes, smem, stream>>>(a);
+  kernel<<<dim3(blocks, L), warps * kLanes, smem, stream>>>(a);
 #else
   (void)stream;
   if (smem / warps > kHostSmem) return false;
   gridDim.x = blocks;
+  gridDim.y = L;
   blockDim.x = warps * kLanes;
-  for (int b = 0; b < blocks; ++b) {
-    for (int w = 0; w < warps; ++w) {
-      blockIdx.x = b;
-      threadIdx.x = w * kLanes;
-      kernel(a);
+  for (int bl = 0; bl < L; ++bl) {
+    for (int b = 0; b < blocks; ++b) {
+      for (int w = 0; w < warps; ++w) {
+        blockIdx.x = b;
+        blockIdx.y = bl;
+        threadIdx.x = w * kLanes;
+        kernel(a);
+      }
     }
   }
 #endif
@@ -1085,13 +1118,20 @@ __device__ __forceinline__ int level0_prefix(const Level0Args& q,
 // block's placements and depths summed and its depth buckets counted, added
 // with integer atomics; the last block to finish writes the ring slot (its
 // value rows, the clock) and the tick count and zeroes the scratch for the
-// next launch. A call, not inlined: inlined into the one-thread scored
+// next launch. All of it per batch lane `bl`: each lane has its own buffer
+// (its histogram, ring and tick count), its own three scratch words and
+// its own count of blocks done, and its last block is the last of the
+// lane's gridDim.x blocks; `c` is the cluster's index over the batch. A call, not inlined: inlined into the one-thread scored
 // kernel of earlier versions, nvcc compiled the tesserae branch's Level0
 // compaction wrong in the faults form (a placed slot stayed in Level0; the
 // comparison with the plain version on the card caught it).
 static __device__ __noinline__ void tap_epilogue(const Tap& p,
-                                                 const Common& k, int c,
-                                                 bool active) {
+                                                 const Common& k, int bl,
+                                                 int c, bool active) {
+  // the lane's cross-cluster leaves and scratch
+  int32_t* const scratch = p.scratch + 3 * bl;
+  int32_t* const hist = p.depth_hist + bl * kDepthBuckets;
+  const int ring = bl * kObsRing + p.slot;
 #ifdef __CUDACC__
   __shared__ int32_t s_placed[kMaxWarps], s_depth[kMaxWarps];
   __shared__ int s_bucket[kMaxWarps];
@@ -1115,40 +1155,40 @@ static __device__ __noinline__ void tap_epilogue(const Tap& p,
   if (l < kDepthBuckets) {
     int hits = 0;
     for (int w = 0; w < W; ++w) hits += s_bucket[w] == l;
-    if (hits != 0) atomicAdd(p.depth_hist + l, hits);
+    if (hits != 0) atomicAdd(hist + l, hits);
   }
   if (l != 0) return;
-  atomicAdd(reinterpret_cast<unsigned*>(p.scratch), sum_placed);
-  atomicAdd(reinterpret_cast<unsigned*>(p.scratch + 1), sum_depth);
+  atomicAdd(reinterpret_cast<unsigned*>(scratch), sum_placed);
+  atomicAdd(reinterpret_cast<unsigned*>(scratch + 1), sum_depth);
   __threadfence();
   const unsigned done =
-      atomicAdd(reinterpret_cast<unsigned*>(p.scratch + 2), 1u);
+      atomicAdd(reinterpret_cast<unsigned*>(scratch + 2), 1u);
   if (done != gridDim.x - 1) return;
-  __threadfence();  // the last block: every block's sums are in
-  p.ring_placed[p.slot] = atomicExch(p.scratch, 0);
-  p.ring_depth[p.slot] = atomicExch(p.scratch + 1, 0);
-  p.scratch[2] = 0;
+  __threadfence();  // the lane's last block: its blocks' sums are in
+  p.ring_placed[ring] = atomicExch(scratch, 0);
+  p.ring_depth[ring] = atomicExch(scratch + 1, 0);
+  scratch[2] = 0;
 #else
   // a host build runs the warps one after another
   if (active) {
     int32_t placed_d, depth;
     int bucket;
     tap_cluster(p, k, c, &placed_d, &depth, &bucket);
-    p.scratch[0] = wrap_add(p.scratch[0], placed_d);
-    p.scratch[1] = wrap_add(p.scratch[1], depth);
-    p.depth_hist[bucket] += 1;
+    scratch[0] = wrap_add(scratch[0], placed_d);
+    scratch[1] = wrap_add(scratch[1], depth);
+    hist[bucket] += 1;
   }
-  if (++p.scratch[2] != (int32_t)(gridDim.x * (blockDim.x / kLanes))) return;
-  p.ring_placed[p.slot] = p.scratch[0];
-  p.ring_depth[p.slot] = p.scratch[1];
-  p.scratch[0] = p.scratch[1] = p.scratch[2] = 0;
+  if (++scratch[2] != (int32_t)(gridDim.x * (blockDim.x / kLanes))) return;
+  p.ring_placed[ring] = scratch[0];
+  p.ring_depth[ring] = scratch[1];
+  scratch[0] = scratch[1] = scratch[2] = 0;
 #endif
-  p.ring_t[p.slot] = k.t;
-  *p.ticks += 1;
+  p.ring_t[ring] = k.t;
+  p.ticks[bl] += 1;
 }
 
 // The node exit narrow's total added to cluster c's run.ovf (and with the
-// tap to its buffer's and cursor's ovf).
+// tap to its buffer's and cursor's ovf); c indexes the whole batch.
 __device__ __forceinline__ void apply_exit_total(const Common& k,
                                                  const Tap& p, bool tap,
                                                  int c, int32_t total) {
@@ -1161,16 +1201,20 @@ __device__ __forceinline__ void apply_exit_total(const Common& k,
 
 // The cross-cluster half of the terminal node exit narrow (core/engine.py
 // _narrow_nodes), after the span and the tap: the reference counts the
-// free and capacity words that do not fit over the WHOLE batch and adds
-// that one total to every cluster's run.ovf (and so, through the tap's ovf
-// reading, to the buffer's ovf and the cursor's). `bad` is the warp's
-// count; each block adds its warps' counts atomically, and the last
-// block's threads apply a nonzero total to every cluster and zero the
+// free and capacity words that do not fit over the WHOLE constellation and
+// adds that one total to every cluster's run.ovf (and so, through the
+// tap's ovf reading, to the buffer's ovf and the cursor's). Under the lane
+// axis a constellation is a batch lane, never the batch: `bad` is the
+// warp's count; each block adds its warps' counts atomically into its
+// lane's two scratch words, and the last of the lane's blocks applies a
+// nonzero total to every cluster of the lane and zeroes the lane's
 // scratch for the next launch. Each thread fences its own stores first,
 // so the last block reads them. A call, like tap_epilogue.
 static __device__ __noinline__ void node_exit_epilogue(const Common& k,
                                                        const Tap& p, bool tap,
-                                                       int bad) {
+                                                       int bl, int bad) {
+  int32_t* const scratch = k.exit_scratch + 2 * bl;
+  const int c0 = bl * k.C;
 #ifdef __CUDACC__
   __shared__ int32_t s_bad[kMaxWarps];
   __shared__ int32_t s_total;
@@ -1181,17 +1225,16 @@ static __device__ __noinline__ void node_exit_epilogue(const Common& k,
     uint32_t sum = 0u;
     for (int w = 0; w < (int)(blockDim.x >> 5); ++w) sum += (uint32_t)s_bad[w];
     if (sum != 0u) {
-      atomicAdd(reinterpret_cast<unsigned*>(k.exit_scratch), sum);
+      atomicAdd(reinterpret_cast<unsigned*>(scratch), sum);
     }
     __threadfence();
     const unsigned done =
-        atomicAdd(reinterpret_cast<unsigned*>(k.exit_scratch + 1), 1u);
+        atomicAdd(reinterpret_cast<unsigned*>(scratch + 1), 1u);
     int32_t total = 0;
     if (done == gridDim.x - 1) {
-      __threadfence();  // the last block: every block's count is in
-      total = (int32_t)atomicExch(
-          reinterpret_cast<unsigned*>(k.exit_scratch), 0u);
-      k.exit_scratch[1] = 0;
+      __threadfence();  // the lane's last block: its blocks' counts are in
+      total = (int32_t)atomicExch(reinterpret_cast<unsigned*>(scratch), 0u);
+      scratch[1] = 0;
     }
     s_total = total;
   }
@@ -1199,17 +1242,17 @@ static __device__ __noinline__ void node_exit_epilogue(const Common& k,
   const int32_t total = s_total;
   if (total == 0) return;
   for (int c = threadIdx.x; c < k.C; c += blockDim.x) {
-    apply_exit_total(k, p, tap, c, total);
+    apply_exit_total(k, p, tap, c0 + c, total);
   }
 #else
-  k.exit_scratch[0] = wrap_add(k.exit_scratch[0], bad);
-  if (++k.exit_scratch[1] != (int32_t)(gridDim.x * (blockDim.x / kLanes))) {
+  scratch[0] = wrap_add(scratch[0], bad);
+  if (++scratch[1] != (int32_t)(gridDim.x * (blockDim.x / kLanes))) {
     return;
   }
-  const int32_t total = k.exit_scratch[0];
-  k.exit_scratch[0] = k.exit_scratch[1] = 0;
+  const int32_t total = scratch[0];
+  scratch[0] = scratch[1] = 0;
   if (total == 0) return;
-  for (int c = 0; c < k.C; ++c) apply_exit_total(k, p, tap, c, total);
+  for (int c = 0; c < k.C; ++c) apply_exit_total(k, p, tap, c0 + c, total);
 #endif
 }
 

@@ -76,6 +76,21 @@ runs on its own (the fault step, the waves' replay), is
 The kernel is the one of the member ``params.idx`` selects in the
 engine's ``PolicySet``, read once at a run's entry (``host_params``).
 
+Every kernel also has a lane form, the same template with the lane count
+L a runtime argument: a lane-stacked batch (the tenants of a tenant
+batch, the envs of an env batch; every state leaf [L, C, ...]) viewed as
+its L C clusters end to end, a row of blocks a lane (``blockIdx.y``), so
+a block never spans two lanes. The parameters the kernels read — FFD's
+tie-break, DELAY's promotion threshold, the scored kinds' pick, 4x4
+table and 3 weights — are [L] device tensors, each lane reading its own
+row; the tap's histogram, ring and tick count and the node exit narrow's
+total are per lane (a scratch set and a count of blocks done a lane).
+One lane is the one-constellation launch. ``fused_prefix_lanes`` runs a
+tick over a batch: ONE launch a kernel source (``host["groups"]``), each
+with a [L] lane mask where a mixed ``PolicySet`` gives lanes to several
+sources; its plain version is the loop over the lanes
+(``fused_prefix_lanes_reference``).
+
 ``fused_prefix`` is the wrapper every tick calls:
 
 - on CUDA tensors it checks device, dtype, shape and contiguity, launches
@@ -109,7 +124,9 @@ from multi_cluster_simulator_tpu_torch.ops import fields as F
 from multi_cluster_simulator_tpu_torch.ops import queues as Q
 from multi_cluster_simulator_tpu_torch.ops import runset as R
 from multi_cluster_simulator_tpu_torch.policies.kernels import _sweep_len
-from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
+from multi_cluster_simulator_tpu_torch.utils.tree import (
+    leaves_with_keys, tree_map,
+)
 
 REPLACES = "multi_cluster_simulator_tpu/kernels/fused_tick.py:160"
 CSRC = "multi_cluster_simulator_tpu_torch/kernels/csrc/"
@@ -257,33 +274,119 @@ def provenance(engine, params=None) -> dict:
                                       tap=True).name if terminal else None)}
 
 
-def host_params(engine, params) -> dict:
-    """What the kernels take from the host, read once (a host sync) at a
-    run's entry and never inside a chunk: the member ``params.idx``
-    selects and its kernels (the terminal and the emit form, both expire
-    forms where the config engages expiry, both faults forms where the
-    fault plane is on, and on a terminal prefix the two tap forms), and
-    the parameters those read
-    — FFD's tie-break, DELAY's promotion threshold, the scored kinds' 4x4
-    f32 table (gavel's throughputs or rl's scores) and tesserae's 3 f32
-    weights, as ctypes arrays handed to the kernel by pointer."""
-    member = engine.member(params)
-    table = {"gavel": params.gavel_tput, "rl": params.rl_scores}.get(
-        member.kind, torch.zeros(16))
+# the scored kernel's picks (csrc/fused_prefix_scored.cu kTable, kTesserae)
+_PICK = {"gavel": 0, "rl": 0, "tesserae": 1}
+
+
+@dataclasses.dataclass
+class Group:
+    """The lanes of a batch one kernel source carries in one launch a
+    tick: its kernels (as ``host_params`` names them), the [L] uint8 mask
+    of its lanes on the device (None where it carries every lane), and
+    whether a lane of it picks tesserae (its warps stage the BFD order)."""
+
+    kernels: dict
+    lane_on: torch.Tensor = None
+    order: int = 0
+    host: dict = None
+
+
+def _lane_plan(engine, members: tuple, device) -> dict:
+    """The host-side grouping of a batch's lanes by the kernel source
+    their members run (one launch a source a tick, DELAY's variants and
+    the scored kinds sharing theirs through per-lane parameters) and the
+    per-lane tables it needs on the device, made once per (engine,
+    members, device) and cached on the engine: a later run over the same
+    lanes copies nothing to the device."""
+    key = (members, str(device))
+    cached = engine._lane_plans.get(key)
+    if cached is not None:
+        return cached
+    specs = [engine.pset.member(i) for i in members]
+    libs = []
+    for spec in specs:
+        lib = kernel_for(spec).lib
+        if lib not in libs:
+            libs.append(lib)
+    groups = []
+    for lib in libs:
+        on = [kernel_for(spec).lib == lib for spec in specs]
+        first = specs[on.index(True)]
+        mask = None if all(on) else torch.tensor(on, dtype=torch.uint8,
+                                                 device=device)
+        order = int(any(o and spec.kind == "tesserae"
+                        for o, spec in zip(on, specs)))
+        groups.append((first, mask, order))
+
+    def flags(kinds):
+        return torch.tensor([spec.kind in kinds for spec in specs],
+                            device=device)
+
+    plan = {"specs": specs, "groups": groups,
+            "pick": torch.tensor([_PICK.get(spec.kind, 0) for spec in specs],
+                                 dtype=torch.int32, device=device),
+            "gavel": flags(("gavel",)), "rl": flags(("rl",))}
+    engine._lane_plans[key] = plan
+    return plan
+
+
+def host_params(engine, params, members=None) -> dict:
+    """What the kernels take from the host, made once at a run's entry and
+    never inside a chunk: each launch's kernels, and the parameters they
+    read, as device tensors a lane each — FFD's tie-break, DELAY's
+    promotion threshold, the scored kinds' pick, 4x4 f32 table (gavel's
+    throughputs or rl's scores) and tesserae's 3 f32 weights, handed to
+    the kernel by pointer.
+
+    ``params`` is one member's (0-d ``idx``: one lane) or a lane-stacked
+    batch's (every leaf with a leading [L]; the engine broadcasts shared
+    leaves). ``members`` is the host tuple of each lane's member index;
+    when None it is read from ``params.idx`` (one host sync), else the
+    entry reads nothing from the device. The lanes group by kernel source
+    (``groups``, one launch each a tick): the terminal and the emit form,
+    both expire forms where the config engages expiry, both faults forms
+    where the fault plane is on, and on a terminal prefix the two tap
+    forms. For one lane the first group's kernels are also the dict's own
+    (``kernel``, ``emit_kernel``, ...), and ``member`` its member."""
+    stacked = params.idx.dim() == 1
+    if members is None:
+        members = tuple(int(i) for i in params.idx.reshape(-1).tolist())
+    p = params if stacked else tree_map(lambda x: x.unsqueeze(0), params)
+    L = len(members)
+    plan = _lane_plan(engine, tuple(members), p.idx.device)
     expire = expires(engine.cfg)
     faults = engine.cfg.faults.enabled
     tap = engine.prefix_terminal()
-    return {"member": member, "expire": expire, "faults": faults,
-            "kernel": kernel_for(member, False, expire, faults),
-            "emit_kernel": kernel_for(member, True, expire, faults),
-            "tap_kernel": (kernel_for(member, False, False, faults, tap=True)
+    groups = []
+    for first, mask, order in plan["groups"]:
+        groups.append(Group({
+            "kernel": kernel_for(first, False, expire, faults),
+            "emit_kernel": kernel_for(first, True, expire, faults),
+            "tap_kernel": (kernel_for(first, False, False, faults, tap=True)
                            if tap else None),
-            "emit_tap_kernel": (kernel_for(member, True, False, faults,
-                                           tap=True) if tap else None),
-            "ffd_mem_first": int(params.ffd_mem_first > 0),
-            "max_wait_ms": int(params.max_wait_ms),
-            "table": (ctypes.c_float * 16)(*table.flatten().tolist()),
-            "weights": (ctypes.c_float * 3)(*params.tess_w.tolist())}
+            "emit_tap_kernel": (kernel_for(first, True, False, faults,
+                                           tap=True) if tap else None)},
+            mask, order))
+    f32, i32 = torch.float32, torch.int32
+    # a lane's table: gavel's throughputs or rl's scores (zeros for the
+    # kinds that read none)
+    table = torch.where(plan["gavel"][:, None],
+                        p.gavel_tput.reshape(L, 16).to(f32),
+                        torch.where(plan["rl"][:, None],
+                                    p.rl_scores.reshape(L, 16).to(f32), 0.0))
+    host = {"L": L, "stacked": stacked,
+            "specs": plan["specs"], "groups": groups, "lane_on": None,
+            "order": groups[0].order, "expire": expire, "faults": faults,
+            "member": plan["specs"][0],
+            "ffd_mem_first": (p.ffd_mem_first > 0).to(i32).reshape(L)
+            .contiguous(),
+            "max_wait_ms": p.max_wait_ms.to(i32).reshape(L).contiguous(),
+            "pick": plan["pick"], "table": table.contiguous(),
+            "weights": p.tess_w.to(f32).reshape(L, 3).contiguous()}
+    host.update(groups[0].kernels)
+    for g in groups:  # each launch's own dict: its mask, its caches
+        g.host = dict(host, lane_on=g.lane_on, order=g.order, **g.kernels)
+    return host
 
 
 def fused_prefix_reference(engine, state, rows, counts, t: int, params,
@@ -303,6 +406,29 @@ def _copy_into(dst, src) -> None:
     for (_, d), (_, s_) in zip(leaves_with_keys(dst), leaves_with_keys(src)):
         if d is not s_:
             d.copy_(s_)
+
+
+def _on_cpu(engine, state, rows, counts, host, obs) -> bool:
+    """Whether a prefix call runs the plain version (every tensor on the
+    CPU) rather than a launch (every tensor on one CUDA device), after
+    the checks both routes share; raises on a mixed placement, on the tap
+    of a non-terminal prefix and on narrow node columns there."""
+    devices = _state_devices(state, host) | {rows.device, counts.device}
+    if obs is not None and not engine.prefix_terminal():
+        raise ValueError("fused_prefix: the metrics tap runs on a terminal "
+                         "prefix only")
+    if state.node_free.dtype != torch.int32 and not engine.prefix_terminal():
+        raise ValueError(
+            "fused_prefix: narrow node columns on a non-terminal prefix; "
+            "the engine's tick widens them first (core/engine.py "
+            "_widen_nodes) and narrows them after its last phase")
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(
+            f"fused_prefix needs every tensor on one CUDA device or all on "
+            f"the CPU; got {sorted(str(d) for d in devices)}")
+    return False
 
 
 def fused_prefix(engine, state, rows: torch.Tensor, counts: torch.Tensor,
@@ -330,16 +456,7 @@ def fused_prefix(engine, state, rows: torch.Tensor, counts: torch.Tensor,
     four outputs None without ``emit_returns``, ``obs_out = (pc', cursor',
     placed_d, depth)`` (the buffer's per-cluster leaves, the cursor, the
     tick's placements and queue depths, [C] each) or None."""
-    devices = _state_devices(state, host) | {rows.device, counts.device}
-    if obs is not None and not engine.prefix_terminal():
-        raise ValueError("fused_prefix: the metrics tap runs on a terminal "
-                         "prefix only")
-    if state.node_free.dtype != torch.int32 and not engine.prefix_terminal():
-        raise ValueError(
-            "fused_prefix: narrow node columns on a non-terminal prefix; "
-            "the engine's tick widens them first (core/engine.py "
-            "_widen_nodes) and narrows them after its last phase")
-    if devices == {torch.device("cpu")}:
+    if _on_cpu(engine, state, rows, counts, host, obs):
         tap_in = None if obs is None else (obs_device.tap_pc(obs[0]), obs[1])
         new, *io, obs_out = fused_prefix_reference(
             engine, state, rows, counts, t, params, host["member"],
@@ -359,10 +476,6 @@ def fused_prefix(engine, state, rows: torch.Tensor, counts: torch.Tensor,
         for (_, dst), src in zip(leaves_with_keys(out), io):
             dst.copy_(src)
         return (state, *_outputs(out), obs_out)
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(
-            f"fused_prefix needs every tensor on one CUDA device or all on "
-            f"the CPU; got {sorted(str(d) for d in devices)}")
     tap = None
     if obs is not None:
         tap = _tap_args(engine, state, obs[0], obs[1], host)
@@ -383,6 +496,154 @@ def fused_prefix(engine, state, rows: torch.Tensor, counts: torch.Tensor,
     if not emit_returns:
         return state, None, None, None, None, obs_out
     return (state, *_outputs(out), obs_out)
+
+
+# --------------------------------------------------------------------------
+# the lane form: a batch of L constellations (tenants, envs) of C clusters
+# --------------------------------------------------------------------------
+
+def lane(tree, i: int):
+    """Lane ``i`` of a lane-stacked tree (a state, params, a buffer, a
+    TickIO: every leaf with a leading [L]): a view of each leaf, so that
+    an in-place update of the lane updates the batch."""
+    return tree_map(lambda x: x[i], tree)
+
+
+def _flat(tree, keep=()):
+    """A lane-stacked tree's clusters end to end: every leaf [L, C, ...]
+    viewed as [L C, ...], but the leaves whose paths ``keep`` names (a
+    state's clock, a buffer's cross-cluster leaves), which carry only the
+    lane axis. The views share the batch's storage."""
+    def walk(x, path=""):
+        if dataclasses.is_dataclass(x):
+            return dataclasses.replace(x, **{
+                f.name: walk(getattr(x, f.name), f"{path}.{f.name}")
+                for f in dataclasses.fields(x)})
+        if path in keep:
+            return x
+        return x.view(x.shape[0] * x.shape[1], *x.shape[2:])
+    return walk(tree)
+
+
+_MBUF_LANE_LEAVES = (".ticks", ".depth_hist", ".ring_placed", ".ring_depth",
+                     ".ring_t", ".leap_hist")
+
+
+def _flat_cached(host: dict, name: str, tree, keep=()):
+    """``_flat(tree)``, made once per tree object and kept in ``host``
+    (the engine updates a batch's tensors in place; a caller that swaps a
+    leaf passes a new object), so that the kernels' cached operands stay
+    valid across ticks."""
+    cached = host.get(name)
+    if cached is not None and cached[0] is tree:
+        return cached[1]
+    flat = _flat(tree, keep)
+    host[name] = (tree, flat)
+    return flat
+
+
+def fused_prefix_lanes_reference(engine, state, rows, counts, t: int, params,
+                                 host: dict, emit_returns: bool = False,
+                                 out=None, obs=None, windowed: bool = False):
+    """The lane form's plain version, on any device: a loop over the lanes
+    that runs the plain span (``fused_prefix_reference``) on each lane's
+    [C] views, its member the lane's own, with the tap's two halves per
+    lane under ``obs``. ``state``, ``params``, ``rows`` [L, C, K, NF],
+    ``counts`` [L, C], ``out`` and ``obs`` carry the lane axis; the state,
+    the buffer and the cursor are updated in place. Returns as
+    ``fused_prefix_lanes``."""
+    L, C = host["L"], state.arr_ptr.shape[-1]
+    if emit_returns and out is None:
+        out = empty_io((L, C), engine.n_msgs(), state.device)
+    for i in range(L):
+        s_i = lane(state, i)
+        tap_in = None
+        if obs is not None:
+            mb_i, cur_i = lane(obs[0], i), lane(obs[1], i)
+            tap_in = (obs_device.tap_pc(mb_i), cur_i)
+        new, *io, obs_out = fused_prefix_reference(
+            engine, s_i, rows[i], counts[i], t, lane(params, i),
+            host["specs"][i], emit_returns, tap_in, windowed)
+        _copy_into(s_i, new)
+        if obs is not None:
+            pc, cur, placed_d, depth = obs_out
+            _copy_into(mb_i, obs_device.tap_tick_global(
+                mb_i.replace(**pc), placed_d, depth, t, engine.cfg.tick_ms))
+            _copy_into(cur_i, cur)
+        if emit_returns:
+            for (_, dst), src in zip(leaves_with_keys(lane(out, i)), io):
+                dst.copy_(src)
+    if not emit_returns:
+        return state, None, None, None, None, None
+    return (state, *_outputs(out), None)
+
+
+def fused_prefix_lanes(engine, state, rows: torch.Tensor,
+                       counts: torch.Tensor, t: int, params, host: dict,
+                       emit_returns: bool = False, out=None, obs=None,
+                       windowed: bool = False):
+    """``fused_prefix`` over a batch of L lanes in lockstep (one clock
+    ``t``): ``state``, ``params`` (``host_params`` of lane-stacked params),
+    ``rows`` [L, C, K, NF] (contiguous), ``counts`` [L, C], ``out`` (a
+    TickIO of [L, C, ...]) and ``obs`` (a lane-stacked buffer and cursor)
+    carry the lane axis. On CUDA tensors each group of ``host["groups"]``
+    — the lanes whose members one kernel source carries — is ONE launch
+    over all L C clusters, a row of blocks a lane, the lanes of other
+    sources masked out (``lane_on``) and every parameter read per lane
+    from the device; the tap and the node exit narrow close each lane on
+    its own. On CPU tensors it runs the plain per-lane loop
+    (``fused_prefix_lanes_reference``). Either way the state (and the
+    buffer and cursor) are updated in place. Returns ``(state, want,
+    bjob_vec, ret_rows, ret_valid, None)``, the four [L, C, ...] outputs
+    None without ``emit_returns``."""
+    if _on_cpu(engine, state, rows, counts, host, obs):
+        return fused_prefix_lanes_reference(engine, state, rows, counts, t,
+                                            params, host, emit_returns, out,
+                                            obs, windowed)
+    if emit_returns and out is None:
+        out = empty_io(tuple(counts.shape), engine.n_msgs(), counts.device)
+    for k in launch_lanes(engine, state, rows, counts, t, host,
+                          out if emit_returns else None, obs, windowed):
+        k.launches += 1
+        if windowed:
+            k.windowed_launches += 1
+    if not emit_returns:
+        return state, None, None, None, None, None
+    return (state, *_outputs(out), None)
+
+
+def launch_lanes(engine, state, rows, counts, t: int, host: dict, out=None,
+                 obs=None, windowed: bool = False) -> list:
+    """The lane form's launches, one per group of ``host["groups"]``, over
+    the batch's clusters end to end (the state, ``rows``, ``counts``,
+    ``out`` and the buffer's per-cluster leaves viewed [L C, ...]; the
+    views are made once per object and kept in ``host``). Emits into
+    ``out`` when given. Returns the kernels launched; counts nothing."""
+    L, C = host["L"], state.arr_ptr.shape[-1]
+    if tuple(state.arr_ptr.shape) != (L, C):
+        raise ValueError(f"fused_prefix_lanes: a state of "
+                         f"{tuple(state.arr_ptr.shape)} clusters, {L} lanes")
+    flat = _flat_cached(host, "flat_state", state, (".t",))
+    rows_f = rows.view(L * C, *rows.shape[2:])
+    counts_f = counts.view(L * C)
+    io = None if out is None else _flat(out)
+    launched = []
+    for g in host["groups"]:
+        tap = None
+        if obs is not None:
+            tap = _tap_args(
+                engine, flat,
+                _flat_cached(g.host, "flat_mbuf", obs[0], _MBUF_LANE_LEAVES),
+                _flat_cached(g.host, "flat_cursor", obs[1]), g.host)
+        if tap is None:
+            k = g.kernels["emit_kernel" if io is not None else "kernel"]
+        else:
+            k = g.kernels["emit_tap_kernel" if io is not None
+                          else "tap_kernel"]
+        _LAUNCH[k.lib](engine.cfg, flat, rows_f, counts_f, t, g.host, io,
+                       windowed, tap)
+        launched.append(k)
+    return launched
 
 
 def _state_devices(state, host) -> set:
@@ -411,6 +672,28 @@ def prepare(engine, state, host: dict, emit_returns: bool = False,
     _layout(engine.cfg, state, _OWN_TABLES[lib](state), host)
     if obs is not None:
         _tap_args(engine, state, obs[0], obs[1], host)
+
+
+def prepare_lanes(engine, state, host: dict, emit_returns: bool = False,
+                  obs=None) -> None:
+    """``prepare`` for the lane form: check and keep in ``host`` (and each
+    group's) what ``fused_prefix_lanes`` on the lane-stacked ``state``
+    reads from the host — the leaves' devices, the clusters viewed end to
+    end, each group's column views and, with ``obs``, its tap operands —
+    as its first launch would: a caller timing a launch does this
+    outside the timed span."""
+    _state_devices(state, host)
+    if state.device.type != "cuda":
+        return
+    flat = _flat_cached(host, "flat_state", state, (".t",))
+    for g in host["groups"]:
+        lib = g.kernels["emit_kernel" if emit_returns else "kernel"].lib
+        _layout(engine.cfg, flat, _OWN_TABLES[lib](flat), g.host)
+        if obs is not None:
+            _tap_args(engine, flat,
+                      _flat_cached(g.host, "flat_mbuf", obs[0],
+                                   _MBUF_LANE_LEAVES),
+                      _flat_cached(g.host, "flat_cursor", obs[1]), g.host)
 
 
 def _outputs(io) -> tuple:
@@ -442,15 +725,21 @@ def _entry(name: str, n_ptr: int, n_int: int, n_host: int):
     return fn
 
 
-def _common(cfg, s, rows, counts, t: int, windowed: bool):
+def _common(cfg, s, rows, counts, t: int, windowed: bool, host: dict):
     """The checked pointers and ints every prefix kernel takes first: the
     node vectors, the running set, the counters of release/ingest/place,
     the trace, the tick's arrivals (or the windowed stream and its
-    counts, with ``drops.ingest``) and the window (-1 for a tick's
-    rows)."""
+    counts, with ``drops.ingest``), the launch's lane mask, the clusters a
+    lane and the lanes (``host["L"]``; ``s`` holds the batch's clusters
+    end to end, [L C, ...]) and the window (-1 for a tick's rows)."""
     if not -2**31 <= t < 2**31:
         raise ValueError(f"fused_prefix: clock {t} does not fit int32")
     C, N, n_res = s.node_free.shape
+    L = host.get("L", 1)  # one lane unless the host says otherwise
+    if C % L:
+        raise ValueError(f"fused_prefix: {C} clusters do not split into "
+                         f"{L} lanes")
+    lane_on = host.get("lane_on")
     Qc, S = cfg.queue_capacity, cfg.max_running
     K = rows.shape[1] if rows.dim() == 3 else -1
     E = s.trace.t.shape[-1]
@@ -476,10 +765,12 @@ def _common(cfg, s, rows, counts, t: int, windowed: bool):
         _check("counts", counts, c_shape, i32),
         _check("drops.ingest", s.drops.ingest, c_shape, i32)
         if windowed else None,
+        None if lane_on is None else _check("lane_on", lane_on, (L,),
+                                            torch.uint8),
     ]
     window = min(cfg.max_ingest_per_tick, K) if windowed else -1
-    ints = [C, N, n_res, Qc, S, K, E, _sweep_len(cfg), int(cfg.record_trace),
-            t, window]
+    ints = [C // L, L, N, n_res, Qc, S, K, E, _sweep_len(cfg),
+            int(cfg.record_trace), t, window]
     return ptrs, ints
 
 
@@ -509,7 +800,10 @@ def _tap_args(engine, state, mbuf, cur, host: dict) -> TapArgs:
     (``PC_LEAVES``), the cursor, the two per-tick outputs, the buffer's
     cross-cluster leaves and a zeroed scratch of three words (the ring
     sums and the count of blocks done), then the state counters the tap
-    reads, then the seven overflow counters (null on a wide table)."""
+    reads, then the seven overflow counters (null on a wide table). A
+    lane-stacked buffer's cross-cluster leaves carry a leading [L] (its
+    per-cluster leaves and the cursor come flat, [L C]), and the scratch
+    is three words a lane."""
     cached = host.get("tap")
     if cached is not None and cached.key[0] is state and \
             cached.key[1] is mbuf and cached.key[2] is cur:
@@ -519,6 +813,8 @@ def _tap_args(engine, state, mbuf, cur, host: dict) -> TapArgs:
     i32, f32 = torch.int32, torch.float32
     c_shape = (C,)
     B, Rg = obs_device.OBS_DEPTH_BUCKETS, obs_device.OBS_RING
+    L = host["L"]
+    lead = (L,) if host["stacked"] else ()
 
     def leaf(name, x, dtype=i32, shape=c_shape):
         return _check(name, x, shape, dtype)
@@ -533,12 +829,12 @@ def _tap_args(engine, state, mbuf, cur, host: dict) -> TapArgs:
                f32 if f.name == "wait" else i32)
           for f in dataclasses.fields(cur)),
         placed_d, depth,
-        leaf("mbuf.ticks", mbuf.ticks, shape=()),
-        leaf("mbuf.depth_hist", mbuf.depth_hist, shape=(1, B)),
-        leaf("mbuf.ring_placed", mbuf.ring_placed, shape=(1, Rg)),
-        leaf("mbuf.ring_depth", mbuf.ring_depth, shape=(1, Rg)),
-        leaf("mbuf.ring_t", mbuf.ring_t, shape=(Rg,)),
-        torch.zeros(3, dtype=i32, device=dev),
+        leaf("mbuf.ticks", mbuf.ticks, shape=lead),
+        leaf("mbuf.depth_hist", mbuf.depth_hist, shape=lead + (1, B)),
+        leaf("mbuf.ring_placed", mbuf.ring_placed, shape=lead + (1, Rg)),
+        leaf("mbuf.ring_depth", mbuf.ring_depth, shape=lead + (1, Rg)),
+        leaf("mbuf.ring_t", mbuf.ring_t, shape=lead + (Rg,)),
+        torch.zeros(3 * L, dtype=i32, device=dev),
         leaf("wait_total", state.wait_total, f32),
         leaf("lent.count", state.lent.count),
         leaf("l0.count", state.l0.count),
@@ -625,24 +921,25 @@ _OWN_TABLES = {"fused_prefix_fifo": lambda s: (s.ready, s.wait),
 def _layout(cfg, s, own: tuple, host: dict) -> ctypes.Array:
     """The host array every launch function takes (``csrc/prefix_common.cuh
     make_table``'s order): the node columns' value size and the node exit
-    scratch (two zeroed words, 0 on int32 columns), then the column views
+    scratch (two zeroed words a lane, 0 on int32 columns), then the column views
     of the running set, the lent queue and the kernel's own queues
-    ``own``. Built once per (node dtype, table objects); the newest few
+    ``own``. Built once per (node dtype, lanes, table objects); the newest few
     are kept in ``host["layouts"]``, which holds the objects, so their ids
     stay theirs."""
-    key = (s.node_free.dtype, s.run, s.lent, *own)
+    L = host["L"]
+    key = (s.node_free.dtype, L, s.run, s.lent, *own)
     kept = host.setdefault("layouts", [])
     for cached in kept:
-        if len(cached.key) == len(key) and cached.key[0] == key[0] and \
-                all(a is b for a, b in zip(cached.key[1:], key[1:])):
+        if len(cached.key) == len(key) and cached.key[:2] == key[:2] and \
+                all(a is b for a, b in zip(cached.key[2:], key[2:])):
             return cached.words
     C, N, n_res = s.node_free.shape
     Qc, S = cfg.queue_capacity, cfg.max_running
     size = s.node_free.element_size()
-    scratch = torch.zeros(2, dtype=torch.int32, device=s.device)
+    scratch = torch.zeros(2 * L, dtype=torch.int32, device=s.device)
     compact = size != 4 or any(isinstance(x, (Q.SoAJobQueue,
                                               R.SoARunningSet))
-                               for x in key[1:])
+                               for x in key[2:])
     if compact and (N > MAX_NARROW_NODES or n_res > 3):
         # the wave replay's local node arrays
         raise ValueError(f"fused_prefix: the compact layout's {N} x {n_res} "
@@ -754,10 +1051,15 @@ def _run(name: str, ptrs, ints, rows, host_ptrs=()):
                            f"({torch.cuda.get_device_name(rows.device)})")
 
 
+def _lane_param(name: str, host: dict, dtype, width=()) -> torch.Tensor:
+    """A per-lane parameter of ``host``, checked: [L] (or [L, width])."""
+    return _check(name, host[name], (host["L"], *width), dtype)
+
+
 def _launch_fifo(cfg, s, rows, counts, t: int, host: dict, io=None,
                  windowed: bool = False, tap: TapArgs = None) -> None:
-    ptrs, ints = _common(cfg, s, rows, counts, t, windowed)
-    C = ints[0]
+    ptrs, ints = _common(cfg, s, rows, counts, t, windowed, host)
+    C = s.arr_ptr.shape[0]
     ints += [int(cfg.fifo_drain == "wave")]
     ptrs += (_count("ready", s.ready, C) + _count("wait", s.wait, C)
              + _count("lent", s.lent, C))
@@ -772,10 +1074,12 @@ def _launch_fifo(cfg, s, rows, counts, t: int, host: dict, io=None,
 
 def _launch_ffd(cfg, s, rows, counts, t: int, host: dict, io=None,
                 windowed: bool = False, tap: TapArgs = None) -> None:
-    ptrs, ints = _common(cfg, s, rows, counts, t, windowed)
-    ptrs += _level0("fused_prefix_ffd", s, ints[0], ints[3])
+    ptrs, ints = _common(cfg, s, rows, counts, t, windowed, host)
+    C = s.arr_ptr.shape[0]
+    ptrs += _level0("fused_prefix_ffd", s, C, cfg.queue_capacity) + [
+        _lane_param("ffd_mem_first", host, torch.int32)]
     wave = int(not cfg.parity and cfg.ffd_sweep == "wave")
-    ints += [wave, host["ffd_mem_first"]]
+    ints += [wave]
     e_ptrs, e_ints = _emit(cfg, s, io)
     x_ptrs, x_ints = _expire(s, host)
     f_ptrs, f_ints = _faults(cfg, s, host)
@@ -787,11 +1091,13 @@ def _launch_ffd(cfg, s, rows, counts, t: int, host: dict, io=None,
 
 def _launch_delay(cfg, s, rows, counts, t: int, host: dict, io=None,
                   windowed: bool = False, tap: TapArgs = None) -> None:
-    ptrs, ints = _common(cfg, s, rows, counts, t, windowed)
-    C, Qc = ints[0], ints[3]
-    ptrs += _level0("fused_prefix_delay", s, C, Qc) + _count("l1", s.l1, C)
+    ptrs, ints = _common(cfg, s, rows, counts, t, windowed, host)
+    C = s.arr_ptr.shape[0]
+    ptrs += (_level0("fused_prefix_delay", s, C, cfg.queue_capacity)
+             + _count("l1", s.l1, C)
+             + [_lane_param("max_wait_ms", host, torch.int32)])
     wave = int(not cfg.parity and cfg.delay_sweep == "wave")
-    ints += [wave, int(cfg.parity), host["max_wait_ms"]]
+    ints += [wave, int(cfg.parity)]
     e_ptrs, e_ints = _emit(cfg, s, io)
     x_ptrs, x_ints = _expire(s, host)
     f_ptrs, f_ints = _faults(cfg, s, host)
@@ -801,25 +1107,23 @@ def _launch_delay(cfg, s, rows, counts, t: int, host: dict, io=None,
          ints + e_ints + x_ints + f_ints + t_ints, rows, (layout, t_ptrs))
 
 
-# the scored kernel's picks (csrc/fused_prefix_scored.cu kTable, kTesserae)
-_PICK = {"gavel": 0, "rl": 0, "tesserae": 1}
-
-
 def _launch_scored(cfg, s, rows, counts, t: int, host: dict, io=None,
                    windowed: bool = False, tap: TapArgs = None) -> None:
-    ptrs, ints = _common(cfg, s, rows, counts, t, windowed)
-    C, N = ints[0], ints[1]
-    ptrs += _level0("fused_prefix_scored", s, C, ints[3]) + [
-        _check("node_type", s.node_type, (C, N), torch.int32)]
-    ints += [_PICK[host["member"].kind]]
+    ptrs, ints = _common(cfg, s, rows, counts, t, windowed, host)
+    C, N = s.node_free.shape[:2]
+    ptrs += _level0("fused_prefix_scored", s, C, cfg.queue_capacity) + [
+        _check("node_type", s.node_type, (C, N), torch.int32),
+        _lane_param("pick", host, torch.int32),
+        _lane_param("table", host, torch.float32, (16,)),
+        _lane_param("weights", host, torch.float32, (3,))]
+    ints += [host["order"]]
     e_ptrs, e_ints = _emit(cfg, s, io)
     x_ptrs, x_ints = _expire(s, host)
     f_ptrs, f_ints = _faults(cfg, s, host)
     t_ints, t_ptrs = _tap(cfg, tap, t)
     layout = _layout(cfg, s, _OWN_TABLES["fused_prefix_scored"](s), host)
     _run("fused_prefix_scored", ptrs + e_ptrs + x_ptrs + f_ptrs,
-         ints + e_ints + x_ints + f_ints + t_ints, rows,
-         (layout, host["table"], host["weights"], t_ptrs))
+         ints + e_ints + x_ints + f_ints + t_ints, rows, (layout, t_ptrs))
 
 
 _LAUNCH = {"fused_prefix_fifo": _launch_fifo,

@@ -13,8 +13,10 @@
   and every ``default_params`` leaf).
 - ``PolicySet`` — the tuple of registered names an engine runs, every
   kind of the zoo; a scalar ``params.idx`` selects the member
-  (``dispatch``). A batched index, the tournament's cell axis
-  (``stacked_params``), is ROADMAP A13.
+  (``dispatch``). A batched index [L] selects a member per lane of a
+  lane-stacked run (``members``; ``stacked_params`` stacks every member's
+  params on that axis, the tournament's cell axis): the engine reads it
+  once per run and launches each member's kernel over its own lanes.
 - ``params_digest`` — the provenance digest of concrete parameter leaves,
   the reference's character for character: what the checkpoint header
   records (core/checkpoint.py) and ``PolicySet.provenance`` reports.
@@ -241,6 +243,15 @@ class PolicySet:
         i = self.index_of(name)
         return default_params(cfg, self.specs[i], idx=i, device=device)
 
+    def stacked_params(self, cfg: SimConfig, device="cpu") -> PolicyParams:
+        """Every member's params stacked on a leading axis, in the set's
+        order — the policy axis a tournament runs as lanes (``idx`` [M]
+        then selects member m in lane m)."""
+        cells = [self.params_for(cfg, n, device=device) for n in self.names]
+        return PolicyParams(**{
+            f.name: torch.stack([getattr(c, f.name) for c in cells])
+            for f in dataclasses.fields(PolicyParams)})
+
     def provenance(self, cfg: SimConfig, name=None) -> dict:
         """(registered name, param digest) for detail dicts."""
         name = self.names[0] if name is None else name
@@ -263,17 +274,26 @@ class PolicySet:
 
     def member(self, idx) -> PolicySpec:
         """The member a scalar ``params.idx`` selects (an int, or a 0-d
-        tensor read once: a host sync on the card)."""
+        tensor read once: a host sync on the card). A batched index
+        selects a member per lane: ``members``."""
         if isinstance(idx, torch.Tensor):
             if idx.dim() != 0:
-                raise NotImplementedError(
-                    "a batched params.idx (the tournament's cell axis) is "
-                    "not ported yet: ROADMAP A13")
+                raise ValueError(
+                    f"member() takes a scalar params.idx; a batched one of "
+                    f"shape {tuple(idx.shape)} selects a member per lane "
+                    f"(PolicySet.members)")
             idx = int(idx)
         if not 0 <= idx < len(self.names):
             raise IndexError(f"params.idx {idx} outside the set's "
                              f"{len(self.names)} members {self.names}")
         return self.specs[idx]
+
+    def members(self, idx) -> tuple:
+        """The members a batched ``params.idx`` [L] selects, a lane each
+        (one host read of the index; a 0-d index is one lane)."""
+        if isinstance(idx, torch.Tensor):
+            idx = idx.reshape(-1).tolist()
+        return tuple(self.member(int(i)) for i in np.atleast_1d(idx))
 
     def dispatch(self, state: SimState, t: int, params: PolicyParams,
                  cfg: SimConfig, member: PolicySpec = None):

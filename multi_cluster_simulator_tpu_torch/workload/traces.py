@@ -8,15 +8,19 @@ is the load shape of the headline benchmark; ``borg_like_stream`` — heavy
 tails and a diurnal arrival intensity — is the Borg-like replay's;
 ``bursty_stream`` — bursts with quiet valleys between — is the shape the
 event-compressed driver leaps over; ``from_arrays`` replays a loaded trace
-(workload/borg.py). The on-device generative draw is a later slice
-(ROADMAP A14).
+(workload/borg.py). ``tick_arrivals_device`` is the environment mode's
+generative draw: one tick's rows made on the device from a key, bitwise
+the reference's draw of the same key (utils/prng.py).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from multi_cluster_simulator_tpu_torch.core.state import Arrivals
+from multi_cluster_simulator_tpu_torch.ops import fields as F
+from multi_cluster_simulator_tpu_torch.utils import prng
 
 
 def _pack(t, cores, mem, dur, gpu=None):
@@ -102,3 +106,53 @@ def from_arrays(t_ms, cores, mem, dur_ms, gpus=None) -> Arrivals:
     return _pack(np.asarray(t_ms), np.asarray(cores), np.asarray(mem),
                  np.asarray(dur_ms),
                  None if gpus is None else np.asarray(gpus))
+
+
+def tick_arrivals_device(key, t, n_clusters: int, k_max: int, rate,
+                         max_cores, max_mem, max_dur_ms, beta=2.0):
+    """One tick's arrival rows drawn on the key's device, from ``key``
+    ([2] uint32, or [B, 2] for a batch of envs, each its own stream): the
+    environment mode's generative workload, bitwise the reference's
+    ``workload/traces.tick_arrivals_device`` for the same key. The same
+    family as ``uniform_stream`` (Beta(b, b) sizes, uniform durations):
+    each of ``k_max`` candidates a cluster is admitted with probability
+    ``rate / k_max`` and the admitted count takes the row prefix. The key
+    splits in four (admission, cores, mem, durations); Beta(b, b) for an
+    integer b is the b-th smallest of 2b - 1 uniforms; the durations are
+    ``randint`` over [0, max(max_dur_ms, 1)); sizes are ``floor(x max)``
+    in f32. ``t`` (an int or a tensor of the batch's shape) is the tick's
+    clock, the rows' ``enq_t``; ids are tick-local (0..k_max-1).
+
+    Returns ``(rows [..., C, K, NF] i32, counts [..., C] i32)``, the slice
+    ``Engine.step_tick`` ingests. No host synchronisation."""
+    b = int(beta)
+    if b != beta or b < 1:
+        raise ValueError(f"tick_arrivals_device draws Beta(b, b) for an "
+                         f"integer b >= 1 only; got beta={beta}")
+    C, K = int(n_clusters), int(k_max)
+    ks = prng.split(key, 4)
+    ka, kc, km, kd = (ks[..., i, :] for i in range(4))
+    lead = tuple(key.shape[:-1])
+    thresh = float(np.float32(rate) / np.float32(K))
+    admit = prng.uniform(ka, (C, K)) < thresh
+    counts = admit.sum(-1, dtype=torch.int32)
+
+    def beta_bb(k):
+        u = prng.uniform(k, (C, K, 2 * b - 1))
+        return torch.sort(u, dim=-1).values[..., b - 1]
+
+    cores = torch.floor(beta_bb(kc) * float(max_cores)).to(torch.int32)
+    mem = torch.floor(beta_bb(km) * float(max_mem)).to(torch.int32)
+    dur = prng.randint(kd, (C, K), 0, max(int(max_dur_ms), 1))
+    shape = lead + (C, K)
+    dev = key.device
+    t = torch.as_tensor(t, dtype=torch.int32, device=dev)
+    tt = t.reshape(t.shape + (1, 1)).expand(shape)
+    zeros = torch.zeros(shape, dtype=torch.int32, device=dev)
+    ids = torch.arange(K, dtype=torch.int32, device=dev).expand(shape)
+    vals = {"id": ids, "cores": cores, "mem": mem, "gpu": zeros, "dur": dur,
+            "enq_t": tt, "owner": torch.full_like(zeros, -1),
+            "rec_wait": zeros, "jclass": F.job_class(cores, zeros)
+            .to(torch.int32), "retries": zeros}
+    rows = torch.stack([vals[n] for n in F.QUEUE_FIELDS], -1)
+    return rows, counts

@@ -23,11 +23,12 @@ from multi_cluster_simulator_tpu.core.state import init_state as jinit_state
 from multi_cluster_simulator_tpu.utils.trace import extract_trace as jextract
 from multi_cluster_simulator_tpu.workload.traces import uniform_stream
 from multi_cluster_simulator_tpu_torch import config as tconfig
-from multi_cluster_simulator_tpu_torch import interop
+from multi_cluster_simulator_tpu_torch import interop, tenancy
 from multi_cluster_simulator_tpu_torch.core import engine as tengine
 from multi_cluster_simulator_tpu_torch.core import spec as tspec
 from multi_cluster_simulator_tpu_torch.core import state as tstate
 from multi_cluster_simulator_tpu_torch.kernels import fused_tick as tfused
+from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
 from multi_cluster_simulator_tpu_torch.utils import trace as ttrace
 from multi_cluster_simulator_tpu_torch.workload import traces as ttraces
 
@@ -229,8 +230,10 @@ def test_configs_outside_the_slice_raise(change, policies):
 
 
 def test_unported_run_paths_raise():
-    """A batched ``params.idx`` (the tournament's cell axis) is not
-    ported: a run refuses it by its ROADMAP item."""
+    """A batched ``params.idx`` [L] selects a member per lane of a
+    lane-stacked state; paired with a state that has no lane axis (or a
+    batch of another size), a run refuses it with a ValueError that names
+    the mismatch."""
     cfg = port_cfg(headline_cfg())
     eng = tengine.Engine(cfg, device="cpu")
     _, tspecs = specs(2)
@@ -238,7 +241,52 @@ def test_unported_run_paths_raise():
     params = eng._default_params.replace(
         idx=torch.zeros((2,), dtype=torch.int32))
     chunk = tengine.pack_arrivals_by_tick(stream(2)[1], 5, cfg.tick_ms)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(ValueError, match="needs a lane-stacked state"):
         eng.run(state, chunk, 5, params)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(ValueError, match="needs a lane-stacked state"):
         eng.run_compressed(state, chunk, 5, params)
+    lanes = tenancy.stack_tenant_states([state] * 3)
+    three = tenancy.stack_tick_arrivals([chunk] * 3)
+    with pytest.raises(ValueError, match=r"shape \(2,\) for a state of 3"):
+        eng.run(lanes, three, 5, params)
+
+
+def test_lane_stacked_runs_equal_standalone():
+    """The positive cases: a lane-stacked state with a batched ``idx``
+    (FIFO and DELAY lanes) runs through ``run`` and ``run_compressed``,
+    and every lane equals its standalone run; shared (unbatched) params
+    serve every lane."""
+    cfg = port_cfg(headline_cfg())
+    eng = tengine.Engine(cfg, device="cpu",
+                         policies=PolicySet(("fifo", "delay")))
+    _, tspecs = specs(3)
+    n = 12
+    chunks = [tengine.pack_arrivals_by_tick(stream(3, seed=9 + i)[1], n,
+                                            cfg.tick_ms) for i in range(3)]
+    k = max(c.rows.shape[2] for c in chunks)
+    chunks = [tenancy.pad_tick_arrivals(c, k) for c in chunks]
+    cells = [eng.pset.params_for(cfg, name) for name in
+             ("fifo", "delay", "fifo")]
+    params = tenancy.stack_lanes(cells)
+    for run in ("run", "run_compressed"):
+        lanes = tenancy.stack_tenant_states(
+            [tstate.init_state(cfg, tspecs, device="cpu")] * 3)
+        out = getattr(eng, run)(lanes, tenancy.stack_tick_arrivals(chunks),
+                                n, params)
+        out = out[0] if isinstance(out, tuple) else out
+        for i in range(3):
+            solo = getattr(eng, run)(
+                tstate.init_state(cfg, tspecs, device="cpu"), chunks[i], n,
+                cells[i])
+            solo = solo[0] if isinstance(solo, tuple) else solo
+            assert_leaves_equal(
+                interop.state_to_numpy(solo),
+                interop.state_to_numpy(tenancy.tenant_cell(out, i)))
+    shared = tengine.Engine(cfg, device="cpu")
+    lanes = tenancy.stack_tenant_states(
+        [tstate.init_state(cfg, tspecs, device="cpu")] * 3)
+    out = shared.run(lanes, tenancy.stack_tick_arrivals(chunks), n)
+    solo = shared.run(tstate.init_state(cfg, tspecs, device="cpu"),
+                      chunks[2], n)
+    assert_leaves_equal(interop.state_to_numpy(solo),
+                        interop.state_to_numpy(tenancy.tenant_cell(out, 2)))

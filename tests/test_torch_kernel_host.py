@@ -23,8 +23,18 @@ the scored kinds (gavel and rl tables, tesserae, a NaN score, scores all
 ``-inf``, more than 32 nodes), both state layouts, undersized plans whose
 clamped demands replay the waves, the node exit narrow, and cluster
 counts that leave a block's last warps idle. Each case also checks that
-the branch it is for fired. Needs g++ (skipped without one, decided in a
-fixture)."""
+the branch it is for fired.
+
+The ``lanes-*`` cases run the lane form: a lane-stacked batch (L > 1
+constellations of C clusters, the members of a mixed ``PolicySet`` a lane
+each) through ``run_chunks``, with ``fused_tick.fused_prefix_lanes``
+replaced by ``CheckedLanes``: each tick the host kernels launch once a
+source over every lane (``fused_tick.launch_lanes``, the other sources'
+lanes masked out, every parameter read per lane) and the plain per-lane
+loop (``fused_prefix_lanes_reference``) runs on a copy, every leaf held
+bitwise. They cover per-lane parameters that differ, C not a multiple of
+the warps a block, the tap and the node exit narrow per lane, and the
+member masks. Needs g++ (skipped without one, decided in a fixture)."""
 
 import collections
 import ctypes
@@ -38,6 +48,7 @@ import pytest
 import torch
 
 import multi_cluster_simulator_tpu_torch as P
+from multi_cluster_simulator_tpu_torch import tenancy
 from multi_cluster_simulator_tpu_torch.core import compact as CC
 from multi_cluster_simulator_tpu_torch.core import engine as E
 from multi_cluster_simulator_tpu_torch.core.state import (
@@ -171,10 +182,55 @@ class Checked:
         return (state, *got, obs_out)
 
 
+class CheckedLanes:
+    """``fused_tick.fused_prefix_lanes`` for lane-stacked runs on CPU
+    tensors: the host kernels' lane form (``fused_tick.launch_lanes``) on
+    the batch in place, the plain per-lane loop on a copy, every leaf held
+    equal; counts into ``chk`` (a ``Checked``) each form's launches, and
+    in ``seen`` the ticks (``lane_ticks``) and the ticks whose launches
+    were not one per group of lanes (``extra_launches``)."""
+
+    def __init__(self, chk: Checked):
+        self.chk = chk
+
+    def __call__(self, engine, state, rows, counts, t, params, host,
+                 emit_returns=False, out=None, obs=None, windowed=False):
+        ref = clone_state(state)
+        ref_obs = None if obs is None else tuple(map(clone_state, obs))
+        _, *ref_io, _ = fused_tick.fused_prefix_lanes_reference(
+            engine, ref, rows, counts, t, params, host, emit_returns, None,
+            ref_obs, windowed)
+        if emit_returns and out is None:
+            out = empty_io(tuple(counts.shape), engine.n_msgs(),
+                           counts.device)
+        launched = fused_tick.launch_lanes(
+            engine, state, rows, counts, t, host,
+            out if emit_returns else None, obs, windowed)
+        for k in launched:
+            self.chk.launches[k.name] += 1
+        self.chk.seen["lane_ticks"] += 1
+        libs = [k.lib for k in launched]
+        self.chk.seen["extra_launches"] += int(
+            len(libs) != len(set(libs)) or len(libs) != len(host["groups"]))
+        what = f"{[k.name for k in launched]} at t={t}"
+        assert_same(ref, state, what)
+        if obs is not None:
+            assert_same(ref_obs[0], obs[0], what + " (buffer)")
+            assert_same(ref_obs[1], obs[1], what + " (cursor)")
+        if not emit_returns:
+            return state, None, None, None, None, None
+        got = fused_tick._outputs(out)
+        for name, a, b in zip(("want", "bjob_vec", "ret_rows", "ret_valid"),
+                              ref_io, got):
+            assert torch.equal(a, b), f"{what}: {name}"
+        return (state, *got, None)
+
+
 @pytest.fixture
 def checked(host_kernels, monkeypatch):
     chk = Checked()
     monkeypatch.setattr(fused_tick, "fused_prefix", chk)
+    monkeypatch.setattr(fused_tick, "fused_prefix_lanes", CheckedLanes(chk))
     return chk
 
 
@@ -584,8 +640,143 @@ def idle_warps(name, C, *pick):
     leaves its last block's last warps without a cluster."""
     warps, warp_bytes = ctypes.c_int(), ctypes.c_int64()
     getattr(build.load(name), name + "_geometry")(
-        C, 9, 3, 256, *pick, ctypes.byref(warps), ctypes.byref(warp_bytes))
+        C, 1, 9, 3, 256, *pick, ctypes.byref(warps),
+        ctypes.byref(warp_bytes))
     return C % warps.value != 0
+
+
+def lane_idle_warps(name, C, L, N, R, Q, *order):
+    """Whether the lane form's launch of ``name`` at L lanes of C clusters
+    leaves the last block of each lane with warps and no cluster."""
+    warps, warp_bytes = ctypes.c_int(), ctypes.c_int64()
+    getattr(build.load(name), name + "_geometry")(
+        C, L, N, R, Q, *order, ctypes.byref(warps),
+        ctypes.byref(warp_bytes))
+    return C % warps.value != 0
+
+
+def lane_batch(cfg, sp, names, stream_of, leaves_of=None, n_ticks=24,
+               plan_of=None, plane=False):
+    """A lane-stacked batch through ``run_chunks`` (two chunks): lane i
+    runs member ``names[i]`` of the set of the distinct names, over its
+    own stream ``stream_of(i)`` and with its own parameter leaves
+    ``leaves_of(i)``; the compact layout where ``plan_of`` makes a plan,
+    the metrics plane with ``plane``. Returns the final batch."""
+    pset = PolicySet(tuple(dict.fromkeys(names)))
+    engine = E.Engine(cfg, device="cpu", policies=pset)
+    arrs = [stream_of(i) for i in range(len(names))]
+    plan = plan_of(cfg, sp, arrs[0]) if plan_of else None
+    state = tenancy.stack_tenant_states(
+        [init_state(cfg, sp, device="cpu", plan=plan) for _ in names])
+    params = tenancy.stack_lanes([
+        pset.params_for(cfg, n).replace(**(leaves_of(i) if leaves_of
+                                           else {}))
+        for i, n in enumerate(names)])
+    per_lane = [chunks_of(a, n_ticks, cfg) for a in arrs]
+    chunks = []
+    for parts in zip(*per_lane):
+        k = max(part.rows.shape[2] for part in parts)
+        chunks.append(tenancy.stack_tick_arrivals(
+            [tenancy.pad_tick_arrivals(part, k) for part in parts]))
+    if not plane:
+        return engine.run_chunks(state, chunks, params=params)
+    mbuf = tenancy.stack_lanes([D.metrics_init(tenancy.tenant_cell(state, i))
+                                for i in range(len(names))])
+    return engine.run_chunks(state, chunks, params=params, mbuf=mbuf)[0]
+
+
+def lanes_fifo():
+    """FIFO lanes beside DELAY ones (each launch masks the other's lanes),
+    compact, the plane on, 34 lanes of 7 clusters: two warps a block, the
+    last one idle in every lane."""
+    cfg = fifo_cfg(queue_capacity=16)
+    sp = specs(7)
+    names = ["fifo" if i % 3 else "delay-eager" for i in range(34)]
+    return lane_batch(cfg, sp, names,
+                      lambda i: stream(7, 30, horizon_ms=20_000, seed=5 + i),
+                      plan_of=lambda cfg, sp, arr: CC.derive_plan(
+                          cfg, sp, arr), plane=True)
+
+
+def lanes_ffd():
+    """FFD and ffd-memfirst lanes (the tie-break read per lane) beside
+    FIFO ones, the plane on, 34 lanes of 7 clusters."""
+    cfg = ffd_cfg(max_placements_per_tick=4)
+    names = [("ffd", "ffd-memfirst", "fifo")[i % 3] for i in range(34)]
+    return lane_batch(cfg, specs(7), names,
+                      lambda i: stream(7, 40, horizon_ms=20_000,
+                                       max_cores=24, seed=5 + i),
+                      plane=True)
+
+
+def lanes_delay():
+    """delay, delay-eager and delay-patient lanes in one DELAY launch, each
+    lane's promotion threshold its own, beside FIFO lanes, the plane on."""
+    cfg = delay_cfg(max_placements_per_tick=2)
+    names = [("delay-patient", "delay-eager", "delay", "fifo")[i % 4]
+             for i in range(34)]
+    return lane_batch(
+        cfg, specs(7), names,
+        lambda i: stream(7, 80, horizon_ms=20_000, max_cores=32,
+                         max_dur_ms=40_000, seed=5 + i),
+        leaves_of=lambda i: ({"max_wait_ms": torch.tensor(
+            1_000 * (i % 7), dtype=torch.int32)} if i % 4 == 1 else {}),
+        plane=True)
+
+
+def lanes_scored():
+    """gavel, rl and tesserae lanes in one scored launch, every lane's
+    table, scores and weights its own, beside FFD lanes (the BFD order
+    staged where a lane picks tesserae), the plane on."""
+    cfg = scored_cfg()
+    names = [("gavel", "rl", "tesserae", "ffd")[i % 4] for i in range(34)]
+    rng = np.random.default_rng(23)
+
+    def leaves(i):
+        return {"gavel_tput": table(rng.uniform(0.5, 4.0, (4, 4))),
+                "rl_scores": table(rng.normal(size=(4, 4))),
+                "tess_w": table(rng.uniform(0.0, 2.0, 3))}
+    return lane_batch(
+        cfg, mixed_specs(7), names,
+        lambda i: uniform_stream(7, 40, 20_000, max_cores=16,
+                                 max_mem=12_000, max_dur_ms=30_000,
+                                 seed=3 + i, max_gpus=2, gpu_frac=0.2),
+        leaves_of=leaves, plane=True)
+
+
+def lanes_node_exit():
+    """The node exit narrow per lane, every source: int8 node columns on
+    100-core nodes; the odd lanes' -128-core jobs lift a node past 127,
+    the even lanes' small jobs never do, so only the odd lanes' run.ovf
+    grow, each by its own lane's total."""
+    cfg = fifo_cfg()
+    names = [("fifo", "ffd", "delay", "gavel", "tesserae")[i % 5]
+             for i in range(10)]
+    sp = specs(6, n_nodes=2, cores=100, memory=100)
+    return lane_batch(
+        cfg, sp, names,
+        lambda i: stream(6, 4, horizon_ms=4_000,
+                         max_cores=600 if i % 2 else 16, max_mem=50,
+                         max_dur_ms=60_000, seed=4 + i),
+        n_ticks=10, plan_of=lambda cfg, sp, arr: undersized(
+            CC.derive_plan(cfg, sp, None)), plane=True)
+
+
+def promoted_lanes(s):
+    """The lane indices mod 4 whose DELAY pass placed from Level1 (the
+    trace's source 0): the delay-eager lanes (thresholds of 0-6 s) and the
+    delay lanes, never the delay-patient ones (30 s) nor the FIFO ones."""
+    return {i % 4 for i in range(s.trace.src.shape[0])
+            if bool((s.trace.src[i] == 0).any())}
+
+
+def per_lane_ovf(s):
+    """Each lane's run.ovf one value over its clusters, nonzero on the odd
+    lanes only."""
+    ovf = s.run.ovf
+    same = bool((ovf == ovf[:, :1]).all())
+    return same and bool((ovf[1::2] > 0).all()) and \
+        not bool(ovf[0::2].any())
 
 
 def node_zero_overdrawn(seen, before, after, rows, counts):
@@ -750,6 +941,25 @@ CASES = {
         lambda s, seen: int(s.faults.kills.sum()) > 0),
     "tesserae-node-exit": (lambda: node_exit("tesserae"), [SCORED],
                            lambda s, seen: int(s.run.ovf.min()) > 0),
+    # the lane form: one launch a source a tick over every lane
+    "lanes-fifo": (lanes_fifo, [FIFO + "_tap", DELAY + "_tap"],
+                   lambda s, seen: seen["extra_launches"] == 0
+                   and lane_idle_warps(FIFO, 7, 34, 5, 2, 16)
+                   and int(s.placed_total.sum()) > 0),
+    "lanes-ffd": (lanes_ffd, [FFD + "_tap", FIFO + "_tap"],
+                  lambda s, seen: seen["extra_launches"] == 0
+                  and lane_idle_warps(FFD, 7, 34, 5, 2, 32)),
+    "lanes-delay": (lanes_delay, [DELAY + "_tap", FIFO + "_tap"],
+                    lambda s, seen: seen["extra_launches"] == 0
+                    and promoted_lanes(s) == {1, 2}),
+    "lanes-scored": (lanes_scored, [SCORED + "_tap", FFD + "_tap"],
+                     lambda s, seen: seen["extra_launches"] == 0
+                     and lane_idle_warps(SCORED, 7, 34, 5, 3, 32, 1)),
+    "lanes-node-exit": (lanes_node_exit,
+                        [FIFO + "_tap", FFD + "_tap", DELAY + "_tap",
+                         SCORED + "_tap"],
+                        lambda s, seen: seen["extra_launches"] == 0
+                        and per_lane_ovf(s)),
 }
 
 

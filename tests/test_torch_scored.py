@@ -402,9 +402,10 @@ def test_dispatch_reads_the_index_and_refuses_a_batched_one():
     assert pset.kind_flag_table("delay").tolist() == [
         False, True, True, True, False, False, False, False]
     params = pset.params_for(tcfg).replace(
-        idx=torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="A13"):
+        idx=torch.tensor([3, 0], dtype=torch.int32))
+    with pytest.raises(ValueError, match="selects a member per lane"):
         pset.member(params.idx)
+    assert [m.name for m in pset.members(params.idx)] == [LINEUP[3], "fifo"]
     with pytest.raises(IndexError):
         pset.member(len(LINEUP))
 

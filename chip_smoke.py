@@ -18,23 +18,23 @@ holds each path's hand-written kernel against its plain PyTorch version:
    a. FIFO at the headline's full width (4096 clusters), on ticks the
       headline run reaches and on heavier streams that fill the queues;
       the emit form (``run_io``'s) timed on the first 400 headline ticks;
-   b. the first 400 ticks of a 256-cluster headline run through each;
+   b. the first 100 ticks of a 256-cluster headline run through each;
    c. FFD at bench_borg4k's full width: 16 ticks sampled as the kernel
       reaches them (the diurnal peak included), 2 x 30 heavy ticks that
       fire drops.queue, drops.run_full and the per-tick placement cap, the
       serial form, the ``ffd-memfirst`` variant, parity mode and the trace,
-      and the first 400 ticks of a run at bench_borg4k(quick=True)'s shape;
+      and the first 100 ticks of a run at bench_borg4k(quick=True)'s shape;
    d. DELAY at the market's full width (sinkhorn_market_setup, bench.py:
       979-1029): ticks of runs (a) (the sinkhorn market on, its rounds
       timed) and (d) sampled as the kernel reaches them, heavy ticks on an
       8-deep queue that fire the promotion, a full Level1, drops.run_full
       and the parity skip, in the wave, serial and parity forms,
-      ``delay-eager`` and the trace, and the first 400 ticks of a run at
+      ``delay-eager`` and the trace, and the first 100 ticks of a run at
       the market's quick shape;
    e. the scored sweep the same way: runs (b) gavel and (c) tesserae
       sampled, heavy ticks (gavel; tesserae with the trace; gavel and rl
       with seeded scores on clusters of mixed device types), and the first
-      400 ticks of quick-shape runs of tesserae and of the seeded rl;
+      100 ticks of quick-shape runs of tesserae and of the seeded rl;
    f. tools/tournament.py's lineup as one multi-member PolicySet at 256
       clusters: each params.idx launches its member's kernel, and only
       that, and equals the plain version;
@@ -104,7 +104,7 @@ holds each path's hand-written kernel against its plain PyTorch version:
       launches, drops and the job count printed (the reference's herding
       onto the lowest lender drops jobs there by design); ticks/s and
       placed jobs/s over the min and median of the timed runs after the
-      counted run (3 for (a), 1 for (b)), which goes through ``run_io``
+      counted run (1 each), which goes through ``run_io``
       and counts every tick's wants and returns, and per tick the kernel,
       return delivery and borrow matching each timed by CUDA events;
    k, m. bench_faults's churn config (bench.py:2927-2945: FIFO parity,
@@ -220,7 +220,7 @@ holds each path's hand-written kernel against its plain PyTorch version:
    c. tests/test_tenancy.py's compact, compressed and generative-fault
       worlds tiled to 64 tenants (sampled tenants == standalone), and 4
       tenants of config 2's pair with borrowing and the greedy market,
-      800 ticks, each == its standalone run;
+      600 ticks, each == its standalone run;
    d. bench.py bench_env's full shape (1,024 envs x 8 clusters, episodes
       of 50 ticks, 125 steps, the rl action port): every episode counter
       reads 2, no drops, one scored launch a step, the timed step loop
@@ -230,7 +230,40 @@ holds each path's hand-written kernel against its plain PyTorch version:
    e. the env at 8d's shape, 50 steps, a distinct seeded action a env:
       the scored lane form == the plain per-lane loop at sampled steps,
       every leaf; a batch-1 replay env == ``Engine.run`` over the same
-      bucketed arrivals.
+      bucketed arrivals;
+9. the services tier (``services/``), every service's logger watched for
+   ERROR records and every live service's health and loop threads
+   checked before each gate (a failed dispatch ends the serving drive
+   thread, a failed tick is logged by the live loop: both the reference's
+   semantics, neither passed over here):
+   a. bench.py bench_serving's parity A/B at its full shape (16 clusters
+      of 10 nodes, FIFO parity, queue 256, running 512, 320 ticks of the
+      seed-11 trace, 1 in 20 jobs at the mismatched endpoint) over
+      localhost HTTP: window 1 (a POST a job) == window 8 (a /submitBatch
+      a tick) == window 8 on the CPU (the plain version), every leaf;
+      without the mismatched jobs window 8 == ``Engine.run`` over the
+      bucketed stream; the FIFO emit+tap form launched once a tick and no
+      other kernel; both walls; the form timed at every launch of a
+      deterministic run and held against the plain version at 12;
+   b. bench_serving's throughput phase, once: 60,000 jobs from 4 clients
+      in /submitBatch of 128 with retry on 503, speed 100, window 8, the
+      pacer and drive threads on — zero drops, every job placed; jobs/s,
+      dispatches, launches, snapshot ages and the card's busy share
+      (torch.profiler);
+   c. 8 tenants on 9a's world in one tenant front door: the lane form
+      once a tick over all lanes, each tenant == its standalone front
+      door; the lane form timed and held against the per-lane loop;
+   d. a child process (``chip_smoke.py --serve-child DIR``) serving with
+      a WAL and checkpoints, killed with SIGKILL after acking 110 ticks
+      and dispatching 104; a fresh front door recovers it: every acked
+      job placed once, the state == an uninterrupted run, and the same
+      files recover on the CPU to the same state;
+   e. bench.py bench_live's constellation without its traders (no gRPC
+      on the card's machine): a registry, 2 DELAY hosts, 2 workload
+      clients of 2,000 jobs at speed 100 and a log sink — at least 90%
+      placed, no drops, a launch a tick; then 200 ticks of a DELAY host
+      and of a FIFO host with borrowing, driven by hand, == the same on
+      the CPU, each windowed C=1 launch timed.
 
 Every number is printed beside the card's name and power limit. The last
 lines are a JSON record of each kernel (its time per launch, the plain
@@ -303,7 +336,8 @@ BORROW_C, BORROW_TICKS, BORROW_HORIZON_MS = 4096, 1_800, 1_800_000
 BORROW_TILED_C, BORROW_TILED_TICKS = 64, 400
 BORROW_A_TICKS = 800  # 3g's whole run (a): the first trade falls near 500
 BORROW_SAMPLES, BORROW_IO_TICKS, BORROW_PROFILE_TICKS = 12, 40, 50
-BORROW_B_TIMED = 1  # run (b)'s timed runs after its counted run
+# the timed runs after the counted run: run (a) ~7 s a run, run (b) ~10 s
+BORROW_A_TIMED, BORROW_B_TIMED = 1, 1
 # bench_faults (bench.py:2869-3040): its churn config at its own 32
 # clusters (4k) and at the headline's 4,096 (4m, the port's width)
 FAULTS_C, FAULTS_WIDE_C, FAULTS_JOBS, FAULTS_HORIZON_MS = 32, 4096, 200, \
@@ -326,8 +360,8 @@ COMPACT_CHURN_TICKS = 100
 CONFIG1_TICKS, CONFIG1_CHUNK, CONFIG1_ARRIVALS = 3_600, 900, 2_048
 CONFIG1_TIMED, CONFIG1_WARMUPS = 3, 1
 # the earlier paths' whole-run comparisons (3b, 3c, 3d and 3e's quick
-# runs) cover their first 200 ticks, to keep the script's time
-WHOLE_RUN_TICKS = 200
+# runs) cover their first 100 ticks, to keep the script's time
+WHOLE_RUN_TICKS = 100
 EXPIRE_RUN_TICKS = 250  # 3i's quick-shape runs with expiry
 # event-compressed time (6a-6e): bench_sparse_bursts (bench.py:2510-2575)
 # at its full shape, churn_bursts_setup (:2467-2507), the leap classes of
@@ -353,10 +387,21 @@ TENANTS_PLAIN_TICKS = 4  # 8a's whole batch against the plain per-lane loop
 TENANTS_WALLS = 3
 LANE_REPS = 20  # timed launches of a lane form and of its one-lane twin
 MIXED_C, MIXED_TICKS = 64, 60
-COMPOSED_T, COMPOSED_BORROW_TICKS = 64, 800
+COMPOSED_T, COMPOSED_BORROW_TICKS = 64, 600
 ENV_B, ENV_C, ENV_EP, ENV_STEPS = 1024, 8, 50, 125
 ENV_WALLS, ENV_SERIAL = 2, 16
 ENV_LANE_STEPS, ENV_PLAIN_STEPS = 50, (1, 30)
+# phases 9a-9e, the services tier: bench.py bench_serving's full shape
+# (bench.py:1700-2010; 9a-9c), 9a's world under a WAL and checkpoints with
+# a child killed mid-run (9d), bench.py bench_live's constellation without
+# its traders (bench.py:1523-1697; 9e)
+SERVE_C, SERVE_T, SERVE_WINDOW = 16, 320, 8
+SERVE_JOBS, SERVE_CLIENTS, SERVE_BATCH = 60_000, 4, 128
+SERVE_TENANTS = 8
+SERVE_CKPT_WINDOW, SERVE_CKPT_EVERY = 4, 8  # a checkpoint every 32 ticks
+SERVE_KILL_STAGED, SERVE_KILL_DISPATCHED = 110, 104
+SERVE_DIR = "build/phase9"
+LIVE_JOBS, LIVE_HAND_TICKS = 2_000, 200
 BORG_JOBS_NPZ = "build/borg_jobs.npz"
 BORG_SAMPLE_TIMEOUT_S = 600
 
@@ -2505,7 +2550,7 @@ def phase_borrow_run(P, E, card, dev, name, C, chunks, n_jobs, sampled):
         if cfg.trader.enabled else 0
     # the counted run just before is the warm-up
     walls, h2d_s, last = timed_runs(engine, s0, chunks, 0,
-                                    TIMED_RUNS if name == "a"
+                                    BORROW_A_TIMED if name == "a"
                                     else BORROW_B_TIMED)
     d = 0 if io is None else max_abs_diff(last, out)
     if d:
@@ -6545,6 +6590,961 @@ def phase_env_lanes(P, E, card, dev):
         bound=(b_ms, b_by)))
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the services tier — the serving front door (services/serving.py)
+# and the live scheduler host (services/scheduler_host.py) on the card
+# ---------------------------------------------------------------------------
+
+def serve_cfg(P, **kw):
+    """bench.py bench_serving's config (bench.py:1760-1771): FIFO parity,
+    queue 256, running 512, 64 arrival slots, 16 ingested a tick, 10 nodes
+    a cluster."""
+    base = dict(policy=P.PolicyKind.FIFO, parity=True, n_res=2,
+                queue_capacity=256, max_running=512, max_arrivals=64,
+                max_ingest_per_tick=16, max_nodes=10, max_virtual_nodes=0)
+    base.update(kw)
+    return P.SimConfig(**base)
+
+
+def serve_specs(P, C=None):
+    return [P.uniform_cluster(c + 1, 10) for c in range(C or SERVE_C)]
+
+
+def serve_trace(C, T, seed=11):
+    """bench_serving's parity trace (bench.py:1788-1806): per tick and
+    cluster 0-2 jobs, one in ~20 at the endpoint the policy never drains;
+    [T] lists of (c, id, cores, mem, dur, mismatched)."""
+    rng = np.random.default_rng(seed)
+    out, jid = [], 1
+    for _ in range(T):
+        row = []
+        for c in range(C):
+            for _ in range(int(rng.integers(0, 3))):
+                mism = bool(rng.integers(0, 20) == 0)
+                row.append((c, jid, int(rng.integers(1, 4)),
+                            int(rng.integers(100, 2000)),
+                            int(rng.integers(1000, 4001)), mism))
+                jid += 1
+        out.append(row)
+    return out
+
+
+class ServiceGuard:
+    """The services' swallowed errors, surfaced: a handler on each watched
+    service's logger keeps every ERROR record (a failed dispatch ends the
+    serving drive thread, a failed tick is logged by the live loop and the
+    loop carries on; both are the reference's semantics), and ``check``
+    fails on any of them and on a watched service that is not healthy or
+    whose loop thread died. Every phase 9 gate runs after a ``check``."""
+
+    def __init__(self):
+        import logging
+
+        class Keep(logging.Handler):
+            def __init__(self, out):
+                super().__init__(logging.ERROR)
+                self.out = out
+
+            def emit(self, record):
+                self.out.append(f"{record.name}: {record.getMessage()}")
+
+        self.errors = []
+        self.handler = Keep(self.errors)
+        self.services = []
+
+    def watch(self, s):
+        s.logger.addHandler(self.handler)
+        self.services.append(s)
+        return s
+
+    def check(self, what, *live):
+        """No ERROR record so far; each service in ``live`` (started, not
+        yet stopped) healthy, with its loop threads alive."""
+        if self.errors:
+            raise AssertionError(f"{what}: services logged errors: "
+                                 f"{self.errors[:5]}")
+        for s in live:
+            ok, detail = s.health()
+            threads = [getattr(s, n, None) for n in
+                       ("_drive_thread", "_pacer_thread", "_tick_thread")]
+            dead = [th.name for th in threads
+                    if th is not None and not th.is_alive()]
+            if not ok or dead:
+                raise AssertionError(f"{what}: {s.name} unhealthy {detail}, "
+                                     f"dead threads {dead}")
+
+
+def host_diff(a: dict, b: dict) -> float:
+    """Largest |a - b| over two host leaf dicts (``state_host``), keys,
+    dtypes and shapes equal (a float leaf counts any bit difference)."""
+    if set(a) != set(b):
+        raise AssertionError(f"leaf keys differ: {sorted(set(a) ^ set(b))}")
+    worst = 0.0
+    for k in a:
+        x, y = a[k], b[k]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"{k}: {x.dtype}{x.shape} vs "
+                                 f"{y.dtype}{y.shape}")
+        if x.dtype.kind == "f":
+            if not np.array_equal(x.view(np.int32), y.view(np.int32)):
+                worst = max(worst, float(np.abs(
+                    x.astype(np.float64) - y.astype(np.float64)).max())
+                    or math.inf)
+        elif x.size:
+            worst = max(worst, float(np.abs(
+                x.astype(np.int64) - y.astype(np.int64)).max()))
+    return worst
+
+
+def require_equal(a: dict, b: dict, what: str) -> None:
+    d = host_diff(a, b)
+    if d:
+        raise AssertionError(f"{what}: max |diff| {d}")
+
+
+def no_drops(host: dict, what: str) -> None:
+    bad = {k: int(v.sum()) for k, v in host.items()
+           if k.startswith(".drops.") and v.any()}
+    if bad:
+        raise AssertionError(f"{what}: the engine dropped work {bad}")
+
+
+class ServeProbe(LaunchProbe):
+    """``LaunchProbe`` for the forms the services launch: the comparisons
+    at the picks run the launch's own form (the emit outputs, and with the
+    plane the buffer and the cursor, held too; windowed where the tick
+    ingests its window of the live host's ring), and the tap's bytes
+    (``tap_cost``) and a windowed tick's due checks (``window_feed``)
+    count beside the span's. The comparisons' launches are taken back
+    out of the launch counts. Launches of other engines (a CPU twin's
+    plain path) pass through untouched."""
+
+    def __init__(self, chk, cost, shared, picks):
+        super().__init__(chk, cost, picks)
+        self.shared = shared
+
+    def __call__(self, engine, state, rows, counts, t, params, host,
+                 emit_returns=False, out=None, obs=None, windowed=False):
+        from multi_cluster_simulator_tpu_torch.core.state import empty_io
+
+        if engine is not self.chk.engine:  # another service's tick
+            return self.real(engine, state, rows, counts, t, params, host,
+                             emit_returns, out, obs, windowed)
+        if len(self.evs) in self.picks:
+            saved = [(k, k.launches, k.windowed_launches)
+                     for k in self.ft.KERNELS.values()]
+            self.ft.fused_prefix = self.real
+            try:
+                self.chk.compare(state, rows, counts, t, emit=emit_returns,
+                                 obs=obs, windowed=windowed)
+            finally:
+                self.ft.fused_prefix = self
+                for k, n, nw in saved:
+                    k.launches, k.windowed_launches = n, nw
+        before = self.clone(state)
+        ob = None if obs is None else tuple(map(self.chk.clone, obs))
+        if emit_returns and out is None:
+            out = empty_io((counts.shape[0],), engine.n_msgs(), state.device)
+        self.ft.prepare(engine, state, host, emit_returns, obs)
+        ev = timed_launch_events()
+        ev[0].record()
+        res = self.real(engine, state, rows, counts, t, params, host,
+                        emit_returns, out, obs, windowed)
+        ev[1].record()
+        self.evs.append(ev)
+        extra = 0
+        if windowed:
+            rows, counts, extra = window_feed(rows, counts, before, state)
+        r, w, o = self.cost(before, state, rows, counts, t)
+        if obs is not None:
+            tr, tw = tap_cost(self.shared, *ob, *obs, n_ovf_tables(state))
+            r, w = r + tr, w + tw
+        self.read, self.written, self.ops = (self.read + r + extra,
+                                             self.written + w, self.ops + o)
+        return res
+
+
+def serve_record(name, label, launches, worst, plain, sp):
+    """A kernel record of a form a probe timed (``sp``, its summary). Its
+    ms is the median launch: the services' probes time launches beside
+    live service threads, and a thread switch between a pair's two
+    records that outlasts the spin ahead of them lands in that one
+    sample (``serve_us`` prints the mean and the largest beside it)."""
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+
+    return dict(kernel=fused_tick.KERNELS[name], name=f"{name} ({label})",
+                launches=launches, worst=worst,
+                ms=float(np.median(sp["kernel_ms"])), plain=plain,
+                bound=bound(sp["read"], sp["written"], sp["ops"]))
+
+
+def serve_us(kernel_ms) -> str:
+    """A services probe's launch times: median, mean and largest, in us."""
+    k = np.asarray(kernel_ms) * 1e3
+    return (f"{np.median(k):.2f} us/launch median (mean {k.mean():.2f}, "
+            f"max {k.max():.2f})")
+
+
+def drive_front_door(s, tick_jobs, window, batched, mism_jobs=True):
+    """bench_serving's drive_ab loop (bench.py:1826-1858) on a started
+    deterministic front door: a tick's jobs as one /submitBatch (each
+    job's ``Delay`` its endpoint) or one POST a job on the wire-parity
+    endpoints, one seal a tick, one dispatch a window. Returns the wall."""
+    from multi_cluster_simulator_tpu_torch.services import httpd
+    from multi_cluster_simulator_tpu_torch.services.scheduler_host import (
+        job_to_json,
+    )
+
+    w0 = time.perf_counter()
+    for t, row in enumerate(tick_jobs):
+        row = [j for j in row if mism_jobs or not j[5]]
+        if batched:
+            if row:
+                code, body = httpd.post_json(
+                    s.url + "/submitBatch",
+                    [{**job_to_json(j, co, m, d), "Cluster": c, "Delay": mi}
+                     for (c, j, co, m, d, mi) in row])
+                if code != 200:
+                    raise AssertionError(f"batch at tick {t} -> {code} "
+                                         f"{body[:200]!r}")
+        else:
+            for (c, j, co, m, d, mi) in row:
+                code, _ = httpd.post_json(
+                    s.url + ("/delay" if mi else "/"),
+                    {**job_to_json(j, co, m, d), "Cluster": c})
+                if code != 200:
+                    raise AssertionError(f"submit {j} -> {code}")
+        s.seal_tick()
+        if (t + 1) % window == 0:
+            s.dispatch_sealed()
+    s.dispatch_sealed()
+    if s.device.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - w0
+
+
+def phase_serving_parity(P, E, card, dev, guard):
+    """Phase 9a: bench_serving's parity A/B (bench.py:1700-1870) at its
+    full shape on the card, over localhost HTTP: 16 clusters of 10 nodes,
+    320 ticks of the seed-11 trace; a window-1 front door (a POST a job, a
+    dispatch a tick) and a window-8 one (a /submitBatch a tick) end in
+    equal states, both equal to the window-8 front door on the CPU (the
+    plain version, every leaf); without the mismatched-endpoint jobs the
+    window-8 state equals ``Engine.run`` on the card over the bucketed
+    stream; each card run launches the FIFO emit+tap form once a tick and
+    nothing else. Then a deterministic window-8 run with every launch
+    timed and 12 of them held against the plain version."""
+    from multi_cluster_simulator_tpu_torch import interop
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.services.serving import (
+        ServingScheduler,
+    )
+
+    cfg, specs = serve_cfg(P), serve_specs(P)
+    trace = serve_trace(SERVE_C, SERVE_T)
+    n_jobs = sum(len(r) for r in trace)
+    n_mism = sum(j[5] for r in trace for j in r)
+    form = "fused_prefix_fifo_emit_tap"
+    out = {}
+
+    def run(label, window, batched, device, mism=True):
+        s = guard.watch(ServingScheduler(
+            f"serve-{label}", specs, cfg, pacer=False, window=window,
+            warm_k=(4,), k_cap=64, max_staged=10 ** 6, device=device))
+        s.start()  # the warm-up dispatches run here, before the counts
+        fused_tick.reset_launches()
+        wall = drive_front_door(s, trace, window, batched, mism)
+        counts = fused_tick.launch_counts()
+        guard.check(f"9a {label}", s)
+        host = s.state_host()
+        placed = s.snapshot.placed
+        s.shutdown()
+        guard.check(f"9a {label} shutdown")
+        want = n_jobs - n_mism  # a mismatched job sits in its queue
+        if placed != want:
+            raise AssertionError(f"9a {label}: placed {placed} of {want}")
+        no_drops(host, f"9a {label}")
+        out[label] = dict(host=host, wall=wall, counts=counts)
+        return out[label]
+
+    w1 = run("w1", 1, False, dev)
+    w8 = run("w8", SERVE_WINDOW, True, dev)
+    require_equal(w1["host"], w8["host"], "9a window 1 vs window 8")
+    for label in ("w1", "w8"):
+        check_launches(out[label]["counts"], form, SERVE_T, f"9a {label}")
+    cpu = run("w8-cpu", SERVE_WINDOW, True, "cpu")
+    require_equal(cpu["host"], w8["host"],
+                  "9a window 8 on the card vs the plain version on the CPU")
+    # the staged path IS the batch engine: the trace without its
+    # mismatched jobs, stamped at its staging ticks, through Engine.run
+    clean = run("w8-clean", SERVE_WINDOW, True, dev, mism=False)
+    check_launches(clean["counts"], form, SERVE_T, "9a w8-clean")
+    rows = {c: [] for c in range(SERVE_C)}
+    for t, row in enumerate(trace):
+        for (c, j, co, m, d, mi) in row:
+            if not mi:
+                rows[c].append((j, co, m, d, (t + 1) * cfg.tick_ms))
+    A = max(len(v) for v in rows.values())
+    arr = {k: np.zeros((SERVE_C, A), np.int32)
+           for k in ("t", "id", "cores", "mem", "gpu", "dur")}
+    n = np.zeros((SERVE_C,), np.int32)
+    for c, lst in rows.items():
+        n[c] = len(lst)
+        for i, (j, co, m, d, ta) in enumerate(lst):
+            arr["id"][c, i], arr["cores"][c, i] = j, co
+            arr["mem"][c, i], arr["dur"][c, i], arr["t"][c, i] = m, d, ta
+    from multi_cluster_simulator_tpu_torch.core.state import Arrivals
+    ta_b = E.pack_arrivals_by_tick(Arrivals(**arr, n=n), SERVE_T,
+                                   cfg.tick_ms)
+    ref = E.Engine(cfg, device=dev).run(
+        P.init_state(cfg, specs, device=dev), ta_b, SERVE_T)
+    require_equal(interop.to_numpy(ref), clean["host"],
+                  "9a window 8 (no mismatched jobs) vs Engine.run")
+
+    # the timed pass: a deterministic window-8 front door (no HTTP), every
+    # launch between CUDA events, 12 held against the plain version
+    s = guard.watch(ServingScheduler(
+        "serve-timed", specs, cfg, pacer=False, window=SERVE_WINDOW,
+        warm_k=(4,), k_cap=64, max_staged=10 ** 6, device=dev))
+    s.start()
+    chk = Checker(s.engine)
+    cost, shared = cost_of("fifo_emit", s.engine)
+    with ServeProbe(chk, cost, shared, spread(SERVE_T, 12)) as probe:
+        for t, row in enumerate(trace):
+            for (c, j, co, m, d, mi) in row:
+                assert s.submit_direct(c, j, co, m, d, delay=mi,
+                                       ta=(t + 1) * cfg.tick_ms)
+            s.seal_tick()
+            if (t + 1) % SERVE_WINDOW == 0:
+                s.dispatch_sealed()
+        s.dispatch_sealed()
+    sp = probe.summary()
+    guard.check("9a timed", s)
+    require_equal(s.state_host(), w8["host"], "9a timed run vs window 8")
+    s.shutdown()
+    print(f"phase 9a: serving parity A/B, {SERVE_C} clusters x {SERVE_T} "
+          f"ticks, {n_jobs} jobs ({n_mism} at the mismatched endpoint): "
+          f"window 1 (a POST a job) == window 8 (a /submitBatch a tick) == "
+          f"window 8 on the CPU (plain); no mismatched jobs == Engine.run; "
+          f"launches {form} x {SERVE_T} a run and no other; walls: "
+          f"per-request {w1['wall']:.3f} s ({n_jobs / w1['wall']:.1f} jobs/s),"
+          f" batched {w8['wall']:.3f} s ({n_jobs / w8['wall']:.1f} jobs/s), "
+          f"speedup {w1['wall'] / w8['wall']:.2f}x; CPU (plain) window 8 "
+          f"{cpu['wall']:.3f} s [{card}]")
+    print(f"phase 9a: {form} at {SERVE_C} clusters: "
+          f"{serve_us(sp['kernel_ms'])} over "
+          f"{len(sp['kernel_ms'])} launches, plain "
+          f"{np.mean(chk.plain_ms):.3f} ms at {chk.n} comparisons, "
+          f"{sp['read'] + sp['written']:.1f} B a launch [{card}]")
+    return dict(record=serve_record(form, f"9a serving, {SERVE_C} clusters",
+                                    w8["counts"][form], chk.worst,
+                                    chk.plain_ms, sp))
+
+
+def phase_serving_throughput(P, E, card, dev, guard):
+    """Phase 9b: bench_serving's throughput phase (bench.py:1969-1995) at
+    its full shape, once: 60,000 jobs from 4 client threads as
+    /submitBatch of 128 with the retry-on-503 discipline, speed 100,
+    window 8, warm K (16, 64, 128), k_cap 128, the pacer and the drive
+    thread on; zero drops and every submitted job placed. The card's busy
+    share comes from a torch.profiler window over the run: the union of
+    the intervals of its kernels and copies over the wall (the profiler's
+    host-side recording is inside the measured wall)."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.services import httpd
+    from multi_cluster_simulator_tpu_torch.services.backoff import (
+        jittered_backoff_ms,
+    )
+    from multi_cluster_simulator_tpu_torch.services.scheduler_host import (
+        job_to_json,
+    )
+    from multi_cluster_simulator_tpu_torch.services.serving import (
+        ServingScheduler,
+    )
+
+    cfg, specs = serve_cfg(P), serve_specs(P)
+    s = guard.watch(ServingScheduler(
+        "serve-tput", specs, cfg, speed=100.0, window=SERVE_WINDOW,
+        pacer=True, warm_k=(16, 64, 128), k_cap=128, max_staged=10 ** 6,
+        device=dev))
+    s.start()
+    fused_tick.reset_launches()
+    d0 = s.dispatches
+    per = SERVE_JOBS // SERVE_CLIENTS
+    counters = {"retries": 0, "rejected": 0}
+    lock = threading.Lock()
+    errors = []
+
+    def client(ci):
+        try:
+            crng = np.random.default_rng(1000 + ci)
+            batch = []
+            for i in range(per):
+                batch.append({**job_to_json(
+                    ci * per + i + 1, int(crng.integers(1, 4)),
+                    int(crng.integers(100, 2000)),
+                    int(crng.integers(1000, 2501))),
+                    "Cluster": int(crng.integers(0, SERVE_C))})
+                if len(batch) < SERVE_BATCH and i != per - 1:
+                    continue
+                for attempt in range(257):
+                    code, body = httpd.post_json(s.url + "/submitBatch",
+                                                 batch)
+                    if code == 200:
+                        break
+                    if code != 503 or attempt == 256:
+                        raise AssertionError(f"client {ci}: {code} after "
+                                             f"{attempt} retries")
+                    e = json.loads(body)
+                    with lock:
+                        counters["retries"] += 1
+                        counters["rejected"] += len(e["RejectedIdx"])
+                    batch = [batch[k] for k in e["RejectedIdx"]]
+                    time.sleep(jittered_backoff_ms(
+                        attempt, max(float(e["RetryAfterMs"]), 1.0),
+                        2_000.0, crng) / 1000.0)
+                batch = []
+        except BaseException as e:  # re-raised on the main thread
+            with lock:
+                errors.append(e)
+
+    ths = [threading.Thread(target=client, args=(i,))
+           for i in range(SERVE_CLIENTS)]
+    ages = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for th in ths:
+            th.start()
+        while any(th.is_alive() for th in ths):
+            code, body = httpd.get(s.url + "/stats")
+            if code == 200:
+                ages.append(json.loads(body)["snapshot_age_ms"])
+            time.sleep(0.05)
+        for th in ths:
+            th.join()
+        if errors:
+            raise errors[0]
+        submit_wall = time.perf_counter() - t0
+        deadline = time.perf_counter() + 600
+        while time.perf_counter() < deadline:
+            snap = s.snapshot
+            if snap.placed >= SERVE_JOBS and snap.staged_jobs == 0:
+                break
+            time.sleep(0.02)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    guard.check("9b", s)
+    s.shutdown()
+    guard.check("9b shutdown")
+    host = s.state_host()
+    no_drops(host, "9b")
+    placed = int(host[".placed_total"].sum())
+    if s.snapshot.placed != SERVE_JOBS or placed != SERVE_JOBS:
+        raise AssertionError(f"9b: placed {s.snapshot.placed} (state "
+                             f"{placed}) of {SERVE_JOBS} submitted")
+    counts = {k: v for k, v in fused_tick.launch_counts().items() if v}
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy = busy_us / 1e6 / wall
+    ticks = s.ticks_dispatched
+    print(f"phase 9b: serving throughput, {SERVE_JOBS} jobs from "
+          f"{SERVE_CLIENTS} clients in /submitBatch of {SERVE_BATCH}: "
+          f"{SERVE_JOBS / wall:.1f} jobs/s placed (wall {wall:.3f} s, submit "
+          f"{submit_wall:.3f} s), {s.dispatches - d0} dispatches, "
+          f"{ticks} ticks dispatched, launches {counts}, 503 retries "
+          f"{counters['retries']} ({counters['rejected']} jobs), snapshot "
+          f"age p50 {np.percentile(ages, 50) if ages else float('nan'):.3f} "
+          f"max {max(ages) if ages else float('nan'):.3f} ms over "
+          f"{len(ages)} /stats; the card busy {100 * busy:.2f}% of the wall "
+          f"({busy_us / 1e3:.1f} ms of kernels and copies, torch.profiler), "
+          f"0 drops [{card}]")
+    return dict(launches=counts, wall=wall, busy=busy)
+
+
+def phase_serving_tenants(P, E, card, dev, guard):
+    """Phase 9c: the tenant front door, 8 tenants on 9a's world (each its
+    own seed-11+i trace without the mismatched jobs, which multi-tenant
+    hosting refuses), window 8 over HTTP with one /submitBatch a tick for
+    every tenant: the lane form launches once a tick over all 128
+    clusters, and each tenant's final state equals its own standalone
+    front door's on the card. Then a deterministic run with every lane
+    launch timed and 12 held against the plain per-lane loop."""
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.services import httpd
+    from multi_cluster_simulator_tpu_torch.services.scheduler_host import (
+        job_to_json,
+    )
+    from multi_cluster_simulator_tpu_torch.services.serving import (
+        ServingScheduler,
+    )
+
+    cfg, specs = serve_cfg(P), serve_specs(P)
+    T = SERVE_TENANTS
+    traces = [[[j for j in row if not j[5]]
+               for row in serve_trace(SERVE_C, SERVE_T, seed=11 + i)]
+              for i in range(T)]
+    form = "fused_prefix_fifo_emit_tap"
+
+    def tenant_door(name):
+        s = guard.watch(ServingScheduler(
+            name, specs, cfg, pacer=False, tenants=T, window=SERVE_WINDOW,
+            warm_k=(4,), k_cap=64, max_staged=10 ** 6, device=dev))
+        s.start()
+        return s
+
+    s = tenant_door("serve-tenants")
+    fused_tick.reset_launches()
+    w0 = time.perf_counter()
+    for t in range(SERVE_T):
+        batch = [{**job_to_json(j, co, m, d), "Cluster": c, "Tenant": i}
+                 for i in range(T) for (c, j, co, m, d, _mi) in traces[i][t]]
+        if batch:
+            code, body = httpd.post_json(s.url + "/submitBatch", batch)
+            if code != 200:
+                raise AssertionError(f"9c tick {t} -> {code} {body[:200]!r}")
+        s.seal_tick()
+        if (t + 1) % SERVE_WINDOW == 0:
+            s.dispatch_sealed()
+    s.dispatch_sealed()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    counts = fused_tick.launch_counts()
+    guard.check("9c", s)
+    check_launches(counts, form, SERVE_T, "9c tenant front door")
+    host = s.state_host()
+    s.shutdown()
+    no_drops(host, "9c")
+    w_alone = 0.0
+    for i in range(T):
+        a = guard.watch(ServingScheduler(
+            f"serve-alone-{i}", specs, cfg, pacer=False, window=SERVE_WINDOW,
+            warm_k=(4,), k_cap=64, max_staged=10 ** 6, device=dev))
+        a.start()
+        w0 = time.perf_counter()
+        for t in range(SERVE_T):
+            for (c, j, co, m, d, _mi) in traces[i][t]:
+                assert a.submit_direct(c, j, co, m, d,
+                                       ta=(t + 1) * cfg.tick_ms)
+            a.seal_tick()
+            if (t + 1) % SERVE_WINDOW == 0:
+                a.dispatch_sealed()
+        a.dispatch_sealed()
+        torch.cuda.synchronize()
+        w_alone += time.perf_counter() - w0
+        guard.check(f"9c standalone {i}", a)
+        require_equal({k: v[i] for k, v in host.items()}, a.state_host(),
+                      f"9c tenant {i} vs its standalone front door")
+        a.shutdown()
+    # the timed pass: the lane form's launches between CUDA events
+    s = tenant_door("serve-tenants-timed")
+    cost, _shared = cost_of("fifo_emit", s.engine)
+    with LaneProbe(cost, spread(SERVE_T, 12)) as probe:
+        for t in range(SERVE_T):
+            for i in range(T):
+                for (c, j, co, m, d, _mi) in traces[i][t]:
+                    assert s.submit_direct(c, j, co, m, d,
+                                           ta=(t + 1) * cfg.tick_ms,
+                                           tenant=i)
+            s.seal_tick()
+            if (t + 1) % SERVE_WINDOW == 0:
+                s.dispatch_sealed()
+        s.dispatch_sealed()
+    sp = probe.summary()
+    guard.check("9c timed", s)
+    require_equal(s.state_host(), host, "9c timed run vs the HTTP run")
+    s.shutdown()
+    print(f"phase 9c: tenant front door, {T} tenants x {SERVE_C} clusters x "
+          f"{SERVE_T} ticks ({sum(len(r) for tr in traces for r in tr)} "
+          f"jobs): {form} x {counts[form]} (one lane launch a tick), each "
+          f"tenant == its standalone front door; walls: tenants "
+          f"{wall:.3f} s over HTTP, {T} standalone {w_alone:.3f} s; the lane "
+          f"form {serve_us(sp['kernel_ms'])}, plain "
+          f"per-lane loop {np.mean(sp['plain_ms']):.3f} ms at "
+          f"{sp['compared']} comparisons [{card}]")
+    return dict(record=serve_record(
+        form, f"9c lanes {T}x{SERVE_C}, tenant front door", counts[form],
+        sp["worst"], sp["plain_ms"], sp))
+
+
+def serve_child_args(P, dirname: str, device):
+    cfg, specs = serve_cfg(P), serve_specs(P)
+    return cfg, specs, dict(
+        pacer=False, window=SERVE_CKPT_WINDOW, warm_k=(4,), k_cap=64,
+        max_staged=10 ** 6, wal_path=f"{dirname}/serve.wal",
+        checkpoint_path=f"{dirname}/serve.ckpt",
+        checkpoint_every=SERVE_CKPT_EVERY, device=device)
+
+
+def feed_trace(s, trace, cfg, t0, t1, dispatch_until=None):
+    """Stage ticks [t0, t1) of ``trace`` through the deterministic driver,
+    one dispatch a window while the tick is below ``dispatch_until``."""
+    for t in range(t0, t1):
+        for (c, j, co, m, d, mi) in trace[t]:
+            assert s.submit_direct(c, j, co, m, d, delay=mi,
+                                   ta=(t + 1) * cfg.tick_ms)
+        s.seal_tick()
+        if (t + 1) % s.window == 0 and (dispatch_until is None
+                                       or t + 1 <= dispatch_until):
+            s.dispatch_sealed()
+
+
+def serve_child_cmd(dirname: str, dev) -> list:
+    import os
+
+    return [sys.executable, os.path.abspath(__file__), "--serve-child",
+            dirname, "--device", str(dev)]
+
+
+def serve_child(argv) -> int:
+    """9d's child: a front door with a WAL and checkpoints at 9a's world
+    stages the trace's first ``SERVE_KILL_STAGED`` ticks (each job acked,
+    its WAL record fsync'd first), dispatching through tick
+    ``SERVE_KILL_DISPATCHED``, prints its ``# serve child:`` line and
+    waits to be killed."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --serve-child")
+    ap.add_argument("dir")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    import multi_cluster_simulator_tpu_torch as P
+    from multi_cluster_simulator_tpu_torch.services.serving import (
+        ServingScheduler,
+    )
+
+    cfg, specs, kw = serve_child_args(P, args.dir, args.device)
+    s = ServingScheduler("serve-child", specs, cfg, **kw)
+    trace = serve_trace(SERVE_C, SERVE_T)
+    feed_trace(s, trace, cfg, 0, SERVE_KILL_STAGED, SERVE_KILL_DISPATCHED)
+    torch.cuda.synchronize()
+    print(f"# serve child: staged {SERVE_KILL_STAGED} ticks, dispatched "
+          f"{s.ticks_dispatched}, {s.dispatches} dispatches", flush=True)
+    time.sleep(CHILD_HOLD_S)
+    return 0
+
+
+def phase_serving_recovery(P, E, card, dev, guard):
+    """Phase 9d: crash recovery on the card. A child process serves 9a's
+    world with a WAL and checkpoints (every 8 dispatches of 4 ticks), acks
+    the trace's first 110 ticks, dispatches 104 of them and is killed
+    with SIGKILL; a fresh front door here recovers the checkpoint and
+    replays the WAL suffix, and after the rest of the trace every acked
+    job has placed exactly once and the state equals an uninterrupted
+    deterministic run; the card-written files recover on the CPU (the
+    plain version) to the same state."""
+    import os
+    import shutil
+    import signal
+
+    from multi_cluster_simulator_tpu_torch.services.serving import (
+        ServingScheduler,
+    )
+
+    d = os.path.join(SERVE_DIR, "recovery")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    w0 = time.perf_counter()
+    child = subprocess.Popen(serve_child_cmd(d, dev), stdout=subprocess.PIPE,
+                             text=True)
+    try:
+        line = child.stdout.readline()
+        if not line.startswith("# serve child:"):
+            raise AssertionError(f"9d: the child printed {line!r}")
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    child_s = time.perf_counter() - w0
+    if child.returncode != -signal.SIGKILL:
+        raise AssertionError(f"9d: the child ended {child.returncode}")
+    cpu_dir = d + "-cpu"
+    shutil.copytree(d, cpu_dir)
+    trace = serve_trace(SERVE_C, SERVE_T)
+    want_placed = sum(1 for r in trace for j in r if not j[5])
+    results = {}
+    for side, device, where in (("card", dev, d),
+                                ("cpu", torch.device("cpu"), cpu_dir)):
+        cfg, specs, kw = serve_child_args(P, where, device)
+        w0 = time.perf_counter()
+        s = guard.watch(ServingScheduler(f"serve-recover-{side}",
+                                         specs, cfg, **kw))
+        rec_s = time.perf_counter() - w0
+        replayed, t0 = s.recovered_jobs, s.ticks_dispatched
+        while s._staged_ticks() < SERVE_KILL_STAGED:  # the child sealed
+            s.seal_tick()                              # them all
+        feed_trace(s, trace, cfg, SERVE_KILL_STAGED, SERVE_T)
+        s.dispatch_sealed()
+        guard.check(f"9d recovered on the {side}")
+        results[side] = (s.state_host(), replayed, t0, rec_s)
+    ref = guard.watch(ServingScheduler(
+        "serve-uninterrupted", serve_specs(P), serve_cfg(P), pacer=False,
+        window=SERVE_CKPT_WINDOW, warm_k=(4,), k_cap=64, max_staged=10 ** 6,
+        device=dev))
+    feed_trace(ref, trace, ref.cfg, 0, SERVE_T)
+    ref.dispatch_sealed()
+    ref_host = ref.state_host()
+    guard.check("9d uninterrupted")
+    card_host, replayed, t0, rec_s = results["card"]
+    require_equal(ref_host, card_host,
+                  "9d recovered on the card vs the uninterrupted run")
+    require_equal(card_host, results["cpu"][0],
+                  "9d the card's files recovered on the CPU")
+    placed = int(card_host[".placed_total"].sum())
+    if placed != want_placed:
+        raise AssertionError(f"9d: placed {placed}, acked {want_placed}")
+    no_drops(card_host, "9d")
+    print(f"phase 9d: a child served {SERVE_KILL_STAGED} ticks with a WAL "
+          f"and checkpoints (every {SERVE_CKPT_EVERY} dispatches), "
+          f"dispatched {SERVE_KILL_DISPATCHED}, SIGKILL after {child_s:.1f} "
+          f"s; recovered at the checkpoint's {t0} dispatched ticks with "
+          f"{replayed} WAL jobs replayed in {rec_s:.3f} s; every acked job "
+          f"placed once ({placed}), the state == the uninterrupted run, "
+          f"and == the same files recovered on the CPU [{card}]")
+
+
+def live_cfg(P, policy, **kw):
+    """bench.py bench_live's scheduler config (bench.py:1592-1596)."""
+    base = dict(policy=policy, queue_capacity=1024, max_running=1024,
+                max_arrivals=4 * LIVE_JOBS, max_ingest_per_tick=32,
+                max_nodes=10, max_virtual_nodes=2, parity=True,
+                trader=P.TraderConfig(enabled=False))
+    base.update(kw)
+    return P.SimConfig(**base)
+
+
+def phase_live_constellation(P, E, card, dev, guard):
+    """Phase 9e: bench_live's constellation (bench.py:1523-1697) on the
+    card, without the traders (the card's machine has no gRPC): a registry,
+    two DELAY hosts (``uniform_cluster(i, 10)``, a C=1 ``tick_io`` a tick),
+    two workload clients of 2,000 jobs (Poisson 30 a virtual minute,
+    durations under 10 s, seeds 10 and 11) at speed 100, and a log sink the
+    hosts log to; at least 90% placed and no drops, one launch a tick.
+    Then 200 ticks of one DELAY host and one FIFO host with borrowing,
+    driven by hand over a fixed staged stream, each equal to the same on
+    the CPU, every launch timed and 12 held against the plain version."""
+    import dataclasses
+    import os
+
+    from multi_cluster_simulator_tpu_torch import interop
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.services.logsink import (
+        LogSinkServer, set_client_logger,
+    )
+    from multi_cluster_simulator_tpu_torch.services.registry import (
+        RegistryServer,
+    )
+    from multi_cluster_simulator_tpu_torch.services.scheduler_host import (
+        SchedulerService, job_to_json,
+    )
+    from multi_cluster_simulator_tpu_torch.services.workload import (
+        WorkloadClientService,
+    )
+
+    speed = 100.0
+    cfg = live_cfg(P, P.PolicyKind.DELAY)
+    wcfg = P.WorkloadConfig(poisson_lambda_per_min=30.0, max_duration_s=10)
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    log_path = os.path.join(SERVE_DIR, "grading.log")
+    reg = RegistryServer(port=0, speed=speed)
+    reg.start()
+    sink = LogSinkServer(log_path, registry_url=reg.url)
+    sink.start()
+    procs = [reg, sink]
+    fused_tick.reset_launches()
+    try:
+        scheds = []
+        for i in (1, 2):
+            s = guard.watch(SchedulerService(
+                f"Sched{i}", P.uniform_cluster(i, 10), cfg,
+                registry_url=reg.url, speed=speed, grpc_port=None,
+                device=dev))
+            s.start()  # one warm-up tick on a clone before the loop
+            set_client_logger(s.logger, sink.url, "Scheduler")
+            scheds.append(s)
+            procs.append(s)
+        t0 = time.perf_counter()
+        ticks0 = [s.ticks_run for s in scheds]
+        vt0 = [s.stats()["t_ms"] for s in scheds]
+        placed0 = sum(s.stats()["placed_total"] for s in scheds)
+        clients = []
+        for i, s in enumerate(scheds, 1):
+            c = WorkloadClientService(
+                f"Client{i}", s.url, wcfg=dataclasses.replace(
+                    wcfg, seed=9 + i), speed=speed, max_jobs=LIVE_JOBS)
+            c.start()
+            clients.append(c)
+            procs.append(c)
+        total = 2 * LIVE_JOBS
+        deadline = time.perf_counter() + 600
+        while time.perf_counter() < deadline:
+            placed = sum(s.stats()["placed_total"] for s in scheds) - placed0
+            if placed >= 0.98 * total and all(c.jobs_sent >= LIVE_JOBS
+                                              for c in clients):
+                break
+            time.sleep(0.25)
+        wall = time.perf_counter() - t0
+        guard.check("9e", *scheds)
+        stats = [s.stats() for s in scheds]
+        placed = sum(st["placed_total"] for st in stats) - placed0
+        ticks = [s.ticks_run - k for s, k in zip(scheds, ticks0)]
+        vms = [st["t_ms"] - v for st, v in zip(stats, vt0)]
+        drops = [s.state_host() for s in scheds]
+    finally:
+        for p in reversed(procs):
+            p.shutdown()
+    guard.check("9e shutdown")
+    counts = {k: v for k, v in fused_tick.launch_counts().items() if v}
+    all_ticks = sum(s.ticks_run for s in scheds) + len(scheds)  # + warm-ups
+    check_launches(fused_tick.launch_counts(), "fused_prefix_delay", all_ticks,
+                "9e live hosts")
+    for i, h in enumerate(drops):
+        no_drops(h, f"9e host {i + 1}")
+    if placed < 0.9 * total:
+        raise AssertionError(f"9e: placed {placed} of {total} in "
+                             f"{wall:.1f} s")
+    if not (os.path.exists(log_path) and os.path.getsize(log_path)):
+        raise AssertionError("9e: the log sink received nothing")
+    print(f"phase 9e: live constellation, 2 DELAY hosts x 2 clients x "
+          f"{LIVE_JOBS} jobs at speed {speed:g}: placed {placed} of {total} "
+          f"({placed / wall:.1f} jobs/s) in {wall:.3f} s, ticks {ticks}, "
+          f"achieved speed {[round(v / 1e3 / wall, 1) for v in vms]}, host "
+          f"ms a tick {[round(1e3 * wall / max(t, 1), 3) for t in ticks]} "
+          f"(tick cost {[round(1e3 * wall / max(t, 1) - cfg.tick_ms / speed, 3) for t in ticks]}), "
+          f"client 503 retries {sum(c.retries_503 for c in clients)}, "
+          f"launches {counts}, 0 drops [{card}]")
+
+    # 200 ticks of one host by hand, card against CPU, every launch timed
+    records = []
+    rng = np.random.default_rng(23)
+    stream = []
+    for t in range(LIVE_HAND_TICKS):
+        stream.append([(100 * t + k, int(rng.integers(1, 17)),
+                        int(rng.integers(100, 12_000)),
+                        int(rng.integers(1_000, 10_001)),
+                        bool(rng.integers(0, 15) == 0))
+                       for k in range(int(rng.integers(0, 3)))])
+    for policy, kind, form in (
+            (P.PolicyKind.DELAY, "delay", "fused_prefix_delay"),
+            (P.PolicyKind.FIFO, "fifo_emit", "fused_prefix_fifo_emit")):
+        hcfg = live_cfg(P, policy, borrowing=policy is P.PolicyKind.FIFO)
+        pair = {side: guard.watch(SchedulerService(
+            f"hand-{kind}-{side}", P.uniform_cluster(1, 10), hcfg,
+            grpc_port=None, device=d))
+            for side, d in (("card", dev), ("cpu", "cpu"))}
+        card_host = pair["card"]
+        chk = Checker(card_host.engine)
+        cost, shared = cost_of(kind, card_host.engine,
+                               QC=hcfg.queue_capacity)
+        fused_tick.reset_launches()
+        endpoint = "/" if policy is P.PolicyKind.FIFO else "/delay"
+        with ServeProbe(chk, cost, shared,
+                        spread(LIVE_HAND_TICKS, 12)) as probe:
+            for t, row in enumerate(stream):
+                for h in pair.values():
+                    for (j, co, m, du, other) in row:
+                        ep = ("/delay" if endpoint == "/" else "/") \
+                            if other else endpoint
+                        fn = (h._handle_submit_delay if ep == "/delay"
+                              else h._handle_submit_fifo)
+                        code, _ = fn(json.dumps(job_to_json(
+                            j, co, m, du)).encode(), {})
+                        if code != 200:
+                            raise AssertionError(f"9e hand {kind}: {code}")
+                    h._tick_once()
+        counts = fused_tick.launch_counts()
+        guard.check(f"9e hand {kind}")
+        check_launches(counts, form, LIVE_HAND_TICKS, f"9e hand {kind}")
+        win = fused_tick.windowed_launch_counts()[form]
+        if win != LIVE_HAND_TICKS:
+            raise AssertionError(f"9e hand {kind}: {win} windowed launches")
+        a = interop.to_numpy(card_host.state)
+        require_equal(interop.to_numpy(pair["cpu"].state), a,
+                      f"9e {LIVE_HAND_TICKS} hand ticks ({kind}) card vs CPU")
+        no_drops(a, f"9e hand {kind}")
+        sp = probe.summary()
+        print(f"phase 9e: {LIVE_HAND_TICKS} ticks of a {kind} host by hand "
+              f"(C=1, tick_io, windowed ring of {hcfg.max_arrivals}): card "
+              f"== CPU, {form} x {counts[form]} (windowed), placed "
+              f"{int(a['.placed_total'].sum())}; "
+              f"{serve_us(sp['kernel_ms'])}, plain "
+              f"{np.mean(chk.plain_ms):.3f} ms at {chk.n} comparisons "
+              f"[{card}]")
+        # DELAY's launches are the live constellation's, FIFO's these
+        records.append(serve_record(
+            form, f"9e live host C=1, {kind.split('_')[0]}, windowed",
+            all_ticks if kind == "delay" else counts[form], chk.worst,
+            chk.plain_ms, sp))
+        tick_ms, clone_ms = lone_tick_ms(
+            card_host, card_host._handle_submit_delay if endpoint == "/delay"
+            else card_host._handle_submit_fifo, stream)
+        print(f"phase 9e: the {kind} host alone, no probe, no twin: "
+              f"{np.median(tick_ms):.3f} ms a tick (median of "
+              f"{len(tick_ms)}, mean {np.mean(tick_ms):.3f}), of which its "
+              f"state's clone {clone_ms:.3f} ms [{card}]")
+    return dict(records=records)
+
+
+def lone_tick_ms(host, submit, stream):
+    """One live host's ``_tick_once`` timed alone (no probe, no CPU twin,
+    no other thread): the stream's jobs again under new ids, each tick
+    synchronized; and its state's clone alone, the mean of 100. Returns
+    ([ms a tick], clone ms). The launches count as the host's own."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.services.scheduler_host import (
+        job_to_json,
+    )
+
+    out = []
+    for row in stream:
+        for (j, co, m, du, _) in row:
+            submit(json.dumps(job_to_json(10 ** 6 + j, co, m, du)).encode(),
+                   {})
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        host._tick_once()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - w0))
+    w0 = time.perf_counter()
+    for _ in range(100):
+        clone_state(host.state)
+    torch.cuda.synchronize()
+    return out, 10.0 * (time.perf_counter() - w0)
+
+
+def phase_services(P, E, card, dev):
+    """Phases 9a-9e, under one ``ServiceGuard``."""
+    guard = ServiceGuard()
+    lap = lap_timer()
+    out = {"a": phase_serving_parity(P, E, card, dev, guard)}
+    lap("9a")
+    out["b"] = phase_serving_throughput(P, E, card, dev, guard)
+    lap("9b")
+    out["c"] = phase_serving_tenants(P, E, card, dev, guard)
+    lap("9c")
+    phase_serving_recovery(P, E, card, dev, guard)
+    lap("9d")
+    out["e"] = phase_live_constellation(P, E, card, dev, guard)
+    lap("9e")
+    guard.check("phase 9")
+    return out
+
+
 def bound(read, written, ops=0.0):
     """The least time (ms) for a launch's bytes and operations, and which
     of the two bounds it."""
@@ -6825,6 +7825,10 @@ def run_phases(device: str, sample) -> int:
     lap("8e")
     print(f"phases 8a-8e: {time.perf_counter() - w8:.1f} s")
 
+    w9 = time.perf_counter()
+    services = phase_services(P, E, card, dev)
+    print(f"phases 9a-9e: {time.perf_counter() - w9:.1f} s")
+
     records = []
     kms = float(np.mean(check["kernel_ms"]))
     per_launch = check["read_per_launch"] + check["written_per_launch"]
@@ -7010,6 +8014,17 @@ def run_phases(device: str, sample) -> int:
               f"{b_ms * 1e3:.4f} us by {b_by}, launches {r['launches']}; "
               f"kernel / bound {r['ms'] / b_ms:.1f} [{card}]")
         records.append(r)
+    # the services tier: the serving front door's FIFO emit+tap form
+    # (9a), its lane form under tenants (9c), the live hosts' windowed
+    # C=1 forms (9e)
+    for r in (services["a"]["record"], services["c"]["record"],
+              *services["e"]["records"]):
+        b_ms, b_by = r["bound"]
+        print(f"kernel {r['name']}: {r['ms'] * 1e3:.2f} us/launch, plain "
+              f"{np.mean(r['plain']):.3f} ms, bound {b_ms * 1e3:.4f} us by "
+              f"{b_by}, launches {r['launches']}; kernel / bound "
+              f"{r['ms'] / b_ms:.1f} [{card}]")
+        records.append(r)
     print(f"lane forms beside one lane over the same clusters: FIFO "
           f"{tenants['record']['lane_ms'] * 1e3:.2f} us ({TENANTS_T} x "
           f"{TENANTS_C}) vs {tenants['record']['one_ms'] * 1e3:.2f} us (1 x "
@@ -7033,4 +8048,6 @@ def run_phases(device: str, sample) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--preempt-child"]:
         sys.exit(preempt_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--serve-child"]:
+        sys.exit(serve_child(sys.argv[2:]))
     sys.exit(main())

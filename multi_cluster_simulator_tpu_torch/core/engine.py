@@ -571,6 +571,8 @@ def _write_back(dst: SimState, src: SimState) -> SimState:
     caller's state in place; a leaf that already lies where ``dst``'s does
     (the same tensor, or a view of a batch's lane taken twice) is not
     copied onto itself. Returns ``dst``."""
+    if dst is src:
+        return dst
     for (_, d), (_, s_) in zip(leaves_with_keys(dst), leaves_with_keys(src)):
         if d is not s_ and not (d.data_ptr() == s_.data_ptr()
                                 and d.dtype == s_.dtype

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -93,8 +94,22 @@ def build_all(names=None) -> dict[str, str]:
     return reports
 
 
+# Guards the first build and load of a kernel: the services launch from
+# several threads (tick threads, the drive thread, handler threads), and two
+# threads reaching a kernel's first use together would both run nvcc into
+# the same temporary name. One builds; the others wait for its library.
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The built library for kernel ``name`` (building it first if needed)."""
+def _load(name: str) -> ctypes.CDLL:
     build_all([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library for kernel ``name`` (building it first if needed).
+    Safe to call from several threads: the library is built and loaded
+    once."""
+    with _LOAD_LOCK:
+        return _load(name)

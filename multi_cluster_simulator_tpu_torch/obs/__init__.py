@@ -1,8 +1,8 @@
 """obs/ — the observability subsystem (the port of
 ``multi_cluster_simulator_tpu/obs/``): the device metrics plane
 (``obs/device.py``, with ``tap_leap`` for the event-compressed driver)
-and the profile plane (``obs/profile.py``). The serving surface's
-``promtext`` waits for the services (ROADMAP A15)."""
+the profile plane (``obs/profile.py``) and the serving surface's
+Prometheus-text parser (``obs/promtext.py``)."""
 
 from multi_cluster_simulator_tpu_torch.obs.device import (  # noqa: F401
     OBS_DEPTH_BUCKETS, OBS_RING, PC_LEAVES, MetricsBuffer, TapCursor,

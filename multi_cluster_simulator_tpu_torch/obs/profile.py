@@ -54,12 +54,16 @@ def phase_scope(name: str):
     return torch.profiler.record_function(f"tick.{name}")
 
 
-def annotate_dispatch(name: str):
+def annotate_dispatch(name: str, **kwargs):
     """A ``mcs.dispatch.<name>`` range around a host dispatch site while a
-    profiler records; a null context otherwise."""
+    profiler records; a null context otherwise. ``kwargs`` (the serving
+    tier's ``ticks=``, ``jobs=``) ride the range as its argument string,
+    ``name(k=v, ...)``."""
     if not profiling():
         return _NULL
-    return torch.profiler.record_function(f"mcs.dispatch.{name}")
+    args = ", ".join(f"{k}={v}" for k, v in kwargs.items())
+    return torch.profiler.record_function(
+        f"mcs.dispatch.{name}", args or None)
 
 
 def start_trace(logdir: str) -> None:

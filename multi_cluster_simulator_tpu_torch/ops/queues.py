@@ -332,6 +332,19 @@ def compact(q, keep: torch.Tensor):
     return _store_rows(q, data, isum(keep, 1))
 
 
+def remove_matching(q, job: JobRec,
+                    match_fields=("id", "cores", "mem", "dur")):
+    """Remove every valid slot equal to ``job`` [C, NF] on the given fields
+    (the reference's whole-struct-equality dequeues, server.go:131-135);
+    matching on (id, cores, mem, dur) is the reference's determinization:
+    the Go structs' other fields survive the borrow round trip unchanged."""
+    m = torch.ones(q.count.shape + (q.capacity,), dtype=torch.bool,
+                   device=q.device)
+    for f in match_fields:
+        m = m & (field(q, f) == job.vec[..., F.QUEUE_INDEX[f]][..., None])
+    return compact(q, ~m)
+
+
 def set_field(q, name: str, values: torch.Tensor):
     """Overwrite one field column (e.g. rec_wait) for all slots; the
     compact layout's store is checked over every slot."""

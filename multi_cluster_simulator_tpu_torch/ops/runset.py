@@ -194,6 +194,16 @@ def row_from_job(job: JobRec, node: torch.Tensor, t: int) -> torch.Tensor:
                     job.owner, job.dur, job.enq_t, job.retries)
 
 
+def insert_row(rs, hot: torch.Tensor, row: torch.Tensor):
+    """Write one int32 ``row`` [C, RF] (or [RF] for every cluster) into the
+    slots where ``hot`` [C, S] is set (one-hot in practice) and mark them
+    active; the compact layout's store is checked on the slots written.
+    The single-row insert of the live host's carve (services/host_ops.py)."""
+    data = torch.where(hot[..., None], row.to(I32)[..., None, :]
+                       if row.dim() > 1 else row.to(I32), rows_of(rs))
+    return _store_rows(rs, data, rs.active | hot, checked=hot)
+
+
 def start_many(rs, rows: torch.Tensor, n_take: torch.Tensor,
                checked: bool = False):
     """Insert ``rows[c, :n_take[c]]`` ([C, M, RF]) into each cluster's

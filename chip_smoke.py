@@ -18,23 +18,23 @@ holds each path's hand-written kernel against its plain PyTorch version:
    a. FIFO at the headline's full width (4096 clusters), on ticks the
       headline run reaches and on heavier streams that fill the queues;
       the emit form (``run_io``'s) timed on the first 400 headline ticks;
-   b. the first 100 ticks of a 256-cluster headline run through each;
+   b. the first 60 ticks of a 256-cluster headline run through each;
    c. FFD at bench_borg4k's full width: 16 ticks sampled as the kernel
-      reaches them (the diurnal peak included), 2 x 30 heavy ticks that
+      reaches them (the diurnal peak included), 2 x 20 heavy ticks that
       fire drops.queue, drops.run_full and the per-tick placement cap, the
       serial form, the ``ffd-memfirst`` variant, parity mode and the trace,
-      and the first 100 ticks of a run at bench_borg4k(quick=True)'s shape;
+      and the first 60 ticks of a run at bench_borg4k(quick=True)'s shape;
    d. DELAY at the market's full width (sinkhorn_market_setup, bench.py:
       979-1029): ticks of runs (a) (the sinkhorn market on, its rounds
       timed) and (d) sampled as the kernel reaches them, heavy ticks on an
       8-deep queue that fire the promotion, a full Level1, drops.run_full
       and the parity skip, in the wave, serial and parity forms,
-      ``delay-eager`` and the trace, and the first 100 ticks of a run at
+      ``delay-eager`` and the trace, and the first 60 ticks of a run at
       the market's quick shape;
    e. the scored sweep the same way: runs (b) gavel and (c) tesserae
       sampled, heavy ticks (gavel; tesserae with the trace; gavel and rl
       with seeded scores on clusters of mixed device types), and the first
-      100 ticks of quick-shape runs of tesserae and of the seeded rl;
+      60 ticks of quick-shape runs of tesserae and of the seeded rl;
    f. tools/tournament.py's lineup as one multi-member PolicySet at 256
       clusters: each params.idx launches its member's kernel, and only
       that, and equals the plain version;
@@ -133,7 +133,7 @@ holds each path's hand-written kernel against its plain PyTorch version:
       bench_fifo_small: FIFO on one cluster_small, the windowed ingest,
       3,600 ticks in 900-tick chunks, record_metrics, the plane on) — zero
       drops, the series at the 5 s marks equal to the committed
-      bench_metrics.json (zero under FIFO), the first chunk's run == its
+      bench_metrics.json (zero under FIFO), its first 300 ticks' run == its
       plain run, 12 of its ticks compared and every launch timed beside
       the untapped form, ``fifo_cluster_small_ticks_per_sec`` over 3
       timed runs after 1 warm-up with the plane off and on — then the
@@ -205,7 +205,7 @@ holds each path's hand-written kernel against its plain PyTorch version:
       ticks, 262,144 jobs, a fault seed and a threshold a tenant): one
       FIFO launch a tick; every job placed, no drops; tenants {0, 85,
       170, 255} == their standalone ``Engine.run``; the whole batch ==
-      the plain per-lane loop on the card over its first 4 ticks with the
+      the plain per-lane loop on the card over its first 2 ticks with the
       metrics plane on (each tenant's buffer its own); every launch of a
       run timed, 2 held against the plain loop; the batch's wall against
       the serial loop of 256 standalone runs; the lane form's launch
@@ -260,10 +260,37 @@ holds each path's hand-written kernel against its plain PyTorch version:
       files recover on the CPU to the same state;
    e. bench.py bench_live's constellation without its traders (no gRPC
       on the card's machine): a registry, 2 DELAY hosts, 2 workload
-      clients of 2,000 jobs at speed 100 and a log sink — at least 90%
-      placed, no drops, a launch a tick; then 200 ticks of a DELAY host
+      clients of 1,000 jobs at speed 100 and a log sink — at least 90%
+      placed, no drops, a launch a tick; then 120 ticks of a DELAY host
       and of a FIFO host with borrowing, driven by hand, == the same on
-      the CPU, each windowed C=1 launch timed.
+      the CPU, each windowed C=1 launch timed;
+10. the reference's single-device drivers, each through its port in
+   ``multi_cluster_simulator_tpu_torch/tools/``:
+   a. the tournament (tools/tournament.py): bench.py's full sweep (48
+      variants x 4 seeds x 8 clusters, 192 lanes, one DELAY and one
+      scored launch a tick) and the tool's default (8 members x 4 seeds x
+      64 clusters, 32 lanes, one launch a source a tick) as one
+      lane-stacked run each, every cell == its standalone run, the grid
+      wall against the serial loop, each source's lane form == the plain
+      per-lane loop at two ticks and timed on its own lanes; a resume
+      cache with one variant deleted reruns only its lanes, rows equal;
+   b. the ES trainer (tools/train_env_demo.py): its defaults (one scored
+      lane launch a step, the lane form == plain at two steps) and its
+      world at bench_env's batch shape (1,024 envs x 8 clusters, 50-tick
+      episodes, 3 iterations), the wall split into draws, steps and
+      update, cut after iteration 1 and resumed bitwise;
+   c. the chaos harness on serving (tools/chaos.py): two kill -9 cycles
+      of a serving child on the card under live HTTP traffic, recovery
+      bitwise the in-process reference on the card, no acked job lost;
+   d. the chaos harness on a batch run: churn_bursts quick (compact,
+      compressed, trace churn) killed with SIGKILL at two chunk
+      boundaries and stopped with SIGTERM (exit 75) at one, the final
+      checkpoint bitwise the uninterrupted child's;
+   e. the matcher A/B (tools/market_ab.py): greedy, sinkhorn and cvx at
+      1,024 and 4,096 clusters, three timed runs each, the DELAY form's
+      launches counted and the kernel == plain at two ticks a cell; the
+      sinkhorn row at 4,096 (BASELINE config 4) keeps bench.py's gates;
+   f. the observability gate (tools/metrics_smoke.py) on the card: exit 0.
 
 Every number is printed beside the card's name and power limit. The last
 lines are a JSON record of each kernel (its time per launch, the plain
@@ -298,6 +325,7 @@ SPIN_CYCLES = 1_000_000  # ~0.5 ms of card time ahead of each timed launch
 BORG_C, BORG_JOBS, BORG_HORIZON_MS = 4096, 750, 4_500_000
 BORG_QUICK = (256, 250, 1_500_000)
 BORG_TIMED, BORG_WARMUPS, BORG_SAMPLES = 3, 1, 16
+FFD_HEAVY_TICKS = 20  # 3c's heavy ticks a stream and form
 # bench_ffd64 (bench.py:936-976)
 FFD64_C, FFD64_JOBS, FFD64_HORIZON_MS, FFD64_SAMPLES = 64, 60_000, \
     6_000_000, 8
@@ -325,9 +353,7 @@ MARKET_PROFILE_TICKS = 30  # a torch.profiler window: three market rounds
 HEAVY_EXPIRE_TICKS = 3  # 3i's heavy ticks per expire form
 HEAVY_EXPIRE_REPS = 5  # 3i's timed launches per heavy tick, each on a copy
 MATCHER_TICKS = 300  # 3j's short greedy and cvx runs: 30 rounds each
-# tools/tournament.py DEFAULT_POLICIES, dispatched as one PolicySet
-LINEUP = ("fifo", "delay", "delay-eager", "delay-patient", "ffd",
-          "ffd-memfirst", "gavel", "tesserae")
+# 3f: tools/tournament.py's DEFAULT_POLICIES as one PolicySet
 LINEUP_C, LINEUP_TICKS = 256, 40
 # BASELINE config 2 (bench.py:898-933): run (a) at its own two clusters
 # with the trader on, run (b) tiled to 4,096 with the trader cut; 3g's
@@ -353,15 +379,16 @@ PLANE_SAMPLES, PLANE_TIMED, OBS_OVERHEAD_BOUND = 12, 5, 0.03
 PLANE_CHURN_TICKS = 50
 # the compact layout (5a-5f): 5a's wide/compact wall pairs; the other
 # forms' passes cover their first ticks, compared at a few of them
-COMPACT_PAIRS, COMPACT_PASS_TICKS, COMPACT_SAMPLES = 5, 150, 4
+COMPACT_PAIRS, COMPACT_PASS_TICKS, COMPACT_SAMPLES = 5, 100, 4
 COMPACT_CHURN_TICKS = 100
 # BASELINE config 1 (bench.py:839-895 bench_fifo_small): its ticks, its
 # chunk, its arrival slots, its timed runs after its warm-ups
 CONFIG1_TICKS, CONFIG1_CHUNK, CONFIG1_ARRIVALS = 3_600, 900, 2_048
 CONFIG1_TIMED, CONFIG1_WARMUPS = 3, 1
+CONFIG1_PLAIN_TICKS = 300  # 4p's kernel run == its plain run over these
 # the earlier paths' whole-run comparisons (3b, 3c, 3d and 3e's quick
-# runs) cover their first 100 ticks, to keep the script's time
-WHOLE_RUN_TICKS = 100
+# runs) cover their first 60 ticks, to keep the script's time
+WHOLE_RUN_TICKS = 60
 EXPIRE_RUN_TICKS = 250  # 3i's quick-shape runs with expiry
 # event-compressed time (6a-6e): bench_sparse_bursts (bench.py:2510-2575)
 # at its full shape, churn_bursts_setup (:2467-2507), the leap classes of
@@ -369,7 +396,7 @@ EXPIRE_RUN_TICKS = 250  # 3i's quick-shape runs with expiry
 SPARSE_C, SPARSE_BURSTS, SPARSE_PER_BURST = 1024, 12, 24
 SPARSE_INTERVAL_MS, SPARSE_WINDOW_MS = 300_000, 20_000
 SPARSE_TIMED, SPARSE_WARMUPS = 3, 1
-CHURN_BURSTS_C, CHURN_BURSTS_CHUNK = 256, 100
+CHURN_BURSTS_CHUNK = 100
 LEAP_CLASS_C, LEAP_CLASS_TICKS = 1024, 80
 REPLAY_TIMED, REPLAY_WARMUPS, REPLAY_SAMPLES = 3, 1, 12
 COMPRESS_SAMPLES = 12  # kernel == plain at this many executed ticks
@@ -383,14 +410,14 @@ COMPRESS_AUTO_GAP, COMPRESS_AUTO_EMPTY_FRAC = 8, 0.5
 # 2's pair with borrowing and the greedy market at 4 tenants), bench.py
 # bench_env's full shape (8d, 8e)
 TENANTS_T, TENANTS_C, TENANTS_TICKS, TENANTS_JOBS = 256, 2, 32, 512
-TENANTS_PLAIN_TICKS = 4  # 8a's whole batch against the plain per-lane loop
+TENANTS_PLAIN_TICKS = 2  # 8a's whole batch against the plain per-lane loop
 TENANTS_WALLS = 3
 LANE_REPS = 20  # timed launches of a lane form and of its one-lane twin
 MIXED_C, MIXED_TICKS = 64, 60
 COMPOSED_T, COMPOSED_BORROW_TICKS = 64, 600
 ENV_B, ENV_C, ENV_EP, ENV_STEPS = 1024, 8, 50, 125
 ENV_WALLS, ENV_SERIAL = 2, 16
-ENV_LANE_STEPS, ENV_PLAIN_STEPS = 50, (1, 30)
+ENV_LANE_STEPS, ENV_PLAIN_STEPS = 50, (30,)
 # phases 9a-9e, the services tier: bench.py bench_serving's full shape
 # (bench.py:1700-2010; 9a-9c), 9a's world under a WAL and checkpoints with
 # a child killed mid-run (9d), bench.py bench_live's constellation without
@@ -401,7 +428,7 @@ SERVE_TENANTS = 8
 SERVE_CKPT_WINDOW, SERVE_CKPT_EVERY = 4, 8  # a checkpoint every 32 ticks
 SERVE_KILL_STAGED, SERVE_KILL_DISPATCHED = 110, 104
 SERVE_DIR = "build/phase9"
-LIVE_JOBS, LIVE_HAND_TICKS = 2_000, 200
+LIVE_JOBS, LIVE_HAND_TICKS = 1_000, 120
 BORG_JOBS_NPZ = "build/borg_jobs.npz"
 BORG_SAMPLE_TIMEOUT_S = 600
 
@@ -453,23 +480,26 @@ def trader_cfg(P, trader=None):
 
 
 def market_cfg(P, quick=False, jobs=MARKET_JOBS, trader=None, **kw):
-    """sinkhorn_market_setup's config (bench.py:993), as the port's, with
-    the trader off unless ``trader`` gives its settings (``SINKHORN`` is
-    the bench's own)."""
-    base = dict(policy=P.PolicyKind.DELAY, parity=False,
-                max_placements_per_tick=8,
-                queue_capacity=512 if quick else 256,
-                max_running=256 if quick else 128, max_arrivals=jobs,
-                max_ingest_per_tick=16, max_nodes=5, max_virtual_nodes=4,
-                delay_sweep="wave", n_res=3, trader=trader_cfg(P, trader))
-    base.update(kw)
-    return P.SimConfig(**base)
+    """sinkhorn_market_setup's config (bench.py:993; the port's copy,
+    tools/market_ab.py), with the trader off unless ``trader`` gives its
+    settings (``SINKHORN`` is the bench's own)."""
+    import dataclasses
+
+    from multi_cluster_simulator_tpu_torch.tools.market_ab import (
+        sinkhorn_market_cfg,
+    )
+
+    return dataclasses.replace(sinkhorn_market_cfg(jobs, quick=quick),
+                               trader=trader_cfg(P, trader), **kw)
 
 
 def market_specs(P, C):
     """Half the clusters gpu-rich (8 gpus a node), half gpu-poor."""
-    return [P.uniform_cluster(c + 1, 5, gpus=8 if c % 2 == 0 else 0)
-            for c in range(C)]
+    from multi_cluster_simulator_tpu_torch.tools.market_ab import (
+        sinkhorn_market_specs,
+    )
+
+    return sinkhorn_market_specs(C)
 
 
 def mixed_specs(P, C):
@@ -487,14 +517,12 @@ def market_stream(E, C, jobs, quick=False, seed=7, arrivals=False):
     its jobs can never place without the market: the gpu jobs of the
     gpu-poor clusters; and with ``arrivals`` the stream itself (the
     compact plan's audit reads it)."""
-    from multi_cluster_simulator_tpu_torch.workload.traces import (
-        uniform_stream,
+    from multi_cluster_simulator_tpu_torch.tools.market_ab import (
+        sinkhorn_market_stream,
     )
 
-    arr = uniform_stream(C, jobs, MARKET_HORIZON_MS, max_cores=24,
-                         max_mem=18_000,
-                         max_dur_ms=300_000 if quick else 40_000, seed=seed,
-                         max_gpus=2, gpu_frac=0.1)
+    arr = sinkhorn_market_stream(C, jobs, MARKET_HORIZON_MS, quick=quick,
+                                 seed=seed)
     n_ticks = MARKET_HORIZON_MS // 1_000 + 100
     chunks = E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), 1_000)
     valid = np.arange(arr.t.shape[1])[None, :] < arr.n[:, None]
@@ -1372,7 +1400,8 @@ def phase_ffd_kernel_vs_plain(P, E, card, dev):
         veng = E.Engine(vcfg, device=dev, policies=PolicySet((policy,)))
         vchk = Checker(veng)
         for arr in heavy if name == "wave" else heavy[:1]:
-            ch = E.pack_arrivals_chunks(arr, [30], vcfg.tick_ms)[0]
+            ch = E.pack_arrivals_chunks(arr, [FFD_HEAVY_TICKS],
+                                        vcfg.tick_ms)[0]
             state = init_state(vcfg, specs, device=dev)
             rows_all = torch.from_numpy(ch.rows).to(dev)
             counts_all = torch.from_numpy(ch.counts).to(dev)
@@ -1764,14 +1793,17 @@ def phase_dispatch(P, E, card, dev):
     from multi_cluster_simulator_tpu_torch.core.state import init_state
     from multi_cluster_simulator_tpu_torch.kernels import fused_tick
     from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+    from multi_cluster_simulator_tpu_torch.tools.tournament import (
+        DEFAULT_POLICIES,
+    )
 
     cfg = market_cfg(P, record_trace=True, max_trace_events=512)
-    pset = PolicySet(LINEUP)
+    pset = PolicySet(DEFAULT_POLICIES)
     engine = E.Engine(cfg, device=dev, policies=pset)
     chunks, _, _ = market_stream(E, LINEUP_C, MARKET_JOBS)
     part = first_ticks(chunks, LINEUP_TICKS)
     s0 = init_state(cfg, market_specs(P, LINEUP_C), device=dev)
-    for idx, name in enumerate(LINEUP):
+    for idx, name in enumerate(DEFAULT_POLICIES):
         params = pset.params_for(cfg, name, device=dev)
         want = fused_tick.host_params(engine, params)["kernel"].name
         fused_tick.reset_launches()
@@ -3855,17 +3887,22 @@ def phase_config1(P, E, card, dev):
         h = plane_gates(fin, mb, CONFIG1_TICKS, cfg.tick_ms, "config 1")
         marks = series_at_marks(series)
         if policy == P.PolicyKind.FIFO:
-            # the whole first chunk through the plain version
+            # the first CONFIG1_PLAIN_TICKS ticks through the entry point
+            # and through the plain version
+            s2 = init_state(cfg, [P.uniform_cluster(1, 5)], device=dev)
+            part = engine.run(s2, arr, CONFIG1_PLAIN_TICKS, None,
+                              D.metrics_init(s2))
             w0 = time.perf_counter()
             ref, ref_ser, ref_mb = plain_windowed_run(engine, s0, rows, n,
-                                                      CONFIG1_CHUNK)
+                                                      CONFIG1_PLAIN_TICKS)
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - w0
-            d = max(max_abs_diff(ref, first[0]), max_abs_diff(ref_mb, first[2]),
-                    max_abs_diff(ref_ser, first[1]))
+            d = max(max_abs_diff(ref, part[0]), max_abs_diff(ref_mb, part[2]),
+                    max_abs_diff(ref_ser, part[1]))
             if d:
-                raise AssertionError(f"config 1: the first chunk differs "
-                                     f"from its plain run ({d})")
+                raise AssertionError(f"config 1: the first "
+                                     f"{CONFIG1_PLAIN_TICKS} ticks differ "
+                                     f"from their plain run ({d})")
             if any(drops.values()):
                 raise AssertionError(f"config 1: drops {drops}")
             if marks != {k: committed[k] for k in marks}:
@@ -3896,7 +3933,7 @@ def phase_config1(P, E, card, dev):
                   f"{h['depth_hist_log2']}; launches "
                   f"{ {k: v for k, v in counts.items() if v} }, windowed "
                   f"{ {k: v for k, v in wcounts.items() if v} } [{card}]")
-            print(f"phase 4p: the first {CONFIG1_CHUNK}-tick chunk: kernel "
+            print(f"phase 4p: the first {CONFIG1_PLAIN_TICKS} ticks: kernel "
                   f"run == plain run on every state, series and buffer "
                   f"leaf; run wall plain {plain_s:.3f} s [{card}]")
             print(f"phase 4p: fifo_cluster_small_ticks_per_sec (virtual-s/s)"
@@ -4925,7 +4962,8 @@ def phase_sparse_bursts(P, E, card, dev):
 
 
 def phase_churn_bursts(P, E, card, dev):
-    """Phase 6c: churn_bursts_setup (bench.py:2467-2507) at its full shape:
+    """Phase 6c: churn_bursts_setup (bench.py:2467-2507; the port's copy in
+    tools/chaos.py) at its full shape:
     the sparse bursts at 256 clusters, trace-mode churn in every burst,
     compressed on the derived compact plan, against the dense wide run."""
     from multi_cluster_simulator_tpu_torch.core import compact as CC
@@ -4937,16 +4975,12 @@ def phase_churn_bursts(P, E, card, dev):
         assert_no_drops, check_conservation,
     )
 
-    C = CHURN_BURSTS_C
-    cfg = sparse_cfg(P, faults=P.FaultConfig(
-        enabled=True, mode="trace", max_retries=16,
-        max_events=SPARSE_BURSTS))
-    events = [(c, b % cfg.max_nodes, b * SPARSE_INTERVAL_MS + 5_000,
-               b * SPARSE_INTERVAL_MS + 15_000)
-              for c in range(0, C, max(C // 8, 1))
-              for b in range(SPARSE_BURSTS)]
-    specs = [P.uniform_cluster(c + 1, 5) for c in range(C)]
-    arr, n_ticks = sparse_stream(C)
+    from multi_cluster_simulator_tpu_torch.tools.chaos import (
+        churn_bursts_setup,
+    )
+
+    cfg, specs, arr, n_ticks, events = churn_bursts_setup(quick=False)
+    C = len(specs)
     sizes = [CHURN_BURSTS_CHUNK] * (n_ticks // CHURN_BURSTS_CHUNK)
     sizes += [n_ticks % CHURN_BURSTS_CHUNK] if n_ticks % CHURN_BURSTS_CHUNK \
         else []
@@ -5941,15 +5975,18 @@ def group_launches(engine, state, rows, counts, t, params, costs, reps):
     of ``state`` by CUDA events, and the least bytes and operations of the
     lanes it carries (``costs[lib](before, after, rows, counts, t,
     tesserae)`` on those lanes' clusters end to end; the scored source's
-    table and tesserae lanes counted apart). Returns {lib: dict(ms, read,
-    written, ops, lanes)}; the launch counts are restored after."""
+    table and tesserae lanes counted apart), and its plain version, the
+    plain span lane by lane over the same lanes, timed once. Returns {lib:
+    dict(ms, plain_ms, read, written, ops, lanes)}; the launch counts are
+    restored after."""
     from multi_cluster_simulator_tpu_torch.core.state import clone_state
     from multi_cluster_simulator_tpu_torch.kernels import fused_tick
     from multi_cluster_simulator_tpu_torch.utils.tree import tree_map
 
     saved = fused_tick.launch_counts()
     L, C = state.arr_ptr.shape
-    host = fused_tick.host_params(engine, engine.lane_params(params, L))
+    lp = engine.lane_params(params, L)
+    host = fused_tick.host_params(engine, lp)
     out = {}
     for g in host["groups"]:
         lib = g.kernels["kernel"].lib
@@ -5968,6 +6005,14 @@ def group_launches(engine, state, rows, counts, t, params, costs, reps):
         read = written = ops = 0
         mine = [i for i, spec in enumerate(host["specs"])
                 if fused_tick.kernel_for(spec).lib == lib]
+        s = clone_state(state)
+        pev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pev[0].record()
+        for i in mine:
+            fused_tick.fused_prefix_reference(
+                engine, fused_tick.lane(s, i), rows[i], counts[i], t,
+                fused_tick.lane(lp, i), host["specs"][i])
+        pev[1].record()
         for tess in (False, True):
             idx = [i for i in mine
                    if (host["specs"][i].kind == "tesserae") == tess]
@@ -5988,6 +6033,7 @@ def group_launches(engine, state, rows, counts, t, params, costs, reps):
         torch.cuda.synchronize()
         out[lib] = dict(ms=float(np.mean([a.elapsed_time(b)
                                           for a, b in evs])),
+                        plain_ms=pev[0].elapsed_time(pev[1]),
                         read=read, written=written, ops=ops,
                         lanes=len(mine))
     for k in fused_tick.KERNELS.values():
@@ -6170,15 +6216,6 @@ def phase_tenants(P, E, card, dev):
     return dict(world=w, out=out, record=rec, mid=mid)
 
 
-def tournament_specs(P, C):
-    """tools/tournament.py _specs: five 32-core nodes, the last two typed as
-    accelerators (device type 1)."""
-    return [P.ClusterSpec(id=c + 1, nodes=tuple(
-        P.NodeSpec(id=i + 1, cores=32, memory=24_000,
-                   device_type=1 if i >= 3 else 0) for i in range(5)))
-        for c in range(C)]
-
-
 def phase_mixed_tenants(P, E, card, dev):
     """Phase 8b: the tournament's lineup plus rl (a seeded action) as one
     PolicySet, two tenants a member under a batched idx, on the
@@ -6193,18 +6230,21 @@ def phase_mixed_tenants(P, E, card, dev):
     )
     from multi_cluster_simulator_tpu_torch.kernels import fused_tick
     from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+    from multi_cluster_simulator_tpu_torch.tools.tournament import (
+        DEFAULT_POLICIES, _specs,
+    )
     from multi_cluster_simulator_tpu_torch.workload.traces import (
         uniform_stream,
     )
 
-    names = LINEUP + ("rl",)
+    names = DEFAULT_POLICIES + ("rl",)
     cfg = P.SimConfig(policy=P.PolicyKind.FIFO, parity=True, n_res=2,
                       queue_capacity=96, max_running=96, max_arrivals=120,
                       max_ingest_per_tick=32, max_nodes=5,
                       max_virtual_nodes=0)
     pset = PolicySet(names)
     eng = E.Engine(cfg, device=dev, policies=pset)
-    specs = tournament_specs(P, MIXED_C)
+    specs = _specs(MIXED_C)
     seeds = (17, 18)  # the tournament's first two seeds, a tenant each
     arrs = {s: uniform_stream(MIXED_C, 120, 240_000, max_cores=24,
                               max_mem=18_000, max_dur_ms=30_000, seed=s)
@@ -6276,13 +6316,14 @@ def phase_mixed_tenants(P, E, card, dev):
         b_ms, b_by = bound(g["read"], g["written"], g["ops"])
         print(f"phase 8b: {name} on its {g['lanes']} lanes (the others "
               f"masked): {g['ms'] * 1e3:.2f} us/launch over {LANE_REPS}, "
+              f"plain on those lanes {g['plain_ms']:.3f} ms, "
               f"bound {b_ms * 1e3:.4f} us by {b_by} "
               f"({g['read'] + g['written']:.1f} B, {g['ops']:.0f} ops) "
               f"[{card}]")
         recs.append(dict(kernel=fused_tick.KERNELS[name],
                          name=f"{name} (lanes {len(lanes)}x{MIXED_C}, mixed)",
                          launches=counts[name], worst=sp["worst"],
-                         ms=g["ms"], plain=sp["plain_ms"],
+                         ms=g["ms"], plain=[g["plain_ms"]],
                          bound=(b_ms, b_by)))
     return dict(records=recs)
 
@@ -7545,6 +7586,408 @@ def phase_services(P, E, card, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 10a-10f: the reference's single-device drivers on the port, each
+# through its tool in multi_cluster_simulator_tpu_torch/tools/
+# ---------------------------------------------------------------------------
+
+# bench.py:2599-2630 bench_tournament's full sweep (48 variants x 4 seeds x
+# 8 clusters, 30 s + 40 drain ticks) and the tool's default grid
+SWEEP_GRID = dict(n_seeds=4, C=8, jobs_per=56, horizon_ms=30_000,
+                  drain_ticks=40)
+DEFAULT_GRID = dict(n_seeds=4, C=64, jobs_per=120, horizon_ms=240_000,
+                    drain_ticks=80)
+# the trainer's defaults, and its world at bench_env's batch shape
+TRAIN_DEFAULT = dict(iters=10, n_envs=32, n_clusters=4, episode_ticks=20)
+TRAIN_WIDE = dict(iters=3, n_envs=1024, n_clusters=8, episode_ticks=50)
+CHAOS_CYCLES, CHAOS_JOBS, BATCH_KILLS = 2, 20_000, 2
+MARKET_AB_C, MARKET_AB_TIMED = (1024, 4096), 3
+METRICS_PICKS = (4, 10)  # 10f's launches held against plain (of ~11-60)
+PHASE10_DIR = "build/phase10"
+
+
+def engaged_sources(policies) -> set:
+    """The kernel sources a lineup's members launch."""
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+
+    return {fused_tick.kernel_for(spec).lib
+            for spec in PolicySet(tuple(policies)).specs}
+
+
+def tournament_pass(P, E, card, dev, policies, grid, label, resume=None):
+    """One grid through the port's tournament tool on the card (its own
+    gates: every cell bitwise its standalone run, at most a launch a
+    source a tick, no drops; with ``resume`` its cache written), the
+    launches exactly one a tick for each engaged source, then the same
+    lane run with the lane forms held against the plain per-lane loop at
+    two ticks, and each source timed on its own lanes at the half-way
+    state (``group_launches``). Returns (detail, records)."""
+    from multi_cluster_simulator_tpu_torch.core.state import clone_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.policies.base import PolicySet
+    from multi_cluster_simulator_tpu_torch.tools import tournament as T
+
+    detail = T.run_tournament(policies=policies, device=dev,
+                              resume_path=resume, **grid)
+    n = detail["ticks"]
+    want = {lib: n for lib in engaged_sources(policies)}
+    if detail["kernel_launches"] != want:
+        raise AssertionError(f"{label}: launches {detail['kernel_launches']},"
+                             f" want {want}")
+    cfg, specs, _, _, padded, _ = T.grid_inputs(
+        grid["n_seeds"], grid["C"], grid["jobs_per"], grid["horizon_ms"],
+        grid["drain_ticks"])
+    pset = PolicySet(tuple(policies))
+    eng = E.Engine(cfg, device=dev, policies=pset)
+    vparams = [pset.params_for(cfg, name, device=dev) for name in policies]
+    lanes = [(v, si) for v in range(len(policies))
+             for si in range(grid["n_seeds"])]
+    params, sta, s0 = T.stack_grid(lanes, vparams, padded, cfg, specs, dev)
+    probe = LaneProbe(lambda b, a, r, c, t: (0, 0, 0), picks=(1, n // 2))
+    with probe:
+        eng.run(clone_state(s0), sta, n, params)
+    sp = probe.summary()
+    tick = n // 2
+    half = eng.run(clone_state(s0), cut_ticks(sta, tick), tick, params)
+    rows = torch.from_numpy(np.ascontiguousarray(sta.rows[:, tick])).to(dev)
+    cnts = torch.from_numpy(np.ascontiguousarray(sta.counts[:, tick])).to(dev)
+    QC = cfg.queue_capacity
+    costs = {
+        "fused_prefix_fifo": lambda b, a, r, c, t, tess: (
+            *tick_bytes(b, a, r, c, t, False), 0),
+        "fused_prefix_ffd": lambda b, a, r, c, t, tess: tick_cost_ffd(
+            b, a, r, c, t, False, QC),
+        "fused_prefix_delay": lambda b, a, r, c, t, tess: tick_cost_delay(
+            b, a, r, c, t, False, QC),
+        "fused_prefix_scored": lambda b, a, r, c, t, tess: tick_cost_scored(
+            b, a, r, c, t, False, QC, tess)}
+    groups = group_launches(eng, half, rows, cnts, (tick + 1) * cfg.tick_ms,
+                            params, costs, LANE_REPS)
+    print(f"{label}: {len(policies)} variants x {grid['n_seeds']} seeds x "
+          f"{grid['C']} clusters = {detail['lanes']} lanes, {n} ticks: "
+          f"launches {detail['kernel_launches']} (one a source a tick); "
+          f"every cell == its standalone run; grid wall "
+          f"{detail['tournament_wall_s']} s against the serial loop's "
+          f"{detail['serial_loop_wall_s']} s ({detail['speedup_vs_serial']}x);"
+          f" {sp['compared']} ticks == the plain per-lane loop (plain "
+          f"{np.mean(sp['plain_ms']):.2f} ms a tick); ranking top "
+          f"{[a['policy'] for a in detail['ranking'][:3]]} [{card}]")
+    recs = []
+    for lib in sorted(groups):
+        g = groups[lib]
+        b_ms, b_by = bound(g["read"], g["written"], g["ops"])
+        print(f"{label}: {lib} on its {g['lanes']} lanes: "
+              f"{g['ms'] * 1e3:.2f} us/launch over {LANE_REPS}, plain on "
+              f"those lanes {g['plain_ms']:.3f} ms, bound "
+              f"{b_ms * 1e3:.4f} us by {b_by} [{card}]")
+        recs.append(dict(kernel=fused_tick.KERNELS[lib],
+                         name=f"{lib} ({label}, lanes {detail['lanes']}x"
+                              f"{grid['C']})",
+                         launches=detail["kernel_launches"][lib],
+                         worst=sp["worst"], ms=g["ms"], plain=[g["plain_ms"]],
+                         bound=(b_ms, b_by)))
+    return detail, recs
+
+
+def phase_tournament(P, E, card, dev):
+    """Phase 10a: the port's tournament tool at full width on the card:
+    (i) bench.py's full sweep, ``sweep_policies()`` x 4 seeds x 8 clusters
+    (192 lanes; one DELAY and one scored launch a tick); (ii) the tool's
+    default, the 8-member lineup x 4 seeds x 64 clusters (32 lanes, one
+    launch a source a tick), its verified cells written to a resume cache;
+    (iii) that cache with one variant deleted: a rerun runs only its
+    lanes and the merged rows equal (ii)'s."""
+    import json
+    import os
+
+    from multi_cluster_simulator_tpu_torch.tools import tournament as T
+
+    sweep, recs = tournament_pass(P, E, card, dev, T.sweep_policies(),
+                                  SWEEP_GRID, "phase 10a (i) sweep")
+    os.makedirs(PHASE10_DIR, exist_ok=True)
+    cache = os.path.join(PHASE10_DIR, "tournament_cells.json")
+    if os.path.exists(cache):
+        os.remove(cache)
+    default, recs2 = tournament_pass(P, E, card, dev, T.DEFAULT_POLICIES,
+                                     DEFAULT_GRID, "phase 10a (ii) default",
+                                     resume=cache)
+    with open(cache) as f:
+        c = json.load(f)
+    del c["completed"]["ffd-memfirst"]
+    with open(cache, "w") as f:
+        json.dump(c, f)
+    again = T.run_tournament(policies=T.DEFAULT_POLICIES, device=dev,
+                             resume_path=cache, **DEFAULT_GRID)
+    rows = [{k: v for k, v in r.items() if k != "resumed"}
+            for r in again["rows"]]
+    resumed = [p for p in T.DEFAULT_POLICIES if p != "ffd-memfirst"]
+    if rows != default["rows"] or again["resumed_variants"] != resumed or \
+            again["lanes"] != DEFAULT_GRID["n_seeds"]:
+        raise AssertionError(f"10a (iii): resumed {again['resumed_variants']}"
+                             f", {again['lanes']} lanes, rows equal "
+                             f"{rows == default['rows']}")
+    print(f"phase 10a (iii): the cache without ffd-memfirst resumed 7 "
+          f"variants and ran {again['lanes']} lanes; rows == (ii)'s, grid "
+          f"digest {again['grid_digest']} [{card}]")
+    return dict(records=recs + recs2, sweep=sweep, default=default)
+
+
+def phase_train(P, E, card, dev):
+    """Phase 10b: the port's ES trainer on the card: its defaults (32 envs
+    x 4 clusters x 20 ticks, 10 iterations) with one scored launch a step
+    and the scored lane form == the plain per-lane loop at two steps; then
+    its world at bench_env's batch shape (1,024 envs x 8 clusters, 50-tick
+    episodes, 3 iterations), the wall split into draws, steps and update,
+    cut after iteration 1 and resumed with the returns and the head bitwise
+    the uninterrupted run's."""
+    import os
+
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.tools import train_env_demo as TE
+
+    QC = TE.train_cfg().queue_capacity
+    probe = LaneProbe(lambda b, a, r, c, t: tick_cost_scored(
+        b, a, r, c, t, False, QC, False), picks=(1, 101))
+    fused_tick.reset_launches()
+    with probe:
+        res = TE.train(**TRAIN_DEFAULT, device=dev)
+    counts = fused_tick.launch_counts()
+    steps = TRAIN_DEFAULT["iters"] * TRAIN_DEFAULT["episode_ticks"]
+    expect_lane_launches(counts, {"fused_prefix_scored"}, steps, "10b")
+    sp = probe.summary()
+    if not np.isfinite(res["mean_return_per_iter"]).all() or \
+            res["head_norm"] == 0.0:
+        raise AssertionError(f"10b: returns {res['mean_return_per_iter']}, "
+                             f"head norm {res['head_norm']}")
+    print(f"phase 10b: defaults {TRAIN_DEFAULT}: {steps} scored lane "
+          f"launches, {sp['compared']} steps == the plain per-lane loop; "
+          f"returns {[round(m, 4) for m in res['mean_return_per_iter']]}, "
+          f"head norm {res['head_norm']:.4f}, "
+          f"{res['episodes_simulated'] / res['wall_s']:.1f} episodes/s "
+          f"(the probe's timing included) [{card}]")
+    full = TE.train(**TRAIN_WIDE, device=dev, timings=True)
+    os.makedirs(PHASE10_DIR, exist_ok=True)
+    ck = os.path.join(PHASE10_DIR, "train.ckpt")
+    if os.path.exists(ck):
+        os.remove(ck)
+    TE.train(**{**TRAIN_WIDE, "iters": 1}, device=dev, checkpoint=ck)
+    res2 = TE.train(**TRAIN_WIDE, device=dev, checkpoint=ck, resume=True)
+    if res2["mean_return_per_iter"] != full["mean_return_per_iter"] or \
+            not np.array_equal(res2["W"], full["W"]):
+        raise AssertionError("10b: the resumed training differs from the "
+                             "uninterrupted run")
+    sp_ = full["split"]
+    print(f"phase 10b: {TRAIN_WIDE}: returns "
+          f"{[round(m, 4) for m in full['mean_return_per_iter']]}, "
+          f"{full['episodes_simulated'] / full['wall_s']:.1f} episodes/s "
+          f"({full['wall_s']} s); an iteration: draws "
+          f"{np.mean(sp_['draws_s']) * 1e3:.1f} ms, steps "
+          f"{np.mean(sp_['steps_s']) * 1e3:.1f} ms "
+          f"({np.mean(sp_['steps_s']) * 1e3 / TRAIN_WIDE['episode_ticks']:.2f}"
+          f" ms a step), update {np.mean(sp_['update_s']) * 1e3:.1f} ms; cut "
+          f"after iteration 1 and resumed: returns and head bitwise [{card}]")
+    b_ms, b_by = bound(sp["read"], sp["written"], sp["ops"])
+    return dict(record=dict(
+        kernel=fused_tick.KERNELS["fused_prefix_scored"],
+        name=f"fused_prefix_scored (10b trainer, lanes "
+             f"{TRAIN_DEFAULT['n_envs']}x{TRAIN_DEFAULT['n_clusters']})",
+        launches=counts["fused_prefix_scored"], worst=sp["worst"],
+        ms=float(np.mean(sp["kernel_ms"])), plain=sp["plain_ms"],
+        bound=(b_ms, b_by)))
+
+
+def phase_chaos(P, E, card, dev):
+    """Phases 10c-10d: the port's chaos harness with its children on the
+    card. 10c: two kill -9 cycles of a serving child under live HTTP
+    traffic (the FIFO emit+tap form at chaos_cfg's shape), the recovered
+    checkpoint bitwise the in-process reference fed the WAL on the card
+    and bitwise the one on the CPU (the plain version), every acked job
+    placed once, zero drops. 10d: the resumable churn_bursts batch child
+    (the FIFO faults form on compact state under compression) killed with
+    SIGKILL at two random chunk boundaries and stopped with SIGTERM (exit
+    75) at one, its final checkpoint bitwise the uninterrupted child's on
+    the CPU (the plain version) and the executed-tick cursor
+    telescoping."""
+    from multi_cluster_simulator_tpu_torch.tools import chaos
+
+    w0 = time.perf_counter()
+    rep = chaos.run_chaos(CHAOS_CYCLES, CHAOS_JOBS, None, None, device=dev,
+                          ref_devices=(dev, "cpu"))
+    print(f"phase 10c: {rep['cycles']} kill -9 cycles under live traffic, "
+          f"{rep['jobs_acked']} jobs acked, {rep['wal_records']} WAL records "
+          f"({rep['duplicate_resubmits']} duplicates), placed "
+          f"{rep['placed_total']}, {rep['ticks_dispatched']} ticks; the state"
+          f" the card recovered bitwise the in-process reference on each of "
+          f"{rep['reference_devices']} (the CPU's the plain version); "
+          f"{time.perf_counter() - w0:.1f} s [{card}]")
+    rep = chaos.run_batch_chaos(BATCH_KILLS, True, None, None, device=dev,
+                                ref_device="cpu")
+    s = rep["scenarios"][0]
+    print(f"phase 10d: churn_bursts quick (compact, compressed, trace churn) "
+          f"on {s['device']}: {s['kills']} kill -9 at ticks "
+          f"{s['boundaries_killed_at_tick']} + {s['sigterm_preemptions']} "
+          f"SIGTERM (exit 75), {s['completed_before_signal']} incarnations "
+          f"finished first; final checkpoint bitwise the uninterrupted "
+          f"child's on {s['reference_device']} (the plain version), ticks "
+          f"executed {s['ticks_executed_compressed']} of {s['ticks_total']} "
+          f"telescoped; {s['wall_s']} s [{card}]")
+
+
+class ComparingProbe:
+    """Stands in for ``fused_tick.fused_prefix`` during a tool's runs: at
+    the card launches whose ordinal is in ``picks`` the launch's own form
+    (the emit outputs, and with the plane the buffer and the cursor, held
+    too; windowed or not) is held against its plain version
+    (``Checker.compare``) on the state the run reached, the comparison's
+    launches left out of the counts; every launch goes on untimed. Without
+    ``chk`` the checker is made for the first engine that launches on the
+    card, with that launch's params; launches on the CPU (the plain path
+    already) pass through."""
+
+    def __init__(self, chk, picks):
+        from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+
+        self.ft, self.chk, self.picks, self.n = fused_tick, chk, set(picks), 0
+        self.real = fused_tick.fused_prefix
+        self.forms = set()  # the forms compared
+
+    def __enter__(self):
+        self.ft.fused_prefix = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ft.fused_prefix = self.real
+
+    def __call__(self, engine, state, rows, counts, t, params, host,
+                 emit_returns=False, out=None, obs=None, windowed=False):
+        if state.device.type == "cuda":
+            if self.chk is None:
+                self.chk = Checker(engine, params)
+            if self.n in self.picks:  # the comparison's launch not counted
+                self.forms.add(self.chk.host[
+                    ("emit_" if emit_returns else "")
+                    + ("tap_kernel" if obs is not None else "kernel")].name)
+                saved = [(k, k.launches, k.windowed_launches)
+                         for k in self.ft.KERNELS.values()]
+                self.ft.fused_prefix = self.real
+                try:
+                    self.chk.compare(state, rows, counts, t,
+                                     emit=emit_returns, obs=obs,
+                                     windowed=windowed)
+                finally:
+                    self.ft.fused_prefix = self
+                    for k, n, nw in saved:
+                        k.launches, k.windowed_launches = n, nw
+            self.n += 1
+        return self.real(engine, state, rows, counts, t, params, host,
+                         emit_returns, out, obs, windowed)
+
+
+def phase_market_ab(P, E, card, dev):
+    """Phase 10e: the port's matcher A/B on the card: greedy, sinkhorn and
+    cvx at 1,024 and 4,096 clusters (``sinkhorn_market_setup``, 400 jobs a
+    cluster over the windowed stream), with the launches counted (the
+    DELAY form once a tick a run) and the kernel held against its plain
+    version at two ticks of the first run. The sinkhorn row at 4,096 is
+    BASELINE config 4: three timed runs, and bench.py:1060-1082's gates
+    (>= 85% placed, >= 1,000 virtual nodes, zero drops); the other rows
+    are one timed run each, reported as the reference's A/B reports
+    them."""
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.tools import market_ab as MA
+    from multi_cluster_simulator_tpu_torch.tools import tournament as T
+
+    rows = []
+    for C in MARKET_AB_C:
+        for m in ("greedy", "sinkhorn", "cvx"):
+            cfg, specs, arr, n = MA.sinkhorn_market_setup(
+                C, MA.JOBS_PER, MA.HORIZON_MS, matching=m)
+            chk = Checker(E.Engine(cfg, device=dev))
+            runs = MARKET_AB_TIMED if (m, C) == ("sinkhorn", MARKET_C) else 1
+            fused_tick.reset_launches()
+            with ComparingProbe(chk, picks=(120, 400)):
+                r = MA.run_one(m, C, device=dev, runs=runs, warmups=0)
+            counts = {k: v for k, v in T.source_launches(
+                fused_tick.launch_counts()).items() if v}
+            want = {"fused_prefix_delay": runs * n}
+            if counts != want:
+                raise AssertionError(f"10e {m}@{C}: launches {counts}, "
+                                     f"want {want}")
+            if (m, C) == ("sinkhorn", MARKET_C) and (
+                    any(r["drops"].values())
+                    or r["placed_frac"] < MARKET_FLOOR
+                    or r["virtual_nodes_traded"] < VNODE_FLOOR):
+                raise AssertionError(f"10e config 4: placed "
+                                     f"{r['placed_frac']}, vnodes "
+                                     f"{r['virtual_nodes_traded']}, drops "
+                                     f"{r['drops']}")
+            r.pop("final")
+            rows.append(r)
+            print(f"phase 10e: {m}@{C}: placed {r['placed']} of {r['of']} "
+                  f"({r['placed_frac']}), vnodes {r['virtual_nodes_traded']},"
+                  f" drops {sum(r['drops'].values())}, mean wait "
+                  f"{r['mean_avg_wait_ms']} ms (p95 "
+                  f"{r['p95_avg_wait_ms']}), walls {r['walls']} s (min "
+                  f"{r['wall_s']}), {runs * n} DELAY "
+                  f"launches; kernel == plain at {chk.n} ticks (plain "
+                  f"{np.mean(chk.plain_ms):.3f} ms); market {r['market']} "
+                  f"[{card}]")
+    fails = MA.cvx_wins(rows, MARKET_AB_C)
+    print(f"phase 10e: --require-cvx-wins (reported, not gated): "
+          f"{'; '.join(fails) if fails else 'cvx matches or beats sinkhorn at every size'}"
+          f" [{card}]")
+
+
+def phase_metrics_smoke(P, E, card, dev):
+    """Phase 10f: the port's metrics_smoke on the card: its ``main``
+    returns 0, and the form its front door launches (the FIFO emit+tap
+    form at the smoke's 4 clusters) is held against its plain version at
+    two ticks of the window."""
+    import contextlib
+    import io
+
+    from multi_cluster_simulator_tpu_torch.tools import metrics_smoke
+
+    w0 = time.perf_counter()
+    err = io.StringIO()
+    with ComparingProbe(None, picks=METRICS_PICKS) as probe:
+        try:
+            with contextlib.redirect_stderr(err):
+                rc = metrics_smoke.main(["--device", str(dev)])
+        except BaseException:
+            print(err.getvalue()[-3000:], file=sys.stderr)
+            raise
+    if rc != 0 or probe.chk is None or probe.chk.n != len(METRICS_PICKS):
+        raise AssertionError(f"10f: metrics_smoke returned {rc}, "
+                             f"{0 if probe.chk is None else probe.chk.n} "
+                             f"comparisons in {probe.n} launches:\n"
+                             f"{err.getvalue()[-3000:]}")
+    line = [ln for ln in err.getvalue().splitlines()
+            if "metrics_smoke OK" in ln]
+    print(f"phase 10f: {line[-1].lstrip('# ')}; main returned 0; "
+          f"{sorted(probe.forms)} == plain at {probe.chk.n} ticks of its "
+          f"{probe.n} launches (plain "
+          f"{np.mean(probe.chk.plain_ms):.3f} ms); "
+          f"{time.perf_counter() - w0:.1f} s [{card}]")
+
+
+def phase_drivers(P, E, card, dev):
+    """Phases 10a-10f."""
+    lap = lap_timer()
+    tour = phase_tournament(P, E, card, dev)
+    lap("10a")
+    train = phase_train(P, E, card, dev)
+    lap("10b")
+    phase_chaos(P, E, card, dev)
+    lap("10c-10d")
+    phase_market_ab(P, E, card, dev)
+    lap("10e")
+    phase_metrics_smoke(P, E, card, dev)
+    lap("10f")
+    return dict(records=tour["records"] + [train["record"]])
+
+
 def bound(read, written, ops=0.0):
     """The least time (ms) for a launch's bytes and operations, and which
     of the two bounds it."""
@@ -7829,6 +8272,10 @@ def run_phases(device: str, sample) -> int:
     services = phase_services(P, E, card, dev)
     print(f"phases 9a-9e: {time.perf_counter() - w9:.1f} s")
 
+    w10 = time.perf_counter()
+    drivers = phase_drivers(P, E, card, dev)
+    print(f"phases 10a-10f: {time.perf_counter() - w10:.1f} s")
+
     records = []
     kms = float(np.mean(check["kernel_ms"]))
     per_launch = check["read_per_launch"] + check["written_per_launch"]
@@ -8024,6 +8471,15 @@ def run_phases(device: str, sample) -> int:
               f"{np.mean(r['plain']):.3f} ms, bound {b_ms * 1e3:.4f} us by "
               f"{b_by}, launches {r['launches']}; kernel / bound "
               f"{r['ms'] / b_ms:.1f} [{card}]")
+        records.append(r)
+    # the reference's drivers: the tournament's lane forms (10a), the
+    # trainer's scored lane form (10b)
+    for r in drivers["records"]:
+        b_ms, b_by = r["bound"]
+        print(f"kernel {r['name']}: {r['ms'] * 1e3:.2f} us/launch, plain "
+              f"per-lane loop {np.mean(r['plain']):.3f} ms, bound "
+              f"{b_ms * 1e3:.4f} us by {b_by}, launches {r['launches']}; "
+              f"kernel / bound {r['ms'] / b_ms:.1f} [{card}]")
         records.append(r)
     print(f"lane forms beside one lane over the same clusters: FIFO "
           f"{tenants['record']['lane_ms'] * 1e3:.2f} us ({TENANTS_T} x "

@@ -51,7 +51,7 @@ from multi_cluster_simulator_tpu_torch.ops import runset as R
 from multi_cluster_simulator_tpu_torch.ops import sizing
 from multi_cluster_simulator_tpu_torch.ops.queues import I32, icumsum, isum
 from multi_cluster_simulator_tpu_torch.ops.sizing import F32, Contract, f32
-from multi_cluster_simulator_tpu_torch.ops.floats import fma_f32
+from multi_cluster_simulator_tpu_torch.ops.floats import fma_f32, xla_exp_f32
 from multi_cluster_simulator_tpu_torch.utils.tree import tree_map
 
 FOREIGN = -2  # owner sentinel: Ownership == "Foreign" (cluster.go:116)
@@ -290,15 +290,77 @@ def _round_plan_to_matching(state: SimState, plan, feas, gidx,
     return ex.allmin(local[:C_tot]), csel, amounts, win_sell
 
 
+# the largest cluster count whose two products the sinkhorn round sums in
+# XLA's order (their chains grow as C / 8 steps an iteration)
+EXACT_ORDER_MAX = 256
+
+
+class XlaGemv:
+    """``M @ v`` for a fixed f32 matrix ``M`` [R, n] and changing vectors,
+    summed in the order XLA's CPU code sums it, bitwise: each row's
+    products split over ``lanes`` accumulators (lane l takes the entries
+    l, l + lanes, ...), each accumulator a chain of fused multiply-adds
+    from 0 in index order; 8 lanes then reduce as XLA's tiled gemv
+    (``row_major_gemv_F32_8_8_*``) does, ((0 + 1) + (2 + 3)) + ((4 + 5) +
+    (6 + 7)), or with ``halves`` as a vectorized loop reduction does,
+    ((0 + 4) + (2 + 6)) + ((1 + 5) + (3 + 7)); with 1 lane the chain is
+    the sum. A zero
+    entry adds nothing to a chain (``fma(0, v, acc) == acc`` for finite
+    ``v``), so each chain runs over its nonzero entries only, found once
+    for the matrix: the steps a product takes are the most nonzeros one
+    lane of one row holds."""
+
+    def __init__(self, M: torch.Tensor, lanes: int, halves: bool = False):
+        R, n = M.shape
+        self.halves = halves
+        T = -(-n // lanes)
+        X = torch.zeros((R, T * lanes), dtype=F32, device=M.device)
+        X[:, :n] = M
+        X = X.view(R, T, lanes).transpose(1, 2)  # [R, lanes, T]
+        nz = X != 0
+        self.steps = int(nz.sum(-1).max()) if R and n else 0
+        # each chain's nonzero positions first, in index order
+        order = torch.argsort((~nz).to(torch.int8), dim=-1, stable=True)
+        self.idx = order[..., :self.steps]
+        self.X = X.gather(-1, self.idx)  # [R, lanes, steps]
+        self.R, self.n, self.lanes, self.T = R, n, lanes, T
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        V = torch.zeros((self.T * self.lanes,), dtype=F32, device=v.device)
+        V[:self.n] = v
+        V = V.view(self.T, self.lanes).T.expand(self.R, self.lanes, self.T)
+        Vg = V.gather(-1, self.idx)
+        acc = torch.zeros((self.R, self.lanes), dtype=F32, device=v.device)
+        for k in range(self.steps):
+            acc = fma_f32(self.X[..., k], Vg[..., k], acc)
+        if self.lanes == 1:
+            return acc[:, 0]
+        if self.halves:
+            a = acc[:, :4] + acc[:, 4:]
+            a = a[:, :2] + a[:, 2:]
+            return a[:, 0] + a[:, 1]
+        a = acc[:, 0::2] + acc[:, 1::2]
+        a = a[:, 0::2] + a[:, 1::2]
+        return (a[:, 0] + a[:, 1]) + 0.0
+
+
 def _match_sinkhorn(state: SimState, tr, t: int, mcfg, ex, gidx, g_buyer,
                     g_con: Contract, hp: MktHyper, jitter):
     """Batched entropic optimal-transport matching (BASELINE config 4):
     the full (seller x buyer) feasibility matrix enters a Sinkhorn
     relaxation of the assignment, rounded to a one-to-one matching. Carve
     semantics are ``sane`` and no seller lock is taken (a matched seller's
-    capacity is committed in the same tick). The two products per
-    iteration, ``K @ vc`` and ``K.T @ u``, are plain matrix-vector
-    products (``torch.matmul``), as the reference leaves them to XLA."""
+    capacity is committed in the same tick). Up to ``EXACT_ORDER_MAX``
+    clusters the kernel's ``exp`` is XLA's (``ops/floats.py
+    xla_exp_f32``) and the two products per iteration sum in the order
+    XLA's CPU code does (``XlaGemv``, read from the reference engine's compiled code
+    at 16 and 64 clusters): ``K @ vc`` its 8-lane tiled gemv (one chain
+    below 8 clusters; a count past a multiple of 8 from 9 on is
+    unverified), ``K.T @ u`` the dot XLA fuses into a loop (one chain over
+    the sellers below 64, 8 lanes reduced by halves from 64). Beyond it
+    the exp is ``torch.exp`` and both products are ``torch.matmul`` (XLA:
+    the same orders up to 1,024, from 4,096 the tiled gemv over a
+    transposed copy; not copied, for its cost)."""
     C_loc, C_tot = gidx.shape[0], g_buyer.shape[0]
     dev = gidx.device
     feas = _pair_feasibility(state, tr, t, mcfg, gidx, g_buyer, g_con)
@@ -306,14 +368,31 @@ def _match_sinkhorn(state: SimState, tr, t: int, mcfg, ex, gidx, g_buyer,
     eps = hp.sink_eps
     score = fma_f32(jitter, (0.5 * eps).expand_as(jitter),
                     v[None, :].expand_as(jitter))
-    K = torch.where(feas, torch.exp(score / eps), 0.0)  # [s_loc, C_tot]
+    if C_tot > EXACT_ORDER_MAX:
+        # the chains grow as C / 8 steps of ~12 ops an iteration: beyond
+        # this size the port takes torch's exp and sums both products as
+        # torch does (ROADMAP C1)
+        K = torch.where(feas, torch.exp(score / eps), 0.0)  # [s_loc, C_tot]
+
+        def rows(x):
+            return K @ x
+
+        def cols(x):
+            return K.T @ x
+    else:
+        # XLA's exp, only where a pair is feasible, zero elsewhere
+        K = torch.zeros_like(score)
+        K[feas] = xla_exp_f32(score[feas] / eps)
+        rows = XlaGemv(K, 8 if C_tot >= 8 else 1)
+        cols = XlaGemv(K.T, 8, halves=True) if C_loc >= 64 else \
+            XlaGemv(K.T, 1)
     tiny = 1e-30
     u = torch.ones((C_loc,), dtype=F32, device=dev)
     vc = torch.ones((C_tot,), dtype=F32, device=dev)
     for i in range(mcfg.sinkhorn_iters):
         act = hp.sink_iters > i  # the masked active depth (data)
-        u2 = 1.0 / (K @ vc).clamp(min=tiny)
-        vc2 = 1.0 / ex.allsum(K.T @ u2).clamp(min=tiny)
+        u2 = 1.0 / rows(vc).clamp(min=tiny)
+        vc2 = 1.0 / ex.allsum(cols(u2)).clamp(min=tiny)
         u, vc = torch.where(act, u2, u), torch.where(act, vc2, vc)
     plan = u[:, None] * K * vc[None, :]
     winner, csel, amounts, win_sell = _round_plan_to_matching(

@@ -18,23 +18,23 @@ holds each path's hand-written kernel against its plain PyTorch version:
    a. FIFO at the headline's full width (4096 clusters), on ticks the
       headline run reaches and on heavier streams that fill the queues;
       the emit form (``run_io``'s) timed on the first 400 headline ticks;
-   b. the first 60 ticks of a 256-cluster headline run through each;
+   b. the first 40 ticks of a 256-cluster headline run through each;
    c. FFD at bench_borg4k's full width: 16 ticks sampled as the kernel
-      reaches them (the diurnal peak included), 2 x 20 heavy ticks that
+      reaches them (the diurnal peak included), 2 x 8 heavy ticks that
       fire drops.queue, drops.run_full and the per-tick placement cap, the
       serial form, the ``ffd-memfirst`` variant, parity mode and the trace,
-      and the first 60 ticks of a run at bench_borg4k(quick=True)'s shape;
+      and the first 40 ticks of a run at bench_borg4k(quick=True)'s shape;
    d. DELAY at the market's full width (sinkhorn_market_setup, bench.py:
       979-1029): ticks of runs (a) (the sinkhorn market on, its rounds
       timed) and (d) sampled as the kernel reaches them, heavy ticks on an
       8-deep queue that fire the promotion, a full Level1, drops.run_full
       and the parity skip, in the wave, serial and parity forms,
-      ``delay-eager`` and the trace, and the first 60 ticks of a run at
+      ``delay-eager`` and the trace, and the first 40 ticks of a run at
       the market's quick shape;
    e. the scored sweep the same way: runs (b) gavel and (c) tesserae
       sampled, heavy ticks (gavel; tesserae with the trace; gavel and rl
       with seeded scores on clusters of mixed device types), and the first
-      60 ticks of quick-shape runs of tesserae and of the seeded rl;
+      40 ticks of quick-shape runs of tesserae and of the seeded rl;
    f. tools/tournament.py's lineup as one multi-member PolicySet at 256
       clusters: each params.idx launches its member's kernel, and only
       that, and equals the plain version;
@@ -43,8 +43,8 @@ holds each path's hand-written kernel against its plain PyTorch version:
       (bench.py:898-933): the first 800 ticks of run (b) (trader cut)
       sampled as the kernel reaches them; heavy ticks on small queues that
       fire returns past the message slots, lent-head placements, LentQueue
-      overflow and wants; the first 800 ticks of run (a) with the greedy
-      market and the first 400 of a 64-cluster tiled run, with delivery
+      overflow and wants; the first 600 ticks of run (a) with the greedy
+      market and the first 200 of a 64-cluster tiled run, with delivery
       and matching; the DELAY, FFD and gavel kernels' emit form with
       foreign rows running;
    h. ``Engine.run_io`` over 40 ticks of run (b) from the state it reached
@@ -54,8 +54,8 @@ holds each path's hand-written kernel against its plain PyTorch version:
       ingest): run (e), the market with expiry at full width, sampled,
       its expiries and attaches counted; 3 heavy ticks for each form on
       run (a)'s final state with nine in ten virtual nodes set to expire
-      (~1,300 expiries a launch); the first 250 ticks of quick-shape runs
-      (DELAY, FFD, gavel) and the first 800 ticks of config 2 with the trader and
+      (~1,300 expiries a launch); the first 150 ticks of quick-shape runs
+      (DELAY, FFD, gavel) and the first 600 ticks of config 2 with the trader and
       expiry on, with and without borrowing, each counting its launches
       through ``Engine.run_chunks``;
    j. short runs of the greedy and the cvx market at the quick shape;
@@ -67,7 +67,7 @@ holds each path's hand-written kernel against its plain PyTorch version:
       the Level0 forms and the expire forms, on borrowing run (b)'s state
       at tick 800 (foreign rows, full LentQueues) for the FIFO forms; runs
       with churn from the start, their launches counted through
-      ``run_chunks``: the first 60 ticks of DELAY, FFD and gavel at the
+      ``run_chunks``: the first 30 ticks of DELAY, FFD and gavel at the
       quick market shape with and without the sinkhorn market and expiry
       and of FIFO borrowing at 64 clusters, and
       tests/test_faults.py:299 (a failed slot hosting a traded virtual
@@ -97,11 +97,11 @@ holds each path's hand-written kernel against its plain PyTorch version:
       virtual nodes attached, expiries; conservation, every arrived job
       placed, queued or counted as dropped, 700 launches of the run's
       kernel, each run equal to its sampled pass;
-   i-j. config 2, 1,800 ticks: (a) at its own two clusters with the
-      greedy market — zero drops (bench.py:922), conservation, 1,800
+   i-j. config 2: (a) at its own two clusters with the greedy market,
+      1,800 ticks — zero drops (bench.py:922), conservation, 1,800
       launches of the emit form, the rounds and snapshots timed; (b)
-      tiled to 4,096 clusters with the trader cut — conservation, 1,800
-      launches, drops and the job count printed (the reference's herding
+      tiled to 4,096 clusters with the trader cut, its first 1,200 ticks
+      — conservation, 1,200 launches, drops and the job count printed (the reference's herding
       onto the lowest lender drops jobs there by design); ticks/s and
       placed jobs/s over the min and median of the timed runs after the
       counted run (1 each), which goes through ``run_io``
@@ -123,7 +123,7 @@ holds each path's hand-written kernel against its plain PyTorch version:
       on, every launch of the tap form timed tick by tick, kernel == plain
       on 12 sampled ticks, the first 400 ticks of the 256-cluster run ==
       plain, the counted run's state bitwise the plane-off run's and its
-      harvest tied back to the state, jobs/s off and on over 5 interleaved
+      harvest tied back to the state, jobs/s off and on over 3 interleaved
       pairs with the overhead printed beside bench.py's 3% bound, and the
       emit form's tap over 400 ``run_io`` ticks, and the kernel's depth
       bucket on every depth below 2^24; (o) bench_faults's churn
@@ -133,7 +133,7 @@ holds each path's hand-written kernel against its plain PyTorch version:
       bench_fifo_small: FIFO on one cluster_small, the windowed ingest,
       3,600 ticks in 900-tick chunks, record_metrics, the plane on) — zero
       drops, the series at the 5 s marks equal to the committed
-      bench_metrics.json (zero under FIFO), its first 300 ticks' run == its
+      bench_metrics.json (zero under FIFO), its first 150 ticks' run == its
       plain run, 12 of its ticks compared and every launch timed beside
       the untapped form, ``fifo_cluster_small_ticks_per_sec`` over 3
       timed runs after 1 warm-up with the plane off and on — then the
@@ -141,7 +141,7 @@ holds each path's hand-written kernel against its plain PyTorch version:
       tap forms on borg4k and market runs (b)-(d) (counted runs with the
       plane bitwise the plane-off runs, kernel == plain and the tap timed
       beside the untapped form at 12 ticks each run reaches, the emit
-      form's tap at 2) and their faults forms' taps on the first 50
+      form's tap at 2) and their faults forms' taps on the first 30
       ticks of DELAY, FFD and gavel at the quick market shape with churn;
 5. the compact state layout (core/compact.py: one narrow leaf per field,
    the checked narrow store counting into ``ovf``), every kernel reading
@@ -153,7 +153,7 @@ holds each path's hand-written kernel against its plain PyTorch version:
       the state's bytes in both layouts, the whole run tick by tick with
       the untapped and the tap form == plain at 12 sampled ticks and
       every launch timed against a bound at the narrow leaves' sizes,
-      wide and compact walls in 5 interleaved pairs, and the counted run
+      wide and compact walls in 3 interleaved pairs, and the counted run
       with the plane (its harvested overflow total the state's);
    b. plans the checked store counts against: tests/test_kernels.py:283
       (int8 cores, 500-core jobs) tiled to 4,096 clusters — kernel ==
@@ -189,7 +189,7 @@ holds each path's hand-written kernel against its plain PyTorch version:
       headline under ``PreemptionGuard``, sent SIGTERM after its first
       save: exit 75 and the ``# preempted:`` line; a second child
       (``--resume``) ends bitwise at 7a's state; a checkpoint the plain
-      path writes on the CPU at 256 clusters resumes on the kernel,
+      path writes on the CPU at 64 clusters resumes on the kernel,
       bitwise the card's uninterrupted run;
    e. ``Engine.run_prefix`` on the headline's first 150 ticks at every
       phase limit (tools/profile_capture.py ``phase_table``): the kernel
@@ -218,9 +218,9 @@ holds each path's hand-written kernel against its plain PyTorch version:
       forms == the plain loop at sampled ticks, each source timed on its
       own lanes;
    c. tests/test_tenancy.py's compact, compressed and generative-fault
-      worlds tiled to 64 tenants (sampled tenants == standalone), and 4
+      worlds tiled to 32 tenants (sampled tenants == standalone), and 4
       tenants of config 2's pair with borrowing and the greedy market,
-      600 ticks, each == its standalone run;
+      200 ticks, each == its standalone run;
    d. bench.py bench_env's full shape (1,024 envs x 8 clusters, episodes
       of 50 ticks, 125 steps, the rl action port): every episode counter
       reads 2, no drops, one scored launch a step, the timed step loop
@@ -237,7 +237,7 @@ holds each path's hand-written kernel against its plain PyTorch version:
    thread, a failed tick is logged by the live loop: both the reference's
    semantics, neither passed over here):
    a. bench.py bench_serving's parity A/B at its full shape (16 clusters
-      of 10 nodes, FIFO parity, queue 256, running 512, 320 ticks of the
+      of 10 nodes, FIFO parity, queue 256, running 512, 160 ticks of the
       seed-11 trace, 1 in 20 jobs at the mismatched endpoint) over
       localhost HTTP: window 1 (a POST a job) == window 8 (a /submitBatch
       a tick) == window 8 on the CPU (the plain version), every leaf;
@@ -260,8 +260,8 @@ holds each path's hand-written kernel against its plain PyTorch version:
       files recover on the CPU to the same state;
    e. bench.py bench_live's constellation without its traders (no gRPC
       on the card's machine): a registry, 2 DELAY hosts, 2 workload
-      clients of 1,000 jobs at speed 100 and a log sink — at least 90%
-      placed, no drops, a launch a tick; then 120 ticks of a DELAY host
+      clients of 250 jobs at speed 100 and a log sink — at least 90%
+      placed, no drops, a launch a tick; then 40 ticks of a DELAY host
       and of a FIFO host with borrowing, driven by hand, == the same on
       the CPU, each windowed C=1 launch timed;
 10. the reference's single-device drivers, each through its port in
@@ -277,20 +277,49 @@ holds each path's hand-written kernel against its plain PyTorch version:
    b. the ES trainer (tools/train_env_demo.py): its defaults (one scored
       lane launch a step, the lane form == plain at two steps) and its
       world at bench_env's batch shape (1,024 envs x 8 clusters, 50-tick
-      episodes, 3 iterations), the wall split into draws, steps and
+      episodes, 2 iterations), the wall split into draws, steps and
       update, cut after iteration 1 and resumed bitwise;
-   c. the chaos harness on serving (tools/chaos.py): two kill -9 cycles
+   c. the chaos harness on serving (tools/chaos.py): one kill -9 cycle
       of a serving child on the card under live HTTP traffic, recovery
       bitwise the in-process reference on the card, no acked job lost;
-   d. the chaos harness on a batch run: churn_bursts quick (compact,
-      compressed, trace churn) killed with SIGKILL at two chunk
-      boundaries and stopped with SIGTERM (exit 75) at one, the final
+   d. the chaos harness on a batch run: churn_bursts quick's first 600
+      ticks (compact, compressed, trace churn) killed with SIGKILL at one chunk
+      boundary and stopped with SIGTERM (exit 75) at one, the final
       checkpoint bitwise the uninterrupted child's;
-   e. the matcher A/B (tools/market_ab.py): greedy, sinkhorn and cvx at
-      1,024 and 4,096 clusters, three timed runs each, the DELAY form's
-      launches counted and the kernel == plain at two ticks a cell; the
-      sinkhorn row at 4,096 (BASELINE config 4) keeps bench.py's gates;
-   f. the observability gate (tools/metrics_smoke.py) on the card: exit 0.
+   e. the matcher A/B (tools/market_ab.py): greedy and sinkhorn at 1,024
+      and 4,096 clusters (cvx at 3j's quick shape only), one timed run
+      each (config 4's three), the DELAY form's launches counted and the
+      kernel == plain at two ticks a cell; the sinkhorn row at 4,096
+      (BASELINE config 4) keeps bench.py's gates;
+   f. the observability gate (tools/metrics_smoke.py) on the card: exit 0;
+11. the Go-semantics oracle and the mesh (``oracle/``, ``parallel/``), with
+   4 rank processes (``parallel.launch.RankGroup``: one gloo group, every
+   rank on the one card, every collective staged through the host):
+   a. bench.py:1266 bench_parity_tpu's eight scenarios at their full
+      horizons through the kernels (the windowed stream, the trace on):
+      every cluster's trace == the port's copy of the Go-semantics oracle,
+      zero drops, each scenario's mechanism fired, more than 100 events
+      compared, each final state == the plain version's (run on the CPU
+      by a process started at the script's entry);
+   b. ``ShardedEngine`` cells, each rank's kernel launched once a tick over
+      its shard, the gathered state == the one-process run on the card:
+      the headline over 2 ranks (== 4a's state), config 2's pair tiled to
+      64 clusters with borrowing and the greedy market (50 ticks over 2
+      ranks, 12 over 4), tests/test_sharded.py:86's DELAY + trader world
+      at 64 clusters over 4, the sinkhorn market at 256 clusters over 2
+      (floats within 1e-5), sparse_bursts_1k compressed over 2 (6a's
+      executed ticks), test_sharded.py:257's FFD wave over 4, the headline
+      with the metrics plane (``collect_metrics`` == 4n's buffer) and the
+      mesh cut (the headline cut at 800 over 2 ranks into one file,
+      resumed in this process == 4a's state); the walls, collectives a
+      tick and one staged collective's host time over 2 and 4 ranks;
+   c. the tools: weak_scaling's parity cells and its curve at 1 and 2
+      ranks x 4,096 clusters (ranks sharing one card: no scaling figure),
+      the tournament's seed axis over 2 ranks with its device A/B, chaos
+      ``--batch`` over 2 ranks (its first 300 ticks, one kill -9, the
+      uninterrupted 2-rank run held against the one-process run too; it
+      runs beside 10c and 10d, its three chaos cells waiting mostly on
+      their children's start-ups).
 
 Every number is printed beside the card's name and power limit. The last
 lines are a JSON record of each kernel (its time per launch, the plain
@@ -325,7 +354,7 @@ SPIN_CYCLES = 1_000_000  # ~0.5 ms of card time ahead of each timed launch
 BORG_C, BORG_JOBS, BORG_HORIZON_MS = 4096, 750, 4_500_000
 BORG_QUICK = (256, 250, 1_500_000)
 BORG_TIMED, BORG_WARMUPS, BORG_SAMPLES = 3, 1, 16
-FFD_HEAVY_TICKS = 20  # 3c's heavy ticks a stream and form
+FFD_HEAVY_TICKS = 8  # 3c's heavy ticks a stream (wave; other forms half)
 # bench_ffd64 (bench.py:936-976)
 FFD64_C, FFD64_JOBS, FFD64_HORIZON_MS, FFD64_SAMPLES = 64, 60_000, \
     6_000_000, 8
@@ -359,11 +388,12 @@ LINEUP_C, LINEUP_TICKS = 256, 40
 # with the trader on, run (b) tiled to 4,096 with the trader cut; 3g's
 # whole tiled run; 3h's run_io chunk
 BORROW_C, BORROW_TICKS, BORROW_HORIZON_MS = 4096, 1_800, 1_800_000
-BORROW_TILED_C, BORROW_TILED_TICKS = 64, 400
-BORROW_A_TICKS = 800  # 3g's whole run (a): the first trade falls near 500
+BORROW_TILED_C, BORROW_TILED_TICKS = 64, 200
+BORROW_A_TICKS = 600  # 3g's whole run (a): the first trade falls near 500
 BORROW_SAMPLES, BORROW_IO_TICKS, BORROW_PROFILE_TICKS = 12, 40, 50
 # the timed runs after the counted run: run (a) ~7 s a run, run (b) ~10 s
 BORROW_A_TIMED, BORROW_B_TIMED = 1, 1
+BORROW_B_CHUNKS = 3  # 4j's run (b): its first 1,200 of 1,800 ticks
 # bench_faults (bench.py:2869-3040): its churn config at its own 32
 # clusters (4k) and at the headline's 4,096 (4m, the port's width)
 FAULTS_C, FAULTS_WIDE_C, FAULTS_JOBS, FAULTS_HORIZON_MS = 32, 4096, 200, \
@@ -371,25 +401,25 @@ FAULTS_C, FAULTS_WIDE_C, FAULTS_JOBS, FAULTS_HORIZON_MS = 32, 4096, 200, \
 FAULTS_TIMED, FAULTS_SAMPLES, FAULTS_PROFILE_TICKS = 3, 12, 50
 FAULT_HEAVY_TICKS = 2  # 3k's heavy ticks per form and mode
 FAULT_VNODE_C, FAULT_VNODE_TICKS = 64, 20  # 3k's tests/test_faults.py:299
-FAULT_RUN_TICKS = 60  # 3k's other whole runs: their first 60 ticks
+FAULT_RUN_TICKS = 30  # 3k's other whole runs: their first 30 ticks
 # the metrics plane (4n-4q): sampled ticks a run, 4n's on/off pairs, and
 # bench.py's bound on the plane's overhead (bench.py:122, :671); 4q's
-# churn runs with the plane cover their first 50 ticks
-PLANE_SAMPLES, PLANE_TIMED, OBS_OVERHEAD_BOUND = 12, 5, 0.03
-PLANE_CHURN_TICKS = 50
+# churn runs with the plane cover their first 30 ticks
+PLANE_SAMPLES, PLANE_TIMED, OBS_OVERHEAD_BOUND = 12, 3, 0.03
+PLANE_CHURN_TICKS = 30
 # the compact layout (5a-5f): 5a's wide/compact wall pairs; the other
 # forms' passes cover their first ticks, compared at a few of them
-COMPACT_PAIRS, COMPACT_PASS_TICKS, COMPACT_SAMPLES = 5, 100, 4
-COMPACT_CHURN_TICKS = 100
+COMPACT_PAIRS, COMPACT_PASS_TICKS, COMPACT_SAMPLES = 3, 100, 4
+COMPACT_CHURN_TICKS = 60
 # BASELINE config 1 (bench.py:839-895 bench_fifo_small): its ticks, its
 # chunk, its arrival slots, its timed runs after its warm-ups
 CONFIG1_TICKS, CONFIG1_CHUNK, CONFIG1_ARRIVALS = 3_600, 900, 2_048
 CONFIG1_TIMED, CONFIG1_WARMUPS = 3, 1
-CONFIG1_PLAIN_TICKS = 300  # 4p's kernel run == its plain run over these
+CONFIG1_PLAIN_TICKS = 150  # 4p's kernel run == its plain run over these
 # the earlier paths' whole-run comparisons (3b, 3c, 3d and 3e's quick
-# runs) cover their first 60 ticks, to keep the script's time
-WHOLE_RUN_TICKS = 60
-EXPIRE_RUN_TICKS = 250  # 3i's quick-shape runs with expiry
+# runs) cover their first 40 ticks, to keep the script's time
+WHOLE_RUN_TICKS = 40
+EXPIRE_RUN_TICKS = 150  # 3i's quick-shape runs with expiry
 # event-compressed time (6a-6e): bench_sparse_bursts (bench.py:2510-2575)
 # at its full shape, churn_bursts_setup (:2467-2507), the leap classes of
 # tests/test_pipeline.py:245-291 tiled, and bench_borg_replay (:1431-1520)
@@ -401,8 +431,6 @@ LEAP_CLASS_C, LEAP_CLASS_TICKS = 1024, 80
 REPLAY_TIMED, REPLAY_WARMUPS, REPLAY_SAMPLES = 3, 1, 12
 COMPRESS_SAMPLES = 12  # kernel == plain at this many executed ticks
 PROBE_REPS = 500  # 6a's timed probes, each way
-# bench.py's --time-compress auto thresholds (bench.py:94-95)
-COMPRESS_AUTO_GAP, COMPRESS_AUTO_EMPTY_FRAC = 8, 0.5
 # where the sample's process leaves the joined jobs, and how long 6e waits
 # phases 8a-8e, the lane axis: bench.py bench_tenants' full shape (8a),
 # the tournament's lineup with rl as a mixed batch on its world (8b, cut
@@ -414,7 +442,7 @@ TENANTS_PLAIN_TICKS = 2  # 8a's whole batch against the plain per-lane loop
 TENANTS_WALLS = 3
 LANE_REPS = 20  # timed launches of a lane form and of its one-lane twin
 MIXED_C, MIXED_TICKS = 64, 60
-COMPOSED_T, COMPOSED_BORROW_TICKS = 64, 600
+COMPOSED_T, COMPOSED_BORROW_TICKS = 32, 200
 ENV_B, ENV_C, ENV_EP, ENV_STEPS = 1024, 8, 50, 125
 ENV_WALLS, ENV_SERIAL = 2, 16
 ENV_LANE_STEPS, ENV_PLAIN_STEPS = 50, (30,)
@@ -422,13 +450,13 @@ ENV_LANE_STEPS, ENV_PLAIN_STEPS = 50, (30,)
 # (bench.py:1700-2010; 9a-9c), 9a's world under a WAL and checkpoints with
 # a child killed mid-run (9d), bench.py bench_live's constellation without
 # its traders (bench.py:1523-1697; 9e)
-SERVE_C, SERVE_T, SERVE_WINDOW = 16, 320, 8
+SERVE_C, SERVE_T, SERVE_WINDOW = 16, 160, 8  # bench_serving's first 160 of its 320 ticks
 SERVE_JOBS, SERVE_CLIENTS, SERVE_BATCH = 60_000, 4, 128
 SERVE_TENANTS = 8
 SERVE_CKPT_WINDOW, SERVE_CKPT_EVERY = 4, 8  # a checkpoint every 32 ticks
 SERVE_KILL_STAGED, SERVE_KILL_DISPATCHED = 110, 104
 SERVE_DIR = "build/phase9"
-LIVE_JOBS, LIVE_HAND_TICKS = 1_000, 120
+LIVE_JOBS, LIVE_HAND_TICKS = 250, 40
 BORG_JOBS_NPZ = "build/borg_jobs.npz"
 BORG_SAMPLE_TIMEOUT_S = 600
 
@@ -1400,8 +1428,9 @@ def phase_ffd_kernel_vs_plain(P, E, card, dev):
         veng = E.Engine(vcfg, device=dev, policies=PolicySet((policy,)))
         vchk = Checker(veng)
         for arr in heavy if name == "wave" else heavy[:1]:
-            ch = E.pack_arrivals_chunks(arr, [FFD_HEAVY_TICKS],
-                                        vcfg.tick_ms)[0]
+            ch = E.pack_arrivals_chunks(
+                arr, [FFD_HEAVY_TICKS if name == "wave"
+                      else FFD_HEAVY_TICKS // 2], vcfg.tick_ms)[0]
             state = init_state(vcfg, specs, device=dev)
             rows_all = torch.from_numpy(ch.rows).to(dev)
             counts_all = torch.from_numpy(ch.counts).to(dev)
@@ -1977,8 +2006,8 @@ def phase_expire_kernel_vs_plain(P, E, card, dev, market, state_a):
     kernel == plain at sampled ticks, the nodes expired and attached
     counted; (b) heavy ticks on the state run (a) reached (its thousands
     of virtual nodes), nine in ten set to expire, for each kernel's expire
-    form; (c) the first 250 ticks of quick-shape runs (DELAY, FFD,
-    gavel) with the trader and expiry; (d) the first 800 ticks of config 2 with expiry (the FIFO
+    form; (c) the first 150 ticks of quick-shape runs (DELAY, FFD,
+    gavel) with the trader and expiry; (d) the first 600 ticks of config 2 with expiry (the FIFO
     emit form) and (e) the same without borrowing (the FIFO state-only
     form). The runs count their launches through ``Engine.run_chunks``."""
     from multi_cluster_simulator_tpu_torch.core.state import (
@@ -2549,6 +2578,7 @@ def phase_borrow_run(P, E, card, dev, name, C, chunks, n_jobs, sampled):
     )
     from multi_cluster_simulator_tpu_torch.utils.tree import leaves_with_keys
 
+    n_ticks = sum(c.rows.shape[0] for c in chunks)
     cfg = borrow_cfg(P, {} if name == "a" else None)
     engine = E.Engine(cfg, device=dev)
     s0 = init_state(cfg, borrow_specs(P, C), device=dev)
@@ -2556,7 +2586,7 @@ def phase_borrow_run(P, E, card, dev, name, C, chunks, n_jobs, sampled):
                   for _, x in leaves_with_keys(s0))
     # where the sampled pass saw only part of the run, the counted run goes
     # through run_io and counts every tick's wants and returns
-    io = (dict(want=0, returns=0) if sampled["ticks"] < BORROW_TICKS
+    io = (dict(want=0, returns=0) if sampled["ticks"] < n_ticks
           else None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2565,7 +2595,7 @@ def phase_borrow_run(P, E, card, dev, name, C, chunks, n_jobs, sampled):
     peak_b = torch.cuda.max_memory_allocated()
     drops = total_drops(out)
     check_conservation(out)
-    if int(out.t) != BORROW_TICKS * cfg.tick_ms:
+    if int(out.t) != n_ticks * cfg.tick_ms:
         raise AssertionError(f"run ({name}): clock {int(out.t)}")
     if name == "a" and any(drops.values()):  # bench.py:925
         raise AssertionError(f"run (a): static bounds bound: {drops}")
@@ -2578,7 +2608,7 @@ def phase_borrow_run(P, E, card, dev, name, C, chunks, n_jobs, sampled):
     fired = (sampled["fired"] if io is None
              else {k: int(v) for k, v in io.items()})
     vnodes = int(out.node_active[:, cfg.max_nodes:].sum())
-    rounds = BORROW_TICKS * cfg.tick_ms // cfg.trader.monitor_period_ms \
+    rounds = n_ticks * cfg.tick_ms // cfg.trader.monitor_period_ms \
         if cfg.trader.enabled else 0
     # the counted run just before is the warm-up
     walls, h2d_s, last = timed_runs(engine, s0, chunks, 0,
@@ -2596,7 +2626,7 @@ def phase_borrow_run(P, E, card, dev, name, C, chunks, n_jobs, sampled):
               f"{int(out.trader.next_contract_id.sum()) - C}"
               if cfg.trader.enabled else "trader cut")
     print(f"{label}: run ({name}) config 2, {trader}, {C} clusters, "
-          f"{BORROW_TICKS} ticks: {n_jobs} jobs, arrived {arrived}, placed "
+          f"{n_ticks} ticks: {n_jobs} jobs, arrived {arrived}, placed "
           f"{placed}, borrowed rows {held['borrowed']}, held {held}, drops "
           f"{drops}; job count placed + ready "
           f"+ wait + lent + drops.queue - arrived = {balance} (BorrowedQueue "
@@ -2604,9 +2634,9 @@ def phase_borrow_run(P, E, card, dev, name, C, chunks, n_jobs, sampled):
           f"{counts}, conservation ok; state {state_b} B, peak device memory "
           f"{peak_b} B [{card}]")
     wmin, wmed = print_run(label, f"run ({name})", placed, walls, first_s,
-                           BORROW_TICKS, chunks, h2d_s, card)
+                           n_ticks, chunks, h2d_s, card)
     ms = {k: float(np.mean(v)) for k, v in sampled["ms"].items() if v}
-    busy = prof["kernels"] * BORROW_TICKS / 1e3
+    busy = prof["kernels"] * n_ticks / 1e3
     metric = ("fifo_two_cluster_trader_ticks_per_sec" if name == "a"
               else "borrow_4k ticks/s")
     if cfg.trader.enabled:
@@ -2620,7 +2650,7 @@ def phase_borrow_run(P, E, card, dev, name, C, chunks, n_jobs, sampled):
               f"round, {prof['per_snapshot'] * 1e3:.2f} us per snapshot "
               f"[{card}]")
     print(f"{label}: {metric} "
-          f"{BORROW_TICKS / wmin:.1f} (min), {BORROW_TICKS / wmed:.1f} "
+          f"{n_ticks / wmin:.1f} (min), {n_ticks / wmed:.1f} "
           f"(median); per tick, CUDA event spans over "
           f"{len(sampled['ms']['kernel'])} ticks, the card kept busy ahead "
           f"of each (a span holds host time where the host enqueues "
@@ -2637,7 +2667,7 @@ def phase_borrow_run(P, E, card, dev, name, C, chunks, n_jobs, sampled):
     print(f"{label}: the card's kernels per tick by name: {prof['top']} "
           f"[{card}]")
     return dict(launches=counts["fused_prefix_fifo_emit"], placed=placed,
-                wall_min_s=wmin, wall_median_s=wmed, n_ticks=BORROW_TICKS,
+                wall_min_s=wmin, wall_median_s=wmed, n_ticks=n_ticks,
                 h2d_s=h2d_s, drops=drops, balance=balance, profile=prof)
 
 
@@ -2943,7 +2973,7 @@ def phase_faults_kernel_vs_plain(P, E, card, dev, market, state_a, state_b):
     (b)'s (its foreign rows, its full LentQueues) — in generative mode
     (16 retries) and trace mode (0 retries, same-tick outages);
     (b) runs with churn from the start, their launches counted through
-    ``Engine.run_chunks``: the first 60 ticks of DELAY, FFD and gavel at
+    ``Engine.run_chunks``: the first 30 ticks of DELAY, FFD and gavel at
     the quick market shape, without and with the sinkhorn trader and
     expiry, and of FIFO with borrowing at 64 clusters; config
     2 with the greedy trader and expiry, with and without borrowing, its
@@ -3501,7 +3531,7 @@ def phase_plane_headline(P, E, card, dev, check, head):
     on 12 sampled ticks; (b) the first 400 ticks at 256 clusters, the trace
     on, run == plain with the plane; (c) the counted run with the plane,
     its state bitwise the plane-off run's, its harvest tied back; (d)
-    jobs/s with the plane off and on, 5 interleaved pairs, the overhead
+    jobs/s with the plane off and on, 3 interleaved pairs, the overhead
     printed against bench.py's 3% bound; (e) the emit form's tap (a
     ``run_io`` tick) over the first 400 ticks."""
     from multi_cluster_simulator_tpu_torch.core.state import (
@@ -3621,7 +3651,8 @@ def phase_plane_headline(P, E, card, dev, check, head):
                            echk.worst, float(np.mean(esp["kernel_ms"])),
                            echk.plain_ms, esp["read"], esp["written"])],
         kernel_ms=sp["kernel_ms"], w_off=w_off, w_on=w_on, over=over,
-        wall_min_s=min(w_on), h2d_s=head["h2d_s"], n_ticks=n_ticks)
+        wall_min_s=min(w_on), h2d_s=head["h2d_s"], n_ticks=n_ticks,
+        mbuf=mb)
 
 
 def depth_bucket_sweep(P, E, dev, n_depths=1 << 24):
@@ -4026,7 +4057,7 @@ def phase_plane_level0(P, E, card, dev, borg, market, sampled):
     the counted run with the plane (its state bitwise the plane-off run's,
     the harvest tied back), kernel == plain and the tap form timed beside
     the untapped one at ticks the run reaches, the emit form's tap at two;
-    then the faults forms' taps: the first 100 ticks of DELAY, FFD and
+    then the faults forms' taps: the first 30 ticks of DELAY, FFD and
     gavel at the quick market shape with churn, run == plain with the
     plane."""
     from multi_cluster_simulator_tpu_torch.core.state import init_state
@@ -4501,8 +4532,8 @@ def phase_compact_faults(P, E, card, dev, churn, market):
     ``run_chunks``: retries narrowed to int8, the bench's gates (kills and
     requeues, zero drops with the narrow overflow total, conservation, 490
     launches) and ``to_wide`` bitwise the wide churn run (4k); at 4,096
-    clusters the first 100 ticks through the faults form and its tap form,
-    == plain at sampled ticks, every launch timed; and the first 50 ticks
+    clusters the first 60 ticks through the faults form and its tap form,
+    == plain at sampled ticks, every launch timed; and the first 30 ticks
     of DELAY, FFD and gavel with churn at the quick market shape, whole
     runs == plain."""
     from multi_cluster_simulator_tpu_torch.core import compact as CC
@@ -4622,19 +4653,6 @@ def phase_compact_config4(P, E, card, dev, market, run_a):
 # --------------------------------------------------------------------------
 # 6: event-compressed time (Engine.run_compressed) and the Borg replay
 # --------------------------------------------------------------------------
-
-def leapable(counts) -> bool:
-    """bench.py's per-chunk ``--time-compress auto`` choice (bench.py:99-113
-    ``_leapable``; bench code, so copied here): a chunk runs compressed
-    when at least half its ticks have no arrivals and one run of empty
-    ticks is at least 8 long."""
-    empty = ~np.asarray(counts).any(axis=1)
-    if not empty.any() or empty.mean() < COMPRESS_AUTO_EMPTY_FRAC:
-        return False
-    edges = np.flatnonzero(np.diff(np.concatenate(
-        ([0], empty.astype(np.int8), [0]))))
-    return int((edges[1::2] - edges[::2]).max()) >= COMPRESS_AUTO_GAP
-
 
 def drive(engine, state, chunks, leap, mbuf=None):
     """``state`` through ``chunks``, chunk ``i`` by ``run_compressed`` where
@@ -4856,6 +4874,10 @@ def phase_sparse_bursts(P, E, card, dev):
     n_jobs = SPARSE_C * SPARSE_BURSTS * SPARSE_PER_BURST
     dense = [False] * len(chunks)
     comp = [True] * len(chunks)
+    from multi_cluster_simulator_tpu_torch.tools.weak_scaling import (
+        leapable,
+    )
+
     auto = [leapable(ch.counts) for ch in chunks]
     kernel = "fused_prefix_fifo"
 
@@ -4958,7 +4980,8 @@ def phase_sparse_bursts(P, E, card, dev):
           f"{cp['counts'][kernel + '_tap']}; walls of the counted runs "
           f"dense {dp['wall']:.4f} s, compressed {cp['wall']:.4f} s "
           f"[{card}]")
-    return dict(record=record, executed=c["executed"], n_ticks=n_ticks)
+    return dict(record=record, executed=c["executed"], n_ticks=n_ticks,
+                final=d_out)
 
 
 def phase_churn_bursts(P, E, card, dev):
@@ -5225,6 +5248,10 @@ def phase_borg_replay(P, E, card, dev, sample):
     n_ticks = meta["span_ms"] // cfg.tick_ms + 200
     chunks = E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), cfg.tick_ms)
     pack_s = time.perf_counter() - w1
+    from multi_cluster_simulator_tpu_torch.tools.weak_scaling import (
+        leapable,
+    )
+
     auto = [leapable(ch.counts) for ch in chunks]
     engine = E.Engine(cfg, device=dev)
     s0 = init_state(cfg, specs, device=dev)
@@ -5297,6 +5324,7 @@ CKPT_PAIRS = 3  # 7a's interleaved walls without and with a save a boundary
 CKPT_COMPACT_CUT = 800  # 7b
 CKPT_SPARSE_CUT = 400  # 7c: between bursts 2 and 3 (300 s apart)
 CHILD_HOLD_S = 300  # 7d: how long the child waits for the signal
+CKPT_CPU_C = 64  # 7d: the width of the checkpoint the CPU writes
 PREFIX_TICKS, PREFIX_TIMED, PREFIX_WARMUPS = 150, 2, 1  # 7e's ablation
 TRACE_TICKS = 50  # 7e's trace session
 
@@ -5585,7 +5613,7 @@ def phase_ckpt_preempt(P, E, card, dev, head):
     ``peek_checkpoint_t`` shows its first boundary saved: it must exit 75
     with the ``# preempted:`` line; a second child resumes the file to the
     end, bitwise 7a's uninterrupted run. Then a checkpoint the plain path
-    writes on the CPU at 256 clusters resumes on the card's kernel,
+    writes on the CPU at 64 clusters resumes on the card's kernel,
     bitwise the card's uninterrupted run."""
     import os
     import signal
@@ -5647,7 +5675,7 @@ def phase_ckpt_preempt(P, E, card, dev, head):
           f"{rc.meta['ticks_executed']} [{card}]")
 
     # a checkpoint the plain path writes on the CPU resumes on the kernel
-    cfg, specs, arr, n_ticks = headline_world(P, E, RUN_C)
+    cfg, specs, arr, n_ticks = headline_world(P, E, CKPT_CPU_C)
     chunks = E.pack_arrivals_chunks(arr, chunk_sizes(n_ticks), cfg.tick_ms)
     cpu = E.Engine(cfg, device="cpu")
     s = cpu.run_chunks(init_state(cfg, specs, device="cpu"), chunks[:1])
@@ -5674,7 +5702,7 @@ def phase_ckpt_preempt(P, E, card, dev, head):
         raise AssertionError(f"phase 7d: the CPU checkpoint resumed on the "
                              f"card differs (max |diff| {d})")
     print(f"phase 7d: a checkpoint the plain path wrote on the CPU at "
-          f"{RUN_C} clusters, tick {CHUNK}, resumed on the card: "
+          f"{CKPT_CPU_C} clusters, tick {CHUNK}, resumed on the card: "
           f"{n_ticks - CHUNK} launches of fused_prefix_fifo, final state "
           f"bitwise the card's uninterrupted run [{card}]")
 
@@ -6341,7 +6369,7 @@ def test_tenancy_world(P, dev, **kw):
 
 def phase_tenants_composed(P, E, card, dev):
     """Phase 8c: tests/test_tenancy.py's compact, compressed and
-    generative-fault worlds tiled to 64 tenants, each sampled lane ==
+    generative-fault worlds tiled to 32 tenants, each sampled lane ==
     its standalone run; then 4 tenants of config 2's pair with borrowing
     and the greedy market, each == its standalone run."""
     from multi_cluster_simulator_tpu_torch import tenancy
@@ -6867,7 +6895,7 @@ def drive_front_door(s, tick_jobs, window, batched, mism_jobs=True):
 def phase_serving_parity(P, E, card, dev, guard):
     """Phase 9a: bench_serving's parity A/B (bench.py:1700-1870) at its
     full shape on the card, over localhost HTTP: 16 clusters of 10 nodes,
-    320 ticks of the seed-11 trace; a window-1 front door (a POST a job, a
+    160 ticks of the seed-11 trace; a window-1 front door (a POST a job, a
     dispatch a tick) and a window-8 one (a /submitBatch a tick) end in
     equal states, both equal to the window-8 front door on the CPU (the
     plain version, every leaf); without the mismatched-endpoint jobs the
@@ -7599,8 +7627,9 @@ DEFAULT_GRID = dict(n_seeds=4, C=64, jobs_per=120, horizon_ms=240_000,
                     drain_ticks=80)
 # the trainer's defaults, and its world at bench_env's batch shape
 TRAIN_DEFAULT = dict(iters=10, n_envs=32, n_clusters=4, episode_ticks=20)
-TRAIN_WIDE = dict(iters=3, n_envs=1024, n_clusters=8, episode_ticks=50)
-CHAOS_CYCLES, CHAOS_JOBS, BATCH_KILLS = 2, 20_000, 2
+TRAIN_WIDE = dict(iters=2, n_envs=1024, n_clusters=8, episode_ticks=50)
+CHAOS_CYCLES, CHAOS_JOBS, BATCH_KILLS = 1, 20_000, 1
+BATCH_TICKS = 600  # 10d's run: churn_bursts quick's first 600 of 1,570 ticks
 MARKET_AB_C, MARKET_AB_TIMED = (1024, 4096), 3
 METRICS_PICKS = (4, 10)  # 10f's launches held against plain (of ~11-60)
 PHASE10_DIR = "build/phase10"
@@ -7738,7 +7767,7 @@ def phase_train(P, E, card, dev):
     x 4 clusters x 20 ticks, 10 iterations) with one scored launch a step
     and the scored lane form == the plain per-lane loop at two steps; then
     its world at bench_env's batch shape (1,024 envs x 8 clusters, 50-tick
-    episodes, 3 iterations), the wall split into draws, steps and update,
+    episodes, 2 iterations), the wall split into draws, steps and update,
     cut after iteration 1 and resumed with the returns and the head bitwise
     the uninterrupted run's."""
     import os
@@ -7798,32 +7827,55 @@ def phase_train(P, E, card, dev):
 
 
 def phase_chaos(P, E, card, dev):
-    """Phases 10c-10d: the port's chaos harness with its children on the
-    card. 10c: two kill -9 cycles of a serving child under live HTTP
-    traffic (the FIFO emit+tap form at chaos_cfg's shape), the recovered
-    checkpoint bitwise the in-process reference fed the WAL on the card
-    and bitwise the one on the CPU (the plain version), every acked job
-    placed once, zero drops. 10d: the resumable churn_bursts batch child
-    (the FIFO faults form on compact state under compression) killed with
-    SIGKILL at two random chunk boundaries and stopped with SIGTERM (exit
-    75) at one, its final checkpoint bitwise the uninterrupted child's on
-    the CPU (the plain version) and the executed-tick cursor
-    telescoping."""
+    """Phases 10c-10d and 11c's chaos cell: the port's chaos harness with
+    its children on the card, the three cells at once (each waits mostly
+    on its children's start-ups; 10d and 11c's in worker threads). 10c:
+    one kill -9 cycle of a serving child under live HTTP traffic (the FIFO
+    emit+tap form at chaos_cfg's shape), the recovered checkpoint bitwise
+    the in-process reference fed the WAL on the card and bitwise the one
+    on the CPU (the plain version), every acked job placed once, zero
+    drops. 10d: the resumable churn_bursts batch child (the FIFO faults
+    form on compact state under compression) killed with SIGKILL at one
+    random chunk boundary and stopped with SIGTERM (exit 75) at one, its
+    final checkpoint bitwise the uninterrupted child's on the CPU (the
+    plain version) and the executed-tick cursor telescoping. 11c: the
+    same batch over 2 ranks on the card, killed with SIGKILL once, its
+    final checkpoint bitwise the uninterrupted 2-rank child's on the CPU,
+    which is bitwise the one-process run on the CPU (the plain
+    version)."""
+    import concurrent.futures
+    import os
+    import shutil
+    import tempfile
+
     from multi_cluster_simulator_tpu_torch.tools import chaos
 
     w0 = time.perf_counter()
-    rep = chaos.run_chaos(CHAOS_CYCLES, CHAOS_JOBS, None, None, device=dev,
-                          ref_devices=(dev, "cpu"))
+    workdir = tempfile.mkdtemp(prefix="mcs-chaos-batch-")
+    os.makedirs(MESH_DIR, exist_ok=True)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            one = pool.submit(chaos._batch_scenario, 1, BATCH_KILLS,
+                              workdir, np.random.default_rng(101),
+                              device=str(dev), ticks=BATCH_TICKS,
+                              ref_device="cpu")
+            mesh = pool.submit(chaos._batch_scenario, 2, 1, MESH_DIR,
+                               np.random.default_rng(7), sigterm_cycles=0,
+                               device=str(dev), ticks=MESH_CHAOS_TICKS,
+                               ref_device="cpu")
+            rep = chaos.run_chaos(CHAOS_CYCLES, CHAOS_JOBS, None, None,
+                                  device=dev, ref_devices=(dev, "cpu"))
+            w_serve = time.perf_counter() - w0
+            s, m = one.result(), mesh.result()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     print(f"phase 10c: {rep['cycles']} kill -9 cycles under live traffic, "
           f"{rep['jobs_acked']} jobs acked, {rep['wal_records']} WAL records "
           f"({rep['duplicate_resubmits']} duplicates), placed "
           f"{rep['placed_total']}, {rep['ticks_dispatched']} ticks; the state"
           f" the card recovered bitwise the in-process reference on each of "
           f"{rep['reference_devices']} (the CPU's the plain version); "
-          f"{time.perf_counter() - w0:.1f} s [{card}]")
-    rep = chaos.run_batch_chaos(BATCH_KILLS, True, None, None, device=dev,
-                                ref_device="cpu")
-    s = rep["scenarios"][0]
+          f"{w_serve:.1f} s beside 10d and 11c's chaos cell [{card}]")
     print(f"phase 10d: churn_bursts quick (compact, compressed, trace churn) "
           f"on {s['device']}: {s['kills']} kill -9 at ticks "
           f"{s['boundaries_killed_at_tick']} + {s['sigterm_preemptions']} "
@@ -7831,7 +7883,14 @@ def phase_chaos(P, E, card, dev):
           f"finished first; final checkpoint bitwise the uninterrupted "
           f"child's on {s['reference_device']} (the plain version), ticks "
           f"executed {s['ticks_executed_compressed']} of {s['ticks_total']} "
-          f"telescoped; {s['wall_s']} s [{card}]")
+          f"telescoped; {s['wall_s']} s beside 10c [{card}]")
+    print(f"phase 11c: chaos --batch over 2 ranks on the card, the first "
+          f"{MESH_CHAOS_TICKS} ticks: {m['kills']} kill -9 (SIGTERM's "
+          f"save-and-exit is 10d's), the final checkpoint bitwise the "
+          f"uninterrupted 2-rank child's on {m['reference_device']}, and "
+          f"that bitwise the one-process run on "
+          f"{m['one_process_device']} (the plain version), cursors "
+          f"telescoped, {m['wall_s']} s beside 10c [{card}]")
 
 
 class ComparingProbe:
@@ -7885,10 +7944,10 @@ class ComparingProbe:
 
 
 def phase_market_ab(P, E, card, dev):
-    """Phase 10e: the port's matcher A/B on the card: greedy, sinkhorn and
-    cvx at 1,024 and 4,096 clusters (``sinkhorn_market_setup``, 400 jobs a
-    cluster over the windowed stream), with the launches counted (the
-    DELAY form once a tick a run) and the kernel held against its plain
+    """Phase 10e: the port's matcher A/B on the card: greedy and sinkhorn
+    at 1,024 and 4,096 clusters (``sinkhorn_market_setup``, 400 jobs a
+    cluster over the windowed stream; cvx runs at 3j's quick shape only),
+    with the launches counted (the DELAY form once a tick a run) and the kernel held against its plain
     version at two ticks of the first run. The sinkhorn row at 4,096 is
     BASELINE config 4: three timed runs, and bench.py:1060-1082's gates
     (>= 85% placed, >= 1,000 virtual nodes, zero drops); the other rows
@@ -7898,9 +7957,8 @@ def phase_market_ab(P, E, card, dev):
     from multi_cluster_simulator_tpu_torch.tools import market_ab as MA
     from multi_cluster_simulator_tpu_torch.tools import tournament as T
 
-    rows = []
     for C in MARKET_AB_C:
-        for m in ("greedy", "sinkhorn", "cvx"):
+        for m in ("greedy", "sinkhorn"):
             cfg, specs, arr, n = MA.sinkhorn_market_setup(
                 C, MA.JOBS_PER, MA.HORIZON_MS, matching=m)
             chk = Checker(E.Engine(cfg, device=dev))
@@ -7923,7 +7981,6 @@ def phase_market_ab(P, E, card, dev):
                                      f"{r['virtual_nodes_traded']}, drops "
                                      f"{r['drops']}")
             r.pop("final")
-            rows.append(r)
             print(f"phase 10e: {m}@{C}: placed {r['placed']} of {r['of']} "
                   f"({r['placed_frac']}), vnodes {r['virtual_nodes_traded']},"
                   f" drops {sum(r['drops'].values())}, mean wait "
@@ -7933,10 +7990,6 @@ def phase_market_ab(P, E, card, dev):
                   f"launches; kernel == plain at {chk.n} ticks (plain "
                   f"{np.mean(chk.plain_ms):.3f} ms); market {r['market']} "
                   f"[{card}]")
-    fails = MA.cvx_wins(rows, MARKET_AB_C)
-    print(f"phase 10e: --require-cvx-wins (reported, not gated): "
-          f"{'; '.join(fails) if fails else 'cvx matches or beats sinkhorn at every size'}"
-          f" [{card}]")
 
 
 def phase_metrics_smoke(P, E, card, dev):
@@ -7972,6 +8025,573 @@ def phase_metrics_smoke(P, E, card, dev):
           f"{time.perf_counter() - w0:.1f} s [{card}]")
 
 
+# phase 11: the parity gate on the card (11a), the mesh on one card (11b),
+# the mesh's tools (11c)
+PARITY_FLOOR = 100  # bench.py:1405: events compared over the scenarios
+MESH_RANKS = 4  # 11b-11c's rank processes, all sharing the card
+MESH_BORROW_C, MESH_BORROW_TICKS, MESH_BORROW_TICKS_4 = 64, 50, 12
+MESH_TRADER_C, MESH_TRADER_TICKS = 64, 200
+MESH_SINK_C, MESH_SINK_TICKS = 256, 200
+MESH_FFD_C, MESH_FFD_TICKS = 16, 150
+MESH_CUT = 800  # 11b's mesh cut of the headline
+MESH_FLOAT_RTOL, MESH_FLOAT_ATOL = 1e-5, 1e-6  # tests/test_torch_market.py
+COLLECTIVE_REPS, COLLECTIVE_REPS_4 = 200, 50  # over 2 ranks, over 4
+WEAK_PER_RANK, WEAK_JOBS, WEAK_HORIZON_MS = 4096, 100, 200_000
+MESH_CHAOS_TICKS = 300
+MESH_DIR = "build/phase11"
+
+
+def parity_scenarios(P):
+    """bench.py:1266 bench_parity_tpu's eight scenarios (:1336-1377), as
+    the port's: each a dict of name, config, specs, seed, ticks, the
+    stream's largest cores and memory, the clusters silenced (None: none)
+    and the mechanism the scenario must fire (``require``: None,
+    "lent_at_1", "lent_any" or "market"; bench.py:1310-1327)."""
+    import dataclasses
+    import os
+
+    R = dataclasses.replace
+    small = P.load_cluster_json(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "assets",
+        "cluster_small.json"))
+    base = P.SimConfig(record_trace=True, queue_capacity=64,
+                       max_running=512, max_arrivals=2048, max_nodes=12,
+                       max_ingest_per_tick=128)
+    heavy = P.WorkloadConfig(poisson_lambda_per_min=40.0)
+    overload = P.WorkloadConfig(poisson_lambda_per_min=60.0)
+    borrow = [P.uniform_cluster(1, 3, cores=16, memory=8_000),
+              P.uniform_cluster(2, 10)]
+    eight = [P.uniform_cluster(c + 1, 3, cores=16, memory=8_000)
+             if c % 2 == 0 else P.uniform_cluster(c + 1, 10)
+             for c in range(8)]
+    DELAY, FIFO, FFD = (P.PolicyKind.DELAY, P.PolicyKind.FIFO,
+                        P.PolicyKind.FFD)
+    market = R(base, policy=DELAY, workload=overload, queue_capacity=512,
+               max_virtual_nodes=4, trader=P.TraderConfig(enabled=True))
+    rows = [
+        ("delay_small", R(base, policy=DELAY), [small], 9, 400, 32, 24_000,
+         None, None),
+        ("delay_heavy", R(base, policy=DELAY, workload=heavy,
+                          queue_capacity=256), [small], 3, 300, 32, 24_000,
+         None, None),
+        ("delay_packed", R(base, policy=DELAY, workload=heavy,
+                           queue_capacity=256), [small], 17, 400, 8, 6_000,
+         None, None),
+        ("fifo_small", R(base, policy=FIFO), [small], 9, 400, 32, 24_000,
+         None, None),
+        ("fifo_borrowing", R(base, policy=FIFO, borrowing=True,
+                             workload=heavy, queue_capacity=256), borrow, 7,
+         300, 16, 8_000, 1, "lent_at_1"),
+        ("ffd", R(base, policy=FFD, workload=heavy, queue_capacity=256),
+         [small], 13, 200, 32, 24_000, None, None),
+        ("trader_market", market, borrow, 21, 300, 16, 8_000, 1, "market"),
+        ("fifo_borrowing_8c", R(base, policy=FIFO, borrowing=True,
+                                workload=heavy, queue_capacity=256), eight,
+         27, 300, 16, 8_000, slice(1, None, 2), "lent_any"),
+    ]
+    keys = ("name", "cfg", "specs", "seed", "n_ticks", "max_cores",
+            "max_mem", "silence", "require")
+    return [dict(zip(keys, row)) for row in rows]
+
+
+def parity_arrivals(P, sc):
+    """A scenario's stream (the reference's generator, silenced where the
+    scenario says)."""
+    from multi_cluster_simulator_tpu_torch.workload.generator import (
+        generate_arrivals, silence_clusters,
+    )
+
+    cfg = sc["cfg"]
+    arr = generate_arrivals(cfg.workload, len(sc["specs"]),
+                            cfg.max_arrivals, sc["n_ticks"] * cfg.tick_ms,
+                            sc["max_cores"], sc["max_mem"], seed=sc["seed"])
+    return arr if sc["silence"] is None else silence_clusters(
+        arr, sc["silence"])
+
+
+def parity_require(sc, oracle) -> None:
+    """bench.py:1310-1327: the scenario fired its mechanism."""
+    need = sc["require"]
+    lenders = {e[1] for e in oracle.trace if e[4] == 4}
+    if need == "lent_at_1" and 1 not in lenders:
+        raise AssertionError(f"parity[{sc['name']}]: no lent placement at "
+                             "the lender")
+    if need == "lent_any" and not lenders:
+        raise AssertionError(f"parity[{sc['name']}]: nobody lent")
+    if need == "market":
+        n = sc["cfg"].max_nodes
+        if not any(cl.active[n] for cl in oracle.clusters):
+            raise AssertionError(f"parity[{sc['name']}]: no virtual node")
+        if not any(e[3] >= n for e in oracle.trace):
+            raise AssertionError(f"parity[{sc['name']}]: no placement on a "
+                                 "virtual node")
+
+
+PARITY_PLAIN_PKL = "build/phase11/parity_plain.pkl"  # under the script's dir
+
+
+def parity_plain_runs(P, E) -> dict:
+    """11a's plain runs: every scenario through the port's plain version on
+    the CPU, its final state's leaves by name."""
+    from multi_cluster_simulator_tpu_torch import interop
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+
+    out = {}
+    for sc in parity_scenarios(P):
+        cfg = sc["cfg"]
+        out[sc["name"]] = interop.to_numpy(E.Engine(cfg, device="cpu").run(
+            init_state(cfg, sc["specs"], device="cpu"),
+            parity_arrivals(P, sc), sc["n_ticks"]))
+    return out
+
+
+def start_parity_plain():
+    """11a's plain runs (``parity_plain_runs``) in a process of its own on
+    one CPU core, started beside the build and the earlier phases, their
+    states pickled to ``PARITY_PLAIN_PKL``. Phase 11a waits for it;
+    ``main`` stops it on every way out."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(here, PARITY_PLAIN_PKL)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    code = ("import os, pickle, torch\n"
+            "torch.set_num_threads(1)\n"
+            "import chip_smoke as cs\n"
+            "import multi_cluster_simulator_tpu_torch as P\n"
+            "from multi_cluster_simulator_tpu_torch.core import engine as E\n"
+            "out = cs.parity_plain_runs(P, E)\n"
+            "os.makedirs(os.path.dirname(cs.PARITY_PLAIN_PKL), exist_ok=True)\n"
+            "with open(cs.PARITY_PLAIN_PKL, 'wb') as f:\n"
+            "    pickle.dump(out, f)\n")
+    log = open(out + ".log", "w")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=here,
+                            stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    proc.out = out
+    return proc
+
+
+def phase_parity(P, E, card, dev, plain_proc):
+    """Phase 11a: bench.py:1266 bench_parity_tpu on the card: every
+    scenario at its full horizon through the port's kernels (the windowed
+    stream, ``record_trace``), every cluster's trace == the port's copy of
+    the Go-semantics oracle (``oracle/go_semantics.py``), zero drops, each
+    scenario's mechanism fired, more than 100 events compared; each final
+    state == the plain version's, run on the CPU by the process
+    ``start_parity_plain`` started at the script's entry (the plain
+    version on the card takes ~46 ms a tick at these shapes)."""
+    import os
+    import pickle
+
+    from multi_cluster_simulator_tpu_torch import interop
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.oracle import Oracle
+    from multi_cluster_simulator_tpu_torch.utils.trace import (
+        assert_no_drops, extract_trace, oracle_trace_per_cluster,
+    )
+
+    w0 = time.perf_counter()
+    events, kernel_s, oracle_s = 0, 0.0, 0.0
+    launches, finals = {}, {}
+    for sc in parity_scenarios(P):
+        cfg, specs, n = sc["cfg"], sc["specs"], sc["n_ticks"]
+        arr = parity_arrivals(P, sc)
+        engine = E.Engine(cfg, device=dev)
+        s0 = init_state(cfg, specs, device=dev)
+        torch.cuda.synchronize()
+        fused_tick.reset_launches()
+        k0 = time.perf_counter()
+        out = engine.run(s0, arr, n)
+        torch.cuda.synchronize()
+        kernel_s += time.perf_counter() - k0
+        counts = {k: v for k, v in fused_tick.launch_counts().items() if v}
+        if sum(counts.values()) != n or len(counts) != 1:
+            raise AssertionError(f"11a {sc['name']}: launches {counts}, "
+                                 f"want one kernel {n} times")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        o0 = time.perf_counter()
+        oracle = Oracle(cfg, list(specs), arr).run(n)
+        oracle_s += time.perf_counter() - o0
+        assert_no_drops(out)
+        parity_require(sc, oracle)
+        got, want = extract_trace(out), oracle_trace_per_cluster(
+            oracle, len(specs))
+        for c in range(len(specs)):
+            if got[c] != want[c]:
+                first = next(i for i, (a, b) in enumerate(
+                    zip(got[c] + [None], want[c] + [None])) if a != b)
+                raise AssertionError(
+                    f"11a {sc['name']}: cluster {c} trace diverges from the "
+                    f"oracle at event {first}: {got[c][first:first + 1]} "
+                    f"against {want[c][first:first + 1]}")
+            events += len(want[c])
+        finals[sc["name"]] = interop.to_numpy(out)
+        print(f"phase 11a: {sc['name']}: {len(specs)} clusters, {n} ticks, "
+              f"{sum(map(len, want))} events == the oracle's, zero drops; "
+              f"launches {counts} [{card}]")
+    p0 = time.perf_counter()
+    rc = plain_proc.wait(timeout=900)
+    if rc != 0 or not os.path.exists(plain_proc.out):
+        with open(plain_proc.out + ".log") as f:
+            raise RuntimeError(f"11a: the plain runs failed (rc {rc}):\n"
+                               f"{f.read()[-3000:]}")
+    with open(plain_proc.out, "rb") as f:
+        plain = pickle.load(f)
+    plain_s = time.perf_counter() - p0
+    for name, want in plain.items():
+        bad = numpy_diff(want, finals[name])
+        if bad or set(want) != set(finals[name]):
+            raise AssertionError(f"11a {name}: the kernel's run differs from "
+                                 f"the plain version at {bad[:6]}")
+    if events <= PARITY_FLOOR or len(plain) != len(finals):
+        raise AssertionError(f"11a: {events} events compared, want more "
+                             f"than {PARITY_FLOOR}; {len(plain)} plain runs")
+    print(f"phase 11a: parity gate on {torch.cuda.get_device_name(0)}: 8 "
+          f"scenarios, {events} events compared, all == the Go-semantics "
+          f"oracle, every final state == the plain version's (CPU); wall "
+          f"{time.perf_counter() - w0:.1f} s (the kernel's runs "
+          f"{kernel_s:.2f} s, the oracle {oracle_s:.2f} s, waiting for the "
+          f"plain runs' process {plain_s:.2f} s); "
+          f"launches {launches} [{card}]")
+    return dict(events=events, launches=launches)
+
+
+def mesh_world(P, E, name):
+    """A mesh cell's world, built alike by every rank and by the one-process
+    run it is held against: config, specs, the tick-indexed chunks, and
+    the run's form (``compress``, ``metrics``, ``cut``)."""
+    from multi_cluster_simulator_tpu_torch.workload.generator import (
+        generate_arrivals,
+    )
+    from multi_cluster_simulator_tpu_torch.workload.traces import (
+        uniform_stream,
+    )
+
+    w = dict(compress=False, metrics=False, cut=None, policies=None)
+    if name in ("headline", "plane", "cut"):
+        cfg, specs, arr, n = headline_world(P, E)
+        w.update(cfg=cfg, specs=specs, n_ticks=n, arr=arr,
+                 chunks=E.pack_arrivals_chunks(arr, chunk_sizes(n),
+                                               cfg.tick_ms),
+                 metrics=name == "plane",
+                 cut=MESH_CUT if name == "cut" else None)
+    elif name in ("borrow64", "borrow64_4"):
+        # its first ticks only: ~6 staged collectives a tick, each a few
+        # ms of host time over 2 ranks sharing the card and more over 4
+        # (the "one staged collective" lines)
+        n = MESH_BORROW_TICKS if name == "borrow64" else MESH_BORROW_TICKS_4
+        cfg = borrow_cfg(P, {})
+        chunks, _ = borrow_stream(P, E, MESH_BORROW_C, n)
+        w.update(cfg=cfg, specs=borrow_specs(P, MESH_BORROW_C), n_ticks=n,
+                 chunks=chunks)
+    elif name == "delay_trader":
+        # tests/test_sharded.py:86's world, 8 clusters widened to 64
+        C = MESH_TRADER_C
+        cfg = P.SimConfig(policy=P.PolicyKind.DELAY, record_trace=True,
+                          queue_capacity=256, max_running=256,
+                          max_arrivals=2048, max_nodes=12,
+                          max_virtual_nodes=4,
+                          trader=P.TraderConfig(enabled=True),
+                          workload=P.WorkloadConfig(
+                              poisson_lambda_per_min=40.0))
+        specs = [P.uniform_cluster(c + 1, 10) if c % 4 == 3 else
+                 P.uniform_cluster(c + 1, 3, cores=16, memory=8_000)
+                 for c in range(C)]
+        arr = generate_arrivals(cfg.workload, C, cfg.max_arrivals,
+                                MESH_TRADER_TICKS * 1_000, 16, 8_000,
+                                seed=32)
+        arr.n[3::4] = 0  # the big clusters sell
+        w.update(cfg=cfg, specs=specs, n_ticks=MESH_TRADER_TICKS,
+                 chunks=E.pack_arrivals_chunks(arr, [MESH_TRADER_TICKS],
+                                               cfg.tick_ms))
+    elif name == "sinkhorn256":
+        cfg = market_cfg(P, quick=True, jobs=MARKET_QUICK[1],
+                         trader=SINKHORN)
+        chunks, _, _ = market_stream(E, MESH_SINK_C, MARKET_QUICK[1],
+                                     quick=True)
+        w.update(cfg=cfg, specs=market_specs(P, MESH_SINK_C),
+                 n_ticks=MESH_SINK_TICKS,
+                 chunks=first_ticks(chunks, MESH_SINK_TICKS))
+    elif name == "sparse":
+        cfg = sparse_cfg(P)
+        arr, n = sparse_stream(SPARSE_C)
+        w.update(cfg=cfg, specs=[P.uniform_cluster(c + 1, 5)
+                                 for c in range(SPARSE_C)], n_ticks=n,
+                 chunks=E.pack_arrivals_chunks(arr, chunk_sizes(n),
+                                               cfg.tick_ms), compress=True)
+    elif name == "ffd":
+        # tests/test_sharded.py:257's FFD wave world
+        cfg = P.SimConfig(policy=P.PolicyKind.FFD, parity=False,
+                          max_placements_per_tick=16, queue_capacity=32,
+                          max_running=48, max_arrivals=96,
+                          max_ingest_per_tick=8, max_nodes=5,
+                          max_virtual_nodes=0, n_res=2)
+        arr = uniform_stream(MESH_FFD_C, 96, MESH_FFD_TICKS * 1_000,
+                             max_cores=32, max_mem=24_000,
+                             max_dur_ms=40_000, seed=11)
+        w.update(cfg=cfg, specs=[P.uniform_cluster(c + 1, 5)
+                                 for c in range(MESH_FFD_C)],
+                 n_ticks=MESH_FFD_TICKS,
+                 chunks=E.pack_arrivals_chunks(arr, [MESH_FFD_TICKS],
+                                               cfg.tick_ms))
+    else:
+        raise ValueError(name)
+    return w
+
+
+def mesh_cell(mesh, name):
+    """One rank's part of an 11b cell (run by ``parallel.launch``): the
+    world's shard through ``ShardedEngine.run_fn`` chunk by chunk (the
+    kernel launched once a tick over the rank's clusters), every launch
+    count set to 0 just before and read just after, the wall between two
+    barriers. The cut cell stops at ``MESH_CUT`` and gathers its shards
+    into one checkpoint file. Rank 0 returns the gathered state (the
+    ``collect_metrics`` buffer too), every rank its launches, wall and
+    collectives."""
+    import torch.distributed as dist
+
+    import multi_cluster_simulator_tpu_torch as P
+    from multi_cluster_simulator_tpu_torch import interop
+    from multi_cluster_simulator_tpu_torch.core import engine as E
+    from multi_cluster_simulator_tpu_torch.core import preempt
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.obs import device as D
+    from multi_cluster_simulator_tpu_torch.parallel import ShardedEngine
+
+    w = mesh_world(P, E, name)
+    cfg = w["cfg"]
+    sh = ShardedEngine(cfg, mesh)
+    g0 = init_state(cfg, w["specs"], device="cpu")
+    state = sh.shard_state(g0)
+    mb = sh.shard_metrics(D.metrics_init(g0)) if w["metrics"] else None
+    chunks = [sh.shard_arrivals(ch) for ch in w["chunks"]]
+    if w["cut"] is not None:
+        chunks = chunks[:w["cut"] // CHUNK]
+    executed = 0
+    torch.cuda.synchronize()
+    dist.barrier(group=mesh.group)
+    fused_tick.reset_launches()
+    calls0 = sh.ex.calls
+    w0 = time.perf_counter()
+    for ch in chunks:
+        n = ch.counts.shape[0]
+        out = sh.run_fn(n, tick_indexed=True, donate=True,
+                        time_compress=w["compress"],
+                        with_metrics=w["metrics"])(
+            state, ch, *(() if mb is None else (mb,)))
+        out = out if isinstance(out, tuple) else (out,)
+        state = out[0]
+        if w["compress"]:
+            executed += int(out[1].ticks_executed)
+        if mb is not None:
+            mb = out[-1]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    dist.barrier(group=mesh.group)
+    counts = {k: v for k, v in fused_tick.launch_counts().items() if v}
+    ticks = sum(ch.counts.shape[0] for ch in chunks)
+    res = dict(launches=counts, wall=wall, ticks=ticks, executed=executed,
+               calls=sh.ex.calls - calls0)
+    if w["cut"] is not None:
+        import os
+
+        os.makedirs(MESH_DIR, exist_ok=True)
+        preempt.save_run_sharded(os.path.join(MESH_DIR, "cut.ckpt"), sh,
+                                 state, cfg=cfg, tick_ms=cfg.tick_ms)
+    whole = interop.to_numpy(sh.gather_state(state))
+    if mb is not None:
+        res["mbuf"] = interop.to_numpy(sh.collect_metrics(mb))
+    if mesh.rank == 0:
+        res["state"] = whole
+    return res
+
+
+def collective_cost(mesh, c_loc, reps):
+    """Host µs of one staged collective on the card: ``allmin`` and
+    ``gather`` of a [c_loc] int32 tensor, ``reps`` each."""
+    from multi_cluster_simulator_tpu_torch.parallel import MeshExchange
+
+    ex = MeshExchange(mesh)
+    x = torch.arange(c_loc, dtype=torch.int32, device=mesh.device)
+    out = {}
+    for op in ("allmin", "gather"):
+        fn = getattr(ex, op)
+        fn(x)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        for _ in range(reps):
+            fn(x)
+        torch.cuda.synchronize()
+        out[op] = 1e6 * (time.perf_counter() - w0) / reps
+    return out
+
+
+def numpy_diff(want: dict, got: dict, float_tol=False) -> list:
+    """The leaves of two numpy state dicts that differ: in dtype, shape or
+    value (floats bitwise, or within MESH_FLOAT_RTOL/ATOL with
+    ``float_tol``)."""
+    bad = []
+    for k in want:
+        a, b = want[k], got[k]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            bad.append(k)
+        elif float_tol and a.dtype.kind == "f":
+            if not np.allclose(b, a, rtol=MESH_FLOAT_RTOL,
+                               atol=MESH_FLOAT_ATOL):
+                bad.append(k)
+        elif a.tobytes() != b.tobytes():
+            bad.append(k)
+    return bad
+
+
+def phase_mesh(P, E, card, dev, ranks, head, plane, sparse):
+    """Phase 11b: the mesh on one card (ranks are processes sharing it).
+    Each cell's gathered state == the one-process run on the card (4a's,
+    4n's buffer, 6a's, or a run made here), every rank launching its
+    kernel once a tick (once an executed tick, compressed)."""
+    import os
+
+    from multi_cluster_simulator_tpu_torch import interop
+    from multi_cluster_simulator_tpu_torch.core import preempt
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+
+    cells = (("headline", 2), ("borrow64", 2), ("borrow64_4", 4),
+             ("delay_trader", 4), ("sinkhorn256", 2), ("sparse", 2),
+             ("ffd", 4), ("plane", 2), ("cut", 2))
+    rows = {}
+    for name, n in cells:
+        w = mesh_world(P, E, name)
+        c0 = time.perf_counter()
+        parts = ranks.run(n, mesh_cell, name)
+        cell_s = time.perf_counter() - c0
+        got = parts[0]["state"]
+        for r, part in enumerate(parts):
+            want_n = part["executed"] if w["compress"] else part["ticks"]
+            if sum(part["launches"].values()) != want_n or \
+                    len(part["launches"]) != 1:
+                raise AssertionError(f"11b {name} x {n}: rank {r} launches "
+                                     f"{part['launches']}, want one kernel "
+                                     f"{want_n} times")
+        tol = False
+        if name in ("headline", "plane"):
+            want = interop.to_numpy(head["final"])
+        elif name == "sparse":
+            want = interop.to_numpy(sparse["final"])
+            if parts[0]["executed"] != sparse["executed"]:
+                raise AssertionError(
+                    f"11b sparse: {parts[0]['executed']} ticks executed, 6a "
+                    f"{sparse['executed']}")
+        elif name == "cut":
+            cfg = w["cfg"]
+            engine = E.Engine(cfg, device=dev)
+            rc = preempt.load_run(os.path.join(MESH_DIR, "cut.ckpt"),
+                                  init_state(cfg, w["specs"], device=dev),
+                                  cfg=cfg)
+            fused_tick.reset_launches()
+            fin = engine.run_chunks(rc.state, chunks_from(
+                E, w["arr"], cfg, w["n_ticks"], start=MESH_CUT))
+            check_launches(fused_tick.launch_counts(), "fused_prefix_fifo",
+                           w["n_ticks"] - MESH_CUT, "11b cut resumed")
+            got = interop.to_numpy(fin)
+            want = interop.to_numpy(head["final"])
+        else:
+            cfg = w["cfg"]
+            one = E.Engine(cfg, device=dev).run_chunks(
+                init_state(cfg, w["specs"], device=dev), w["chunks"])
+            want = interop.to_numpy(one)
+            tol = name == "sinkhorn256"
+        bad = numpy_diff(want, got, float_tol=tol)
+        if bad:
+            raise AssertionError(f"11b {name} x {n}: the gathered state "
+                                 f"differs from one process at {bad[:6]}")
+        extra = ""
+        if tol:
+            inexact = numpy_diff(want, got)
+            extra = (f"; float leaves not bitwise (within rtol "
+                     f"{MESH_FLOAT_RTOL}, atol {MESH_FLOAT_ATOL}): "
+                     f"{inexact or 'none'}")
+        if name == "plane":
+            mb_bad = numpy_diff(interop.to_numpy(plane["mbuf"]),
+                                parts[0]["mbuf"])
+            if mb_bad:
+                raise AssertionError(f"11b plane: collect_metrics differs "
+                                     f"from 4n's buffer at {mb_bad}")
+            extra = "; collect_metrics == 4n's buffer"
+        ticks = parts[0]["ticks"]
+        calls = parts[0]["calls"] / max(parts[0]["executed"] or ticks, 1)
+        walls = [round(p["wall"], 4) for p in parts]
+        rows[(name, n)] = dict(walls=walls, calls=calls)
+        print(f"phase 11b: {name} over {n} ranks: {len(w['specs'])} "
+              f"clusters, {ticks} ticks"
+              f"{', ' + str(parts[0]['executed']) + ' executed' if w['compress'] else ''}"
+              f": gathered state == the one-process run on the card"
+              f"{extra}; each rank {parts[0]['launches']}; rank walls "
+              f"{walls} s, the cell {cell_s:.1f} s with its start and "
+              f"gather; collectives a tick {calls:.2f} (rank 0) [{card}]")
+    for n, reps in ((2, COLLECTIVE_REPS), (4, COLLECTIVE_REPS_4)):
+        cost = ranks.run(n, collective_cost, HEADLINE_C // n, reps)
+        print(f"phase 11b: one staged collective on the card (host to host "
+              f"through gloo), [{HEADLINE_C // n}] int32 a rank, {n} ranks: "
+              f"allmin {cost[0]['allmin']:.1f} us, gather "
+              f"{cost[0]['gather']:.1f} us (rank 0, mean of {reps}); the "
+              f"ranks share one card, so no cell is a scaling figure "
+              f"[{card}]")
+    return rows
+
+
+def phase_mesh_tools(P, E, card, dev, ranks):
+    """Phase 11c: the mesh's tools on the card: weak_scaling's parity
+    cells and its curve at 1 and 2 ranks x 4,096 clusters a rank (ranks
+    sharing the card: not a scaling figure) and the tournament's seed axis
+    over 2 ranks with its device A/B. Chaos's batch cell over 2 ranks runs
+    beside 10c (``phase_chaos``)."""
+    from multi_cluster_simulator_tpu_torch.tools import tournament as T
+    from multi_cluster_simulator_tpu_torch.tools import weak_scaling as ws
+
+    lap = lap_timer()
+    cells = ws.verify_parity_cells(ranks, (1, 2), quick=True)
+    curve = ws.run_curve(ranks, WEAK_PER_RANK, WEAK_JOBS, WEAK_HORIZON_MS,
+                         (1, 2), repeats=1)
+    print(f"phase 11c: weak_scaling parity cells {cells}; rows "
+          f"{[(r['n_devices'], r['clusters'], r['jobs_per_sec'], r['wall_s'], r['ticks_executed']) for r in curve]} "
+          f"(ranks, clusters, jobs/s, wall s, ticks executed); efficiency at "
+          f"2 ranks {curve[-1]['efficiency_vs_linear']} with both ranks on "
+          f"one card: not a scaling figure [{card}]")
+    lap("11c weak_scaling")
+    d = T.run_tournament(policies=T.DEFAULT_POLICIES[:4], n_seeds=2, C=16,
+                         jobs_per=60, horizon_ms=120_000,
+                         shard_seeds="always", shard_devices=2,
+                         device_ab=True, device=str(dev))
+    ab = d["replication_shard_ab"]
+    print(f"phase 11c: the tournament's seed axis over 2 ranks: every cell "
+          f"== its standalone run, the one-process grid bitwise the "
+          f"sharded one; launches a rank {d['kernel_launches']}; grid walls "
+          f"sharded {ab['sharded_wall_s']} s, one process "
+          f"{ab['single_device_wall_s']} s [{card}]")
+    lap("11c tournament")
+
+
+def phase_mesh_all(P, E, card, dev, head, plane, sparse, plain_proc):
+    """Phases 11a-11c."""
+    from multi_cluster_simulator_tpu_torch.parallel.launch import RankGroup
+
+    lap = lap_timer()
+    phase_parity(P, E, card, dev, plain_proc)
+    lap("11a")
+    with RankGroup(MESH_RANKS) as ranks:
+        lap("11 ranks up")
+        phase_mesh(P, E, card, dev, ranks, head, plane, sparse)
+        lap("11b")
+        phase_mesh_tools(P, E, card, dev, ranks)
+
+
 def phase_drivers(P, E, card, dev):
     """Phases 10a-10f."""
     lap = lap_timer()
@@ -7980,7 +8600,7 @@ def phase_drivers(P, E, card, dev):
     train = phase_train(P, E, card, dev)
     lap("10b")
     phase_chaos(P, E, card, dev)
-    lap("10c-10d")
+    lap("10c-10d, 11c chaos")
     phase_market_ab(P, E, card, dev)
     lap("10e")
     phase_metrics_smoke(P, E, card, dev)
@@ -8066,16 +8686,17 @@ def main(device: str = "cuda") -> int:
         return 1
     import multi_cluster_simulator_tpu_torch as P  # noqa: F401
 
-    sample = start_borg_sample()
+    sample, plain_proc = start_borg_sample(), start_parity_plain()
     try:
-        return run_phases(device, sample)
+        return run_phases(device, sample, plain_proc)
     finally:
-        if sample.poll() is None:
-            sample.kill()
-        sample.wait()
+        for proc in (sample, plain_proc):
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
 
 
-def run_phases(device: str, sample) -> int:
+def run_phases(device: str, sample, plain_proc) -> int:
     """Every phase in order, then the records and the result line."""
     import multi_cluster_simulator_tpu_torch as P
     from multi_cluster_simulator_tpu_torch.core import engine as E
@@ -8184,8 +8805,9 @@ def run_phases(device: str, sample) -> int:
     run_a = phase_borrow_run(P, E, card, dev, "a", 2, chunks_a, jobs_a,
                              sp_a)
     lap("4i")
-    run_b = phase_borrow_run(P, E, card, dev, "b", BORROW_C, bb["chunks"],
-                             bb["jobs"], bb["sampled"])
+    run_b = phase_borrow_run(P, E, card, dev, "b", BORROW_C,
+                             bb["chunks"][:BORROW_B_CHUNKS], bb["jobs"],
+                             bb["sampled"])
     lap("4j")
     print(f"phases 3g-h, 4i-j: {time.perf_counter() - w2:.1f} s")
 
@@ -8275,6 +8897,10 @@ def run_phases(device: str, sample) -> int:
     w10 = time.perf_counter()
     drivers = phase_drivers(P, E, card, dev)
     print(f"phases 10a-10f: {time.perf_counter() - w10:.1f} s")
+
+    w11 = time.perf_counter()
+    phase_mesh_all(P, E, card, dev, head, plane, sparse, plain_proc)
+    print(f"phases 11a-11c: {time.perf_counter() - w11:.1f} s")
 
     records = []
     kms = float(np.mean(check["kernel_ms"]))

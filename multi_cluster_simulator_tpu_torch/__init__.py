@@ -13,14 +13,16 @@ and checkpoints any run at a chunk boundary to resume it bit-exactly
 (``save_state``/``load_state``; ``core/preempt.py`` for run bundles), in
 the reference's file format. A lane-stacked batch of constellations runs
 as one (``tenancy/`` for tenants, ``envs/`` for a batched gym), each
-kernel launched once a tick over every lane.
+kernel launched once a tick over every lane. The cluster axis shards
+over a mesh of rank processes (``parallel/``: ``ShardedEngine`` with a
+``MeshExchange`` over ``torch.distributed``), and ``oracle/`` holds the
+reference's Go-semantics oracle.
 On an NVIDIA H100 each tick's per-cluster prefix (``faults -> release ->
 vnode expiry -> ingest -> schedule``) runs as a hand-written CUDA kernel
 (``kernels/csrc/``); the cross-cluster phases and the market
 run as PyTorch ops. Entry points run on the card unless the caller passes
 ``device="cpu"``, which runs the plain PyTorch version of the same
-function. ROADMAP.md lists what is still to port; those configurations
-raise ``NotImplementedError``.
+function. A configuration the port does not carry raises, naming it.
 """
 
 from multi_cluster_simulator_tpu_torch.config import (

@@ -606,15 +606,18 @@ class Engine:
     ``policies`` is the ``PolicySet`` to run (the singleton set of
     ``cfg.policy`` by default). ``run`` and ``run_chunks`` advance the
     state IN PLACE and return it; clone a state first
-    (``core.state.clone_state``) to keep the original."""
+    (``core.state.clone_state``) to keep the original. ``ex`` is the
+    cross-cluster exchange: ``LocalExchange`` (the whole cluster axis on
+    this device) by default, a ``parallel.MeshExchange`` for one shard of a
+    mesh (``parallel.ShardedEngine``)."""
 
-    def __init__(self, cfg: SimConfig, device=None, policies=None):
+    def __init__(self, cfg: SimConfig, device=None, policies=None, ex=None):
         self.pset = policies if policies is not None else \
             PolicySet.from_config(cfg)
         _check_slice(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.ex = LocalExchange()
+        self.ex = ex if ex is not None else LocalExchange()
         self._default_params = self.pset.params_for(cfg, device=self.device)
         self._jitter = {}
         # the lane plans fused_tick.host_params caches, per (members,
@@ -674,16 +677,18 @@ class Engine:
         return out
 
     def jitter(self, c_loc: int):
-        """The sinkhorn/cvx tie-break table for ``c_loc`` local clusters on
-        the engine's device, made on the host once per shape
+        """The sinkhorn/cvx tie-break table [c_loc sellers, C_tot buyers]
+        of this shard (its sellers' global indices from the exchange's
+        offset; ``C_tot = c_loc`` on one device) on the engine's device,
+        made on the host once per (offset, c_loc, C_tot)
         (``market.trader.pair_jitter``); None for the greedy market."""
         mcfg = self.cfg.trader
         if not mcfg.enabled or mcfg.matching == MatchKind.GREEDY:
             return None
-        if c_loc not in self._jitter:
-            self._jitter[c_loc] = market.pair_jitter(
-                self.ex.offset(c_loc), c_loc, c_loc, self.device)
-        return self._jitter[c_loc]
+        key = (self.ex.offset(c_loc), c_loc, self.ex.total(c_loc))
+        if key not in self._jitter:
+            self._jitter[key] = market.pair_jitter(*key, self.device)
+        return self._jitter[key]
 
     def n_msgs(self) -> int:
         """Return-message slots per cluster and tick: ``cfg.max_msgs``,
@@ -1271,13 +1276,18 @@ class Engine:
                 arrivals.rows[:n_ticks])).to(dev)
             counts = torch.from_numpy(
                 np.ascontiguousarray(counts_host)).to(dev)
-        next_arr = _next_arrival_ticks(counts_host)
-        t_end = t0 + n_ticks * tick
-        inf_t = t_end + tick  # "no event inside this chunk"
         # a tick with arrivals moves arr_ptr, so it is never quiet: the
         # host skips its vote and read, and the fingerprint before the next
-        # tick is taken only where that tick may be quiet
+        # tick is taken only where that tick may be quiet. On a mesh a tick
+        # has arrivals where any shard's has (one allmax at entry), so that
+        # every rank votes on the same ticks and leaps to the same clock
         has_arr = counts_host.any(axis=1)
+        if self.ex.size > 1:
+            has_arr = self.ex.allmax(
+                torch.from_numpy(has_arr.astype(np.int32))).numpy() > 0
+        next_arr = _next_arrival_ticks(has_arr[:, None])
+        t_end = t0 + n_ticks * tick
+        inf_t = t_end + tick  # "no event inside this chunk"
         cur, t, sig = state, t0, None
         while t < t_end:
             i = (t - t0) // tick

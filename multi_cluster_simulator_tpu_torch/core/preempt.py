@@ -172,6 +172,36 @@ def load_run(path: str, state_template, cfg=None, plan=_UNSET,
                          meta=run_meta)
 
 
+def save_run_sharded(path: str, sh, state, mbuf=None,
+                     meta: Optional[dict] = None, **kw) -> None:
+    """The mesh cut: every rank of ``sh`` (a ``parallel.ShardedEngine``)
+    calls this at the same chunk boundary with its shard (and its
+    ``MetricsBuffer`` carry); the shards gather (``gather_state``,
+    ``collect_metrics``) and rank 0 writes ONE file, byte for byte the
+    file a one-process run at the same tick writes; every rank returns
+    once it is written. ``kw`` as ``save_run``'s."""
+    import torch.distributed as dist
+
+    whole = sh.gather_state(state)
+    mb = sh.collect_metrics(mbuf) if mbuf is not None else None
+    if sh.mesh.rank == 0:
+        save_run(path, whole, mbuf=mb, meta=meta, **kw)
+    if sh.mesh.group is not None:
+        dist.barrier(group=sh.mesh.group)
+
+
+def load_run_sharded(path: str, sh, state_template, **kw) -> RunCheckpoint:
+    """A checkpoint (written by one process or by ``save_run_sharded``)
+    resumed on a mesh: every rank loads the file against the global
+    ``state_template`` and keeps its shard (``shard_state``; the buffer
+    through ``shard_metrics``). ``kw`` as ``load_run``'s."""
+    rc = load_run(path, state_template, **kw)
+    return RunCheckpoint(
+        state=sh.shard_state(rc.state),
+        mbuf=None if rc.mbuf is None else sh.shard_metrics(rc.mbuf),
+        meta=rc.meta)
+
+
 class _Snapshot:
     """A submit's trees (the state, the buffer, the meta's LeapStats)
     packed into one flat byte tensor by one copy on the dispatching stream

@@ -396,9 +396,15 @@ class ClusterEnv:
         return call
 
 
-def shard_env_batch(es: EnvState, mesh=None, axis: str = "envs"):
-    """Sharding an env batch over several cards is ROADMAP A16 (the
-    multi-device slice); one card hosts the whole batch."""
-    raise NotImplementedError(
-        "shard_env_batch: an env batch over several devices is not ported "
-        "yet: ROADMAP A16")
+def shard_env_batch(es: EnvState, mesh, axis: str = "envs"):
+    """This rank's slice of a batched ``EnvState`` over ``mesh``
+    (``parallel.mesh.Mesh``, one rank a process): every leaf split on its
+    leading (env) dimension, on the rank's device. Envs are independent,
+    so each rank steps its envs with no collective and the gathered batch
+    (``parallel.sharded_engine.gather_batch``) is bitwise the unsharded
+    one's. A batch that does not divide raises, naming the nearest valid
+    batch sizes."""
+    from multi_cluster_simulator_tpu_torch.parallel.sharded_engine import (
+        shard_batch,
+    )
+    return shard_batch(es, mesh, "env batch", "batch sizes")

@@ -15,8 +15,10 @@ crosses the same way, every leaf with its leading [L]: a stacked
 ``SimState`` through ``state_from_numpy``, stacked ``TenantParams``
 through ``tenant_params_from_numpy`` (``.policy.idx``, ``.fault_seed``),
 an ``EnvState`` through ``env_state_from_numpy`` (``.sim.l0.data``,
-``.key``, ``.t_ep``). The port never imports jax; the caller (a test)
-builds the JAX side of the dict.
+``.key``, ``.t_ep``). A mesh rank's shard crosses the same way:
+``shard_to_numpy`` cuts rank r's rows out of a global dict, and
+``gathered_to_numpy`` gives a shard's global dict back. The port never
+imports jax; the caller (a test) builds the JAX side of the dict.
 """
 
 from __future__ import annotations
@@ -129,3 +131,23 @@ def env_info_from_numpy(leaves: dict, device=None) -> EnvInfo:
 
 # stacked TenantParams, an EnvState and an EnvInfo cross back the same way
 tenant_params_to_numpy = env_state_to_numpy = env_info_to_numpy = to_numpy
+
+
+def shard_to_numpy(leaves: dict, rank: int, n: int) -> dict:
+    """Rank ``rank``'s shard of a global state's numpy leaves over ``n``
+    ranks, as ``parallel.ShardedEngine.shard_state`` places it: every
+    leaf but the clock ``.t`` split on its leading (cluster) axis."""
+    out = {}
+    for k, v in leaves.items():
+        if k == ".t":
+            out[k] = np.array(v, copy=True)
+            continue
+        b = v.shape[0] // n
+        out[k] = np.array(v[rank * b:(rank + 1) * b], copy=True)
+    return out
+
+
+def gathered_to_numpy(sharded_engine, state) -> dict:
+    """The global numpy leaves of a mesh rank's shard ``state``, gathered
+    from every rank (a collective: every rank calls it)."""
+    return to_numpy(sharded_engine.gather_state(state))

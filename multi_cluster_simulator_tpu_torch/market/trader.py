@@ -295,24 +295,17 @@ def _round_plan_to_matching(state: SimState, plan, feas, gidx,
 EXACT_ORDER_MAX = 256
 
 
-class XlaGemv:
-    """``M @ v`` for a fixed f32 matrix ``M`` [R, n] and changing vectors,
-    summed in the order XLA's CPU code sums it, bitwise: each row's
-    products split over ``lanes`` accumulators (lane l takes the entries
-    l, l + lanes, ...), each accumulator a chain of fused multiply-adds
-    from 0 in index order; 8 lanes then reduce as XLA's tiled gemv
-    (``row_major_gemv_F32_8_8_*``) does, ((0 + 1) + (2 + 3)) + ((4 + 5) +
-    (6 + 7)), or with ``halves`` as a vectorized loop reduction does,
-    ((0 + 4) + (2 + 6)) + ((1 + 5) + (3 + 7)); with 1 lane the chain is
-    the sum. A zero
-    entry adds nothing to a chain (``fma(0, v, acc) == acc`` for finite
-    ``v``), so each chain runs over its nonzero entries only, found once
-    for the matrix: the steps a product takes are the most nonzeros one
-    lane of one row holds."""
+class _Chains:
+    """Row ``r``'s products ``M[r, j] * v[j]`` split over ``lanes``
+    accumulators (lane l takes the entries l, l + lanes, ...), each a chain
+    of fused multiply-adds from 0 in index order. A zero entry adds
+    nothing to a chain (``fma(0, v, acc) == acc`` for finite ``v``), so
+    each chain runs over its nonzero entries only, found once for the
+    matrix: the steps a product takes are the most nonzeros one lane of
+    one row holds."""
 
-    def __init__(self, M: torch.Tensor, lanes: int, halves: bool = False):
+    def __init__(self, M: torch.Tensor, lanes: int):
         R, n = M.shape
-        self.halves = halves
         T = -(-n // lanes)
         X = torch.zeros((R, T * lanes), dtype=F32, device=M.device)
         X[:, :n] = M
@@ -326,6 +319,7 @@ class XlaGemv:
         self.R, self.n, self.lanes, self.T = R, n, lanes, T
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        """The [R, lanes] accumulators."""
         V = torch.zeros((self.T * self.lanes,), dtype=F32, device=v.device)
         V[:self.n] = v
         V = V.view(self.T, self.lanes).T.expand(self.R, self.lanes, self.T)
@@ -333,15 +327,58 @@ class XlaGemv:
         acc = torch.zeros((self.R, self.lanes), dtype=F32, device=v.device)
         for k in range(self.steps):
             acc = fma_f32(self.X[..., k], Vg[..., k], acc)
+        return acc
+
+
+def _tree8(acc: torch.Tensor) -> torch.Tensor:
+    """8 lanes reduced as XLA's tiled gemv's AVX horizontal sums do:
+    ((0 + 1) + (2 + 3)) + ((4 + 5) + (6 + 7))."""
+    a = acc[:, 0::2] + acc[:, 1::2]
+    a = a[:, 0::2] + a[:, 1::2]
+    return a[:, 0] + a[:, 1]
+
+
+def _halves8(acc: torch.Tensor) -> torch.Tensor:
+    """8 lanes reduced by halving shuffles, as a vectorized loop reduction
+    (and XLA's generic horizontal sum) does: ((0 + 4) + (2 + 6)) + ((1 +
+    5) + (3 + 7))."""
+    a = acc[:, :4] + acc[:, 4:]
+    a = a[:, :2] + a[:, 2:]
+    return a[:, 0] + a[:, 1]
+
+
+class XlaGemv:
+    """``M @ v`` for a fixed f32 matrix ``M`` [R, n] and changing vectors,
+    summed in the order XLA's CPU code sums it, bitwise (``_Chains``: each
+    lane a chain of fused multiply-adds). With 1 lane the chain is the
+    sum. With 8 lanes it is XLA's row-major tiled gemv
+    (``row_major_gemv_F32_8_8_*``, tests/test_torch_market_ab.py holds it
+    against ``jax.jit`` at every shape it tests): the lanes take the
+    columns below the last multiple of 8, a row in a whole tile of 8 rows
+    reduces them by the AVX horizontal sums (``_tree8``), a row past the
+    last whole tile by halving shuffles (``_halves8``), and the remaining
+    columns are a chain of their own from 0 added last. With ``halves``
+    the 8 lanes take every column and reduce by halving, as the vectorized
+    loop XLA fuses ``K.T @ u`` into does (read from the reference engine's
+    compiled code at 64 clusters)."""
+
+    def __init__(self, M: torch.Tensor, lanes: int, halves: bool = False):
+        R, n = M.shape
+        self.lanes, self.halves = lanes, halves
+        tiled = lanes == 8 and not halves
+        self.main = 8 * (n // 8) if tiled else n
+        self.body = _Chains(M[:, :self.main], lanes)
+        self.tail = _Chains(M[:, self.main:], 1) if tiled else None
+        self.full = 8 * (R // 8)  # the rows in whole tiles of 8
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        acc = self.body(v[:self.main])
         if self.lanes == 1:
             return acc[:, 0]
         if self.halves:
-            a = acc[:, :4] + acc[:, 4:]
-            a = a[:, :2] + a[:, 2:]
-            return a[:, 0] + a[:, 1]
-        a = acc[:, 0::2] + acc[:, 1::2]
-        a = a[:, 0::2] + a[:, 1::2]
-        return (a[:, 0] + a[:, 1]) + 0.0
+            return _halves8(acc)
+        out = torch.cat([_tree8(acc[:self.full]), _halves8(acc[self.full:])])
+        return out + self.tail(v[self.main:])[:, 0]
 
 
 def _match_sinkhorn(state: SimState, tr, t: int, mcfg, ex, gidx, g_buyer,
@@ -354,10 +391,13 @@ def _match_sinkhorn(state: SimState, tr, t: int, mcfg, ex, gidx, g_buyer,
     clusters the kernel's ``exp`` is XLA's (``ops/floats.py
     xla_exp_f32``) and the two products per iteration sum in the order
     XLA's CPU code does (``XlaGemv``, read from the reference engine's compiled code
-    at 16 and 64 clusters): ``K @ vc`` its 8-lane tiled gemv (one chain
-    below 8 clusters; a count past a multiple of 8 from 9 on is
-    unverified), ``K.T @ u`` the dot XLA fuses into a loop (one chain over
-    the sellers below 64, 8 lanes reduced by halves from 64). Beyond it
+    at 16 and 64 clusters): ``K @ vc`` its 8-lane tiled gemv (held
+    against ``jax.jit`` at 3-256 columns and rows, counts past a multiple
+    of 8 included: tests/test_torch_market_ab.py), ``K.T @ u`` the dot XLA
+    fuses into a loop (one chain over the sellers below 64, 8 lanes
+    reduced by halves from 64; a seller count past a multiple of 8 from
+    64 on is not read: the loop exists only inside the engine's program,
+    and the engine-level tests hold it at 64). Beyond it
     the exp is ``torch.exp`` and both products are ``torch.matmul`` (XLA:
     the same orders up to 1,024, from 4,096 the tiled gemv over a
     transposed copy; not copied, for its cost)."""
@@ -383,7 +423,7 @@ def _match_sinkhorn(state: SimState, tr, t: int, mcfg, ex, gidx, g_buyer,
         # XLA's exp, only where a pair is feasible, zero elsewhere
         K = torch.zeros_like(score)
         K[feas] = xla_exp_f32(score[feas] / eps)
-        rows = XlaGemv(K, 8 if C_tot >= 8 else 1)
+        rows = XlaGemv(K, 8)
         cols = XlaGemv(K.T, 8, halves=True) if C_loc >= 64 else \
             XlaGemv(K.T, 1)
     tiny = 1e-30

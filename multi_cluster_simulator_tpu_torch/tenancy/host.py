@@ -97,12 +97,18 @@ def tenant_cell(tree, i: int):
     return fused_tick.lane(tree, i)
 
 
-def shard_tenant_batch(tree, mesh=None, axis: str = "tenants"):
-    """Sharding a tenant batch over several cards is ROADMAP A16 (the
-    multi-device slice); one card hosts the whole batch."""
-    raise NotImplementedError(
-        "shard_tenant_batch: a tenant batch over several devices is not "
-        "ported yet: ROADMAP A16")
+def shard_tenant_batch(tree, mesh, axis: str = "tenants"):
+    """This rank's slice of a tenant-stacked tree over ``mesh``
+    (``parallel.mesh.Mesh``, one rank a process): every leaf split on its
+    leading (tenant) dimension, the slice on the rank's device. Tenants
+    are independent, so each rank runs its tenants with no collective and
+    the gathered result (``parallel.sharded_engine.gather_batch``) is
+    bitwise the unsharded batch's. ``axis`` names the mesh axis, as in
+    the reference; the mesh's one axis is the one split."""
+    from multi_cluster_simulator_tpu_torch.parallel.sharded_engine import (
+        shard_batch,
+    )
+    return shard_batch(tree, mesh, "tenant batch", "tenant counts")
 
 
 class TenantBatch:

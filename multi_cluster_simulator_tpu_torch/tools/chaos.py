@@ -16,7 +16,11 @@
   checkpoint bitwise the uninterrupted child's and the ``ticks_executed``
   cursor telescoping to the same total. One cycle uses SIGTERM: the child
   must save at the next boundary and exit 75 under ``PreemptionGuard``.
-  The reference's 2- and 8-device cells are ROADMAP A16.
+  The reference's 2- and 8-device cells run the child over a mesh of 2 or
+  8 ranks (``--ranks N``: rank processes sharing the card,
+  ``parallel.launch``), each holding a shard of the cluster axis; the
+  child gathers the shards at every boundary into the one-process
+  checkpoint file, and a resume re-shards it.
 
 Every child gets ``--device``: the card by default, or what the caller
 asks (the reference pins its children to the CPU; the port runs them
@@ -28,7 +32,8 @@ Usage:
   python -m multi_cluster_simulator_tpu_torch.tools.chaos --batch
       [--quick] [--cycles N] [--out PATH] [--device D]
   ... --serve --dir D --url-file F --device D          (child mode)
-  ... --batch-child --checkpoint PATH [--resume] --device D   (child mode)
+  ... --batch-child --checkpoint PATH [--resume] --device D [--ranks N]
+                                                              (child mode)
 """
 
 from __future__ import annotations
@@ -466,14 +471,104 @@ def batch_world(ticks=None):
         cfg, specs, arrivals)
 
 
-def batch_child(path: str, resume: bool, device=None, ticks=None) -> int:
+def _chunk_sizes(left: int) -> list:
+    sizes = [BATCH_CHUNK] * (left // BATCH_CHUNK)
+    if left % BATCH_CHUNK:
+        sizes.append(left % BATCH_CHUNK)
+    return sizes
+
+
+# a mesh rank's run of the batch child: its ShardedEngine, shard and
+# chunks, kept between the parent's tasks (one rank a process)
+_RANK_RUN: dict = {}
+
+
+def _batch_rank_start(mesh, path, resume, ticks):
+    """A rank's start of the batch run: the world, its shard of the
+    initial state (of the checkpoint's state on a resume: every rank reads
+    the one file and keeps its shard) and the chunks after the resume
+    point. Returns the resume tick."""
+    from multi_cluster_simulator_tpu_torch.core import preempt
+    from multi_cluster_simulator_tpu_torch.core.engine import (
+        pack_arrivals_chunks,
+    )
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.parallel import ShardedEngine
+
+    cfg, specs, arrivals, n_ticks, events, plan = batch_world(ticks)
+    sh = ShardedEngine(cfg, mesh)
+    state = init_state(cfg, specs, plan=plan, fault_events=events,
+                       device="cpu")
+    off0 = 0
+    if resume and os.path.exists(path):
+        state = preempt.load_run(path, state, cfg=cfg, plan=plan,
+                                 policy_digest=preempt.policy_digest_for(
+                                     cfg)).state
+        off0 = int(state.t) // cfg.tick_ms
+    sizes = _chunk_sizes(max(n_ticks - off0, 0))
+    _RANK_RUN.update(sh=sh, state=sh.shard_state(state), sizes=sizes,
+                     chunks=pack_arrivals_chunks(arrivals, sizes,
+                                                 cfg.tick_ms, start=off0))
+    return off0
+
+
+def _batch_rank_chunk(mesh, i):
+    """A rank's chunk ``i``: its shard through ``run_compressed`` (the
+    votes ride the mesh), then the shards gathered; rank 0 returns the
+    global state's leaves and the chunk's ``LeapStats``."""
+    from multi_cluster_simulator_tpu_torch import interop
+
+    sh = _RANK_RUN["sh"]
+    state, stats = sh.run_fn(_RANK_RUN["sizes"][i], tick_indexed=True,
+                             time_compress=True, donate=True)(
+        _RANK_RUN["state"], sh.shard_arrivals(_RANK_RUN["chunks"][i]))
+    _RANK_RUN["state"] = state
+    whole = interop.to_numpy(sh.gather_state(state))
+    return (whole, interop.to_numpy(stats)) if mesh.rank == 0 else None
+
+
+class _MeshBatch:
+    """The batch child's run over ``ranks`` rank processes: ``start`` and
+    ``chunk`` mirror the one-process loop, returning host states."""
+
+    def __init__(self, ranks: int, device, workdir: str):
+        from multi_cluster_simulator_tpu_torch.parallel.launch import (
+            RankGroup,
+        )
+        self.n = ranks
+        self.group = RankGroup(ranks, device=device, store_dir=workdir)
+
+    def start(self, path, resume, ticks) -> int:
+        return self.group.run(self.n, _batch_rank_start, path, resume,
+                              ticks)[0]
+
+    def chunk(self, i):
+        import torch
+
+        from multi_cluster_simulator_tpu_torch import interop
+        from multi_cluster_simulator_tpu_torch.core.state import LeapStats
+
+        whole, stats = self.group.run(self.n, _batch_rank_chunk, i)[0]
+        return (interop.state_from_numpy(whole, "cpu"),
+                LeapStats(**{k[1:]: torch.from_numpy(np.array(v, copy=True))
+                             for k, v in stats.items()}))
+
+    def close(self):
+        self.group.close()
+
+
+def batch_child(path: str, resume: bool, device=None, ticks=None,
+                ranks: int = 1) -> int:
     """``--batch-child``: the resumable run ``bench.py --config
     churn_bursts --quick --compact on --time-compress always --checkpoint
     PATH [--resume]`` makes, as the port's: every 100-tick chunk through
     ``Engine.run_compressed``, an ``AsyncCheckpointer`` submit at every
     chunk boundary (the last one flushed), under ``PreemptionGuard``:
     SIGTERM saves at the next boundary and exits 75 with the ``#
-    preempted:`` line; a resume announces ``# resumed from``."""
+    preempted:`` line; a resume announces ``# resumed from``. With
+    ``ranks`` > 1 the run is sharded over that many rank processes (a
+    ``ShardedEngine`` each, on ``device``, or the card by rank), and the
+    gathered state is what each boundary saves: the one-process file."""
     from multi_cluster_simulator_tpu_torch.core import preempt
     from multi_cluster_simulator_tpu_torch.core.engine import (
         Engine, pack_arrivals_chunks,
@@ -481,21 +576,31 @@ def batch_child(path: str, resume: bool, device=None, ticks=None) -> int:
     from multi_cluster_simulator_tpu_torch.core.state import init_state
 
     cfg, specs, arrivals, n_ticks, events, plan = batch_world(ticks)
-    engine = Engine(cfg, device=device)
-    state = init_state(cfg, specs, plan=plan, fault_events=events,
-                       device=engine.device)
     pdigest = preempt.policy_digest_for(cfg)
     off0, prior = 0, {}
+    mesh = None
+    if ranks > 1:
+        mesh = _MeshBatch(ranks, device, os.path.dirname(
+            os.path.abspath(path)))
+        state = None
+        off0 = mesh.start(path, resume, ticks)
+        if resume and os.path.exists(path):
+            prior = preempt.load_run(
+                path, init_state(cfg, specs, plan=plan, fault_events=events,
+                                 device="cpu"),
+                cfg=cfg, plan=plan, policy_digest=pdigest).meta
+    else:
+        engine = Engine(cfg, device=device)
+        state = init_state(cfg, specs, plan=plan, fault_events=events,
+                           device=engine.device)
+        if resume and os.path.exists(path):
+            rc = preempt.load_run(path, state, cfg=cfg, plan=plan,
+                                  policy_digest=pdigest)
+            state, prior = rc.state, rc.meta
+            off0 = int(state.t) // cfg.tick_ms
     if resume and os.path.exists(path):
-        rc = preempt.load_run(path, state, cfg=cfg, plan=plan,
-                              policy_digest=pdigest)
-        state, prior = rc.state, rc.meta
-        off0 = int(state.t) // cfg.tick_ms
         print(f"# resumed from {path} at tick {off0}", file=sys.stderr)
-    left = max(n_ticks - off0, 0)
-    sizes = [BATCH_CHUNK] * (left // BATCH_CHUNK)
-    if left % BATCH_CHUNK:
-        sizes.append(left % BATCH_CHUNK)
+    sizes = _chunk_sizes(max(n_ticks - off0, 0))
     chunks = pack_arrivals_chunks(arrivals, sizes, cfg.tick_ms, start=off0)
     ck = preempt.AsyncCheckpointer(path, cfg=cfg, plan=plan,
                                    policy_digest=pdigest, tick_ms=cfg.tick_ms)
@@ -503,7 +608,10 @@ def batch_child(path: str, resume: bool, device=None, ticks=None) -> int:
     covered = 0
     with preempt.PreemptionGuard() as guard:
         for i, (n, ch) in enumerate(zip(sizes, chunks)):
-            state, stats = engine.run_compressed(state, ch, n)
+            if mesh is not None:
+                state, stats = mesh.chunk(i)
+            else:
+                state, stats = engine.run_compressed(state, ch, n)
             leap_stats.append(stats)
             covered += n
             meta = {"chunk_idx": i + 1, "tick": off0 + covered,
@@ -514,14 +622,19 @@ def batch_child(path: str, resume: bool, device=None, ticks=None) -> int:
             ck.submit(state, meta=meta)
         ck.flush()
     ck.close()
+    if mesh is not None:
+        mesh.close()
     return 0
 
 
-def _batch_cmd(path: str, resume: bool, device: str, ticks=None) -> list:
+def _batch_cmd(path: str, resume: bool, device: str, ticks=None,
+               ranks: int = 1) -> list:
     cmd = [sys.executable, "-m", MODULE, "--batch-child", "--checkpoint",
            path, "--device", device]
     if ticks is not None:
         cmd += ["--ticks", str(int(ticks))]
+    if ranks > 1:
+        cmd += ["--ranks", str(int(ranks))]
     return cmd + (["--resume"] if resume else [])
 
 
@@ -570,37 +683,34 @@ def _run_to_completion(cmd, label, timeout=3600):
     return proc
 
 
-def _batch_scenario(n_dev: int, kills: int, workdir: str, rng,
-                    sigterm_cycles: int = 1, device=None,
-                    ticks=None, ref_device=None) -> dict:
-    """One device-count cell: the uninterrupted child (on ``ref_device``,
-    by default ``device``; on the CPU it is the plain version), then kill
-    -9 the resumable child at ``kills`` randomized chunk boundaries (+
-    ``sigterm_cycles`` SIGTERM save-and-exit cycles), finish, and assert
-    the final checkpoint bitwise the uninterrupted one's. More than one
-    device is ROADMAP A16."""
-    if n_dev != 1:
-        raise NotImplementedError(
-            f"batch chaos on a {n_dev}-device mesh is not ported yet: "
-            "ROADMAP A16 (one card runs the batch child)")
-    from multi_cluster_simulator_tpu_torch.core import preempt
+def one_process_batch(ticks=None, device=None) -> dict:
+    """The batch child's run, uninterrupted and in this process: every
+    chunk through one ``Engine.run_compressed`` on ``device``, with no
+    checkpoint; the final state's leaves as numpy."""
+    from multi_cluster_simulator_tpu_torch import interop
+    from multi_cluster_simulator_tpu_torch.core.engine import (
+        Engine, pack_arrivals_chunks,
+    )
     from multi_cluster_simulator_tpu_torch.core.state import init_state
 
-    dev = _device_arg(device)
-    ref_dev = dev if ref_device is None else _device_arg(ref_device)
-    d = os.path.join(workdir, f"dev{n_dev}")
-    os.makedirs(d, exist_ok=True)
-    ref_file = os.path.join(d, "ref.ckpt")
-    chaos_file = os.path.join(d, "chaos.ckpt")
-    cfg, specs, _arr, n_ticks, events, plan = batch_world(ticks)
-    final_t = n_ticks * cfg.tick_ms
+    cfg, specs, arrivals, n_ticks, events, plan = batch_world(ticks)
+    engine = Engine(cfg, device=device)
+    state = init_state(cfg, specs, plan=plan, fault_events=events,
+                       device=engine.device)
+    sizes = _chunk_sizes(n_ticks)
+    for n, ch in zip(sizes, pack_arrivals_chunks(arrivals, sizes,
+                                                 cfg.tick_ms)):
+        state, _ = engine.run_compressed(state, ch, n)
+    return interop.to_numpy(state)
 
-    t0 = time.time()
-    print(f"# batch chaos [{n_dev} dev, {dev}]: uninterrupted reference on "
-          f"{ref_dev}...", file=sys.stderr)
-    _run_to_completion(_batch_cmd(ref_file, False, ref_dev, ticks),
-                       f"{n_dev}dev reference")
 
+def _kill_cycles(n_dev, kills, sigterm_cycles, rng, dev, ticks, chaos_file,
+                 final_t, tick_ms):
+    """The resumable child started again and again on ``chaos_file``,
+    killed with SIGKILL at ``kills`` randomized chunk boundaries and
+    stopped with SIGTERM ``sigterm_cycles`` times. Returns the kills, the
+    SIGTERM exits, the ticks killed at, the children that finished first
+    and the restarts from scratch."""
     kills_done = 0
     term_exits = 0
     completed_early = 0
@@ -617,7 +727,8 @@ def _batch_scenario(n_dev: int, kills: int, workdir: str, rng,
             restarts += 1
     while kills_done < kills or term_exits < sigterm_cycles:
         resume = os.path.exists(chaos_file)
-        proc = subprocess.Popen(_batch_cmd(chaos_file, resume, dev, ticks),
+        proc = subprocess.Popen(_batch_cmd(chaos_file, resume, dev, ticks,
+                                           n_dev),
                                 cwd=ROOT, stdout=subprocess.DEVNULL,
                                 stderr=subprocess.PIPE, text=True)
         use_term = term_exits < sigterm_cycles and kills_done >= 1
@@ -673,13 +784,65 @@ def _batch_scenario(n_dev: int, kills: int, workdir: str, rng,
             if proc.stderr:
                 proc.stderr.close()
             kills_done += 1
-            boundaries_killed_at.append(int(last_t) // cfg.tick_ms)
+            boundaries_killed_at.append(int(last_t) // tick_ms)
+    return (kills_done, term_exits, boundaries_killed_at, completed_early,
+            restarts)
 
-    # the final incarnation runs to completion
-    final = _run_to_completion(_batch_cmd(chaos_file, True, dev, ticks),
-                               f"{n_dev}dev final resume")
-    assert "resumed from" in final.stderr, (
-        "final incarnation did not resume from the chaos checkpoint")
+
+def _batch_scenario(n_dev: int, kills: int, workdir: str, rng,
+                    sigterm_cycles: int = 1, device=None,
+                    ticks=None, ref_device=None) -> dict:
+    """One device-count cell: the uninterrupted child (on ``ref_device``,
+    by default ``device``; on the CPU it is the plain version), and beside
+    it kill -9 the resumable child at ``kills`` randomized chunk
+    boundaries (+ ``sigterm_cycles`` SIGTERM save-and-exit cycles),
+    finish, and assert the final checkpoint bitwise the uninterrupted
+    one's. With ``n_dev``
+    > 1 every child (the uninterrupted one too) runs over a mesh of that
+    many ranks (``batch_child(ranks=)``), on ``device``, or the card by
+    rank, and the uninterrupted mesh child's final state is held bitwise
+    against the one-process run (``one_process_batch``) on the
+    reference's device."""
+    from multi_cluster_simulator_tpu_torch.core import preempt
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+
+    dev = _device_arg(device)
+    ref_dev = dev if ref_device is None else _device_arg(ref_device)
+    d = os.path.join(workdir, f"dev{n_dev}")
+    os.makedirs(d, exist_ok=True)
+    ref_file = os.path.join(d, "ref.ckpt")
+    chaos_file = os.path.join(d, "chaos.ckpt")
+    cfg, specs, _arr, n_ticks, events, plan = batch_world(ticks)
+    final_t = n_ticks * cfg.tick_ms
+
+    t0 = time.time()
+    print(f"# batch chaos [{n_dev} dev, {dev}]: uninterrupted reference on "
+          f"{ref_dev}, beside the kill cycles...", file=sys.stderr)
+    ref_log = open(os.path.join(d, "ref.err"), "w+")
+    ref_proc = subprocess.Popen(
+        _batch_cmd(ref_file, False, ref_dev, ticks, n_dev), cwd=ROOT,
+        stdout=subprocess.DEVNULL, stderr=ref_log, text=True)
+    try:
+        kills_done, term_exits, boundaries_killed_at, completed_early, \
+            restarts = _kill_cycles(n_dev, kills, sigterm_cycles, rng, dev,
+                                    ticks, chaos_file, final_t, cfg.tick_ms)
+        # the final incarnation runs to completion
+        final = _run_to_completion(_batch_cmd(chaos_file, True, dev, ticks,
+                                              n_dev),
+                                   f"{n_dev}dev final resume")
+        assert "resumed from" in final.stderr, (
+            "final incarnation did not resume from the chaos checkpoint")
+        rc = ref_proc.wait(timeout=3600)
+    finally:
+        if ref_proc.poll() is None:
+            ref_proc.kill()
+            ref_proc.wait()
+        ref_log.seek(0)
+        ref_err = ref_log.read()
+        ref_log.close()
+    if rc != 0:
+        raise RuntimeError(f"batch chaos: {n_dev}dev reference child failed "
+                           f"rc={rc}:\n{ref_err[-4000:]}")
 
     # ---- verification: bit-identical final state, telescoped cursors ----
     pdigest = preempt.policy_digest_for(cfg)
@@ -693,6 +856,13 @@ def _batch_scenario(n_dev: int, kills: int, workdir: str, rng,
     from multi_cluster_simulator_tpu_torch import interop
 
     ref_rc, chaos_rc = load(ref_file), load(chaos_file)
+    if n_dev > 1:
+        diverged = diverged_leaves(one_process_batch(ticks, ref_dev),
+                                   interop.to_numpy(ref_rc.state))
+        assert not diverged, (
+            f"batch chaos [{n_dev} dev]: the uninterrupted {n_dev}-rank "
+            f"run DIVERGED from the one-process run on {ref_dev} on "
+            f"{len(diverged)} leaves: {diverged[:6]}")
     diverged = diverged_leaves(interop.to_numpy(ref_rc.state),
                                interop.to_numpy(chaos_rc.state))
     assert not diverged, (
@@ -708,6 +878,7 @@ def _batch_scenario(n_dev: int, kills: int, workdir: str, rng,
         "n_devices": n_dev,
         "device": dev,
         "reference_device": ref_dev,
+        "one_process_device": ref_dev if n_dev > 1 else None,
         "kills": kills_done,
         "sigterm_preemptions": term_exits,
         "completed_before_signal": completed_early,
@@ -724,23 +895,27 @@ def _batch_scenario(n_dev: int, kills: int, workdir: str, rng,
 def run_batch_chaos(cycles: int, quick: bool, out, workdir,
                     keep: bool = False, device=None, ticks=None,
                     ref_device=None) -> dict:
-    """The batch-tier chaos matrix at one device: ``cycles`` kill -9 /
-    resume rounds + one SIGTERM save-and-exit, the uninterrupted child on
-    ``ref_device`` (by default ``device``). The reference's 2-device
-    (quick) and 8-device (full) cells are ROADMAP A16 and raise."""
+    """The batch-tier chaos matrix: ``cycles`` kill -9 / resume rounds +
+    one SIGTERM save-and-exit a scenario, the uninterrupted child on
+    ``ref_device`` (by default ``device``). As the reference: quick runs
+    one device and a 2-rank mesh (one kill), full one device and an
+    8-rank mesh."""
     dirpath = workdir or tempfile.mkdtemp(prefix="mcs-chaos-batch-")
     rng = np.random.default_rng(101)
     report = {"mode": "batch",
               "flags": "--config churn_bursts --quick --compact on "
                        "--time-compress always",
               "scenarios": []}
-    report["scenarios"].append(_batch_scenario(
-        1, cycles, dirpath, rng, device=device, ticks=ticks,
-        ref_device=ref_device))
-    s = report["scenarios"][-1]
-    print(f"# batch chaos [1 dev]: {s['kills']} kill -9 + "
-          f"{s['sigterm_preemptions']} SIGTERM cycles, bit-identical, "
-          f"{s['wall_s']}s", file=sys.stderr)
+    scenarios = ([(1, cycles), (2, 1)] if quick
+                 else [(1, cycles), (8, cycles)])
+    for n_dev, kills in scenarios:
+        report["scenarios"].append(_batch_scenario(
+            n_dev, kills, dirpath, rng, device=device, ticks=ticks,
+            ref_device=ref_device))
+        s = report["scenarios"][-1]
+        print(f"# batch chaos [{n_dev} dev]: {s['kills']} kill -9 + "
+              f"{s['sigterm_preemptions']} SIGTERM cycles, bit-identical, "
+              f"{s['wall_s']}s", file=sys.stderr)
     if out:
         with open(out, "w") as f:
             json.dump(report, f, indent=2)
@@ -773,6 +948,9 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--ticks", type=int, default=None,
                     help="cut the batch run's horizon to this many ticks")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="batch child: shard the run over this many rank "
+                         "processes")
     args = ap.parse_args(argv)
 
     if args.serve:
@@ -780,7 +958,7 @@ def main(argv=None):
         return 0
     if args.batch_child:
         return batch_child(args.checkpoint, args.resume, args.device,
-                           args.ticks)
+                           args.ticks, args.ranks)
     cycles = args.cycles or (2 if args.quick else 5)
     if args.batch:
         report = run_batch_chaos(cycles, args.quick, args.out, args.dir,

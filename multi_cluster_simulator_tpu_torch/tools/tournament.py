@@ -20,8 +20,12 @@ no cell may drop work.
 the grid digest (lineup, seeds, shape, config, every variant's parameter
 leaves), in the reference's JSON keys: a cache either package writes
 resumes in the other; a rerun runs only the missing variants' lanes; a
-digest mismatch fails fast. Sharding the seed axis over several devices
-is ROADMAP A16: a request that would shard raises ``NotImplementedError``.
+digest mismatch fails fast. ``--shard always --shard-devices N`` splits
+the seed (replication) axis over N ranks (``parallel.launch.RankGroup``:
+processes of one gloo group, sharing the card where there is one): each
+rank runs the lanes of its seeds as one lane-stacked run, and every cell
+is still held against its standalone run; ``--device-ab`` re-runs the
+whole grid in one process and holds the two grids bitwise equal.
 
 Run: ``python -m multi_cluster_simulator_tpu_torch.tools.tournament
 [--quick] [--device cpu]`` (the card by default). Writes a markdown table
@@ -151,10 +155,61 @@ def _grid_digest(policies, seeds, C, jobs_per, horizon_ms, drain_ticks,
 
 
 def _devices(device: torch.device, shard_devices):
-    """The devices a replication axis could shard over: the cards of the
-    engine's device type (one CPU), capped at ``shard_devices``."""
-    n = torch.cuda.device_count() if device.type == "cuda" else 1
-    return min(n, shard_devices) if shard_devices else n
+    """The ranks a replication axis could shard over: ``shard_devices``
+    where given (ranks are processes, and several share one card or the
+    CPU), else one a card of the engine's device type (one for the
+    CPU)."""
+    if shard_devices:
+        return int(shard_devices)
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _grid_rank(mesh, policies, n_seeds, C, jobs_per, horizon_ms,
+               drain_ticks, fresh):
+    """One rank's share of a sharded grid (run by ``parallel.launch``):
+    the lanes of the fresh variants over this rank's block of seeds, as
+    one lane-stacked run on the rank's device. Returns ``{"cells": {(v,
+    si): numpy leaves}, "launches": {source: n}, "wall_s": s}``, the wall
+    taken between two barriers of the mesh."""
+    import torch.distributed as dist
+
+    from multi_cluster_simulator_tpu_torch import interop, tenancy
+    from multi_cluster_simulator_tpu_torch.core.engine import Engine
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.policies.base import (
+        REGISTRY, PolicySet,
+    )
+
+    if any(name not in REGISTRY for name in policies):
+        sweep_policies()
+    dev = mesh.device
+    pset = PolicySet(tuple(policies))
+    cfg, specs, n_ticks, _seeds, padded, _tas = grid_inputs(
+        n_seeds, C, jobs_per, horizon_ms, drain_ticks)
+    variant_params = [pset.params_for(cfg, name, device=dev)
+                      for name in policies]
+    per = n_seeds // mesh.size
+    lanes = [(v, si) for v in fresh
+             for si in range(mesh.rank * per, (mesh.rank + 1) * per)]
+    params, sta, s0 = stack_grid(lanes, variant_params, padded, cfg, specs,
+                                 dev)
+    eng = Engine(cfg, device=dev, policies=pset)
+    fused_tick.reset_launches()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dist.barrier(group=mesh.group)
+        return time.time()
+
+    t0 = sync()
+    grid = eng.run(s0, sta, n_ticks, params)
+    wall = sync() - t0
+    return {"cells": {lane: interop.to_numpy(tenancy.tenant_cell(grid, i))
+                      for i, lane in enumerate(lanes)},
+            "launches": {k: n for k, n in source_launches(
+                fused_tick.launch_counts()).items() if n},
+            "wall_s": wall}
 
 
 def _diff_leaves(a, b) -> list:
@@ -229,9 +284,11 @@ def run_tournament(policies=DEFAULT_POLICIES, n_seeds=4, C=64, jobs_per=120,
     a tick over all lanes; every cell bitwise its standalone
     single-policy run (``verify_cells``); no cell drops work.
     ``resume_path``, ``shard_seeds``, ``device_ab`` and ``shard_devices``
-    mean what they mean in the reference; a grid that would shard over
-    more than one device raises ``NotImplementedError`` (ROADMAP A16).
-    ``device`` defaults to the card."""
+    mean what they mean in the reference, the devices being ranks: a
+    sharded grid runs its seed blocks on ``shard_devices`` rank processes
+    (``_grid_rank``; the launch gate then holds a rank), ``device_ab``
+    re-runs it in this process and holds the two grids bitwise equal
+    (``replication_shard_ab``). ``device`` defaults to the card."""
     from multi_cluster_simulator_tpu_torch import tenancy
     from multi_cluster_simulator_tpu_torch.core.engine import Engine
     from multi_cluster_simulator_tpu_torch.core.state import (
@@ -269,11 +326,6 @@ def run_tournament(policies=DEFAULT_POLICIES, n_seeds=4, C=64, jobs_per=120,
             raise AssertionError(
                 "--device-ab requires a sharded replication axis "
                 f"({n_dev} device(s), {n_seeds} seeds)")
-    if sharded:
-        raise NotImplementedError(
-            f"the tournament's replication axis over {n_dev} devices is not "
-            "ported yet: ROADMAP A16 (one card runs the whole grid)")
-
     eng = Engine(cfg, device=dev, policies=pset)
     variant_params = [pset.params_for(cfg, name, device=dev)
                       for name in policies]
@@ -321,31 +373,74 @@ def run_tournament(policies=DEFAULT_POLICIES, n_seeds=4, C=64, jobs_per=120,
     # one lane a (fresh variant, seed) cell
     lanes = [(v, si) for v in fresh for si in range(n_seeds)]
     cell_of = {lane: i for i, lane in enumerate(lanes)}
-    grid = None
-    launches = {}
-    t0 = sync()
-    if lanes:
+
+    def one_process_grid():
         params, sta, s0 = stack_grid(lanes, variant_params, padded, cfg,
                                      specs, dev)
         fused_tick.reset_launches()
+        t0 = sync()
         with annotate_dispatch("tournament", variants=len(fresh),
                                seeds=n_seeds):
-            grid = eng.run(s0, sta, n_ticks, params)
-        t0, t1 = t0, sync()
-        launches = {k: n for k, n in
-                    source_launches(fused_tick.launch_counts()).items() if n}
+            out = eng.run(s0, sta, n_ticks, params)
+        wall = sync() - t0
+        return out, {k: n for k, n in source_launches(
+            fused_tick.launch_counts()).items() if n}, wall
+
+    def check_launches(launches, what):
         over = {k: n for k, n in launches.items() if n > n_ticks}
         if over:
             raise AssertionError(
                 f"tournament launched {over} over {n_ticks} ticks of "
-                f"{len(lanes)} lanes — each kernel source must launch at "
-                "most once a tick over all its lanes")
-    else:
-        t1 = t0
-    tournament_wall = t1 - t0
+                f"{what} — each kernel source must launch at most once a "
+                "tick over all its lanes")
+
+    grid = sharded_cells = None
+    launches = {}
+    tournament_wall = 0.0
+    if lanes and sharded:
+        from multi_cluster_simulator_tpu_torch import interop
+        from multi_cluster_simulator_tpu_torch.parallel.launch import (
+            RankGroup,
+        )
+        with RankGroup(n_dev, device=None if dev.type == "cuda"
+                       else str(dev)) as ranks:
+            parts = ranks.run(n_dev, _grid_rank, policies, n_seeds, C,
+                              jobs_per, horizon_ms, drain_ticks, fresh)
+        sharded_cells = {}
+        for r, part in enumerate(parts):
+            check_launches(part["launches"], f"rank {r}'s lanes")
+            sharded_cells.update(part["cells"])
+        launches = [part["launches"] for part in parts]
+        tournament_wall = max(part["wall_s"] for part in parts)
+        host_cells = {lane: interop.state_from_numpy(leaves, dev)
+                      for lane, leaves in sharded_cells.items()}
+    elif lanes:
+        grid, launches, tournament_wall = one_process_grid()
+        check_launches(launches, f"{len(lanes)} lanes")
 
     def cell(v, si):
+        if sharded_cells is not None:
+            return host_cells[(v, si)]
         return tenancy.tenant_cell(grid, cell_of[(v, si)])
+
+    shard_ab = None
+    if device_ab and sharded and lanes:
+        # the same grid in this one process: the two grids bitwise equal
+        # (sharding is invisible) and both walls, ranks sharing the card
+        one, _, one_wall = one_process_grid()
+        bad = sorted({(policies[v], seeds[si]) for (v, si) in lanes
+                      if _diff_leaves(cell(v, si), tenancy.tenant_cell(
+                          one, cell_of[(v, si)]))})
+        if bad:
+            raise AssertionError(
+                "sharded replication grid diverges from the one-process "
+                f"grid in cells {bad} — sharding must be invisible")
+        shard_ab = {"devices": n_dev,
+                    "sharded_wall_s": round(tournament_wall, 3),
+                    "single_device_wall_s": round(one_wall, 3),
+                    "device_speedup": round(
+                        one_wall / max(tournament_wall, 1e-9), 2),
+                    "grids_bit_identical": True}
 
     # the serial per-policy loop: the pre-zoo workflow (one Engine a
     # variant, one run a seed), both the recorded baseline wall and the
@@ -421,9 +516,10 @@ def run_tournament(policies=DEFAULT_POLICIES, n_seeds=4, C=64, jobs_per=120,
         "jobs_per_cluster": jobs_per, "cells": len(policies) * n_seeds,
         "ticks": n_ticks,
         "device": str(dev), "devices": n_dev,
-        "replication_axis_sharded": False,
+        "replication_axis_sharded": bool(sharded),
         "lanes": len(lanes),
         "kernel_launches": launches,
+        **({"replication_shard_ab": shard_ab} if shard_ab else {}),
         "pack_once_s": round(pack_s, 3),
         "tournament_wall_s": round(tournament_wall, 3),
         "cells_bit_identical_to_standalone": bool(verify_cells),
@@ -453,8 +549,11 @@ def main(argv=None):
                          "(also skips the serial baseline wall)")
     ap.add_argument("--shard", choices=("auto", "always", "never"),
                     default="auto",
-                    help="shard the replication (seed) axis over devices "
-                         "(ROADMAP A16: one card runs the grid)")
+                    help="shard the replication (seed) axis over rank "
+                         "processes (--shard-devices of them)")
+    ap.add_argument("--shard-devices", type=int, default=None,
+                    help="ranks of the sharded replication axis (they "
+                         "share the card)")
     ap.add_argument("--device-ab", action="store_true",
                     help="the sharded/single-device A/B (needs a sharded "
                          "replication axis)")
@@ -471,6 +570,7 @@ def main(argv=None):
               horizon_ms=args.horizon_ms,
               verify_cells=not args.no_verify,
               shard_seeds=args.shard, device_ab=args.device_ab,
+              shard_devices=args.shard_devices,
               resume_path=args.resume, device=args.device)
     if args.quick:
         kw.update(policies=policies[:4], n_seeds=2, C=16, jobs_per=60,

@@ -22,6 +22,15 @@ def extract_trace(state: SimState) -> list[list[tuple[int, int, int, int]]]:
              for i in range(int(n[c]))] for c in range(t.shape[0])]
 
 
+def oracle_trace_per_cluster(oracle, n_clusters: int) -> list[list[tuple[int, int, int, int]]]:
+    """Reshape the oracle's global (t, cluster, job, node, src) list to the
+    engine's per-cluster layout."""
+    out = [[] for _ in range(n_clusters)]
+    for (t, c, j, node, src) in oracle.trace:
+        out[c].append((t, j, node, src))
+    return out
+
+
 def check_conservation(state: SimState) -> None:
     """Invariant: free + sum(running on node) == capacity for active nodes,
     and free >= 0. Honors the configured resource width (n_res)."""

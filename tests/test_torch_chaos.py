@@ -10,8 +10,8 @@ compressed, trace churn) at a cut horizon, killed with SIGKILL and then
 with SIGTERM (exit 75) at chunk boundaries, its final checkpoint bitwise
 the uninterrupted child's. The copies of ``chaos_cfg``, ``chaos_specs``
 and bench.py's ``churn_bursts_setup`` are pinned to their sources, and
-the reference's 2- and 8-device cells raise naming A16. Every child gets
-a timeout; the children run one thread each.
+the reference's 2-device cell runs every child over 2 rank processes.
+Every child gets a timeout; the children run one thread each.
 """
 
 import dataclasses
@@ -89,12 +89,19 @@ def test_batch_kill_and_sigterm_cycle(tmp_path):
     assert rep["ticks_executed_compressed"] < rep["ticks_total"] == 400
 
 
-def test_mesh_cells_name_a16(tmp_path):
-    rng = np.random.default_rng(0)
-    for n_dev in (2, 8):
-        with pytest.raises(NotImplementedError, match="A16"):
-            chaos._batch_scenario(n_dev, 1, str(tmp_path), rng,
-                                  device="cpu")
+def test_batch_kill_cycle_on_a_two_rank_mesh(tmp_path):
+    """The reference's 2-device cell: every child runs the batch over 2
+    rank processes (``--ranks 2``), one is killed with SIGKILL at a chunk
+    boundary and a fresh one resumes from the checkpoint the shards
+    gathered into; the final checkpoint is bitwise the uninterrupted
+    2-rank child's, and that is bitwise the one-process run of the same
+    ticks (SIGTERM's save-and-exit is the one-device case's)."""
+    rep = chaos._batch_scenario(2, 1, str(tmp_path), np.random.default_rng(7),
+                                sigterm_cycles=0, device="cpu", ticks=300,
+                                ref_device="cpu")
+    assert rep["n_devices"] == 2 and rep["kills"] == 1
+    assert rep["one_process_device"] == "cpu"
+    assert rep["final_state_bit_identical"] and rep["cursors_telescope"]
 
 
 def test_children_default_to_the_card(tmp_path):

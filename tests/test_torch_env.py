@@ -9,7 +9,7 @@ equals ``Engine.run`` and JAX's env, on both layouts; ``observe``;
 ``tick_arrivals_device``, the threefry helpers and ``reset_batch``'s keys
 over several keys and shapes; auto-reset, with and without generative
 faults; per-env streams; the reward variants; the rl action steering
-placement; the constructor's refusals; the A16 refusal. The draws are
+placement; the constructor's refusals; the batch over a 2-rank mesh. The draws are
 jax's under ``jax_threefry_partitionable``, which the module pins."""
 
 import jax
@@ -443,6 +443,27 @@ def test_constructor_rejects_invalid_modes():
                              beta=2.5)
 
 
-def test_shard_env_batch_raises_for_a16():
-    with pytest.raises(NotImplementedError, match="A16"):
-        shard_env_batch(None, None)
+def test_shard_env_batch_at_2_ranks_equals_one_rank():
+    """The env batch over a mesh of 2 rank processes (``shard_env_batch``:
+    each rank steps its half of the envs): the gathered batch equals the
+    one-process batch bitwise, and a batch of 5 names the nearest valid
+    sizes as tests/test_env.py:150 does."""
+    from multi_cluster_simulator_tpu_torch.parallel.launch import RankGroup
+    from multi_cluster_simulator_tpu_torch.parallel.mesh import Mesh
+    from tests import _torch_mesh_tasks as tasks
+
+    tcfg = port_cfg(_cfg())
+    _, ta = replay(_cfg())
+    env = ClusterEnv(tcfg, tspecs(), episode_ticks=T + 5,
+                     arrivals=port_ta(ta), device="cpu")
+    _, es = env.reset_batch(prng.prng_key(1), 4)
+    step = env.batch_step_fn()
+    for _ in range(T):
+        _, _, _, _, es = step(es, None)
+    with RankGroup(2, device="cpu", timeout=300) as ranks:
+        got = ranks.run(2, tasks.env_sharded, tcfg, tspecs(), port_ta(ta), 4,
+                        1, T)[0]
+    assert_bitwise(port(es.sim), got)
+    _, es5 = env.reset_batch(prng.prng_key(2), 5)
+    with pytest.raises(ValueError, match=r"nearest valid batch sizes: 4 or 6"):
+        shard_env_batch(es5, Mesh(0, 2, "envs", torch.device("cpu")))

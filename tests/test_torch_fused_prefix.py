@@ -210,3 +210,7 @@ def test_importing_the_whole_port_loads_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert len(mods) > 15
+    assert {f"multi_cluster_simulator_tpu_torch.{m}" for m in (
+        "oracle.go_semantics", "parallel.mesh", "parallel.exchange",
+        "parallel.sharded_engine", "parallel.multihost", "parallel.launch",
+        "tools.weak_scaling", "tools.multihost_scaling")} <= set(mods)

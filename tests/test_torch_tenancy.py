@@ -9,7 +9,8 @@ every leaf bitwise (floats by their bits). Cases: T = 1 against
 compact layout; the compressed driver (lane by lane); generative faults
 with per-tenant seeds; a batch of six kinds under a batched ``idx``; two
 tenants with borrowing; the metrics plane per tenant; the stacking and
-padding errors; the params digest; the aggregates; the A16 refusal; and
+padding errors; the params digest; the aggregates; the batch over a
+2-rank mesh; and
 the port's tenancy and envs importing with jax and flax blocked. JAX's
 compiled batches are made once per module (fixtures)."""
 
@@ -335,9 +336,31 @@ def test_aggregates_sum_over_tenants(mixed_world):
     assert all(v == 0 for v in tenancy.aggregate_drops(out).values())
 
 
-def test_shard_tenant_batch_raises_for_a16():
-    with pytest.raises(NotImplementedError, match="A16"):
-        tenancy.shard_tenant_batch(None, None)
+def test_shard_tenant_batch_at_2_ranks_equals_one_rank(mixed_world):
+    """The T=4 FIFO/DELAY batch over a mesh of 2 rank processes
+    (``shard_tenant_batch``: each rank runs two tenants): the gathered
+    state and TickIO equal the one-process batch and JAX's bitwise; a
+    batch of 3 names the nearest valid counts."""
+    from multi_cluster_simulator_tpu_torch.parallel.launch import RankGroup
+    from multi_cluster_simulator_tpu_torch.parallel.mesh import Mesh
+    from tests import _torch_mesh_tasks as tasks
+
+    w = mixed_world
+    out, io = w.port_batch()
+    rows, counts = (np.asarray(x) for x in (w.sta.rows, w.sta.counts))
+    with RankGroup(2, device="cpu", timeout=300) as ranks:
+        g_out, g_io = ranks.run(2, tasks.tenants_sharded, w.tcfg,
+                                w.ttb.specs, ("fifo", "delay"),
+                                port(w.ttp), rows, counts)[0]
+    assert_bitwise(port(out), g_out, "state")
+    assert_bitwise(port(io), g_io, "io")
+    assert_bitwise(jax_leaves(w.jout), g_out, "state vs jax")
+    three = tenancy.stack_tenant_states([tenancy.tenant_cell(out, i)
+                                         for i in range(3)])
+    with pytest.raises(ValueError, match=r"nearest valid tenant counts: "
+                                         r"2 or 4"):
+        tenancy.shard_tenant_batch(three, Mesh(0, 2, "tenants",
+                                               torch.device("cpu")))
 
 
 def test_tenancy_and_envs_import_without_jax(tmp_path):

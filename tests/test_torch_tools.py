@@ -32,7 +32,8 @@ def imported(path: str) -> set:
 
 def test_every_ported_driver_is_here():
     for name in ("tournament", "train_env_demo", "chaos", "market_ab",
-                 "metrics_smoke", "profile_capture"):
+                 "metrics_smoke", "profile_capture", "weak_scaling",
+                 "multihost_scaling"):
         assert name in MODULES, name
 
 

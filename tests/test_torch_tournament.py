@@ -10,8 +10,8 @@ bitwise against) equals the reference engine's leaf by leaf; the 48
 sweep variants' parameter digests and the grid digest are the
 reference's, so a ``--resume`` cache either package writes resumes in the
 other; tests/test_preempt.py:477's resume case; tests/test_policies.py:
-189-208's refusals (a sharded request raises ``NotImplementedError``
-naming A16 on one device); and tests/test_market_cvx.py:437's cvx pricing
+189-208's sharded seed axis over 2 rank processes (with the device A/B)
+and its refusals; and tests/test_market_cvx.py:437's cvx pricing
 grid as lanes, each cell its standalone run and the reference's.
 """
 
@@ -161,8 +161,8 @@ def test_resume_caches_cross_packages(tmp_path):
 
 
 def test_refusals():
-    """tests/test_policies.py:189-208 on one device, and a sharded request
-    on several: the reference's assertions, then A16."""
+    """tests/test_policies.py:208's refusals: a shard or device A/B
+    request that cannot engage raises."""
     with pytest.raises(AssertionError, match="cannot engage"):
         T.run_tournament(policies=("fifo",), n_seeds=2, C=4, jobs_per=8,
                          horizon_ms=5_000, drain_ticks=5, verify_cells=False,
@@ -178,12 +178,23 @@ def test_refusals():
                              horizon_ms=2_000, drain_ticks=2)
 
 
-def test_sharded_request_names_a16(monkeypatch):
-    monkeypatch.setattr(T, "_devices", lambda dev, cap: 2)
-    with pytest.raises(NotImplementedError, match="A16"):
-        T.run_tournament(policies=("fifo",), n_seeds=2, C=4, jobs_per=8,
-                         horizon_ms=5_000, drain_ticks=5, verify_cells=False,
-                         shard_seeds="always", device="cpu")
+def test_sharded_seed_axis_with_device_ab_equals_one_process():
+    """tests/test_policies.py:189: the seed axis over 2 rank processes
+    (``shard_seeds="always"``, ``shard_devices=2``): every cell still its
+    standalone run, the device A/B's one-process grid bitwise the sharded
+    one, and the rows and ranking those of the one-process tournament."""
+    kw = dict(policies=("fifo", "delay"), n_seeds=2, C=8, jobs_per=24,
+              horizon_ms=60_000, drain_ticks=30, device="cpu")
+    detail = T.run_tournament(shard_seeds="always", shard_devices=2,
+                              device_ab=True, **kw)
+    assert detail["replication_axis_sharded"] and detail["devices"] == 2
+    assert detail["cells_bit_identical_to_standalone"]
+    ab = detail["replication_shard_ab"]
+    assert ab["grids_bit_identical"] and ab["devices"] == 2
+    one = T.run_tournament(shard_seeds="never", **kw)
+    assert not one["replication_axis_sharded"]
+    assert detail["rows"] == one["rows"]
+    assert detail["ranking"] == one["ranking"]
 
 
 def test_cvx_pricing_grid_as_lanes():

@@ -320,6 +320,17 @@ holds each path's hand-written kernel against its plain PyTorch version:
       uninterrupted 2-rank run held against the one-process run too; it
       runs beside 10c and 10d, its three chaos cells waiting mostly on
       their children's start-ups).
+  12. the sinkhorn round's kernel (``kernels/csrc/sinkhorn_round.cu``,
+      ``market/sinkhorn.py``): every sinkhorn market run counts its rounds
+      through it (4d, 4h, 5f, 10e); a. config 4's run again, three of its
+      rounds kept and each held bitwise against the plain version (K,
+      ``u`` and ``vc`` after every iteration, the plan) and timed beside
+      the plain version and a ``torch.matmul`` round; b. one round of
+      config 4's world at 1,024 clusters (10e's width); c. 11b's sinkhorn
+      cell's 128 x 256 shard (the second half of a round's sellers)
+      through the mesh's launches; d. config 4's world at 64 and 256
+      clusters on the card, each final state's digest equal to the
+      reference engine's, pinned in ``tools/market_ab.py``.
 
 Every number is printed beside the card's name and power limit. The last
 lines are a JSON record of each kernel (its time per launch, the plain
@@ -1128,17 +1139,21 @@ def whole_run_against_plain(E, engine, s0, chunks, what, params=None,
 def counted_run(engine, s0, chunks, kernel, io=None):
     """The main path's counted run: every launch count set to 0 just
     before ``engine.run_chunks``, read just after. ``kernel`` must have
-    launched once per tick and no other kernel at all. With ``io`` (a
+    launched once per tick and no other prefix kernel at all; a sinkhorn
+    market's rounds each ran the round kernel (``counts
+    ["sinkhorn_round"]``), no other run did. With ``io`` (a
     dict of counters) the run goes through ``engine.run_io`` chunk by
     chunk instead, and adds every tick's wants and returns to ``io``.
     Returns the final state, the wall and the counts."""
     from multi_cluster_simulator_tpu_torch.core.state import clone_state
     from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.market import sinkhorn
 
     state = clone_state(s0)
     n_ticks = sum(ch.rows.shape[0] for ch in chunks)
     torch.cuda.synchronize()
     fused_tick.reset_launches()
+    sinkhorn.reset_launches()
     w0 = time.perf_counter()
     if io is None:
         out = engine.run_chunks(state, chunks)
@@ -1152,6 +1167,16 @@ def counted_run(engine, s0, chunks, kernel, io=None):
     wall = time.perf_counter() - w0
     counts = fused_tick.launch_counts()
     check_launches(counts, kernel, n_ticks, kernel)
+    # the sinkhorn round's kernel: one round a round tick of a sinkhorn
+    # market's run, none elsewhere
+    trader = engine.cfg.trader
+    sink = trader.enabled and trader.matching.value == "sinkhorn"
+    rounds = sinkhorn.LAUNCHES["sinkhorn_round"]
+    if sink != (rounds > 0) or (sink and sinkhorn.LAUNCHES[
+            "sinkhorn_product"] != 2 * trader.sinkhorn_iters * rounds):
+        raise AssertionError(f"{kernel}: sinkhorn launches "
+                             f"{dict(sinkhorn.LAUNCHES)}")
+    counts["sinkhorn_round"] = rounds
     return out, wall, counts
 
 
@@ -1940,6 +1965,7 @@ def phase_market(P, E, card, dev, market, name, sampled):
               f"{prof['per_round'] * 1e3:.2f} us each; kernels by name: "
               f"{prof['top']} [{card}]")
     return dict(launches=counts[kernel], placed=placed, wall_min_s=wmin,
+                sinkhorn_rounds=counts["sinkhorn_round"],
                 wall_median_s=wmed, n_ticks=n_ticks, h2d_s=h2d_s,
                 share=share, frac=frac, drops=drops, vnodes=vnodes,
                 fired=fired, profile=prof,
@@ -8608,6 +8634,225 @@ def phase_drivers(P, E, card, dev):
     return dict(records=tour["records"] + [train["record"]])
 
 
+# phase 12: the sinkhorn round's kernel (kernels/csrc/sinkhorn_round.cu)
+SINK_PICKS = (5, 20, 35)  # config 4's sampled rounds (of 70)
+SINK_AB = (1024, 100, 9)  # 10e's width: its first 100 ticks, round 9
+SINK_SHARD = (30, 2)  # 11b's sinkhorn cell: its first 30 ticks, round 2
+SINK_DIGEST_C = (64, 256)  # config 4's world against the pinned digests
+SINK_REPS = 5  # timed rounds a record, each way
+
+
+class RoundRecorder:
+    """``market.sinkhorn.sinkhorn_round`` for a run: each call goes to the
+    real one; the inputs of the rounds ``picks`` names (by their order in
+    the run) are kept."""
+
+    def __init__(self, picks):
+        self.picks, self.n, self.kept = set(picks), 0, []
+
+    def __enter__(self):
+        from multi_cluster_simulator_tpu_torch.market import sinkhorn
+
+        self.real = sinkhorn.sinkhorn_round
+        sinkhorn.sinkhorn_round = self
+        return self
+
+    def __exit__(self, *exc):
+        from multi_cluster_simulator_tpu_torch.market import sinkhorn
+
+        sinkhorn.sinkhorn_round = self.real
+
+    def __call__(self, feas, jitter, v, eps, iters, n_iters, ex):
+        if self.n in self.picks:
+            self.kept.append(dict(
+                round=self.n, n_iters=n_iters,
+                args=(feas.clone(), jitter, v.clone(), eps.clone(),
+                      iters.clone())))
+        self.n += 1
+        return self.real(feas, jitter, v, eps, iters, n_iters, ex)
+
+
+class ShardSum:
+    """The mesh's launch sequence for a record on one process: the column
+    product writes the shard's partial sums, this all-sum stand-in adds
+    the partial to itself (in both versions), the finish launch takes
+    it."""
+
+    size = 2
+
+    def allsum(self, x):
+        return x + x
+
+
+def library_round(feas, jitter, v, eps, iters, n_iters):
+    """The round's products as one PyTorch call each (``torch.matmul``;
+    ``torch.exp`` for K): the same function in another order, the
+    record's library yardstick."""
+    score = v[None, :] + jitter * (0.5 * eps)
+    K = torch.where(feas, torch.exp(score / eps), 0.0)
+    u = torch.ones(K.shape[0], device=K.device)
+    vc = torch.ones(K.shape[1], device=K.device)
+    for i in range(n_iters):
+        act = iters > i
+        u2 = 1.0 / (K @ vc).clamp(min=1e-30)
+        vc2 = 1.0 / (K.T @ u2).clamp(min=1e-30)
+        u, vc = torch.where(act, u2, u), torch.where(act, vc2, vc)
+    return u[:, None] * K * vc[None, :]
+
+
+def events_ms(fn, reps, warm=True):
+    """Mean card ms of ``fn()`` over ``reps`` calls, by CUDA events (after
+    one untimed call with ``warm``)."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def round_record(kept, ex, what, card):
+    """One kept round: the kernel against its plain version on the card
+    (K, ``u`` and ``vc`` after every iteration, the plan: bitwise), the
+    kernel's, the plain version's and the library call's times, and the
+    round's least time: its inputs read once and its outputs written once
+    at 3.35 TB/s, or its operations at 67 T/s (a fused multiply-add two,
+    over K's nonzeros, both products, the active iterations; XLA's exp
+    about 20 a feasible pair), whichever is larger."""
+    from multi_cluster_simulator_tpu_torch.market import sinkhorn
+
+    args, n_iters = kept["args"], kept["n_iters"]
+    want = sinkhorn.sinkhorn_plain(*args, n_iters, ex, trace=True)
+    got = sinkhorn.sinkhorn_kernel(*args, n_iters, ex, trace=True)
+    torch.cuda.synchronize()
+    worst = max(max_abs_diff(a, b) for a, b in zip(want[:4], got[:4]))
+    for i, ((ua, va), (ub, vb)) in enumerate(zip(want[4], got[4])):
+        worst = max(worst, max_abs_diff(ua, ub), max_abs_diff(va, vb))
+        if not (torch.equal(ua.view(torch.int32), ub.view(torch.int32))
+                and torch.equal(va.view(torch.int32), vb.view(torch.int32))):
+            raise AssertionError(f"12 {what}: u or vc differs after "
+                                 f"iteration {i}")
+    for name, a, b in zip(("K", "u", "vc", "plan"), want[:4], got[:4]):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"12 {what}: {name} differs from plain")
+    feas = args[0]
+    C_loc, C_tot = feas.shape
+    active = min(int(args[4]), n_iters)
+    nnz = int(torch.count_nonzero(want[0]))
+    read = feas.numel() * (1 + 4) + C_tot * 4 + 8
+    written = feas.numel() * 4 + (C_loc + C_tot) * 4
+    ops = nnz * 2 * 2 * active + 20 * int(feas.sum()) + 2 * feas.numel()
+    k_ms = events_ms(lambda: sinkhorn.sinkhorn_kernel(*args, n_iters, ex),
+                     SINK_REPS)
+    p_ms = events_ms(lambda: sinkhorn.sinkhorn_plain(*args, n_iters, ex), 1,
+                     warm=False)
+    l_ms = events_ms(lambda: library_round(*args, n_iters), SINK_REPS)
+    k_bytes = 2 * active * nnz * 4
+    print(f"phase 12: {what}: round {kept['round']}, K {C_loc} x {C_tot} "
+          f"({nnz} nonzero, {int(feas.sum())} feasible pairs), {active} "
+          f"active iterations: kernel == plain bitwise (K, u and vc after "
+          f"each of {len(got[4])} iterations, plan; max_abs_err {worst}); "
+          f"kernel {k_ms:.3f} ms a round, plain {p_ms:.3f} ms, torch.matmul "
+          f"pair {l_ms:.3f} ms; bound {1e3 * (read + written) / HBM_BYTES_PER_S:.4f}"
+          f" ms by bytes ({read + written} B), "
+          f"{1e3 * ops / SCALAR_OPS_PER_S:.4f} ms by operations ({ops}); "
+          f"K's nonzeros read twice an iteration: "
+          f"{1e3 * k_bytes / HBM_BYTES_PER_S:.4f} ms, dense: "
+          f"{1e3 * 2 * active * feas.numel() * 4 / HBM_BYTES_PER_S:.4f} ms "
+          f"[{card}]")
+    return dict(worst=worst, ms=k_ms, plain=[p_ms], library_ms=l_ms,
+                bound=bound(read, written, ops))
+
+
+def phase_sinkhorn(P, E, card, dev, market, run_a):
+    """Phase 12: the sinkhorn round's kernel. (a) config 4's run counted
+    and three of its rounds kept, each held bitwise against the plain
+    version and timed; (b) one round of config 4's world at 1,024 (10e's
+    width); (c) the 256-cluster sinkhorn cell of 11b: a round's second
+    half of the sellers, the 128 x 256 shard, through the mesh's launches;
+    (d) config 4's world at 64 and 256 clusters on the card, each final
+    state's digest against the reference engine's pinned one
+    (``tools/market_ab.py CONFIG4_DIGESTS``)."""
+    from multi_cluster_simulator_tpu_torch import interop
+    from multi_cluster_simulator_tpu_torch.core.state import init_state
+    from multi_cluster_simulator_tpu_torch.kernels import fused_tick
+    from multi_cluster_simulator_tpu_torch.market import sinkhorn
+    from multi_cluster_simulator_tpu_torch.parallel.exchange import (
+        LocalExchange,
+    )
+    from multi_cluster_simulator_tpu_torch.tools import market_ab as MA
+
+    cfg = market_cfg(P, **MARKET_RUNS["a"][1])
+    engine = E.Engine(cfg, device=dev)
+    kernel = fused_tick.host_params(engine, engine._default_params)[
+        "kernel"].name
+    s0 = init_state(cfg, market["specs"], device=dev)
+    with RoundRecorder(SINK_PICKS) as rec:
+        out, wall, counts = counted_run(engine, s0, market["chunks"], kernel)
+    if int(out.placed_total.sum()) != run_a["placed"] or \
+            counts["sinkhorn_round"] != run_a["sinkhorn_rounds"]:
+        raise AssertionError(f"12a: placed {int(out.placed_total.sum())}, "
+                             f"rounds {counts['sinkhorn_round']} against 4d")
+    print(f"phase 12a: config 4's run again with {len(rec.kept)} rounds "
+          f"kept: {counts['sinkhorn_round']} rounds through the kernel, "
+          f"placed {run_a['placed']} (4d's) [{card}]")
+    recs = [round_record(k, LocalExchange(), "config 4's run", card)
+            for k in rec.kept]
+
+    C, n, pick = SINK_AB
+    cfg_b, specs_b, arr_b, _ = MA.sinkhorn_market_setup(
+        C, MA.JOBS_PER, MA.HORIZON_MS, matching="sinkhorn")
+    with RoundRecorder((pick,)) as rec:
+        E.Engine(cfg_b, device=dev).run(init_state(cfg_b, specs_b,
+                                                   device=dev), arr_b, n)
+    recs.append(round_record(rec.kept[0], LocalExchange(),
+                             f"10e's world at {C}", card))
+
+    w = mesh_world(P, E, "sinkhorn256")
+    n, pick = SINK_SHARD
+    with RoundRecorder((pick,)) as rec:
+        E.Engine(w["cfg"], device=dev).run_chunks(
+            init_state(w["cfg"], w["specs"], device=dev),
+            first_ticks(w["chunks"], n))
+    kept = rec.kept[0]
+    half = kept["args"][0].shape[0] // 2
+    feas, jitter, v, eps, iters = kept["args"]
+    kept["args"] = (feas[half:].contiguous(), jitter[half:].contiguous(), v,
+                    eps, iters)
+    recs.append(round_record(kept, ShardSum(), f"11b's {half} x "
+                             f"{feas.shape[1]} shard", card))
+
+    for C in SINK_DIGEST_C:
+        sinkhorn.reset_launches()
+        r = MA.run_one("sinkhorn", C, device=dev, runs=1, warmups=0)
+        digest = interop.leaves_digest(interop.to_numpy(r["final"]))
+        if digest != MA.CONFIG4_DIGESTS[C] or not sinkhorn.LAUNCHES[
+                "sinkhorn_round"]:
+            raise AssertionError(f"12d: config 4's world at {C}: digest "
+                                 f"{digest}, pinned "
+                                 f"{MA.CONFIG4_DIGESTS[C]}, launches "
+                                 f"{dict(sinkhorn.LAUNCHES)}")
+        print(f"phase 12d: config 4's world at {C} clusters on the card: "
+              f"placed {r['placed']} of {r['of']}, final state digest "
+              f"{digest} == the reference engine's (pinned), "
+              f"{sinkhorn.LAUNCHES['sinkhorn_round']} rounds through the "
+              f"kernel, wall {r['wall_s']} s [{card}]")
+    worst = max(r["worst"] for r in recs)
+    main = recs[0]
+    return dict(name="sinkhorn_round", source=sinkhorn.SOURCE,
+                replaces=sinkhorn.REPLACES,
+                launches=run_a["sinkhorn_rounds"], worst=worst,
+                ms=float(np.mean([r["ms"] for r in recs[:len(SINK_PICKS)]])),
+                plain=[p for r in recs[:len(SINK_PICKS)] for p in r["plain"]],
+                library_ms=float(np.mean(
+                    [r["library_ms"] for r in recs[:len(SINK_PICKS)]])),
+                bound=main["bound"])
+
+
 def bound(read, written, ops=0.0):
     """The least time (ms) for a launch's bytes and operations, and which
     of the two bounds it."""
@@ -8902,6 +9147,10 @@ def run_phases(device: str, sample, plain_proc) -> int:
     phase_mesh_all(P, E, card, dev, head, plane, sparse, plain_proc)
     print(f"phases 11a-11c: {time.perf_counter() - w11:.1f} s")
 
+    w12 = time.perf_counter()
+    sink = phase_sinkhorn(P, E, card, dev, market, runs["a"])
+    print(f"time: 12 {time.perf_counter() - w12:.1f} s")
+
     records = []
     kms = float(np.mean(check["kernel_ms"]))
     per_launch = check["read_per_launch"] + check["written_per_launch"]
@@ -9114,13 +9363,24 @@ def run_phases(device: str, sample, plain_proc) -> int:
           f"({ENV_B} x {ENV_C}) vs {env['one_ms'] * 1e3:.2f} us (1 x "
           f"{ENV_B * ENV_C}) [{card}]")
 
+    # the sinkhorn round's kernel (phase 12)
+    b_ms, b_by = sink["bound"]
+    print(f"kernel sinkhorn_round: {sink['ms']:.3f} ms a round (CUDA "
+          f"events, mean of {len(SINK_PICKS)} of config 4's rounds), plain "
+          f"{np.mean(sink['plain']):.3f} ms, torch.matmul pair "
+          f"{sink['library_ms']:.3f} ms, bound {b_ms:.4f} ms by {b_by}, "
+          f"launches {sink['launches']} rounds in config 4's run; kernel / "
+          f"bound {sink['ms'] / b_ms:.1f} [{card}]")
+    records.append(sink)
+
     print(json.dumps({"kernels": [{
-        "name": r.get("name", r["kernel"].name), "route": "cuda",
-        "source": r["kernel"].source, "replaces": fused_tick.REPLACES,
+        "name": r.get("name") or r["kernel"].name, "route": "cuda",
+        "source": r["source"] if "source" in r else r["kernel"].source,
+        "replaces": r.get("replaces", fused_tick.REPLACES),
         "launches": r["launches"], "max_abs_err": r["worst"],
         "ms": r["ms"], "plain_ms": float(np.mean(r["plain"])),
         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-        "library_ms": None} for r in records]}))
+        "library_ms": r.get("library_ms")} for r in records]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

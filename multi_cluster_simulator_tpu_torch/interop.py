@@ -81,6 +81,21 @@ def to_numpy(tree) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in leaves_with_keys(tree)}
 
 
+def leaves_digest(leaves: dict) -> str:
+    """sha256 over numpy leaves keyed by path (``to_numpy``, or a JAX
+    state's ``jax.tree_util.keystr`` paths): each leaf's key, dtype,
+    shape and bytes, in key order. Two states share a digest only if
+    every leaf is bitwise equal."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(leaves):
+        a = np.ascontiguousarray(leaves[k])
+        h.update(f"{k}|{a.dtype.str}|{a.shape}|".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
 def state_from_numpy(leaves: dict, device=None) -> SimState:
     """A port ``SimState`` from numpy leaves keyed by path, on ``device``
     (the card by default). Values and dtypes are taken as given; every

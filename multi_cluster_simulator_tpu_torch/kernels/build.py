@@ -27,13 +27,15 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {"fused_prefix_fifo": "fused_prefix_fifo.cu",
            "fused_prefix_ffd": "fused_prefix_ffd.cu",
            "fused_prefix_delay": "fused_prefix_delay.cu",
-           "fused_prefix_scored": "fused_prefix_scored.cu"}
+           "fused_prefix_scored": "fused_prefix_scored.cu",
+           "sinkhorn_round": "sinkhorn_round.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Per-source flags. The scored kernel's tesserae score must round exactly
-# as the reference's does: its fused multiply-adds are written out, and
-# nvcc must contract no other multiply and add into one.
-EXTRA_FLAGS = {"fused_prefix_scored": ["--fmad=false"]}
+# Per-source flags. The scored kernel's tesserae score and the sinkhorn
+# round must round exactly as the reference's do: their fused multiply-adds
+# are written out, and nvcc must contract no other multiply and add into one.
+EXTRA_FLAGS = {"fused_prefix_scored": ["--fmad=false"],
+               "sinkhorn_round": ["--fmad=false"]}
 
 
 def nvcc_path() -> str:

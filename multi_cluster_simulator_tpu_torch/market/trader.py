@@ -27,10 +27,12 @@ data. Floats round as the reference's compiled CPU code rounds them: the
 products XLA fuses into multiply-adds are ``fma_f32`` here (the port's
 greedy rounds are bitwise the reference's). The sinkhorn and cvx rounds
 take their tie-break jitter from a table the host computes once per
-cluster count (``pair_jitter``), bitwise the reference's; their float
-leaves agree with the reference to a tolerance (the ``exp`` of the kernel
-matrix and the matrix-vector order, ROADMAP queue C), their decisions
-exactly where no near-tie is decided by the last bits.
+cluster count (``pair_jitter``), bitwise the reference's; the sinkhorn
+round's kernel matrix, iterations and plan are bitwise the reference
+engine's (``market/sinkhorn.py``: XLA's ``exp`` and its compiled orders of
+both products, a hand-written CUDA kernel on the card); cvx's floats agree
+with the reference to a tolerance (its decisions exactly where no near-tie
+is decided by the last bits).
 """
 
 from __future__ import annotations
@@ -46,12 +48,13 @@ import torch
 from multi_cluster_simulator_tpu_torch.config import MatchKind, SimConfig
 from multi_cluster_simulator_tpu_torch.core.spec import CORES, GPU, MEM
 from multi_cluster_simulator_tpu_torch.core.state import SimState
+from multi_cluster_simulator_tpu_torch.market import sinkhorn
 from multi_cluster_simulator_tpu_torch.ops import carve as carve_ops
 from multi_cluster_simulator_tpu_torch.ops import runset as R
 from multi_cluster_simulator_tpu_torch.ops import sizing
 from multi_cluster_simulator_tpu_torch.ops.queues import I32, icumsum, isum
 from multi_cluster_simulator_tpu_torch.ops.sizing import F32, Contract, f32
-from multi_cluster_simulator_tpu_torch.ops.floats import fma_f32, xla_exp_f32
+from multi_cluster_simulator_tpu_torch.ops.floats import fma_f32
 from multi_cluster_simulator_tpu_torch.utils.tree import tree_map
 
 FOREIGN = -2  # owner sentinel: Ownership == "Foreign" (cluster.go:116)
@@ -290,151 +293,20 @@ def _round_plan_to_matching(state: SimState, plan, feas, gidx,
     return ex.allmin(local[:C_tot]), csel, amounts, win_sell
 
 
-# the largest cluster count whose two products the sinkhorn round sums in
-# XLA's order (their chains grow as C / 8 steps an iteration)
-EXACT_ORDER_MAX = 256
-
-
-class _Chains:
-    """Row ``r``'s products ``M[r, j] * v[j]`` split over ``lanes``
-    accumulators (lane l takes the entries l, l + lanes, ...), each a chain
-    of fused multiply-adds from 0 in index order. A zero entry adds
-    nothing to a chain (``fma(0, v, acc) == acc`` for finite ``v``), so
-    each chain runs over its nonzero entries only, found once for the
-    matrix: the steps a product takes are the most nonzeros one lane of
-    one row holds."""
-
-    def __init__(self, M: torch.Tensor, lanes: int):
-        R, n = M.shape
-        T = -(-n // lanes)
-        X = torch.zeros((R, T * lanes), dtype=F32, device=M.device)
-        X[:, :n] = M
-        X = X.view(R, T, lanes).transpose(1, 2)  # [R, lanes, T]
-        nz = X != 0
-        self.steps = int(nz.sum(-1).max()) if R and n else 0
-        # each chain's nonzero positions first, in index order
-        order = torch.argsort((~nz).to(torch.int8), dim=-1, stable=True)
-        self.idx = order[..., :self.steps]
-        self.X = X.gather(-1, self.idx)  # [R, lanes, steps]
-        self.R, self.n, self.lanes, self.T = R, n, lanes, T
-
-    def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        """The [R, lanes] accumulators."""
-        V = torch.zeros((self.T * self.lanes,), dtype=F32, device=v.device)
-        V[:self.n] = v
-        V = V.view(self.T, self.lanes).T.expand(self.R, self.lanes, self.T)
-        Vg = V.gather(-1, self.idx)
-        acc = torch.zeros((self.R, self.lanes), dtype=F32, device=v.device)
-        for k in range(self.steps):
-            acc = fma_f32(self.X[..., k], Vg[..., k], acc)
-        return acc
-
-
-def _tree8(acc: torch.Tensor) -> torch.Tensor:
-    """8 lanes reduced as XLA's tiled gemv's AVX horizontal sums do:
-    ((0 + 1) + (2 + 3)) + ((4 + 5) + (6 + 7))."""
-    a = acc[:, 0::2] + acc[:, 1::2]
-    a = a[:, 0::2] + a[:, 1::2]
-    return a[:, 0] + a[:, 1]
-
-
-def _halves8(acc: torch.Tensor) -> torch.Tensor:
-    """8 lanes reduced by halving shuffles, as a vectorized loop reduction
-    (and XLA's generic horizontal sum) does: ((0 + 4) + (2 + 6)) + ((1 +
-    5) + (3 + 7))."""
-    a = acc[:, :4] + acc[:, 4:]
-    a = a[:, :2] + a[:, 2:]
-    return a[:, 0] + a[:, 1]
-
-
-class XlaGemv:
-    """``M @ v`` for a fixed f32 matrix ``M`` [R, n] and changing vectors,
-    summed in the order XLA's CPU code sums it, bitwise (``_Chains``: each
-    lane a chain of fused multiply-adds). With 1 lane the chain is the
-    sum. With 8 lanes it is XLA's row-major tiled gemv
-    (``row_major_gemv_F32_8_8_*``, tests/test_torch_market_ab.py holds it
-    against ``jax.jit`` at every shape it tests): the lanes take the
-    columns below the last multiple of 8, a row in a whole tile of 8 rows
-    reduces them by the AVX horizontal sums (``_tree8``), a row past the
-    last whole tile by halving shuffles (``_halves8``), and the remaining
-    columns are a chain of their own from 0 added last. With ``halves``
-    the 8 lanes take every column and reduce by halving, as the vectorized
-    loop XLA fuses ``K.T @ u`` into does (read from the reference engine's
-    compiled code at 64 clusters)."""
-
-    def __init__(self, M: torch.Tensor, lanes: int, halves: bool = False):
-        R, n = M.shape
-        self.lanes, self.halves = lanes, halves
-        tiled = lanes == 8 and not halves
-        self.main = 8 * (n // 8) if tiled else n
-        self.body = _Chains(M[:, :self.main], lanes)
-        self.tail = _Chains(M[:, self.main:], 1) if tiled else None
-        self.full = 8 * (R // 8)  # the rows in whole tiles of 8
-
-    def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        acc = self.body(v[:self.main])
-        if self.lanes == 1:
-            return acc[:, 0]
-        if self.halves:
-            return _halves8(acc)
-        out = torch.cat([_tree8(acc[:self.full]), _halves8(acc[self.full:])])
-        return out + self.tail(v[self.main:])[:, 0]
-
-
 def _match_sinkhorn(state: SimState, tr, t: int, mcfg, ex, gidx, g_buyer,
                     g_con: Contract, hp: MktHyper, jitter):
     """Batched entropic optimal-transport matching (BASELINE config 4):
     the full (seller x buyer) feasibility matrix enters a Sinkhorn
     relaxation of the assignment, rounded to a one-to-one matching. Carve
     semantics are ``sane`` and no seller lock is taken (a matched seller's
-    capacity is committed in the same tick). Up to ``EXACT_ORDER_MAX``
-    clusters the kernel's ``exp`` is XLA's (``ops/floats.py
-    xla_exp_f32``) and the two products per iteration sum in the order
-    XLA's CPU code does (``XlaGemv``, read from the reference engine's compiled code
-    at 16 and 64 clusters): ``K @ vc`` its 8-lane tiled gemv (held
-    against ``jax.jit`` at 3-256 columns and rows, counts past a multiple
-    of 8 included: tests/test_torch_market_ab.py), ``K.T @ u`` the dot XLA
-    fuses into a loop (one chain over the sellers below 64, 8 lanes
-    reduced by halves from 64; a seller count past a multiple of 8 from
-    64 on is not read: the loop exists only inside the engine's program,
-    and the engine-level tests hold it at 64). Beyond it
-    the exp is ``torch.exp`` and both products are ``torch.matmul`` (XLA:
-    the same orders up to 1,024, from 4,096 the tiled gemv over a
-    transposed copy; not copied, for its cost)."""
-    C_loc, C_tot = gidx.shape[0], g_buyer.shape[0]
-    dev = gidx.device
+    capacity is committed in the same tick). The kernel matrix, the
+    iterations and the plan are ``market/sinkhorn.py``'s, every float step
+    in the reference engine's compiled order at every width: the
+    hand-written kernel on a card, the plain version on the CPU."""
     feas = _pair_feasibility(state, tr, t, mcfg, gidx, g_buyer, g_con)
     v = _pair_value(g_con)
-    eps = hp.sink_eps
-    score = fma_f32(jitter, (0.5 * eps).expand_as(jitter),
-                    v[None, :].expand_as(jitter))
-    if C_tot > EXACT_ORDER_MAX:
-        # the chains grow as C / 8 steps of ~12 ops an iteration: beyond
-        # this size the port takes torch's exp and sums both products as
-        # torch does (ROADMAP C1)
-        K = torch.where(feas, torch.exp(score / eps), 0.0)  # [s_loc, C_tot]
-
-        def rows(x):
-            return K @ x
-
-        def cols(x):
-            return K.T @ x
-    else:
-        # XLA's exp, only where a pair is feasible, zero elsewhere
-        K = torch.zeros_like(score)
-        K[feas] = xla_exp_f32(score[feas] / eps)
-        rows = XlaGemv(K, 8)
-        cols = XlaGemv(K.T, 8, halves=True) if C_loc >= 64 else \
-            XlaGemv(K.T, 1)
-    tiny = 1e-30
-    u = torch.ones((C_loc,), dtype=F32, device=dev)
-    vc = torch.ones((C_tot,), dtype=F32, device=dev)
-    for i in range(mcfg.sinkhorn_iters):
-        act = hp.sink_iters > i  # the masked active depth (data)
-        u2 = 1.0 / rows(vc).clamp(min=tiny)
-        vc2 = 1.0 / ex.allsum(cols(u2)).clamp(min=tiny)
-        u, vc = torch.where(act, u2, u), torch.where(act, vc2, vc)
-    plan = u[:, None] * K * vc[None, :]
+    _, _, _, plan = sinkhorn.sinkhorn_round(
+        feas, jitter, v, hp.sink_eps, hp.sink_iters, mcfg.sinkhorn_iters, ex)
     winner, csel, amounts, win_sell = _round_plan_to_matching(
         state, plan, feas, gidx, g_con, ex)
     return winner, csel, amounts, win_sell, tr.seller_locked_until

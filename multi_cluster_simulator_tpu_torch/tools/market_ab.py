@@ -29,6 +29,15 @@ import torch
 
 HORIZON_MS = 600_000
 JOBS_PER = 400
+# sha256 (``interop.leaves_digest``) of the reference engine's final state
+# of config 4's world at C clusters (``sinkhorn_market_setup(C, 400,
+# 600_000)``, sinkhorn, 700 ticks over the windowed stream, jax 0.9.0 on
+# an x86 CPU): tests/test_torch_market_ab.py recomputes each from the JAX
+# package, and chip_smoke.py holds the card's runs to them.
+CONFIG4_DIGESTS = {
+    64: "eb565327345e80e4917f1712a32752009a7d0259891d7a861b0a7d07636fa752",
+    256: "98525005483d5ea493e0f67d5754a4f6f2db0356478c02d49f3c5bf6aee075d3",
+}
 
 
 def sinkhorn_market_cfg(jobs_per, matching="sinkhorn", quick=False):

@@ -149,8 +149,12 @@ def _fractional_round(matching, seed, C):
     js = js.replace(l1=jQ.JobQueue(data=jnp.asarray(l1),
                                    count=jnp.asarray(count)))
     ts = ts.replace(l1=tQ.JobQueue(data=t_(l1), count=t_(count)))
-    want = jax.jit(lambda s: jtrader._round(s, jnp.int32(t), cfg,
-                                            JLocalExchange()))(js)
+    # the hyperparameters traced, as Engine.run compiles the round (with
+    # them as constants XLA multiplies by 1 / eps and orders the products
+    # otherwise)
+    want = jax.jit(lambda s, p: jtrader._round(s, jnp.int32(t), cfg,
+                                               JLocalExchange(), p))(
+        js, jengine.Engine(cfg)._default_params)
     tcfg = port_cfg(cfg)
     eng = tengine.Engine(tcfg, device="cpu")
     got = ttrader.trade_round(ts, t, tcfg, LocalExchange(),
@@ -168,8 +172,9 @@ def test_fractional_round_equals_jax(matching, seed):
     """One round at t = 50 s on random states of 24 clusters, the sane
     carve: buyers by both policies, locked sellers, sellers with gpus and
     without; with seed 1 the cvx prices open from a random carried column
-    (``cvx_smooth`` 0.25)."""
-    _fractional_round(matching, seed, 24)
+    (``cvx_smooth`` 0.25). The sinkhorn round is bitwise, floats too."""
+    inexact, _ = _fractional_round(matching, seed, 24)
+    assert matching != MatchKind.SINKHORN or inexact == []
 
 
 @pytest.mark.parametrize("matching", MATCHERS)
@@ -178,14 +183,24 @@ def test_fractional_round_at_73_clusters_equals_jax(matching, seed):
     """The same round at 73 clusters: past the width (72) where the
     reference's compiled jitter table takes the vectorized argument, and
     not a multiple of its 8-wide body, so its tail columns count too."""
-    _fractional_round(matching, seed, 73)
+    inexact, _ = _fractional_round(matching, seed, 73)
+    assert matching != MatchKind.SINKHORN or inexact == []
+
+
+@pytest.mark.parametrize("C", [16, 64])
+def test_sinkhorn_round_at_width_equals_jax(C):
+    """The sinkhorn round at 16 and 64 clusters, beside 24 and 73 above
+    and 4,096 below: every leaf bitwise, floats included."""
+    inexact, _ = _fractional_round(MatchKind.SINKHORN, 0, C)
+    assert inexact == []
 
 
 def test_sinkhorn_round_at_4096_clusters_equals_jax():
     """One sinkhorn round at config 4's width (4,096 clusters) from a
-    random state: with the jitter table bitwise, every winner, every
-    attach and every float leaf equals the reference's (the ``exp`` of
-    the kernel matrix and the matrix-vector order leave no mark here)."""
+    random state: with the jitter table bitwise and both products in the
+    reference engine's order (the tiled gemv, ``K.T @ u`` over K's
+    transposed copy), every winner, every attach and every float leaf
+    equals the reference's."""
     inexact, attached = _fractional_round(MatchKind.SINKHORN, 0, 4096)
     assert attached > 100
     assert inexact == []

@@ -11,8 +11,10 @@ The sinkhorn round's repair (ROADMAP C1) lands here: on that world the
 round at t = 50 s chose another seller than the reference did, from two
 float steps of the round — ``torch.exp`` is not XLA's f32 ``exp``, and
 ``K.T @ u`` summed in torch's order, not XLA's. ``xla_exp_f32`` and
-``market.trader.XlaGemv`` write the reference's compiled steps out; both
-are held against ``jax.jit`` here.
+``market.sinkhorn``'s reduction plans write the reference engine's
+compiled steps out; both are held against ``jax.jit`` here and in
+tests/test_torch_sinkhorn.py, and ``first_divergence`` runs config 4's
+world through both engines: no tick may differ.
 """
 
 import dataclasses
@@ -31,7 +33,7 @@ from multi_cluster_simulator_tpu.utils.trace import total_drops as jdrops
 from multi_cluster_simulator_tpu_torch import interop
 from multi_cluster_simulator_tpu_torch.core.engine import Engine
 from multi_cluster_simulator_tpu_torch.core.state import init_state
-from multi_cluster_simulator_tpu_torch.market.trader import XlaGemv
+from multi_cluster_simulator_tpu_torch.market import sinkhorn as S
 from multi_cluster_simulator_tpu_torch.ops.floats import xla_exp_f32
 from multi_cluster_simulator_tpu_torch.tools import market_ab
 from tests.test_torch_delay import port_arrivals
@@ -105,6 +107,26 @@ def test_sinkhorn_round_at_50s_picks_the_reference_seller():
         np.testing.assert_array_equal(want[k], got[k], err_msg=k)
 
 
+def test_sinkhorn_round_at_64_clusters_from_config4_tick_49():
+    """Config 4's world at 64 clusters: the reference engine's state at
+    tick 49 (one tick before the round where the port first left it),
+    then tick 50 through both engines from that same state. Every leaf
+    bitwise: the round's carve, the running set, the trader's floats."""
+    C = 64
+    cfg, specs, arr, _ = bench.sinkhorn_market_setup(
+        C, 400, 600_000, matching="sinkhorn")
+    jrun = jax.jit(JEngine(cfg).run, static_argnums=(2,))
+    s49 = jrun(jinit(cfg, specs), arr, 49)
+    want = jax_leaves(jrun(s49, arr, 1))
+    tcfg = port_cfg(cfg)
+    ts = interop.state_from_numpy(jax_leaves(s49), "cpu")
+    got = interop.to_numpy(Engine(tcfg, device="cpu").run(
+        ts, port_arrivals(arr), 1))
+    assert int(want[".t"]) == 50_000
+    for k in want:
+        np.testing.assert_array_equal(want[k], got[k], err_msg=k)
+
+
 def test_xla_exp_f32_is_the_compiled_exp():
     rng = np.random.default_rng(0)
     x = np.concatenate([rng.uniform(-90, 90, 1 << 20),
@@ -117,16 +139,18 @@ def test_xla_exp_f32_is_the_compiled_exp():
     np.testing.assert_array_equal(want.view(np.int32), got.view(np.int32))
 
 
-@pytest.mark.parametrize("n", [4, 8, 9, 13, 16, 17, 24, 64, 128, 256])
+@pytest.mark.parametrize("n", [4, 8, 9, 13, 16, 17, 24, 64, 73, 128, 256,
+                               1024])
 def test_xla_gemv_orders_equal_jit(n):
-    """The tiled gemv (``K @ v``, ``XlaGemv(K, 8)``) against ``jax.jit`` on
-    sparse random matrices, as the round's kernel is sparse: square, and
-    with fewer and more rows than columns (a shard's [C_loc, C_tot] rows,
-    rows past a whole tile of 8), at column counts past a multiple of 8
-    too. The one-chain loop (``K.T @ u``, fused into a loop below 64
-    sellers) against ``jax.jit`` below 64; from 64 the engine's fused loop
-    has no standalone counterpart (a standalone ``K.T @ v`` is a
-    column-major gemv of its own)."""
+    """The tiled gemv (``K @ v``, ``sinkhorn.gemv_plan``) against
+    ``jax.jit`` on sparse random matrices, as the round's kernel is
+    sparse: square, and with fewer and more rows than columns (a shard's
+    [C_loc, C_tot] rows, rows past a whole tile of 8), at column counts
+    past a multiple of 8 too. The one-chain loop (``K.T @ u``,
+    ``sinkhorn.fused_dot_plan`` below 50 sellers) against ``jax.jit``
+    below 50; from 50 the engine's fused loop has no standalone
+    counterpart (a standalone ``K.T @ v`` is a column-major gemv of its
+    own: tests/test_torch_sinkhorn.py holds it inside the round's scan)."""
     rng = np.random.default_rng(n)
     for density in (0.05, 0.2, 0.6, 1.0):
         for m in (n, max(1, n // 2), n + 3):
@@ -134,13 +158,15 @@ def test_xla_gemv_orders_equal_jit(n):
                  * (rng.uniform(size=(m, n)) < density)).astype(np.float32)
             v = rng.uniform(0.01, 2, n).astype(np.float32)
             rows = np.asarray(jax.jit(lambda K, v: K @ v)(K, v))
-            got = XlaGemv(torch.from_numpy(K), 8)(torch.from_numpy(v))
+            got = S.PlanProduct(torch.from_numpy(K), S.gemv_plan(n, m))(
+                torch.from_numpy(v))
             np.testing.assert_array_equal(rows.view(np.int32),
                                           got.numpy().view(np.int32))
-            if n < 64 and m == n:
+            if n < 50 and m == n:
                 cols = np.asarray(jax.jit(lambda K, v: K.T @ v)(K, v))
                 np.testing.assert_array_equal(
-                    cols, XlaGemv(torch.from_numpy(K).T, 1)(
+                    cols, S.PlanProduct(torch.from_numpy(K).T,
+                                        S.fused_dot_plan(n))(
                         torch.from_numpy(v)).numpy())
 
 
@@ -212,14 +238,49 @@ def first_divergence(C, n_ticks=None, chunk=50):
                 placed_port=int(ts.placed_total.sum()))
 
 
+def test_config4_world_at_64_clusters_never_leaves_jax():
+    """ROADMAP C1's repair at 64 clusters: config 4's world over its 700
+    ticks, no tick's state differs from the reference engine's in any
+    leaf (before the repair the first was tick 50, a round's carve), and
+    both place the same jobs."""
+    out = first_divergence(64)
+    assert out["first"] is None, out
+    assert out["placed_port"] == out["placed_jax"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("C", [128, 256])
+def test_config4_world_never_leaves_jax(C):
+    """The same at 128 and 256 clusters (first diverging chunk ends 200 and
+    450 before the repair)."""
+    out = first_divergence(C)
+    assert out["first"] is None, out
+    assert out["placed_port"] == out["placed_jax"]
+
+
+@pytest.mark.parametrize(
+    "C", [64, pytest.param(256, marks=pytest.mark.slow)])
+def test_config4_digest_is_the_reference_engines(C):
+    """``tools/market_ab.py CONFIG4_DIGESTS``, which chip_smoke.py holds
+    the card's runs to, recomputed from the reference engine: config 4's
+    world at C clusters over its 700 ticks, the final state's digest (the
+    port's CPU run meets that state tick by tick:
+    ``test_config4_world_at_64_clusters_never_leaves_jax``)."""
+    cfg, specs, arr, n = bench.sinkhorn_market_setup(C, 400, 600_000,
+                                                     matching="sinkhorn")
+    want = jax.jit(JEngine(cfg).run, static_argnums=(2,))(
+        jinit(cfg, specs), arr, n)
+    assert n == 700
+    assert interop.leaves_digest(jax_leaves(want)) == \
+        market_ab.CONFIG4_DIGESTS[C]
+
+
 @pytest.mark.slow
 def test_config4_at_width_against_jax():
-    """ROADMAP C1 at config 4's own width (4,096 clusters, 700 ticks):
-    where the port's sinkhorn round (torch's ``exp`` and products above
-    ``EXACT_ORDER_MAX``) first leaves the reference, and how far the
-    placed counts end apart. Held: both runs place within 0.1% of each
-    other (the gap C1 records); the divergence is printed."""
+    """ROADMAP C1 at config 4's own width (4,096 clusters, 700 ticks): the
+    port's sinkhorn rounds take the reference engine's orders at every
+    width, so no tick may differ and both place the same jobs."""
     out = first_divergence(4096)
     print(out)
-    assert abs(out["placed_port"] - out["placed_jax"]) <= \
-        0.001 * out["placed_jax"]
+    assert out["first"] is None, out
+    assert out["placed_port"] == out["placed_jax"]

@@ -277,7 +277,9 @@ holds each path's hand-written kernel against its plain PyTorch version:
    b. the ES trainer (tools/train_env_demo.py): its defaults (one scored
       lane launch a step, the lane form == plain at two steps) and its
       world at bench_env's batch shape (1,024 envs x 8 clusters, 50-tick
-      episodes, 2 iterations), the wall split into draws, steps and
+      episodes, 2 iterations), its returns and head bitwise the JAX
+      reference's (pinned: ``TRAIN_WIDE_MEANS``,
+      ``TRAIN_WIDE_HEAD_SHA256``), the wall split into draws, steps and
       update, cut after iteration 1 and resumed bitwise;
    c. the chaos harness on serving (tools/chaos.py): one kill -9 cycle
       of a serving child on the card under live HTTP traffic, recovery
@@ -325,7 +327,10 @@ holds each path's hand-written kernel against its plain PyTorch version:
       through it (4d, 4h, 5f, 10e); a. config 4's run again, three of its
       rounds kept and each held bitwise against the plain version (K,
       ``u`` and ``vc`` after every iteration, the plan) and timed beside
-      the plain version and a ``torch.matmul`` round; b. one round of
+      the plain version and a ``torch.matmul`` round, with its nonzero
+      count, its compact forms' bytes, its launches (on one device three:
+      the build, the 16 iterations in one cooperative launch, the plan)
+      and the card's time by launch; b. one round of
       config 4's world at 1,024 clusters (10e's width); c. 11b's sinkhorn
       cell's 128 x 256 shard (the second half of a round's sellers)
       through the mesh's launches; d. config 4's world at 64 and 256
@@ -344,6 +349,7 @@ from __future__ import annotations
 
 import bisect
 import ctypes
+import hashlib
 import json
 import math
 import subprocess
@@ -1171,9 +1177,12 @@ def counted_run(engine, s0, chunks, kernel, io=None):
     # market's run, none elsewhere
     trader = engine.cfg.trader
     sink = trader.enabled and trader.matching.value == "sinkhorn"
+    # (on one device: the build, one launch for every iteration, the plan)
     rounds = sinkhorn.LAUNCHES["sinkhorn_round"]
-    if sink != (rounds > 0) or (sink and sinkhorn.LAUNCHES[
-            "sinkhorn_product"] != 2 * trader.sinkhorn_iters * rounds):
+    if sink != (rounds > 0) or (sink and any(
+            sinkhorn.LAUNCHES[k] != rounds for k in (
+                "sinkhorn_build", "sinkhorn_iterate", "sinkhorn_plan"))) or \
+            sinkhorn.LAUNCHES["sinkhorn_product"]:
         raise AssertionError(f"{kernel}: sinkhorn launches "
                              f"{dict(sinkhorn.LAUNCHES)}")
     counts["sinkhorn_round"] = rounds
@@ -7654,6 +7663,12 @@ DEFAULT_GRID = dict(n_seeds=4, C=64, jobs_per=120, horizon_ms=240_000,
 # the trainer's defaults, and its world at bench_env's batch shape
 TRAIN_DEFAULT = dict(iters=10, n_envs=32, n_clusters=4, episode_ticks=20)
 TRAIN_WIDE = dict(iters=2, n_envs=1024, n_clusters=8, episode_ticks=50)
+# the JAX reference's training at TRAIN_WIDE (tools/train_env_demo.py
+# train(**TRAIN_WIDE), jax 0.9.0 on an x86 CPU): its per-iteration mean
+# returns and the sha256 of its trained head's f32 bytes
+TRAIN_WIDE_MEANS = [-41.26510238647461, -41.279666900634766]
+TRAIN_WIDE_HEAD_SHA256 = ("8fddbcfcf26d2410acb711860e0e5b5b15c2a5eec1197f4b"
+                          "c130df9cd31849e8")
 CHAOS_CYCLES, CHAOS_JOBS, BATCH_KILLS = 1, 20_000, 1
 BATCH_TICKS = 600  # 10d's run: churn_bursts quick's first 600 of 1,570 ticks
 MARKET_AB_C, MARKET_AB_TIMED = (1024, 4096), 3
@@ -7822,6 +7837,14 @@ def phase_train(P, E, card, dev):
           f"{res['episodes_simulated'] / res['wall_s']:.1f} episodes/s "
           f"(the probe's timing included) [{card}]")
     full = TE.train(**TRAIN_WIDE, device=dev, timings=True)
+    head_sha = hashlib.sha256(
+        np.asarray(full["W"], np.float32).tobytes()).hexdigest()
+    if full["mean_return_per_iter"] != TRAIN_WIDE_MEANS or \
+            head_sha != TRAIN_WIDE_HEAD_SHA256:
+        raise AssertionError(f"10b: {TRAIN_WIDE}: returns "
+                             f"{full['mean_return_per_iter']}, head sha256 "
+                             f"{head_sha}, not the JAX reference's "
+                             f"{TRAIN_WIDE_MEANS}, {TRAIN_WIDE_HEAD_SHA256}")
     os.makedirs(PHASE10_DIR, exist_ok=True)
     ck = os.path.join(PHASE10_DIR, "train.ckpt")
     if os.path.exists(ck):
@@ -7840,8 +7863,10 @@ def phase_train(P, E, card, dev):
           f"{np.mean(sp_['draws_s']) * 1e3:.1f} ms, steps "
           f"{np.mean(sp_['steps_s']) * 1e3:.1f} ms "
           f"({np.mean(sp_['steps_s']) * 1e3 / TRAIN_WIDE['episode_ticks']:.2f}"
-          f" ms a step), update {np.mean(sp_['update_s']) * 1e3:.1f} ms; cut "
-          f"after iteration 1 and resumed: returns and head bitwise [{card}]")
+          f" ms a step), update {np.mean(sp_['update_s']) * 1e3:.1f} ms; "
+          f"returns and head (sha256 {head_sha[:16]}...) bitwise the JAX "
+          f"reference's (pinned); cut after iteration 1 and resumed: returns "
+          f"and head bitwise [{card}]")
     b_ms, b_by = bound(sp["read"], sp["written"], sp["ops"])
     return dict(record=dict(
         kernel=fused_tick.KERNELS["fused_prefix_scored"],
@@ -8715,6 +8740,53 @@ def events_ms(fn, reps, warm=True):
     return a.elapsed_time(b) / reps
 
 
+class TimedLib:
+    """The round's built library with each entry point timed on the card:
+    a CUDA event recorded just before and just after each launch
+    (``spans``); ``_bind`` finds it bound already."""
+
+    _sinkhorn_bound = True
+
+    def __init__(self, lib):
+        from multi_cluster_simulator_tpu_torch.market import sinkhorn
+
+        self.lib, self.spans = sinkhorn._bind(lib), []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def timed(*args):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            status = fn(*args)
+            b.record()
+            self.spans.append((name, a, b))
+            return status
+
+        return timed
+
+
+def round_split_us(args, n_iters, ex, reps):
+    """The card's µs a round in each of the round's launches (CUDA events
+    around each, ``TimedLib``), the mean of ``reps`` rounds after one
+    untimed round."""
+    from multi_cluster_simulator_tpu_torch.kernels import build
+    from multi_cluster_simulator_tpu_torch.market import sinkhorn
+
+    lib = TimedLib(build.load("sinkhorn_round"))
+    stream = torch.cuda.current_stream().cuda_stream
+    sinkhorn.launch_round(lib, stream, *args, n_iters, ex)
+    torch.cuda.synchronize()
+    lib.spans.clear()
+    for _ in range(reps):
+        sinkhorn.launch_round(lib, stream, *args, n_iters, ex)
+    torch.cuda.synchronize()
+    by_name = {}
+    for name, a, b in lib.spans:
+        by_name[name] = by_name.get(name, 0.0) + 1e3 * a.elapsed_time(b)
+    return {k: round(v / reps, 2) for k, v in by_name.items()}
+
+
 def round_record(kept, ex, what, card):
     """One kept round: the kernel against its plain version on the card
     (K, ``u`` and ``vc`` after every iteration, the plan: bitwise), the
@@ -8727,8 +8799,11 @@ def round_record(kept, ex, what, card):
 
     args, n_iters = kept["args"], kept["n_iters"]
     want = sinkhorn.sinkhorn_plain(*args, n_iters, ex, trace=True)
+    sinkhorn.reset_launches()
     got = sinkhorn.sinkhorn_kernel(*args, n_iters, ex, trace=True)
     torch.cuda.synchronize()
+    per_round = sum(n for k, n in sinkhorn.LAUNCHES.items()
+                    if k != "sinkhorn_round")
     worst = max(max_abs_diff(a, b) for a, b in zip(want[:4], got[:4]))
     for i, ((ua, va), (ub, vb)) in enumerate(zip(want[4], got[4])):
         worst = max(worst, max_abs_diff(ua, ub), max_abs_diff(va, vb))
@@ -8751,13 +8826,21 @@ def round_record(kept, ex, what, card):
     p_ms = events_ms(lambda: sinkhorn.sinkhorn_plain(*args, n_iters, ex), 1,
                      warm=False)
     l_ms = events_ms(lambda: library_round(*args, n_iters), SINK_REPS)
+    split = round_split_us(args, n_iters, ex, SINK_REPS)
     k_bytes = 2 * active * nnz * 4
+    n_feas = int(feas.sum())
+    used = 2 * 8 * n_feas
     print(f"phase 12: {what}: round {kept['round']}, K {C_loc} x {C_tot} "
-          f"({nnz} nonzero, {int(feas.sum())} feasible pairs), {active} "
+          f"({nnz} nonzero, {n_feas} feasible pairs), {active} "
           f"active iterations: kernel == plain bitwise (K, u and vc after "
           f"each of {len(got[4])} iterations, plan; max_abs_err {worst}); "
+          f"{per_round} launches a round; compact forms "
+          f"{sinkhorn.compact_bytes(C_loc, C_tot)} B allocated, {used} B of "
+          f"(value, index) pairs filled; "
           f"kernel {k_ms:.3f} ms a round, plain {p_ms:.3f} ms, torch.matmul "
-          f"pair {l_ms:.3f} ms; bound {1e3 * (read + written) / HBM_BYTES_PER_S:.4f}"
+          f"pair {l_ms:.3f} ms; the card's us a round by launch (CUDA "
+          f"events around each) {split}; "
+          f"bound {1e3 * (read + written) / HBM_BYTES_PER_S:.4f}"
           f" ms by bytes ({read + written} B), "
           f"{1e3 * ops / SCALAR_OPS_PER_S:.4f} ms by operations ({ops}); "
           f"K's nonzeros read twice an iteration: "

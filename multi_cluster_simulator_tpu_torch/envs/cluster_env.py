@@ -50,7 +50,7 @@ from multi_cluster_simulator_tpu_torch.core.state import (
 from multi_cluster_simulator_tpu_torch.envs.obs import n_obs_features, observe
 from multi_cluster_simulator_tpu_torch.faults import schedule as fsch
 from multi_cluster_simulator_tpu_torch.ops import fields as F
-from multi_cluster_simulator_tpu_torch.ops.floats import fma_f32
+from multi_cluster_simulator_tpu_torch.ops.floats import fma_f32, xla_sum
 from multi_cluster_simulator_tpu_torch.ops.queues import isum
 from multi_cluster_simulator_tpu_torch.utils import prng
 from multi_cluster_simulator_tpu_torch.utils.tree import (
@@ -316,7 +316,13 @@ class ClusterEnv:
                               members=(self._member,) * B)
         placed_d = isum(sim.placed_total, -1) - placed0
         drops_d = _drop_sum(sim) - drops0
-        wait_s = st.avg_wait_ms(sim).mean(-1) * 1e-3
+        # the mean over the clusters in seconds as the reference's compiled
+        # code takes it, on every device alike: the reduce's sum (in
+        # cluster order) times one folded f32 constant, (1 / C) * 1e-3
+        waits = st.avg_wait_ms(sim)
+        C = waits.shape[1]
+        wait_s = xla_sum(waits.transpose(0, 1)) * float(
+            np.float32(np.float32(1.0) / np.float32(C)) * np.float32(1e-3))
         w = es.reward_w
         # XLA's CPU code fuses the weighted sum's first product and sum
         # into one multiply-add (ops/floats.py fma_f32)

@@ -7,7 +7,10 @@ market/trader.py:300-321``, compiled with ``PolicyParams`` traced, as
 Two forms compute the same bits. ``sinkhorn_plain`` is PyTorch ops: the CPU
 path, and on the card only the yardstick. ``sinkhorn_kernel`` launches the
 hand-written CUDA source ``kernels/csrc/sinkhorn_round.cu``: the card's
-path, with no fallback (it raises if the build or a launch fails).
+path, with no fallback (it raises if the build or a launch fails). Its
+products read only K's feasible pairs, from compact forms (each output's
+chains in the plan's order) that its build writes on the card; on one
+device one launch runs every iteration.
 
 The two products of an iteration follow reduction plans (``Stage``) read
 from XLA's code for the round (``XLA_FLAGS=--xla_dump_to=DIR
@@ -31,6 +34,7 @@ division, not XLA's product with a constant ``1 / eps``.
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
 import functools
 
@@ -40,6 +44,9 @@ from multi_cluster_simulator_tpu_torch.ops.floats import fma_f32, xla_exp_f32
 
 F32 = torch.float32
 TINY = 1e-30
+# the stages a plan may have (the kernel keeps a thread's chains of each in
+# registers: ``kMaxStages``)
+MAX_STAGES = 4
 # From this many sellers (the contracted axis) XLA copies K transposed and
 # runs ``K.T @ u`` as the tiled gemv (read at 4,096 x 4,096; a loop fusion
 # at 4,095 x 4,096, 2,048 x 4,096, 2,048 x 8,192 and 1,024 x 16,384).
@@ -48,7 +55,10 @@ GEMV_MIN_SELLERS = 4096
 SOURCE = "multi_cluster_simulator_tpu_torch/kernels/csrc/sinkhorn_round.cu"
 REPLACES = "multi_cluster_simulator_tpu/market/trader.py:308"
 # Each wrapper's launches since the last ``reset_launches``: one a kernel
-# it launches; ``sinkhorn_round`` counts the rounds ``sinkhorn_kernel`` ran.
+# it launches (``sinkhorn_build``, ``sinkhorn_iterate`` on one device,
+# ``sinkhorn_product`` and ``sinkhorn_finish`` on a mesh,
+# ``sinkhorn_plan``); ``sinkhorn_round`` counts the rounds
+# ``sinkhorn_kernel`` ran.
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -93,7 +103,7 @@ def gemv_plan(n: int, rows: int) -> tuple:
     return tuple(stages)
 
 
-def _epilogue_lanes(r: int) -> int:
+def epilogue_lanes(r: int) -> int:
     """The vector width LLVM's epilogue takes for ``r`` values left after
     the main vector body (read over r = 0-31 at 50-1,100 sellers)."""
     if r < 2:
@@ -115,7 +125,7 @@ def fused_dot_plan(n: int) -> tuple:
       two blocks swapped (LLVM's reassociation);
     - from 128: four 8-lane accumulators in a loop, summed lane by lane;
     - then halving, then the values left: an epilogue of 2, 4 or 8 lanes
-      seeded with the sum so far and halved (``_epilogue_lanes``), then a
+      seeded with the sum so far and halved (``epilogue_lanes``), then a
       chain of its own seeded likewise."""
     if n < 50:
         return (Stage(1, (tuple(range(n)),)),)
@@ -132,7 +142,7 @@ def fused_dot_plan(n: int) -> tuple:
         stages = [Stage(8, tuple(tuple(range(8 * a, main, 32))
                                  for a in range(4)))]
     pos = main
-    lanes = _epilogue_lanes(n - main)
+    lanes = epilogue_lanes(n - main)
     if lanes:
         nb = (n - main) // lanes
         stages.append(Stage(lanes, (tuple(range(pos, pos + lanes * nb,
@@ -165,21 +175,55 @@ def group_width(plan: tuple) -> int:
 
 
 def pack_plan(plan: tuple):
-    """The plan as the kernel reads it: a stage table [stages, 7] int32
+    """The plan as the kernel reads it: a stage table [stages, 9] int32
     (lanes, accumulators, steps, seeded, add, tree_rows, offset into the
-    block list) and the block list, accumulator by accumulator."""
+    block list, the stage's first chain among the plan's chains, the
+    stage's first position in an output's compact row) and the block
+    list, accumulator by accumulator."""
     rows, flat = [], []
+    chain0 = pos0 = 0
     for st in plan:
         steps = len(st.blocks[0])
         if any(len(b) != steps for b in st.blocks) or len(st.blocks) > 4 \
-                or st.lanes > 8:
-            raise ValueError(f"unsupported stage {st}")
+                or st.lanes > 8 or len(plan) > MAX_STAGES:
+            raise ValueError(f"unsupported stage {st} of {len(plan)}")
         rows.append([st.lanes, len(st.blocks), steps, int(st.seeded),
-                     int(st.add), st.tree_rows, len(flat)])
+                     int(st.add), st.tree_rows, len(flat), chain0, pos0])
+        chains = len(st.blocks) * st.lanes
+        chain0 += chains
+        pos0 += chains * steps
         for blk in st.blocks:
             flat.extend(blk)
-    return (torch.tensor(rows, dtype=torch.int32).reshape(-1, 7),
+    return (torch.tensor(rows, dtype=torch.int32).reshape(-1, 9),
             torch.tensor(flat or [0], dtype=torch.int32))
+
+
+def index_tables(plan: tuple, n: int):
+    """A plan over ``n`` indices by index: ``chain_of`` [n] int32, the
+    chain (numbered over all stages) that visits each index;
+    ``chain_slot`` [chains] int32, where each chain starts in an output's
+    compact row; and whether every chain visits its indices in increasing
+    order (the kernel's row build needs it: its feasible list is in index
+    order)."""
+    chain_of, slots = [0] * n, []
+    pos, ordered = 0, True
+    for st in plan:
+        steps = len(st.blocks[0])
+        for k in range(len(st.blocks) * st.lanes):
+            idx = [b + k % st.lanes for b in st.blocks[k // st.lanes]]
+            ordered &= all(a < b for a, b in zip(idx, idx[1:]))
+            for j in idx:
+                chain_of[j] = len(slots)
+            slots.append(pos + k * steps)
+        pos += len(st.blocks) * st.lanes * steps
+    return (torch.tensor(chain_of or [0], dtype=torch.int32),
+            torch.tensor(slots, dtype=torch.int32), ordered)
+
+
+def plan_chains(plan: tuple) -> int:
+    """The chains of a plan, all stages: each an output's chain slot count
+    in the compact forms."""
+    return sum(len(st.blocks) * st.lanes for st in plan)
 
 
 def _tree8(acc: torch.Tensor) -> torch.Tensor:
@@ -289,25 +333,52 @@ def sinkhorn_plain(feas, jitter, v, eps, iters, n_iters: int, ex,
 
 @functools.cache
 def _packed(c_loc: int, c_tot: int, device: str):
+    """Each plan of the round as the kernel reads it: its stage table,
+    block list, stage and chain counts, group width, and index tables
+    (``index_tables``; the row plan's chains must visit in index order)."""
     out = []
-    for plan in (row_plan(c_loc, c_tot), col_plan(c_loc, c_tot)):
+    for plan, n in ((row_plan(c_loc, c_tot), c_tot),
+                    (col_plan(c_loc, c_tot), c_loc)):
         table, blocks = pack_plan(plan)
+        chain_of, slots, ordered = index_tables(plan, n)
+        if not out and not ordered:
+            raise ValueError(f"the row plan at {c_loc} x {c_tot} visits a "
+                             f"chain out of index order")
         out.append((table.to(device), blocks.to(device), table.shape[0],
-                    group_width(plan)))
+                    plan_chains(plan), group_width(plan),
+                    chain_of.to(device), slots.to(device)))
     return tuple(out)
+
+
+class _Plan(ctypes.Structure):
+    """``sk::Plan``: a packed plan (``pack_plan``) as the source reads it."""
+
+    _fields_ = [("stages", ctypes.c_void_p), ("n_stages", ctypes.c_int),
+                ("blocks", ctypes.c_void_p), ("chains", ctypes.c_int),
+                ("group", ctypes.c_int), ("chain_of", ctypes.c_void_p),
+                ("chain_slot", ctypes.c_void_p)]
+
+
+class _Compact(ctypes.Structure):
+    """``sk::Compact``: a compact form, its (value bits, index) pairs
+    [outputs * n * 2] int32 and its chains' counts [outputs * chains]."""
+
+    _fields_ = [("entries", ctypes.c_void_p), ("cnt", ctypes.c_void_p)]
 
 
 def _bind(lib):
     """Set the argument types of the source's entry points (once a
-    library): every pointer and the stream as ``c_void_p``, the row
-    stride as ``c_long``, counts and flags as ``c_int``."""
-    import ctypes
-
+    library): every pointer and the stream as ``c_void_p``, a plan and a
+    compact form as their structures (by value), the row length as
+    ``c_long``, counts and flags as ``c_int``."""
     if getattr(lib, "_sinkhorn_bound", False):
         return lib
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    sigs = {"sinkhorn_build": [P, P, P, P, P, P, I, I, P],
-            "sinkhorn_product": [P, L, I, P, P, I, P, I, P, I, I, P, P],
+    PL, CO = _Plan, _Compact
+    sigs = {"sinkhorn_build": [P, P, P, P, P, I, I, PL, CO, PL, CO, P],
+            "sinkhorn_iterate": [PL, CO, PL, CO, I, I, P, P, P, I, P, P, P,
+                                 P],
+            "sinkhorn_product": [PL, CO, L, I, P, P, I, I, P, P],
             "sinkhorn_finish": [P, P, I, P, I, P],
             "sinkhorn_plan": [P, P, P, P, I, I, P]}
     for name, args in sigs.items():
@@ -322,15 +393,24 @@ def _check(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed (error {status})")
 
 
+def compact_bytes(c_loc: int, c_tot: int) -> int:
+    """The bytes the round allocates for its two compact forms: each pair
+    of the matrix one (value, index) slot in each form, and a count a chain
+    an output."""
+    (_, _, _, rch, *_), (_, _, _, cch, *_) = _packed(c_loc, c_tot, "cpu")
+    return 2 * 8 * c_loc * c_tot + 4 * (c_loc * rch + c_tot * cch)
+
+
 def launch_round(lib, stream, feas, jitter, v, eps, iters, n_iters: int, ex,
                  trace: bool = False):
     """The round's launches from library ``lib`` on ``stream``: one builds
-    K and its transpose, each iteration launches the row product and the
-    column product (on a mesh, the finish after the caller's all-sum),
-    one writes the plan. Returns as ``sinkhorn_plain``. The tensors lie on
-    the device the library was built for (``sinkhorn_kernel``; a host
-    build runs on CPU tensors in the tests); ``stream`` is the stream's
-    handle as an int."""
+    K and its compact forms; on one device one launch runs every
+    iteration; on a mesh (``ex.size > 1``) each iteration launches the row
+    product and the column product, the caller's all-sum runs between them
+    on the host, and the finish after it; one launch writes the plan.
+    Returns as ``sinkhorn_plain``. The tensors lie on the device the
+    library was built for (``sinkhorn_kernel``; a host build runs on CPU
+    tensors in the tests); ``stream`` is the stream's handle as an int."""
     C_loc, C_tot = feas.shape
     dev = feas.device
     if jitter.shape != feas.shape or v.shape != (C_tot,) or any(
@@ -341,41 +421,59 @@ def launch_round(lib, stream, feas, jitter, v, eps, iters, n_iters: int, ex,
     lib = _bind(lib)
 
     def p(t):
-        return t.data_ptr()
+        return None if t is None else t.data_ptr()
 
+    I32 = torch.int32
     feas8 = feas.to(torch.uint8).contiguous()
     jitter = jitter.to(F32).contiguous()
     v = v.to(F32).contiguous()
     eps = eps.to(F32).reshape(1).contiguous()
-    iters = iters.to(torch.int32).reshape(1).contiguous()
+    iters = iters.to(I32).reshape(1).contiguous()
     K = torch.empty((C_loc, C_tot), dtype=F32, device=dev)
-    KT = torch.empty((C_tot, C_loc), dtype=F32, device=dev)
+    (rt, rb, rn, rch, rg, ro, rs), (ct, cb, cn, cch, cg, co, cs) = _packed(
+        C_loc, C_tot, str(dev))
+    rows = _Plan(p(rt), rn, p(rb), rch, rg, p(ro), p(rs))
+    cols = _Plan(p(ct), cn, p(cb), cch, cg, p(co), p(cs))
+    r_ent = torch.empty((C_loc * C_tot * 2,), dtype=I32, device=dev)
+    r_cnt = torch.empty((C_loc * rch,), dtype=I32, device=dev)
+    c_ent = torch.empty((C_tot * C_loc * 2,), dtype=I32, device=dev)
+    c_cnt = torch.empty((C_tot * cch,), dtype=I32, device=dev)
+    rc, cc = _Compact(p(r_ent), p(r_cnt)), _Compact(p(c_ent), p(c_cnt))
     _check(lib.sinkhorn_build(p(feas8), p(jitter), p(v), p(eps), p(K),
-                              p(KT), C_loc, C_tot, stream), "sinkhorn_build")
+                              C_loc, C_tot, rows, rc, cols, cc, stream),
+           "sinkhorn_build")
     LAUNCHES["sinkhorn_build"] += 1
-    (rt, rb, rn, rg), (ct, cb, cn, cg) = _packed(C_loc, C_tot, str(dev))
     u = torch.ones((C_loc,), dtype=F32, device=dev)
     vc = torch.ones((C_tot,), dtype=F32, device=dev)
-    mesh = ex.size > 1
-    part = torch.zeros((C_tot,), dtype=F32, device=dev) if mesh else None
     seen = []
-    for i in range(n_iters):
-        _check(lib.sinkhorn_product(p(K), C_tot, C_loc, p(vc), p(rt), rn,
-                                    p(rb), rg, p(iters), i, 0, p(u),
-                                    stream), "sinkhorn_product")
-        LAUNCHES["sinkhorn_product"] += 1
-        _check(lib.sinkhorn_product(p(KT), C_loc, C_tot, p(u), p(ct), cn,
-                                    p(cb), cg, p(iters), i, int(mesh),
-                                    p(part if mesh else vc), stream),
-               "sinkhorn_product")
-        LAUNCHES["sinkhorn_product"] += 1
-        if mesh:
+    if ex.size == 1:
+        bar = torch.zeros((1,), dtype=I32, device=dev)
+        tu = torch.empty((n_iters, C_loc), dtype=F32, device=dev) \
+            if trace else None
+        tv = torch.empty((n_iters, C_tot), dtype=F32, device=dev) \
+            if trace else None
+        _check(lib.sinkhorn_iterate(rows, rc, cols, cc, C_loc, C_tot, p(u),
+                                    p(vc), p(iters), n_iters, p(tu), p(tv),
+                                    p(bar), stream), "sinkhorn_iterate")
+        LAUNCHES["sinkhorn_iterate"] += 1
+        if trace:
+            seen = list(zip(tu.unbind(0), tv.unbind(0)))
+    else:
+        part = torch.zeros((C_tot,), dtype=F32, device=dev)
+        for i in range(n_iters):
+            _check(lib.sinkhorn_product(rows, rc, C_tot, C_loc, p(vc),
+                                        p(iters), i, 0, p(u), stream),
+                   "sinkhorn_product")
+            _check(lib.sinkhorn_product(cols, cc, C_loc, C_tot, p(u),
+                                        p(iters), i, 1, p(part), stream),
+                   "sinkhorn_product")
+            LAUNCHES["sinkhorn_product"] += 2
             sums = ex.allsum(part).contiguous()
             _check(lib.sinkhorn_finish(p(sums), p(vc), C_tot, p(iters), i,
                                        stream), "sinkhorn_finish")
             LAUNCHES["sinkhorn_finish"] += 1
-        if trace:
-            seen.append((u.clone(), vc.clone()))
+            if trace:
+                seen.append((u.clone(), vc.clone()))
     plan = torch.empty((C_loc, C_tot), dtype=F32, device=dev)
     _check(lib.sinkhorn_plan(p(u), p(K), p(vc), p(plan), C_loc, C_tot,
                              stream), "sinkhorn_plan")

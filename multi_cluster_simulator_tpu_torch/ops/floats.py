@@ -32,6 +32,32 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor,
     return s.to(torch.float32)
 
 
+# XLA's CPU tree reduction (``TreeReductionRewriter``): a sum over more
+# values than this is a ``reduce-window`` of windows this wide, then a
+# reduce over the windows' sums
+REDUCE_WINDOW = 32
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum over the leading axis as the reference's compiled reduce
+    adds it: up to ``REDUCE_WINDOW`` values one chain from 0 in index
+    order; beyond, the values padded with zeros to whole windows (the
+    padding split low ``p // 2``, high the rest), each window a chain from
+    0, and the windows' sums reduced the same way again."""
+    n = x.shape[0]
+    if n > REDUCE_WINDOW:
+        m = -(-n // REDUCE_WINDOW)
+        pad = REDUCE_WINDOW * m - n
+        z = x.new_zeros((pad // 2,) + x.shape[1:])
+        x = torch.cat([z, x, x.new_zeros((pad - pad // 2,) + x.shape[1:])])
+        windows = x.view((m, REDUCE_WINDOW) + x.shape[1:]).transpose(0, 1)
+        return xla_sum(xla_sum(windows))
+    acc = torch.zeros_like(x[0])
+    for part in x.unbind(0):
+        acc = acc + part
+    return acc
+
+
 def _f32(h: int) -> float:
     """The f32 constant LLVM prints as the double of hex bits ``h``."""
     import struct

@@ -13,11 +13,11 @@ the scored kernel once over every env with each env's own table.
 
 The draws are ``jax.random.normal``'s, bitwise (``utils/prng.py
 normal``), and the float steps follow the reference's compiled CPU code
-where they can be read from XLA's dump (``--xla_dump_to``): the head's
-pooled mean and matrix-vector product, the perturbation, the returns'
-mean and deviation and the update (``_head``, ``_perturb``,
-``_update``), so a run on the CPU is the reference's to the stated
-tolerance of tests/test_torch_train_env.py.
+as XLA's dump shows them (``--xla_dump_to``): the head's pooled mean and
+matrix-vector product, the perturbation, the returns' mean and deviation
+and the update (``_head``, ``_perturb``, ``_update``), so a run on the
+CPU is the reference's bitwise at every env count the update's order was
+read for (tests/test_torch_train_env.py).
 
 Run: ``python -m multi_cluster_simulator_tpu_torch.tools.train_env_demo
 [--iters N] [--envs B] [--device cpu]`` (the card by default).
@@ -34,7 +34,16 @@ import time
 import numpy as np
 import torch
 
-from multi_cluster_simulator_tpu_torch.ops.floats import fma_f32
+from multi_cluster_simulator_tpu_torch.market.sinkhorn import (
+    PlanProduct,
+    Stage,
+    epilogue_lanes,
+)
+from multi_cluster_simulator_tpu_torch.ops.floats import (
+    REDUCE_WINDOW,
+    fma_f32,
+    xla_sum,
+)
 from multi_cluster_simulator_tpu_torch.utils.prng import SQRT2_F32
 
 
@@ -93,65 +102,83 @@ def _perturb(W: torch.Tensor, r: torch.Tensor, sigma: float):
     return fma_f32(r, torch.full_like(r, c), W[None].expand_as(r))
 
 
-def _tree8(p: torch.Tensor) -> torch.Tensor:
-    """The sum of 8 vector lanes (the leading axis) as XLA's vectorized
-    reduction adds them: ((0 + 4) + (2 + 6)) + ((1 + 5) + (3 + 7))."""
-    s4 = p[:4] + p[4:]
-    s2 = s4[:2] + s4[2:]
-    return s2[0] + s2[1]
+# The weighted sum's order was read up to this many envs; from 4,096 the
+# reference compiles the einsum another way (not read)
+MAX_ENVS = 4095
 
 
-def _weighted_sum(z: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
-    """``einsum("b,b...->...", z, eps)`` in the order XLA's CPU code sums
-    it: under 8 envs one fused multiply-add an env, in order; from 8, the
-    products in 8 vector lanes, two accumulators taking 8 envs each in
-    turn (one fused multiply-add a step), added and reduced by
-    ``_tree8``. Bitwise at 4, 8 and 32 envs; at 13 the head differs in
-    its last bits (tests/test_torch_train_env.py, ROADMAP C)."""
-    B = z.shape[0]
-    zb = z.view((B,) + (1,) * (eps.dim() - 1)).expand_as(eps)
-    if B < 8:
-        acc = zb[0] * eps[0]
-        for b in range(1, B):
-            acc = fma_f32(zb[b], eps[b], acc)
-        return acc
-    accs = [torch.zeros_like(eps[:8]), torch.zeros_like(eps[:8])]
-    for k, b in enumerate(range(0, B - B % 8, 8)):
-        accs[k % 2] = fma_f32(zb[b:b + 8], eps[b:b + 8], accs[k % 2])
-    lanes = accs[1] + accs[0]
-    for b in range(B - B % 8, B):
-        lanes[b % 8] = fma_f32(zb[b], eps[b], lanes[b % 8])
-    return _tree8(lanes)
+def weighted_sum_plan(B: int) -> tuple:
+    """The order of ``einsum("b,b...->...", z, eps)`` over ``B`` envs, as a
+    reduction plan (``market/sinkhorn.py`` ``Stage``): LLVM's vectorized
+    loop over the envs in the reference's compiled code, a fused
+    multiply-add a step.
 
-
-# the largest env count whose update sums in the reference's order (its
-# chains grow as B steps)
-EXACT_ORDER_MAX_ENVS = 32
+    - 1-7 and 9-15: one chain in env order;
+    - 8: 8 lanes, halved;
+    - 16-19: 8 lanes over envs 0-15 in one chain; 20-23: 4 lanes over
+      envs 0-15 in one chain, blocks 0, 8, 12, 4 (the loop unrolled, the
+      second accumulator's blocks swapped); 24-31: 8 lanes over envs 0-23
+      in one chain;
+    - from 32: two 8-lane accumulators over the largest multiple of 16,
+      summed lane by lane;
+    - then halving; then, after the 8-lane forms but 24-31, the ``r``
+      envs left take an epilogue of 2, 4 or 8 lanes seeded with the sum
+      so far and halved (``epilogue_lanes``); then a chain of their own,
+      seeded likewise."""
+    if not 1 <= B <= MAX_ENVS:
+        raise ValueError(f"the reference's order of the ES update was read "
+                         f"for 1-{MAX_ENVS} envs, not {B}")
+    if B != 8 and B < 16:
+        return (Stage(1, (tuple(range(B)),)),)
+    epilogue = True
+    if B == 8:
+        stages, pos = [Stage(8, ((0,),))], 8
+    elif B < 20:
+        stages, pos = [Stage(8, ((0, 8),))], 16
+    elif B < 24:
+        stages, pos, epilogue = [Stage(4, ((0, 8, 12, 4),))], 16, False
+    elif B < 32:
+        stages, pos, epilogue = [Stage(8, ((0, 8, 16),))], 24, False
+    else:
+        pos = 16 * (B // 16)
+        stages = [Stage(8, (tuple(range(0, pos, 16)),
+                            tuple(range(8, pos, 16))))]
+    lanes = epilogue_lanes(B - pos) if epilogue else 0
+    if lanes:
+        nb = (B - pos) // lanes
+        stages.append(Stage(lanes, (tuple(range(pos, pos + lanes * nb,
+                                                lanes)),), seeded=True))
+        pos += lanes * nb
+    if pos < B:
+        stages.append(Stage(1, (tuple(range(pos, B)),), seeded=True))
+    return tuple(stages)
 
 
 def _update(W: torch.Tensor, eps: torch.Tensor, ret: torch.Tensor,
             lr: float, n_envs: int):
     """The ES step: ``z = (ret - mean) / (std + 1e-6)`` and ``W + (lr / B)
-    * sum_b z_b eps_b``. Up to ``EXACT_ORDER_MAX_ENVS`` envs in the
-    compiled reference's order: the returns summed in env order, the
-    squares by fused multiply-adds, the weighted sum by
-    ``_weighted_sum``. Beyond it torch's reductions, within the stated
-    tolerance of the reference (ROADMAP C)."""
+    * sum_b z_b eps_b``, every float step in the reference's compiled
+    order at every env count it was read for (ROADMAP C3): the mean
+    ``xla_sum`` times 1 / B; the squares up to ``REDUCE_WINDOW`` envs a
+    chain of fused multiply-adds from 0 (the reduce fused with them),
+    beyond rounded first and summed by ``xla_sum``; a true division for
+    ``z``; the weighted sum by ``weighted_sum_plan``; the update one fused
+    multiply-add with the f32 constant ``lr / n_envs``."""
     B = ret.shape[0]
-    if B > EXACT_ORDER_MAX_ENVS:
-        mean = ret.mean()
-        z = (ret - mean) / (ret.std(correction=0) + 1e-6)
-        ws = torch.einsum("b,b...->...", z, eps)
-        return W + float(np.float32(lr / n_envs)) * ws, mean
-    mean = _seq_sum(ret, 0) * _recip(B)
+    plan = weighted_sum_plan(B)
+    mean = xla_sum(ret) * _recip(B)
     d = ret - mean
-    sq = d[0] * d[0]
-    for b in range(1, B):
-        sq = fma_f32(d[b], d[b], sq)
+    if B > REDUCE_WINDOW:
+        sq = xla_sum(d * d)
+    else:
+        sq = torch.zeros_like(d[0])
+        for x in d.unbind(0):
+            sq = fma_f32(x, x, sq)
     std = torch.sqrt((sq * _recip(B)).double()).float()
     z = d / (std + 1e-6)
+    ws = PlanProduct(eps.reshape(B, -1).T, plan)(z).reshape(W.shape)
     scale = torch.full_like(W, float(np.float32(lr / n_envs)))
-    return fma_f32(_weighted_sum(z, eps), scale, W), mean
+    return fma_f32(ws, scale, W), mean
 
 
 def train(iters=10, n_envs=32, n_clusters=4, episode_ticks=20, lr=0.5,
@@ -178,6 +205,7 @@ def train(iters=10, n_envs=32, n_clusters=4, episode_ticks=20, lr=0.5,
     from multi_cluster_simulator_tpu_torch.utils import prng
     from multi_cluster_simulator_tpu_torch.utils.tree import tree_map
 
+    weighted_sum_plan(n_envs)  # refuses a count whose order was not read
     dev = resolve_device(device)
     cfg = train_cfg(faults)
     env = ClusterEnv(cfg, train_specs(n_clusters),

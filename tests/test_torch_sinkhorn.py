@@ -15,9 +15,12 @@ sum; the second does).
 
 The CUDA source ``kernels/csrc/sinkhorn_round.cu`` also compiles as host
 C++ (g++, ``-ffp-contract=off``, a shim ``cuda_runtime.h``): its launches
-(``sinkhorn.launch_round``) on CPU tensors must equal the plain version
-bitwise in K, in ``u`` and ``vc`` after every iteration and in the plan,
-on one device and with a mesh's all-sum between the products. On a card
+(``sinkhorn.launch_round``: the build of K and its compact forms, the
+one-device iterations or the mesh's products, the plan) on CPU tensors
+must equal the plain version bitwise in K, in ``u`` and ``vc`` after every
+iteration and in the plan, on one device and with a mesh's all-sum
+between the products, dense and at config 4's sparsity with the compact
+forms' edge cases. On a card
 tests/test_torch_sinkhorn_card.py holds the built kernel the same way.
 """
 
@@ -133,7 +136,17 @@ def test_plans_take_every_index_once(n):
                       for b in blk for lane in range(st.lanes))
         assert seen == list(range(n))
         table, blocks = S.pack_plan(plan)
-        assert table.shape == (len(plan), 7)
+        assert table.shape == (len(plan), 9)
+        chain_of, slots, ordered = S.index_tables(plan, n)
+        chains = [[b + k % st.lanes for b in st.blocks[k // st.lanes]]
+                  for st in plan for k in range(len(st.blocks) * st.lanes)]
+        assert slots.tolist() == [row[8] + k * row[2]
+                                  for row in table.tolist()
+                                  for k in range(row[0] * row[1])]
+        for c, idx in enumerate(chains):
+            assert all(chain_of[j] == c for j in idx)
+        assert ordered == all(a == sorted(a) for a in chains)
+    assert S.index_tables(S.gemv_plan(n, 9), n)[2]  # the row plan: ordered
 
 
 # ---------------------------------------------------------------------------
@@ -176,14 +189,36 @@ class DoubledSum:
         return x + x
 
 
-def round_inputs(c_loc, c_tot, seed, iters=ITERS):
+def round_inputs(c_loc, c_tot, seed, iters=ITERS, density=0.4):
     rng = np.random.default_rng(seed)
-    feas = torch.from_numpy(rng.uniform(size=(c_loc, c_tot)) < 0.4)
+    feas = torch.from_numpy(rng.uniform(size=(c_loc, c_tot)) < density)
     jitter = torch.from_numpy(
         rng.uniform(size=(c_loc, c_tot)).astype(np.float32))
     v = torch.from_numpy(rng.uniform(0, 1, c_tot).astype(np.float32))
     return (feas, jitter, v, torch.tensor(0.05, dtype=torch.float32),
             torch.tensor(iters, dtype=torch.int32))
+
+
+def with_edges(args):
+    """Round inputs with the compact forms' edge cases: two buyers whose
+    feasible pairs' exps underflow to 0 (a score of -10 / 0.05, below the
+    clamp) and one whose exps are the largest finite ones (4.4 / 0.05
+    plus the jitter, just under ln FLT_MAX: K stays finite, as the
+    round's argument for dropping its zeros needs), feasible for every
+    seller; a seller and a buyer with no feasible pair; a seller whose
+    feasible pairs all fall in one chain of the row plan (lane 3 of its
+    8-lane stage)."""
+    feas, jitter, v, eps, iters = (a.clone() for a in args)
+    C_loc, C_tot = feas.shape
+    v[4:6] = -10.0
+    feas[:, 4:6] |= torch.arange(C_loc)[:, None] % 3 == 0
+    v[6] = 4.4
+    feas[:, 6] = True
+    feas[1] = False
+    feas[:, 2] = False
+    feas[3] = False
+    feas[3, 3:8 * (C_tot // 8):8] = True
+    return feas, jitter, v, eps, iters
 
 
 def assert_rounds_equal(want, got, what):
@@ -198,26 +233,105 @@ def assert_rounds_equal(want, got, what):
             f"{what}: vc after iteration {i}"
 
 
+def assert_launches(mesh):
+    """One round's launches: on one device the build, one launch for every
+    iteration and the plan; on a mesh the build, two products and a finish
+    an iteration, and the plan."""
+    assert S.LAUNCHES["sinkhorn_round"] == 1
+    assert S.LAUNCHES["sinkhorn_build"] == 1
+    assert S.LAUNCHES["sinkhorn_plan"] == 1
+    assert S.LAUNCHES["sinkhorn_iterate"] == (0 if mesh else 1)
+    assert S.LAUNCHES["sinkhorn_product"] == (2 * ITERS if mesh else 0)
+    assert S.LAUNCHES["sinkhorn_finish"] == (ITERS if mesh else 0)
+
+
 @pytest.mark.parametrize("shape", [(3, 5), (16, 16), (24, 24), (64, 64),
                                    (73, 73), (100, 100), (128, 256),
                                    (300, 300)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("mesh", [False, True], ids=["one", "mesh"])
 def test_host_kernel_equals_plain(host_lib, shape, mesh):
-    """Every launch of the round's source (build, the two products, the
-    mesh's finish, the plan) on CPU tensors against ``sinkhorn_plain``,
-    with the full active depth and with 5 of 16 iterations active."""
+    """Every launch of the round's source (the build of K and its compact
+    forms, the one-device iterations or the mesh's products and finish,
+    the plan) on CPU tensors against ``sinkhorn_plain``, with the full
+    active depth and with 5 of 16 iterations active."""
     ex = DoubledSum() if mesh else LocalExchange()
     for iters in (ITERS, 5):
         args = round_inputs(*shape, seed=shape[0], iters=iters)
         S.reset_launches()
         got = S.launch_round(host_lib, 0, *args, ITERS, ex,
                              trace=True)
-        assert S.LAUNCHES["sinkhorn_round"] == 1
-        assert S.LAUNCHES["sinkhorn_product"] == 2 * ITERS
-        assert S.LAUNCHES["sinkhorn_finish"] == (ITERS if mesh else 0)
+        assert_launches(mesh)
         want = S.sinkhorn_plain(*args, ITERS, ex, trace=True)
         assert_rounds_equal(want, got, f"{shape} iters {iters}")
+
+
+@pytest.mark.parametrize("n", [64, 300, 1024])
+@pytest.mark.parametrize("mesh", [False, True], ids=["one", "mesh"])
+def test_host_kernel_sparse_edges(host_lib, n, mesh):
+    """K at config 4's sparsity (2.5% of the pairs feasible) with
+    ``with_edges``' cases, on one device and on a mesh, at the full and a
+    partial active depth: bitwise the plain version."""
+    ex = DoubledSum() if mesh else LocalExchange()
+    for iters in (ITERS, 7):
+        args = with_edges(round_inputs(n, n, seed=n, iters=iters,
+                                       density=0.025))
+        K = S.kernel_matrix(*args[:4])
+        assert not K[1].any() and not K[:, 2].any()
+        assert (K[:, 4:6][args[0][:, 4:6]] == 0).all()
+        assert torch.isfinite(K).all() and K[:, 6].max() > 2e38
+        S.reset_launches()
+        got = S.launch_round(host_lib, 0, *args, ITERS, ex, trace=True)
+        assert_launches(mesh)
+        want = S.sinkhorn_plain(*args, ITERS, ex, trace=True)
+        assert_rounds_equal(want, got, f"{n} iters {iters}")
+
+
+def test_compact_forms_hold_the_feasible_pairs(host_lib):
+    """The build's compact forms read back: each (output, chain) slot holds
+    that chain's feasible pairs, values and indices, in the chain's order,
+    and its count; the row in one chain fills one slot of its row."""
+    n = 40
+    args = with_edges(round_inputs(n, n, seed=3, density=0.1))
+    feas, jitter, v, eps, _ = args
+    K = S.kernel_matrix(feas, jitter, v, eps)
+    lib = S._bind(host_lib)
+    packed = S._packed(n, n, "cpu")
+    forms = []
+    for (t, b, ns, ch, g, co, cs), M, F in zip(packed, (K, K.T),
+                                               (feas, feas.T)):
+        forms.append((S._Plan(t.data_ptr(), ns, b.data_ptr(), ch, g,
+                              co.data_ptr(), cs.data_ptr()),
+                      torch.empty((n * n * 2,), dtype=torch.int32),
+                      torch.empty((n * ch,), dtype=torch.int32), M, F, t))
+    Kd = torch.empty((n, n))
+    comp = [S._Compact(f[1].data_ptr(), f[2].data_ptr()) for f in forms]
+    assert lib.sinkhorn_build(
+        feas.to(torch.uint8).data_ptr(), jitter.data_ptr(), v.data_ptr(),
+        eps.reshape(1).data_ptr(), Kd.data_ptr(), n, n, forms[0][0],
+        comp[0], forms[1][0], comp[1], None) == 0
+    assert torch.equal(Kd.view(torch.int32), K.view(torch.int32))
+    for plan, (_, ent, cnt, M, F, table) in zip(
+            (S.row_plan(n, n), S.col_plan(n, n)), forms):
+        pairs = ent.view(n, n, 2)
+        chains = S.plan_chains(plan)
+        for o in range(n):
+            c = 0
+            for st, row in zip(plan, table.tolist()):
+                for k in range(len(st.blocks) * st.lanes):
+                    blk = st.blocks[k // st.lanes]
+                    idx = [b + k % st.lanes for b in blk]
+                    want = [i for i in idx if F[o, i]]
+                    got_n = int(cnt[o * chains + c])
+                    assert got_n == len(want), (o, c)
+                    at = row[8] + k * len(blk)
+                    got = pairs[o, at:at + got_n]
+                    assert got[:, 1].tolist() == want
+                    assert torch.equal(got[:, 0], M[o, want].view(
+                        torch.int32))
+                    c += 1
+    row3 = forms[0][2][3 * forms[0][0].chains:4 * forms[0][0].chains]
+    assert (row3 > 0).sum() == 1 and int(row3[3]) == int(feas[3].sum())
 
 
 @pytest.mark.slow

@@ -10,14 +10,18 @@ its ``log``), times f32 sqrt(2); ``torch.erfinv`` is not. The trainer's
 float steps follow the reference's compiled code (read from XLA's dump):
 the perturbation one multiply-add with the folded constant sigma *
 sqrt(2), the head's gemv a fused multiply-add a feature, the returns'
-mean and deviation and the update's weighted sum in XLA's order — so the
-returns and the head are bitwise the reference's at 4, 8 and 32 envs, no
-tolerance. At 13 envs and at 1,024 (beyond ``EXACT_ORDER_MAX_ENVS``,
-torch's reductions) they agree to RTOL/ATOL. The resume (tests/test_preempt.py:386, generative faults) is
+mean and deviation and the update's weighted sum in XLA's order, read
+from its dumps at 1-64, 96, 100, 128, 256, 512, 1,000, 1,024 and 2,048
+envs (ROADMAP C3) — so the returns and the head are bitwise the
+reference's, no tolerance, at env counts on both sides of every switch
+between the compiled forms, and the update alone (``_update`` against the
+reference's update lines jitted the same way) over returns spread across
+six decades. The resume (tests/test_preempt.py:386, generative faults) is
 bitwise, and a bundle the reference wrote resumes in the port.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -69,11 +73,29 @@ def test_torch_erfinv_differs():
             != bits(want)).any()
 
 
+# env counts on both sides of each switch between the reference's compiled
+# forms of the update (``weighted_sum_plan``, ``xla_sum``)
+SWITCH_ENVS = (7, 9, 15, 16, 19, 20, 23, 24, 31, 33)
+
+
 @pytest.mark.parametrize("kw", [
     dict(iters=3, n_envs=8, n_clusters=2, episode_ticks=8, seed=1),
     dict(iters=2, n_envs=32, n_clusters=4, episode_ticks=4, seed=0),
-], ids=["8-envs", "32-envs"])
+    dict(iters=3, n_envs=13, n_clusters=2, episode_ticks=8, seed=1),
+    dict(iters=1, n_envs=1024, n_clusters=1, episode_ticks=4, seed=1),
+] + [dict(iters=2, n_envs=b, n_clusters=2, episode_ticks=8, seed=2)
+     for b in SWITCH_ENVS] + [
+    dict(iters=2, n_envs=16, n_clusters=c, episode_ticks=12, seed=3)
+    for c in (3, 5)],
+    ids=lambda kw: f"{kw['n_envs']}-envs" + (
+        f"-{kw['n_clusters']}-clusters" if kw["n_clusters"] in (3, 5)
+        else ""))
 def test_train_equals_jax(kw):
+    """The returns and the trained head bitwise the reference's: 8 and 32
+    envs, 13 (not a multiple of 8), 1,024 (the card's batch width,
+    chip_smoke.py 10b), each side of every switch of forms, and 3 and 5
+    clusters (the reward's mean over the clusters: a folded constant
+    other than a power of two)."""
     want = JT.train(**kw)
     got = T.train(**kw, device="cpu")
     assert got["mean_return_per_iter"] == want["mean_return_per_iter"]
@@ -84,28 +106,57 @@ def test_train_equals_jax(kw):
         assert got[k] == want[k], k
 
 
-# the trainer's tolerance where its update does not sum in the reference's
-# order (ROADMAP C): at 13 envs the weighted sum, beyond
-# EXACT_ORDER_MAX_ENVS torch's reductions
-RTOL, ATOL = 1e-5, 1e-6
+LR, SIGMA, HEAD = 0.5, 0.3, (19, 16)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(iters=3, n_envs=13, n_clusters=2, episode_ticks=8, seed=1),
-    dict(iters=1, n_envs=1024, n_clusters=1, episode_ticks=4, seed=1),
-], ids=["13-envs", "1024-envs"])
-def test_train_within_tolerance_of_jax(kw):
-    """An env count that is not a multiple of 8, and the card's batch
-    width (chip_smoke.py 10b): the returns and the head agree with the
-    reference's to RTOL/ATOL, not bitwise."""
-    want = JT.train(**kw)
-    got = T.train(**kw, device="cpu")
-    np.testing.assert_allclose(got["mean_return_per_iter"],
-                               want["mean_return_per_iter"], rtol=RTOL,
-                               atol=ATOL)
-    np.testing.assert_allclose(got["W"], np.asarray(want["W"]), rtol=RTOL,
-                               atol=ATOL)
-    assert np.abs(np.asarray(want["W"])).max() > 10 * ATOL
+def reference_update(B, W, key, ret):
+    """The reference's update lines (tools/train_env_demo.py es_iter) with
+    the rollout's returns given: the draws, the perturbed heads (the
+    rollout's input, so the draws have the same two consumers), the
+    normalised returns and the step, jitted as the trainer is."""
+    def upd(W, key, ret):
+        key, ke = jax.random.split(key)
+        eps = jax.random.normal(ke, (B,) + W.shape)
+        Wb = W[None] + SIGMA * eps
+        z = (ret - ret.mean()) / (ret.std() + 1e-6)
+        W2 = W + (LR / B) * jnp.einsum("b,b...->...", z, eps)
+        return W2, ret.mean(), Wb
+    W2, mean, _ = jax.jit(upd)(W, key, ret)
+    return np.asarray(W2), np.asarray(mean)
+
+
+@pytest.mark.parametrize("B", [1, 2, 6, 7, 8, 9, 15, 16, 17, 18, 19, 20, 23,
+                               24, 25, 31, 32, 33, 34, 36, 40, 44, 47, 48, 63,
+                               64, 96, 100, 1000, 1024, 2048, 4095])
+def test_update_equals_reference_update(B):
+    """``_update`` against the reference's update on returns spread over six
+    decades around an offset (so every sum's order shows in its bits): the
+    mean and the new head bitwise, on each side of every switch, in each
+    epilogue class (2, 4 and 8 lanes, 4 lanes over 12-15 envs left) and
+    across the tree reduction's one and two levels."""
+    rng = np.random.default_rng(B)
+    ret = (rng.standard_normal(B) * 10 ** rng.uniform(-3, 3, B)
+           - rng.uniform(-50, 50)).astype(np.float32)
+    W = (0.1 * rng.standard_normal(HEAD)).astype(np.float32)
+    want_W, want_mean = reference_update(B, jnp.asarray(W),
+                                         jax.random.PRNGKey(B),
+                                         jnp.asarray(ret))
+    ke = prng.split(prng.prng_key(B), 2)[1]
+    eps = prng.normal_erf_inv(ke, (B,) + HEAD) * prng.SQRT2_F32
+    got_W, got_mean = T._update(torch.from_numpy(W), eps,
+                                torch.from_numpy(ret), LR, B)
+    np.testing.assert_array_equal(bits(got_mean.numpy()), bits(want_mean))
+    np.testing.assert_array_equal(bits(got_W.numpy()), bits(want_W))
+
+
+def test_update_refuses_unread_env_counts():
+    """From 4,096 envs the reference compiles the weighted sum another way,
+    whose order was not read: the trainer refuses rather than round
+    otherwise."""
+    with pytest.raises(ValueError, match="read for 1-4095 envs"):
+        T.weighted_sum_plan(T.MAX_ENVS + 1)
+    with pytest.raises(ValueError, match="not 4096"):
+        T.train(iters=1, n_envs=4096, device="cpu")
 
 
 def test_resume_with_generative_faults_bitwise(tmp_path):

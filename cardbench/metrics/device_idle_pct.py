@@ -1,0 +1,9 @@
+"""Share of the traced segment in which the card runs neither a kernel nor
+a copy nor a set (the profiler's device timeline, intervals merged)."""
+
+
+def read(ctx):
+    tr = ctx.trace
+    if tr is None or tr.busy_s <= 0 or tr.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
